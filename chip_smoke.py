@@ -1,0 +1,297 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, one informative line or a few each:
+
+1. environment: torch and CUDA versions, the card's name and power limit
+   (``nvidia-smi``); TF32 off for the fp32 phases;
+2. build: the CTC kernel (``openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu``)
+   with ``nvcc`` for ``sm_90a``, and what ``ptxas`` reports for it;
+3. kernel against its plain PyTorch version, both fp32 on the card, at the
+   Jasper eval shape (B=32, T=500, L=160, V=29), at L=600 (more extended
+   states than a CTA has threads) and at T=37; max relative error 1e-5 on
+   the NLL of feasible rows, exact zeros on infeasible ones; median times
+   from CUDA events;
+4. the slice: Jasper-10x5 at full width from
+   ``example_configs_torch/speech2text/jasper10x5_synthetic.py`` ("mixed"
+   precision, synthetic batches of 32 x 1000 frames), a seeded-init
+   checkpoint, then ``openseq2seq_tpu_torch.run.main`` in ``--mode=eval``
+   and ``--mode=infer``. The kernel's launch count must equal the number
+   of eval batches; the loss must be finite and agree with the plain
+   version on the same logits; the infer CSV must have 128 rows. A small
+   fp32 Jasper is also run on the card and on the CPU and must agree;
+5. one JSON line per kernel, then ``{"ok": true, "device": ...}`` last.
+
+Any failed check raises, and the script exits non-zero without the last
+line. It needs a CUDA device and refuses to run without one.
+"""
+from __future__ import annotations
+
+import csv
+import json
+import math
+import os
+import runpy
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+CONFIG = os.path.join(REPO, "example_configs_torch", "speech2text",
+                      "jasper10x5_synthetic.py")
+RTOL = 1e-5
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError("chip_smoke check failed: " + what)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` runs, CUDA events."""
+    import torch
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def ctc_case(B, T, L, V, seed, device):
+    """fp32 logits and int32 lengths/labels on ``device`` with mixed
+    lengths, an empty label (row 1), one repeated symbol (row 2) and an
+    infeasible row (row 3)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    logits = (2.0 * rng.randn(B, T, V)).astype(np.float32)
+    logit_lens = rng.randint(int(0.7 * T), T + 1, size=B).astype(np.int32)
+    labels = rng.randint(0, V - 1, size=(B, L)).astype(np.int32)
+    label_lens = rng.randint(L // 2, L + 1, size=B).astype(np.int32)
+    label_lens[1] = 0
+    labels[2, :] = labels[2, 0]
+    logit_lens[2], label_lens[2] = T, min(L, (T + 1) // 2)
+    logit_lens[3], label_lens[3] = max(L // 2, 1), L
+    return [torch.from_numpy(a).to(device)
+            for a in (logits, logit_lens, labels, label_lens)]
+
+
+def phase_kernel(card):
+    import torch
+    from openseq2seq_tpu_torch.ops import ctc, ctc_cuda
+    dev = torch.device("cuda")
+    worst_abs = 0.0
+    timing = None
+    for name, (B, T, L) in (("eval", (32, 500, 160)),
+                            ("L=600", (8, 1400, 600)),
+                            ("T=37", (8, 37, 12))):
+        case = ctc_case(B, T, L, 29, seed=T, device=dev)
+        got = ctc_cuda.ctc_loss_cuda(*case, average_across_batch=False)
+        want = ctc.ctc_loss(*case, average_across_batch=False)
+        torch.cuda.synchronize()
+        feasible = ctc.feasible_rows(case[1], case[2], case[3])
+        check(bool(torch.all(feasible[[0, 1, 2]])) and
+              not bool(feasible[3]), "{}: edge rows".format(name))
+        check(bool(torch.all(got[~feasible] == 0)) and
+              bool(torch.all(want[~feasible] == 0)),
+              "{}: infeasible rows not zero".format(name))
+        check(bool(torch.all(torch.isfinite(got))),
+              "{}: non-finite NLL".format(name))
+        abs_err = (got - want).abs()
+        rel_err = float((abs_err[feasible] / want[feasible].abs()).max())
+        worst_abs = max(worst_abs, float(abs_err.max()))
+        print("[kernel] {} B={} T={} L={} S={}: max rel err {:.3e}, "
+              "max abs err {:.3e} (NLL ~{:.1f})".format(
+                  name, B, T, L, 2 * L + 1, rel_err, float(abs_err.max()),
+                  float(want[feasible].mean())), flush=True)
+        check(rel_err <= RTOL, "{}: rel err {} > {}".format(
+            name, rel_err, RTOL))
+        if name == "eval":
+            lp = ctc.log_probs(case[0]).contiguous()
+            args = (lp, case[1], case[2], case[3], 28)
+            timing = (cuda_ms(lambda: ctc_cuda.ctc_nll_cuda(*args), 50),
+                      cuda_ms(lambda: ctc_cuda.ctc_nll_plain(*args), 10))
+            print("[kernel] eval shape: kernel {:.4f} ms, plain {:.4f} ms "
+                  "(median, CUDA events; {})".format(*timing, card),
+                  flush=True)
+    # what the kernel does not take, it refuses
+    lp = ctc.log_probs(ctc_case(4, 9, 3, 29, 0, dev)[0])
+    n = torch.full((4,), 9, dtype=torch.int32, device=dev)
+    lab = torch.ones((4, 3), dtype=torch.int32, device=dev)
+    for bad in ((lp.double(), n, lab, n), (lp.transpose(0, 1), n, lab, n),
+                (lp, n.long(), lab, n)):
+        try:
+            ctc_cuda.ctc_nll_cuda(*bad, 28)
+        except ValueError:
+            continue
+        raise RuntimeError("chip_smoke check failed: a bad input launched")
+    print("[kernel] wrong dtype and layout are refused", flush=True)
+    return worst_abs, timing
+
+
+def phase_small_reference(config):
+    """A small fp32 Jasper, same seed and the config's data layer, on the
+    card and on the CPU."""
+    from openseq2seq_tpu_torch.training import trainer
+    from openseq2seq_tpu_torch.zoo import jasper_model_params
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = config["base_model"](jasper_model_params(
+            config["base_params"]["data_layer"],
+            {"num_audio_features": 64, "tgt_vocab_size": 29,
+             "time_steps": 200, "label_length": 30, "num_batches": 1},
+            num_blocks=2, block_repeat=2, width_scale=0.25,
+            batch_size_per_gpu=4, dtype="float32"), mode="eval",
+            device=device)
+        state = trainer.restore_state(model)
+        batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+        out[device] = trainer.to_host(model.eval_step(state, batch))
+    lg = [out[d]["outputs"]["decoder_output"]["logits"]
+          for d in ("cuda", "cpu")]
+    logit_err = float(abs(lg[0] - lg[1]).max())
+    loss_rel = abs(out["cuda"]["loss"] - out["cpu"]["loss"]) / \
+        abs(out["cpu"]["loss"])
+    print("[slice] small fp32 Jasper, card vs CPU: logits max abs err "
+          "{:.3e} (|logits| max {:.2f}), loss {:.6f} vs {:.6f}".format(
+              logit_err, float(abs(lg[1]).max()), float(out["cuda"]["loss"]),
+              float(out["cpu"]["loss"])), flush=True)
+    check(logit_err <= 1e-3 and loss_rel <= 1e-4,
+          "small Jasper disagrees between card and CPU")
+
+
+def phase_slice(config, card):
+    import torch
+    from openseq2seq_tpu_torch import run
+    from openseq2seq_tpu_torch.ops import ctc, ctc_cuda
+    from openseq2seq_tpu_torch.models.model import to_device_batch
+    from openseq2seq_tpu_torch.training import CheckpointManager, trainer
+
+    with tempfile.TemporaryDirectory() as logdir:
+        params = dict(config["base_params"], logdir=logdir)
+        n_batches = params["data_layer_params"]["num_batches"]
+        t0 = time.time()
+        model = config["base_model"](params=params, mode="eval",
+                                     device="cuda")
+        state = trainer.restore_state(model)
+        CheckpointManager(logdir).save(state, 0)
+        n_params = sum(p.numel() for p in state.module.parameters())
+        print("[slice] Jasper-10x5 built: {} parameters, dtype {}, seeded "
+              "checkpoint saved in {:.1f} s".format(
+                  n_params, params["dtype"], time.time() - t0), flush=True)
+
+        argv = ["--config_file=" + CONFIG, "--logdir=" + logdir]
+        out_csv = os.path.join(logdir, "infer.csv")
+        ctc_cuda.LAUNCHES = 0
+        metrics = run.main(argv + ["--mode=eval"])
+        run.main(argv + ["--mode=infer", "--infer_output_file=" + out_csv])
+        launches = ctc_cuda.LAUNCHES
+        print("[slice] eval: loss {:.6f}, WER {:.4f}; CTC kernel launches "
+              "in eval+infer: {} for {} eval batches".format(
+                  metrics["eval_loss"], metrics["Eval WER"], launches,
+                  n_batches), flush=True)
+        check(launches == n_batches, "kernel launched {} times for {} "
+              "eval batches".format(launches, n_batches))
+        check(math.isfinite(metrics["eval_loss"]) and
+              metrics["eval_loss"] > 0, "eval loss not finite")
+        check(0.0 <= metrics["Eval WER"], "WER not computed")
+        with open(out_csv) as f:
+            rows = list(csv.reader(f))[1:]
+        print("[slice] infer: {} rows in the CSV".format(len(rows)),
+              flush=True)
+        check(len(rows) == n_batches * params["batch_size_per_gpu"],
+              "infer CSV has {} rows".format(len(rows)))
+
+        # one batch's loss recomputed from its logits by the plain version
+        dl = model.get_data_layer()
+        batch = next(iter(dl.iterate_one_epoch()))
+        out = model.eval_step(state, batch)
+        dec = out["outputs"]["decoder_output"]
+        logits = dec["logits"]
+        check(tuple(logits.shape) == (32, 500, 29) and
+              bool(torch.all(torch.isfinite(logits))),
+              "logits shape {} or not finite".format(tuple(logits.shape)))
+        labels, label_lens = to_device_batch(batch, "cuda")["target_tensors"]
+        plain = ctc.ctc_loss(logits, dec["src_length"], labels, label_lens)
+        rel = abs(float(out["loss"]) - float(plain)) / abs(float(plain))
+        print("[slice] batch loss: kernel {:.6f}, plain {:.6f}, rel err "
+              "{:.3e}".format(float(out["loss"]), float(plain), rel),
+              flush=True)
+        check(rel <= RTOL, "batch loss disagrees with the plain version")
+
+        # eval throughput over the epoch (information, not a claim)
+        batches = list(dl.iterate_one_epoch())
+        model.eval_step(state, batches[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            model.eval_step(state, b)
+        torch.cuda.synchronize()
+        utt = sum(len(b["source_ids"]) for b in batches) / \
+            (time.perf_counter() - t0)
+        print("[slice] eval throughput {:.1f} utt/s (batch 32, 10 s "
+              "utterances, bf16; {})".format(utt, card), flush=True)
+    return launches
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script runs on "
+                         "a GPU only")
+    sys.path.insert(0, REPO)
+    from openseq2seq_tpu_torch.kernels import build
+
+    # 1. environment
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print("[env] python {}, torch {}, CUDA {}, {} device(s)".format(
+        sys.version.split()[0], torch.__version__, torch.version.cuda,
+        torch.cuda.device_count()), flush=True)
+    print(card, flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # 2. build
+    t0 = time.time()
+    lib = build.build("ctc_alpha_fwd")
+    print("[build] {} (nvcc, sm_90a) in {:.2f} s".format(
+        os.path.relpath(lib, REPO), time.time() - t0), flush=True)
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+            print("[build] " + line.strip(), flush=True)
+
+    # 3. kernel against plain
+    max_abs_err, (ms, plain_ms) = phase_kernel(card)
+
+    # 4. the slice
+    config = runpy.run_path(CONFIG)
+    phase_small_reference(config)
+    launches = phase_slice(config, card)
+
+    # 5. result
+    print(json.dumps({"kernels": [{
+        "name": "ctc_alpha_fwd", "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu",
+        "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:65",
+        "launches": launches, "max_abs_err": max_abs_err,
+        "ms": ms, "plain_ms": plain_ms}]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

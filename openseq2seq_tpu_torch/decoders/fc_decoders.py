@@ -1,0 +1,113 @@
+"""Fully-connected time decoders (port of
+``openseq2seq_tpu/decoders/fc_decoders.py``).
+
+  * :class:`FullyConnectedTimeDecoder` — per-frame dense projection to
+    vocabulary logits, batch-major (B, T, V).
+  * :class:`FullyConnectedCTCDecoder` — adds greedy CTC decoding outside
+    training. Beam search (``on_device_beam_width > 1``) and the
+    host-side language-model decode (``use_language_model``) are not
+    ported yet and raise.
+
+The dense layer computes in the model's compute dtype from fp32 params;
+logits are cast to fp32 before the loss and the decode, as in the JAX
+package.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .decoder import Decoder
+from ..ops.ctc import ctc_greedy_decode
+from ..parts.initializers import resolve_initializer
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: y = x W + b in ``dtype``, W stored (out, in)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype, kernel_init,
+                 generator: torch.Generator):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        kernel_init(self.weight, generator)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
+
+
+class FCTimeDecoderModule(nn.Module):
+
+    def __init__(self, fully_connected: Dense, greedy_ctc: bool):
+        super().__init__()
+        self.fully_connected = fully_connected
+        self.greedy_ctc = greedy_ctc
+
+    def forward(self, input_dict: Dict[str, Any], train: bool):
+        x = input_dict["encoder_output"]["outputs"]
+        src_length = input_dict["encoder_output"]["src_length"]
+        # logits feed fp32 losses and decoders
+        logits = self.fully_connected(x).float()
+        out: Dict[str, Any] = {"logits": logits, "src_length": src_length}
+        if self.greedy_ctc and not train:
+            out["outputs"] = list(ctc_greedy_decode(logits, src_length))
+        return out
+
+
+class FullyConnectedTimeDecoder(Decoder):
+
+    @staticmethod
+    def get_required_params():
+        return dict(Decoder.get_required_params(), **{
+            "tgt_vocab_size": int,
+        })
+
+    def _dense(self, in_features: int, generator: torch.Generator) -> Dense:
+        dtype = torch.float32 if self._model is None \
+            else self._model.mp_policy.compute_dtype
+        kinit = resolve_initializer(self._params.get("initializer"),
+                                    self._params.get("initializer_params"))
+        return Dense(in_features, self._params["tgt_vocab_size"], dtype,
+                     kinit, generator)
+
+    def make_module(self, in_features: int,
+                    generator: torch.Generator) -> FCTimeDecoderModule:
+        return FCTimeDecoderModule(self._dense(in_features, generator),
+                                   greedy_ctc=False)
+
+
+class FullyConnectedCTCDecoder(FullyConnectedTimeDecoder):
+    """FC time decoder plus greedy CTC decoding outside training."""
+
+    @staticmethod
+    def get_required_params():
+        return dict(FullyConnectedTimeDecoder.get_required_params(), **{
+            "use_language_model": bool,
+        })
+
+    @staticmethod
+    def get_optional_params():
+        return dict(FullyConnectedTimeDecoder.get_optional_params(), **{
+            "on_device_beam_width": int,
+        })
+
+    def __init__(self, params, model, name="fully_connected_ctc_decoder",
+                 mode="train"):
+        super().__init__(params, model, name, mode)
+        if self._params["use_language_model"]:
+            raise NotImplementedError(
+                "language-model beam decoding is not ported yet")
+        if self._params.get("on_device_beam_width", 0) > 1:
+            raise NotImplementedError(
+                "on-device CTC beam search is not ported yet")
+
+    def make_module(self, in_features: int,
+                    generator: torch.Generator) -> FCTimeDecoderModule:
+        return FCTimeDecoderModule(self._dense(in_features, generator),
+                                   greedy_ctc=True)

@@ -1,0 +1,272 @@
+"""TDNN encoder — Wave2Letter+ / Jasper family (port of
+``openseq2seq_tpu/encoders/tdnn_encoder.py``).
+
+Same config contract: a ``convnet_layers`` list of block specs ``{type,
+repeat, kernel_size, stride, num_channels, padding, dilation,
+dropout_keep_prob, residual, residual_dense}``, batch norm, sequence
+masking (``use_conv_mask``) and Jasper's dense residuals. Module and
+parameter names follow the flax module's (``conv{l}_{r}``,
+``norm{l}_{r}``, ``res{l}_{s}``, ``resnorm{l}_{s}``) so that
+``convert.py`` maps one onto the other by name.
+
+Kept from the JAX package, each a trap when porting:
+  * SAME padding is XLA's: out = ceil(T / stride) and the odd pad goes on
+    the right, for any stride and dilation (torch's ``padding="same"``
+    refuses stride 2, so the pad is explicit);
+  * batch norm takes eps 1e-3 and flax's ``momentum=0.90`` becomes
+    torch's 0.10, and normalizes in fp32 before casting back;
+  * the time mask is applied before every sub-layer and at the end, and
+    each strided conv maps lengths to ceil(len / stride).
+
+Only ``type: conv1d``, ``padding: SAME`` and ``normalization:
+batch_norm`` are ported; the other options raise. The module takes and
+returns (B, T, C), as the JAX package does, and runs its convs in
+(B, C, T) inside.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .encoder import Encoder
+
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "gelu": F.gelu,
+    "swish": F.silu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+}
+
+
+def resolve_activation(fn) -> Callable:
+    if callable(fn):
+        return fn
+    if isinstance(fn, str):
+        if fn not in ACTIVATIONS:
+            raise ValueError("Unknown activation '{}'".format(fn))
+        return ACTIVATIONS[fn]
+    raise ValueError("activation_fn must be callable or a name")
+
+
+def _mask_time(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Zero features at padded time positions: x (B, C, T), lengths (B,)."""
+    mask = torch.arange(x.shape[2], device=x.device)[None, :] < \
+        lengths[:, None]
+    return x * mask[:, None, :].to(x.dtype)
+
+
+def _out_length(lengths: torch.Tensor, stride: int) -> torch.Tensor:
+    # SAME padding: ceil(len / stride)
+    return (lengths + stride - 1) // stride
+
+
+def same_padding(length: int, kernel: int, stride: int,
+                 dilation: int) -> Tuple[int, int]:
+    """XLA's SAME padding (low, high) for a conv over ``length`` frames."""
+    span = (kernel - 1) * dilation + 1
+    out = -(-length // stride)
+    total = max((out - 1) * stride + span - length, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv1d(nn.Module):
+    """Conv1d with XLA's SAME padding and a bias (flax ``nn.Conv``'s
+    default), computing in ``dtype`` from the stored params. (B, C, T)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int,
+                 dilation: int, dtype: torch.dtype, kernel_init,
+                 generator: torch.Generator):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+        kernel_init(self.weight, generator)
+        self.kernel, self.stride, self.dilation = kernel, stride, dilation
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.pad(x, same_padding(x.shape[2], self.kernel, self.stride,
+                                  self.dilation))
+        return F.conv1d(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype), self.stride, 0,
+                        self.dilation)
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """Batch norm over (B, C, T) that normalizes in fp32 and returns
+    ``dtype``, as flax's BatchNorm does under a bf16 compute dtype.
+
+    Training-mode statistics differ from flax's in one respect: torch
+    updates ``running_var`` with the unbiased batch variance, flax with
+    the biased one."""
+
+    def __init__(self, channels: int, momentum: float, eps: float,
+                 dtype: torch.dtype):
+        super().__init__(channels, eps=eps, momentum=momentum)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
+                         self.weight.float(), self.bias.float(), train,
+                         self.momentum, self.eps)
+        return y.to(self.dtype)
+
+
+class TDNNNet(nn.Module):
+    """The module behind :class:`TDNNEncoder`: (B, T, F) features and
+    (B,) lengths in, (B, T', C) outputs and (B,) lengths out."""
+
+    def __init__(self, in_features: int, convnet_layers, activation_fn,
+                 dropout_keep_prob: float, bn_momentum: float,
+                 bn_epsilon: float, use_conv_mask: bool,
+                 drop_block_index: int, dtype: torch.dtype, kernel_init,
+                 generator: torch.Generator):
+        super().__init__()
+        self.activation_fn = activation_fn
+        self.use_conv_mask = use_conv_mask
+        self.drop_block_index = drop_block_index
+        self.dtype = dtype
+        self.plan = []        # per block: what forward() walks
+        # flax momentum is the decay of the running average; torch's is
+        # the weight of the new batch
+        bn = lambda c: BatchNorm(  # noqa: E731
+            c, 1.0 - bn_momentum, bn_epsilon, dtype)
+        conv = lambda i, o, k, s, d: SameConv1d(  # noqa: E731
+            i, o, k, s, d, dtype, kernel_init, generator)
+        ch_in = in_features
+        residual_channels = []    # widths of saved block inputs (dense)
+        for li, spec in enumerate(convnet_layers, start=1):
+            if spec["type"] != "conv1d" or \
+                    spec.get("padding", "SAME") != "SAME":
+                raise NotImplementedError(
+                    "only conv1d with SAME padding is ported; got type={} "
+                    "padding={}".format(spec["type"], spec.get("padding")))
+            ch = spec["num_channels"]
+            k, s = spec["kernel_size"][0], spec["stride"][0]
+            d = spec.get("dilation", [1])[0]
+            residual = spec.get("residual", False)
+            dense = spec.get("residual_dense", False)
+            sources = []
+            if residual:
+                if dense:
+                    residual_channels.append(ch_in)
+                    sources = list(residual_channels)
+                else:
+                    sources = [ch_in]
+            for r in range(1, spec.get("repeat", 1) + 1):
+                self.add_module("conv{}_{}".format(li, r),
+                                conv(ch_in, ch, k, s, d))
+                self.add_module("norm{}_{}".format(li, r), bn(ch))
+                ch_in = ch
+            for si, src_ch in enumerate(sources):
+                self.add_module("res{}_{}".format(li, si),
+                                conv(src_ch, ch, 1, 1, 1))
+                self.add_module("resnorm{}_{}".format(li, si), bn(ch))
+            self.plan.append({
+                "index": li, "repeat": spec.get("repeat", 1), "stride": s,
+                "keep": spec.get("dropout_keep_prob", dropout_keep_prob),
+                "residual": residual, "dense": dense})
+        self.out_features = ch_in
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor, train: bool):
+        m = self._modules
+        x = x.to(self.dtype).transpose(1, 2)              # (B, C, T)
+        residuals = []            # saved block inputs (dense topology)
+        for p in self.plan:
+            li = p["index"]
+            if p["residual"]:
+                if p["dense"]:
+                    residuals.append(x)
+                    sources = list(residuals)
+                else:
+                    sources = [x]
+            for r in range(1, p["repeat"] + 1):
+                if self.use_conv_mask:
+                    x = _mask_time(x, lengths)
+                x = m["conv{}_{}".format(li, r)](x)
+                x = m["norm{}_{}".format(li, r)](x, train)
+                if p["stride"] > 1:
+                    lengths = _out_length(lengths, p["stride"])
+                if p["residual"] and r == p["repeat"]:
+                    res_sum = None
+                    for si, src in enumerate(sources):
+                        proj = m["res{}_{}".format(li, si)](src)
+                        proj = m["resnorm{}_{}".format(li, si)](proj, train)
+                        res_sum = proj if res_sum is None else res_sum + proj
+                    if not train and self.drop_block_index == li - 1:
+                        x = res_sum
+                    else:
+                        x = x + res_sum
+                x = self.activation_fn(x)
+                if train and p["keep"] < 1.0:
+                    x = F.dropout(x, 1.0 - p["keep"], training=True)
+        if self.use_conv_mask:
+            x = _mask_time(x, lengths)
+        return x.transpose(1, 2), lengths
+
+
+class TDNNEncoderModule(nn.Module):
+
+    def __init__(self, net: TDNNNet):
+        super().__init__()
+        self.net = net
+        self.out_features = net.out_features
+
+    def forward(self, input_dict: Dict[str, Any], train: bool):
+        x, lengths = input_dict["source_tensors"][:2]
+        outputs, out_len = self.net(x, lengths, train)
+        return {"outputs": outputs, "src_length": out_len}
+
+
+class TDNNEncoder(Encoder):
+    """Config wrapper, same schema as the JAX package's."""
+
+    @staticmethod
+    def get_required_params():
+        return dict(Encoder.get_required_params(), **{
+            "dropout_keep_prob": float,
+            "convnet_layers": list,
+            "activation_fn": None,
+        })
+
+    @staticmethod
+    def get_optional_params():
+        return dict(Encoder.get_optional_params(), **{
+            "data_format": ["channels_first", "channels_last"],
+            "normalization": [None, "batch_norm", "layer_norm",
+                              "instance_norm"],
+            "bn_momentum": float,
+            "bn_epsilon": float,
+            "use_conv_mask": bool,
+            "drop_block_prob": float,
+            "drop_block_index": int,
+        })
+
+    def make_module(self, in_features: int,
+                    generator: torch.Generator) -> TDNNEncoderModule:
+        from ..parts.initializers import resolve_initializer
+        p = self._params
+        if p.get("normalization", "batch_norm") != "batch_norm":
+            raise NotImplementedError(
+                "only normalization='batch_norm' is ported")
+        if p.get("drop_block_prob", 0.0) > 0.0:
+            raise NotImplementedError(
+                "drop_block_prob acts in training, which lands later")
+        net = TDNNNet(
+            in_features=in_features,
+            convnet_layers=p["convnet_layers"],
+            activation_fn=resolve_activation(p["activation_fn"]),
+            dropout_keep_prob=p["dropout_keep_prob"],
+            bn_momentum=p.get("bn_momentum", 0.90),
+            bn_epsilon=p.get("bn_epsilon", 1e-3),
+            use_conv_mask=p.get("use_conv_mask", False),
+            drop_block_index=p.get("drop_block_index", -1),
+            dtype=self.compute_dtype,
+            kernel_init=resolve_initializer(p.get("initializer"),
+                                            p.get("initializer_params")),
+            generator=generator,
+        )
+        return TDNNEncoderModule(net)

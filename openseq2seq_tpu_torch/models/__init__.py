@@ -1,0 +1,3 @@
+from .model import Model, TrainState
+from .encoder_decoder import EncoderDecoderModel
+from .speech2text import Speech2Text

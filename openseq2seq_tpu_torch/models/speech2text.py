@@ -1,0 +1,90 @@
+"""Speech-to-text task model: WER and the infer CSV (port of
+``openseq2seq_tpu/models/speech2text.py``).
+
+Infer runs on the synthetic data layer here, where the JAX package's
+does not: its ``finalize_inference`` reads the data layer's
+``all_files``, which the synthetic layer lacks; this one names such rows
+by index. Reading on-device features (``featurize_on_device``) and
+pickling logits for a language-model decode are not ported yet.
+"""
+from __future__ import annotations
+
+import csv
+from typing import Any, Dict, List
+
+import numpy as np
+
+from openseq2seq_tpu.utils.logging import deco_print
+from openseq2seq_tpu.utils.metrics import levenshtein
+
+from .encoder_decoder import EncoderDecoderModel
+
+
+class Speech2Text(EncoderDecoderModel):
+
+    def _create_decoder(self):
+        # the vocabulary size comes from the data layer
+        self._params.setdefault("decoder_params", {})
+        self._params["decoder_params"]["tgt_vocab_size"] = \
+            self.get_data_layer().params["tgt_vocab_size"]
+        return super()._create_decoder()
+
+    def build_module(self, example_batch, generator):
+        if self.get_data_layer().params.get("featurize_on_device", False):
+            raise NotImplementedError(
+                "featurize_on_device is not ported yet")
+        return super().build_module(example_batch, generator)
+
+    def _decode_batch(self, output_values) -> List[str]:
+        """Decoded ids (B, T) and lengths -> list of transcripts."""
+        ids, lengths = output_values
+        return [self.get_data_layer().decode_ids(row[:int(n)])
+                for row, n in zip(np.asarray(ids), np.asarray(lengths))]
+
+    def evaluate(self, input_values: Dict[str, Any],
+                 output_values: Dict[str, Any]):
+        """Per-batch (edit distance, reference words, loss sum, count)
+        over the valid slice of the batch."""
+        valid = int(input_values.get(
+            "batch_valid", input_values["source_tensors"][0].shape[0]))
+        decoded = self._decode_batch(
+            output_values["outputs"]["decoder_output"]["outputs"])[:valid]
+        labels, label_lens = input_values["target_tensors"]
+        total_dist, total_words = 0, 0
+        for i in range(valid):
+            ref = self.get_data_layer().decode_ids(
+                labels[i][:int(label_lens[i])])
+            total_dist += levenshtein(ref.split(), decoded[i].split())
+            total_words += len(ref.split())
+        return (total_dist, total_words,
+                float(output_values.get("loss", 0.0)) * valid, valid)
+
+    def finalize_evaluation(self, results_per_batch, training_step=None):
+        total_dist = sum(r[0] for r in results_per_batch)
+        total_words = sum(r[1] for r in results_per_batch)
+        total_loss = sum(r[2] for r in results_per_batch)
+        total_count = sum(r[3] for r in results_per_batch)
+        wer = total_dist / max(total_words, 1)
+        eval_loss = total_loss / max(total_count, 1)
+        deco_print("Validation WER: {:.4f}".format(wer), offset=4)
+        return {"Eval WER": wer, "eval_loss": eval_loss}
+
+    def infer(self, input_values, output_values):
+        valid = int(input_values.get(
+            "batch_valid", input_values["source_tensors"][0].shape[0]))
+        ids = np.asarray(input_values["source_ids"])[:valid]
+        decoded = self._decode_batch(
+            output_values["outputs"]["decoder_output"]["outputs"])[:valid]
+        return list(zip(ids.tolist(), decoded))
+
+    def finalize_inference(self, results_per_batch, output_file):
+        rows = [item for batch in results_per_batch for item in batch]
+        rows.sort(key=lambda kv: kv[0])
+        files = getattr(self.get_data_layer(), "all_files", ())
+        with open(output_file, "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(["wav_filename", "predicted_transcript"])
+            for idx, text in rows:
+                wav = files[idx][0] if idx < len(files) else str(idx)
+                writer.writerow([wav, text])
+        deco_print("Predictions saved to {}".format(output_file))

@@ -1,0 +1,197 @@
+#!/usr/bin/env python3
+"""Profile the PyTorch port's eval step on one NVIDIA GPU.
+
+    python3 scripts_torch/profile_eval.py [--config_file=PATH] [--steps=4]
+        [--repeats=3] [--trace=PATH]
+
+Builds the model of a port config (default: Jasper-10x5 at full width on
+synthetic speech, ``example_configs_torch/speech2text/
+jasper10x5_synthetic.py``) on the card with seeded weights, and prints:
+
+1. wall milliseconds per eval batch without the profiler, for each of
+   ``--repeats`` passes over the epoch (host batches made beforehand;
+   ``eval_step`` copies each to the card), and utterances per second;
+2. from one ``torch.profiler`` trace of ``--steps`` eval steps: device
+   busy time (the union of kernel, memcpy and memset intervals) against
+   the span from the first device activity to the last, so the idle
+   share; and device milliseconds per batch for each kernel group;
+3. FLOP per batch of the convolutions and dense layers, counted from the
+   shapes their forward hooks see, and the rate they reach over the time
+   of the conv and GEMM kernels, and over the whole busy time.
+
+The card's name and power limit come first; a JSON summary is the last
+line. It needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import runpy
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIG = os.path.join(REPO, "example_configs_torch", "speech2text",
+                      "jasper10x5_synthetic.py")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+# (group, substrings of the kernel name), first match wins
+GROUPS = (
+    ("ctc kernel", ("ctc_alpha_fwd",)),
+    ("convs (implicit GEMM, k > 1)", ("fprop",)),
+    ("GEMMs (1x1 residual convs, dense)", ("gemm",)),
+    ("batch norm", ("bn_fw", "batch_norm")),
+    ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("H2D copies", ("HtoD",)),
+    ("dtype casts and copies", ("copy", "DtoD")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def group_of(name: str) -> str:
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
+
+def count_flops(module, run) -> int:
+    """FLOP (2 x multiply-adds) of ``module``'s convs and dense layers
+    during ``run()``, from the output shapes their forward hooks see."""
+    from openseq2seq_tpu_torch.decoders.fc_decoders import Dense
+    from openseq2seq_tpu_torch.encoders.tdnn_encoder import SameConv1d
+    total = [0]
+
+    def conv_hook(mod, _, out):
+        total[0] += 2 * out.numel() * mod.weight.shape[1] * mod.weight.shape[2]
+
+    def dense_hook(mod, _, out):
+        total[0] += 2 * out.numel() * mod.weight.shape[1]
+
+    handles = [m.register_forward_hook(conv_hook)
+               for m in module.modules() if isinstance(m, SameConv1d)]
+    handles += [m.register_forward_hook(dense_hook)
+                for m in module.modules() if isinstance(m, Dense)]
+    run()
+    for h in handles:
+        h.remove()
+    return total[0]
+
+
+def device_intervals(trace_path: str):
+    with open(trace_path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    return [(e["ts"], e["ts"] + e.get("dur", 0), e["name"])
+            for e in events if e.get("cat") in DEVICE_CATS]
+
+
+def busy_us(intervals) -> float:
+    busy, end = 0.0, float("-inf")
+    for s, e, _ in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config_file", default=CONFIG)
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--trace", default=None,
+                    help="where to keep the chrome trace (default: a "
+                         "temporary file)")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_eval: no CUDA device")
+    sys.path.insert(0, REPO)
+    from openseq2seq_tpu_torch.training import trainer
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+
+    config = runpy.run_path(args.config_file)
+    model = config["base_model"](params=dict(config["base_params"]),
+                                 mode="eval", device="cuda")
+    state = trainer.restore_state(model)
+    batches = list(model.get_data_layer().iterate_one_epoch())
+    utts = sum(len(b["source_ids"]) for b in batches)
+    # the warm-up step counts the FLOP
+    flop_per_batch = count_flops(
+        state.module, lambda: model.eval_step(state, batches[0]))
+    torch.cuda.synchronize()
+    print("[model] {}: {} batches of {} x {} frames, dtype {}; {:.4e} FLOP "
+          "per batch in convs and dense layers".format(
+              os.path.relpath(args.config_file, REPO), len(batches),
+              len(batches[0]["source_ids"]),
+              batches[0]["source_tensors"][0].shape[1],
+              model.params["dtype"], flop_per_batch), flush=True)
+
+    walls = []
+    for _ in range(args.repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            model.eval_step(state, b)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / len(batches))
+    print("[wall] ms per batch, {} passes: {}; utt/s: {} ({})".format(
+        args.repeats, ", ".join("{:.3f}".format(w) for w in walls),
+        ", ".join("{:.1f}".format(utts / len(batches) / w * 1e3)
+                  for w in walls), card), flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+    steps = [batches[i % len(batches)] for i in range(args.steps)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in steps:
+            model.eval_step(state, b)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = args.trace or os.path.join(tmp, "trace.json")
+        os.makedirs(os.path.dirname(os.path.abspath(trace_path)),
+                    exist_ok=True)
+        prof.export_chrome_trace(trace_path)
+        intervals = device_intervals(trace_path)
+    if not intervals:
+        raise SystemExit("profile_eval: the trace holds no device activity")
+    span = max(e for _, e, _ in intervals) - min(s for s, _, _ in intervals)
+    busy = busy_us(intervals)
+    n = args.steps
+    print("[trace] {} steps: device busy {:.3f} ms per batch of a {:.3f} ms "
+          "span, idle share {:.2%}".format(n, busy / n / 1e3, span / n / 1e3,
+                                           1 - busy / span), flush=True)
+    groups = collections.Counter()
+    for s, e, name in intervals:
+        groups[group_of(name)] += e - s
+    total = sum(groups.values())
+    for g, us in groups.most_common():
+        print("[trace] {:36s} {:8.3f} ms per batch, {:5.1%} of device "
+              "time".format(g, us / n / 1e3, us / total), flush=True)
+    mm_us = sum(groups[g] for g, _ in GROUPS[1:3]) / n
+    print("[flops] {:.1f} TFLOP/s over the conv and GEMM kernels "
+          "({:.3f} ms per batch); {:.1f} TFLOP/s over the busy time "
+          "({})".format(flop_per_batch / mm_us / 1e6, mm_us / 1e3,
+                        flop_per_batch / (busy / n) / 1e6, card), flush=True)
+    print(json.dumps({
+        "card": card, "wall_ms_per_batch": walls,
+        "utt_per_s": [utts / len(batches) / w * 1e3 for w in walls],
+        "busy_ms_per_batch": busy / n / 1e3,
+        "span_ms_per_batch": span / n / 1e3, "idle_share": 1 - busy / span,
+        "group_ms_per_batch": {g: us / n / 1e3 for g, us in groups.items()},
+        "flop_per_batch": flop_per_batch}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

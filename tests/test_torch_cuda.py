@@ -1,0 +1,62 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card. Marked ``cuda``; each test skips where no CUDA device is
+present. This file imports no jax, so it runs on a machine without it:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda \
+        tests/test_torch_cuda.py
+
+Tolerance: fp32 on both sides, rtol 1e-5 on the per-row negative log
+likelihood of feasible rows; infeasible rows are exactly 0 on both."""
+import numpy as np
+import pytest
+import torch
+
+from openseq2seq_tpu_torch.ops import ctc, ctc_cuda
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _case(device, B, T, L, V=29, seed=0):
+    rng = np.random.RandomState(seed)
+    logits = torch.from_numpy(rng.randn(B, T, V).astype(np.float32))
+    logit_lens = rng.randint(T // 2, T + 1, size=B).astype(np.int32)
+    labels = rng.randint(0, V - 1, size=(B, L)).astype(np.int32)
+    label_lens = rng.randint(0, L + 1, size=B).astype(np.int32)
+    label_lens[0] = 0
+    logit_lens[-1], label_lens[-1] = 1, L        # infeasible
+    return [t.to(device) for t in (logits, torch.from_numpy(logit_lens),
+                                   torch.from_numpy(labels),
+                                   torch.from_numpy(label_lens))]
+
+
+@pytest.mark.parametrize("B,T,L", [(8, 37, 12), (4, 1300, 600)])
+def test_kernel_matches_plain(device, B, T, L):
+    case = _case(device, B, T, L)
+    before = ctc_cuda.LAUNCHES
+    got = ctc_cuda.ctc_loss_cuda(*case, average_across_batch=False)
+    assert ctc_cuda.LAUNCHES == before + 1
+    want = ctc.ctc_loss(*case, average_across_batch=False)
+    feasible = ctc.feasible_rows(case[1], case[2], case[3])
+    assert not feasible[-1] and got[-1] == 0 and want[-1] == 0
+    torch.testing.assert_close(got[feasible], want[feasible],
+                               rtol=1e-5, atol=0)
+
+
+def test_kernel_refuses_what_it_does_not_take(device):
+    lp = ctc.log_probs(_case(device, 2, 9, 3)[0])
+    lengths = torch.full((2,), 9, dtype=torch.int32, device=device)
+    labels = torch.ones((2, 3), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError):
+        ctc_cuda.ctc_nll_cuda(lp.double(), lengths, labels, lengths, 28)
+    with pytest.raises(ValueError):
+        ctc_cuda.ctc_nll_cuda(lp.transpose(0, 1), lengths, labels,
+                              lengths, 28)
+    with pytest.raises(ValueError):
+        ctc_cuda.ctc_nll_cuda(lp, lengths.long(), labels, lengths, 28)

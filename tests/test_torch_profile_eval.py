@@ -1,0 +1,72 @@
+"""The eval profiler's own arithmetic, on the CPU: its FLOP count
+against torch's FlopCounterMode on a small Jasper, its busy-time union
+and its kernel grouping. And the GPU scripts import nothing of JAX or of
+the JAX package themselves."""
+import ast
+import os
+import sys
+
+import pytest
+from torch.utils.flop_counter import FlopCounterMode
+
+from openseq2seq_tpu.data.synthetic import SyntheticSpeechDataLayer
+from openseq2seq_tpu_torch.models import Speech2Text
+from openseq2seq_tpu_torch.training import trainer
+from openseq2seq_tpu_torch.zoo import jasper_model_params
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "scripts_torch"))
+import profile_eval  # noqa: E402
+
+
+def test_flop_count_matches_torch_flop_counter():
+    model = Speech2Text(jasper_model_params(
+        SyntheticSpeechDataLayer,
+        {"num_audio_features": 16, "tgt_vocab_size": 29, "time_steps": 41,
+         "label_length": 6, "num_batches": 1},
+        num_blocks=2, block_repeat=2, width_scale=0.125,
+        batch_size_per_gpu=2, dtype="float32"), mode="eval")
+    state = trainer.restore_state(model)
+    batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+    got = profile_eval.count_flops(
+        state.module, lambda: model.eval_step(state, batch))
+    with FlopCounterMode(display=False) as counter:
+        model.eval_step(state, batch)
+    assert got > 0 and got == counter.get_total_flops()
+
+
+def test_busy_time_is_the_union_of_intervals():
+    intervals = [(0, 10, "a"), (5, 12, "b"), (20, 25, "c"), (21, 22, "d")]
+    assert profile_eval.busy_us(intervals) == 17
+
+
+@pytest.mark.parametrize("name,group", [
+    ("(anonymous namespace)::ctc_alpha_fwd_kernel(float const*)",
+     "ctc kernel"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
+     "convs (implicit GEMM, k > 1)"),
+    ("void cutlass::Kernel2<cutlass_80_tensorop_bf16_s16816gemm_bf16>",
+     "GEMMs (1x1 residual convs, dense)"),
+    ("void cudnn::bn_fw_inf_1C11_kernel_NCHW<float, float, true, 1>",
+     "batch norm"),
+    ("Memcpy HtoD (Pageable -> Device)", "H2D copies"),
+    ("void at::native::vectorized_elementwise_kernel<8, "
+     "at::native::bfloat16_copy_kernel_cuda>", "dtype casts and copies"),
+    ("void at::native::vectorized_elementwise_kernel<8, "
+     "at::native::CUDAFunctor_add<c10::BFloat16>>", "elementwise"),
+])
+def test_kernel_groups(name, group):
+    assert profile_eval.group_of(name) == group
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "scripts_torch/profile_eval.py"])
+def test_gpu_scripts_import_no_jax_package(script):
+    with open(os.path.join(REPO, script)) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    roots = {name.split(".")[0] for name in names}
+    assert not roots & {"jax", "flax", "optax", "openseq2seq_tpu"}, roots
