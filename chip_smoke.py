@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py
 
@@ -7,38 +8,59 @@ Phases, one informative line or a few each:
 
 1. environment: torch and CUDA versions, the card's name and power limit
    (``nvidia-smi``); TF32 off for the fp32 phases;
-2. build: the CTC kernel (``openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu``)
-   with ``nvcc`` for ``sm_90a``, and what ``ptxas`` reports for it;
-3. kernel against its plain PyTorch version, both fp32 on the card, at the
-   Jasper eval shape (B=32, T=500, L=160, V=29), at L=600 (more extended
-   states than a CTA has threads) and at T=37; max relative error 1e-5 on
-   the NLL of feasible rows, exact zeros on infeasible ones; median times
-   from CUDA events;
-4. the slice: Jasper-10x5 at full width from
+2. build: both CTC kernels (``openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu``
+   and ``ctc_beta_bwd.cu``), one ``nvcc`` each for ``sm_90a``, started
+   together, and what ``ptxas`` reports for them;
+3. the forward kernel against its plain PyTorch version, both fp32 on the
+   card, at the Jasper eval shape (B=32, T=500, L=160, V=29), at L=600
+   (more extended states than a CTA has threads) and at T=37: max
+   relative error 1e-5 on the NLL of feasible rows, exact zeros on
+   infeasible ones; median times from CUDA events;
+4. the backward kernel (after the forward with its alpha lattice) against
+   the plain ``ctc_nll_grad`` at the train shape, at L=600 and at T=37:
+   NLL max relative error 1e-5, d log-probs max abs error 1e-5, exact
+   zeros on infeasible rows and past each length, the posteriors of a live
+   frame summing to 1 within 1e-4, two calls bit-identical; median times
+   of kernel fwd+bwd against plain fwd+bwd;
+5. a small fp32 Jasper on the card and on the CPU: eval outputs agree, and
+   one ``train_step`` gives the same loss and updated weights (rtol 1e-4);
+6. the eval/infer slice: Jasper-10x5 at full width from
    ``example_configs_torch/speech2text/jasper10x5_synthetic.py`` ("mixed"
    precision, synthetic batches of 32 x 1000 frames), a seeded-init
    checkpoint, then ``openseq2seq_tpu_torch.run.main`` in ``--mode=eval``
-   and ``--mode=infer``. The kernel's launch count must equal the number
-   of eval batches; the loss must be finite and agree with the plain
-   version on the same logits; the infer CSV must have 128 rows. A small
-   fp32 Jasper is also run on the card and on the CPU and must agree;
-5. one JSON line per kernel, then ``{"ok": true, "device": ...}`` last.
+   and ``--mode=infer``: the forward kernel launches once per eval batch,
+   the loss is finite and agrees with the plain version on the same
+   logits, and the infer CSV has 128 rows;
+7. the training slice: the same config through ``run.main`` in
+   ``--mode=train`` for 20 steps: the loss is finite at every printed
+   step and lower at the last than at the first, each kernel launches once
+   per step, a checkpoint is written, ``--mode=eval`` runs from it, and
+   ``--continue_learning`` takes 3 more steps from it; the train
+   throughput is printed as information;
+8. one JSON line for the kernels, then ``{"ok": true, "device": ...}``
+   last.
 
-Any failed check raises, and the script exits non-zero without the last
-line. It needs a CUDA device and refuses to run without one.
+Each path is driven with the launch counts set to 0 just before it and
+read just after. Any failed check raises, and the script exits non-zero
+without the last line. It needs a CUDA device and refuses to run without
+one.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
+import io
 import json
 import math
 import os
+import re
 import runpy
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "example_configs_torch", "speech2text",
@@ -140,23 +162,119 @@ def phase_kernel(card):
     return worst_abs, timing
 
 
+def phase_backward(card):
+    """The backward kernel after the forward with its lattice, against
+    ``ctc_nll_grad`` on the card."""
+    import torch
+    from openseq2seq_tpu_torch.ops import ctc, ctc_cuda
+    dev = torch.device("cuda")
+    worst_abs = 0.0
+    timing = None
+    for name, (B, T, L) in (("train", (32, 500, 160)),
+                            ("L=600", (8, 1400, 600)),
+                            ("T=37", (8, 37, 12))):
+        logits, lens, labels, label_lens = ctc_case(B, T, L, 29, seed=T + 1,
+                                                    device=dev)
+        lp = ctc.log_probs(logits).contiguous()
+        args = (lp, lens, labels, label_lens, 28)
+
+        def kernels():
+            nll, lattice = ctc_cuda.alpha_fwd(*args, True)
+            return nll, ctc_cuda.beta_bwd(*args, nll, lattice)
+
+        nll, got = kernels()
+        _, again = kernels()
+        want_nll, want = ctc.ctc_nll_grad(*args)
+        torch.cuda.synchronize()
+        feasible = ctc.feasible_rows(lens, labels, label_lens)
+        live = torch.arange(T, device=dev)[None, :] < lens[:, None]
+        nll_rel = float(((nll - want_nll).abs() / want_nll.abs())[feasible]
+                        .max())
+        abs_err = float((got - want).abs().max())
+        sums = got.sum(dim=2)[feasible[:, None] & live]
+        sum_err = float((sums + 1).abs().max())
+        worst_abs = max(worst_abs, abs_err)
+        print("[backward] {} B={} T={} L={}: NLL max rel err {:.3e}, "
+              "dlogprobs max abs err {:.3e}, |sum_v dlp + 1| max {:.3e}, "
+              "repeat bit-identical: {}".format(
+                  name, B, T, L, nll_rel, abs_err, sum_err,
+                  bool(torch.equal(got, again))), flush=True)
+        check(nll_rel <= RTOL, "{}: NLL rel err {}".format(name, nll_rel))
+        check(abs_err <= 1e-5, "{}: dlogprobs abs err {}".format(
+            name, abs_err))
+        check(bool(torch.all(got[~feasible] == 0)) and
+              bool(torch.all(got[~live] == 0)),
+              "{}: gradient not zero on infeasible rows or past the "
+              "length".format(name))
+        check(sum_err <= 1e-4, "{}: posteriors sum to 1 within {}".format(
+            name, sum_err))
+        check(bool(torch.equal(got, again)), "{}: two calls differ".format(
+            name))
+        if name == "train":
+            nll, lattice = ctc_cuda.alpha_fwd(*args, True)
+            timing = (cuda_ms(kernels, 50),
+                      cuda_ms(lambda: ctc.ctc_nll_grad(*args), 5),
+                      cuda_ms(lambda: ctc_cuda.beta_bwd(*args, nll, lattice),
+                              50),
+                      cuda_ms(lambda: ctc_cuda.alpha_fwd(*args, True), 50))
+            print("[backward] train shape: kernels fwd+bwd {:.4f} ms, plain "
+                  "fwd+bwd {:.4f} ms; backward kernel alone {:.4f} ms, "
+                  "forward with lattice {:.4f} ms (median, CUDA events; {})"
+                  .format(*timing, card), flush=True)
+    return worst_abs, timing
+
+
+def _small_params(data_layer, no_dropout=False, **overrides):
+    from openseq2seq_tpu_torch.zoo import jasper_model_params
+    params = jasper_model_params(
+        data_layer,
+        {"num_audio_features": 64, "tgt_vocab_size": 29,
+         "time_steps": 200, "label_length": 30, "num_batches": 1},
+        num_blocks=2, block_repeat=2, width_scale=0.25,
+        batch_size_per_gpu=4, dtype="float32", **overrides)
+    if no_dropout:
+        enc = params["encoder_params"]
+        enc["dropout_keep_prob"] = 1.0
+        for layer in enc["convnet_layers"]:
+            layer["dropout_keep_prob"] = 1.0
+    return params
+
+
 def phase_small_reference(config):
     """A small fp32 Jasper, same seed and the config's data layer, on the
-    card and on the CPU."""
+    card and on the CPU: an eval step, and one train step without dropout
+    (the conv biases that feed a batch norm frozen: their gradient is
+    rounding noise, which NovoGrad scales to a full-size update)."""
+    import numpy as np
     from openseq2seq_tpu_torch.training import trainer
-    from openseq2seq_tpu_torch.zoo import jasper_model_params
-    out = {}
+    data_layer = config["base_params"]["data_layer"]
+    out, trained = {}, {}
     for device in ("cuda", "cpu"):
-        model = config["base_model"](jasper_model_params(
-            config["base_params"]["data_layer"],
-            {"num_audio_features": 64, "tgt_vocab_size": 29,
-             "time_steps": 200, "label_length": 30, "num_batches": 1},
-            num_blocks=2, block_repeat=2, width_scale=0.25,
-            batch_size_per_gpu=4, dtype="float32"), mode="eval",
-            device=device)
+        model = config["base_model"](_small_params(data_layer), mode="eval",
+                                     device=device)
         state = trainer.restore_state(model)
         batch = next(iter(model.get_data_layer().iterate_one_epoch()))
         out[device] = trainer.to_host(model.eval_step(state, batch))
+
+        model = config["base_model"](_small_params(
+            data_layer, no_dropout=True, max_steps=1,
+            freeze_variables_regex=r"/(conv|res)\d+_\d+/bias$"),
+            mode="train", device=device)
+        state = trainer.restore_state(model)
+        state, metrics = model.train_step(state, batch)
+        trained[device] = (float(metrics["loss"]), {
+            n: p.detach().cpu().numpy()
+            for n, p in state.module.named_parameters()})
+    (loss_gpu, w_gpu), (loss_cpu, w_cpu) = trained["cuda"], trained["cpu"]
+    w_err = max(float(np.max(np.abs(w_gpu[n] - w_cpu[n]) /
+                             (1e-6 + 1e-4 * np.abs(w_cpu[n]))))
+                for n in w_cpu)
+    print("[slice] small fp32 Jasper, one train step, card vs CPU: loss "
+          "{:.6f} vs {:.6f}; largest weight difference {:.3f} of the "
+          "tolerance (rtol 1e-4, atol 1e-6)".format(loss_gpu, loss_cpu,
+                                                     w_err), flush=True)
+    check(abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu) and w_err <= 1.0,
+          "small Jasper train step disagrees between card and CPU")
     lg = [out[d]["outputs"]["decoder_output"]["logits"]
           for d in ("cuda", "cpu")]
     logit_err = float(abs(lg[0] - lg[1]).max())
@@ -192,10 +310,11 @@ def phase_slice(config, card):
 
         argv = ["--config_file=" + CONFIG, "--logdir=" + logdir]
         out_csv = os.path.join(logdir, "infer.csv")
-        ctc_cuda.LAUNCHES = 0
+        ctc_cuda.LAUNCHES = ctc_cuda.BWD_LAUNCHES = 0
         metrics = run.main(argv + ["--mode=eval"])
         run.main(argv + ["--mode=infer", "--infer_output_file=" + out_csv])
         launches = ctc_cuda.LAUNCHES
+        check(ctc_cuda.BWD_LAUNCHES == 0, "eval launched the backward")
         print("[slice] eval: loss {:.6f}, WER {:.4f}; CTC kernel launches "
               "in eval+infer: {} for {} eval batches".format(
                   metrics["eval_loss"], metrics["Eval WER"], launches,
@@ -244,6 +363,89 @@ def phase_slice(config, card):
     return launches
 
 
+def _run_quiet(argv):
+    """``run.main(argv)`` with its printed lines kept; returns (result,
+    lines)."""
+    from openseq2seq_tpu_torch import run
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = run.main(argv)
+    return result, buf.getvalue().splitlines()
+
+
+def phase_train(card):
+    """Jasper-10x5 through ``run.main --mode=train``, then eval from its
+    checkpoint and a resumed run. Returns the launch counts of the
+    forward and backward kernels over these paths."""
+    import torch
+    from openseq2seq_tpu_torch.ops import ctc_cuda
+    fwd = bwd = 0
+    with tempfile.TemporaryDirectory() as logdir:
+        steps = runpy.run_path(CONFIG)["train_params"]["max_steps"]
+        argv = ["--config_file=" + CONFIG, "--logdir=" + logdir]
+        ctc_cuda.LAUNCHES = ctc_cuda.BWD_LAUNCHES = 0
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train"])
+        wall = time.time() - t0
+        launches = (ctc_cuda.LAUNCHES, ctc_cuda.BWD_LAUNCHES)
+        fwd, bwd = fwd + launches[0], bwd + launches[1]
+        losses = [float(x) for x in re.findall(r"loss = ([-+0-9.einaf]+)",
+                                                "\n".join(lines))]
+        print("[train] Jasper-10x5, {} steps of 32 x 1000 frames, mixed: "
+              "losses at the printed steps {}; kernel launches fwd {}, bwd "
+              "{}; {:.1f} s with the build of the model".format(
+                  result["steps"], losses, *launches, wall), flush=True)
+        check(result["steps"] == steps, "trained {} steps".format(
+            result["steps"]))
+        check(len(losses) >= 2 and all(math.isfinite(x) for x in losses),
+              "losses not finite: {}".format(losses))
+        check(losses[-1] < losses[0], "loss did not fall: {}".format(losses))
+        check(launches == (steps, steps), "kernels launched {} times in {} "
+              "steps".format(launches, steps))
+        utt_s = result["objects_per_sec"] / 1000
+        print("[train] throughput {:.1f} utt/s over steps {}-{} (batch 32, "
+              "10 s utterances, bf16; {})".format(
+                  utt_s, result["steps"] - 10 + 1, result["steps"], card),
+              flush=True)
+        ckpt = os.path.join(logdir, "checkpoints", str(steps), "model.pt")
+        check(os.path.exists(ckpt), "no checkpoint at {}".format(ckpt))
+
+        ctc_cuda.LAUNCHES = ctc_cuda.BWD_LAUNCHES = 0
+        metrics, _ = _run_quiet(argv + ["--mode=eval"])
+        launches = (ctc_cuda.LAUNCHES, ctc_cuda.BWD_LAUNCHES)
+        fwd, bwd = fwd + launches[0], bwd + launches[1]
+        print("[train] eval from the step-{} checkpoint: loss {:.6f}, WER "
+              "{:.4f}; kernel launches fwd {}, bwd {}".format(
+                  steps, metrics["eval_loss"], metrics["Eval WER"],
+                  *launches), flush=True)
+        check(math.isfinite(metrics["eval_loss"]) and launches == (4, 0),
+              "eval from the trained checkpoint")
+
+        more = os.path.join(logdir, "more_steps.py")
+        with open(more, "w") as f:
+            f.write("import runpy\n_c = runpy.run_path({!r})\n"
+                    "base_model = _c['base_model']\n"
+                    "base_params = _c['base_params']\n"
+                    "train_params = dict(_c['train_params'], max_steps={})\n"
+                    .format(CONFIG, steps + 3))
+        ctc_cuda.LAUNCHES = ctc_cuda.BWD_LAUNCHES = 0
+        result, lines = _run_quiet(["--config_file=" + more,
+                                    "--logdir=" + logdir, "--mode=train",
+                                    "--continue_learning"])
+        launches = (ctc_cuda.LAUNCHES, ctc_cuda.BWD_LAUNCHES)
+        fwd, bwd = fwd + launches[0], bwd + launches[1]
+        started = [x for x in lines if "Starting training from step" in x]
+        print("[train] --continue_learning: {}; reached step {}; kernel "
+              "launches fwd {}, bwd {}".format(started[0].strip(),
+                                               result["steps"], *launches),
+              flush=True)
+        check(started and started[0].endswith("step {}".format(steps)) and
+              result["steps"] == steps + 3 and launches == (3, 3),
+              "resumed run")
+        torch.cuda.synchronize()
+    return fwd, bwd
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -264,30 +466,43 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # 2. build
+    # 2. build, one nvcc per source, all started together
+    names = ("ctc_alpha_fwd", "ctc_beta_bwd")
     t0 = time.time()
-    lib = build.build("ctc_alpha_fwd")
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = list(pool.map(build.build, names))
     print("[build] {} (nvcc, sm_90a) in {:.2f} s".format(
-        os.path.relpath(lib, REPO), time.time() - t0), flush=True)
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
-            print("[build] " + line.strip(), flush=True)
+        ", ".join(os.path.relpath(lib, REPO) for lib in libs),
+        time.time() - t0), flush=True)
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if ("ptxas info" in line and ("Used" in line or
+                                          "Compiling" in line)) or \
+                    "spill" in line:
+                print("[build] " + line.strip(), flush=True)
 
-    # 3. kernel against plain
-    max_abs_err, (ms, plain_ms) = phase_kernel(card)
+    # 3-4. kernels against their plain versions
+    fwd_err, (fwd_ms, fwd_plain_ms) = phase_kernel(card)
+    bwd_err, (bwd_ms, bwd_plain_ms, _, _) = phase_backward(card)
 
-    # 4. the slice
+    # 5-7. the paths
     config = runpy.run_path(CONFIG)
     phase_small_reference(config)
-    launches = phase_slice(config, card)
+    eval_launches = phase_slice(config, card)
+    train_fwd, train_bwd = phase_train(card)
 
-    # 5. result
+    # 8. result
     print(json.dumps({"kernels": [{
         "name": "ctc_alpha_fwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu",
         "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:65",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": ms, "plain_ms": plain_ms}]}), flush=True)
+        "launches": eval_launches + train_fwd, "max_abs_err": fwd_err,
+        "ms": fwd_ms, "plain_ms": fwd_plain_ms}, {
+        "name": "ctc_beta_bwd", "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/ctc_beta_bwd.cu",
+        "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:140",
+        "launches": train_bwd, "max_abs_err": bwd_err,
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,15 @@
 # Jasper-10x5 at full published width on synthetic speech, for the
-# PyTorch port (eval and infer):
+# PyTorch port:
 #
-#   python -m openseq2seq_tpu_torch.run --mode=eval --logdir=<dir> \
+#   python -m openseq2seq_tpu_torch.run --mode=train --logdir=<dir> \
 #       --config_file=example_configs_torch/speech2text/jasper10x5_synthetic.py
 #
-# Shapes follow the repository's Jasper bench: 64 log-filterbank features,
-# 1000 frames (10 s), 160-label transcripts over a 29-symbol vocabulary,
-# bf16 compute from fp32 params ("mixed"); 4 batches of 32 per epoch.
+# and --mode=eval / --mode=infer from the checkpoint it writes. Shapes
+# follow the repository's Jasper bench: 64 log-filterbank features, 1000
+# frames (10 s), 160-label transcripts over a 29-symbol vocabulary, bf16
+# compute from fp32 params ("mixed"); 4 batches of 32 per epoch (the
+# synthetic layer repeats one batch). Training is the zoo's recipe,
+# NovoGrad + LARC + poly_decay, for 20 steps, with a checkpoint at the end.
 from openseq2seq_tpu.data.synthetic import SyntheticSpeechDataLayer
 from openseq2seq_tpu_torch.models import Speech2Text
 from openseq2seq_tpu_torch.zoo import jasper_model_params
@@ -27,3 +30,9 @@ base_params = jasper_model_params(
     dtype="mixed",
     logdir="jasper10x5_synthetic_logs",
 )
+
+train_params = {
+    "max_steps": 20,
+    "print_loss_steps": 5,
+    "save_checkpoint_steps": 20,
+}

@@ -1,9 +1,10 @@
-"""Weights of the JAX package -> the port's ``state_dict``.
+"""Carry state between the JAX package and the port, both ways.
 
-Takes the flax variables as nested dicts of numpy arrays, ``{"params":
-..., "batch_stats": ...}``, of any module whose torch twin keeps the
-flax names (the whole forward pass, or a part such as the TDNN encoder),
-and returns the ``state_dict`` for ``load_state_dict(strict=True)``:
+:func:`state_dict_from_flax` takes the flax variables as nested dicts of
+numpy arrays, ``{"params": ..., "batch_stats": ...}``, of any module
+whose torch twin keeps the flax names (the whole forward pass, or a part
+such as the TDNN encoder), and returns the ``state_dict`` for
+``load_state_dict(strict=True)``:
 
   * conv kernel (k, in, out)   -> weight (out, in, k)
   * dense kernel (in, out)     -> weight (out, in)
@@ -15,15 +16,25 @@ and returns the ``state_dict`` for ``load_state_dict(strict=True)``:
 The flax ``_Norm`` wrapper's inner ``BatchNorm_0`` folds into the torch
 norm module, so ``enc/net/norm1_1/BatchNorm_0/scale`` becomes
 ``enc.net.norm1_1.weight``.
+
+:func:`flax_from_state_dict` is the inverse (a module with running
+statistics is a batch norm, whose flax leaves sit under ``BatchNorm_0``),
+so tests can compare the port's updated weights leaf by leaf with the
+JAX package's. :func:`flax_path` names a port parameter as the JAX
+package does (``enc/net/conv1_1/kernel``), which is what
+``freeze_variables_regex`` and the regularizer match against.
+:func:`optimizer_state_from_optax` carries a NovoGrad (+ LARC, + clip)
+optax state into the port's optimizer state.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 _BN_INNER = "BatchNorm_0"
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
@@ -39,28 +50,33 @@ def _module_key(path: Tuple[str, ...]) -> str:
     return ".".join(p for p in path if p != _BN_INNER)
 
 
+def _param_to_torch(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
+    """(torch name, array in torch layout) of the flax param at ``path``."""
+    value = np.array(value, dtype=np.float32)
+    module, leaf = _module_key(path[:-1]), path[-1]
+    if leaf == "kernel" and value.ndim == 3:
+        name, value = "weight", value.transpose(2, 1, 0)
+    elif leaf == "kernel" and value.ndim == 2:
+        name, value = "weight", value.T
+    elif leaf in ("kernel", "scale"):
+        name = "weight"
+    elif leaf == "bias":
+        name = "bias"
+    else:
+        raise ValueError("no torch name for flax param {}".format(
+            "/".join(path)))
+    return module + "." + name, np.ascontiguousarray(value)
+
+
 def state_dict_from_flax(variables: Dict[str, Any]
                          ) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(variables.get("params", {})):
-        value = np.asarray(value, dtype=np.float32)
-        module, leaf = _module_key(path[:-1]), path[-1]
-        if leaf == "kernel" and value.ndim == 3:
-            name, value = "weight", value.transpose(2, 1, 0)
-        elif leaf == "kernel" and value.ndim == 2:
-            name, value = "weight", value.T
-        elif leaf == "scale":
-            name = "weight"
-        elif leaf == "bias":
-            name = "bias"
-        else:
-            raise ValueError("no torch name for flax param {}".format(
-                "/".join(path)))
-        out[module + "." + name] = torch.from_numpy(
-            np.ascontiguousarray(value))
+        name, value = _param_to_torch(path, value)
+        out[name] = torch.from_numpy(value)
     for path, value in _flatten(variables.get("batch_stats", {})):
         module, leaf = _module_key(path[:-1]), path[-1]
-        name = {"mean": "running_mean", "var": "running_var"}.get(leaf)
+        name = _STATS.get(leaf)
         if name is None:
             raise ValueError("no torch name for flax batch stat {}".format(
                 "/".join(path)))
@@ -68,3 +84,74 @@ def state_dict_from_flax(variables: Dict[str, Any]
             np.array(value, dtype=np.float32))
         out[module + ".num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def _norm_modules(names: Sequence[str]) -> set:
+    return {n.rsplit(".", 1)[0] for n in names
+            if n.endswith(".running_mean")}
+
+
+def flax_path(name: str, norms: set) -> Tuple[str, ...]:
+    """The flax path of the port's parameter or statistic ``name``;
+    ``norms`` holds the names of the batch-norm modules."""
+    module, leaf = name.rsplit(".", 1)
+    parts = tuple(module.split("."))
+    if module in norms:
+        return parts + (_BN_INNER, {"weight": "scale", "bias": "bias",
+                                    "running_mean": "mean",
+                                    "running_var": "var"}[leaf])
+    return parts + ({"weight": "kernel", "bias": "bias"}[leaf],)
+
+
+def flax_from_state_dict(state_dict: Dict[str, torch.Tensor]
+                         ) -> Dict[str, Any]:
+    """The port's ``state_dict`` as flax variables of numpy arrays,
+    ``{"params": ..., "batch_stats": ...}``."""
+    norms = _norm_modules(state_dict)
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for name, value in state_dict.items():
+        if name.endswith(".num_batches_tracked"):
+            continue
+        path = flax_path(name, norms)
+        value = value.detach().float().cpu().numpy()
+        if path[-1] == "kernel" and value.ndim == 3:
+            value = value.transpose(2, 1, 0)
+        elif path[-1] == "kernel" and value.ndim == 2:
+            value = value.T
+        tree = out["batch_stats" if path[-1] in _STATS else "params"]
+        for key in path[:-1]:
+            tree = tree.setdefault(key, {})
+        tree[path[-1]] = np.ascontiguousarray(value)
+    return out
+
+
+def _params_list(tree: Dict[str, Any], names: List[str]
+                 ) -> List[torch.Tensor]:
+    """A flax param-shaped tree as tensors in the port's order ``names``."""
+    converted = dict(_param_to_torch(p, v) for p, v in _flatten(tree))
+    return [torch.from_numpy(converted[n]) for n in names]
+
+
+def optimizer_state_from_optax(opt_state: Any, param_names: List[str]
+                               ) -> Any:
+    """An optax state of the JAX package's NovoGrad chain (optionally
+    behind LARC and global-norm clipping) as the port's optimizer state,
+    for parameters named ``param_names`` in the port's order. Moments are
+    transposed into the torch layout; the per-tensor ``grads_ema`` become
+    one (n,) tensor."""
+    kind = type(opt_state).__name__
+    if kind == "EmptyState":
+        return None
+    if kind in ("LARCState", "ScaleByScheduleState"):
+        return {"count": int(opt_state.count)}
+    if kind == "ScaleByNovoGradState":
+        ema = [t.reshape(()) for t in _params_list(
+            opt_state.grads_ema, param_names)]
+        return {"count": int(opt_state.count),
+                "moments": _params_list(opt_state.moments, param_names),
+                "grads_ema": torch.stack(ema)}
+    if isinstance(opt_state, (tuple, list)) and not hasattr(opt_state,
+                                                            "_fields"):
+        return [optimizer_state_from_optax(s, param_names)
+                for s in opt_state]
+    raise NotImplementedError("no port state for optax {}".format(kind))

@@ -2,8 +2,14 @@
 // fp32 log-softmax probabilities.
 //
 // Replaces the TPU kernel `_alpha_kernel` in
-// openseq2seq_tpu/ops/ctc_pallas.py (the `with_ckpt=False` forward that
-// `ctc_loss_pallas` runs outside of a gradient).
+// openseq2seq_tpu/ops/ctc_pallas.py: the `with_ckpt=False` forward that
+// `ctc_loss_pallas` runs outside of a gradient and, with a lattice
+// pointer, the `with_ckpt=True` forward of its custom VJP. Where the TPU
+// kernel saves alpha every 128 frames and the backward recomputes each
+// chunk in VMEM, this kernel writes the whole lattice alpha[b, t, s]
+// (t < len_b, s < 2 len_b + 1, fp32) for `ctc_beta_bwd.cu` to read:
+// 20.5 MB at the Jasper train shape (B=32, T=500, L=160), against the
+// card's 80 GB, and each value is written once and read once.
 //
 // What bounds it on an H100: latency, not bytes or FLOPs. Row b needs
 // len_b - 1 dependent steps (one per frame), each a handful of exp/log1p
@@ -35,14 +41,17 @@ __device__ __forceinline__ float logaddexp(float a, float b) {
 }
 
 // lp: (B, T, V) fp32 log-probs; labels: (B, L) int32; lengths: (B,)
-// int32; nll: (B,) fp32 out. Dynamic shared memory holds two alpha
-// columns, the extended label ids and the skip flags, each of S = 2L+1.
+// int32; nll: (B,) fp32 out; alpha: (B, T, S) fp32 out, or null for
+// the NLL alone (the eval path, unchanged by the lattice). Dynamic
+// shared memory holds two alpha columns, the extended label ids and the
+// skip flags, each of S = 2L+1.
 __global__ void ctc_alpha_fwd_kernel(const float* __restrict__ lp,
                                      const int* __restrict__ logit_len,
                                      const int* __restrict__ labels,
                                      const int* __restrict__ label_len,
-                                     float* __restrict__ nll, int T, int V,
-                                     int L, int blank) {
+                                     float* __restrict__ nll,
+                                     float* __restrict__ alpha, int T,
+                                     int V, int L, int blank) {
   extern __shared__ float smem[];
   const int S = 2 * L + 1;
   float* cur = smem;
@@ -56,6 +65,8 @@ __global__ void ctc_alpha_fwd_kernel(const float* __restrict__ lp,
   const int len = min(logit_len[b], T);
   const float* lpb = lp + static_cast<size_t>(b) * T * V;
   const int* lab = labels + static_cast<size_t>(b) * L;
+  float* alpha_b =
+      alpha ? alpha + static_cast<size_t>(b) * T * S : nullptr;
 
   for (int s = threadIdx.x; s < Sb; s += blockDim.x) {
     ext[s] = (s & 1) ? lab[s >> 1] : blank;
@@ -74,6 +85,7 @@ __global__ void ctc_alpha_fwd_kernel(const float* __restrict__ lp,
   // t = 0: only the leading blank and the first label are reachable.
   for (int s = threadIdx.x; s < Sb; s += blockDim.x) {
     cur[s] = (s <= min(Sb - 1, 1)) ? emit(0, s) : kNeg;
+    if (alpha_b && len > 0) alpha_b[s] = cur[s];
   }
   __syncthreads();
 
@@ -83,6 +95,7 @@ __global__ void ctc_alpha_fwd_kernel(const float* __restrict__ lp,
       float c = logaddexp(cur[s], s >= 1 ? cur[s - 1] : kNeg);
       if (skip[s]) c = logaddexp(c, cur[s - 2]);
       nxt[s] = c + e;
+      if (alpha_b) alpha_b[static_cast<size_t>(t) * S + s] = c + e;
     }
     __syncthreads();
     float* tmp = cur;
@@ -104,11 +117,12 @@ __global__ void ctc_alpha_fwd_kernel(const float* __restrict__ lp,
 
 // Launches on `stream`; returns cudaGetLastError() after the launch
 // (0 on success). The caller guarantees B >= 1, T >= 1, L >= 0, V >= 1
-// and contiguous device buffers of the documented shapes.
+// and contiguous device buffers of the documented shapes; `alpha` may be
+// null.
 extern "C" int ctc_alpha_fwd(const float* lp, const int* logit_len,
                              const int* labels, const int* label_len,
-                             float* nll, int B, int T, int V, int L,
-                             int blank, void* stream) {
+                             float* nll, float* alpha, int B, int T, int V,
+                             int L, int blank, void* stream) {
   const int S = 2 * L + 1;
   const int threads = min(1024, ((S + 31) / 32) * 32);
   const size_t smem = static_cast<size_t>(S) *
@@ -121,6 +135,6 @@ extern "C" int ctc_alpha_fwd(const float* lp, const int* logit_len,
   }
   ctc_alpha_fwd_kernel<<<B, threads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      lp, logit_len, labels, label_len, nll, T, V, L, blank);
+      lp, logit_len, labels, label_len, nll, alpha, T, V, L, blank);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,8 +18,10 @@ class ForwardPass(nn.Module):
         self.enc = enc
         self.dec = dec
 
-    def forward(self, batch: Dict[str, Any], train: bool):
-        encoder_output = self.enc(batch, train)
+    def forward(self, batch: Dict[str, Any], train: bool,
+                generator: torch.Generator = None):
+        """``generator`` draws the encoder's dropout in training."""
+        encoder_output = self.enc(batch, train, generator)
         dec_input = dict(batch)
         dec_input["encoder_output"] = encoder_output
         decoder_output = self.dec(dec_input, train)

@@ -1,37 +1,52 @@
-"""Model abstract class (port of the eval and infer part of
-``openseq2seq_tpu/models/model.py``).
+"""Model abstract class (port of ``openseq2seq_tpu/models/model.py``).
 
-Same schema'd config (the JAX package's keys that eval, infer or the
-coming training read, plus four TPU knobs accepted as no-ops; a key
-that would have no effect here is refused), the same data-layer
-construction, and the same
-task hooks (``evaluate`` / ``finalize_evaluation`` / ``infer`` /
-``finalize_inference``). The state is a :class:`TrainState` holding the
-step and the ``nn.Module`` of the whole forward pass, whose parameters
-and buffers (the flax ``params`` and ``batch_stats``) live on the
-model's ``device``. Parameters are drawn from a ``torch.Generator``
-seeded with ``random_seed``.
+Same schema'd config (the JAX package's keys that the port reads, plus
+three TPU knobs accepted as no-ops; a key that would have no effect here
+is refused), the same data-layer construction, step accounting
+(``max_steps``/``num_epochs``, ``steps_in_epoch``, ``last_step``) and lr
+schedule defaulting, and the same task hooks (``evaluate`` /
+``finalize_evaluation`` / ``infer`` / ``finalize_inference`` /
+``maybe_print_logs`` / ``print_samples``). The state is a
+:class:`TrainState`: the step, the ``nn.Module`` of the whole forward
+pass, whose parameters and buffers (the flax ``params`` and
+``batch_stats``) live on the model's ``device``, and in training the
+optimizer state and the loss scale. Parameters are drawn from a
+``torch.Generator`` seeded with ``random_seed``.
 
-Training lands in a later PR: :meth:`Model.train_step` raises.
+:meth:`Model.train_step` is ``models/model.py:503-581``: the loss (task
+loss plus regularizer), its gradients, loss scaling with the update's
+gradients zeroed on overflow under the fp16 policies, the optimizer
+chain of ``optimizers/optimizers.py``, ``freeze_variables_regex``, and
+the metrics ``loss``, ``learning_rate``, ``global_grad_norm`` (and
+``loss_scale``, ``skipped_update`` when scaling). It updates the module's
+parameters and batch-norm statistics in place, and never syncs the host:
+the metrics stay tensors until the trainer fetches them.
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Dict
+import re
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from openseq2seq_tpu.utils.logging import deco_print
 from openseq2seq_tpu.utils.params import check_params
 
-from ..optimizers.mixed_precision import get_mp_policy
+from ..convert import _norm_modules, flax_path
+from ..optimizers import (AutomaticLossScaler, build_optimizer, check_grads,
+                          get_lr_schedule_from_config, get_mp_policy)
+from ..optimizers.transform import global_norm
 
 
 @dataclasses.dataclass
 class TrainState:
     step: int
     module: torch.nn.Module
+    opt_state: Any = None          # training only
+    loss_scale: Any = None         # automatic loss scaling only
 
 
 class Model(abc.ABC):
@@ -46,7 +61,6 @@ class Model(abc.ABC):
     @staticmethod
     def get_optional_params():
         return {
-            # read by eval and infer
             "logdir": str,
             "eval_batch_size_per_gpu": int,
             "random_seed": int,
@@ -57,7 +71,6 @@ class Model(abc.ABC):
             "restore_best_checkpoint": bool,
             "num_epochs": int,
             "max_steps": int,
-            # read by training, which lands in a later PR
             "save_summaries_steps": None,
             "print_loss_steps": None,
             "print_samples_steps": None,
@@ -81,11 +94,12 @@ class Model(abc.ABC):
             "loss_scaling_params": dict,
             "summaries": list,
             "iter_size": int,
-            # TPU knobs of the JAX package, no-ops here: RNG
-            # implementation and mask width of dropout, activation
-            # rematerialization
-            "prng_impl": str,
+            # dropout mask width: 32 exact Bernoulli, 8 keep probability
+            # quantized to 1/256 (parts/dropout.py)
             "dropout_bits": [8, 32],
+            # TPU knobs of the JAX package, no-ops here: RNG
+            # implementation of dropout, activation rematerialization
+            "prng_impl": str,
             "remat": [False, True, "blocks"],
             "dropout_remat": bool,
             # mesh layout, filled in by utils.config.get_base_config; one
@@ -103,10 +117,32 @@ class Model(abc.ABC):
             raise ValueError("Unknown mode: {}".format(mode))
         if "max_steps" in params and "num_epochs" in params:
             raise ValueError("You can't provide both max_steps and num_epochs")
+        if mode == "train" and ("max_steps" not in params and
+                                "num_epochs" not in params):
+            raise ValueError("For training mode either max_steps or "
+                             "num_epochs has to be provided")
         self._mode = mode
         self._interactive = (mode == "interactive_infer")
         self._device = torch.device(device)
+        if self._device.type == "cuda":
+            # cuDNN times its conv algorithms on the first step of each
+            # shape and keeps the fastest, as XLA autotunes its convs;
+            # its heuristic choice ran Jasper's conv backward several
+            # times slower
+            torch.backends.cudnn.benchmark = True
+        defaults = {"print_samples_steps": None, "print_loss_steps": 10,
+                    "save_checkpoint_steps": None,
+                    "save_summaries_steps": None,
+                    "print_bench_info_steps": None}
+        for k, v in defaults.items():
+            self._params.setdefault(k, v)
+        s = self._params["print_samples_steps"]
+        n = self._params["print_loss_steps"]
+        if s and n and s % n != 0:
+            raise ValueError("print_samples_steps has to be a multiple of "
+                             "print_loss_steps")
         self._dtype_policy = get_mp_policy(self._params.get("dtype"))
+        self._params.setdefault("iter_size", 1)
 
         base_seed = self._params.get("random_seed", 0)
         # the data seed is offset per worker; parameter init stays on the
@@ -129,6 +165,34 @@ class Model(abc.ABC):
             worker_id=worker_id)
         self._data_layer.seed(self._seed)
 
+        self._steps_in_epoch = None
+        self._last_step = self._params.get("max_steps", None)
+        if mode == "train":
+            size = self._data_layer.get_size_in_samples()
+            if size > 0:
+                # micro-batch steps: with iter_size > 1 the optimizer
+                # advances every iter_size-th one
+                self._steps_in_epoch = max(size // per_device, 1)
+            if "num_epochs" in self._params:
+                if self._steps_in_epoch is None:
+                    raise ValueError("num_epochs requires a sized data layer")
+                self._last_step = (self._params["num_epochs"] *
+                                   self._steps_in_epoch)
+
+        self._loss_scaler: Optional[AutomaticLossScaler] = None
+        self._static_loss_scale = 1.0
+        if self._dtype_policy.use_loss_scaling:
+            ls = self._params.get("loss_scaling", "Backoff")
+            if isinstance(ls, (int, float)):
+                self._static_loss_scale = float(ls)
+            else:
+                self._loss_scaler = AutomaticLossScaler(
+                    algorithm=ls,
+                    params=self._params.get("loss_scaling_params"))
+        self._tx = None
+        self._lr_schedule = None
+        self._named = (None, [])
+
     @property
     def params(self):
         return self._params
@@ -144,6 +208,14 @@ class Model(abc.ABC):
     @property
     def mp_policy(self):
         return self._dtype_policy
+
+    @property
+    def steps_in_epoch(self):
+        return self._steps_in_epoch
+
+    @property
+    def last_step(self):
+        return self._last_step
 
     def get_data_layer(self):
         return self._data_layer
@@ -163,18 +235,178 @@ class Model(abc.ABC):
     def compute_loss(self, outputs: Dict[str, Any], batch: Dict[str, Any]):
         """fp32 scalar task loss given forward outputs and the batch."""
 
+    def _resolved_lr_policy_params(self) -> Dict[str, Any]:
+        """lr_policy_params with the reference's defaulting: a policy
+        that takes ``decay_steps`` decays over the whole run when the
+        config does not pin it (minus warmup and ``begin_decay_at``), and
+        epoch-bounded policies get ``steps_per_epoch`` from the data
+        layer."""
+        lr_params = dict(self._params.get("lr_policy_params") or {})
+        lr_policy = self._params.get("lr_policy")
+        if lr_policy is None:
+            return lr_params
+        from inspect import signature
+
+        from ..optimizers.lr_policies import LR_POLICY_REGISTRY
+        fn = LR_POLICY_REGISTRY.get(lr_policy) \
+            if isinstance(lr_policy, str) else lr_policy
+        if fn is None:
+            return lr_params
+        fp = signature(fn).parameters
+        if ("decay_steps" in fp and "decay_steps" not in lr_params
+                and self._last_step):
+            lr_params["decay_steps"] = self._last_step
+            if "begin_decay_at" in fp:
+                if "warmup_steps" in fp:
+                    lr_params["begin_decay_at"] = max(
+                        lr_params.get("begin_decay_at", 0),
+                        lr_params.get("warmup_steps", 0))
+                lr_params["decay_steps"] -= lr_params.get(
+                    "begin_decay_at", 0)
+        if ("steps_per_epoch" in fp
+                and "steps_per_epoch" not in lr_params
+                and "num_epochs" in self._params
+                and self._steps_in_epoch):
+            lr_params["steps_per_epoch"] = self._steps_in_epoch
+        return lr_params
+
+    def optimizer(self):
+        """The update transform of the config (``optimizers.py``)."""
+        if self._tx is None:
+            self._tx = build_optimizer(
+                optimizer=self._params.get("optimizer", "Adam"),
+                optimizer_params=self._params.get("optimizer_params", {}),
+                lr_policy=self._params.get("lr_policy"),
+                lr_policy_params=self._resolved_lr_policy_params(),
+                max_grad_norm=self._params.get("max_grad_norm"),
+                larc_params=self._params.get("larc_params"),
+                iter_size=self._params.get("iter_size", 1),
+            )
+        return self._tx
+
+    def learning_rate(self, step: int) -> float:
+        """The lr the optimizer applies at micro-batch step ``step``."""
+        if self._lr_schedule is None:
+            self._lr_schedule = get_lr_schedule_from_config(
+                dict(self._params,
+                     lr_policy_params=self._resolved_lr_policy_params()))
+        iter_size = int(self._params.get("iter_size", 1))
+        return float(self._lr_schedule(step // iter_size))
+
+    def regularization_loss(self, module: torch.nn.Module):
+        """L1/L2 penalty over the kernels (conv and dense weights),
+        fp32, as ``models/model.py:402-427``."""
+        reg = self._params.get("regularizer")
+        scale = float(self._params.get("regularizer_params", {})
+                      .get("scale", 0.0))
+        if reg is None or scale == 0.0:
+            return 0.0
+        total = 0.0
+        for path, p in self._named_params(module):
+            if path[-1] not in ("kernel", "embedding"):
+                continue
+            v32 = p.float()
+            if reg in ("l2", "L2"):
+                total = total + 0.5 * torch.sum(torch.square(v32))
+            elif reg in ("l1", "L1"):
+                total = total + torch.sum(torch.abs(v32))
+            elif callable(reg):
+                total = total + reg(v32)
+            else:
+                raise ValueError("Unknown regularizer {}".format(reg))
+        return scale * total
+
     def init_state(self, example_batch: Dict[str, Any]) -> TrainState:
         """Seeded initial weights, built on the host and moved to the
-        model's device in the policy's parameter dtype."""
+        model's device in the policy's parameter dtype; in training also
+        the optimizer state and the loss scale."""
         generator = torch.Generator().manual_seed(self._init_seed)
         module = self.build_module(example_batch, generator)
         module = module.to(self._device)
         for p in module.parameters():
             p.data = p.data.to(self._dtype_policy.param_dtype)
-        return TrainState(step=0, module=module.eval())
+        state = TrainState(step=0, module=module.eval())
+        if self._mode == "train":
+            state.opt_state = self.optimizer().init(
+                list(module.parameters()))
+            if self._loss_scaler is not None:
+                state.loss_scale = self._loss_scaler.init(self._device)
+        return state
 
-    def train_step(self, state: TrainState, batch: Dict[str, Any]):
-        raise NotImplementedError("training lands in a later PR")
+    def train_step(self, state: TrainState, batch: Dict[str, Any],
+                   generator: Optional[torch.Generator] = None
+                   ) -> Tuple[TrainState, Dict[str, Any]]:
+        """One optimizer step on a host batch; ``generator`` (on the
+        model's device) draws the step's dropout masks. Updates the
+        module in place and returns the new state and the step's
+        metrics, as tensors."""
+        module = state.module
+        named = self._named_params(module)
+        params = [p for _, p in named]
+        device_batch = to_device_batch(batch, self._device)
+        module.zero_grad(set_to_none=True)
+        outputs = module(device_batch, train=True, generator=generator)
+        loss = self.compute_loss(outputs, device_batch).float()
+        loss = loss + self.regularization_loss(module)
+        use_scaling = self._dtype_policy.use_loss_scaling
+        scale = None
+        if use_scaling:
+            scale = (state.loss_scale["scale"] if self._loss_scaler
+                     is not None else self._static_loss_scale)
+            (loss * scale).backward()
+        else:
+            loss.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in params]
+        module.zero_grad(set_to_none=True)
+
+        metrics: Dict[str, Any] = {"loss": loss.detach()}
+        new_loss_scale = state.loss_scale
+        with torch.no_grad():
+            if use_scaling:
+                grads = torch._foreach_div([g.float() for g in grads],
+                                           scale)
+                has_nan, amax = check_grads(grads)
+                overflow = has_nan | ~torch.isfinite(amax)
+                if self._loss_scaler is not None:
+                    new_loss_scale = self._loss_scaler.update(
+                        state.loss_scale, has_nan, amax)
+                    metrics["loss_scale"] = new_loss_scale["scale"]
+                # skip the update on overflow (mp_wrapper.py:114-120)
+                grads = [torch.where(overflow, 0.0, g) for g in grads]
+                metrics["skipped_update"] = overflow.int()
+            updates, opt_state = self.optimizer().update(
+                grads, state.opt_state, params)
+            freeze = self._frozen(named)
+            if freeze:
+                updates = [torch.zeros_like(u) if f else u
+                           for u, f in zip(updates, freeze)]
+            if all(p.dtype == torch.float32 for p in params):
+                torch._foreach_add_(params, updates)
+            else:
+                for p, u in zip(params, updates):
+                    p.copy_(p.float() + u)
+            metrics["learning_rate"] = self.learning_rate(state.step)
+            metrics["global_grad_norm"] = global_norm(grads)
+        return TrainState(step=state.step + 1, module=module,
+                          opt_state=opt_state,
+                          loss_scale=new_loss_scale), metrics
+
+    def _named_params(self, module: torch.nn.Module):
+        """``_named_params(module)``, kept for the module it was made
+        for."""
+        if self._named[0] is not module:
+            self._named = (module, _named_params(module))
+        return self._named[1]
+
+    def _frozen(self, named) -> List[bool]:
+        """Per parameter: its flax path matches
+        ``freeze_variables_regex`` (empty list when unset)."""
+        regex = self._params.get("freeze_variables_regex")
+        if not regex:
+            return []
+        pattern = re.compile(regex)
+        return [bool(pattern.search("/".join(path))) for path, _ in named]
 
     def eval_step(self, state: TrainState, batch: Dict[str, Any]
                   ) -> Dict[str, Any]:
@@ -190,6 +422,20 @@ class Model(abc.ABC):
         return result
 
     # task hooks, overridden by task models
+    def maybe_print_logs(self, metrics: Dict[str, Any], step: int) -> None:
+        deco_print("Global step {}: loss = {:.4f}, lr = {:.2e}".format(
+            step, float(metrics["loss"]), float(metrics["learning_rate"])),
+            offset=4)
+
+    def print_samples(self, input_values, output_values, step: int) -> None:
+        """Print a sample prediction from the current train batch every
+        ``print_samples_steps``. Task models override."""
+
+    def get_num_objects_per_step(self, batch: Dict[str, Any]) -> int:
+        """Objects (frames, tokens, images) in a host batch, for the
+        objects/s of ``bench_start``."""
+        return int(batch["source_tensors"][0].shape[0])
+
     def evaluate(self, input_values, output_values):
         """Accumulate per-batch eval results (host side, numpy)."""
         return []
@@ -205,13 +451,25 @@ class Model(abc.ABC):
         raise NotImplementedError
 
 
+def _named_params(module: torch.nn.Module
+                  ) -> List[Tuple[Tuple[str, ...], torch.nn.Parameter]]:
+    """The module's parameters in their fixed order, each with its flax
+    path (``enc/net/conv1_1/kernel``)."""
+    norms = _norm_modules([n for n, _ in module.named_buffers()])
+    return [(flax_path(n, norms), p) for n, p in module.named_parameters()]
+
+
 def to_device_batch(batch: Any, device: torch.device) -> Any:
     """numpy batch -> tensors on ``device`` (lists and dicts recursed;
-    scalars kept)."""
+    scalars kept). To a CUDA device the copy goes through pinned memory
+    and does not wait for the device."""
     if isinstance(batch, dict):
         return {k: to_device_batch(v, device) for k, v in batch.items()}
     if isinstance(batch, (list, tuple)):
         return [to_device_batch(v, device) for v in batch]
     if isinstance(batch, np.ndarray) and batch.ndim > 0:
-        return torch.from_numpy(batch).to(device)
+        t = torch.from_numpy(batch)
+        if torch.device(device).type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
     return batch

@@ -1,5 +1,5 @@
-"""Speech-to-text task model: WER and the infer CSV (port of
-``openseq2seq_tpu/models/speech2text.py``).
+"""Speech-to-text task model: WER, the infer CSV, training samples and
+frame counts (port of ``openseq2seq_tpu/models/speech2text.py``).
 
 Infer runs on the synthetic data layer here, where the JAX package's
 does not: its ``finalize_inference`` reads the data layer's
@@ -88,3 +88,23 @@ class Speech2Text(EncoderDecoderModel):
                 wav = files[idx][0] if idx < len(files) else str(idx)
                 writer.writerow([wav, text])
         deco_print("Predictions saved to {}".format(output_file))
+
+    def print_samples(self, input_values, output_values, step):
+        """First-sample target against the greedy prediction, and its
+        WER."""
+        dec = output_values["outputs"]["decoder_output"]
+        if "outputs" not in dec:
+            return
+        hyp = self._decode_batch(dec["outputs"])[0]
+        labels, label_lens = input_values["target_tensors"]
+        ref = self.get_data_layer().decode_ids(
+            labels[0][:int(label_lens[0])])
+        wer = levenshtein(ref.split(), hyp.split()) / \
+            max(len(ref.split()), 1)
+        deco_print("Sample WER: {:.4f}".format(wer), offset=4)
+        deco_print("Sample target:     {}".format(ref), offset=4)
+        deco_print("Sample prediction: {}".format(hyp), offset=4)
+
+    def get_num_objects_per_step(self, batch):
+        """Audio frames in the batch."""
+        return int(np.sum(np.asarray(batch["source_tensors"][1])))

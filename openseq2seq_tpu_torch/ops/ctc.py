@@ -35,41 +35,48 @@ def log_probs(logits: torch.Tensor) -> torch.Tensor:
     return F.log_softmax(logits.float(), dim=-1)
 
 
-def ctc_nll(logprobs: torch.Tensor, logit_lengths: torch.Tensor,
-            labels: torch.Tensor, label_lengths: torch.Tensor,
-            blank_id: int) -> torch.Tensor:
-    """(B,) negative log likelihood from (B, T, V) fp32 log-probs.
-
-    The alpha recursion of the JAX package's ``ctc_loss``, before the
-    infeasible-row mask. ``blank_id`` is a class index (not negative)."""
-    B, T, _ = logprobs.shape
-    L = labels.shape[1]
+def _extended(labels: torch.Tensor, label_lengths: torch.Tensor,
+              blank_id: int):
+    """The blank-interleaved extended label sequence of each row: ids
+    ``ext`` (B, S = 2L+1), the skip flags (a label differing from the one
+    two states back), the states each row can reach (s < 2 len + 1), and
+    whether the row has a label."""
+    B, L = labels.shape
     S = 2 * L + 1
-    dev = logprobs.device
-    labels = labels.long()
-    label_lengths = label_lengths.long()
-    logit_lengths = logit_lengths.long()
-
-    # extended label sequence: blank, l1, blank, l2, ..., blank
+    dev = labels.device
     s_idx = torch.arange(S, device=dev)
     is_label = (s_idx % 2) == 1
     label_idx = torch.clamp((s_idx - 1) // 2, 0, L - 1)
     ext = torch.where(is_label[None, :], labels[:, label_idx], blank_id)
     ext_m2 = torch.cat([torch.full((B, 2), blank_id, dtype=ext.dtype,
                                    device=dev), ext[:, :-2]], dim=1)
-    # skip transition into s allowed when s is a label differing from s-2
     can_skip = is_label[None, :] & (ext != ext_m2) & (s_idx >= 2)[None, :]
     ext_len = 2 * label_lengths + 1
     valid_s = s_idx[None, :] < ext_len[:, None]
+    return ext, can_skip, valid_s, ext_len, label_lengths > 0
+
+
+def _alpha_lattice(logprobs, logit_lengths, labels, label_lengths,
+                   blank_id, keep_lattice: bool):
+    """The alpha recursion: (nll (B,), alphas (B, T, S) or None, emit,
+    and the extended-label tensors for the backward)."""
+    B, T, _ = logprobs.shape
+    labels = labels.long()
+    label_lengths = label_lengths.long()
+    logit_lengths = logit_lengths.long()
+    ext, can_skip, valid_s, ext_len, has_label = _extended(
+        labels, label_lengths, blank_id)
+    S = ext.shape[1]
+    dev = logprobs.device
 
     emit = torch.gather(logprobs, 2, ext[:, None, :].expand(B, T, S))
 
-    neg = torch.full((B, S), NEG, dtype=torch.float32, device=dev)
+    neg = torch.full((B, S), NEG, dtype=logprobs.dtype, device=dev)
     alpha = neg.clone()
     alpha[:, 0] = emit[:, 0, 0]
-    has_label = label_lengths > 0
     alpha[:, 1] = torch.where(has_label, emit[:, 0, 1], NEG)
     alpha = torch.where(valid_s, alpha, neg)
+    alphas = [alpha] if keep_lattice else None
 
     neg1 = neg[:, :1]
     neg2 = neg[:, :2]
@@ -81,13 +88,98 @@ def ctc_nll(logprobs: torch.Tensor, logit_lengths: torch.Tensor,
         new = torch.where(valid_s, cand + emit[:, t], neg)
         # frozen past the row's logit length
         alpha = torch.where((t < logit_lengths)[:, None], new, alpha)
+        if keep_lattice:
+            alphas.append(alpha)
 
     end = torch.clamp(ext_len - 1, 0, S - 1)
     end_m1 = torch.clamp(ext_len - 2, 0, S - 1)
     a_end = torch.gather(alpha, 1, end[:, None])[:, 0]
     a_end_m1 = torch.gather(alpha, 1, end_m1[:, None])[:, 0]
     a_end_m1 = torch.where(has_label, a_end_m1, NEG)
-    return -_logaddexp(a_end, a_end_m1)
+    nll = -_logaddexp(a_end, a_end_m1)
+    lattice = torch.stack(alphas, dim=1) if keep_lattice else None
+    return nll, lattice, emit, (ext, can_skip, valid_s, ext_len)
+
+
+def ctc_nll(logprobs: torch.Tensor, logit_lengths: torch.Tensor,
+            labels: torch.Tensor, label_lengths: torch.Tensor,
+            blank_id: int) -> torch.Tensor:
+    """(B,) negative log likelihood from (B, T, V) fp32 log-probs.
+
+    The alpha recursion of the JAX package's ``ctc_loss``, before the
+    infeasible-row mask. ``blank_id`` is a class index (not negative)."""
+    return _alpha_lattice(logprobs, logit_lengths, labels, label_lengths,
+                          blank_id, keep_lattice=False)[0]
+
+
+def ctc_nll_grad(logprobs: torch.Tensor, logit_lengths: torch.Tensor,
+                 labels: torch.Tensor, label_lengths: torch.Tensor,
+                 blank_id: int):
+    """``(nll, dlogprobs)``: the NLL of :func:`ctc_nll` and its gradient
+    with respect to the (B, T, V) fp32 log-probs.
+
+    The plain twin of the CUDA kernels ``ctc_alpha_fwd`` (with its alpha
+    lattice) and ``ctc_beta_bwd``, and of the TPU kernel
+    ``_beta_chunk_kernel`` (``openseq2seq_tpu/ops/ctc_pallas.py:140``):
+    the beta recursion runs in reverse over the kept alpha lattice with
+    the same ``NEG``, ``_logaddexp``, skip and freeze rules, then
+    ``gamma = alpha + beta - logZ``, the posterior ``exp(max(gamma,
+    -80))`` of each state, its sum over the states s with ext[s] = v, and
+    ``dlp[t, v] = -that / (its sum over v)``. Frames ``t >= length``,
+    states ``s >= 2 len + 1`` and rows that fail :func:`feasible_rows`
+    get exactly 0 (the infeasible rows' loss is masked to 0 by the
+    caller, so their gradient is 0 too).
+
+    The division by the frame's posterior mass (1 in exact arithmetic)
+    is not in the TPU kernel. In fp32, gamma subtracts log-values of the
+    size of logZ (about 1500 at the Jasper train shape, T=500 and L=160),
+    and without it the posteriors of a frame sum to 1 only within about
+    1.6e-3 there; with it, within rounding, and the gradient's largest
+    error against an fp64 run falls from about 1.6e-3 to 2e-4."""
+    B, T, V = logprobs.shape
+    nll, alphas, emit, (ext, can_skip, valid_s, ext_len) = _alpha_lattice(
+        logprobs.detach(), logit_lengths, labels, label_lengths, blank_id,
+        keep_lattice=True)
+    S = ext.shape[1]
+    dev = logprobs.device
+    lens = torch.clamp(logit_lengths.long(), max=T)
+    logz = -nll
+    s_idx = torch.arange(S, device=dev)
+    end_mask = (s_idx[None, :] >= ext_len[:, None] - 2) & \
+        (s_idx[None, :] <= ext_len[:, None] - 1)
+    neg = torch.full((B, S), NEG, dtype=logprobs.dtype, device=dev)
+    beta_last = torch.where(end_mask, torch.zeros_like(neg), neg)
+    # skip transition out of s into s + 2
+    can_skip_fwd = torch.cat([can_skip[:, 2:], torch.zeros(
+        (B, 2), dtype=torch.bool, device=dev)], dim=1)
+
+    grads = torch.zeros((B, T, S), dtype=logprobs.dtype, device=dev)
+    z = None                     # beta_{t+1} + emit_{t+1}
+    for t in range(T - 1, -1, -1):
+        if z is None:
+            beta = neg
+        else:
+            shift1 = torch.cat([z[:, 1:], neg[:, :1]], dim=1)
+            shift2 = torch.cat([z[:, 2:], neg[:, :2]], dim=1)
+            cand = _logaddexp(z, shift1)
+            cand = torch.where(can_skip_fwd, _logaddexp(cand, shift2), cand)
+            beta = torch.where(valid_s, cand, neg)
+        beta = torch.where((t == lens - 1)[:, None], beta_last, beta)
+        live = (t < lens)[:, None]
+        beta = torch.where(live, beta, neg)
+        gamma = alphas[:, t] + beta - logz[:, None]
+        post = torch.exp(torch.clamp(gamma, min=-80.0))
+        grads[:, t] = torch.where(valid_s & live, post, 0.0)
+        z = beta + emit[:, t]
+
+    feasible = feasible_rows(logit_lengths, labels, label_lengths)
+    grads = torch.where(feasible[:, None, None], grads, 0.0)
+    # vocabulary scatter as a matmul with the exact 0/1 one-hot of the
+    # extended labels; a label outside [0, V) has no column
+    onehot = (ext[:, :, None] == torch.arange(V, device=dev)).to(grads.dtype)
+    mass = torch.einsum("bts,bsv->btv", grads, onehot)
+    total = mass.sum(dim=2, keepdim=True)
+    return nll, torch.where(total > 0, -mass / total, 0.0)
 
 
 def feasible_rows(logit_lengths: torch.Tensor, labels: torch.Tensor,

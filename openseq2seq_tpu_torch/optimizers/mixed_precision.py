@@ -7,10 +7,10 @@ to ``compute_dtype`` at use; logits and losses are ``output_dtype``
 
   * ``"float32"``  — fp32 everywhere;
   * ``"mixed"``    — fp32 params, bf16 compute;
+  * ``"float16"`` / ``"mixed_fp16"`` — fp32 params, fp16 compute, with
+    automatic loss scaling in training (``loss_scaler.py``): the
+    reference's own GPU recipe;
   * ``"bfloat16"`` — bf16 params and compute.
-
-The fp16 policies (``"float16"``, ``"mixed_fp16"``) need loss scaling,
-which comes with training.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ class MixedPrecisionPolicy:
     param_dtype: torch.dtype
     compute_dtype: torch.dtype
     output_dtype: torch.dtype
+    use_loss_scaling: bool = False
 
 
 _POLICIES = {
@@ -34,6 +35,10 @@ _POLICIES = {
                                   torch.float32),
     "bfloat16": MixedPrecisionPolicy(torch.bfloat16, torch.bfloat16,
                                      torch.float32),
+    "float16": MixedPrecisionPolicy(torch.float32, torch.float16,
+                                    torch.float32, True),
+    "mixed_fp16": MixedPrecisionPolicy(torch.float32, torch.float16,
+                                       torch.float32, True),
 }
 
 
@@ -42,10 +47,6 @@ def get_mp_policy(dtype: Optional[str]) -> MixedPrecisionPolicy:
     fp32."""
     if dtype is None:
         return _POLICIES["float32"]
-    if dtype in ("float16", "mixed_fp16"):
-        raise NotImplementedError(
-            "dtype '{}' needs loss scaling, which lands with training"
-            .format(dtype))
     if dtype not in _POLICIES:
         raise ValueError("Unknown dtype policy '{}'. Available: {}".format(
             dtype, sorted(_POLICIES)))

@@ -1,2 +1,2 @@
-from .trainer import evaluate, infer, restore_state
+from .trainer import evaluate, infer, restore_state, train
 from .checkpoint import CheckpointManager

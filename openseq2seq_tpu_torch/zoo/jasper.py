@@ -59,7 +59,7 @@ def jasper_model_params(data_layer, data_layer_params: Dict[str, Any],
                         width_scale: float = 1.0,
                         **overrides) -> Dict[str, Any]:
     """Speech2Text base_params for Jasper BxR, the JAX package's recipe
-    (NovoGrad + LARC + poly_decay, read once training lands) with the
+    (NovoGrad + LARC + poly_decay, ``dropout_bits: 8``) with the
     port's encoder, decoder and loss. ``use_pallas`` puts the CTC
     recursion on the hand-written CUDA kernel."""
     from ..decoders import FullyConnectedCTCDecoder

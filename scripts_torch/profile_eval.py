@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's eval step on one NVIDIA GPU.
+"""Profile the PyTorch port's eval step, or its train step, on one
+NVIDIA GPU.
 
-    python3 scripts_torch/profile_eval.py [--config_file=PATH] [--steps=4]
-        [--repeats=3] [--trace=PATH]
+    python3 scripts_torch/profile_eval.py [--train] [--config_file=PATH]
+        [--steps=4] [--repeats=3] [--trace=PATH]
 
 Builds the model of a port config (default: Jasper-10x5 at full width on
 synthetic speech, ``example_configs_torch/speech2text/
-jasper10x5_synthetic.py``) on the card with seeded weights, and prints:
+jasper10x5_synthetic.py``) on the card with seeded weights, in eval mode
+or, with ``--train``, in train mode (the config's ``train_params``
+merged in; dropout drawn from a generator seeded per step), and prints:
 
-1. wall milliseconds per eval batch without the profiler, for each of
+1. wall milliseconds per step without the profiler, for each of
    ``--repeats`` passes over the epoch (host batches made beforehand;
-   ``eval_step`` copies each to the card), and utterances per second;
-2. from one ``torch.profiler`` trace of ``--steps`` eval steps: device
-   busy time (the union of kernel, memcpy and memset intervals) against
-   the span from the first device activity to the last, so the idle
-   share; and device milliseconds per batch for each kernel group;
-3. FLOP per batch of the convolutions and dense layers, counted from the
-   shapes their forward hooks see, and the rate they reach over the time
-   of the conv and GEMM kernels, and over the whole busy time.
+   the step copies each to the card), and utterances per second;
+2. from one ``torch.profiler`` trace of ``--steps`` steps: device busy
+   time (the union of kernel, memcpy and memset intervals) against the
+   span from the first device activity to the last, so the idle share;
+   and device milliseconds per step for each kernel group;
+3. FLOP per step of the convolutions and dense layers, counted from the
+   shapes their forward hooks see (in training also their backward: the
+   weight gradient, and the input gradient where the input needs one),
+   and the rate they reach over the time of the conv and GEMM kernels,
+   and over the whole busy time.
 
 The card's name and power limit come first; a JSON summary is the last
 line. It needs a CUDA device.
@@ -39,17 +44,22 @@ CONFIG = os.path.join(REPO, "example_configs_torch", "speech2text",
                       "jasper10x5_synthetic.py")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
-# (group, substrings of the kernel name), first match wins
+# (group, substrings of the kernel name), first match wins; the conv
+# and GEMM groups are the two after the CTC kernels
 GROUPS = (
-    ("ctc kernel", ("ctc_alpha_fwd",)),
-    ("convs (implicit GEMM, k > 1)", ("fprop",)),
+    ("ctc kernel", ("ctc_alpha_fwd", "ctc_beta_bwd")),
+    ("convs (implicit GEMM, k > 1)", ("fprop", "dgrad", "wgrad")),
     ("GEMMs (1x1 residual convs, dense)", ("gemm",)),
-    ("batch norm", ("bn_fw", "batch_norm")),
+    ("batch norm", ("bn_fw", "bn_bw", "batch_norm")),
+    ("optimizer (foreach)", ("multi_tensor_apply", "foreach")),
+    ("dropout RNG", ("distribution", "philox")),
+    ("reductions", ("reduce_kernel",)),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("H2D copies", ("HtoD",)),
     ("dtype casts and copies", ("copy", "DtoD")),
     ("elementwise", ("elementwise",)),
 )
+MATMUL_GROUPS = [g for g, _ in GROUPS[1:3]]
 
 
 def group_of(name: str) -> str:
@@ -59,18 +69,27 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def count_flops(module, run) -> int:
+def count_flops(module, run, train: bool = False) -> int:
     """FLOP (2 x multiply-adds) of ``module``'s convs and dense layers
-    during ``run()``, from the output shapes their forward hooks see."""
+    during ``run()``, from the output shapes their forward hooks see.
+    With ``train``, also their backward: the weight gradient costs what
+    the forward does, and so does the input gradient where the input
+    needs one."""
     from openseq2seq_tpu_torch.decoders.fc_decoders import Dense
     from openseq2seq_tpu_torch.encoders.tdnn_encoder import SameConv1d
     total = [0]
 
-    def conv_hook(mod, _, out):
-        total[0] += 2 * out.numel() * mod.weight.shape[1] * mod.weight.shape[2]
+    def passes(inp):
+        if not train:
+            return 1
+        return 2 + int(inp[0].requires_grad)
 
-    def dense_hook(mod, _, out):
-        total[0] += 2 * out.numel() * mod.weight.shape[1]
+    def conv_hook(mod, inp, out):
+        total[0] += passes(inp) * 2 * out.numel() * mod.weight.shape[1] * \
+            mod.weight.shape[2]
+
+    def dense_hook(mod, inp, out):
+        total[0] += passes(inp) * 2 * out.numel() * mod.weight.shape[1]
 
     handles = [m.register_forward_hook(conv_hook)
                for m in module.modules() if isinstance(m, SameConv1d)]
@@ -80,6 +99,29 @@ def count_flops(module, run) -> int:
     for h in handles:
         h.remove()
     return total[0]
+
+
+def make_step(model, train: bool):
+    """``(module, step)``: the model's seeded module and ``step(batch)``,
+    its eval step or, with ``train``, a train step with the dropout
+    generator seeded per step as the trainer seeds it. The train step
+    updates the module in place."""
+    import torch
+    from openseq2seq_tpu_torch.parts.dropout import step_seed
+    from openseq2seq_tpu_torch.training import trainer
+    holder = [trainer.restore_state(model)]
+    generator = torch.Generator(device=model.device)
+    seed = model.params.get("random_seed", 0)
+
+    def step(batch):
+        state = holder[0]
+        if not train:
+            return model.eval_step(state, batch)
+        generator.manual_seed(step_seed(seed, state.step))
+        holder[0], metrics = model.train_step(state, batch, generator)
+        return metrics
+
+    return holder[0].module, step
 
 
 def device_intervals(trace_path: str):
@@ -101,6 +143,8 @@ def busy_us(intervals) -> float:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--train", action="store_true",
+                    help="profile the train step (default: the eval step)")
     ap.add_argument("--config_file", default=CONFIG)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--repeats", type=int, default=3)
@@ -113,8 +157,6 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval: no CUDA device")
     sys.path.insert(0, REPO)
-    from openseq2seq_tpu_torch.training import trainer
-
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -122,18 +164,23 @@ def main(argv=None):
     print(card, flush=True)
 
     config = runpy.run_path(args.config_file)
-    model = config["base_model"](params=dict(config["base_params"]),
-                                 mode="eval", device="cuda")
-    state = trainer.restore_state(model)
+    mode = "train" if args.train else "eval"
+    params = dict(config["base_params"])
+    if args.train:
+        params.update(config.get("train_params", {}))
+    model = config["base_model"](params=params, mode=mode, device="cuda")
+    module, step = make_step(model, args.train)
+
     batches = list(model.get_data_layer().iterate_one_epoch())
     utts = sum(len(b["source_ids"]) for b in batches)
     # the warm-up step counts the FLOP
-    flop_per_batch = count_flops(
-        state.module, lambda: model.eval_step(state, batches[0]))
+    flop_per_batch = count_flops(module, lambda: step(batches[0]),
+                                 args.train)
+    step(batches[0])
     torch.cuda.synchronize()
-    print("[model] {}: {} batches of {} x {} frames, dtype {}; {:.4e} FLOP "
-          "per batch in convs and dense layers".format(
-              os.path.relpath(args.config_file, REPO), len(batches),
+    print("[model] {}: {} step, {} batches of {} x {} frames, dtype {}; "
+          "{:.4e} FLOP per step in convs and dense layers".format(
+              os.path.relpath(args.config_file, REPO), mode, len(batches),
               len(batches[0]["source_ids"]),
               batches[0]["source_tensors"][0].shape[1],
               model.params["dtype"], flop_per_batch), flush=True)
@@ -143,10 +190,10 @@ def main(argv=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for b in batches:
-            model.eval_step(state, b)
+            step(b)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / len(batches))
-    print("[wall] ms per batch, {} passes: {}; utt/s: {} ({})".format(
+    print("[wall] ms per step, {} passes: {}; utt/s: {} ({})".format(
         args.repeats, ", ".join("{:.3f}".format(w) for w in walls),
         ", ".join("{:.1f}".format(utts / len(batches) / w * 1e3)
                   for w in walls), card), flush=True)
@@ -156,7 +203,7 @@ def main(argv=None):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for b in steps:
-            model.eval_step(state, b)
+            step(b)
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         trace_path = args.trace or os.path.join(tmp, "trace.json")
@@ -169,7 +216,7 @@ def main(argv=None):
     span = max(e for _, e, _ in intervals) - min(s for s, _, _ in intervals)
     busy = busy_us(intervals)
     n = args.steps
-    print("[trace] {} steps: device busy {:.3f} ms per batch of a {:.3f} ms "
+    print("[trace] {} steps: device busy {:.3f} ms per step of a {:.3f} ms "
           "span, idle share {:.2%}".format(n, busy / n / 1e3, span / n / 1e3,
                                            1 - busy / span), flush=True)
     groups = collections.Counter()
@@ -177,15 +224,27 @@ def main(argv=None):
         groups[group_of(name)] += e - s
     total = sum(groups.values())
     for g, us in groups.most_common():
-        print("[trace] {:36s} {:8.3f} ms per batch, {:5.1%} of device "
+        print("[trace] {:36s} {:8.3f} ms per step, {:5.1%} of device "
               "time".format(g, us / n / 1e3, us / total), flush=True)
-    mm_us = sum(groups[g] for g, _ in GROUPS[1:3]) / n
+    kernels = collections.Counter()
+    for s_, e, name in intervals:
+        kernels[name] += e - s_
+    for name, us in kernels.most_common(8):
+        print("[kernel] {:8.3f} ms per step  {}".format(us / n / 1e3,
+                                                       name[:110]),
+              flush=True)
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for e in host[:8]:
+        print("[host] {:48s} {:8.3f} ms self CPU per step, {} calls".format(
+            e.key[:48], e.self_cpu_time_total / n / 1e3, e.count // n),
+            flush=True)
+    mm_us = sum(groups[g] for g in MATMUL_GROUPS) / n
     print("[flops] {:.1f} TFLOP/s over the conv and GEMM kernels "
-          "({:.3f} ms per batch); {:.1f} TFLOP/s over the busy time "
+          "({:.3f} ms per step); {:.1f} TFLOP/s over the busy time "
           "({})".format(flop_per_batch / mm_us / 1e6, mm_us / 1e3,
                         flop_per_batch / (busy / n) / 1e6, card), flush=True)
     print(json.dumps({
-        "card": card, "wall_ms_per_batch": walls,
+        "card": card, "mode": mode, "wall_ms_per_batch": walls,
         "utt_per_s": [utts / len(batches) / w * 1e3 for w in walls],
         "busy_ms_per_batch": busy / n / 1e3,
         "span_ms_per_batch": span / n / 1e3, "idle_share": 1 - busy / span,

@@ -103,11 +103,3 @@ def test_greedy_decode_matches_jax(V):
     np.testing.assert_array_equal(lens.numpy(), np.asarray(jlens))
     np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
 
-
-def test_ctc_cuda_refuses_grad():
-    logits, logit_lens, labels, label_lens = _case(37)
-    lp = ctc.log_probs(torch.from_numpy(logits).requires_grad_())
-    with pytest.raises(NotImplementedError):
-        ctc_cuda.ctc_nll_cuda(lp, torch.from_numpy(logit_lens),
-                              torch.from_numpy(labels),
-                              torch.from_numpy(label_lens), 28)

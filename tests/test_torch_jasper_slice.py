@@ -2,7 +2,8 @@
 Speech2Text on Jasper (cut to 2 blocks x 2 sub-layers, 1/8 width), the
 same converted weights and batch, through ``eval_step``: logits, loss,
 greedy ids and WER. Then the port's ``run.main`` in eval and infer modes
-on a tiny config. On the CPU the JAX side's ``use_pallas`` takes its XLA
+on a tiny config, and what train mode refuses
+(test_torch_jasper_train.py holds the training slice). On the CPU the JAX side's ``use_pallas`` takes its XLA
 scan and the port's its plain version; test_torch_ctc.py holds those
 against the Pallas kernel in interpret mode.
 
@@ -154,8 +155,14 @@ def test_run_main_eval_and_infer(tiny_logdir, tmp_path):
 
 
 def test_run_main_refuses_train(tiny_logdir):
+    """Training refuses a logdir that holds a checkpoint unless told to
+    continue from it, and a config that sets neither max_steps nor
+    num_epochs; neither leaves a logdir behind."""
     config, logdir = tiny_logdir
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(OSError, match="continue_learning"):
+        run.main(["--config_file=" + config, "--logdir=" + logdir,
+                  "--mode=train"])
+    with pytest.raises(ValueError, match="max_steps"):
         run.main(["--config_file=" + config, "--logdir=" + logdir + "_new",
                   "--mode=train"])
     assert not os.path.exists(logdir + "_new")

@@ -1,12 +1,14 @@
-"""The eval profiler's own arithmetic, on the CPU: its FLOP count
-against torch's FlopCounterMode on a small Jasper, its busy-time union
-and its kernel grouping. And the GPU scripts import nothing of JAX or of
-the JAX package themselves."""
+"""The profiler's own arithmetic, on the CPU: its FLOP count against
+torch's FlopCounterMode on a small Jasper, for the eval step and for the
+train step (``--train``: forward and backward of every conv and dense
+layer), its busy-time union and its kernel grouping. And the GPU
+scripts import nothing of JAX or of the JAX package themselves."""
 import ast
 import os
 import sys
 
 import pytest
+import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from openseq2seq_tpu.data.synthetic import SyntheticSpeechDataLayer
@@ -19,13 +21,17 @@ sys.path.insert(0, os.path.join(REPO, "scripts_torch"))
 import profile_eval  # noqa: E402
 
 
-def test_flop_count_matches_torch_flop_counter():
-    model = Speech2Text(jasper_model_params(
+def _small_model(mode):
+    return Speech2Text(jasper_model_params(
         SyntheticSpeechDataLayer,
         {"num_audio_features": 16, "tgt_vocab_size": 29, "time_steps": 41,
          "label_length": 6, "num_batches": 1},
         num_blocks=2, block_repeat=2, width_scale=0.125,
-        batch_size_per_gpu=2, dtype="float32"), mode="eval")
+        batch_size_per_gpu=2, dtype="float32", max_steps=3), mode=mode)
+
+
+def test_flop_count_matches_torch_flop_counter():
+    model = _small_model("eval")
     state = trainer.restore_state(model)
     batch = next(iter(model.get_data_layer().iterate_one_epoch()))
     got = profile_eval.count_flops(
@@ -33,6 +39,28 @@ def test_flop_count_matches_torch_flop_counter():
     with FlopCounterMode(display=False) as counter:
         model.eval_step(state, batch)
     assert got > 0 and got == counter.get_total_flops()
+
+
+def test_train_step_flop_count_matches_torch_flop_counter():
+    """Two train steps through the script's own step: the count of the
+    first is FlopCounterMode's over the second, less its one ``bmm`` (the
+    vocabulary scatter of the plain CTC backward, which on the card is
+    the ``ctc_beta_bwd`` kernel and no conv or dense layer)."""
+    model = _small_model("train")
+    module, step = profile_eval.make_step(model, train=True)
+    batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+    before = [p.detach().clone() for p in module.parameters()]
+    got = profile_eval.count_flops(module, lambda: step(batch), train=True)
+    with FlopCounterMode(display=False) as counter:
+        metrics = step(batch)
+    counts = {str(op): n for op, n in
+              counter.get_flop_counts()["Global"].items()}
+    assert set(counts) == {"aten.convolution", "aten.convolution_backward",
+                           "aten.addmm", "aten.mm", "aten.bmm"}, counts
+    assert got > 0 and got == counter.get_total_flops() - counts["aten.bmm"]
+    assert bool(torch.isfinite(metrics["loss"]))
+    assert any(not torch.equal(p, q) for p, q in
+               zip(before, module.parameters()))
 
 
 def test_busy_time_is_the_union_of_intervals():

@@ -2,7 +2,12 @@
 converted weights, at a Jasper shape cut to 2 blocks x 2 sub-layers and
 1/8 width, in eval mode with non-trivial batch-norm statistics and odd
 lengths (the stride-2 prologue's SAME pad is asymmetric for an even
-frame count and symmetric for an odd one).
+frame count and symmetric for an odd one). In train mode with dropout
+off: the outputs and the updated batch-norm statistics after one forward,
+at B=2 and T=20 where the unbiased variance's n / (n - 1) shows, and the
+stochastic block drop at probability 1. Then the port's dropout: its keep
+rate (within 4 sigma over 2e5 elements) and its exact rescale for
+``dropout_bits`` 8 and 32, drawn from the generator it is given alone.
 
 Tolerance: fp32, rtol 1e-5 and atol 1e-5; output lengths exact."""
 import jax
@@ -14,9 +19,11 @@ from openseq2seq_tpu.encoders import TDNNEncoder as JaxTDNNEncoder
 from openseq2seq_tpu.parts.initializers import \
     resolve_initializer as jax_resolve_initializer
 from openseq2seq_tpu.zoo import jasper_convnet_layers
-from openseq2seq_tpu_torch.convert import state_dict_from_flax
+from openseq2seq_tpu_torch.convert import (flax_from_state_dict,
+                                           state_dict_from_flax)
 from openseq2seq_tpu_torch.encoders import TDNNEncoder
 from openseq2seq_tpu_torch.encoders.tdnn_encoder import BatchNorm
+from openseq2seq_tpu_torch.parts.dropout import dropout, keep_spec, step_seed
 from openseq2seq_tpu_torch.parts.initializers import resolve_initializer
 
 RTOL = ATOL = 1e-5
@@ -108,3 +115,84 @@ def test_initializer_matches_jax_distribution(name, shape):
     w = w.numpy()
     np.testing.assert_allclose(w.std(), jw.std(), rtol=0.03)
     np.testing.assert_allclose(np.abs(w).max(), np.abs(jw).max(), rtol=0.03)
+
+
+def _train_params(**extra):
+    """Jasper layers with every dropout off."""
+    params = dict(_params(jax.nn.relu), dropout_keep_prob=1.0, **extra)
+    params["convnet_layers"] = [dict(layer, dropout_keep_prob=1.0)
+                                for layer in params["convnet_layers"]]
+    return params
+
+
+@pytest.mark.parametrize("drop_block_prob", [0.0, 1.0])
+def test_train_forward_and_bn_statistics_match_jax(drop_block_prob):
+    """One train-mode forward: outputs, and the running mean and variance
+    updated from the biased batch statistics as flax does (torch's own
+    update takes the unbiased variance, 5% off at n = 2 x 10 frames). At
+    ``drop_block_prob`` 1 every residual block passes its residual sum
+    alone, on both sides."""
+    rng = np.random.RandomState(20)
+    x = rng.randn(2, 20, FEATURES).astype(np.float32)
+    lengths = np.array([20, 15], np.int32)
+    jparams = _train_params(drop_block_prob=drop_block_prob)
+    jmod = JaxTDNNEncoder(jparams, model=None, mode="train").make_module()
+    jin = {"source_tensors": [x, lengths]}
+    variables = randomize(jmod.init(jax.random.PRNGKey(0), jin,
+                                    train=False), seed=20)
+    want, new_vars = jmod.apply(variables, jin, train=True,
+                                mutable=["batch_stats"],
+                                rngs={"dropout": jax.random.PRNGKey(1)})
+
+    tparams = dict(jparams, activation_fn="relu")
+    module = TDNNEncoder(tparams, model=None, mode="train") \
+        .make_module(FEATURES, torch.Generator().manual_seed(0))
+    module.load_state_dict(state_dict_from_flax(variables))
+    with torch.no_grad():
+        got = module({"source_tensors": [torch.from_numpy(x),
+                                         torch.from_numpy(lengths)]},
+                     train=True, generator=torch.Generator().manual_seed(1))
+    np.testing.assert_allclose(got["outputs"].numpy(),
+                               np.asarray(want["outputs"]),
+                               rtol=RTOL, atol=ATOL)
+    stats = flax_from_state_dict(module.state_dict())["batch_stats"]
+    want_stats = jax.tree_util.tree_map(np.asarray, new_vars["batch_stats"])
+    flat = jax.tree_util.tree_leaves_with_path(want_stats)
+    assert flat
+    for path, value in flat:
+        leaf = stats
+        for key in path:
+            leaf = leaf[key.key]
+        np.testing.assert_allclose(leaf, value, rtol=RTOL, atol=ATOL,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("bits,keep,p", [(32, 0.8, 0.8), (32, 0.7, 0.7),
+                                         (8, 0.8, 205 / 256),
+                                         (8, 0.7, 179 / 256)])
+def test_dropout_keep_rate_and_rescale(bits, keep, p):
+    """``dropout_bits`` 8 keeps with probability t/256, t = round(keep *
+    256), and rescales by the same t/256; 32 keeps with ``keep`` and
+    rescales by it."""
+    assert keep_spec(keep, bits) == (p, p)
+    n = 200_000
+    x = torch.ones(n)
+    global_rng = torch.get_rng_state()
+    y = dropout(x, keep, torch.Generator().manual_seed(3), bits)
+    assert torch.equal(torch.get_rng_state(), global_rng)
+    kept = y != 0
+    rate = float(kept.float().mean())
+    assert abs(rate - p) < 4 * np.sqrt(p * (1 - p) / n), (rate, p)
+    assert torch.all(y[kept] == torch.tensor(1.0) / p)
+    # the same seed draws the same mask; keep 1 is the identity
+    assert torch.equal(y, dropout(x, keep, torch.Generator().manual_seed(3),
+                                  bits))
+    assert dropout(x, 1.0, None, bits) is x
+
+
+def test_step_seeds_differ_and_repeat():
+    seeds = [step_seed(0, s) for s in range(1000)] + \
+        [step_seed(1, s) for s in range(1000)]
+    assert len(set(seeds)) == len(seeds)
+    assert all(0 <= s < 2 ** 63 for s in seeds)
+    assert step_seed(7, 12) == step_seed(7, 12)
