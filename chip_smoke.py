@@ -8,9 +8,10 @@ Phases, one informative line or a few each:
 
 1. environment: torch and CUDA versions, the card's name and power limit
    (``nvidia-smi``); TF32 off for the fp32 phases;
-2. build: both CTC kernels (``openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu``
-   and ``ctc_beta_bwd.cu``), one ``nvcc`` each for ``sm_90a``, started
-   together, and what ``ptxas`` reports for them;
+2. build: the CTC kernels (``openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu``
+   and ``ctc_beta_bwd.cu``) and the flash attention forward
+   (``flash_attn_fwd.cu``), one ``nvcc`` each for ``sm_90a``, started
+   together, and what ``ptxas`` reports for them (registers, spills);
 3. the forward kernel against its plain PyTorch version, both fp32 on the
    card, at the Jasper eval shape (B=32, T=500, L=160, V=29), at L=600
    (more extended states than a CTA has threads) and at T=37: max
@@ -21,7 +22,16 @@ Phases, one informative line or a few each:
    NLL max relative error 1e-5, d log-probs max abs error 1e-5, exact
    zeros on infeasible rows and past each length, the posteriors of a live
    frame summing to 1 within 1e-4, two calls bit-identical; median times
-   of kernel fwd+bwd against plain fwd+bwd;
+   of kernel fwd+bwd against plain fwd+bwd; ``F.ctc_loss`` timed at the
+   same shapes, forward and forward plus backward, as their library
+   yardstick;
+4b. the flash kernel against ``flash_attention_plain`` at the
+   transformer-big eval shapes (encoder B=64, H=16, T=64, D=64 with key
+   padding; decoder causal T=63; cross Tq=63, Tk=64), causal at T=113,
+   D=128, D=256 and Tk=1000: fp32 (TF32 off) max abs err 2e-5, bf16
+   against the plain version's fp32 math max abs err 1e-2; median times
+   of the kernel, the plain version and ``scaled_dot_product_attention``
+   (timed only, never on the path) at the eval shapes, in bf16;
 5. a small fp32 Jasper on the card and on the CPU: eval outputs agree, and
    one ``train_step`` gives the same loss and updated weights (rtol 1e-4);
 6. the eval/infer slice: Jasper-10x5 at full width from
@@ -37,6 +47,15 @@ Phases, one informative line or a few each:
    per step, a checkpoint is written, ``--mode=eval`` runs from it, and
    ``--continue_learning`` takes 3 more steps from it; the train
    throughput is printed as information;
+7b. the tiny fp32 transformer on the card (through the flash kernel) and
+   on the CPU: teacher-forced logits within 1e-4, identical beams;
+7c. transformer-big NMT from
+   ``example_configs_torch/text2text/transformer_big_synthetic.py`` (d
+   1024, 16 heads, 6 + 6 layers, V 32768, "mixed", beam 4, 2 batches of
+   64 x 64 tokens), a seeded-init checkpoint, then ``run.main`` in
+   ``--mode=eval`` and ``--mode=infer``: flash launches 18 per eval batch
+   and 6 per infer batch, a finite loss, a BLEU, 128 infer lines; the
+   beam-4 infer rate is printed as information;
 8. one JSON line for the kernels, then ``{"ok": true, "device": ...}``
    last.
 
@@ -65,7 +84,17 @@ from concurrent.futures import ThreadPoolExecutor
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "example_configs_torch", "speech2text",
                       "jasper10x5_synthetic.py")
+NMT_CONFIG = os.path.join(REPO, "example_configs_torch", "text2text",
+                          "transformer_big_synthetic.py")
+NMT_TINY = os.path.join(REPO, "example_configs_torch", "text2text",
+                        "transformer_tiny_synthetic.py")
 RTOL = 1e-5
+# fp32 operations per live CTC lattice state: the forward's log-sum-exp
+# of up to three predecessors plus the emission (2 max, 3 sub, 3 exp,
+# 2 add, 1 log, 1 add); the backward's beta recursion the same, plus the
+# posterior exp(alpha + beta - logZ), its normalization and its scatter
+CTC_OPS_FWD = 12
+CTC_OPS_BWD = 17
 
 
 def check(ok: bool, what: str) -> None:
@@ -224,6 +253,144 @@ def phase_backward(card):
     return worst_abs, timing
 
 
+# H100 SXM data sheet: HBM rate and dense bf16 tensor-core peak
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12
+
+# name, B, Tq, Tk, H, D, causal, key padding. The first three are the
+# transformer-big eval path's shapes (encoder self-attention; decoder
+# causal self-attention and cross-attention over the 63 teacher-forced
+# positions); the rest cover a ragged causal tile, D = 128 and 256 and a
+# long key axis.
+FLASH_CASES = (
+    ("encoder", 64, 64, 64, 16, 64, False, True),
+    ("decoder causal", 64, 63, 63, 16, 64, True, False),
+    ("cross", 64, 63, 64, 16, 64, False, True),
+    ("causal T=113", 8, 113, 113, 16, 64, True, False),
+    ("D=128", 8, 100, 130, 8, 128, False, True),
+    ("D=256", 4, 70, 200, 4, 256, False, True),
+    ("Tk=1000", 4, 64, 1000, 8, 64, False, True),
+)
+FLASH_FP32_ATOL = 2e-5
+FLASH_BF16_ATOL = 1e-2
+
+
+def flash_case(B, Tq, Tk, H, D, padded, seed, device):
+    """Unit-scale fp32 q, k ~ N(0, 1) and v ~ U(-1, 1) in (B, T, H, D),
+    and a (B, Tk) key-valid mask (None without padding) with row 0
+    unpadded and row 1 keeping one key."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k = (torch.randn((B, T, H, D), generator=g, device=device)
+            for T in (Tq, Tk))
+    v = 2 * torch.rand((B, Tk, H, D), generator=g, device=device) - 1
+    if not padded:
+        return q, k, v, None
+    lengths = torch.randint(max(Tk // 2, 1), Tk + 1, (B,), generator=g,
+                            device=device)
+    lengths[0] = Tk
+    if B > 1:
+        lengths[1] = 1
+    valid = torch.arange(Tk, device=device)[None, :] < lengths[:, None]
+    return q, k, v, valid.contiguous()
+
+
+def attention_bound_ms(q, k, kv_valid, causal):
+    """The least time of one attention call on the H100 in its dtype:
+    the larger of q, k, v, o (and the mask) read or written once over
+    the HBM rate, and 4 D FLOP per (query, valid key) pair over the peak
+    of the dtype. Returns (ms, "bytes" | "operations")."""
+    import torch
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    if kv_valid is not None:
+        nbytes += kv_valid.numel()
+        keys = int(kv_valid.sum()) * Tq
+    else:
+        keys = B * Tq * Tk
+    if causal:
+        keys = B * sum(min(i + 1, Tk) for i in range(Tq))
+    flop = 4.0 * H * D * keys
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else \
+        FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / peak
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_flash(card):
+    """``flash_attn_fwd`` against ``flash_attention_plain`` on the card:
+    fp32 (TF32 off) within FLASH_FP32_ATOL, and bf16 against the plain
+    version's fp32 math on the same bf16 inputs within FLASH_BF16_ATOL
+    (the kernel's fp32 result is rounded to bf16 once: at most 2^-9 on
+    outputs, which are averages of v in [-1, 1]). Times at the eval path's shapes, in bf16,
+    against the plain version and SDPA. Returns the worst fp32 error and
+    the timings, by case name."""
+    import torch
+    import torch.nn.functional as F
+    from openseq2seq_tpu_torch.ops import flash_attention as fa
+    dev = torch.device("cuda")
+    worst = 0.0
+    times = {}
+    for i, (name, B, Tq, Tk, H, D, causal, padded) in enumerate(
+            FLASH_CASES):
+        q, k, v, valid = flash_case(B, Tq, Tk, H, D, padded, i, dev)
+        got = fa.flash_attention(q, k, v, valid, causal)
+        want = fa.flash_attention_plain(q, k, v, valid, causal)
+        qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+        got_b = fa.flash_attention(qb, kb, vb, valid, causal)
+        want_b = fa.flash_attention_plain(qb.float(), kb.float(),
+                                          vb.float(), valid, causal)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        err_b = float((got_b.float() - want_b).abs().max())
+        worst = max(worst, err)
+        print("[flash] {}: B={} Tq={} Tk={} H={} D={} causal={} padded={}: "
+              "fp32 max abs err {:.3e}, bf16 {:.3e}".format(
+                  name, B, Tq, Tk, H, D, causal, padded, err, err_b),
+              flush=True)
+        check(err <= FLASH_FP32_ATOL and bool(torch.isfinite(got).all()),
+              "{}: fp32 err {}".format(name, err))
+        check(err_b <= FLASH_BF16_ATOL and got_b.dtype == torch.bfloat16,
+              "{}: bf16 err {}".format(name, err_b))
+        if i >= 3:
+            continue
+        mask = None if valid is None else valid[:, None, None, :]
+        qt, kt, vt = (x.transpose(1, 2) for x in (qb, kb, vb))
+        t = {"ms": cuda_ms(lambda: fa.flash_attention(qb, kb, vb, valid,
+                                                      causal), 50),
+             "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(
+                 qb, kb, vb, valid, causal), 20),
+             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, attn_mask=mask, is_causal=causal), 50)}
+        t["bound_ms"], t["bound_by"] = attention_bound_ms(qb, kb, valid,
+                                                          causal)
+        times[name] = t
+        print("[flash] {} bf16: kernel {:.4f} ms, plain {:.4f} ms, SDPA "
+              "{:.4f} ms, bound {:.4f} ms ({}) (median, CUDA events; {})"
+              .format(name, t["ms"], t["plain_ms"], t["library_ms"],
+                      t["bound_ms"], t["bound_by"], card), flush=True)
+    # what the kernel does not take, it refuses
+    q, k, v, valid = flash_case(2, 8, 8, 2, 64, True, 0, dev)
+    for bad in ((q.half(), k.half(), v.half(), valid),
+                (q[..., :32].contiguous(), k[..., :32].contiguous(),
+                 v[..., :32].contiguous(), valid),
+                (q.transpose(1, 2), k, v, valid),
+                (q, k, v, valid.int()),
+                (q, k.bfloat16(), v, valid)):
+        try:
+            fa.flash_attention(*bad)
+        except ValueError:
+            continue
+        raise RuntimeError("chip_smoke check failed: a bad flash input "
+                           "launched")
+    print("[flash] wrong dtype, head dim, layout and mask are refused",
+          flush=True)
+    return worst, times
+
+
 def _small_params(data_layer, no_dropout=False, **overrides):
     from openseq2seq_tpu_torch.zoo import jasper_model_params
     params = jasper_model_params(
@@ -363,6 +530,158 @@ def phase_slice(config, card):
     return launches
 
 
+def phase_small_transformer():
+    """The tiny fp32 transformer config, same seed, on the card (through
+    the flash kernel) and on the CPU: teacher-forced logits agree and
+    the beams are identical."""
+    import numpy as np
+    from openseq2seq_tpu_torch.ops import flash_attention as fa
+    from openseq2seq_tpu_torch.training import trainer
+    config = runpy.run_path(NMT_TINY)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = config["base_model"](config["base_params"], mode="eval",
+                                     device=device)
+        state = trainer.restore_state(model)
+        batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+        launches = fa.LAUNCHES
+        out[device] = trainer.to_host(model.eval_step(state, batch))
+        out[device]["launches"] = fa.LAUNCHES - launches
+    gpu, cpu = (out[d]["outputs"]["decoder_output"] for d in ("cuda", "cpu"))
+    logit_err = float(np.abs(gpu["logits"] - cpu["logits"]).max())
+    same = all(np.array_equal(gpu[k], cpu[k]) for k in ("beams",)) and \
+        all(np.array_equal(a, b) for a, b in zip(gpu["outputs"],
+                                                 cpu["outputs"]))
+    print("[nmt] tiny fp32 transformer, card vs CPU: logits max abs err "
+          "{:.3e} (|logits| max {:.2f}), loss {:.6f} vs {:.6f}, beams "
+          "identical: {}; flash launches on the card {}, on the CPU {}"
+          .format(logit_err, float(np.abs(cpu["logits"]).max()),
+                  float(out["cuda"]["loss"]), float(out["cpu"]["loss"]), same,
+                  out["cuda"]["launches"], out["cpu"]["launches"]),
+          flush=True)
+    check(out["cuda"]["launches"] == 6 and out["cpu"]["launches"] == 0,
+          "flash launches in the tiny eval step")
+    check(logit_err <= 1e-4 and same, "tiny transformer disagrees between "
+          "card and CPU")
+
+
+def phase_transformer(card):
+    """Transformer-big from a seeded-init checkpoint through ``run.main``
+    in eval and infer; returns the flash launches of both runs."""
+    import torch
+    from openseq2seq_tpu_torch.ops import flash_attention as fa
+    from openseq2seq_tpu_torch.training import CheckpointManager, trainer
+    config = runpy.run_path(NMT_CONFIG)
+    with tempfile.TemporaryDirectory() as logdir:
+        params = dict(config["base_params"], logdir=logdir)
+        n_batches = params["data_layer_params"]["num_batches"]
+        batch_size = params["batch_size_per_gpu"]
+        t0 = time.time()
+        model = config["base_model"](params, mode="infer", device="cuda")
+        state = trainer.restore_state(model)
+        CheckpointManager(logdir).save(state, 0)
+        n_params = sum(p.numel() for p in state.module.parameters())
+        print("[nmt] transformer-big built: {} parameters, dtype {}, seeded "
+              "checkpoint saved in {:.1f} s".format(
+                  n_params, params["dtype"], time.time() - t0), flush=True)
+
+        argv = ["--config_file=" + NMT_CONFIG, "--logdir=" + logdir]
+        fa.LAUNCHES = 0
+        t0 = time.time()
+        metrics, _ = _run_quiet(argv + ["--mode=eval"])
+        eval_launches = fa.LAUNCHES
+        print("[nmt] eval: loss {:.6f}, BLEU {:.4f}; flash launches {} for "
+              "{} batches; {:.1f} s with the build".format(
+                  metrics["eval_loss"], metrics["Eval BLEU"], eval_launches,
+                  n_batches, time.time() - t0), flush=True)
+        check(eval_launches == 18 * n_batches, "flash launched {} times in "
+              "{} eval batches".format(eval_launches, n_batches))
+        check(math.isfinite(metrics["eval_loss"]) and
+              metrics["eval_loss"] > 0, "eval loss not finite")
+        check(math.isfinite(metrics["Eval BLEU"]) and
+              metrics["Eval BLEU"] >= 0, "BLEU not computed")
+
+        out = os.path.join(logdir, "infer.txt")
+        fa.LAUNCHES = 0
+        _run_quiet(argv + ["--mode=infer", "--infer_output_file=" + out])
+        infer_launches = fa.LAUNCHES
+        with open(out) as f:
+            lines = f.read().splitlines()
+        print("[nmt] infer: {} lines; flash launches {} for {} batches"
+              .format(len(lines), infer_launches, n_batches), flush=True)
+        check(infer_launches == 6 * n_batches, "flash launched {} times in "
+              "{} infer batches".format(infer_launches, n_batches))
+        check(len(lines) == n_batches * batch_size and
+              all(line.strip() for line in lines),
+              "infer file has {} lines".format(len(lines)))
+
+        # beam-4 infer rate over the epoch (information, not a claim)
+        batches = list(model.get_data_layer().iterate_one_epoch())
+        out = model.eval_step(state, batches[0])["outputs"]
+        ids = out["decoder_output"]["outputs"][0]
+        check(tuple(ids.shape) == (batch_size, 64 + 50),
+              "decoded ids shape {}".format(tuple(ids.shape)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            model.eval_step(state, b)
+        torch.cuda.synchronize()
+        rate = n_batches * batch_size / (time.perf_counter() - t0)
+        print("[nmt] beam-4 infer {:.2f} sentences/s (batch {}, 64 source "
+              "tokens, up to 114 steps, bf16; {})".format(rate, batch_size,
+                                                         card), flush=True)
+    return eval_launches + infer_launches
+
+
+def phase_ctc_library(card):
+    """``F.ctc_loss`` at the CTC train shape, forward and forward plus
+    backward: the CTC kernels' library yardstick, never on the path."""
+    import torch
+    import torch.nn.functional as F
+    from openseq2seq_tpu_torch.ops import ctc
+    dev = torch.device("cuda")
+    # the inputs of the kernels' timings: phase_kernel's eval case and
+    # phase_backward's train case
+    cases = []
+    for seed in (500, 501):
+        logits, lens, labels, label_lens = ctc_case(32, 500, 160, 29, seed,
+                                                    dev)
+        lp = ctc.log_probs(logits).transpose(0, 1).detach()  # (T, B, V)
+        cases.append((lp, labels, lens, label_lens))
+    lp_grad = cases[1][0].clone().requires_grad_()
+
+    def fwd():
+        return F.ctc_loss(*cases[0], blank=28, reduction="none",
+                          zero_infinity=True)
+
+    def fwd_bwd():
+        F.ctc_loss(lp_grad, *cases[1][1:], blank=28, reduction="sum",
+                   zero_infinity=True).backward()
+
+    times = (cuda_ms(fwd, 50), cuda_ms(fwd_bwd, 50))
+    print("[ctc] F.ctc_loss at B=32 T=500 L=160 V=29: forward {:.4f} ms, "
+          "forward+backward {:.4f} ms (median, CUDA events; {})".format(
+              *times, card), flush=True)
+    return times
+
+
+def ctc_bound_ms(B, T, L, V, seed, backward):
+    """The least time of the CTC kernels at the ``ctc_case`` shape: the
+    fp32 log-probs read once (and their gradient written once with
+    ``backward``) over the HBM rate, against CTC_OPS fp32 operations per
+    live lattice state (t < length, s < 2 label length + 1) over the
+    fp32 peak. Returns (ms, "bytes" | "operations")."""
+    import torch
+    _, lens, _, label_lens = ctc_case(B, T, L, V, seed=seed,
+                                      device=torch.device("cpu"))
+    states = int((lens.long() * (2 * label_lens.long() + 1)).sum())
+    ops = states * (CTC_OPS_FWD + (CTC_OPS_BWD if backward else 0))
+    nbytes = B * T * V * 4 * (2 if backward else 1) + B * (L + 2) * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _run_quiet(argv):
     """``run.main(argv)`` with its printed lines kept; returns (result,
     lines)."""
@@ -467,7 +786,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # 2. build, one nvcc per source, all started together
-    names = ("ctc_alpha_fwd", "ctc_beta_bwd")
+    names = ("ctc_alpha_fwd", "ctc_beta_bwd", "flash_attn_fwd")
     t0 = time.time()
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(build.build, names))
@@ -481,28 +800,44 @@ def main():
                     "spill" in line:
                 print("[build] " + line.strip(), flush=True)
 
-    # 3-4. kernels against their plain versions
+    # 3-4. kernels against their plain versions, and the library calls
     fwd_err, (fwd_ms, fwd_plain_ms) = phase_kernel(card)
     bwd_err, (bwd_ms, bwd_plain_ms, _, _) = phase_backward(card)
+    ctc_lib_fwd_ms, ctc_lib_fwd_bwd_ms = phase_ctc_library(card)
+    flash_err, flash_times = phase_flash(card)
 
-    # 5-7. the paths
+    # 5-7. the paths, each with its launch counts set to 0 just before
     config = runpy.run_path(CONFIG)
     phase_small_reference(config)
     eval_launches = phase_slice(config, card)
     train_fwd, train_bwd = phase_train(card)
+    phase_small_transformer()
+    flash_launches = phase_transformer(card)
 
     # 8. result
+    fwd_bound = ctc_bound_ms(32, 500, 160, 29, 500, backward=False)
+    bwd_bound = ctc_bound_ms(32, 500, 160, 29, 501, backward=True)
+    flash = flash_times["encoder"]
     print(json.dumps({"kernels": [{
         "name": "ctc_alpha_fwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu",
         "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:65",
         "launches": eval_launches + train_fwd, "max_abs_err": fwd_err,
-        "ms": fwd_ms, "plain_ms": fwd_plain_ms}, {
+        "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound[0],
+        "bound_by": fwd_bound[1], "library_ms": ctc_lib_fwd_ms}, {
         "name": "ctc_beta_bwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/ctc_beta_bwd.cu",
         "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:140",
         "launches": train_bwd, "max_abs_err": bwd_err,
-        "ms": bwd_ms, "plain_ms": bwd_plain_ms}]}), flush=True)
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0],
+        "bound_by": bwd_bound[1], "library_ms": ctc_lib_fwd_bwd_ms}, {
+        "name": "flash_attn_fwd", "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/flash_attn_fwd.cu",
+        "replaces": "openseq2seq_tpu/parts/transformer/attention.py:120",
+        "launches": flash_launches, "max_abs_err": flash_err,
+        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

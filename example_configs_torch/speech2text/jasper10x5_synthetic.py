@@ -10,7 +10,7 @@
 # compute from fp32 params ("mixed"); 4 batches of 32 per epoch (the
 # synthetic layer repeats one batch). Training is the zoo's recipe,
 # NovoGrad + LARC + poly_decay, for 20 steps, with a checkpoint at the end.
-from openseq2seq_tpu.data.synthetic import SyntheticSpeechDataLayer
+from openseq2seq_tpu_torch.data.synthetic import SyntheticSpeechDataLayer
 from openseq2seq_tpu_torch.models import Speech2Text
 from openseq2seq_tpu_torch.zoo import jasper_model_params
 

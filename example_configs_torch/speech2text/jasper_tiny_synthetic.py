@@ -7,7 +7,7 @@
 #
 # The synthetic layer repeats one batch, so the loss falls within the 30
 # steps; the WER stays near 1 at this size.
-from openseq2seq_tpu.data.synthetic import SyntheticSpeechDataLayer
+from openseq2seq_tpu_torch.data.synthetic import SyntheticSpeechDataLayer
 from openseq2seq_tpu_torch.models import Speech2Text
 from openseq2seq_tpu_torch.zoo import jasper_model_params
 

@@ -13,9 +13,14 @@ such as the TDNN encoder), and returns the ``state_dict`` for
   * batch_stats mean / var     -> running_mean / running_var, plus a zero
                                   ``num_batches_tracked``
 
+  * embedding table            -> ``embedding`` (V, d), as it is
+  * layer norm scale / bias    -> weight / bias
+
 The flax ``_Norm`` wrapper's inner ``BatchNorm_0`` folds into the torch
 norm module, so ``enc/net/norm1_1/BatchNorm_0/scale`` becomes
-``enc.net.norm1_1.weight``.
+``enc.net.norm1_1.weight``; so does the transformer's ``TransformerNorm``
+with its inner ``LayerNorm_0`` (``enc/sa_norms_0/LayerNorm_0/scale`` ->
+``enc.sa_norms_0.weight``).
 
 :func:`flax_from_state_dict` is the inverse (a module with running
 statistics is a batch norm, whose flax leaves sit under ``BatchNorm_0``),
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 _BN_INNER = "BatchNorm_0"
+_LN_INNER = "LayerNorm_0"
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -47,7 +53,7 @@ def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
 
 
 def _module_key(path: Tuple[str, ...]) -> str:
-    return ".".join(p for p in path if p != _BN_INNER)
+    return ".".join(p for p in path if p not in (_BN_INNER, _LN_INNER))
 
 
 def _param_to_torch(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
@@ -60,8 +66,8 @@ def _param_to_torch(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
         name, value = "weight", value.T
     elif leaf in ("kernel", "scale"):
         name = "weight"
-    elif leaf == "bias":
-        name = "bias"
+    elif leaf in ("bias", "embedding"):
+        name = leaf
     else:
         raise ValueError("no torch name for flax param {}".format(
             "/".join(path)))
@@ -91,16 +97,21 @@ def _norm_modules(names: Sequence[str]) -> set:
             if n.endswith(".running_mean")}
 
 
-def flax_path(name: str, norms: set) -> Tuple[str, ...]:
+def flax_path(name: str, norms: set, layer_norms: set = frozenset()
+              ) -> Tuple[str, ...]:
     """The flax path of the port's parameter or statistic ``name``;
-    ``norms`` holds the names of the batch-norm modules."""
+    ``norms`` holds the names of the batch-norm modules, ``layer_norms``
+    those of the transformer's layer norms."""
     module, leaf = name.rsplit(".", 1)
     parts = tuple(module.split("."))
     if module in norms:
         return parts + (_BN_INNER, {"weight": "scale", "bias": "bias",
                                     "running_mean": "mean",
                                     "running_var": "var"}[leaf])
-    return parts + ({"weight": "kernel", "bias": "bias"}[leaf],)
+    if module in layer_norms:
+        return parts + (_LN_INNER, {"weight": "scale", "bias": "bias"}[leaf])
+    return parts + ({"weight": "kernel", "bias": "bias",
+                     "embedding": "embedding"}[leaf],)
 
 
 def flax_from_state_dict(state_dict: Dict[str, torch.Tensor]

@@ -11,7 +11,7 @@ from typing import Any, Dict
 
 import torch
 
-from openseq2seq_tpu.utils.params import check_params
+from ..utils.params import check_params
 
 
 class Decoder(abc.ABC):

@@ -14,7 +14,7 @@ from typing import Any, Dict
 
 import torch
 
-from openseq2seq_tpu.utils.params import check_params
+from ..utils.params import check_params
 
 
 class Encoder(abc.ABC):

@@ -1,2 +1,3 @@
 from .loss import Loss
 from .ctc_loss import CTCLoss
+from .sequence_loss import PaddedCrossEntropyLossWithSmoothing

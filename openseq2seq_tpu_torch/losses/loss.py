@@ -8,7 +8,7 @@ from __future__ import annotations
 import abc
 from typing import Any, Dict
 
-from openseq2seq_tpu.utils.params import check_params
+from ..utils.params import check_params
 
 
 class Loss(abc.ABC):

@@ -49,7 +49,7 @@ class EncoderDecoderModel(Model):
             "loss_params": dict,
         })
 
-    def __init__(self, params, mode="train", device="cpu",
+    def __init__(self, params, mode="train", device="cuda",
                  num_workers=1, worker_id=0):
         super().__init__(params, mode, device, num_workers, worker_id)
         self._encoder = self._create_encoder()

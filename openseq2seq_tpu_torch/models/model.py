@@ -32,8 +32,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from openseq2seq_tpu.utils.logging import deco_print
-from openseq2seq_tpu.utils.params import check_params
+from ..utils.logging import deco_print
+from ..utils.params import check_params
 
 from ..convert import _norm_modules, flax_path
 from ..optimizers import (AutomaticLossScaler, build_optimizer, check_grads,
@@ -109,7 +109,7 @@ class Model(abc.ABC):
         }
 
     def __init__(self, params: Dict[str, Any], mode: str = "train",
-                 device="cpu", num_workers: int = 1, worker_id: int = 0):
+                 device="cuda", num_workers: int = 1, worker_id: int = 0):
         check_params(params, self.get_required_params(),
                      self.get_optional_params())
         self._params = dict(params)
@@ -456,7 +456,10 @@ def _named_params(module: torch.nn.Module
     """The module's parameters in their fixed order, each with its flax
     path (``enc/net/conv1_1/kernel``)."""
     norms = _norm_modules([n for n, _ in module.named_buffers()])
-    return [(flax_path(n, norms), p) for n, p in module.named_parameters()]
+    layer_norms = {n for n, m in module.named_modules()
+                   if getattr(m, "flax_inner", None) == "LayerNorm_0"}
+    return [(flax_path(n, norms, layer_norms), p)
+            for n, p in module.named_parameters()]
 
 
 def to_device_batch(batch: Any, device: torch.device) -> Any:

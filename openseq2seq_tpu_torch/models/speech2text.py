@@ -14,8 +14,8 @@ from typing import Any, Dict, List
 
 import numpy as np
 
-from openseq2seq_tpu.utils.logging import deco_print
-from openseq2seq_tpu.utils.metrics import levenshtein
+from ..utils.logging import deco_print
+from ..utils.metrics import levenshtein
 
 from .encoder_decoder import EncoderDecoderModel
 

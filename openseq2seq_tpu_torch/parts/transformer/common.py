@@ -1,0 +1,157 @@
+"""Transformer building blocks (port of
+``openseq2seq_tpu/parts/transformer/common.py``).
+
+  * :func:`get_position_encoding`: sinusoids as ``[sin | cos]`` halves
+    (not interleaved), fp32, built with numpy as the JAX package does;
+  * :func:`get_padding_bias` (pad id 0) and
+    :func:`get_decoder_self_attention_bias`: additive fp32 biases of
+    ``NEG_INF`` = -1e9;
+  * :class:`SharedEmbedding`: the one (V, d) table, V padded to a
+    multiple of eight under ``pad_vocab_to_eight``, that embeds source
+    and target ids (scaled by sqrt(d), pad id 0 zeroed) and, through
+    :func:`project_logits`, projects decoder states to fp32 logits;
+  * :class:`TransformerNorm`: the layer-norm variant (eps 1e-6, statistics
+    and normalization in fp32, output in the compute dtype). The
+    ``batch_norm`` variant is not ported yet and raises.
+
+Dense layers are :class:`Dense`, flax's ``DenseGeneral`` over the last
+axis: fp32 parameters, computed in the layer's dtype, lecun-normal
+kernels and zero biases, parameters named ``weight`` (out, in) and
+``bias``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..initializers import resolve_initializer
+
+NEG_INF = -1e9
+
+
+def get_position_encoding(length: int, hidden_size: int,
+                          min_timescale: float = 1.0,
+                          max_timescale: float = 1.0e4) -> np.ndarray:
+    """Sinusoidal position signal, shape (length, hidden_size), fp32."""
+    position = np.arange(length, dtype=np.float32)
+    num_timescales = hidden_size // 2
+    log_increment = (np.log(max_timescale / min_timescale) /
+                     max(num_timescales - 1, 1))
+    inv_timescales = min_timescale * np.exp(
+        np.arange(num_timescales, dtype=np.float32) * -log_increment)
+    scaled = position[:, None] * inv_timescales[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)],
+                          axis=1).astype(np.float32)
+
+
+def position_encoding(length: int, hidden_size: int, dtype: torch.dtype,
+                      device) -> torch.Tensor:
+    """:func:`get_position_encoding` as a (length, hidden_size) tensor."""
+    return torch.from_numpy(get_position_encoding(length, hidden_size)).to(
+        device=device, dtype=dtype)
+
+
+def get_padding_bias(ids: torch.Tensor, pad_id: int = 0) -> torch.Tensor:
+    """(B, 1, 1, T) additive bias: NEG_INF at padding positions."""
+    return ((ids == pad_id).float() * NEG_INF)[:, None, None, :]
+
+
+def get_decoder_self_attention_bias(length: int, device=None
+                                    ) -> torch.Tensor:
+    """(1, 1, T, T) causal bias."""
+    mask = torch.ones((length, length), device=device).triu(1)
+    return (mask * NEG_INF)[None, None]
+
+
+class Dense(nn.Module):
+    """y = x W^T + b over the last axis, in ``dtype``; W stored (out, in).
+
+    Without autograd the parameters' cast to ``dtype`` is kept until they
+    change, so that a decode loop casts them once, not once per step (XLA
+    hoists the same cast out of the JAX package's decode loop)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype, generator: torch.Generator):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        resolve_initializer(None)(self.weight, generator)
+        self.dtype = dtype
+        self._cast = (None, None, None)
+
+    def _params(self):
+        w, b = self.weight, self.bias
+        if w.dtype == self.dtype:
+            return w, b
+        if torch.is_grad_enabled():
+            return w.to(self.dtype), b.to(self.dtype)
+        key = (w.data_ptr(), w._version, b.data_ptr(), b._version)
+        if self._cast[0] != key:
+            self._cast = (key, w.to(self.dtype), b.to(self.dtype))
+        return self._cast[1:]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), *self._params())
+
+
+def embed_ids(table: torch.Tensor, ids: torch.Tensor, hidden_size: int,
+              dtype: torch.dtype) -> torch.Tensor:
+    """ids (B, T) -> (B, T, d) in ``dtype``: rows of the table scaled by
+    sqrt(d), zero at pad id 0."""
+    emb = F.embedding(ids.long(), table.to(dtype)) * (hidden_size ** 0.5)
+    return emb * (ids != 0).to(dtype)[..., None]
+
+
+def project_logits(table: torch.Tensor, x: torch.Tensor,
+                   vocab_size: int) -> torch.Tensor:
+    """x (..., d) @ table[:V]^T -> fp32 logits (..., V). As in the JAX
+    package the operands are x's dtype (the table rounded to it) and the
+    product is fp32: both are upcast, which is exact, and multiplied in
+    fp32. Rounding the logits to bf16 would change which beams win."""
+    w = table[:vocab_size].to(x.dtype).float()
+    return F.linear(x.float(), w)
+
+
+class SharedEmbedding(nn.Module):
+    """Tied input-embedding / output-projection table, ``embedding`` of
+    shape (V padded, d), drawn from N(0, d^-1)."""
+
+    def __init__(self, vocab_size: int, hidden_size: int,
+                 pad_vocab_to_eight: bool, dtype: torch.dtype,
+                 generator: torch.Generator):
+        super().__init__()
+        v = (vocab_size + 7) // 8 * 8 if pad_vocab_to_eight else vocab_size
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.dtype = dtype
+        self.embedding = nn.Parameter(torch.empty(v, hidden_size))
+        with torch.no_grad():
+            self.embedding.normal_(0.0, hidden_size ** -0.5,
+                                   generator=generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return embed_ids(self.embedding, ids, self.hidden_size, self.dtype)
+
+
+class TransformerNorm(nn.Module):
+    """Pre-process normalization of ``norm_params``: the default layer
+    norm. Its flax twin wraps an inner ``LayerNorm_0``, which
+    ``convert.py`` folds into this module (``flax_inner``)."""
+    flax_inner = "LayerNorm_0"
+
+    def __init__(self, hidden_size: int, norm_params=None):
+        super().__init__()
+        kind = (norm_params or {}).get("type", "layernorm_L2")
+        if kind == "batch_norm":
+            raise NotImplementedError("norm_params type batch_norm (the "
+                                      "Transformer_BatchNorm variant) is "
+                                      "not ported yet")
+        self.weight = nn.Parameter(torch.ones(hidden_size))
+        self.bias = nn.Parameter(torch.zeros(hidden_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.weight.shape,
+                            self.weight.float(), self.bias.float(),
+                            1e-6).to(x.dtype)

@@ -9,9 +9,10 @@ training from the latest checkpoint of ``logdir``; without it, training
 refuses a logdir that holds one. ``--benchmark`` rewrites the config for
 a throughput run (``--bench_steps``, ``--bench_start``). Config files and
 CLI overrides (``--a/b/c value``) follow the repository's contract,
-through the reused ``openseq2seq_tpu.utils.config``; a config binds the
-port's classes (see ``example_configs_torch/``). The model runs on the
-first CUDA device when there is one, else on the CPU.
+through the port's ``utils/config.py``; a config binds the port's
+classes (see ``example_configs_torch/``). The model runs on the first
+CUDA device; ``--device=cpu`` asks for the CPU instead. Without a CUDA
+device and without ``--device=cpu`` it raises: it never falls back.
 """
 from __future__ import annotations
 
@@ -19,9 +20,9 @@ import sys
 
 import torch
 
-from openseq2seq_tpu.utils.config import (apply_benchmark_mode, check_logdir,
-                                          configs_for_modes, get_base_config)
-from openseq2seq_tpu.utils.logging import deco_print, enable_logs
+from .utils.config import (apply_benchmark_mode, check_logdir,
+                           configs_for_modes, get_base_config)
+from .utils.logging import deco_print, enable_logs
 
 from .training import trainer
 
@@ -31,6 +32,9 @@ def main(argv=None):
     infer results."""
     argv = argv if argv is not None else sys.argv[1:]
     args, base_config, base_model, config_module = get_base_config(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card; pass "
+                           "--device=cpu to run on the CPU")
     if args.mode == "interactive_infer":
         raise NotImplementedError("--mode=interactive_infer is not ported "
                                   "yet")
@@ -43,7 +47,7 @@ def main(argv=None):
 
     restore_checkpoint = check_logdir(args, base_config)
     configs = configs_for_modes(args, base_config, config_module)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(args.device)
     deco_print("Device: {}".format(device))
     models = {mode: base_model(params=cfg, mode=mode, device=device)
               for mode, cfg in configs.items()}

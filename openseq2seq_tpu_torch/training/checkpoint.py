@@ -6,7 +6,7 @@ Layout: ``<logdir>/checkpoints/<step>/model.pt``, a ``torch.save`` of
 ``state_dict`` (parameters and batch-norm statistics), the optimizer
 state and the loss-scale state (None where the run has none). The
 step-numbered directory is what
-``openseq2seq_tpu.utils.config.check_logdir`` looks for. Periodic saves
+``utils/config.py:check_logdir`` looks for. Periodic saves
 keep the newest ``num_checkpoints``; ``save_best`` keeps one checkpoint
 of the lowest eval loss under ``<logdir>/best_models/<step>/`` with the
 loss in ``best_models/best_loss.txt``, kept across restarts. A
@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from openseq2seq_tpu.utils.logging import deco_print
+from ..utils.logging import deco_print
 
 from ..models.model import TrainState
 

@@ -19,8 +19,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from openseq2seq_tpu.utils.config import _latest_checkpoint
-from openseq2seq_tpu.utils.logging import deco_print
+from ..utils.config import _latest_checkpoint
+from ..utils.logging import deco_print
 
 from ..parts.dropout import step_seed
 from .checkpoint import CheckpointManager
@@ -75,7 +75,7 @@ def train(train_model, eval_model=None, checkpoint: Optional[str] = None
     summary_steps = params.get("save_summaries_steps")
     writer = None
     if logdir and summary_steps:
-        from openseq2seq_tpu.utils.tb_writer import SummaryWriter
+        from ..utils.tb_writer import SummaryWriter
         writer = SummaryWriter(logdir)
 
     state = restore_state(train_model, checkpoint)

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's eval step, or its train step, on one
-NVIDIA GPU.
+"""Profile the PyTorch port's eval step, its infer step or its train
+step, on one NVIDIA GPU.
 
-    python3 scripts_torch/profile_eval.py [--train] [--config_file=PATH]
-        [--steps=4] [--repeats=3] [--trace=PATH]
+    python3 scripts_torch/profile_eval.py [--train | --infer]
+        [--config_file=PATH] [--steps=4] [--repeats=3] [--trace=PATH]
 
 Builds the model of a port config (default: Jasper-10x5 at full width on
 synthetic speech, ``example_configs_torch/speech2text/
-jasper10x5_synthetic.py``) on the card with seeded weights, in eval mode
-or, with ``--train``, in train mode (the config's ``train_params``
-merged in; dropout drawn from a generator seeded per step), and prints:
+jasper10x5_synthetic.py``; for the NMT transformer-big,
+``example_configs_torch/text2text/transformer_big_synthetic.py``) on the
+card with seeded weights, in eval mode, in infer mode with ``--infer``
+(for the transformer: the beam decode alone) or, with ``--train``, in
+train mode (the config's ``train_params`` merged in; dropout drawn from
+a generator seeded per step), and prints:
 
 1. wall milliseconds per step without the profiler, for each of
    ``--repeats`` passes over the epoch (host batches made beforehand;
@@ -22,7 +25,9 @@ merged in; dropout drawn from a generator seeded per step), and prints:
    shapes their forward hooks see (in training also their backward: the
    weight gradient, and the input gradient where the input needs one),
    and the rate they reach over the time of the conv and GEMM kernels,
-   and over the whole busy time.
+   and over the whole busy time;
+4. the host's busiest operators and the number of kernel launches per
+   step.
 
 The card's name and power limit come first; a JSON summary is the last
 line. It needs a CUDA device.
@@ -48,6 +53,7 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # and GEMM groups are the two after the CTC kernels
 GROUPS = (
     ("ctc kernel", ("ctc_alpha_fwd", "ctc_beta_bwd")),
+    ("flash attention kernel", ("flash_attn_fwd",)),
     ("convs (implicit GEMM, k > 1)", ("fprop", "dgrad", "wgrad")),
     ("GEMMs (1x1 residual convs, dense)", ("gemm",)),
     ("batch norm", ("bn_fw", "bn_bw", "batch_norm")),
@@ -55,11 +61,14 @@ GROUPS = (
     ("dropout RNG", ("distribution", "philox")),
     ("reductions", ("reduce_kernel",)),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("sorts and top-k (beam search)", ("sort", "Sort", "topk", "TopK")),
+    ("gathers and scatters (embedding, beam reorder)", ("index", "gather",
+                                                        "scatter")),
     ("H2D copies", ("HtoD",)),
     ("dtype casts and copies", ("copy", "DtoD")),
     ("elementwise", ("elementwise",)),
 )
-MATMUL_GROUPS = [g for g, _ in GROUPS[1:3]]
+MATMUL_GROUPS = [g for g, _ in GROUPS[2:4]]
 
 
 def group_of(name: str) -> str:
@@ -77,6 +86,8 @@ def count_flops(module, run, train: bool = False) -> int:
     needs one."""
     from openseq2seq_tpu_torch.decoders.fc_decoders import Dense
     from openseq2seq_tpu_torch.encoders.tdnn_encoder import SameConv1d
+    from openseq2seq_tpu_torch.parts.transformer.common import \
+        Dense as TransformerDense
     total = [0]
 
     def passes(inp):
@@ -94,7 +105,8 @@ def count_flops(module, run, train: bool = False) -> int:
     handles = [m.register_forward_hook(conv_hook)
                for m in module.modules() if isinstance(m, SameConv1d)]
     handles += [m.register_forward_hook(dense_hook)
-                for m in module.modules() if isinstance(m, Dense)]
+                for m in module.modules()
+                if isinstance(m, (Dense, TransformerDense))]
     run()
     for h in handles:
         h.remove()
@@ -143,8 +155,12 @@ def busy_us(intervals) -> float:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--train", action="store_true",
-                    help="profile the train step (default: the eval step)")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--train", action="store_true",
+                       help="profile the train step (default: the eval "
+                            "step)")
+    which.add_argument("--infer", action="store_true",
+                       help="profile the infer step")
     ap.add_argument("--config_file", default=CONFIG)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--repeats", type=int, default=3)
@@ -164,7 +180,7 @@ def main(argv=None):
     print(card, flush=True)
 
     config = runpy.run_path(args.config_file)
-    mode = "train" if args.train else "eval"
+    mode = "train" if args.train else "infer" if args.infer else "eval"
     params = dict(config["base_params"])
     if args.train:
         params.update(config.get("train_params", {}))
@@ -178,7 +194,7 @@ def main(argv=None):
                                  args.train)
     step(batches[0])
     torch.cuda.synchronize()
-    print("[model] {}: {} step, {} batches of {} x {} frames, dtype {}; "
+    print("[model] {}: {} step, {} batches of {} x {} steps, dtype {}; "
           "{:.4e} FLOP per step in convs and dense layers".format(
               os.path.relpath(args.config_file, REPO), mode, len(batches),
               len(batches[0]["source_ids"]),
@@ -193,7 +209,8 @@ def main(argv=None):
             step(b)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / len(batches))
-    print("[wall] ms per step, {} passes: {}; utt/s: {} ({})".format(
+    print("[wall] ms per step, {} passes: {}; utterances (sentences) "
+          "per s: {} ({})".format(
         args.repeats, ", ".join("{:.3f}".format(w) for w in walls),
         ", ".join("{:.1f}".format(utts / len(batches) / w * 1e3)
                   for w in walls), card), flush=True)
@@ -238,6 +255,10 @@ def main(argv=None):
         print("[host] {:48s} {:8.3f} ms self CPU per step, {} calls".format(
             e.key[:48], e.self_cpu_time_total / n / 1e3, e.count // n),
             flush=True)
+    launches = sum(1 for _, _, name in intervals
+                   if "Memcpy" not in name and "Memset" not in name) / n
+    print("[host] {:.0f} device kernels per step".format(launches),
+          flush=True)
     mm_us = sum(groups[g] for g in MATMUL_GROUPS) / n
     print("[flops] {:.1f} TFLOP/s over the conv and GEMM kernels "
           "({:.3f} ms per step); {:.1f} TFLOP/s over the busy time "
@@ -249,6 +270,7 @@ def main(argv=None):
         "busy_ms_per_batch": busy / n / 1e3,
         "span_ms_per_batch": span / n / 1e3, "idle_share": 1 - busy / span,
         "group_ms_per_batch": {g: us / n / 1e3 for g, us in groups.items()},
+        "kernels_per_batch": launches,
         "flop_per_batch": flop_per_batch}), flush=True)
 
 

@@ -10,7 +10,9 @@ likelihood of feasible rows; infeasible rows are exactly 0 on both. The
 backward kernel against ``ctc_nll_grad`` on the card: max abs error 1e-5
 on d log-probs, exact zeros on infeasible rows and past each length, the
 posteriors of a live frame summing to 1 within 1e-4, and two calls
-bit-identical."""
+bit-identical. The flash attention kernel against
+``flash_attention_plain``: fp32, max abs error 2e-5 (sums in another
+order), and what it refuses."""
 import numpy as np
 import pytest
 import torch
@@ -97,3 +99,34 @@ def test_kernel_refuses_what_it_does_not_take(device):
                               lengths, 28)
     with pytest.raises(ValueError):
         ctc_cuda.ctc_nll_cuda(lp, lengths.long(), labels, lengths, 28)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,D,causal", [
+    (4, 64, 64, 16, 64, False), (2, 113, 113, 4, 64, True),
+    (2, 63, 64, 4, 128, False), (1, 70, 200, 2, 256, False)])
+def test_flash_kernel_matches_plain(device, B, Tq, Tk, H, D, causal):
+    """fp32 (TF32 plays no part: the kernel and the plain version's
+    einsums run in full fp32 by default), max abs error 2e-5 on unit-scale
+    inputs; one launch."""
+    from openseq2seq_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=device).manual_seed(Tq + D)
+    q, k, v = (torch.randn((B, T, H, D), generator=g, device=device)
+               for T in (Tq, Tk, Tk))
+    valid = None
+    if not causal:
+        lengths = torch.randint(1, Tk + 1, (B,), generator=g, device=device)
+        valid = torch.arange(Tk, device=device)[None] < lengths[:, None]
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, valid, causal)
+    assert fa.LAUNCHES == before + 1
+    want = fa.flash_attention_plain(q, k, v, valid, causal)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(device):
+    from openseq2seq_tpu_torch.ops import flash_attention as fa
+    q = torch.randn((2, 8, 2, 64), device=device)
+    for bad in ((q.half(), q.half(), q.half()), (q[..., :32].contiguous(),) * 3,
+                (q.transpose(1, 2), q, q), (q, q.bfloat16(), q)):
+        with pytest.raises(ValueError):
+            fa.flash_attention(*bad)

@@ -1,16 +1,23 @@
-"""The port imports torch and never jax, flax, optax or pandas; and its
-CUDA wrapper leaves the kernel alone for CPU tensors."""
+"""The port imports torch and never jax, flax, optax or pandas, nor any
+module of the JAX package; its CUDA wrapper leaves the kernel alone for
+CPU tensors; and its entry point runs on the card unless asked for the
+CPU."""
+import glob
 import os
 import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
+from openseq2seq_tpu_torch import run
 from openseq2seq_tpu_torch.ops import ctc, ctc_cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "optax", "pandas")
+CONFIGS = sorted(glob.glob(os.path.join(REPO, "example_configs_torch", "*",
+                                        "*.py")))
 
 
 def _slice_modules():
@@ -22,21 +29,46 @@ def _slice_modules():
                 yield rel.replace(os.sep, ".").replace(".__init__", "")
 
 
-def test_port_imports_no_jax():
+def _import_all(report: str) -> str:
+    """Import every port module and run every port config in a fresh
+    interpreter; returns the last line it prints, ``report`` evaluated
+    there."""
     modules = sorted(_slice_modules())
-    assert "openseq2seq_tpu_torch.ops.ctc_cuda" in modules
+    assert "openseq2seq_tpu_torch.ops.flash_attention" in modules
+    assert len(CONFIGS) >= 4
     code = ("import importlib, runpy, sys\n"
             "for m in {!r}: importlib.import_module(m)\n"
-            "runpy.run_path({!r})\n"
-            "print(sorted(m for m in {!r} if m in sys.modules))\n").format(
-                modules, os.path.join(REPO, "example_configs_torch",
-                                      "speech2text",
-                                      "jasper10x5_synthetic.py"), FORBIDDEN)
+            "for c in {!r}: runpy.run_path(c)\n"
+            "print({})\n").format(modules, CONFIGS, report)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().splitlines()[-1] == "[]"
+    return proc.stdout.strip().splitlines()[-1]
+
+
+def test_port_imports_no_jax():
+    assert _import_all("sorted(m for m in {!r} if m in sys.modules)".format(
+        FORBIDDEN)) == "[]"
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    assert _import_all("sorted(m for m in sys.modules if m == "
+                       "'openseq2seq_tpu' or m.startswith("
+                       "'openseq2seq_tpu.'))") == "[]"
+
+
+def test_run_main_without_cuda_needs_device_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    config = os.path.join(REPO, "example_configs_torch", "text2text",
+                          "transformer_tiny_synthetic.py")
+    with pytest.raises(RuntimeError, match="--device=cpu"):
+        run.main(["--config_file=" + config, "--mode=eval",
+                  "--logdir=" + str(tmp_path)])
+    with pytest.raises(SystemExit):
+        run.main(["--config_file=" + config, "--mode=eval",
+                  "--logdir=" + str(tmp_path), "--device=tpu"])
 
 
 def test_cpu_tensor_runs_plain_version_without_launch():
@@ -52,3 +84,28 @@ def test_cpu_tensor_runs_plain_version_without_launch():
     torch.testing.assert_close(
         got, ctc_cuda.ctc_nll_plain(lp, lengths, labels, label_lengths, 4),
         rtol=0, atol=0)
+
+
+def test_models_default_to_the_card():
+    import runpy
+    config = runpy.run_path(os.path.join(
+        REPO, "example_configs_torch", "text2text",
+        "transformer_tiny_synthetic.py"))
+    model = config["base_model"](config["base_params"], mode="eval")
+    assert model.device.type == "cuda"
+    model = config["base_model"](config["base_params"], mode="eval",
+                                 device="cpu")
+    assert model.device.type == "cpu"
+
+
+def test_summary_writer_is_read_back_by_the_jax_package(tmp_path):
+    """The port's copy of the scalar event writer writes what the JAX
+    package's reader reads."""
+    from openseq2seq_tpu.utils.tb_writer import read_events
+    from openseq2seq_tpu_torch.utils.tb_writer import SummaryWriter
+    writer = SummaryWriter(str(tmp_path))
+    writer.add_scalars(3, {"loss": 1.5, "learning_rate": 0.25, "x": None})
+    writer.add_scalars(4, {"loss": 0.75})
+    writer.close()
+    assert read_events(writer.path)[-2:] == [
+        (3, {"loss": 1.5, "learning_rate": 0.25}), (4, {"loss": 0.75})]

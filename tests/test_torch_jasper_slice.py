@@ -65,7 +65,8 @@ def _both(dtype):
     jout = jax.device_get(jax.jit(jmodel.eval_step)(jstate, batch))
 
     model = Speech2Text(jasper_model_params(
-        SyntheticSpeechDataLayer, DATA, dtype=dtype, **CUT), mode="eval")
+        SyntheticSpeechDataLayer, DATA, dtype=dtype, **CUT),
+            mode="eval", device="cpu")
     state = model.init_state(batch)
     state.module.load_state_dict(state_dict_from_flax(variables))
     out = to_host(model.eval_step(state, batch))
@@ -103,7 +104,7 @@ def test_eval_step_matches_jax_mixed_logits():
 def test_schema_accepts_documented_no_ops(key, value):
     model = Speech2Text(jasper_model_params(
         SyntheticSpeechDataLayer, DATA, dtype="float32", **CUT,
-        **{key: value}), mode="eval")
+        **{key: value}), mode="eval", device="cpu")
     assert model.params[key] == value
 
 
@@ -114,7 +115,7 @@ def test_schema_refuses_keys_without_effect(key, value):
     with pytest.raises(ValueError, match=key):
         Speech2Text(jasper_model_params(
             SyntheticSpeechDataLayer, DATA, dtype="float32", **CUT,
-            **{key: value}), mode="eval")
+            **{key: value}), mode="eval", device="cpu")
 
 
 @pytest.fixture
@@ -122,7 +123,7 @@ def tiny_logdir(tmp_path):
     """A tiny port config and a seeded-init checkpoint of it."""
     config = tmp_path / "jasper_tiny.py"
     config.write_text(
-        "from openseq2seq_tpu.data.synthetic import SyntheticSpeechDataLayer\n"
+        "from openseq2seq_tpu_torch.data import SyntheticSpeechDataLayer\n"
         "from openseq2seq_tpu_torch.models import Speech2Text\n"
         "from openseq2seq_tpu_torch.zoo import jasper_model_params\n"
         "base_model = Speech2Text\n"
@@ -132,14 +133,15 @@ def tiny_logdir(tmp_path):
         .format(DATA, B))
     logdir = tmp_path / "logs"
     model = Speech2Text(jasper_model_params(
-        SyntheticSpeechDataLayer, DATA, dtype="float32", **CUT), mode="eval")
+        SyntheticSpeechDataLayer, DATA, dtype="float32", **CUT),
+            mode="eval", device="cpu")
     CheckpointManager(str(logdir)).save(trainer.restore_state(model), 0)
     return str(config), str(logdir)
 
 
 def test_run_main_eval_and_infer(tiny_logdir, tmp_path):
     config, logdir = tiny_logdir
-    args = ["--config_file=" + config, "--logdir=" + logdir]
+    args = ["--config_file=" + config, "--logdir=" + logdir, "--device=cpu"]
     launches = ctc_cuda.LAUNCHES
     metrics = run.main(args + ["--mode=eval"])
     assert np.isfinite(metrics["eval_loss"]) and metrics["eval_loss"] > 0
@@ -161,8 +163,8 @@ def test_run_main_refuses_train(tiny_logdir):
     config, logdir = tiny_logdir
     with pytest.raises(OSError, match="continue_learning"):
         run.main(["--config_file=" + config, "--logdir=" + logdir,
-                  "--mode=train"])
+                  "--mode=train", "--device=cpu"])
     with pytest.raises(ValueError, match="max_steps"):
         run.main(["--config_file=" + config, "--logdir=" + logdir + "_new",
-                  "--mode=train"])
+                  "--mode=train", "--device=cpu"])
     assert not os.path.exists(logdir + "_new")

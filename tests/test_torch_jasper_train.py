@@ -62,7 +62,7 @@ def _models():
         **CUT)), mode="train")
     model = Speech2Text(_no_dropout(jasper_model_params(
         SyntheticSpeechDataLayer, DATA, dtype="float32", max_steps=STEPS,
-        **CUT)), mode="train")
+        **CUT)), mode="train", device="cpu")
     return jmodel, model
 
 
@@ -147,7 +147,7 @@ def test_mixed_fp16_loss_scaling_skips_overflowed_steps():
     def model(dtype, **extra):
         return Speech2Text(_no_dropout(jasper_model_params(
             SyntheticSpeechDataLayer, DATA, dtype=dtype, max_steps=4,
-            **CUT, **extra)), mode="train")
+            **CUT, **extra)), mode="train", device="cpu")
 
     batch = _batch()
     bad = dict(batch, source_tensors=list(batch["source_tensors"]))
@@ -182,7 +182,7 @@ def tiny_config(tmp_path):
     ``dropout_bits: 8``), printing the loss every step."""
     config = tmp_path / "jasper_tiny_train.py"
     config.write_text(
-        "from openseq2seq_tpu.data.synthetic import SyntheticSpeechDataLayer\n"
+        "from openseq2seq_tpu_torch.data import SyntheticSpeechDataLayer\n"
         "from openseq2seq_tpu_torch.models import Speech2Text\n"
         "from openseq2seq_tpu_torch.zoo import jasper_model_params\n"
         "base_model = Speech2Text\n"
@@ -197,7 +197,7 @@ def tiny_config(tmp_path):
 
 def _main(config, logdir, *extra):
     return run.main(["--config_file=" + config, "--logdir=" + logdir,
-                     *extra])
+                     "--device=cpu", *extra])
 
 
 def _losses(text):
@@ -275,7 +275,8 @@ def test_load_model_copies_weights_into_a_fresh_run(tiny_config, tmp_path):
     assert result["steps"] == 1
     # restore_params_partial copies the parameters, not the statistics
     model = Speech2Text(jasper_model_params(
-        SyntheticSpeechDataLayer, DATA, dtype="float32", **CUT), mode="eval")
+        SyntheticSpeechDataLayer, DATA, dtype="float32", **CUT),
+            mode="eval", device="cpu")
     from openseq2seq_tpu_torch.training import trainer
     state = trainer.restore_state(model)
     before = {n: p.clone() for n, p in state.module.named_parameters()}

@@ -27,7 +27,8 @@ def _small_model(mode):
         {"num_audio_features": 16, "tgt_vocab_size": 29, "time_steps": 41,
          "label_length": 6, "num_batches": 1},
         num_blocks=2, block_repeat=2, width_scale=0.125,
-        batch_size_per_gpu=2, dtype="float32", max_steps=3), mode=mode)
+        batch_size_per_gpu=2, dtype="float32", max_steps=3),
+            mode=mode, device="cpu")
 
 
 def test_flop_count_matches_torch_flop_counter():
