@@ -9,19 +9,20 @@ Phases, one informative line or a few each:
 1. environment: torch and CUDA versions, the card's name and power limit
    (``nvidia-smi``); TF32 off for the fp32 phases;
 2. build: the CTC kernels (``openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu``
-   and ``ctc_beta_bwd.cu``) and the flash attention forward
-   (``flash_attn_fwd.cu``), one ``nvcc`` each for ``sm_90a``, started
+   and ``ctc_beta_bwd.cu``), the flash attention forward and backward
+   (``flash_attn_fwd.cu``, ``flash_attn_bwd.cu``) and the fused dropout
+   (``dropout_mask.cu``), one ``nvcc`` each for ``sm_90a``, started
    together, and what ``ptxas`` reports for them (registers, spills);
 3. the forward kernel against its plain PyTorch version, both fp32 on the
    card, at the Jasper eval shape (B=32, T=500, L=160, V=29), at L=600
    (more extended states than a CTA has threads) and at T=37: max
    relative error 1e-5 on the NLL of feasible rows, exact zeros on
-   infeasible ones; median times from CUDA events;
+   infeasible ones; times from CUDA events;
 4. the backward kernel (after the forward with its alpha lattice) against
    the plain ``ctc_nll_grad`` at the train shape, at L=600 and at T=37:
    NLL max relative error 1e-5, d log-probs max abs error 1e-5, exact
    zeros on infeasible rows and past each length, the posteriors of a live
-   frame summing to 1 within 1e-4, two calls bit-identical; median times
+   frame summing to 1 within 1e-4, two calls bit-identical; times
    of kernel fwd+bwd against plain fwd+bwd; ``F.ctc_loss`` timed at the
    same shapes, forward and forward plus backward, as their library
    yardstick;
@@ -29,9 +30,21 @@ Phases, one informative line or a few each:
    transformer-big eval shapes (encoder B=64, H=16, T=64, D=64 with key
    padding; decoder causal T=63; cross Tq=63, Tk=64), causal at T=113,
    D=128, D=256 and Tk=1000: fp32 (TF32 off) max abs err 2e-5, bf16
-   against the plain version's fp32 math max abs err 1e-2; median times
+   against the plain version's fp32 math max abs err 1e-2; times
    of the kernel, the plain version and ``scaled_dot_product_attention``
    (timed only, never on the path) at the eval shapes, in bf16;
+4c. the flash backward kernels (after the forward with its lse) against
+   ``flash_attention_bwd_plain`` at the same shapes: lse within 1e-5, fp32
+   (TF32 off) dq, dk, dv max abs err 1e-4, bf16 within one bf16 rounding
+   of the plain version's fp32 math on the same bf16 inputs (2^-8 |want|
+   + 1e-4), two calls bit-identical; times of each kernel, the
+   plain backward and SDPA forward plus backward (timed only) at the
+   train step's shapes, in bf16;
+4d. the fused dropout kernel against its plain version, forward and
+   backward, with and without the residual, bf16 and fp32, at the FFN
+   shape (4096 x 4096) and at M=600, D=256: bit-identical; times
+   of the kernel and the plain version (``F.dropout``, another function,
+   timed for information);
 5. a small fp32 Jasper on the card and on the CPU: eval outputs agree, and
    one ``train_step`` gives the same loss and updated weights (rtol 1e-4);
 6. the eval/infer slice: Jasper-10x5 at full width from
@@ -56,6 +69,19 @@ Phases, one informative line or a few each:
    ``--mode=eval`` and ``--mode=infer``: flash launches 18 per eval batch
    and 6 per infer batch, a finite loss, a BLEU, 128 infer lines; the
    beam-4 infer rate is printed as information;
+7d. the tiny fp32 transformer training config on the card (through the
+   flash kernels, forward and backward) and on the CPU, dropout 0: one
+   ``train_step`` gives the same loss and updated weights (rtol 1e-4);
+7e. transformer-big training from
+   ``example_configs_torch/text2text/transformer_big_train_synthetic.py``
+   (dropout on, u8 masks, the fused relu dropout, NovoGrad) through
+   ``run.main --mode=train`` for 20 steps with the warmup cut to 20 steps
+   (printed): the loss is finite at every step and falls, each step
+   launches the flash forward 18 times, each flash backward kernel 18
+   times and the dropout kernel 24 times (12 forward, 12 backward), a
+   checkpoint is written, ``--mode=eval`` runs from it and
+   ``--continue_learning`` takes 3 more steps; tokens per second are
+   printed as information;
 8. one JSON line for the kernels, then ``{"ok": true, "device": ...}``
    last.
 
@@ -74,7 +100,6 @@ import math
 import os
 import re
 import runpy
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -88,6 +113,13 @@ NMT_CONFIG = os.path.join(REPO, "example_configs_torch", "text2text",
                           "transformer_big_synthetic.py")
 NMT_TINY = os.path.join(REPO, "example_configs_torch", "text2text",
                         "transformer_tiny_synthetic.py")
+NMT_TRAIN = os.path.join(REPO, "example_configs_torch", "text2text",
+                         "transformer_big_train_synthetic.py")
+NMT_TINY_TRAIN = os.path.join(REPO, "example_configs_torch", "text2text",
+                              "transformer_tiny_train_synthetic.py")
+# the recipe warms up over 8000 steps (lr under 2e-6 for 20 steps); the
+# smoke run cuts the warmup so that the loss falls within its 20 steps
+NMT_WARMUP_OVERRIDE = "--lr_policy_params/warmup_steps=20"
 RTOL = 1e-5
 # fp32 operations per live CTC lattice state: the forward's log-sum-exp
 # of up to three predecessors plus the emission (2 max, 3 sub, 3 exp,
@@ -102,21 +134,30 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError("chip_smoke check failed: " + what)
 
 
+# a head start for the host in cuda_ms: about 20 ms at the H100's clocks
+SLEEP_CYCLES = 40_000_000
+
+
 def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` runs, CUDA events."""
+    """Device milliseconds of one ``fn()``: ``reps`` calls enqueued back
+    to back behind a sleep kernel, between two CUDA events, over ``reps``.
+    The sleep lets the host enqueue ahead of the card, so that a short
+    kernel is timed without its wrapper's host time (an event pair around
+    each synchronised call would add it); code that launches slower than
+    the card runs it is still timed at its launch rate."""
     import torch
     for _ in range(2):
         fn()
-    times = []
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def ctc_case(B, T, L, V, seed, device):
@@ -174,7 +215,7 @@ def phase_kernel(card):
             timing = (cuda_ms(lambda: ctc_cuda.ctc_nll_cuda(*args), 50),
                       cuda_ms(lambda: ctc_cuda.ctc_nll_plain(*args), 10))
             print("[kernel] eval shape: kernel {:.4f} ms, plain {:.4f} ms "
-                  "(median, CUDA events; {})".format(*timing, card),
+                  "(CUDA events, back to back; {})".format(*timing, card),
                   flush=True)
     # what the kernel does not take, it refuses
     lp = ctc.log_probs(ctc_case(4, 9, 3, 29, 0, dev)[0])
@@ -248,8 +289,8 @@ def phase_backward(card):
                       cuda_ms(lambda: ctc_cuda.alpha_fwd(*args, True), 50))
             print("[backward] train shape: kernels fwd+bwd {:.4f} ms, plain "
                   "fwd+bwd {:.4f} ms; backward kernel alone {:.4f} ms, "
-                  "forward with lattice {:.4f} ms (median, CUDA events; {})"
-                  .format(*timing, card), flush=True)
+                  "forward with lattice {:.4f} ms (CUDA events, back to "
+                  "back; {})".format(*timing, card), flush=True)
     return worst_abs, timing
 
 
@@ -296,28 +337,55 @@ def flash_case(B, Tq, Tk, H, D, padded, seed, device):
     return q, k, v, valid.contiguous()
 
 
-def attention_bound_ms(q, k, kv_valid, causal):
-    """The least time of one attention call on the H100 in its dtype:
-    the larger of q, k, v, o (and the mask) read or written once over
-    the HBM rate, and 4 D FLOP per (query, valid key) pair over the peak
-    of the dtype. Returns (ms, "bytes" | "operations")."""
-    import torch
-    B, Tq, H, D = q.shape
+def attention_pairs(q, k, kv_valid, causal) -> int:
+    """(query, key) pairs that the attention's result depends on: valid
+    keys times queries, or the causal triangle."""
+    B, Tq = q.shape[:2]
     Tk = k.shape[1]
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    if kv_valid is not None:
-        nbytes += kv_valid.numel()
-        keys = int(kv_valid.sum()) * Tq
-    else:
-        keys = B * Tq * Tk
     if causal:
-        keys = B * sum(min(i + 1, Tk) for i in range(Tq))
-    flop = 4.0 * H * D * keys
-    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else \
-        FP32_FLOP_PER_S
+        return B * sum(min(i + 1, Tk) for i in range(Tq))
+    if kv_valid is not None:
+        return int(kv_valid.sum()) * Tq
+    return B * Tq * Tk
+
+
+def bound_ms(nbytes, flop, dtype):
+    """The larger of ``nbytes`` over the HBM rate and ``flop`` over the
+    peak of ``dtype``: (ms, "bytes" | "operations")."""
+    import torch
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / peak
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
+
+
+def attention_bound_ms(q, k, kv_valid, causal):
+    """The least time of one attention call on the H100 in its dtype:
+    q, k, v, o (and the mask) read or written once, 4 D FLOP per (query,
+    valid key) pair."""
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    if kv_valid is not None:
+        nbytes += kv_valid.numel()
+    flop = 4.0 * q.shape[2] * q.shape[3] * attention_pairs(q, k, kv_valid,
+                                                           causal)
+    return bound_ms(nbytes, flop, q.dtype)
+
+
+def attention_bwd_bound_ms(q, k, kv_valid, causal, kernel):
+    """The least time of one backward kernel: ``dq`` reads q, k, v, o, dO,
+    lse and writes dq and di, 6 D FLOP per pair (scores, dO.v, dq);
+    ``dkv`` reads q, k, v, dO, lse, di and writes dk and dv, 8 D FLOP per
+    pair (scores, dO.v, dv, dk); ``all`` is the whole backward: q, k, v,
+    o, dO and lse read, dq, dk, dv written, 10 D FLOP per pair."""
+    B, Tq, H, D = q.shape
+    nq, nk = q.numel() * q.element_size(), k.numel() * k.element_size()
+    rows = B * H * Tq * 4                    # lse or di, fp32
+    mask = 0 if kv_valid is None else kv_valid.numel()
+    nbytes, per_pair = {"dq": (4 * nq + 2 * nk + 2 * rows + mask, 6),
+                        "dkv": (2 * nq + 4 * nk + 2 * rows + mask, 8),
+                        "all": (4 * nq + 4 * nk + rows + mask, 10)}[kernel]
+    flop = per_pair * H * D * attention_pairs(q, k, kv_valid, causal)
+    return bound_ms(nbytes, flop, q.dtype)
 
 
 def phase_flash(card):
@@ -325,9 +393,9 @@ def phase_flash(card):
     fp32 (TF32 off) within FLASH_FP32_ATOL, and bf16 against the plain
     version's fp32 math on the same bf16 inputs within FLASH_BF16_ATOL
     (the kernel's fp32 result is rounded to bf16 once: at most 2^-9 on
-    outputs, which are averages of v in [-1, 1]). Times at the eval path's shapes, in bf16,
-    against the plain version and SDPA. Returns the worst fp32 error and
-    the timings, by case name."""
+    outputs, which are averages of v in [-1, 1]). Times at the eval path's
+    shapes, in bf16, against the plain version and SDPA. Returns the worst
+    fp32 error and the timings, by case name."""
     import torch
     import torch.nn.functional as F
     from openseq2seq_tpu_torch.ops import flash_attention as fa
@@ -369,8 +437,8 @@ def phase_flash(card):
                                                           causal)
         times[name] = t
         print("[flash] {} bf16: kernel {:.4f} ms, plain {:.4f} ms, SDPA "
-              "{:.4f} ms, bound {:.4f} ms ({}) (median, CUDA events; {})"
-              .format(name, t["ms"], t["plain_ms"], t["library_ms"],
+              "{:.4f} ms, bound {:.4f} ms ({}) (CUDA events, back to "
+              "back; {})".format(name, t["ms"], t["plain_ms"], t["library_ms"],
                       t["bound_ms"], t["bound_by"], card), flush=True)
     # what the kernel does not take, it refuses
     q, k, v, valid = flash_case(2, 8, 8, 2, 64, True, 0, dev)
@@ -389,6 +457,230 @@ def phase_flash(card):
     print("[flash] wrong dtype, head dim, layout and mask are refused",
           flush=True)
     return worst, times
+
+
+FLASH_BWD_FP32_ATOL = 1e-4
+# bf16: the kernels accumulate in fp32 and round each gradient to bf16
+# once (at most 2^-9 |value|); twice that plus 1e-4 for the fp32 sums'
+# other order
+FLASH_BWD_BF16_RTOL, FLASH_BWD_BF16_ATOL = 2.0 ** -8, 1e-4
+
+
+def _bwd_kernel_ms(kernel, q, k, v, o, lse, do, valid, causal, reps):
+    """Device ms of one backward kernel alone, launched through the same
+    entry point as ``flash_attention_bwd_cuda`` (not counted)."""
+    import torch
+    from openseq2seq_tpu_torch.ops import flash_attention as fa
+    B, Tq, H, D = q.shape
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    di = torch.empty_like(lse)
+    mask = None if valid is None else valid.data_ptr()
+    ints = (B, Tq, k.shape[1], H, D, int(q.dtype == torch.bfloat16),
+            int(causal))
+    stream = torch.cuda.current_stream().cuda_stream
+    if kernel == "dq":
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), mask, dq.data_ptr(),
+                di.data_ptr())
+    else:
+        di = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), di.data_ptr(), mask, dk.data_ptr(),
+                dv.data_ptr())
+    fn = fa._kernel("flash_attn_bwd_" + kernel)
+
+    def launch():
+        check(fn(*args, *ints, float(D ** -0.5), stream) == 0,
+              "flash_attn_bwd_{} launch".format(kernel))
+    return cuda_ms(launch, reps)
+
+
+def phase_flash_bwd(card):
+    """The forward's lse and the backward kernels against
+    ``flash_attention_plain`` and ``flash_attention_bwd_plain`` on the
+    card; times at the train step's shapes in bf16. Returns the worst fp32
+    errors of dq and of dk/dv, and the timings by case name."""
+    import torch
+    import torch.nn.functional as F
+    from openseq2seq_tpu_torch.ops import flash_attention as fa
+    dev = torch.device("cuda")
+    worst_dq = worst_dkv = 0.0
+    times = {}
+    for i, (name, B, Tq, Tk, H, D, causal, padded) in enumerate(
+            FLASH_CASES):
+        q, k, v, valid = flash_case(B, Tq, Tk, H, D, padded, 10 + i, dev)
+        do = torch.randn(q.shape, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(i))
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd, dod = (x.to(dtype) for x in (q, k, v, do))
+            o, lse = fa.flash_attention_cuda(
+                qd, kd, vd, valid, causal, D ** -0.5, return_lse=True)
+            got = fa.flash_attention_bwd_cuda(qd, kd, vd, o, lse, dod, valid,
+                                              causal)
+            again = fa.flash_attention_bwd_cuda(qd, kd, vd, o, lse, dod,
+                                                valid, causal)
+            up = [x.float() for x in (qd, kd, vd)]
+            _, want_lse = fa.flash_attention_plain(*up, valid, causal,
+                                                   return_lse=True)
+            want = fa.flash_attention_bwd_plain(*up, o.float(), want_lse,
+                                                dod.float(), valid, causal)
+            torch.cuda.synchronize()
+            lse_err = float((lse - want_lse).abs().max())
+            errs = [float((g.float() - w).abs().max())
+                    for g, w in zip(got, want)]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            print("[flash bwd] {} {}: lse max abs err {:.3e}; dq, dk, dv max "
+                  "abs err {:.3e}, {:.3e}, {:.3e} (|dq|, |dk|, |dv| max "
+                  "{:.2f}, {:.2f}, {:.2f}); repeat bit-identical: {}".format(
+                      name, str(dtype)[6:], lse_err, *errs,
+                      *(float(w.abs().max()) for w in want), same),
+                  flush=True)
+            check(lse_err <= 1e-5 * max(1.0, float(want_lse.abs().max())),
+                  "{}: lse err {}".format(name, lse_err))
+            check(same, "{}: two backward calls differ".format(name))
+            check(all(g.dtype == dtype and bool(torch.isfinite(g).all())
+                      for g in got), "{}: gradient dtype or non-finite"
+                  .format(name))
+            if dtype == torch.float32:
+                worst_dq = max(worst_dq, errs[0])
+                worst_dkv = max(worst_dkv, errs[1], errs[2])
+                check(max(errs) <= FLASH_BWD_FP32_ATOL,
+                      "{}: fp32 gradient err {}".format(name, errs))
+            else:
+                for g, w in zip(got, want):
+                    excess = (g.float() - w).abs() - (
+                        FLASH_BWD_BF16_RTOL * w.abs() + FLASH_BWD_BF16_ATOL)
+                    check(float(excess.max()) <= 0, "{}: bf16 gradient "
+                          "err beyond one rounding".format(name))
+        if i >= 3:
+            continue
+        qb, kb, vb, dob = (x.bfloat16() for x in (q, k, v, do))
+        o, lse = fa.flash_attention_cuda(qb, kb, vb, valid, causal,
+                                          D ** -0.5, return_lse=True)
+        leaves = [x.transpose(1, 2).detach().requires_grad_()
+                  for x in (qb, kb, vb)]
+        mask = None if valid is None else valid[:, None, None, :]
+        do_t = dob.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, is_causal=causal).backward(do_t)
+        t = {"ms": cuda_ms(lambda: fa.flash_attention_bwd_cuda(
+                qb, kb, vb, o, lse, dob, valid, causal), 50),
+             "dq_ms": _bwd_kernel_ms("dq", qb, kb, vb, o, lse, dob, valid,
+                                     causal, 50),
+             "dkv_ms": _bwd_kernel_ms("dkv", qb, kb, vb, o, lse, dob, valid,
+                                      causal, 50),
+             "plain_ms": cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                 qb, kb, vb, o, lse, dob, valid, causal), 20),
+             "library_ms": cuda_ms(sdpa_fwd_bwd, 50)}
+        for part in ("all", "dq", "dkv"):
+            t[part + "_bound"] = attention_bwd_bound_ms(qb, kb, valid, causal,
+                                                        part)
+        times[name] = t
+        print("[flash bwd] {} bf16: dq+dkv {:.4f} ms (dq {:.4f}, dkv "
+              "{:.4f}), bound {:.4f} ms ({}; dq {:.4f}, dkv {:.4f}); plain "
+              "backward {:.4f} ms; SDPA forward+backward {:.4f} ms (CUDA "
+              "events, back to back; {})".format(
+                  name, t["ms"], t["dq_ms"], t["dkv_ms"], t["all_bound"][0],
+                  t["all_bound"][1], t["dq_bound"][0], t["dkv_bound"][0],
+                  t["plain_ms"], t["library_ms"], card), flush=True)
+    # what the backward does not take, it refuses
+    q, k, v, valid = flash_case(2, 8, 8, 2, 64, True, 0, dev)
+    o, lse = fa.flash_attention_cuda(q, k, v, valid, False, 0.125,
+                                      return_lse=True)
+    for bad in ((q, k, v, o.bfloat16(), lse, q, valid),
+                (q, k, v, o, lse.double(), q, valid),
+                (q, k, v, o, lse, q.transpose(1, 2), valid)):
+        try:
+            fa.flash_attention_bwd_cuda(*bad)
+        except ValueError:
+            continue
+        raise RuntimeError("chip_smoke check failed: a bad flash backward "
+                           "input launched")
+    print("[flash bwd] wrong dtype and layout are refused", flush=True)
+    return worst_dq, worst_dkv, times
+
+
+# ~14 integer operations per element: the hash (two multiplies, xor-shifts
+# and adds), the compare, the scale and the select; at the CUDA cores'
+# fp32 rate, which the int32 rate does not exceed
+DROPOUT_OPS = 14
+
+
+def phase_dropout(card):
+    """``dropout_mask`` against ``fused_dropout_plain`` on the card,
+    forward and backward (the mask regenerated on the cotangent), with and
+    without the residual: bit-identical. Times of the FFN site's variant
+    (no residual) at the FFN shape in bf16."""
+    import torch
+    import torch.nn.functional as F
+    from openseq2seq_tpu_torch.ops import fused_dropout as fd
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timing, worst = None, 0.0
+    for shape in ((4096, 4096), (600, 256)):
+        for dtype in (torch.bfloat16, torch.float32):
+            y, x, g = (torch.randn(shape, generator=gen, device=dev)
+                       .to(dtype) for _ in range(3))
+            seed = fd.draw_seed(gen, dev)
+            results = []
+            for residual in (False, True):
+                leaves = [t.clone().requires_grad_() for t in (x, y)]
+                out = (fd.fused_dropout_add(leaves[0], leaves[1], 0.3, seed)
+                       if residual else fd.fused_dropout(leaves[1], 0.3, seed))
+                out.backward(g)
+                want = (fd.fused_dropout_add_plain(x, y, 0.3, seed)
+                        if residual else fd.fused_dropout_plain(y, 0.3, seed))
+                want_dy = fd.fused_dropout_plain(g, 0.3, seed)
+                torch.cuda.synchronize()
+                worst = max(worst,
+                            float((out.detach() - want).abs().max()),
+                            float((leaves[1].grad - want_dy).abs().max()))
+                same = torch.equal(out, want) and \
+                    torch.equal(leaves[1].grad, want_dy) and \
+                    (not residual or torch.equal(leaves[0].grad, g))
+                results.append(same)
+            kept = float((fd.fused_dropout(y, 0.3, seed) != 0).float()
+                         .mean())
+            print("[dropout] {} {}: forward and backward bit-identical to "
+                  "the plain version: without residual {}, with {}; kept "
+                  "{:.4f} (keep 0.7)".format(shape, str(dtype)[6:],
+                                             *results, kept), flush=True)
+            check(all(results), "fused dropout {} {} differs from its plain "
+                  "version".format(shape, dtype))
+            if shape == (4096, 4096) and dtype == torch.bfloat16:
+                nbytes = 2 * y.numel() * y.element_size()
+                timing = {
+                    "ms": cuda_ms(lambda: fd.fused_dropout_cuda(
+                        y, None, 0.3, seed), 50),
+                    "plain_ms": cuda_ms(lambda: fd.fused_dropout_plain(
+                        y, 0.3, seed), 20),
+                    "other_ms": cuda_ms(lambda: F.dropout(y, 0.3), 50),
+                    "bound": bound_ms(nbytes, DROPOUT_OPS * y.numel(),
+                                      torch.float32)}
+                print("[dropout] FFN shape (4096, 4096) bf16, no residual: "
+                      "kernel {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms "
+                      "({}); F.dropout, another function (torch's own "
+                      "mask), {:.4f} ms (CUDA events, back to back; {})"
+                      .format(
+                          timing["ms"], timing["plain_ms"],
+                          *timing["bound"], timing["other_ms"], card),
+                      flush=True)
+    y = torch.randn((4, 100), device=dev)
+    seed = fd.draw_seed(gen, dev)
+    for bad in ((y, None, 0.3, seed),
+                (torch.randn((64, 16), device=dev).t(), None, 0.3, seed),
+                (y[:, :64].contiguous(), None, 0.3, seed.cpu())):
+        try:
+            fd.fused_dropout_cuda(*bad)
+        except ValueError:
+            continue
+        raise RuntimeError("chip_smoke check failed: a bad dropout input "
+                           "launched")
+    print("[dropout] wrong width, layout and seed are refused", flush=True)
+    timing["max_abs_err"] = worst
+    return timing
 
 
 def _small_params(data_layer, no_dropout=False, **overrides):
@@ -633,6 +925,134 @@ def phase_transformer(card):
     return eval_launches + infer_launches
 
 
+def phase_small_transformer_train():
+    """The tiny fp32 transformer training config without dropout, same
+    seed, on the card (through the flash kernels, forward and backward)
+    and on the CPU: one ``train_step`` gives the same loss and updated
+    weights. The key projections' biases are frozen: their gradient is
+    exactly zero (softmax ignores a constant per row), which in fp32 is
+    rounding noise that NovoGrad would scale to a full-size update."""
+    import numpy as np
+    from openseq2seq_tpu_torch.ops import flash_attention as fa
+    from openseq2seq_tpu_torch.training import trainer
+    config = runpy.run_path(NMT_TINY_TRAIN)
+    params = dict(config["base_params"],
+                  freeze_variables_regex=r"/(k|qkv)/bias$")
+    for side in ("encoder_params", "decoder_params"):
+        params[side] = dict(params[side], attention_dropout=0.0,
+                            relu_dropout=0.0, layer_postprocess_dropout=0.0)
+    trained = {}
+    for device in ("cuda", "cpu"):
+        model = config["base_model"](params, mode="train", device=device)
+        state = trainer.restore_state(model)
+        batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+        before = fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES
+        state, metrics = model.train_step(state, batch)
+        launches = (fa.BWD_DQ_LAUNCHES - before[0],
+                    fa.BWD_DKV_LAUNCHES - before[1])
+        trained[device] = (float(metrics["loss"]), launches, {
+            n: p.detach().cpu().numpy()
+            for n, p in state.module.named_parameters()})
+    (loss_gpu, l_gpu, w_gpu), (loss_cpu, l_cpu, w_cpu) = \
+        trained["cuda"], trained["cpu"]
+    w_err = max(float(np.max(np.abs(w_gpu[n] - w_cpu[n]) /
+                             (1e-6 + 1e-4 * np.abs(w_cpu[n]))))
+                for n in w_cpu)
+    print("[nmt train] tiny fp32 transformer, one train step, card vs CPU: "
+          "loss {:.6f} vs {:.6f}; largest weight difference {:.3f} of the "
+          "tolerance (rtol 1e-4, atol 1e-6); flash backward launches (dq, "
+          "dkv) on the card {}, on the CPU {}".format(
+              loss_gpu, loss_cpu, w_err, l_gpu, l_cpu), flush=True)
+    check(l_gpu == (6, 6) and l_cpu == (0, 0),
+          "flash backward launches in the tiny train step")
+    check(abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu) and w_err <= 1.0,
+          "tiny transformer train step disagrees between card and CPU")
+
+
+def phase_transformer_train(card):
+    """Transformer-big through ``run.main --mode=train`` for the config's
+    20 steps, then eval from its checkpoint and a resumed run. Returns
+    the launches of the flash forward, its two backward kernels and the
+    dropout kernel over these paths."""
+    import torch
+    from openseq2seq_tpu_torch.ops import flash_attention as fa
+    from openseq2seq_tpu_torch.ops import fused_dropout as fd
+
+    def reset():
+        fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+        fd.LAUNCHES = 0
+
+    def counts():
+        return (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES,
+                fd.LAUNCHES)
+
+    total = [0, 0, 0, 0]
+    steps = runpy.run_path(NMT_TRAIN)["base_params"]["max_steps"]
+    with tempfile.TemporaryDirectory() as logdir:
+        argv = ["--config_file=" + NMT_TRAIN, "--logdir=" + logdir,
+                NMT_WARMUP_OVERRIDE, "--print_loss_steps=1"]
+        print("[nmt train] transformer-big, {} steps of 64 x (64 + 64) "
+              "tokens, mixed, dropout on, fused relu dropout; overrides: "
+              "{} --print_loss_steps=1".format(steps, NMT_WARMUP_OVERRIDE),
+              flush=True)
+        reset()
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train"])
+        wall = time.time() - t0
+        launches = counts()
+        total = [a + b for a, b in zip(total, launches)]
+        losses = [float(x) for x in re.findall(r"loss = ([-+0-9.einaf]+)",
+                                                "\n".join(lines))]
+        print("[nmt train] losses {}; launches flash fwd {}, bwd dq {}, "
+              "bwd dkv {}, dropout {}; {:.1f} s with the build of the "
+              "model".format(losses, *launches, wall), flush=True)
+        check(result["steps"] == steps, "trained {} steps".format(
+            result["steps"]))
+        check(len(losses) == steps and all(math.isfinite(x)
+                                           for x in losses),
+              "losses not finite at every step: {}".format(losses))
+        check(sum(losses[-3:]) < sum(losses[:3]),
+              "loss did not fall: {}".format(losses))
+        check(launches == (18 * steps, 18 * steps, 18 * steps, 24 * steps),
+              "launches {} in {} steps".format(launches, steps))
+        print("[nmt train] throughput {:.1f} tokens/s (source + target) "
+              "over steps {}-{} (batch 64, 64 + 64 tokens, bf16, a host "
+              "read of the loss every step; {})".format(
+                  result["objects_per_sec"], 11, steps, card), flush=True)
+        ckpt = os.path.join(logdir, "checkpoints", str(steps), "model.pt")
+        check(os.path.exists(ckpt), "no checkpoint at {}".format(ckpt))
+
+        reset()
+        metrics, _ = _run_quiet(argv + ["--mode=eval"])
+        launches = counts()
+        total = [a + b for a, b in zip(total, launches)]
+        print("[nmt train] eval from the step-{} checkpoint: loss {:.6f}, "
+              "BLEU {:.4f}; launches flash fwd {}, bwd dq {}, bwd dkv {}, "
+              "dropout {}".format(steps, metrics["eval_loss"],
+                                  metrics["Eval BLEU"], *launches),
+              flush=True)
+        check(math.isfinite(metrics["eval_loss"]) and
+              launches == (18 * 4, 0, 0, 0), "eval from the trained "
+              "checkpoint")
+
+        reset()
+        result, lines = _run_quiet(argv + [
+            "--mode=train", "--continue_learning",
+            "--max_steps={}".format(steps + 3)])
+        launches = counts()
+        total = [a + b for a, b in zip(total, launches)]
+        started = [x for x in lines if "Starting training from step" in x]
+        print("[nmt train] --continue_learning: {}; reached step {}; "
+              "launches flash fwd {}, bwd dq {}, bwd dkv {}, dropout {}"
+              .format(started[0].strip(), result["steps"], *launches),
+              flush=True)
+        check(started and started[0].endswith("step {}".format(steps)) and
+              result["steps"] == steps + 3 and
+              launches == (54, 54, 54, 72), "resumed run")
+        torch.cuda.synchronize()
+    return total
+
+
 def phase_ctc_library(card):
     """``F.ctc_loss`` at the CTC train shape, forward and forward plus
     backward: the CTC kernels' library yardstick, never on the path."""
@@ -660,8 +1080,8 @@ def phase_ctc_library(card):
 
     times = (cuda_ms(fwd, 50), cuda_ms(fwd_bwd, 50))
     print("[ctc] F.ctc_loss at B=32 T=500 L=160 V=29: forward {:.4f} ms, "
-          "forward+backward {:.4f} ms (median, CUDA events; {})".format(
-              *times, card), flush=True)
+          "forward+backward {:.4f} ms (CUDA events, back to back; {})"
+          .format(*times, card), flush=True)
     return times
 
 
@@ -786,7 +1206,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # 2. build, one nvcc per source, all started together
-    names = ("ctc_alpha_fwd", "ctc_beta_bwd", "flash_attn_fwd")
+    names = ("ctc_alpha_fwd", "ctc_beta_bwd", "flash_attn_fwd",
+             "flash_attn_bwd", "dropout_mask")
     t0 = time.time()
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(build.build, names))
@@ -805,6 +1226,8 @@ def main():
     bwd_err, (bwd_ms, bwd_plain_ms, _, _) = phase_backward(card)
     ctc_lib_fwd_ms, ctc_lib_fwd_bwd_ms = phase_ctc_library(card)
     flash_err, flash_times = phase_flash(card)
+    dq_err, dkv_err, flash_bwd_times = phase_flash_bwd(card)
+    drop = phase_dropout(card)
 
     # 5-7. the paths, each with its launch counts set to 0 just before
     config = runpy.run_path(CONFIG)
@@ -813,11 +1236,14 @@ def main():
     train_fwd, train_bwd = phase_train(card)
     phase_small_transformer()
     flash_launches = phase_transformer(card)
+    phase_small_transformer_train()
+    nmt_fwd, nmt_dq, nmt_dkv, nmt_drop = phase_transformer_train(card)
 
     # 8. result
     fwd_bound = ctc_bound_ms(32, 500, 160, 29, 500, backward=False)
     bwd_bound = ctc_bound_ms(32, 500, 160, 29, 501, backward=True)
     flash = flash_times["encoder"]
+    flash_bwd = flash_bwd_times["encoder"]
     print(json.dumps({"kernels": [{
         "name": "ctc_alpha_fwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu",
@@ -834,10 +1260,30 @@ def main():
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "openseq2seq_tpu/parts/transformer/attention.py:120",
-        "launches": flash_launches, "max_abs_err": flash_err,
+        "launches": flash_launches + nmt_fwd, "max_abs_err": flash_err,
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
-        "library_ms": flash["library_ms"]}]}), flush=True)
+        "library_ms": flash["library_ms"]}] + [{
+        "name": "flash_attn_bwd_" + part, "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
+                    + line + " (via openseq2seq_tpu/parts/transformer/"
+                    "attention.py:120)",
+        "launches": launches, "max_abs_err": err,
+        "ms": flash_bwd[part + "_ms"], "plain_ms": flash_bwd["plain_ms"],
+        "bound_ms": flash_bwd[part + "_bound"][0],
+        "bound_by": flash_bwd[part + "_bound"][1],
+        "library_ms": flash_bwd["library_ms"]}
+        for part, line, launches, err in (
+            ("dq", "1456", nmt_dq, dq_err),
+            ("dkv", "1121", nmt_dkv, dkv_err))] + [{
+        "name": "dropout_mask", "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/dropout_mask.cu",
+        "replaces": "openseq2seq_tpu/ops/dropout_pallas.py:92",
+        "launches": nmt_drop, "max_abs_err": drop["max_abs_err"],
+        "ms": drop["ms"], "plain_ms": drop["plain_ms"],
+        "bound_ms": drop["bound"][0], "bound_by": drop["bound"][1],
+        "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

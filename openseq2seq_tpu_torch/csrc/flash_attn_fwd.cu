@@ -37,6 +37,11 @@
 // The q.k head dim DQK and the v head dim DV are separate template
 // parameters (instantiated equal here) so that a kernel with Dqk != Dv
 // can reuse this one.
+//
+// For training the caller passes an fp32 `lse` (B, H, Tq), which receives
+// each row's log-sum-exp m + log(l) (relative to the mask value for a row
+// without any valid key); flash_attn_bwd.cu recomputes the weights from
+// it. Inference passes null and writes nothing more.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,8 +76,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v,
                       const unsigned char* __restrict__ kv_valid,
-                      T* __restrict__ out, int Tq, int Tk, int H, int causal,
-                      float sm_scale) {
+                      T* __restrict__ out, float* __restrict__ lse, int Tq,
+                      int Tk, int H, int causal, float sm_scale) {
   constexpr int QS = DQK + 1, VS = DV + 1, PS = kKeys + 1;
   constexpr int KPT = kKeys / kTpr;       // scores per thread
   constexpr int OPT = DV / kTpr;          // output columns per thread
@@ -95,6 +100,21 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         t < Tq ? to_float(q[((static_cast<size_t>(b) * Tq + t) * H + h) *
                                 DQK + d])
                : 0.f;
+  }
+
+  // with lse: the first valid key of the batch row, which tells a row
+  // without any valid key (see the store of lse below)
+  __shared__ int first_valid;
+  if (lse != nullptr) {
+    if (tid == 0) first_valid = kv_valid != nullptr ? Tk : 0;
+    __syncthreads();
+    if (kv_valid != nullptr)
+      for (int t = tid; t < Tk; t += kThreads)
+        if (kv_valid[static_cast<size_t>(b) * Tk + t]) {
+          atomicMin(&first_valid, t);
+          break;
+        }
+    __syncthreads();
   }
 
   float o[OPT];
@@ -182,13 +202,23 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* dst = out + ((static_cast<size_t>(b) * Tq + qi) * H + h) * DV;
 #pragma unroll
     for (int c = 0; c < OPT; ++c) store(dst + sub + kTpr * c, o[c] * inv);
+    // the row's log-sum-exp, for the backward's recompute of the weights.
+    // A row without a valid key has m near -1e9, where fp32 cannot hold
+    // m + log(l); its lse is taken relative to the mask value instead
+    // (m - kMasked is exact), and the backward subtracts the same offset
+    if (lse != nullptr && sub == 0) {
+      const bool none = first_valid > (causal ? qi : Tk - 1);
+      lse[(static_cast<size_t>(b) * H + h) * Tq + qi] =
+          (none ? m - kMasked : m) + logf(l);
+    }
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v,
-           const unsigned char* kv_valid, void* out, int B, int Tq, int Tk,
-           int H, int causal, float sm_scale, cudaStream_t stream) {
+           const unsigned char* kv_valid, void* out, float* lse, int B,
+           int Tq, int Tk, int H, int causal, float sm_scale,
+           cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D, D>();
   auto* kernel = flash_attn_fwd_kernel<T, D, D>;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -198,26 +228,26 @@ int launch(const void* q, const void* k, const void* v,
   const dim3 grid((Tq + kRows - 1) / kRows, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_valid, static_cast<T*>(out), Tq, Tk, H,
-      causal, sm_scale);
+      static_cast<const T*>(v), kv_valid, static_cast<T*>(out), lse, Tq, Tk,
+      H, causal, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v,
-             const unsigned char* kv_valid, void* out, int B, int Tq,
-             int Tk, int H, int D, int causal, float sm_scale,
+             const unsigned char* kv_valid, void* out, float* lse, int B,
+             int Tq, int Tk, int H, int D, int causal, float sm_scale,
              cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, kv_valid, out, B, Tq, Tk, H, causal,
-                           sm_scale, stream);
+      return launch<T, 64>(q, k, v, kv_valid, out, lse, B, Tq, Tk, H,
+                           causal, sm_scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, kv_valid, out, B, Tq, Tk, H, causal,
-                            sm_scale, stream);
+      return launch<T, 128>(q, k, v, kv_valid, out, lse, B, Tq, Tk, H,
+                            causal, sm_scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, kv_valid, out, B, Tq, Tk, H, causal,
-                            sm_scale, stream);
+      return launch<T, 256>(q, k, v, kv_valid, out, lse, B, Tq, Tk, H,
+                            causal, sm_scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -228,16 +258,19 @@ int dispatch(const void* q, const void* k, const void* v,
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 on
 // success). The caller guarantees B, Tq, Tk, H >= 1, D in {64, 128, 256},
 // contiguous (B, T, H, D) device buffers of one type (bf16 when is_bf16,
-// else fp32), and kv_valid null or a (B, Tk) byte mask.
+// else fp32), kv_valid null or a (B, Tk) byte mask, and lse null or a
+// (B, H, Tq) fp32 buffer, which then receives each row's m + log(l).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              const void* kv_valid, void* out, int B, int Tq,
-                              int Tk, int H, int D, int is_bf16, int causal,
-                              float sm_scale, void* stream) {
+                              const void* kv_valid, void* out, void* lse,
+                              int B, int Tq, int Tk, int H, int D,
+                              int is_bf16, int causal, float sm_scale,
+                              void* stream) {
   const auto* mask = static_cast<const unsigned char*>(kv_valid);
+  auto* lse_out = static_cast<float*>(lse);
   const auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, mask, out, B, Tq, Tk, H, D,
-                                   causal, sm_scale, s);
-  return dispatch<float>(q, k, v, mask, out, B, Tq, Tk, H, D, causal,
-                         sm_scale, s);
+    return dispatch<__nv_bfloat16>(q, k, v, mask, out, lse_out, B, Tq, Tk,
+                                   H, D, causal, sm_scale, s);
+  return dispatch<float>(q, k, v, mask, out, lse_out, B, Tq, Tk, H, D,
+                         causal, sm_scale, s);
 }

@@ -139,6 +139,8 @@ class SyntheticTextDataLayer(DataLayer):
         for _ in range(p["num_batches"]):
             yield batch
 
-    def decode_ids(self, ids):
+    def decode_ids(self, ids, side: str = "tgt"):
+        """Ids as text; ``side`` (the text layer's source or target
+        vocabulary) is the same vocabulary here."""
         return " ".join(str(int(i)) for i in np.asarray(ids).tolist()
                         if int(i) >= 0)

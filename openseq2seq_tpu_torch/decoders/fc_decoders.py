@@ -49,7 +49,9 @@ class FCTimeDecoderModule(nn.Module):
         self.fully_connected = fully_connected
         self.greedy_ctc = greedy_ctc
 
-    def forward(self, input_dict: Dict[str, Any], train: bool):
+    def forward(self, input_dict: Dict[str, Any], train: bool,
+                generator: torch.Generator = None):
+        """``generator`` is unused: the layer has no dropout."""
         x = input_dict["encoder_output"]["outputs"]
         src_length = input_dict["encoder_output"]["src_length"]
         # logits feed fp32 losses and decoders

@@ -31,7 +31,14 @@ Module names follow the flax module's (``self_attns_{i}``,
 ``ffn_norms_{i}``, ``out_norm``). The JAX package's TPU cache layouts
 (``decode_cache``, ``decode_segments``, ``lazy_decode``) give identical
 beams there and are accepted here as no-ops; the pipelined stack and
-sequence parallelism are refused. Training (dropout) is not ported yet.
+sequence parallelism are refused.
+
+In training (``transformer_decoder.py:156-226``) the teacher-forced pass
+runs alone, with no beam decode: dropout at ``layer_postprocess_dropout``
+follows the embedding plus positions and each residual branch, the
+attention dropout and the FFN's relu dropout run inside those layers, all
+drawn from the step's generator, with the model's ``dropout_bits`` and
+``fused_residual_dropout``.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ import torch
 import torch.nn as nn
 
 from .decoder import Decoder
+from ..parts.dropout import dropout
 from ..ops.beam_search import beam_search, sequence_lengths_from_ids
 from ..parts.transformer.attention import CrossAttention, SelfAttention
 from ..parts.transformer.common import (TransformerNorm, embed_ids,
@@ -55,7 +63,8 @@ REFUSED = ("sequence_parallel", "num_pipeline_stages",
 class TransformerDecoderModule(nn.Module):
 
     def __init__(self, p: Dict[str, Any], dtype: torch.dtype,
-                 generator: torch.Generator, mode: str):
+                 generator: torch.Generator, mode: str,
+                 dropout_bits: int = 32, fused_dropout: bool = False):
         super().__init__()
         self.num_layers = L = p["num_hidden_layers"]
         self.hidden_size = d = p["hidden_size"]
@@ -68,18 +77,25 @@ class TransformerDecoderModule(nn.Module):
         self.go_symbol = p.get("GO_SYMBOL", 2)
         self.dtype = dtype
         self.mode = mode
+        self.postprocess_dropout = p["layer_postprocess_dropout"]
+        self.dropout_bits = dropout_bits
         flash = p.get("use_flash_attention", False)
+        attn = dict(attention_dropout=p["attention_dropout"],
+                    dropout_bits=dropout_bits)
         norm = p.get("norm_params")
         for i in range(L):
             # the flash path masks k > q itself; the plain path takes the
             # causal bias
             self.add_module("self_attns_{}".format(i), SelfAttention(
                 d, self.num_heads, dtype, generator, use_flash=flash,
-                causal=True))
+                causal=True, **attn))
             self.add_module("cross_attns_{}".format(i), CrossAttention(
-                d, self.num_heads, dtype, generator, use_flash=flash))
+                d, self.num_heads, dtype, generator, use_flash=flash,
+                **attn))
             self.add_module("ffns_{}".format(i), FeedForwardNetwork(
-                d, p["filter_size"], dtype, generator))
+                d, p["filter_size"], dtype, generator,
+                relu_dropout=p["relu_dropout"], dropout_bits=dropout_bits,
+                fused_dropout=fused_dropout))
             for name in ("sa_norms", "ca_norms", "ffn_norms"):
                 self.add_module("{}_{}".format(name, i),
                                 TransformerNorm(d, norm))
@@ -88,11 +104,16 @@ class TransformerDecoderModule(nn.Module):
     def layer(self, name: str, i: int) -> nn.Module:
         return getattr(self, "{}_{}".format(name, i))
 
-    def forward(self, input_dict: Dict[str, Any], train: bool
-                ) -> Dict[str, Any]:
-        if train:
-            raise NotImplementedError("transformer training is not ported "
-                                      "yet")
+    def drop(self, x: torch.Tensor, train: bool,
+             generator: torch.Generator) -> torch.Tensor:
+        """The post-process dropout of a training call."""
+        if not train:
+            return x
+        return dropout(x, 1.0 - self.postprocess_dropout, generator,
+                       self.dropout_bits)
+
+    def forward(self, input_dict: Dict[str, Any], train: bool,
+                generator: torch.Generator = None) -> Dict[str, Any]:
         enc = input_dict["encoder_output"]
         if self.mode == "infer" or input_dict.get("target_tensors") is None:
             return self.decode(enc)
@@ -103,18 +124,24 @@ class TransformerDecoderModule(nn.Module):
         x = embed_ids(table, dec_in, self.hidden_size, self.dtype) + \
             position_encoding(T, self.hidden_size, self.dtype,
                               dec_in.device)[None]
+        x = self.drop(x, train, generator)
         self_bias = get_decoder_self_attention_bias(T, dec_in.device)
         for i in range(self.num_layers):
-            x = x + self.layer("self_attns", i)(
-                self.layer("sa_norms", i)(x), self_bias)
-            x = x + self.layer("cross_attns", i)(
+            h = self.layer("self_attns", i)(
+                self.layer("sa_norms", i)(x), self_bias, train, generator)
+            x = x + self.drop(h, train, generator)
+            h = self.layer("cross_attns", i)(
                 self.layer("ca_norms", i)(x), memory,
-                enc["attention_bias"])
-            x = x + self.layer("ffns", i)(self.layer("ffn_norms", i)(x))
+                enc["attention_bias"], train=train, generator=generator)
+            x = x + self.drop(h, train, generator)
+            h = self.layer("ffns", i)(self.layer("ffn_norms", i)(x), train,
+                                      generator)
+            x = x + self.drop(h, train, generator)
         logits = project_logits(table, self.out_norm(x), self.vocab_size)
         out = {"logits": logits, "targets": targets,
                "src_length": enc["src_length"]}
-        out.update(self.decode(enc))
+        if not train:
+            out.update(self.decode(enc))
         return out
 
     def decode(self, enc: Dict[str, Any]) -> Dict[str, Any]:
@@ -221,5 +248,8 @@ class TransformerDecoder(Decoder):
         """``in_features`` is unused: the width is ``hidden_size``."""
         dtype = torch.float32 if self._model is None \
             else self._model.mp_policy.compute_dtype
-        return TransformerDecoderModule(self._params, dtype, generator,
-                                        self._mode)
+        model = self._model.params if self._model is not None else {}
+        return TransformerDecoderModule(
+            self._params, dtype, generator, self._mode,
+            dropout_bits=model.get("dropout_bits", 32),
+            fused_dropout=model.get("fused_residual_dropout", False))

@@ -20,11 +20,11 @@ class ForwardPass(nn.Module):
 
     def forward(self, batch: Dict[str, Any], train: bool,
                 generator: torch.Generator = None):
-        """``generator`` draws the encoder's dropout in training."""
+        """``generator`` draws the dropout of both in training."""
         encoder_output = self.enc(batch, train, generator)
         dec_input = dict(batch)
         dec_input["encoder_output"] = encoder_output
-        decoder_output = self.dec(dec_input, train)
+        decoder_output = self.dec(dec_input, train, generator)
         return {"encoder_output": encoder_output,
                 "decoder_output": decoder_output}
 

@@ -97,6 +97,9 @@ class Model(abc.ABC):
             # dropout mask width: 32 exact Bernoulli, 8 keep probability
             # quantized to 1/256 (parts/dropout.py)
             "dropout_bits": [8, 32],
+            # the transformer FFN's relu dropout (and PreNormResidual's
+            # dropout + residual add) on kernel B2 (ops/fused_dropout.py)
+            "fused_residual_dropout": bool,
             # TPU knobs of the JAX package, no-ops here: RNG
             # implementation of dropout, activation rematerialization
             "prng_impl": str,

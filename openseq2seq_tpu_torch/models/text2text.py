@@ -1,11 +1,7 @@
 """Text-to-text (NMT) task model: the loss on shifted targets, BLEU in
-eval, the detokenized infer file (port of
-``openseq2seq_tpu/models/text2text.py``).
-
-Eval and infer are ported; training (which needs the flash kernel's
-backward and the fused dropout, ROADMAP "Main path and its kernels",
-NMT transformer-big training) is refused, and with it the training-time
-``print_samples``.
+eval, the detokenized infer file, the training samples (port of
+``openseq2seq_tpu/models/text2text.py``). Train, eval and infer are
+ported.
 """
 from __future__ import annotations
 
@@ -20,15 +16,6 @@ from .encoder_decoder import EncoderDecoderModel
 
 
 class Text2Text(EncoderDecoderModel):
-
-    def __init__(self, params, mode="train", device="cuda",
-                 num_workers=1, worker_id=0):
-        if mode == "train":
-            raise NotImplementedError(
-                "Text2Text training is not ported yet: it comes with the "
-                "NMT transformer-big training slice of ROADMAP.md (the "
-                "flash attention backward and the fused dropout)")
-        super().__init__(params, mode, device, num_workers, worker_id)
 
     def _create_encoder(self):
         self._params.setdefault("encoder_params", {})
@@ -71,6 +58,23 @@ class Text2Text(EncoderDecoderModel):
         dl = self.get_data_layer()
         return [dl.decode_ids(row[:int(n)])
                 for row, n in zip(np.asarray(ids), np.asarray(lengths))]
+
+    def print_samples(self, input_values, output_values, step):
+        """The first sentence's source, target and prediction
+        (``text2text.py:61-75``); nothing when the decoder output has no
+        decoded ``outputs``."""
+        dec_out = output_values["outputs"]["decoder_output"]
+        if "outputs" not in dec_out:
+            return
+        dl = self.get_data_layer()
+        x, x_len = input_values["source_tensors"][:2]
+        y, y_len = input_values["target_tensors"][:2]
+        src = dl.decode_ids(x[0][:int(x_len[0])], side="src")
+        ref = dl.decode_ids(y[0][:int(y_len[0])])
+        hyp = self._decode_batch(dec_out["outputs"])[0]
+        deco_print("Sample source:     {}".format(src), offset=4)
+        deco_print("Sample target:     {}".format(ref), offset=4)
+        deco_print("Sample prediction: {}".format(hyp), offset=4)
 
     def evaluate(self, input_values, output_values):
         valid = int(input_values.get(

@@ -1,5 +1,6 @@
 """Dropout drawn from an explicit ``torch.Generator`` (port of the
-training half of ``openseq2seq_tpu/parts/dropout.py``).
+training half of ``openseq2seq_tpu/parts/dropout.py``): :func:`dropout`
+and the transformer FFN's :func:`relu_dropout`.
 
 The mask is ``torch.rand(shape, generator=g) < keep`` on the tensor's
 device: never ``F.dropout`` or torch's global generator, so a run is
@@ -47,6 +48,19 @@ def dropout(x: torch.Tensor, keep_prob: float, generator: torch.Generator,
     mask = torch.rand(x.shape, generator=generator, device=x.device) < p
     return torch.where(mask, x / q, torch.zeros((), dtype=x.dtype,
                                                 device=x.device))
+
+
+def relu_dropout(x: torch.Tensor, rate: float,
+                 generator: Optional[torch.Generator],
+                 dropout_bits: int = 32) -> torch.Tensor:
+    """relu, then dropout at ``rate`` (``parts/dropout.py:183-191``);
+    relu alone at rate 0. Its gradient, ``mask * 1[x > 0] * g / q`` from
+    autograd, is the JAX package's mask-free VJP ``1[out > 0] * g / q``
+    wherever x != 0."""
+    h = torch.relu(x)
+    if rate <= 0.0:
+        return h
+    return dropout(h, 1.0 - rate, generator, dropout_bits)
 
 
 def bernoulli(p: float, generator: Optional[torch.Generator],

@@ -21,17 +21,22 @@ kernel (``ops/flash_attention.py``, B7) on CUDA tensors: head dim in
 The bias rule is ``_attend_flash``'s: under ``causal`` the bias is
 ignored (the kernel's own mask replaces the triangle); otherwise a
 (B|1, 1, 1, Tk) key-padding bias becomes a key-valid mask by
-``bias > -1``, and any other bias shape raises. Attention dropout runs
-only in training, which is not ported yet.
+``bias > -1``, and any other bias shape raises. In training the
+attention dropout (``attention_dropout``, from the step's generator,
+honouring ``dropout_bits``) runs on the weights on the plain path
+(``attention.py:39-48``) and on the attention output on the flash path
+(``attention.py:278-280``, ``:329-332``), as in the JAX package; the flash
+kernels' backward gives the gradient of the flash path.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn as nn
 
 from ...ops.flash_attention import HEAD_DIMS, flash_attention
+from ..dropout import dropout
 from .common import Dense
 
 
@@ -45,16 +50,28 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(B, T, h * d)
 
 
-def _attend(q, k, v, bias: Optional[torch.Tensor]) -> torch.Tensor:
+def _attend(q, k, v, bias: Optional[torch.Tensor],
+            drop: Optional[Callable] = None) -> torch.Tensor:
     """``softmax(q k^T / sqrt(d) + bias) v`` as the JAX package computes
     it: q scaled in its dtype, fp32 scores and softmax (the bf16 operands
-    upcast exactly), weights cast to v's dtype for the second product."""
+    upcast exactly), ``drop`` on the fp32 weights in training, weights
+    cast to v's dtype for the second product."""
     q = q * (q.shape[-1] ** -0.5)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     if bias is not None:
         logits = logits + bias.float()
     weights = torch.softmax(logits, dim=-1)
+    if drop is not None:
+        weights = drop(weights)
     return torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
+
+
+def _dropper(rate: float, bits: int, train: bool,
+             generator: Optional[torch.Generator]) -> Optional[Callable]:
+    """The attention dropout of a training call, or None."""
+    if not train or rate <= 0.0:
+        return None
+    return lambda x: dropout(x, 1.0 - rate, generator, bits)
 
 
 def _flash_ok(q: torch.Tensor, k: torch.Tensor) -> bool:
@@ -84,12 +101,15 @@ class SelfAttention(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int, dtype: torch.dtype,
                  generator: torch.Generator, use_flash: bool = False,
-                 causal: bool = False):
+                 causal: bool = False, attention_dropout: float = 0.0,
+                 dropout_bits: int = 32):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_heads = num_heads
         self.use_flash = use_flash
         self.causal = causal
+        self.attention_dropout = attention_dropout
+        self.dropout_bits = dropout_bits
         self.qkv = Dense(hidden_size, 3 * hidden_size, dtype, generator)
         self.out = Dense(hidden_size, hidden_size, dtype, generator)
 
@@ -98,13 +118,19 @@ class SelfAttention(nn.Module):
         return [_split_heads(t, self.num_heads) for t in (q, k, v)]
 
     def forward(self, x: torch.Tensor,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """Full-sequence attention over x (B, T, d)."""
         q, k, v = self._qkv(x)
+        drop = _dropper(self.attention_dropout, self.dropout_bits, train,
+                        generator)
         if self.use_flash and _flash_ok(q, k):
             out = _attend_flash(q, k, v, bias, self.causal)
+            if drop is not None:
+                out = drop(out)       # weight dropout -> output dropout
         else:
-            out = _attend(q, k, v, bias)
+            out = _attend(q, k, v, bias, drop)
         return self.out(_merge_heads(out))
 
     def decode_step(self, x: torch.Tensor, k_cache: torch.Tensor,
@@ -127,10 +153,13 @@ class CrossAttention(nn.Module):
     """Encoder-decoder attention; K/V from the memory or precomputed."""
 
     def __init__(self, hidden_size: int, num_heads: int, dtype: torch.dtype,
-                 generator: torch.Generator, use_flash: bool = False):
+                 generator: torch.Generator, use_flash: bool = False,
+                 attention_dropout: float = 0.0, dropout_bits: int = 32):
         super().__init__()
         self.num_heads = num_heads
         self.use_flash = use_flash
+        self.attention_dropout = attention_dropout
+        self.dropout_bits = dropout_bits
         self.q = Dense(hidden_size, hidden_size, dtype, generator)
         self.k = Dense(hidden_size, hidden_size, dtype, generator)
         self.v = Dense(hidden_size, hidden_size, dtype, generator)
@@ -142,15 +171,21 @@ class CrossAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, memory: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None,
-                kv_cache: Optional[Dict[str, torch.Tensor]] = None
+                kv_cache: Optional[Dict[str, torch.Tensor]] = None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         q = _split_heads(self.q(x), self.num_heads)
         kv = kv_cache if kv_cache is not None else self.precompute_kv(memory)
         k, v = kv["k"], kv["v"]
+        drop = _dropper(self.attention_dropout, self.dropout_bits, train,
+                        generator)
         # flash only over full sequences; decode queries (Tq = 1) and the
         # precomputed K/V of decoding stay on the plain path
         if self.use_flash and kv_cache is None and _flash_ok(q, k):
             out = _attend_flash(q, k, v, bias, False)
+            if drop is not None:
+                out = drop(out)       # weight dropout -> output dropout
         else:
-            out = _attend(q, k, v, bias)
+            out = _attend(q, k, v, bias, drop)
         return self.out(_merge_heads(out))

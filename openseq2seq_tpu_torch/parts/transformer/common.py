@@ -12,7 +12,11 @@
     :func:`project_logits`, projects decoder states to fp32 logits;
   * :class:`TransformerNorm`: the layer-norm variant (eps 1e-6, statistics
     and normalization in fp32, output in the compute dtype). The
-    ``batch_norm`` variant is not ported yet and raises.
+    ``batch_norm`` variant is not ported yet and raises;
+  * :class:`PreNormResidual`: ``x + dropout(layer(layer_norm(x)))``, whose
+    dropout and residual add run as kernel B2's ``fused_dropout_add``
+    under ``fused_residual_dropout`` (no model of the JAX package builds
+    one; it is kernel B2's residual variant's caller).
 
 Dense layers are :class:`Dense`, flax's ``DenseGeneral`` over the last
 axis: fp32 parameters, computed in the layer's dtype, lecun-normal
@@ -21,11 +25,15 @@ kernels and zero biases, parameters named ``weight`` (out, in) and
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops import fused_dropout as fd
+from ..dropout import dropout
 from ..initializers import resolve_initializer
 
 NEG_INF = -1e9
@@ -155,3 +163,42 @@ class TransformerNorm(nn.Module):
         return F.layer_norm(x.float(), self.weight.shape,
                             self.weight.float(), self.bias.float(),
                             1e-6).to(x.dtype)
+
+
+class PreNormResidual(nn.Module):
+    """``x + dropout(layer(layer_norm(x)))`` (``common.py:119-148``): the
+    layer norm ``pre_norm`` (eps 1e-6, fp32 statistics, output in
+    ``dtype``), then ``layer(y, *args, train=, generator=, **kwargs)``,
+    which may return ``(y, extra)``. In training with ``fused_dropout``,
+    a last dim that is a multiple of 128 and ``x`` shaped as ``y``, the
+    dropout and the sum are one launch of kernel B2's residual variant,
+    seeded from the step's generator; otherwise ``parts/dropout``."""
+
+    def __init__(self, layer: nn.Module, hidden_size: int,
+                 dropout_rate: float, dtype: torch.dtype = torch.float32,
+                 dropout_bits: int = 32, fused_dropout: bool = False):
+        super().__init__()
+        self.pre_norm = nn.LayerNorm(hidden_size, eps=1e-6)
+        self.layer = layer
+        self.dropout_rate = dropout_rate
+        self.dtype = dtype
+        self.dropout_bits = dropout_bits
+        self.fused_dropout = fused_dropout
+
+    def forward(self, x: torch.Tensor, *args, train: bool = False,
+                generator: Optional[torch.Generator] = None, **kwargs):
+        y = self.pre_norm(x.float()).to(self.dtype)
+        y = self.layer(y, *args, train=train, generator=generator, **kwargs)
+        extra = None
+        if isinstance(y, tuple):
+            y, extra = y
+        rate = self.dropout_rate
+        if train and rate > 0.0 and self.fused_dropout and \
+                x.shape == y.shape and fd.supported(y.shape):
+            out = fd.fused_dropout_add(x, y, rate,
+                                       fd.draw_seed(generator, y.device))
+        else:
+            if train:
+                y = dropout(y, 1.0 - rate, generator, self.dropout_bits)
+            out = x + y
+        return out if extra is None else (out, extra)

@@ -2,7 +2,7 @@
 """Profile the PyTorch port's eval step, its infer step or its train
 step, on one NVIDIA GPU.
 
-    python3 scripts_torch/profile_eval.py [--train | --infer]
+    python3 scripts_torch/profile_eval.py [--train | --infer | --train-nmt]
         [--config_file=PATH] [--steps=4] [--repeats=3] [--trace=PATH]
 
 Builds the model of a port config (default: Jasper-10x5 at full width on
@@ -12,15 +12,22 @@ jasper10x5_synthetic.py``; for the NMT transformer-big,
 card with seeded weights, in eval mode, in infer mode with ``--infer``
 (for the transformer: the beam decode alone) or, with ``--train``, in
 train mode (the config's ``train_params`` merged in; dropout drawn from
-a generator seeded per step), and prints:
+a generator seeded per step). ``--train-nmt`` is ``--train`` on the
+transformer-big training config,
+``example_configs_torch/text2text/transformer_big_train_synthetic.py``.
+It prints:
 
 1. wall milliseconds per step without the profiler, for each of
    ``--repeats`` passes over the epoch (host batches made beforehand;
-   the step copies each to the card), and utterances per second;
+   the step copies each to the card), and utterances (sentences) and
+   objects (the model's count: frames, or source plus target tokens) per
+   second;
 2. from one ``torch.profiler`` trace of ``--steps`` steps: device busy
    time (the union of kernel, memcpy and memset intervals) against the
    span from the first device activity to the last, so the idle share;
-   and device milliseconds per step for each kernel group;
+   and device milliseconds and launches per step for each kernel group
+   (the port's own kernels each have theirs: "ctc kernel", "flash
+   attention kernel" forward and backward, "fused dropout kernel");
 3. FLOP per step of the convolutions and dense layers, counted from the
    shapes their forward hooks see (in training also their backward: the
    weight gradient, and the input gradient where the input needs one),
@@ -47,15 +54,19 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "example_configs_torch", "speech2text",
                       "jasper10x5_synthetic.py")
+NMT_TRAIN_CONFIG = os.path.join(REPO, "example_configs_torch", "text2text",
+                                "transformer_big_train_synthetic.py")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 # (group, substrings of the kernel name), first match wins; the conv
 # and GEMM groups are the two after the CTC kernels
 GROUPS = (
     ("ctc kernel", ("ctc_alpha_fwd", "ctc_beta_bwd")),
-    ("flash attention kernel", ("flash_attn_fwd",)),
+    ("flash attention kernel", ("flash_attn_fwd", "flash_attn_bwd")),
+    ("fused dropout kernel", ("dropout_mask",)),
     ("convs (implicit GEMM, k > 1)", ("fprop", "dgrad", "wgrad")),
-    ("GEMMs (1x1 residual convs, dense)", ("gemm",)),
+    # cuBLAS names its kernels *gemm*, cuBLASLt's newer ones nvjet_*
+    ("GEMMs (1x1 residual convs, dense)", ("gemm", "nvjet")),
     ("batch norm", ("bn_fw", "bn_bw", "batch_norm")),
     ("optimizer (foreach)", ("multi_tensor_apply", "foreach")),
     ("dropout RNG", ("distribution", "philox")),
@@ -68,7 +79,7 @@ GROUPS = (
     ("dtype casts and copies", ("copy", "DtoD")),
     ("elementwise", ("elementwise",)),
 )
-MATMUL_GROUPS = [g for g, _ in GROUPS[2:4]]
+MATMUL_GROUPS = [g for g, _ in GROUPS[3:5]]
 
 
 def group_of(name: str) -> str:
@@ -153,7 +164,7 @@ def busy_us(intervals) -> float:
     return busy
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     which = ap.add_mutually_exclusive_group()
     which.add_argument("--train", action="store_true",
@@ -161,13 +172,28 @@ def main(argv=None):
                             "step)")
     which.add_argument("--infer", action="store_true",
                        help="profile the infer step")
-    ap.add_argument("--config_file", default=CONFIG)
+    which.add_argument("--train-nmt", action="store_true",
+                       help="profile the transformer-big train step (the "
+                            "train step on {})".format(
+                                os.path.relpath(NMT_TRAIN_CONFIG, REPO)))
+    ap.add_argument("--config_file", default=None,
+                    help="the port config (default: Jasper-10x5, or the "
+                         "transformer-big training config with "
+                         "--train-nmt)")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--trace", default=None,
                     help="where to keep the chrome trace (default: a "
                          "temporary file)")
     args = ap.parse_args(argv)
+    if args.config_file is None:
+        args.config_file = NMT_TRAIN_CONFIG if args.train_nmt else CONFIG
+    args.train = args.train or args.train_nmt
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
@@ -189,6 +215,7 @@ def main(argv=None):
 
     batches = list(model.get_data_layer().iterate_one_epoch())
     utts = sum(len(b["source_ids"]) for b in batches)
+    objects = sum(model.get_num_objects_per_step(b) for b in batches)
     # the warm-up step counts the FLOP
     flop_per_batch = count_flops(module, lambda: step(batches[0]),
                                  args.train)
@@ -210,9 +237,11 @@ def main(argv=None):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / len(batches))
     print("[wall] ms per step, {} passes: {}; utterances (sentences) "
-          "per s: {} ({})".format(
+          "per s: {}; objects (frames or tokens) per s: {} ({})".format(
         args.repeats, ", ".join("{:.3f}".format(w) for w in walls),
         ", ".join("{:.1f}".format(utts / len(batches) / w * 1e3)
+                  for w in walls),
+        ", ".join("{:.1f}".format(objects / len(batches) / w * 1e3)
                   for w in walls), card), flush=True)
 
     from torch.profiler import ProfilerActivity, profile
@@ -236,13 +265,16 @@ def main(argv=None):
     print("[trace] {} steps: device busy {:.3f} ms per step of a {:.3f} ms "
           "span, idle share {:.2%}".format(n, busy / n / 1e3, span / n / 1e3,
                                            1 - busy / span), flush=True)
-    groups = collections.Counter()
+    groups, group_launches = collections.Counter(), collections.Counter()
     for s, e, name in intervals:
         groups[group_of(name)] += e - s
+        group_launches[group_of(name)] += 1
     total = sum(groups.values())
     for g, us in groups.most_common():
         print("[trace] {:36s} {:8.3f} ms per step, {:5.1%} of device "
-              "time".format(g, us / n / 1e3, us / total), flush=True)
+              "time, {:.0f} launches per step".format(
+                  g, us / n / 1e3, us / total, group_launches[g] / n),
+              flush=True)
     kernels = collections.Counter()
     for s_, e, name in intervals:
         kernels[name] += e - s_
@@ -267,9 +299,12 @@ def main(argv=None):
     print(json.dumps({
         "card": card, "mode": mode, "wall_ms_per_batch": walls,
         "utt_per_s": [utts / len(batches) / w * 1e3 for w in walls],
+        "objects_per_s": [objects / len(batches) / w * 1e3 for w in walls],
         "busy_ms_per_batch": busy / n / 1e3,
         "span_ms_per_batch": span / n / 1e3, "idle_share": 1 - busy / span,
         "group_ms_per_batch": {g: us / n / 1e3 for g, us in groups.items()},
+        "group_launches_per_batch": {g: c / n for g, c in
+                                     group_launches.items()},
         "kernels_per_batch": launches,
         "flop_per_batch": flop_per_batch}), flush=True)
 

@@ -12,7 +12,11 @@ on d log-probs, exact zeros on infeasible rows and past each length, the
 posteriors of a live frame summing to 1 within 1e-4, and two calls
 bit-identical. The flash attention kernel against
 ``flash_attention_plain``: fp32, max abs error 2e-5 (sums in another
-order), and what it refuses."""
+order), and what it refuses. The flash backward kernels against
+``flash_attention_bwd_plain`` from the kernel forward's own output and
+lse: fp32, max abs error 1e-4, two calls bit-identical, and autograd
+through the kernels. The fused dropout kernel against its plain version:
+bit-identical, forward and backward, with and without the residual."""
 import numpy as np
 import pytest
 import torch
@@ -130,3 +134,54 @@ def test_flash_kernel_refuses_what_it_does_not_take(device):
                 (q.transpose(1, 2), q, q), (q, q.bfloat16(), q)):
         with pytest.raises(ValueError):
             fa.flash_attention(*bad)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,D,causal", [
+    (4, 64, 64, 16, 64, False), (2, 113, 113, 4, 64, True),
+    (2, 63, 64, 4, 128, False), (1, 70, 200, 2, 256, False)])
+def test_flash_backward_kernels_match_plain(device, B, Tq, Tk, H, D, causal):
+    from openseq2seq_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=device).manual_seed(Tq + D + 1)
+    q, do = (torch.randn((B, Tq, H, D), generator=g, device=device)
+             for _ in range(2))
+    k, v = (torch.randn((B, Tk, H, D), generator=g, device=device)
+            for _ in range(2))
+    valid = None
+    if not causal:
+        lengths = torch.randint(1, Tk + 1, (B,), generator=g, device=device)
+        valid = torch.arange(Tk, device=device)[None] < lengths[:, None]
+    out, lse = fa.flash_attention_cuda(q, k, v, valid, causal, D ** -0.5,
+                                      return_lse=True)
+    before = (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, valid, causal)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, valid, causal)
+    assert (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES) == (before[0] + 2,
+                                                         before[1] + 2)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, valid, causal)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-4)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa.flash_attention(*leaves, valid, causal).backward(do)
+    for leaf, w in zip(leaves, want):
+        torch.testing.assert_close(leaf.grad, w, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_dropout_kernel_matches_plain(device, dtype):
+    from openseq2seq_tpu_torch.ops import fused_dropout as fd
+    g = torch.Generator(device=device).manual_seed(0)
+    x, y, cot = (torch.randn((600, 256), generator=g, device=device)
+                 .to(dtype) for _ in range(3))
+    seed = fd.draw_seed(g, device)
+    leaves = [t.clone().requires_grad_() for t in (x, y)]
+    before = fd.LAUNCHES
+    out = fd.fused_dropout_add(leaves[0], leaves[1], 0.3, seed)
+    out.backward(cot)
+    assert fd.LAUNCHES == before + 2
+    assert torch.equal(out, fd.fused_dropout_add_plain(x, y, 0.3, seed))
+    assert torch.equal(leaves[1].grad, fd.fused_dropout_plain(cot, 0.3, seed))
+    assert torch.equal(leaves[0].grad, cot)
+    with pytest.raises(ValueError):
+        fd.fused_dropout_cuda(y[:, :100].contiguous(), None, 0.3, seed)

@@ -17,6 +17,7 @@ import torch
 from openseq2seq_tpu.parts.transformer.attention import _attend as jax_attend
 from openseq2seq_tpu_torch.ops import flash_attention as fa
 from openseq2seq_tpu_torch.parts.transformer import attention
+from jax_global_state import jax_globals, jax_globals_module  # noqa: F401
 
 NEG_INF = -1e9
 
@@ -123,12 +124,19 @@ def test_cpu_tensor_runs_plain_without_launch():
 
 
 def test_forward_only():
+    """Without a gradient to take the op is the forward alone (no graph,
+    no lse); with one it is the autograd Function, and ``_check`` no
+    longer refuses inputs that need a gradient."""
     q, k, v, _ = (torch.from_numpy(x) for x in _inputs(1, 4, 4, 1, 64, 2))
     q.requires_grad_()
-    with pytest.raises(NotImplementedError, match="forward only"):
-        fa._check(q, k, v, None)
+    fa._check(q, k, v, None)
     with torch.no_grad():
-        fa._check(q, k, v, None)
+        out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is None
+    out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    torch.testing.assert_close(out.detach(), fa.flash_attention_plain(
+        q.detach(), k, v), rtol=0, atol=0)
 
 
 def test_bf16_plain_rounds_once():
@@ -142,3 +150,105 @@ def test_bf16_plain_rounds_once():
     want = fa.flash_attention_plain(qb.float(), kb.float(), vb.float(),
                                     valid)
     torch.testing.assert_close(got, want.bfloat16(), rtol=0, atol=0)
+
+
+# -- the backward ---------------------------------------------------------
+
+BWD_CASES = [  # B, Tq, Tk, H, D, causal, batch row 1 without a valid key
+    (3, 7, 11, 2, 64, False, False),
+    (2, 9, 9, 2, 64, True, False),
+    (2, 5, 13, 2, 128, False, False),
+    (2, 10, 10, 1, 128, True, False),
+    (3, 6, 8, 2, 64, False, True),
+]
+
+
+def _bwd_case(B, Tq, Tk, H, D, causal, empty, seed):
+    """The cotangent has scale 0.1: on a row with a single valid key (a
+    causal row 0, a padded row of length 1) ds = p (dp - di) is an exact
+    cancellation that di = rowsum(dO * O) leaves at rounding level, about
+    1e-6 of the gradient's scale, which atol 1e-6 then covers."""
+    q, k, v, valid = _inputs(B, Tq, Tk, H, D, seed)
+    if empty:
+        valid[1] = False
+    do = 0.1 * np.random.RandomState(seed + 1).randn(B, Tq, H, D).astype(
+        np.float32)
+    kv = None if causal else valid
+    bias = _causal_bias(Tq) if causal else _padding_bias(valid)
+    return q, k, v, do, kv, bias
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,D,causal,empty", BWD_CASES)
+def test_backward_plain_matches_autograd_and_jax(B, Tq, Tk, H, D, causal,
+                                                 empty):
+    """``flash_attention_bwd_plain`` from the forward's lse against torch
+    autograd of ``flash_attention_plain`` and against ``jax.vjp`` of the
+    JAX package's ``_attend`` with the bias built from the mask."""
+    import jax
+    q, k, v, do, kv, bias = _bwd_case(B, Tq, Tk, H, D, causal, empty,
+                                      seed=Tq + Tk + D)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    tkv = None if kv is None else torch.from_numpy(kv)
+    out, lse = fa.flash_attention_plain(tq, tk, tv, tkv, causal,
+                                        return_lse=True)
+    got = fa.flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo, tkv,
+                                       causal)
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    fa.flash_attention_plain(*leaves, tkv, causal).backward(tdo)
+    _, vjp = jax.vjp(lambda a, b, c: jax_attend(
+        a, b, c, jnp.asarray(bias), 0.0, False, jnp.float32, lambda w: w),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    for g, leaf, w in zip(got, leaves, want):
+        np.testing.assert_allclose(g.numpy(), leaf.grad.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-6)
+    if empty:
+        assert np.all(np.isfinite(got[0].numpy())) and \
+            np.any(got[2].numpy()[1] != 0)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,D,causal,empty", BWD_CASES)
+def test_lse_is_the_logsumexp_of_the_masked_scores(B, Tq, Tk, H, D, causal,
+                                                   empty):
+    """On a row with a valid key lse is the log-sum-exp of the scaled
+    scores plus the -1e9 mask. On a row without one every score rounds to
+    -1e9 in fp32, the weights are uniform, and lse is log(Tk) taken
+    relative to the mask value (fp32 cannot add log(Tk) to -1e9)."""
+    q, k, _, _, kv, bias = _bwd_case(B, Tq, Tk, H, D, causal, empty, seed=5)
+    _, lse = fa.flash_attention_plain(
+        *map(torch.from_numpy, (q, k, k)),
+        None if kv is None else torch.from_numpy(kv), causal,
+        return_lse=True)
+    scores = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64),
+                       k.astype(np.float64)) * D ** -0.5 + bias
+    m = scores.max(-1, keepdims=True)
+    want = (m + np.log(np.exp(scores - m).sum(-1, keepdims=True)))[..., 0]
+    assert lse.shape == (B, H, Tq) and lse.dtype == torch.float32
+    has_key = m[..., 0] > NEG_INF / 2
+    np.testing.assert_allclose(lse.numpy()[has_key], want[has_key],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy()[~has_key], np.log(Tk),
+                               rtol=1e-5, atol=1e-6)
+    assert has_key.all() != empty
+
+
+def test_autograd_on_cpu_runs_the_plain_backward_without_launch():
+    q, k, v, do, kv, _ = _bwd_case(2, 6, 9, 2, 64, False, False, seed=8)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    before = (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    out = fa.flash_attention(tq, tk, tv, torch.from_numpy(kv))
+    out.backward(torch.from_numpy(do))
+    assert (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES) == before
+    plain, lse = fa.flash_attention_plain(*(x.detach() for x in (tq, tk, tv)),
+                                          torch.from_numpy(kv),
+                                          return_lse=True)
+    want = fa.flash_attention_bwd_plain(
+        *(x.detach() for x in (tq, tk, tv)), plain, lse,
+        torch.from_numpy(do), torch.from_numpy(kv))
+    for leaf, w in zip((tq, tk, tv), want):
+        torch.testing.assert_close(leaf.grad, w, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="no flash attention kernel"):
+        fa.flash_attention_bwd_cuda(tq, tk, tv, plain, lse,
+                                    torch.from_numpy(do))

@@ -34,8 +34,10 @@ def _import_all(report: str) -> str:
     interpreter; returns the last line it prints, ``report`` evaluated
     there."""
     modules = sorted(_slice_modules())
-    assert "openseq2seq_tpu_torch.ops.flash_attention" in modules
-    assert len(CONFIGS) >= 4
+    assert {"openseq2seq_tpu_torch.ops.flash_attention",
+            "openseq2seq_tpu_torch.ops.fused_dropout"} <= set(modules)
+    assert len(CONFIGS) >= 6 and any(
+        c.endswith("transformer_big_train_synthetic.py") for c in CONFIGS)
     code = ("import importlib, runpy, sys\n"
             "for m in {!r}: importlib.import_module(m)\n"
             "for c in {!r}: runpy.run_path(c)\n"

@@ -28,6 +28,7 @@ from openseq2seq_tpu_torch.ops import ctc_cuda
 from openseq2seq_tpu_torch.training import CheckpointManager, trainer
 from openseq2seq_tpu_torch.training.trainer import to_host
 from openseq2seq_tpu_torch.zoo import jasper_model_params
+from jax_global_state import jax_globals, jax_globals_module  # noqa: F401
 from test_torch_tdnn import randomize
 
 FEATURES, VOCAB, T, L, B = 16, 29, 41, 6, 4

@@ -1,8 +1,10 @@
 """The profiler's own arithmetic, on the CPU: its FLOP count against
 torch's FlopCounterMode on a small Jasper, for the eval step and for the
 train step (``--train``: forward and backward of every conv and dense
-layer), its busy-time union and its kernel grouping. And the GPU
-scripts import nothing of JAX or of the JAX package themselves."""
+layer), the tiny transformer's train step (``--train-nmt`` on the tiny
+twin of its config), its busy-time union, its kernel grouping and its
+arguments. And the GPU scripts import nothing of JAX or of the JAX
+package themselves."""
 import ast
 import os
 import sys
@@ -64,6 +66,42 @@ def test_train_step_flop_count_matches_torch_flop_counter():
                zip(before, module.parameters()))
 
 
+def test_train_nmt_arguments():
+    args = profile_eval.parse_args(["--train-nmt"])
+    assert args.train and args.config_file == profile_eval.NMT_TRAIN_CONFIG
+    args = profile_eval.parse_args(["--train"])
+    assert args.train and args.config_file == profile_eval.CONFIG
+    assert not profile_eval.parse_args([]).train
+    with pytest.raises(SystemExit):
+        profile_eval.parse_args(["--train-nmt", "--infer"])
+
+
+def test_transformer_train_step_flop_count():
+    """The tiny twin of the transformer-big training config through the
+    script's own train step: the dense layers' FLOP (forward, weight and
+    input gradients) equal FlopCounterMode's ``addmm``/``mm`` count less
+    the logits products (the shared table against the decoder output,
+    forward and its two gradients: 3 x 2 x tokens x d x V), which are no
+    dense layer; the step updates the weights with a finite loss."""
+    import runpy
+    cfg = runpy.run_path(os.path.join(
+        REPO, "example_configs_torch", "text2text",
+        "transformer_tiny_train_synthetic.py"))
+    model = cfg["base_model"](cfg["base_params"], mode="train", device="cpu")
+    module, step = profile_eval.make_step(model, train=True)
+    batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+    got = profile_eval.count_flops(module, lambda: step(batch), train=True)
+    with FlopCounterMode(display=False) as counter:
+        metrics = step(batch)
+    counts = {str(op): n for op, n in
+              counter.get_flop_counts()["Global"].items()}
+    B, T = batch["target_tensors"][0].shape
+    logits = 3 * 2 * B * (T - 1) * 128 * 61
+    assert got > 0 and got == counts["aten.addmm"] + counts["aten.mm"] - \
+        logits, counts
+    assert bool(torch.isfinite(metrics["loss"]))
+
+
 def test_busy_time_is_the_union_of_intervals():
     intervals = [(0, 10, "a"), (5, 12, "b"), (20, 25, "c"), (21, 22, "d")]
     assert profile_eval.busy_us(intervals) == 17
@@ -76,6 +114,8 @@ def test_busy_time_is_the_union_of_intervals():
      "convs (implicit GEMM, k > 1)"),
     ("void cutlass::Kernel2<cutlass_80_tensorop_bf16_s16816gemm_bf16>",
      "GEMMs (1x1 residual convs, dense)"),
+    ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_bias_TNT",
+     "GEMMs (1x1 residual convs, dense)"),
     ("void cudnn::bn_fw_inf_1C11_kernel_NCHW<float, float, true, 1>",
      "batch norm"),
     ("Memcpy HtoD (Pageable -> Device)", "H2D copies"),
@@ -83,6 +123,14 @@ def test_busy_time_is_the_union_of_intervals():
      "at::native::bfloat16_copy_kernel_cuda>", "dtype casts and copies"),
     ("void at::native::vectorized_elementwise_kernel<8, "
      "at::native::CUDAFunctor_add<c10::BFloat16>>", "elementwise"),
+    ("void (anonymous namespace)::flash_attn_fwd_kernel<__nv_bfloat16, 64, "
+     "64>(__nv_bfloat16 const*)", "flash attention kernel"),
+    ("void (anonymous namespace)::flash_attn_bwd_dq_kernel<__nv_bfloat16, "
+     "64, 64, 64, 4>(__nv_bfloat16 const*)", "flash attention kernel"),
+    ("void (anonymous namespace)::flash_attn_bwd_dkv_kernel<float, 256, 256, "
+     "32, 8>(float const*)", "flash attention kernel"),
+    ("void (anonymous namespace)::dropout_mask_kernel<__nv_bfloat16, false>"
+     "(__nv_bfloat16 const*)", "fused dropout kernel"),
 ])
 def test_kernel_groups(name, group):
     assert profile_eval.group_of(name) == group

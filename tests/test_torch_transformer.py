@@ -39,11 +39,14 @@ from openseq2seq_tpu_torch.ops import flash_attention as fa
 from openseq2seq_tpu_torch.parts.transformer import attention, common, ffn
 from openseq2seq_tpu_torch.training import CheckpointManager, trainer
 from openseq2seq_tpu_torch.training.trainer import to_host
+from jax_global_state import jax_globals, jax_globals_module  # noqa: F401
 from test_torch_tdnn import randomize
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "example_configs_torch", "text2text",
                       "transformer_tiny_synthetic.py")
+TRAIN_CONFIG = os.path.join(REPO, "example_configs_torch", "text2text",
+                            "transformer_tiny_train_synthetic.py")
 D, HEADS, FILTER = 128, 2, 256
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -475,9 +478,14 @@ def test_tiny_flash_route_counts(tiny, monkeypatch):
 
 
 def test_text2text_refuses_training():
-    cfg = runpy.run_path(CONFIG)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        cfg["base_model"](cfg["base_params"], mode="train", device="cpu")
+    """Training is ported (tests/test_torch_transformer_train.py); what it
+    refuses is a step with dropout on and no generator to draw it."""
+    cfg = runpy.run_path(TRAIN_CONFIG)
+    model = cfg["base_model"](cfg["base_params"], mode="train", device="cpu")
+    state = trainer.restore_state(model)
+    batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+    with pytest.raises(ValueError, match="torch.Generator"):
+        model.train_step(state, batch)
 
 
 def test_dense_keeps_its_cast_until_the_weights_change():
