@@ -10,9 +10,11 @@ Phases, one informative line or a few each:
    (``nvidia-smi``); TF32 off for the fp32 phases;
 2. build: the CTC kernels (``openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu``
    and ``ctc_beta_bwd.cu``), the flash attention forward and backward
-   (``flash_attn_fwd.cu``, ``flash_attn_bwd.cu``) and the fused dropout
-   (``dropout_mask.cu``), one ``nvcc`` each for ``sm_90a``, started
-   together, and what ``ptxas`` reports for them (registers, spills);
+   (``flash_attn_fwd.cu``, ``flash_attn_bwd.cu``), the fused dropout
+   (``dropout_mask.cu``) and the GRU and LSTM scans (``gru_scan_fwd.cu``,
+   ``lstm_scan_fwd.cu``), one ``nvcc`` each for ``sm_90a``, started
+   together, and what ``ptxas`` reports for them (registers, spills; of
+   the scans' 20 instantiations each, the main paths' and a summary);
 3. the forward kernel against its plain PyTorch version, both fp32 on the
    card, at the Jasper eval shape (B=32, T=500, L=160, V=29), at L=600
    (more extended states than a CTA has threads) and at T=37: max
@@ -45,6 +47,18 @@ Phases, one informative line or a few each:
    shape (4096 x 4096) and at M=600, D=256: bit-identical; times
    of the kernel and the plain version (``F.dropout``, another function,
    timed for information);
+4e. the GRU and LSTM scan kernels against ``gru_scan_plain`` and
+   ``lstm_scan_plain`` at the main paths' shapes (GRU B=32, T=500,
+   H=1024; LSTM B=32, T=500, H=512) and at B=8, T=37, H=128, forward and
+   reverse, lengths from 1 to T, with the residual outputs: fp32 (TF32
+   off) max abs error 1e-5 at T=37 and 1e-4 at T=500, bf16 max abs error
+   3 bf16 ulps and mean 1e-3 (both of max(1, |value|)), ys zero past each
+   length, two calls bit-identical; times of the kernel, the plain
+   version and cuDNN's ``torch.nn.GRU``/``torch.nn.LSTM`` (timed only,
+   never on the path; its input GEMM timed beside it) at the main
+   shapes in bf16; a GRU layer at H=800, which ``supported`` rejects,
+   runs the scan with no launch; what the kernels do not take, they
+   refuse;
 5. a small fp32 Jasper on the card and on the CPU: eval outputs agree, and
    one ``train_step`` gives the same loss and updated weights (rtol 1e-4);
 6. the eval/infer slice: Jasper-10x5 at full width from
@@ -82,6 +96,19 @@ Phases, one informative line or a few each:
    checkpoint is written, ``--mode=eval`` runs from it and
    ``--continue_learning`` takes 3 more steps; tokens per second are
    printed as information;
+7f. the tiny fp32 DeepSpeech2 config on the card (through the GRU
+   kernel, then with LSTM cells through the LSTM kernel, 4 launches each)
+   and on the CPU: eval logits within 1e-4, identical greedy ids;
+7g. DeepSpeech2-medium from
+   ``example_configs_torch/speech2text/ds2_medium_synthetic.py`` (three
+   2-D convs, 3 x 1024 bidirectional GRU, "mixed", 4 batches of 32 x
+   1000 frames), a seeded-init checkpoint, then ``run.main`` in
+   ``--mode=eval`` and ``--mode=infer``: the GRU kernel launches 6 times
+   per batch, the CTC forward once per eval batch (never in infer), a
+   finite loss equal to the plain CTC on the same logits, a WER, 128
+   infer rows; eval utterances per second printed as information;
+7h. ``example_configs_torch/speech2text/lstm_small_synthetic.py`` (4 x
+   512 bidirectional LSTM) the same way, 8 LSTM launches per batch;
 8. one JSON line for the kernels, then ``{"ok": true, "device": ...}``
    last.
 
@@ -117,6 +144,12 @@ NMT_TRAIN = os.path.join(REPO, "example_configs_torch", "text2text",
                          "transformer_big_train_synthetic.py")
 NMT_TINY_TRAIN = os.path.join(REPO, "example_configs_torch", "text2text",
                               "transformer_tiny_train_synthetic.py")
+DS2_MEDIUM = os.path.join(REPO, "example_configs_torch", "speech2text",
+                          "ds2_medium_synthetic.py")
+LSTM_SMALL = os.path.join(REPO, "example_configs_torch", "speech2text",
+                          "lstm_small_synthetic.py")
+DS2_TINY = os.path.join(REPO, "example_configs_torch", "speech2text",
+                        "ds2_tiny_synthetic.py")
 # the recipe warms up over 8000 steps (lr under 2e-6 for 20 steps); the
 # smoke run cuts the warmup so that the loss falls within its 20 steps
 NMT_WARMUP_OVERRIDE = "--lr_policy_params/warmup_steps=20"
@@ -683,6 +716,238 @@ def phase_dropout(card):
     return timing
 
 
+# the scan kernels' checks: fp32 (TF32 off) max abs error by sequence
+# length (sums in another order, over up to 500 dependent steps); bf16
+# mean abs error and max abs error in bf16 ulps of 1 (another sum order
+# can flip one rounding of the carried h, and the recurrence carries it),
+# both relative to max(1, |value|) (the GRU's hn and the LSTM's c are not
+# bounded by 1)
+SCAN_FP32_ATOL = {37: 1e-5, 500: 1e-4}
+SCAN_BF16_MEAN, SCAN_BF16_MAX = 1e-3, 3 * 2.0 ** -7
+# name, cell, B, T, H: the main paths' shapes (DS2-medium's GRU layers,
+# lstm_small's LSTM layers) and the smallest shape the kernels take
+SCAN_CASES = (
+    ("ds2-medium", "gru", 32, 500, 1024),
+    ("lstm_small", "lstm", 32, 500, 512),
+    ("small gru", "gru", 8, 37, 128),
+    ("small lstm", "lstm", 8, 37, 128),
+)
+# gate math per (row, step, hidden unit) beyond the recurrent product:
+# GRU 3 sigmoid/tanh (~4 operations each) and ~10 adds and multiplies;
+# LSTM 5 sigmoid/tanh and ~8 adds and multiplies; negligible beside the
+# 2 G H multiply-adds, counted for completeness
+SCAN_GATE_OPS = {"gru": 22, "lstm": 28}
+
+
+def scan_case(cell, B, T, H, seed, device, full=False):
+    """fp32 inputs of a scan kernel: x_proj ~ N(0, 1), W_h ~ N(0, 1/H),
+    b_h ~ N(0, 0.09), h0 ~ N(0, 0.25), c0 ~ N(0, 1), and int32 lengths:
+    all T with ``full``, else T in row 0, 1 in row 1, about T / 2 in row 2
+    and uniform in [1, T] elsewhere."""
+    import torch
+    G = 4 if cell == "lstm" else 3
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=device)
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device=device)
+    if full:
+        lengths.fill_(T)
+    else:
+        lengths[0], lengths[1], lengths[2] = T, 1, (T + 1) // 2
+    return {"x_proj": randn(B, T, G * H), "wh": randn(H, G * H) / H ** 0.5,
+            "bh": randn(G * H, scale=0.3), "h0": randn(B, H, scale=0.5),
+            "c0": randn(B, H), "lengths": lengths.int()}
+
+
+def scan_call(cell, case, dtype, reverse, residuals, plain=False):
+    """The scan kernel (or its plain version) on ``case`` in ``dtype``:
+    the flat list of its outputs (ys, h_last[, c_last][, residuals])."""
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
+    xp, h0 = case["x_proj"].to(dtype), case["h0"].to(dtype)
+    if cell == "gru":
+        fn = gru_scan.gru_scan_plain if plain else gru_scan.gru_scan
+        out = fn(xp, case["wh"], case["bh"], h0, case["lengths"], reverse,
+                 residuals)
+        return [out[0], out[1]] + (list(out[2]) if residuals else [])
+    fn = lstm_scan.lstm_scan_plain if plain else lstm_scan.lstm_scan
+    out = fn(xp, case["wh"], h0, case["c0"], case["lengths"], 1.0, reverse,
+             residuals)
+    return [out[0], *out[1]] + (list(out[2]) if residuals else [])
+
+
+def scan_bound_ms(cell, case):
+    """The least time of one scan launch in bf16 on the H100: x_proj,
+    W_h (bf16), b_h, h0, c0, lengths read once and ys, h_last, c_last
+    written once, over the HBM rate; 2 G H multiply-adds of the recurrent
+    product plus the gate math for each live (row, step, unit), over the
+    bf16 tensor-core peak."""
+    import torch
+    B, T, GH = case["x_proj"].shape
+    H = case["h0"].shape[1]
+    nbytes = 2 * (B * T * GH + H * GH + B * T * H + 2 * B * H) + 4 * B
+    if cell == "lstm":
+        nbytes += 2 * 4 * B * H
+    else:
+        nbytes += 4 * GH
+    live = int(case["lengths"].long().sum())
+    flop = live * H * (2 * GH + SCAN_GATE_OPS[cell])
+    return bound_ms(nbytes, flop, torch.bfloat16)
+
+
+def _scan_errors(got, want, dtype, T):
+    """[(max abs err, mean abs err, bound excess)] per output of a scan
+    over T steps: the excess is the largest error beyond its bound (<= 0
+    passes)."""
+    import torch
+    out = []
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs()
+        rel = err / torch.clamp(w.float().abs(), min=1.0) \
+            if dtype == torch.bfloat16 else err
+        if dtype == torch.float32:
+            excess = float(rel.max()) - SCAN_FP32_ATOL[37 if T <= 37
+                                                       else 500]
+        else:
+            excess = max(float(rel.max()) - SCAN_BF16_MAX,
+                         float(rel.mean()) - SCAN_BF16_MEAN)
+        out.append((float(err.max()), float(err.mean()), excess))
+    return out
+
+
+def phase_scan(card):
+    """``gru_scan_fwd`` and ``lstm_scan_fwd`` against their plain versions
+    on the card, forward and reverse, fp32 (TF32 off) and bf16, with the
+    residual outputs; two calls bit-identical. Times at the main paths'
+    shapes in bf16 (full lengths, as the synthetic batches give them):
+    the kernel, the plain version, and cuDNN's ``torch.nn.GRU`` /
+    ``torch.nn.LSTM`` on the same (B, T, H) with a 2H-wide input (timed
+    only, never on the path) with its input projection's GEMM timed
+    beside it. Then a layer whose shape ``supported`` rejects takes the
+    scan and launches nothing, and what the kernels do not take, they
+    refuse. Returns the worst fp32 error and the timings, by cell."""
+    import torch
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
+    from openseq2seq_tpu_torch.parts.rnns import rnn
+    dev = torch.device("cuda")
+    worst = {"gru": 0.0, "lstm": 0.0}
+    times = {}
+    for i, (name, cell, B, T, H) in enumerate(SCAN_CASES):
+        case = scan_case(cell, B, T, H, 20 + i, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for reverse in (False, True):
+                got = scan_call(cell, case, dtype, reverse, True)
+                again = scan_call(cell, case, dtype, reverse, True)
+                want = scan_call(cell, case, dtype, reverse, True, plain=True)
+                torch.cuda.synchronize()
+                errs = _scan_errors(got, want, dtype, T)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                print("[scan] {} {} B={} T={} H={} {} {}: max abs err ys {:.3e}"
+                      ", last state(s) {}, residuals {} (mean ys {:.3e}); "
+                      "repeat bit-identical: {}".format(
+                          name, cell, B, T, H, str(dtype)[6:],
+                          "reverse" if reverse else "forward", errs[0][0],
+                          ", ".join("{:.3e}".format(e[0])
+                                    for e in errs[1:-2]),
+                          ", ".join("{:.3e}".format(e[0])
+                                    for e in errs[-2:]),
+                          errs[0][1], same), flush=True)
+                check(same, "{} {}: two calls differ".format(name, dtype))
+                check(all(e[2] <= 0 for e in errs) and all(
+                    bool(torch.isfinite(g).all()) for g in got),
+                    "{} {} reverse={}: errors {}".format(name, dtype, reverse,
+                                                         errs))
+                check(got[0].dtype == dtype, "ys dtype {}".format(
+                    got[0].dtype))
+                live = torch.arange(T, device=dev)[None, :] < \
+                    case["lengths"][:, None]
+                check(not bool(got[0][~live].any()), "ys not zero past the "
+                      "length")
+                if dtype == torch.float32:
+                    worst[cell] = max(worst[cell],
+                                      max(e[0] for e in errs))
+        if T < 500:
+            continue
+        full = scan_case(cell, B, T, H, 30 + i, dev, full=True)
+        mod = (torch.nn.GRU if cell == "gru" else torch.nn.LSTM)(
+            2 * H, H, batch_first=True).to(dev, torch.bfloat16)
+        mod.flatten_parameters()
+        x = torch.randn((B, T, 2 * H), device=dev, dtype=torch.bfloat16)
+        w_ih = mod.weight_ih_l0
+        with torch.no_grad():
+            t = {"ms": cuda_ms(lambda: scan_call(
+                     cell, full, torch.bfloat16, False, False), 10),
+                 "plain_ms": cuda_ms(lambda: scan_call(
+                     cell, full, torch.bfloat16, False, False, plain=True),
+                     2),
+                 "library_ms": cuda_ms(lambda: mod(x), 10),
+                 "gemm_ms": cuda_ms(lambda: x.view(-1, 2 * H) @ w_ih.t(),
+                                    20)}
+        t["bound_ms"], t["bound_by"] = scan_bound_ms(cell, full)
+        times[cell] = t
+        print("[scan] {} {} bf16 B={} T={} H={}: kernel {:.4f} ms, plain "
+              "{:.4f} ms, bound {:.4f} ms ({}; 500 dependent steps, each "
+              "ending in a grid-wide barrier, make it latency-bound); cuDNN "
+              "torch.nn.{} with a {}-wide input {:.4f} ms, of which its "
+              "input GEMM alone takes {:.4f} ms (CUDA events, back to back; "
+              "{})".format(name, cell, B, T, H, t["ms"], t["plain_ms"],
+                           t["bound_ms"], t["bound_by"], cell.upper(), 2 * H,
+                           t["library_ms"], t["gemm_ms"], card), flush=True)
+    # the per-step floor: one hidden unit per CTA and few rows, so the
+    # products are negligible and what is left is the step's latency (the
+    # h and x_proj reads, the gate math, the grid-wide barrier)
+    for cell in ("gru", "lstm"):
+        floor = scan_case(cell, 8, 500, 128, 40, dev, full=True)
+        ms = cuda_ms(lambda: scan_call(cell, floor, torch.bfloat16, False,
+                                       False), 10)
+        times[cell]["floor_us_per_step"] = 1e3 * ms / 500
+        print("[scan] {} bf16 B=8 T=500 H=128: {:.4f} ms, {:.2f} us per "
+              "step, the latency floor; at the main shape {:.2f} us per "
+              "step (CUDA events, back to back; {})".format(
+                  cell, ms, 1e3 * ms / 500, 1e3 * times[cell]["ms"] / 500,
+                  card), flush=True)
+    # a shape that `supported` rejects (DS2-large's H = 800) takes the scan
+    check(gru_scan.supported(32, 500, 1024) and
+          not gru_scan.supported(32, 500, 800), "supported()")
+    layer = rnn.GRU(64, 800, dtype=torch.bfloat16, fused=True).to(dev)
+    before = gru_scan.LAUNCHES
+    with torch.no_grad():
+        out, _ = layer(torch.randn((32, 20, 64), device=dev),
+                       torch.full((32,), 20, device=dev))
+    torch.cuda.synchronize()
+    check(gru_scan.LAUNCHES == before and out.shape == (32, 20, 800),
+          "H = 800 launched the kernel")
+    print("[scan] a GRU layer at H = 800 (not supported) ran the scan with "
+          "no launch", flush=True)
+    # what the kernels do not take, they refuse
+    case = scan_case("gru", 8, 9, 128, 0, dev)
+    bad_cases = (dict(case, x_proj=case["x_proj"].half()),
+                 dict(case, x_proj=case["x_proj"][..., :3 * 96].contiguous(),
+                      wh=case["wh"][:96, :3 * 96].contiguous(),
+                      h0=case["h0"][:, :96].contiguous(),
+                      bh=case["bh"][:3 * 96].contiguous()),
+                 dict(case, lengths=case["lengths"].cpu()),
+                 dict(case, h0=case["h0"][:4]))
+    for bad in bad_cases:
+        try:
+            scan_call("gru", bad, bad["x_proj"].dtype, False, False)
+        except ValueError:
+            continue
+        raise RuntimeError("chip_smoke check failed: a bad scan input "
+                           "launched")
+    lcase = scan_case("lstm", 8, 9, 128, 0, dev)
+    try:
+        scan_call("lstm", dict(lcase, c0=lcase["c0"][:4]), torch.float32,
+                  False, False)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("chip_smoke check failed: a bad c0 launched")
+    print("[scan] wrong dtype, width, device and shape are refused",
+          flush=True)
+    return worst, times
+
+
 def _small_params(data_layer, no_dropout=False, **overrides):
     from openseq2seq_tpu_torch.zoo import jasper_model_params
     params = jasper_model_params(
@@ -1053,6 +1318,131 @@ def phase_transformer_train(card):
     return total
 
 
+def phase_small_ds2():
+    """The tiny fp32 DeepSpeech2 config, same seed, on the card (through
+    the GRU kernel, then with LSTM cells through the LSTM kernel) and on
+    the CPU (the kernels' plain versions): eval logits within 1e-4, the
+    same lengths and greedy ids."""
+    import numpy as np
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
+    from openseq2seq_tpu_torch.training import trainer
+    config = runpy.run_path(DS2_TINY)
+    for cell in ("gru", "lstm"):
+        params = dict(config["base_params"])
+        params["encoder_params"] = dict(params["encoder_params"],
+                                        rnn_type="cudnn_" + cell)
+        kernel = gru_scan if cell == "gru" else lstm_scan
+        out = {}
+        for device in ("cuda", "cpu"):
+            model = config["base_model"](params, mode="eval", device=device)
+            state = trainer.restore_state(model)
+            batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+            before = kernel.LAUNCHES
+            out[device] = trainer.to_host(model.eval_step(state, batch))
+            out[device]["launches"] = kernel.LAUNCHES - before
+        gpu, cpu = (out[d]["outputs"]["decoder_output"]
+                    for d in ("cuda", "cpu"))
+        err = float(np.abs(gpu["logits"] - cpu["logits"]).max())
+        same = np.array_equal(gpu["src_length"], cpu["src_length"]) and \
+            all(np.array_equal(a, b) for a, b in zip(gpu["outputs"],
+                                                     cpu["outputs"]))
+        print("[ds2] tiny fp32 DeepSpeech2, {} cells, card vs CPU: logits "
+              "max abs err {:.3e} (|logits| max {:.2f}), loss {:.6f} vs "
+              "{:.6f}, greedy ids identical: {}; {} launches on the card "
+              "{}, on the CPU {}".format(
+                  cell.upper(), err, float(np.abs(cpu["logits"]).max()),
+                  float(out["cuda"]["loss"]), float(out["cpu"]["loss"]),
+                  same, kernel.KERNEL, out["cuda"]["launches"],
+                  out["cpu"]["launches"]), flush=True)
+        check(out["cuda"]["launches"] == 4 and out["cpu"]["launches"] == 0,
+              "{} launches in the tiny eval step".format(kernel.KERNEL))
+        check(err <= 1e-4 and same, "tiny DeepSpeech2 ({}) disagrees "
+              "between card and CPU".format(cell))
+
+
+def phase_rnn_model(path, name, kernel, per_batch, card):
+    """A recurrent speech config at full width from a seeded-init
+    checkpoint through ``run.main`` in eval and infer: ``kernel`` (the
+    GRU or LSTM scan module) launches ``per_batch`` times per batch, the
+    CTC forward once per eval batch, the loss is finite and equals the
+    plain CTC on the same logits, a WER, 128 infer rows; the eval rate is
+    printed as information. Returns the scan and CTC launches."""
+    import torch
+    from openseq2seq_tpu_torch.ops import ctc, ctc_cuda
+    from openseq2seq_tpu_torch.models.model import to_device_batch
+    from openseq2seq_tpu_torch.training import CheckpointManager, trainer
+    config = runpy.run_path(path)
+    with tempfile.TemporaryDirectory() as logdir:
+        params = dict(config["base_params"], logdir=logdir)
+        n_batches = params["data_layer_params"]["num_batches"]
+        batch_size = params["batch_size_per_gpu"]
+        t0 = time.time()
+        model = config["base_model"](params, mode="eval", device="cuda")
+        state = trainer.restore_state(model)
+        CheckpointManager(logdir).save(state, 0)
+        n_params = sum(p.numel() for p in state.module.parameters())
+        print("[{}] built: {} parameters, dtype {}, seeded checkpoint saved "
+              "in {:.1f} s".format(name, n_params, params["dtype"],
+                                   time.time() - t0), flush=True)
+
+        argv = ["--config_file=" + path, "--logdir=" + logdir]
+        kernel.LAUNCHES = ctc_cuda.LAUNCHES = 0
+        metrics, _ = _run_quiet(argv + ["--mode=eval"])
+        launches = (kernel.LAUNCHES, ctc_cuda.LAUNCHES)
+        print("[{}] eval: loss {:.6f}, WER {:.4f}; {} launches {}, CTC "
+              "forward launches {}, for {} batches".format(
+                  name, metrics["eval_loss"], metrics["Eval WER"],
+                  kernel.KERNEL, *launches, n_batches), flush=True)
+        check(launches == (per_batch * n_batches, n_batches),
+              "eval launches {} for {} batches".format(launches, n_batches))
+        check(math.isfinite(metrics["eval_loss"]) and
+              metrics["eval_loss"] > 0, "eval loss not finite")
+        check(0.0 <= metrics["Eval WER"], "WER not computed")
+
+        out_csv = os.path.join(logdir, "infer.csv")
+        kernel.LAUNCHES = ctc_cuda.LAUNCHES = 0
+        _run_quiet(argv + ["--mode=infer", "--infer_output_file=" + out_csv])
+        infer_launches = (kernel.LAUNCHES, ctc_cuda.LAUNCHES)
+        with open(out_csv) as f:
+            rows = list(csv.reader(f))[1:]
+        print("[{}] infer: {} rows in the CSV; {} launches {}, CTC forward "
+              "launches {}".format(name, len(rows), kernel.KERNEL,
+                                   *infer_launches), flush=True)
+        check(infer_launches == (per_batch * n_batches, 0),
+              "infer launches {}".format(infer_launches))
+        check(len(rows) == n_batches * batch_size,
+              "infer CSV has {} rows".format(len(rows)))
+
+        # one batch's loss recomputed from its logits by the plain version
+        batches = list(model.get_data_layer().iterate_one_epoch())
+        out = model.eval_step(state, batches[0])
+        dec = out["outputs"]["decoder_output"]
+        logits = dec["logits"]
+        check(tuple(logits.shape) == (batch_size, 500, 29) and
+              bool(torch.all(torch.isfinite(logits))),
+              "logits shape {} or not finite".format(tuple(logits.shape)))
+        labels, label_lens = to_device_batch(batches[0],
+                                             "cuda")["target_tensors"]
+        plain = ctc.ctc_loss(logits, dec["src_length"], labels, label_lens)
+        rel = abs(float(out["loss"]) - float(plain)) / abs(float(plain))
+        print("[{}] batch loss: kernel {:.6f}, plain {:.6f}, rel err "
+              "{:.3e}".format(name, float(out["loss"]), float(plain), rel),
+              flush=True)
+        check(rel <= RTOL, "batch loss disagrees with the plain version")
+
+        # eval throughput over the epoch (information, not a claim)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            model.eval_step(state, b)
+        torch.cuda.synchronize()
+        utt = n_batches * batch_size / (time.perf_counter() - t0)
+        print("[{}] eval throughput {:.1f} utt/s (batch {}, 10 s "
+              "utterances, bf16; {})".format(name, utt, batch_size, card),
+              flush=True)
+    return launches[0] + infer_launches[0], launches[1] + infer_launches[1]
+
+
 def phase_ctc_library(card):
     """``F.ctc_loss`` at the CTC train shape, forward and forward plus
     backward: the CTC kernels' library yardstick, never on the path."""
@@ -1185,6 +1575,39 @@ def phase_train(card):
     return fwd, bwd
 
 
+# the scan kernels' instantiations that the main paths run, by their
+# (gates, units per CTA) in the mangled name: DS2-medium's GRU (3, 8),
+# lstm_small's LSTM (4, 4), the tiny configs' (3, 1) and (4, 1)
+SCAN_MAIN_INSTANCES = ("Li3ELi8E", "Li4ELi4E", "Li3ELi1E", "Li4ELi1E")
+
+
+def print_ptxas(name, log):
+    """What ``ptxas`` reports for each kernel of a build log: every entry
+    point's registers and spills; of the scan kernels' 20 instantiations
+    each (units per CTA 1 to 10, bf16 and fp32), the bf16 ones of the
+    main paths, and the register range and spills of all."""
+    entries = re.findall(r"Compiling entry function '(\S+)'.*?"
+                         r"(\d+) bytes spill stores, (\d+) bytes spill "
+                         r"loads.*?Used (\d+) registers", log, re.S)
+    if "scan" not in name:
+        for entry, stores, loads, regs in entries:
+            print("[build] {}: {} registers, {} bytes spill stores, {} bytes "
+                  "spill loads".format(entry, regs, stores, loads),
+                  flush=True)
+        return
+    for entry, stores, loads, regs in entries:
+        if "bfloat16" in entry and any(k in entry for k in
+                                       SCAN_MAIN_INSTANCES):
+            print("[build] {}: {} registers, {} bytes spill stores, {} "
+                  "bytes spill loads".format(entry, regs, stores, loads),
+                  flush=True)
+    regs = [int(e[3]) for e in entries]
+    print("[build] {}: {} instantiations, {} to {} registers, {} bytes "
+          "spilled in all".format(name, len(entries), min(regs), max(regs),
+                                  sum(int(e[1]) + int(e[2])
+                                      for e in entries)), flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1207,19 +1630,16 @@ def main():
 
     # 2. build, one nvcc per source, all started together
     names = ("ctc_alpha_fwd", "ctc_beta_bwd", "flash_attn_fwd",
-             "flash_attn_bwd", "dropout_mask")
+             "flash_attn_bwd", "dropout_mask", "gru_scan_fwd",
+             "lstm_scan_fwd")
     t0 = time.time()
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(build.build, names))
     print("[build] {} (nvcc, sm_90a) in {:.2f} s".format(
         ", ".join(os.path.relpath(lib, REPO) for lib in libs),
         time.time() - t0), flush=True)
-    for lib in libs:
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if ("ptxas info" in line and ("Used" in line or
-                                          "Compiling" in line)) or \
-                    "spill" in line:
-                print("[build] " + line.strip(), flush=True)
+    for name, lib in zip(names, libs):
+        print_ptxas(name, lib.with_suffix(".log").read_text())
 
     # 3-4. kernels against their plain versions, and the library calls
     fwd_err, (fwd_ms, fwd_plain_ms) = phase_kernel(card)
@@ -1228,6 +1648,7 @@ def main():
     flash_err, flash_times = phase_flash(card)
     dq_err, dkv_err, flash_bwd_times = phase_flash_bwd(card)
     drop = phase_dropout(card)
+    scan_err, scan_times = phase_scan(card)
 
     # 5-7. the paths, each with its launch counts set to 0 just before
     config = runpy.run_path(CONFIG)
@@ -1238,6 +1659,12 @@ def main():
     flash_launches = phase_transformer(card)
     phase_small_transformer_train()
     nmt_fwd, nmt_dq, nmt_dkv, nmt_drop = phase_transformer_train(card)
+    phase_small_ds2()
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
+    gru_launches, ds2_ctc = phase_rnn_model(DS2_MEDIUM, "ds2", gru_scan, 6,
+                                            card)
+    lstm_launches, lstm_ctc = phase_rnn_model(LSTM_SMALL, "lstm_small",
+                                              lstm_scan, 8, card)
 
     # 8. result
     fwd_bound = ctc_bound_ms(32, 500, 160, 29, 500, backward=False)
@@ -1248,7 +1675,8 @@ def main():
         "name": "ctc_alpha_fwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu",
         "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:65",
-        "launches": eval_launches + train_fwd, "max_abs_err": fwd_err,
+        "launches": eval_launches + train_fwd + ds2_ctc + lstm_ctc,
+        "max_abs_err": fwd_err,
         "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound[0],
         "bound_by": fwd_bound[1], "library_ms": ctc_lib_fwd_ms}, {
         "name": "ctc_beta_bwd", "route": "cuda",
@@ -1283,7 +1711,19 @@ def main():
         "launches": nmt_drop, "max_abs_err": drop["max_abs_err"],
         "ms": drop["ms"], "plain_ms": drop["plain_ms"],
         "bound_ms": drop["bound"][0], "bound_by": drop["bound"][1],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}] + [{
+        "name": cell + "_scan_fwd", "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/{}_scan_fwd.cu".format(cell),
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": scan_err[cell], "ms": scan_times[cell]["ms"],
+        "plain_ms": scan_times[cell]["plain_ms"],
+        "bound_ms": scan_times[cell]["bound_ms"],
+        "bound_by": scan_times[cell]["bound_by"],
+        "library_ms": scan_times[cell]["library_ms"]}
+        for cell, replaces, launches in (
+            ("lstm", "openseq2seq_tpu/ops/lstm_pallas.py:73", lstm_launches),
+            ("gru", "openseq2seq_tpu/ops/gru_pallas.py:64", gru_launches))]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,7 +7,10 @@ such as the TDNN encoder), and returns the ``state_dict`` for
 ``load_state_dict(strict=True)``:
 
   * conv kernel (k, in, out)   -> weight (out, in, k)
+  * 2-D conv kernel (kt, kf, in, out) -> weight (out, in, kt, kf)
   * dense kernel (in, out)     -> weight (out, in)
+  * recurrent_kernel (H, G·H), recurrent_bias (3H,) of the recurrent
+    layers                     -> kept as they are, under the same names
   * bias                       -> bias (flax convs carry one by default)
   * batch norm scale / bias    -> weight / bias
   * batch_stats mean / var     -> running_mean / running_var, plus a zero
@@ -20,10 +23,13 @@ The flax ``_Norm`` wrapper's inner ``BatchNorm_0`` folds into the torch
 norm module, so ``enc/net/norm1_1/BatchNorm_0/scale`` becomes
 ``enc.net.norm1_1.weight``; so does the transformer's ``TransformerNorm``
 with its inner ``LayerNorm_0`` (``enc/sa_norms_0/LayerNorm_0/scale`` ->
-``enc.sa_norms_0.weight``).
+``enc.sa_norms_0.weight``). The DeepSpeech2 encoder's batch norms
+(``conv1_bn``, named ``*_bn``) are flax's ``BatchNorm`` itself, with no
+inner module.
 
 :func:`flax_from_state_dict` is the inverse (a module with running
-statistics is a batch norm, whose flax leaves sit under ``BatchNorm_0``),
+statistics is a batch norm, whose flax leaves sit under ``BatchNorm_0``
+unless it is named ``*_bn``),
 so tests can compare the port's updated weights leaf by leaf with the
 JAX package's. :func:`flax_path` names a port parameter as the JAX
 package does (``enc/net/conv1_1/kernel``), which is what
@@ -41,6 +47,8 @@ import torch
 _BN_INNER = "BatchNorm_0"
 _LN_INNER = "LayerNorm_0"
 _STATS = {"mean": "running_mean", "var": "running_var"}
+# kept under their flax names and in the flax layout
+_RECURRENT = ("recurrent_kernel", "recurrent_bias")
 
 
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
@@ -60,18 +68,25 @@ def _param_to_torch(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
     """(torch name, array in torch layout) of the flax param at ``path``."""
     value = np.array(value, dtype=np.float32)
     module, leaf = _module_key(path[:-1]), path[-1]
-    if leaf == "kernel" and value.ndim == 3:
+    if leaf == "kernel" and value.ndim == 4:
+        name, value = "weight", value.transpose(3, 2, 0, 1)
+    elif leaf == "kernel" and value.ndim == 3:
         name, value = "weight", value.transpose(2, 1, 0)
     elif leaf == "kernel" and value.ndim == 2:
         name, value = "weight", value.T
     elif leaf in ("kernel", "scale"):
         name = "weight"
-    elif leaf in ("bias", "embedding"):
+    elif leaf in ("bias", "embedding") + _RECURRENT:
         name = leaf
     else:
         raise ValueError("no torch name for flax param {}".format(
             "/".join(path)))
-    return module + "." + name, np.ascontiguousarray(value)
+    return _join(module, name), np.ascontiguousarray(value)
+
+
+def _join(module: str, name: str) -> str:
+    """``module.name``, or ``name`` for the top module."""
+    return module + "." + name if module else name
 
 
 def state_dict_from_flax(variables: Dict[str, Any]
@@ -86,9 +101,9 @@ def state_dict_from_flax(variables: Dict[str, Any]
         if name is None:
             raise ValueError("no torch name for flax batch stat {}".format(
                 "/".join(path)))
-        out[module + "." + name] = torch.from_numpy(
+        out[_join(module, name)] = torch.from_numpy(
             np.array(value, dtype=np.float32))
-        out[module + ".num_batches_tracked"] = torch.tensor(0)
+        out[_join(module, "num_batches_tracked")] = torch.tensor(0)
     return out
 
 
@@ -102,14 +117,17 @@ def flax_path(name: str, norms: set, layer_norms: set = frozenset()
     """The flax path of the port's parameter or statistic ``name``;
     ``norms`` holds the names of the batch-norm modules, ``layer_norms``
     those of the transformer's layer norms."""
-    module, leaf = name.rsplit(".", 1)
-    parts = tuple(module.split("."))
+    module, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+    parts = tuple(module.split(".")) if module else ()
     if module in norms:
-        return parts + (_BN_INNER, {"weight": "scale", "bias": "bias",
-                                    "running_mean": "mean",
-                                    "running_var": "var"}[leaf])
+        inner = () if parts[-1].endswith("_bn") else (_BN_INNER,)
+        return parts + inner + ({"weight": "scale", "bias": "bias",
+                                 "running_mean": "mean",
+                                 "running_var": "var"}[leaf],)
     if module in layer_norms:
         return parts + (_LN_INNER, {"weight": "scale", "bias": "bias"}[leaf])
+    if leaf in _RECURRENT:
+        return parts + (leaf,)
     return parts + ({"weight": "kernel", "bias": "bias",
                      "embedding": "embedding"}[leaf],)
 
@@ -125,7 +143,9 @@ def flax_from_state_dict(state_dict: Dict[str, torch.Tensor]
             continue
         path = flax_path(name, norms)
         value = value.detach().float().cpu().numpy()
-        if path[-1] == "kernel" and value.ndim == 3:
+        if path[-1] == "kernel" and value.ndim == 4:
+            value = value.transpose(2, 3, 1, 0)
+        elif path[-1] == "kernel" and value.ndim == 3:
             value = value.transpose(2, 1, 0)
         elif path[-1] == "kernel" and value.ndim == 2:
             value = value.T

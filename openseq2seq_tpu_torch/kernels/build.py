@@ -1,12 +1,13 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point.
+Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point,
+which may include the shared headers ``csrc/*.cuh``.
 At first use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library under ``build/openseq2seq_tpu_torch/`` at the root of the
 checkout, or under ``$OPENSEQ2SEQ_TPU_TORCH_BUILD_DIR`` where that is set
 (an installed package should set it: its default would lie beside the
-installed package); the library's file name carries a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
+installed package); the library's file name carries a hash of the source,
+the headers and the flags, so an edited source is rebuilt and an unchanged one is
 reused. A failed build raises: there is no fallback.
 """
 from __future__ import annotations
@@ -48,7 +49,8 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     source = (CSRC_DIR / (name + ".cu")).read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(source + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / "lib{}-{}.so".format(name, digest.hexdigest()[:16])
 
 

@@ -2,8 +2,10 @@
 
 Same schema'd config (the JAX package's keys that the port reads, plus
 three TPU knobs accepted as no-ops; a key that would have no effect here
-is refused), the same data-layer construction, step accounting
-(``max_steps``/``num_epochs``, ``steps_in_epoch``, ``last_step``) and lr
+is refused; ``fused_rnn`` takes effect in the models with recurrent
+layers and has none in the others), the same data-layer construction,
+step accounting (``max_steps``/``num_epochs``, ``steps_in_epoch``,
+``last_step``) and lr
 schedule defaulting, and the same task hooks (``evaluate`` /
 ``finalize_evaluation`` / ``infer`` / ``finalize_inference`` /
 ``maybe_print_logs`` / ``print_samples``). The state is a
@@ -100,6 +102,10 @@ class Model(abc.ABC):
             # the transformer FFN's relu dropout (and PreNormResidual's
             # dropout + residual add) on kernel B2 (ops/fused_dropout.py)
             "fused_residual_dropout": bool,
+            # the recurrences of the GRU and LSTM layers on kernels B4 and
+            # B3 (ops/gru_scan.py, ops/lstm_scan.py) where their shape is
+            # supported; read by the encoders that build such layers
+            "fused_rnn": bool,
             # TPU knobs of the JAX package, no-ops here: RNG
             # implementation of dropout, activation rematerialization
             "prng_impl": str,

@@ -1,0 +1,103 @@
+"""What the GRU and LSTM scan wrappers (``ops/gru_scan.py``,
+``ops/lstm_scan.py``) share: their input checks, the CTA layout, the
+launch of ``csrc/gru_scan_fwd.cu`` or ``csrc/lstm_scan_fwd.cu`` through
+ctypes, and the plain versions' stacking of their steps.
+
+Both kernels run the whole recurrence of one direction of one layer in
+one cooperative launch of ``H / units`` CTAs that meet at a grid-wide
+barrier every step (``csrc/rnn_scan.cuh``). The launcher checks with the
+occupancy API that the whole grid fits on the card at once and raises
+:class:`NotCoResident` otherwise; nothing is launched then.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+# the kernels' status codes besides CUDA's own
+_NOT_CO_RESIDENT = -2
+_BAD_UNITS = -3
+MAX_UNITS = 10
+_fns = {}
+
+
+class NotCoResident(RuntimeError):
+    """The scan's grid cannot be resident on the card all at once."""
+
+
+def units_per_cta(H: int) -> int:
+    """Hidden units per CTA: H / 128, so that the grid is 128 CTAs, one
+    per SM of an H100, whatever H."""
+    return H // 128
+
+
+def check_inputs(x_proj: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
+                 lengths: torch.Tensor, gates: int) -> None:
+    """Raise ValueError unless x_proj is (B, T, gates * H) bf16 or fp32 on
+    a CUDA device with H % 128 == 0 and H <= 128 * MAX_UNITS, and W_h,
+    h0 and lengths are (H, gates * H), (B, H) and (B,) on its device."""
+    if x_proj.device.type != "cuda":
+        raise ValueError("no scan kernel for device {}".format(
+            x_proj.device))
+    if x_proj.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("x_proj must be bf16 or fp32, got {}".format(
+            x_proj.dtype))
+    if x_proj.dim() != 3 or x_proj.shape[2] % gates:
+        raise ValueError("x_proj must be (B, T, {} H), got {}".format(
+            gates, tuple(x_proj.shape)))
+    B, _, GH = x_proj.shape
+    H = GH // gates
+    if H % 128 or not 0 < H <= 128 * MAX_UNITS:
+        raise ValueError("the scan kernels take H a multiple of 128 up to "
+                         "{}, got {}".format(128 * MAX_UNITS, H))
+    for name, t, shape in (("wh", wh, (H, GH)), ("h0", h0, (B, H)),
+                           ("lengths", lengths, (B,))):
+        if t.device != x_proj.device:
+            raise ValueError("{} is on {}, x_proj on {}".format(
+                name, t.device, x_proj.device))
+        if tuple(t.shape) != shape:
+            raise ValueError("{} must be {}, got {}".format(
+                name, shape, tuple(t.shape)))
+
+
+def stack_steps(steps, empty, like: torch.Tensor) -> torch.Tensor:
+    """The plain versions' per-step (B, ...) tensors stacked on the time
+    axis; a new tensor of shape ``empty`` like ``like`` when T is 0."""
+    return torch.stack(steps, dim=1) if steps else like.new_zeros(empty)
+
+
+def _kernel(name: str, n_ptr: int, n_int: int, n_float: int):
+    fn = _fns.get(name)
+    if fn is None:
+        from ..kernels import build
+        fn = getattr(build.load(name), name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
+            [ctypes.c_float] * n_float + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def launch(name: str, tensors: Sequence, ints: Sequence[int],
+           floats: Sequence[float] = ()) -> None:
+    """Call the C entry ``name`` with the tensors' pointers (None for a
+    null one), the ints, the floats and the current stream; raise on any
+    status but 0."""
+    dev = next(t.device for t in tensors if t is not None)
+    fn = _kernel(name, len(tensors), len(ints), len(floats))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*[None if t is None else t.data_ptr() for t in tensors],
+                 *ints, *floats, stream)
+    if err == _NOT_CO_RESIDENT:
+        raise NotCoResident(
+            "{}: a grid of {} CTAs cannot be resident on {} at once, which "
+            "its grid-wide barrier needs".format(
+                name, ints[2] // ints[3], torch.cuda.get_device_name(dev)))
+    if err == _BAD_UNITS:
+        raise ValueError("{}: {} units per CTA is not built (1 to {})".format(
+            name, ints[3], MAX_UNITS))
+    if err != 0:
+        raise RuntimeError("{} launch failed: CUDA error {}".format(name, err))

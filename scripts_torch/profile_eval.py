@@ -8,8 +8,9 @@ step, on one NVIDIA GPU.
 Builds the model of a port config (default: Jasper-10x5 at full width on
 synthetic speech, ``example_configs_torch/speech2text/
 jasper10x5_synthetic.py``; for the NMT transformer-big,
-``example_configs_torch/text2text/transformer_big_synthetic.py``) on the
-card with seeded weights, in eval mode, in infer mode with ``--infer``
+``example_configs_torch/text2text/transformer_big_synthetic.py``; for
+DeepSpeech2-medium, ``example_configs_torch/speech2text/
+ds2_medium_synthetic.py``) on the card with seeded weights, in eval mode, in infer mode with ``--infer``
 (for the transformer: the beam decode alone) or, with ``--train``, in
 train mode (the config's ``train_params`` merged in; dropout drawn from
 a generator seeded per step). ``--train-nmt`` is ``--train`` on the
@@ -27,12 +28,14 @@ It prints:
    span from the first device activity to the last, so the idle share;
    and device milliseconds and launches per step for each kernel group
    (the port's own kernels each have theirs: "ctc kernel", "flash
-   attention kernel" forward and backward, "fused dropout kernel");
+   attention kernel" forward and backward, "fused dropout kernel", "rnn
+   scan kernels" for the GRU and LSTM recurrences);
 3. FLOP per step of the convolutions and dense layers, counted from the
    shapes their forward hooks see (in training also their backward: the
    weight gradient, and the input gradient where the input needs one),
    and the rate they reach over the time of the conv and GEMM kernels,
-   and over the whole busy time;
+   and over the whole busy time; and apart, the FLOP of the recurrent
+   layers' products h W_h, which the scan kernels do;
 4. the host's busiest operators and the number of kernel launches per
    step.
 
@@ -58,13 +61,16 @@ NMT_TRAIN_CONFIG = os.path.join(REPO, "example_configs_torch", "text2text",
                                 "transformer_big_train_synthetic.py")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
-# (group, substrings of the kernel name), first match wins; the conv
-# and GEMM groups are the two after the CTC kernels
+# (group, substrings of the kernel name), first match wins
 GROUPS = (
     ("ctc kernel", ("ctc_alpha_fwd", "ctc_beta_bwd")),
     ("flash attention kernel", ("flash_attn_fwd", "flash_attn_bwd")),
     ("fused dropout kernel", ("dropout_mask",)),
-    ("convs (implicit GEMM, k > 1)", ("fprop", "dgrad", "wgrad")),
+    # the GRU and LSTM kernels, rnn_scan::scan_fwd_kernel<...>
+    ("rnn scan kernels", ("scan_fwd_kernel",)),
+    # cuDNN's direct NHWC kernel takes the one-channel first conv of DS2
+    ("convs (implicit GEMM, k > 1)", ("fprop", "dgrad", "wgrad",
+                                      "convolve_common_engine")),
     # cuBLAS names its kernels *gemm*, cuBLASLt's newer ones nvjet_*
     ("GEMMs (1x1 residual convs, dense)", ("gemm", "nvjet")),
     ("batch norm", ("bn_fw", "bn_bw", "batch_norm")),
@@ -79,7 +85,8 @@ GROUPS = (
     ("dtype casts and copies", ("copy", "DtoD")),
     ("elementwise", ("elementwise",)),
 )
-MATMUL_GROUPS = [g for g, _ in GROUPS[3:5]]
+MATMUL_GROUPS = ["convs (implicit GEMM, k > 1)",
+                 "GEMMs (1x1 residual convs, dense)"]
 
 
 def group_of(name: str) -> str:
@@ -94,8 +101,11 @@ def count_flops(module, run, train: bool = False) -> int:
     during ``run()``, from the output shapes their forward hooks see.
     With ``train``, also their backward: the weight gradient costs what
     the forward does, and so does the input gradient where the input
-    needs one."""
+    needs one. The recurrent products h W_h of the GRU and LSTM layers
+    (2 G H^2 per row and step, in the scan kernels) are not counted:
+    :func:`count_recurrent_flops` counts them."""
     from openseq2seq_tpu_torch.decoders.fc_decoders import Dense
+    from openseq2seq_tpu_torch.encoders.ds2_encoder import SameConv2d
     from openseq2seq_tpu_torch.encoders.tdnn_encoder import SameConv1d
     from openseq2seq_tpu_torch.parts.transformer.common import \
         Dense as TransformerDense
@@ -107,17 +117,37 @@ def count_flops(module, run, train: bool = False) -> int:
         return 2 + int(inp[0].requires_grad)
 
     def conv_hook(mod, inp, out):
-        total[0] += passes(inp) * 2 * out.numel() * mod.weight.shape[1] * \
-            mod.weight.shape[2]
+        # weight (out, in, k) or (out, in, kt, kf): one output's taps
+        total[0] += passes(inp) * 2 * out.numel() * mod.weight[0].numel()
 
     def dense_hook(mod, inp, out):
         total[0] += passes(inp) * 2 * out.numel() * mod.weight.shape[1]
 
     handles = [m.register_forward_hook(conv_hook)
-               for m in module.modules() if isinstance(m, SameConv1d)]
+               for m in module.modules()
+               if isinstance(m, (SameConv1d, SameConv2d))]
     handles += [m.register_forward_hook(dense_hook)
                 for m in module.modules()
                 if isinstance(m, (Dense, TransformerDense))]
+    run()
+    for h in handles:
+        h.remove()
+    return total[0]
+
+
+def count_recurrent_flops(module, run) -> int:
+    """FLOP of the recurrent products h W_h of ``module``'s GRU and LSTM
+    layers during ``run()``: 2 G H^2 for every row and step, masked steps
+    included (the scan kernels compute them)."""
+    from openseq2seq_tpu_torch.parts.rnns.rnn import GRU, LSTM
+    total = [0]
+
+    def hook(mod, inp, out):
+        B, T = inp[0].shape[:2]
+        total[0] += 2 * B * T * mod.recurrent_kernel.numel()
+
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, (GRU, LSTM))]
     run()
     for h in handles:
         h.remove()
@@ -216,17 +246,20 @@ def main(argv=None):
     batches = list(model.get_data_layer().iterate_one_epoch())
     utts = sum(len(b["source_ids"]) for b in batches)
     objects = sum(model.get_num_objects_per_step(b) for b in batches)
-    # the warm-up step counts the FLOP
+    # the warm-up steps count the FLOP
     flop_per_batch = count_flops(module, lambda: step(batches[0]),
                                  args.train)
-    step(batches[0])
+    rnn_flop_per_batch = count_recurrent_flops(module,
+                                               lambda: step(batches[0]))
     torch.cuda.synchronize()
     print("[model] {}: {} step, {} batches of {} x {} steps, dtype {}; "
-          "{:.4e} FLOP per step in convs and dense layers".format(
+          "{:.4e} FLOP per step in convs and dense layers, {:.4e} in "
+          "recurrent products".format(
               os.path.relpath(args.config_file, REPO), mode, len(batches),
               len(batches[0]["source_ids"]),
               batches[0]["source_tensors"][0].shape[1],
-              model.params["dtype"], flop_per_batch), flush=True)
+              model.params["dtype"], flop_per_batch, rnn_flop_per_batch),
+          flush=True)
 
     walls = []
     for _ in range(args.repeats):
@@ -306,7 +339,8 @@ def main(argv=None):
         "group_launches_per_batch": {g: c / n for g, c in
                                      group_launches.items()},
         "kernels_per_batch": launches,
-        "flop_per_batch": flop_per_batch}), flush=True)
+        "flop_per_batch": flop_per_batch,
+        "recurrent_flop_per_batch": rnn_flop_per_batch}), flush=True)
 
 
 if __name__ == "__main__":

@@ -16,7 +16,11 @@ order), and what it refuses. The flash backward kernels against
 ``flash_attention_bwd_plain`` from the kernel forward's own output and
 lse: fp32, max abs error 1e-4, two calls bit-identical, and autograd
 through the kernels. The fused dropout kernel against its plain version:
-bit-identical, forward and backward, with and without the residual."""
+bit-identical, forward and backward, with and without the residual. The
+GRU and LSTM scan kernels against their plain versions, forward and
+reverse, residuals included: fp32 (TF32 off) max abs error 1e-5, bf16
+within 3 bf16 ulps of max(1, |value|), two calls bit-identical; and what
+they refuse."""
 import numpy as np
 import pytest
 import torch
@@ -185,3 +189,82 @@ def test_fused_dropout_kernel_matches_plain(device, dtype):
     assert torch.equal(leaves[0].grad, cot)
     with pytest.raises(ValueError):
         fd.fused_dropout_cuda(y[:, :100].contiguous(), None, 0.3, seed)
+
+
+def _scan_inputs(device, cell, B, T, H, seed):
+    G = 4 if cell == "lstm" else 3
+    g = torch.Generator(device=device).manual_seed(seed)
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device=device)
+    lengths[0], lengths[1] = T, 1
+    return (torch.randn((B, T, G * H), generator=g, device=device),
+            torch.randn((H, G * H), generator=g, device=device) / H ** 0.5,
+            0.3 * torch.randn((G * H,), generator=g, device=device),
+            0.5 * torch.randn((B, H), generator=g, device=device),
+            torch.randn((B, H), generator=g, device=device), lengths.int())
+
+
+def _scan(cell, x, wh, bh, h0, c0, lengths, reverse, plain=False):
+    """The flat outputs of the GRU or LSTM scan (kernel or plain), with
+    the residuals."""
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
+    if cell == "gru":
+        fn = gru_scan.gru_scan_plain if plain else gru_scan.gru_scan
+        ys, h, res = fn(x, wh, bh, h0, lengths, reverse, True)
+        return [ys, h, *res]
+    fn = lstm_scan.lstm_scan_plain if plain else lstm_scan.lstm_scan
+    ys, (h, c), res = fn(x, wh, h0, c0, lengths, 1.0, reverse, True)
+    return [ys, h, c, *res]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("cell,B,T,H", [
+    ("gru", 8, 37, 128), ("gru", 4, 120, 1024), ("lstm", 8, 37, 128),
+    ("lstm", 4, 120, 512), ("lstm", 40, 9, 256)])
+def test_scan_kernels_match_plain(device, cell, B, T, H, reverse):
+    """fp32 with TF32 off, max abs error 1e-5 (sums in another order);
+    bf16 within 3 bf16 ulps of max(1, |value|), mean 1e-3 (a flipped
+    rounding of the carried h is carried on); ys zero past each length;
+    one launch per call; two calls bit-identical."""
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
+    kernel = gru_scan if cell == "gru" else lstm_scan
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, wh, bh, h0, c0, lengths = _scan_inputs(device, cell, B, T, H, T + H)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (x.to(dtype), wh, bh, h0.to(dtype), c0, lengths, reverse)
+        before = kernel.LAUNCHES
+        got = _scan(cell, *args)
+        assert kernel.LAUNCHES == before + 1
+        again = _scan(cell, *args)
+        want = _scan(cell, *args, plain=True)
+        torch.cuda.synchronize()
+        live = torch.arange(T, device=device)[None] < lengths[:, None]
+        assert not got[0][~live].any()
+        for a, b, w in zip(got, again, want):
+            assert torch.equal(a, b) and a.dtype == w.dtype
+            err = (a.float() - w.float()).abs()
+            if dtype == torch.float32:
+                assert float(err.max()) <= 1e-5
+            else:
+                rel = err / w.float().abs().clamp(min=1.0)
+                assert float(rel.max()) <= 3 * 2.0 ** -7
+                assert float(rel.mean()) <= 1e-3
+
+
+def test_scan_kernels_refuse_what_they_do_not_take(device):
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
+    x, wh, bh, h0, c0, lengths = _scan_inputs(device, "gru", 8, 9, 128, 0)
+    for bad in ((x.half(), wh, bh, h0, lengths),
+                (x[..., :288].contiguous(), wh[:96, :288].contiguous(),
+                 bh[:288].contiguous(), h0[:, :96].contiguous(), lengths),
+                (x, wh, bh, h0, lengths.cpu()), (x, wh, bh, h0[:4], lengths),
+                (x, wh, bh[:10], h0, lengths)):
+        with pytest.raises(ValueError):
+            gru_scan.gru_scan(*bad)
+    x, wh, _, h0, c0, lengths = _scan_inputs(device, "lstm", 8, 9, 128, 0)
+    with pytest.raises(ValueError):
+        lstm_scan.lstm_scan(x, wh, h0, c0[:4], lengths)
+    # no backward yet: it comes with the training slice
+    leaf = x.clone().requires_grad_()
+    ys, _ = lstm_scan.lstm_scan(leaf, wh, h0, c0, lengths)
+    with pytest.raises(NotImplementedError):
+        ys.sum().backward()

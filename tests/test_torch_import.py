@@ -35,9 +35,16 @@ def _import_all(report: str) -> str:
     there."""
     modules = sorted(_slice_modules())
     assert {"openseq2seq_tpu_torch.ops.flash_attention",
-            "openseq2seq_tpu_torch.ops.fused_dropout"} <= set(modules)
-    assert len(CONFIGS) >= 6 and any(
-        c.endswith("transformer_big_train_synthetic.py") for c in CONFIGS)
+            "openseq2seq_tpu_torch.ops.fused_dropout",
+            "openseq2seq_tpu_torch.ops.gru_scan",
+            "openseq2seq_tpu_torch.ops.lstm_scan",
+            "openseq2seq_tpu_torch.ops.rnn_scan",
+            "openseq2seq_tpu_torch.parts.rnns.rnn",
+            "openseq2seq_tpu_torch.encoders.ds2_encoder"} <= set(modules)
+    names = {os.path.basename(c) for c in CONFIGS}
+    assert len(CONFIGS) >= 9 and {
+        "transformer_big_train_synthetic.py", "ds2_medium_synthetic.py",
+        "lstm_small_synthetic.py", "ds2_tiny_synthetic.py"} <= names
     code = ("import importlib, runpy, sys\n"
             "for m in {!r}: importlib.import_module(m)\n"
             "for c in {!r}: runpy.run_path(c)\n"

@@ -101,7 +101,7 @@ def test_eval_step_matches_jax_mixed_logits():
 @pytest.mark.parametrize("key,value", [
     ("prng_impl", "threefry"), ("dropout_bits", 32), ("remat", True),
     ("dropout_remat", True), ("num_model_partitions", 1),
-    ("num_data_partitions", 0)])
+    ("num_data_partitions", 0), ("fused_rnn", True)])
 def test_schema_accepts_documented_no_ops(key, value):
     model = Speech2Text(jasper_model_params(
         SyntheticSpeechDataLayer, DATA, dtype="float32", **CUT,
@@ -110,7 +110,7 @@ def test_schema_accepts_documented_no_ops(key, value):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("shard_params", True), ("fused_rnn", True), ("use_xla_jit", True),
+    ("shard_params", True), ("use_xla_jit", True),
     ("num_pipeline_stages", 2), ("num_gpus", 8)])
 def test_schema_refuses_keys_without_effect(key, value):
     with pytest.raises(ValueError, match=key):

@@ -2,7 +2,8 @@
 torch's FlopCounterMode on a small Jasper, for the eval step and for the
 train step (``--train``: forward and backward of every conv and dense
 layer), the tiny transformer's train step (``--train-nmt`` on the tiny
-twin of its config), its busy-time union, its kernel grouping and its
+twin of its config), the tiny DeepSpeech2's eval step (2-D convs and
+the recurrent products apart), its busy-time union, its kernel grouping and its
 arguments. And the GPU scripts import nothing of JAX or of the JAX
 package themselves."""
 import ast
@@ -102,6 +103,33 @@ def test_transformer_train_step_flop_count():
     assert bool(torch.isfinite(metrics["loss"]))
 
 
+def test_ds2_flop_counts():
+    """The tiny DeepSpeech2 config's eval step through the script's own
+    step: the 2-D convs' and dense layers' FLOP equal FlopCounterMode's
+    ``convolution`` and ``addmm``/``mm`` count less the recurrent
+    products h W_h, which the recurrent count holds: 2 G H^2 per row and
+    step, every row and step (the fused recurrence's plain version runs
+    them as ``mm`` on the CPU, the scan kernels on the card)."""
+    import runpy
+    cfg = runpy.run_path(os.path.join(
+        REPO, "example_configs_torch", "speech2text",
+        "ds2_tiny_synthetic.py"))
+    model = cfg["base_model"](cfg["base_params"], mode="eval", device="cpu")
+    module, step = profile_eval.make_step(model, train=False)
+    batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+    got = profile_eval.count_flops(module, lambda: step(batch))
+    rnn = profile_eval.count_recurrent_flops(module, lambda: step(batch))
+    with FlopCounterMode(display=False) as counter:
+        step(batch)
+    counts = {str(op): n for op, n in
+              counter.get_flop_counts()["Global"].items()}
+    B, T = 8, 20                      # 40 frames after the time stride 2
+    assert rnn == 2 * 2 * B * T * 2 * 128 * 3 * 128
+    assert got > 0 and got + rnn == counter.get_total_flops(), counts
+    assert got == counts["aten.convolution"] + counts["aten.addmm"] + \
+        counts.get("aten.mm", 0) - rnn
+
+
 def test_busy_time_is_the_union_of_intervals():
     intervals = [(0, 10, "a"), (5, 12, "b"), (20, 25, "c"), (21, 22, "d")]
     assert profile_eval.busy_us(intervals) == 17
@@ -112,6 +140,8 @@ def test_busy_time_is_the_union_of_intervals():
      "ctc kernel"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
      "convs (implicit GEMM, k > 1)"),
+    ("void convolve_common_engine_float_NHWC<__nv_bfloat16, __nv_bfloat16, "
+     "128, 5, 5, 3, 3, 3, true, false, false>", "convs (implicit GEMM, k > 1)"),
     ("void cutlass::Kernel2<cutlass_80_tensorop_bf16_s16816gemm_bf16>",
      "GEMMs (1x1 residual convs, dense)"),
     ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_bias_TNT",
@@ -131,6 +161,10 @@ def test_busy_time_is_the_union_of_intervals():
      "32, 8>(float const*)", "flash attention kernel"),
     ("void (anonymous namespace)::dropout_mask_kernel<__nv_bfloat16, false>"
      "(__nv_bfloat16 const*)", "fused dropout kernel"),
+    ("void rnn_scan::scan_fwd_kernel<__nv_bfloat16, 3, 8, (anonymous "
+     "namespace)::GruCell>(rnn_scan::Params)", "rnn scan kernels"),
+    ("void rnn_scan::scan_fwd_kernel<float, 4, 4, (anonymous "
+     "namespace)::LstmCell>(rnn_scan::Params)", "rnn scan kernels"),
 ])
 def test_kernel_groups(name, group):
     assert profile_eval.group_of(name) == group
