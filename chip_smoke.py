@@ -11,10 +11,11 @@ Phases, one informative line or a few each:
 2. build: the CTC kernels (``openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu``
    and ``ctc_beta_bwd.cu``), the flash attention forward and backward
    (``flash_attn_fwd.cu``, ``flash_attn_bwd.cu``), the fused dropout
-   (``dropout_mask.cu``) and the GRU and LSTM scans (``gru_scan_fwd.cu``,
-   ``lstm_scan_fwd.cu``), one ``nvcc`` each for ``sm_90a``, started
-   together, and what ``ptxas`` reports for them (registers, spills; of
-   the scans' 20 instantiations each, the main paths' and a summary);
+   (``dropout_mask.cu``) and the GRU and LSTM scans, forward and backward
+   (``{gru,lstm}_scan_{fwd,bwd}.cu``), one ``nvcc`` each for ``sm_90a``,
+   started together, and what ``ptxas`` reports for them (registers,
+   spills; of the scans' 20 instantiations each, the main paths' and a
+   summary);
 3. the forward kernel against its plain PyTorch version, both fp32 on the
    card, at the Jasper eval shape (B=32, T=500, L=160, V=29), at L=600
    (more extended states than a CTA has threads) and at T=37: max
@@ -59,6 +60,14 @@ Phases, one informative line or a few each:
    shapes in bf16; a GRU layer at H=800, which ``supported`` rejects,
    runs the scan with no launch; what the kernels do not take, they
    refuse;
+4f. the GRU and LSTM backward kernels against ``gru_scan_bwd_plain`` and
+   ``lstm_scan_bwd_plain`` on the forward kernel's residuals, at the same
+   shapes, forward and reverse, h0 and c0 non-zero, lengths from 1 to T,
+   the cotangent of ys non-zero past each length: the forward's
+   tolerances, dx_proj zero past each length, two calls bit-identical;
+   times of the kernel, the plain version, the dW_h GEMM outside it
+   (fp32) and cuDNN's ``torch.nn.GRU``/``torch.nn.LSTM`` forward plus
+   backward (timed only, never on the path) at the main shapes in bf16;
 5. a small fp32 Jasper on the card and on the CPU: eval outputs agree, and
    one ``train_step`` gives the same loss and updated weights (rtol 1e-4);
 6. the eval/infer slice: Jasper-10x5 at full width from
@@ -109,6 +118,18 @@ Phases, one informative line or a few each:
    infer rows; eval utterances per second printed as information;
 7h. ``example_configs_torch/speech2text/lstm_small_synthetic.py`` (4 x
    512 bidirectional LSTM) the same way, 8 LSTM launches per batch;
+7i. the tiny fp32 DeepSpeech2 config, dropout off, tanh activations, on
+   the card (GRU, then LSTM cells, 4 forward and 4 backward launches
+   each) and on the CPU: one ``train_step`` gives the same loss and
+   weights (rtol 1e-4);
+7j. DeepSpeech2-medium through ``run.main --mode=train`` for its config's
+   20 steps: the loss is finite at every step and falls, each step
+   launches the GRU forward and backward kernels 6 times each and the CTC
+   forward and backward once, a checkpoint is written, ``--mode=eval``
+   runs from it and ``--continue_learning`` takes 3 more steps; the train
+   throughput is printed as information;
+7k. lstm_small the same way, 8 LSTM forward and 8 backward launches per
+   step;
 8. one JSON line for the kernels, then ``{"ok": true, "device": ...}``
    last.
 
@@ -948,6 +969,151 @@ def phase_scan(card):
     return worst, times
 
 
+# the backward's gate math per (row, step, hidden unit) beyond the
+# recurrent product: GRU about 20 adds and multiplies, LSTM a tanh and
+# about 25
+SCAN_BWD_GATE_OPS = {"gru": 20, "lstm": 30}
+
+
+def scan_bwd_fn(cell, case, dtype, reverse, plain=False):
+    """The forward kernel with its residuals on ``case``, then a function
+    that runs the backward kernel (or its plain version) on them, with
+    the cotangents ``case["dys"]``, ``case["dh"]`` (and ``case["dc"]``),
+    and returns the flat list (dx_proj, dh0[, dc0])."""
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
+    xp, h0 = case["x_proj"].to(dtype), case["h0"].to(dtype)
+    dys, dh = case["dys"].to(dtype), case["dh"].to(dtype)
+    lengths = case["lengths"]
+    if cell == "gru":
+        ys, _, (acts, hn) = gru_scan.gru_scan(xp, case["wh"], case["bh"], h0,
+                                              lengths, reverse, True)
+        fn = gru_scan.gru_scan_bwd_plain if plain else gru_scan._bwd_cuda
+        return lambda: list(fn(case["wh"], h0, lengths, ys, acts, hn, dys,
+                               dh, reverse))
+    _, _, (acts, cs) = lstm_scan.lstm_scan(xp, case["wh"], h0, case["c0"],
+                                           lengths, 1.0, reverse, True)
+    fn = lstm_scan.lstm_scan_bwd_plain if plain else lstm_scan._bwd_cuda
+    return lambda: list(fn(case["wh"], case["c0"], lengths, acts, cs, dys,
+                           dh, case["dc"], reverse))
+
+
+def scan_bwd_bound_ms(cell, case):
+    """The least time of one backward launch in bf16 on the H100: the
+    residuals (acts; the GRU's hn and ys, the LSTM's fp32 cs), dys, W_h,
+    h0 or c0, the lengths and the incoming carries read once, dx_proj and
+    dh0 (and dc0) written once, over the HBM rate; 2 G H multiply-adds of
+    the product dg W_h^T plus the gate math for each live (row, step,
+    unit), over the bf16 tensor-core peak."""
+    import torch
+    B, T, GH = case["x_proj"].shape
+    H = case["h0"].shape[1]
+    nbytes = 2 * (2 * B * T * GH + H * GH + B * T * H + 3 * B * H) + 4 * B
+    if cell == "lstm":
+        nbytes += 4 * B * T * H + 4 * 3 * B * H      # cs, c0, dc_last, dc0
+    else:
+        nbytes += 2 * 2 * B * T * H                  # hn, ys
+    live = int(case["lengths"].long().sum())
+    flop = live * H * (2 * GH + SCAN_BWD_GATE_OPS[cell])
+    return bound_ms(nbytes, flop, torch.bfloat16)
+
+
+def phase_scan_bwd(card):
+    """``gru_scan_bwd`` and ``lstm_scan_bwd`` against their plain versions
+    on the card, on the residuals of the forward kernel: the main paths'
+    shapes and B=8, T=37, H=128, forward and reverse, h0 and c0 non-zero,
+    lengths from 1 to T, the cotangent of ys non-zero past each length
+    (it must be dropped), fp32 (TF32 off) and bf16 with the forward's
+    tolerances; two calls bit-identical. Times at the main shapes in bf16
+    (full lengths): the kernel, the plain version, the dW_h GEMM outside
+    it (fp32, as the JAX VJP computes it), and cuDNN's ``torch.nn.GRU`` /
+    ``torch.nn.LSTM`` forward plus backward on a 2H-wide input (the
+    yardstick, never on the path). Returns the worst fp32 error and the
+    timings, by cell."""
+    import torch
+    dev = torch.device("cuda")
+    worst = {"gru": 0.0, "lstm": 0.0}
+    times = {}
+
+    def with_cotangents(case, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        B, T, _ = case["x_proj"].shape
+        H = case["h0"].shape[1]
+        return dict(case, dys=torch.randn((B, T, H), generator=g, device=dev),
+                    dh=torch.randn((B, H), generator=g, device=dev),
+                    dc=torch.randn((B, H), generator=g, device=dev))
+
+    for i, (name, cell, B, T, H) in enumerate(SCAN_CASES):
+        case = with_cotangents(scan_case(cell, B, T, H, 50 + i, dev), 60 + i)
+        for dtype in (torch.float32, torch.bfloat16):
+            for reverse in (False, True):
+                kernel = scan_bwd_fn(cell, case, dtype, reverse)
+                got, again = kernel(), kernel()
+                want = scan_bwd_fn(cell, case, dtype, reverse, plain=True)()
+                torch.cuda.synchronize()
+                errs = _scan_errors(got, want, dtype, T)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                print("[scan bwd] {} {} B={} T={} H={} {} {}: max abs err "
+                      "dx_proj {:.3e} (mean {:.3e}), initial state(s) {}; "
+                      "repeat bit-identical: {}".format(
+                          name, cell, B, T, H, str(dtype)[6:],
+                          "reverse" if reverse else "forward", errs[0][0],
+                          errs[0][1], ", ".join("{:.3e}".format(e[0])
+                                                for e in errs[1:]), same),
+                      flush=True)
+                check(same, "{} {}: two backward calls differ".format(
+                    name, dtype))
+                check(all(e[2] <= 0 for e in errs) and all(
+                    bool(torch.isfinite(g).all()) for g in got),
+                    "{} {} reverse={}: backward errors {}".format(
+                        name, dtype, reverse, errs))
+                live = torch.arange(T, device=dev)[None, :] < \
+                    case["lengths"][:, None]
+                check(got[0].dtype == dtype and
+                      not bool(got[0][~live].any()),
+                      "dx_proj dtype or not zero past the length")
+                if dtype == torch.float32:
+                    worst[cell] = max(worst[cell], max(e[0] for e in errs))
+        if T < 500:
+            continue
+        full = with_cotangents(scan_case(cell, B, T, H, 70 + i, dev,
+                                         full=True), 80 + i)
+        G = 4 if cell == "lstm" else 3
+        # fp32 stand-ins of h_prev (B T, H) and dhp or dgates (B T, G H)
+        h_prev = full["x_proj"][..., :H].reshape(-1, H)
+        dg = full["x_proj"].reshape(-1, G * H)
+        mod = (torch.nn.GRU if cell == "gru" else torch.nn.LSTM)(
+            2 * H, H, batch_first=True).to(dev, torch.bfloat16)
+        mod.flatten_parameters()
+        x = torch.randn((B, T, 2 * H), device=dev, dtype=torch.bfloat16,
+                        requires_grad=True)
+        dy = full["dys"].bfloat16()
+
+        def cudnn_fwd_bwd():
+            mod(x)[0].backward(dy)
+
+        t = {"ms": cuda_ms(scan_bwd_fn(cell, full, torch.bfloat16, False),
+                           10),
+             "fwd_ms": cuda_ms(lambda: scan_call(
+                 cell, full, torch.bfloat16, False, True), 10),
+             "plain_ms": cuda_ms(scan_bwd_fn(cell, full, torch.bfloat16,
+                                             False, plain=True), 2),
+             "library_ms": cuda_ms(cudnn_fwd_bwd, 5),
+             "gemm_ms": cuda_ms(lambda: h_prev.t() @ dg, 10)}
+        t["bound_ms"], t["bound_by"] = scan_bwd_bound_ms(cell, full)
+        times[cell] = t
+        print("[scan bwd] {} {} bf16 B={} T={} H={}: backward kernel {:.4f} "
+              "ms (its forward with residuals {:.4f} ms), plain {:.4f} ms, "
+              "bound {:.4f} ms ({}); the dW_h GEMM outside it, fp32, "
+              "{:.4f} ms ({:.1f} TFLOP/s); cuDNN torch.nn.{} forward plus "
+              "backward with a {}-wide input {:.4f} ms (CUDA events, back "
+              "to back; {})".format(
+                  name, cell, B, T, H, t["ms"], t["fwd_ms"], t["plain_ms"],
+                  t["bound_ms"], t["bound_by"], t["gemm_ms"],
+                  2 * B * T * H * G * H / t["gemm_ms"] / 1e9, cell.upper(),
+                  2 * H, t["library_ms"], card), flush=True)
+    return worst, times
+
+
 def _small_params(data_layer, no_dropout=False, **overrides):
     from openseq2seq_tpu_torch.zoo import jasper_model_params
     params = jasper_model_params(
@@ -1360,6 +1526,166 @@ def phase_small_ds2():
               "between card and CPU".format(cell))
 
 
+def phase_small_ds2_train():
+    """The tiny fp32 DeepSpeech2 config, dropout keep 1.0, same seed, on
+    the card (through the GRU kernels, forward and backward, then with
+    LSTM cells through the LSTM kernels) and on the CPU (their plain
+    versions): one ``train_step`` gives the same loss and updated weights
+    (rtol 1e-4, atol 1e-6), with 4 forward and 4 backward launches on the
+    card. Momentum in place of the config's Adam and the conv biases
+    that feed a batch norm frozen, as ``tests/test_torch_ds2_train.py``
+    does: Adam would scale the rounding noise of a near-zero gradient
+    element to a full-size update. And tanh in place of relu: with relu,
+    one batch-norm output of the 20,480 after the first conv lay within
+    rounding of zero, the two devices took opposite sides of the kink,
+    and that one element moved the first conv's weight gradient by 1.4%
+    of its largest value (every later layer's gradient agreed within
+    4e-6 of its largest)."""
+    import numpy as np
+    import torch
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
+    from openseq2seq_tpu_torch.training import trainer
+    config = runpy.run_path(DS2_TINY)
+    for cell in ("gru", "lstm"):
+        params = dict(config["base_params"], max_steps=1,
+                      optimizer="Momentum",
+                      optimizer_params={"learning_rate": 0.01,
+                                        "momentum": 0.9},
+                      freeze_variables_regex=r"/conv\d+/bias$")
+        params["encoder_params"] = dict(params["encoder_params"],
+                                        rnn_type="cudnn_" + cell,
+                                        dropout_keep_prob=1.0,
+                                        activation_fn=torch.tanh)
+        kernel = gru_scan if cell == "gru" else lstm_scan
+        trained = {}
+        for device in ("cuda", "cpu"):
+            model = config["base_model"](params, mode="train", device=device)
+            state = trainer.restore_state(model)
+            batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+            before = kernel.LAUNCHES, kernel.BWD_LAUNCHES
+            state, metrics = model.train_step(state, batch)
+            launches = (kernel.LAUNCHES - before[0],
+                        kernel.BWD_LAUNCHES - before[1])
+            trained[device] = (float(metrics["loss"]), launches, {
+                n: p.detach().cpu().numpy()
+                for n, p in state.module.named_parameters()})
+        (loss_gpu, l_gpu, w_gpu), (loss_cpu, l_cpu, w_cpu) = \
+            trained["cuda"], trained["cpu"]
+        w_err = max(float(np.max(np.abs(w_gpu[n] - w_cpu[n]) /
+                                 (1e-6 + 1e-4 * np.abs(w_cpu[n]))))
+                    for n in w_cpu)
+        print("[ds2 train] tiny fp32 DeepSpeech2, {} cells, one train "
+              "step, card vs CPU: loss {:.6f} vs {:.6f}; largest weight "
+              "difference {:.3f} of the tolerance (rtol 1e-4, atol 1e-6); "
+              "launches (forward, backward) on the card {}, on the CPU {}"
+              .format(cell.upper(), loss_gpu, loss_cpu, w_err, l_gpu, l_cpu),
+              flush=True)
+        check(l_gpu == (4, 4) and l_cpu == (0, 0),
+              "{} launches in the tiny train step".format(cell))
+        check(abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu) and
+              w_err <= 1.0, "tiny DeepSpeech2 ({}) train step disagrees "
+              "between card and CPU".format(cell))
+
+
+def _more_steps_config(path, logdir, steps):
+    """A config file in ``logdir`` that is ``path`` with its
+    ``train_params`` ``max_steps`` set to ``steps``."""
+    more = os.path.join(logdir, "more_steps.py")
+    with open(more, "w") as f:
+        f.write("import runpy\n_c = runpy.run_path({!r})\n"
+                "base_model = _c['base_model']\n"
+                "base_params = _c['base_params']\n"
+                "train_params = dict(_c['train_params'], max_steps={})\n"
+                .format(path, steps))
+    return more
+
+
+def phase_rnn_train(path, name, kernel, per_step, card):
+    """A recurrent speech config at full width through ``run.main
+    --mode=train`` for its ``train_params``' steps: the loss is finite at
+    every step and falls, each step launches ``kernel``'s forward and
+    backward ``per_step`` times each and the CTC forward and backward
+    once; a checkpoint is written, ``--mode=eval`` runs from it, and
+    ``--continue_learning`` takes 3 more steps. The recipes' own learning
+    rates move both losses within the 20 steps, so nothing is overridden.
+    Returns the forward, backward, CTC forward and CTC backward launches
+    over these paths."""
+    import torch
+    from openseq2seq_tpu_torch.ops import ctc_cuda
+
+    def reset():
+        kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+        ctc_cuda.LAUNCHES = ctc_cuda.BWD_LAUNCHES = 0
+
+    def counts():
+        return (kernel.LAUNCHES, kernel.BWD_LAUNCHES, ctc_cuda.LAUNCHES,
+                ctc_cuda.BWD_LAUNCHES)
+
+    total = [0, 0, 0, 0]
+    config = runpy.run_path(path)
+    steps = config["train_params"]["max_steps"]
+    n_batches = config["base_params"]["data_layer_params"]["num_batches"]
+    with tempfile.TemporaryDirectory() as logdir:
+        argv = ["--config_file=" + path, "--logdir=" + logdir]
+        print("[{}] {} training steps of 32 x 1000 frames, mixed, dropout "
+              "on".format(name, steps), flush=True)
+        reset()
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train"])
+        wall = time.time() - t0
+        launches = counts()
+        total = [a + b for a, b in zip(total, launches)]
+        losses = [float(x) for x in re.findall(r"loss = ([-+0-9.einaf]+)",
+                                                "\n".join(lines))]
+        print("[{}] losses {}; launches {} {}, {} {}, CTC forward {}, "
+              "backward {}; {:.1f} s with the build of the model".format(
+                  name, losses, kernel.KERNEL, launches[0], kernel.BWD_KERNEL,
+                  launches[1], launches[2], launches[3], wall), flush=True)
+        check(result["steps"] == steps, "trained {} steps".format(
+            result["steps"]))
+        check(len(losses) == steps and all(math.isfinite(x)
+                                           for x in losses),
+              "losses not finite at every step: {}".format(losses))
+        check(sum(losses[-3:]) < sum(losses[:3]),
+              "loss did not fall: {}".format(losses))
+        check(launches == (per_step * steps, per_step * steps, steps, steps),
+              "launches {} in {} steps".format(launches, steps))
+        print("[{}] train throughput {:.1f} utt/s over steps {}-{} (batch "
+              "32, 10 s utterances, bf16, a host read of the loss every "
+              "step; {})".format(name, result["objects_per_sec"] / 1000,
+                                 11, steps, card), flush=True)
+        ckpt = os.path.join(logdir, "checkpoints", str(steps), "model.pt")
+        check(os.path.exists(ckpt), "no checkpoint at {}".format(ckpt))
+
+        reset()
+        metrics, _ = _run_quiet(argv + ["--mode=eval"])
+        launches = counts()
+        total = [a + b for a, b in zip(total, launches)]
+        print("[{}] eval from the step-{} checkpoint: loss {:.6f}, WER "
+              "{:.4f}; launches {}".format(name, steps, metrics["eval_loss"],
+                                           metrics["Eval WER"], launches),
+              flush=True)
+        check(math.isfinite(metrics["eval_loss"]) and
+              launches == (per_step * n_batches, 0, n_batches, 0),
+              "eval from the trained checkpoint")
+
+        reset()
+        more = _more_steps_config(path, logdir, steps + 3)
+        result, lines = _run_quiet(["--config_file=" + more, argv[1],
+                                    "--mode=train", "--continue_learning"])
+        launches = counts()
+        total = [a + b for a, b in zip(total, launches)]
+        started = [x for x in lines if "Starting training from step" in x]
+        print("[{}] --continue_learning: {}; reached step {}; launches {}"
+              .format(name, started[0].strip(), result["steps"], launches),
+              flush=True)
+        check(started and started[0].endswith("step {}".format(steps)) and
+              result["steps"] == steps + 3 and
+              launches == (3 * per_step, 3 * per_step, 3, 3), "resumed run")
+        torch.cuda.synchronize()
+    return total
+
+
 def phase_rnn_model(path, name, kernel, per_batch, card):
     """A recurrent speech config at full width from a seeded-init
     checkpoint through ``run.main`` in eval and infer: ``kernel`` (the
@@ -1550,13 +1876,7 @@ def phase_train(card):
         check(math.isfinite(metrics["eval_loss"]) and launches == (4, 0),
               "eval from the trained checkpoint")
 
-        more = os.path.join(logdir, "more_steps.py")
-        with open(more, "w") as f:
-            f.write("import runpy\n_c = runpy.run_path({!r})\n"
-                    "base_model = _c['base_model']\n"
-                    "base_params = _c['base_params']\n"
-                    "train_params = dict(_c['train_params'], max_steps={})\n"
-                    .format(CONFIG, steps + 3))
+        more = _more_steps_config(CONFIG, logdir, steps + 3)
         ctc_cuda.LAUNCHES = ctc_cuda.BWD_LAUNCHES = 0
         result, lines = _run_quiet(["--config_file=" + more,
                                     "--logdir=" + logdir, "--mode=train",
@@ -1631,7 +1951,7 @@ def main():
     # 2. build, one nvcc per source, all started together
     names = ("ctc_alpha_fwd", "ctc_beta_bwd", "flash_attn_fwd",
              "flash_attn_bwd", "dropout_mask", "gru_scan_fwd",
-             "lstm_scan_fwd")
+             "lstm_scan_fwd", "gru_scan_bwd", "lstm_scan_bwd")
     t0 = time.time()
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(build.build, names))
@@ -1649,6 +1969,7 @@ def main():
     dq_err, dkv_err, flash_bwd_times = phase_flash_bwd(card)
     drop = phase_dropout(card)
     scan_err, scan_times = phase_scan(card)
+    scan_bwd_err, scan_bwd_times = phase_scan_bwd(card)
 
     # 5-7. the paths, each with its launch counts set to 0 just before
     config = runpy.run_path(CONFIG)
@@ -1665,6 +1986,12 @@ def main():
                                             card)
     lstm_launches, lstm_ctc = phase_rnn_model(LSTM_SMALL, "lstm_small",
                                               lstm_scan, 8, card)
+    phase_small_ds2_train()
+    ds2_train = phase_rnn_train(DS2_MEDIUM, "ds2 train", gru_scan, 6, card)
+    lstm_train = phase_rnn_train(LSTM_SMALL, "lstm_small train", lstm_scan,
+                                 8, card)
+    scan_launches = {"gru": (gru_launches + ds2_train[0], ds2_train[1]),
+                     "lstm": (lstm_launches + lstm_train[0], lstm_train[1])}
 
     # 8. result
     fwd_bound = ctc_bound_ms(32, 500, 160, 29, 500, backward=False)
@@ -1675,14 +2002,16 @@ def main():
         "name": "ctc_alpha_fwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu",
         "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:65",
-        "launches": eval_launches + train_fwd + ds2_ctc + lstm_ctc,
+        "launches": eval_launches + train_fwd + ds2_ctc + lstm_ctc +
+        ds2_train[2] + lstm_train[2],
         "max_abs_err": fwd_err,
         "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound[0],
         "bound_by": fwd_bound[1], "library_ms": ctc_lib_fwd_ms}, {
         "name": "ctc_beta_bwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/ctc_beta_bwd.cu",
         "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:140",
-        "launches": train_bwd, "max_abs_err": bwd_err,
+        "launches": train_bwd + ds2_train[3] + lstm_train[3],
+        "max_abs_err": bwd_err,
         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0],
         "bound_by": bwd_bound[1], "library_ms": ctc_lib_fwd_bwd_ms}, {
         "name": "flash_attn_fwd", "route": "cuda",
@@ -1712,17 +2041,21 @@ def main():
         "ms": drop["ms"], "plain_ms": drop["plain_ms"],
         "bound_ms": drop["bound"][0], "bound_by": drop["bound"][1],
         "library_ms": None}] + [{
-        "name": cell + "_scan_fwd", "route": "cuda",
-        "source": "openseq2seq_tpu_torch/csrc/{}_scan_fwd.cu".format(cell),
-        "replaces": replaces, "launches": launches,
-        "max_abs_err": scan_err[cell], "ms": scan_times[cell]["ms"],
-        "plain_ms": scan_times[cell]["plain_ms"],
-        "bound_ms": scan_times[cell]["bound_ms"],
-        "bound_by": scan_times[cell]["bound_by"],
-        "library_ms": scan_times[cell]["library_ms"]}
-        for cell, replaces, launches in (
-            ("lstm", "openseq2seq_tpu/ops/lstm_pallas.py:73", lstm_launches),
-            ("gru", "openseq2seq_tpu/ops/gru_pallas.py:64", gru_launches))]}),
+        "name": "{}_scan_{}".format(cell, way), "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/{}_scan_{}.cu".format(cell,
+                                                                    way),
+        "replaces": "openseq2seq_tpu/ops/{}_pallas.py:{}".format(cell, line),
+        "launches": scan_launches[cell][way == "bwd"],
+        "max_abs_err": err[cell], "ms": times[cell]["ms"],
+        "plain_ms": times[cell]["plain_ms"],
+        "bound_ms": times[cell]["bound_ms"],
+        "bound_by": times[cell]["bound_by"],
+        "library_ms": times[cell]["library_ms"]}
+        for cell, way, line, err, times in (
+            ("lstm", "fwd", 73, scan_err, scan_times),
+            ("gru", "fwd", 64, scan_err, scan_times),
+            ("lstm", "bwd", 173, scan_bwd_err, scan_bwd_times),
+            ("gru", "bwd", 150, scan_bwd_err, scan_bwd_times))]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,23 @@
 # DeepSpeech2-medium at full published width on synthetic speech, for the
-# PyTorch port's eval and infer:
+# PyTorch port's training, eval and infer:
 #
-#   python -m openseq2seq_tpu_torch.run --mode=eval --logdir=<dir> \
+#   python -m openseq2seq_tpu_torch.run --mode=train --logdir=<dir> \
 #       --config_file=example_configs_torch/speech2text/ds2_medium_synthetic.py
 #
-# (and --mode=infer), from a checkpoint in <dir>. The model is the
-# repository's DS2 bench (scripts/bench_ds2.py, after the recipe
+# and --mode=eval / --mode=infer from the checkpoint it writes. The model is
+# the repository's DS2 bench (scripts/bench_ds2.py, after the recipe
 # example_configs/speech2text/ds2_medium_4gpus.py): three SAME 2-D convs
 # (11x41 stride 2x2 with 32 channels, 11x21 stride 1x2 with 64, 11x21
 # stride 1x2 with 96), three bidirectional 1024-unit cuDNN-variant GRU
 # layers, a 1024-unit fully-connected layer, relu; bf16 compute from fp32
 # params ("mixed"). With `fused_rnn` each GRU recurrence (T' = 500 after
-# the time stride) runs on the hand-written kernel csrc/gru_scan_fwd.cu,
-# 6 launches per batch, and the CTC loss on csrc/ctc_alpha_fwd.cu. Data:
-# 4 synthetic batches of 32 x 1000 frames x 160 features with 160-label
-# transcripts over 29 symbols. Training is not ported yet (it waits for the
-# kernels' backward passes); the optimizer keys are the bench's.
+# the time stride) runs on the hand-written kernel csrc/gru_scan_fwd.cu, 6
+# launches per batch, and in training its backward on csrc/gru_scan_bwd.cu,
+# 6 more; the CTC loss on csrc/ctc_alpha_fwd.cu (and csrc/ctc_beta_bwd.cu
+# in training). Training is the bench's step: Adam 1e-4, max_grad_norm 5,
+# dropout keep 0.5 with 8-bit masks, for 20 steps with a checkpoint at the
+# end. Data: 4 synthetic batches of 32 x 1000 frames x 160 features with
+# 160-label transcripts over 29 symbols.
 import torch
 
 from openseq2seq_tpu_torch.data.synthetic import SyntheticSpeechDataLayer
@@ -69,4 +71,10 @@ base_params = {
         "label_length": 160,
         "num_batches": 4,
     },
+}
+
+train_params = {
+    "max_steps": 20,
+    "print_loss_steps": 1,
+    "save_checkpoint_steps": 20,
 }

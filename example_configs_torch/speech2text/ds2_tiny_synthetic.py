@@ -1,16 +1,18 @@
 # DeepSpeech2 cut to two small convs and two bidirectional 128-unit GRU
 # layers, fp32, on small synthetic batches (8 x 40 frames x 32 features,
-# 6-label transcripts): the port's DS2 eval and infer on the CPU in
-# seconds, never timed, e.g.
+# 6-label transcripts): the port's DS2 training, eval and infer on the CPU
+# in seconds, never timed, e.g.
 #
-#   python -m openseq2seq_tpu_torch.run --mode=eval --device=cpu \
+#   python -m openseq2seq_tpu_torch.run --mode=train_eval --device=cpu \
 #       --logdir=<dir> \
 #       --config_file=example_configs_torch/speech2text/ds2_tiny_synthetic.py
 #
-# from a checkpoint in <dir>. B = 8 and H = 128 are the smallest sizes the
-# fused recurrence takes, so `fused_rnn` runs the GRU kernel's plain
-# version here (and the kernel on the card); the tests swap in
-# `rnn_type: cudnn_lstm` for the LSTM twin.
+# B = 8 and H = 128 are the smallest sizes the fused recurrence takes, so
+# `fused_rnn` runs the GRU kernels' plain versions here, forward and
+# backward (and the kernels on the card); the tests swap in `rnn_type:
+# cudnn_lstm` for the LSTM twin. Adam 1e-3 with dropout keep 0.5; the
+# synthetic layer repeats one batch, so the loss falls within the 20
+# steps.
 import torch
 
 from openseq2seq_tpu_torch.data.synthetic import SyntheticSpeechDataLayer
@@ -27,6 +29,14 @@ base_params = {
     "batch_size_per_gpu": 8,
     "dtype": "float32",
     "fused_rnn": True,
+    "optimizer": "Adam",
+    "optimizer_params": {"learning_rate": 1e-3},
+    # in base_params, not train_params, so that --max_steps can override
+    # them
+    "max_steps": 20,
+    "print_loss_steps": 5,
+    "save_checkpoint_steps": 10,
+    "eval_steps": 10,
     "encoder": DeepSpeech2Encoder,
     "encoder_params": {
         "conv_layers": [

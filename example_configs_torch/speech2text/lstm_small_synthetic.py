@@ -1,21 +1,23 @@
 # The repository's conv + bidirectional-LSTM CTC recipe
 # (example_configs/speech2text/lstm_small_1gpu.py) at full width on
-# synthetic speech, for the PyTorch port's eval and infer:
+# synthetic speech, for the PyTorch port's training, eval and infer:
 #
-#   python -m openseq2seq_tpu_torch.run --mode=eval --logdir=<dir> \
+#   python -m openseq2seq_tpu_torch.run --mode=train --logdir=<dir> \
 #       --config_file=example_configs_torch/speech2text/lstm_small_synthetic.py
 #
-# (and --mode=infer), from a checkpoint in <dir>. One SAME 11x41 stride-2x2
-# conv with 32 channels, four bidirectional 512-unit LSTM layers, a
-# 512-unit fully-connected layer, relu; bf16 compute from fp32 params
-# ("mixed"). Unlike the recipe, this config sets `fused_rnn: True` and
-# `loss_params: {"use_pallas": True}`: they pick the kernels (each LSTM
-# recurrence, T' = 500, on csrc/lstm_scan_fwd.cu, 8 launches per batch;
-# the CTC loss on csrc/ctc_alpha_fwd.cu) and leave the math as it is; the
-# fused and the scan paths differ only in where bf16 rounds. Data: 4
-# synthetic batches of 32 x 1000 frames x 64 features with 160-label
-# transcripts over 29 symbols. Training is not ported yet; the optimizer
-# keys are the recipe's.
+# and --mode=eval / --mode=infer from the checkpoint it writes. One SAME
+# 11x41 stride-2x2 conv with 32 channels, four bidirectional 512-unit LSTM
+# layers, a 512-unit fully-connected layer, relu; bf16 compute from fp32
+# params ("mixed"). Unlike the recipe, this config sets `fused_rnn: True`
+# and `loss_params: {"use_pallas": True}`: they pick the kernels (each LSTM
+# recurrence, T' = 500, on csrc/lstm_scan_fwd.cu, 8 launches per batch, and
+# in training its backward on csrc/lstm_scan_bwd.cu, 8 more; the CTC loss on
+# csrc/ctc_alpha_fwd.cu and csrc/ctc_beta_bwd.cu) and leave the math as it
+# is; the fused and the scan paths differ only in where bf16 rounds.
+# Training is the recipe's: Momentum 0.001 with LARC (eta 0.001) and
+# poly_decay, dropout keep 0.8 with 8-bit masks, for 20 steps with a
+# checkpoint at the end. Data: 4 synthetic batches of 32 x 1000 frames x
+# 64 features with 160-label transcripts over 29 symbols.
 import torch
 
 from openseq2seq_tpu_torch.data.synthetic import SyntheticSpeechDataLayer
@@ -67,4 +69,10 @@ base_params = {
         "label_length": 160,
         "num_batches": 4,
     },
+}
+
+train_params = {
+    "max_steps": 20,
+    "print_loss_steps": 1,
+    "save_checkpoint_steps": 20,
 }

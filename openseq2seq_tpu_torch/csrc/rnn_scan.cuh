@@ -1,6 +1,8 @@
 // The persistent scan shared by the GRU and LSTM forward kernels
 // (gru_scan_fwd.cu, lstm_scan_fwd.cu): one cooperative launch walks all
-// T steps of one direction of one layer.
+// T steps of one direction of one layer. Its grid barrier, cp.async
+// helpers, cooperative launcher and unit dispatch also carry the
+// backward kernels (rnn_scan_bwd.cuh).
 //
 // Layout. The gate pre-activations of step t are x_proj[t] + h_{t-1} W_h
 // with W_h (H, G*H) for G gates. CTA j owns U consecutive hidden units
@@ -288,10 +290,11 @@ scan_fwd_kernel(const Params p) {
   }
 }
 
-template <typename E, int G, int U, class Cell>
-int launch_scan(const Params& p, int ctas, cudaStream_t stream) {
-  const size_t smem = smem_bytes<G, U>(p.H);
-  auto kernel = scan_fwd_kernel<E, G, U, Cell>;
+// One cooperative launch of `ctas` CTAs of `kernel(args)`, after the
+// occupancy API has shown that they can all be resident at once.
+template <typename Args>
+int launch_cooperative(void (*kernel)(const Args), size_t smem, int ctas,
+                       const Args& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -305,7 +308,7 @@ int launch_scan(const Params& p, int ctas, cudaStream_t stream) {
     return static_cast<int>(err);
   // the barrier needs every CTA resident at once: checked, never assumed
   if (static_cast<long long>(per_sm) * sms < ctas) return kNotCoResident;
-  Params args = p;
+  Args args = p;
   void* argv[] = {&args};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                     dim3(ctas), dim3(kThreads), argv, smem,
@@ -314,22 +317,36 @@ int launch_scan(const Params& p, int ctas, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename E, int G, class Cell>
-int dispatch_units(const Params& p, int units, cudaStream_t stream) {
-  const int ctas = p.H / units;
+// L::template run<U>(p, stream) for U = units, 1 to kMaxUnits
+template <class L, typename Args>
+int for_units(int units, const Args& p, cudaStream_t stream) {
   switch (units) {
-    case 1: return launch_scan<E, G, 1, Cell>(p, ctas, stream);
-    case 2: return launch_scan<E, G, 2, Cell>(p, ctas, stream);
-    case 3: return launch_scan<E, G, 3, Cell>(p, ctas, stream);
-    case 4: return launch_scan<E, G, 4, Cell>(p, ctas, stream);
-    case 5: return launch_scan<E, G, 5, Cell>(p, ctas, stream);
-    case 6: return launch_scan<E, G, 6, Cell>(p, ctas, stream);
-    case 7: return launch_scan<E, G, 7, Cell>(p, ctas, stream);
-    case 8: return launch_scan<E, G, 8, Cell>(p, ctas, stream);
-    case 9: return launch_scan<E, G, 9, Cell>(p, ctas, stream);
-    case 10: return launch_scan<E, G, 10, Cell>(p, ctas, stream);
+    case 1: return L::template run<1>(p, stream);
+    case 2: return L::template run<2>(p, stream);
+    case 3: return L::template run<3>(p, stream);
+    case 4: return L::template run<4>(p, stream);
+    case 5: return L::template run<5>(p, stream);
+    case 6: return L::template run<6>(p, stream);
+    case 7: return L::template run<7>(p, stream);
+    case 8: return L::template run<8>(p, stream);
+    case 9: return L::template run<9>(p, stream);
+    case 10: return L::template run<10>(p, stream);
     default: return kBadUnits;
   }
+}
+
+template <typename E, int G, class Cell>
+struct FwdLaunch {
+  template <int U>
+  static int run(const Params& p, cudaStream_t stream) {
+    return launch_cooperative(scan_fwd_kernel<E, G, U, Cell>,
+                              smem_bytes<G, U>(p.H), p.H / U, p, stream);
+  }
+};
+
+template <typename E, int G, class Cell>
+int dispatch_units(const Params& p, int units, cudaStream_t stream) {
+  return for_units<FwdLaunch<E, G, Cell>>(units, p, stream);
 }
 
 }  // namespace rnn_scan

@@ -23,11 +23,18 @@ Kept from the JAX package, each a trap when porting:
     fully-connected layer (the recurrent layers mask their own outputs).
 
 The model key ``fused_rnn`` reaches the recurrent layers explicitly: the
-GRU and LSTM recurrences then run on the hand-written kernels B4 and B3
-where the JAX package would run its Pallas kernels. Dropout is a no-op in
-eval and infer, the only modes ported: training waits for the kernels'
-backward passes and is refused. ``row_conv`` is refused (no recipe of
-this slice sets it).
+GRU and LSTM recurrences then run on the hand-written kernels B4 and B3,
+forward and backward, where the JAX package would run its Pallas kernels.
+
+In training, batch norm normalizes with the batch's statistics per
+channel over B x T x F and updates the running ones the flax way
+(``tdnn_encoder.BatchNorm``), and dropout (``parts/dropout.py``, with the
+model's ``dropout_bits``) draws from the ``torch.Generator`` passed to
+``forward`` at the JAX module's three sites: after the conv stack and its
+time mask, after each recurrent layer, and after the fully-connected
+layer's activation, before the last mask. The JAX module's
+``checkpoint_name`` (a remat anchor) has no counterpart: PyTorch keeps
+what autograd needs. ``row_conv`` is refused (no recipe sets it).
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from .encoder import Encoder
 from .tdnn_encoder import (BatchNorm, _mask_time, _out_length,
                            resolve_activation, same_padding)
 from ..decoders.fc_decoders import Dense
+from ..parts.dropout import dropout
 from ..parts.initializers import resolve_initializer
 from ..parts.rnns.rnn import GRU, LSTM, make_rnn
 
@@ -81,10 +89,12 @@ class DS2Net(nn.Module):
     def __init__(self, in_features: int, conv_layers, num_rnn_layers: int,
                  rnn_cell_dim: int, rnn_type: str, rnn_unidirectional: bool,
                  n_hidden: int, activation_fn, bn_momentum: float,
-                 bn_epsilon: float, fused_rnn: bool, dtype: torch.dtype,
+                 bn_epsilon: float, fused_rnn: bool, dropout_keep_prob: float,
+                 dropout_bits: int, dtype: torch.dtype,
                  generator: torch.Generator):
         super().__init__()
         self.activation_fn = activation_fn
+        self.keep_prob, self.dropout_bits = dropout_keep_prob, dropout_bits
         self.dtype = dtype
         kernel_init = resolve_initializer(None)
         self.time_strides = []
@@ -123,21 +133,31 @@ class DS2Net(nn.Module):
                                      generator)
         self.out_features = n_hidden
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor):
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor,
+                train: bool = False, generator: torch.Generator = None):
+        """``generator`` draws the dropout masks in training (on ``x``'s
+        device)."""
         m = self._modules
+
+        def drop(v):
+            if not train:
+                return v
+            return dropout(v, self.keep_prob, generator, self.dropout_bits)
+
         x = x.to(self.dtype)[..., None]                     # (B, T, F, 1)
         for i in range(1, self.num_conv + 1):
             x = m["conv{}".format(i)](x)
-            x = self.activation_fn(m["conv{}_bn".format(i)](x, False))
+            x = self.activation_fn(m["conv{}_bn".format(i)](x, train))
             if self.time_strides[i - 1] > 1:
                 lengths = _out_length(lengths, self.time_strides[i - 1])
         B, T, Fq, C = x.shape
-        x = _mask_time(x.reshape(B, T, Fq * C), lengths)
+        x = drop(_mask_time(x.reshape(B, T, Fq * C), lengths))
         for i in range(1, self.num_rnn + 1):
             x = m["rnn{}".format(i)](x, lengths)
             if self.unidirectional:
                 x = x[0]
-        x = self.activation_fn(self.fully_connected(x))
+            x = drop(x)
+        x = drop(self.activation_fn(self.fully_connected(x)))
         return _mask_time(x, lengths), lengths
 
 
@@ -150,11 +170,8 @@ class DS2EncoderModule(nn.Module):
 
     def forward(self, input_dict: Dict[str, Any], train: bool,
                 generator: torch.Generator = None):
-        if train:
-            raise NotImplementedError("the DeepSpeech2 encoder runs in eval "
-                                      "and infer only")
         x, lengths = input_dict["source_tensors"][:2]
-        outputs, out_len = self.net(x, lengths)
+        outputs, out_len = self.net(x, lengths, train, generator)
         return {"outputs": outputs, "src_length": out_len}
 
 
@@ -188,11 +205,6 @@ class DeepSpeech2Encoder(Encoder):
         })
 
     def __init__(self, params, model, name="ds2_encoder", mode="train"):
-        if mode == "train":
-            raise NotImplementedError(
-                "DeepSpeech2 training is not ported yet: it comes with the "
-                "training slice of the RNN speech models (the backward "
-                "kernels of B3 and B4, ROADMAP.md)")
         super().__init__(params, model, name, mode)
         if self._params["row_conv"]:
             raise NotImplementedError("row_conv is not ported yet")
@@ -214,5 +226,8 @@ class DeepSpeech2Encoder(Encoder):
             bn_momentum=p.get("bn_momentum", 0.99),
             bn_epsilon=p.get("bn_epsilon", 1e-3),
             fused_rnn=fused,
+            dropout_keep_prob=p["dropout_keep_prob"],
+            dropout_bits=32 if self._model is None
+            else self._model.params.get("dropout_bits", 32),
             dtype=self.compute_dtype,
             generator=generator))

@@ -1,6 +1,6 @@
-"""The LSTM recurrence on the hand-written CUDA kernel
-``csrc/lstm_scan_fwd.cu`` (port of ``openseq2seq_tpu/ops/lstm_pallas.py``,
-kernel B3's forward).
+"""The LSTM recurrence on the hand-written CUDA kernels
+``csrc/lstm_scan_fwd.cu`` and ``csrc/lstm_scan_bwd.cu`` (port of
+``openseq2seq_tpu/ops/lstm_pallas.py``, kernel B3, forward and backward).
 
 :func:`lstm_scan` runs the LSTM over pre-projected inputs x_proj
 (B, T, 4H), gates blocked [i | f | g | o], with W_h (H, 4H) (no recurrent
@@ -9,22 +9,29 @@ the forget bias added inside the forget gate's sigmoid. It returns ys
 (B, T, H), zero past each row's length (the layer's output mask, applied
 by the kernel), and (h_last, c_last), c_last in fp32; with ``residuals``
 also (acts (B, T, 4H) = [i, f, tanh(g), o], cs (B, T, H) = the unmasked
-fp32 cell state of each step), what the TPU kernel saves for its
-backward, at the original time index. ``reverse`` walks t from T - 1
-down to 0 with the mask t < length, as ``ops/gru_scan.py`` does.
+fp32 cell state of each step), what the backward needs, at the original
+time index. ``reverse`` walks t from T - 1 down to 0 with the mask
+t < length, as ``ops/gru_scan.py`` does.
 
-The numbers are the TPU kernel's, not the ``lax.scan``'s: x_proj + h W_h
+The numbers are the TPU kernels', not the ``lax.scan``'s: x_proj + h W_h
 is formed in fp32 from the compute-type h and W_h with fp32 accumulation
 (the scan rounds the sum to the compute type first), h is rounded to the
 compute type as it is carried and c stays fp32. :func:`lstm_scan_plain`
-is that arithmetic in PyTorch, step by step.
+is that arithmetic in PyTorch, step by step, and
+:func:`lstm_scan_bwd_plain` the backward kernel's (dgates rounded to the
+compute type and used rounded, ``lstm_pallas.py:205-216``), with one
+repair: the cell state before a reverse row's first valid step is c0,
+where the TPU kernel reads the unmasked c of the padded step beside it
+(C15 in ROADMAP.md).
 
-For CPU tensors :func:`lstm_scan` is :func:`lstm_scan_plain`, which
-autograd differentiates. For CUDA tensors it launches the kernel
-(``LAUNCHES`` counts the launches) inside a ``torch.autograd.Function``
-whose backward raises: B3's backward comes with the training slice of
-the RNN speech models. Anything the kernel does not take raises; there
-is no fallback.
+When autograd will differentiate the call, :func:`lstm_scan` is one
+``torch.autograd.Function`` on every device: on CUDA tensors its
+forward launches ``lstm_scan_fwd`` with the residuals (``LAUNCHES``) and
+its backward ``lstm_scan_bwd`` (``BWD_LAUNCHES``); on CPU tensors the
+two plain versions run in their place. dW_h = h_prev^T dgates is one
+product over all steps outside the kernel (``lstm_pallas.py:329-334``).
+Without gradients the forward alone runs, with no residuals. Anything
+the kernels do not take raises; there is no fallback.
 
 :func:`supported` is the JAX package's gate (``lstm_pallas.supported``)
 without its backend test, with ``_pick_bblk``'s VMEM budget kept as it
@@ -40,6 +47,8 @@ from . import rnn_scan
 
 LAUNCHES = 0
 KERNEL = "lstm_scan_fwd"
+BWD_LAUNCHES = 0
+BWD_KERNEL = "lstm_scan_bwd"
 
 _BUDGET = 11 * 1024 * 1024
 
@@ -94,6 +103,41 @@ def lstm_scan_plain(x_proj: torch.Tensor, wh: torch.Tensor,
                         rnn_scan.stack_steps(cs, (B, 0, H), c))
 
 
+def lstm_scan_bwd_plain(wh: torch.Tensor, c0: torch.Tensor,
+                        lengths: torch.Tensor, acts: torch.Tensor,
+                        cs: torch.Tensor, dys: torch.Tensor,
+                        dh_last: torch.Tensor, dc_last: torch.Tensor,
+                        reverse: bool = False):
+    """The backward kernel's arithmetic, one step at a time, from the
+    forward's residuals: (dgates = dx_proj (B, T, 4H) and dh0 (B, H) in
+    the compute type, dc0 (B, H) in fp32). ``dys`` past each length is
+    dropped (ys is the constant 0 there)."""
+    B, T, H4 = acts.shape
+    H = H4 // 4
+    dt = acts.dtype
+    w = wh.to(dt).float()
+    c_prev = rnn_scan.prev_states(cs, c0.float(), lengths, reverse)
+    dh, dc = dh_last.float(), dc_last.float()
+    dgates = [None] * T
+    for t in rnn_scan.backward_steps(T, reverse):
+        live = (t < lengths)[:, None]
+        a = acts[:, t].float()
+        si, sf, tg, so = a[:, :H], a[:, H:2 * H], a[:, 2 * H:3 * H], \
+            a[:, 3 * H:]
+        dh = dh + torch.where(live, dys[:, t].float(), 0.0)
+        dh_new = torch.where(live, dh, 0.0)
+        tc = torch.tanh(cs[:, t])
+        dc_new = torch.where(live, dc, 0.0) + dh_new * so * (1.0 - tc * tc)
+        dg = torch.cat([dc_new * tg * si * (1.0 - si),
+                        dc_new * c_prev[:, t] * sf * (1.0 - sf),
+                        dc_new * si * (1.0 - tg * tg),
+                        dh_new * tc * so * (1.0 - so)], dim=1).to(dt)
+        dgates[t] = dg
+        dh = torch.where(live, 0.0, dh) + dg.float() @ w.t()
+        dc = torch.where(live, 0.0, dc) + dc_new * sf
+    return rnn_scan.stack_steps(dgates, (B, 0, H4), acts), dh.to(dt), dc
+
+
 def _fwd_cuda(x_proj, wh, h0, c0, lengths, forget_bias, reverse, residuals):
     """Launch ``lstm_scan_fwd``; returns ys, h_last, c_last (and acts,
     cs)."""
@@ -125,32 +169,88 @@ def _fwd_cuda(x_proj, wh, h0, c0, lengths, forget_bias, reverse, residuals):
     return (ys, h_last, c_last) + (res if residuals else ())
 
 
+def _bwd_cuda(wh, c0, lengths, acts, cs, dys, dh_last, dc_last, reverse):
+    """Launch ``lstm_scan_bwd``; same arguments and results as
+    :func:`lstm_scan_bwd_plain`."""
+    global BWD_LAUNCHES
+    B, T, H4 = acts.shape
+    H = H4 // 4
+    dt, dev = acts.dtype, acts.device
+    hcarry = dh_last.float().contiguous().clone()
+    ccarry = dc_last.float().contiguous().clone()
+    dgates = torch.empty((B, T, H4), dtype=dt, device=dev)
+    if not (B and T):
+        return dgates, hcarry.to(dt), ccarry
+    dh0 = torch.empty((B, H), dtype=dt, device=dev)
+    rnn_scan.launch(BWD_KERNEL, (
+        wh.to(dt).contiguous(), acts.contiguous(), cs.contiguous(),
+        c0.float().contiguous(), lengths.int().contiguous(),
+        dys.to(dt).contiguous(), hcarry, ccarry, dgates, dh0,
+        torch.zeros(1, dtype=torch.int32, device=dev)),
+        (B, T, H, rnn_scan.units_per_cta(H), int(reverse),
+         int(dt == torch.bfloat16)))
+    BWD_LAUNCHES += 1
+    return dgates, dh0, ccarry
+
+
+def _forward(x_proj, wh, h0, c0, lengths, forget_bias, reverse, residuals):
+    """The kernel on CUDA tensors, the plain version on CPU tensors: the
+    flat (ys, h_last, c_last[, acts, cs])."""
+    if x_proj.device.type == "cpu":
+        out = lstm_scan_plain(x_proj, wh, h0, c0, lengths, forget_bias,
+                              reverse, residuals)
+        return (out[0], *out[1]) + (tuple(out[2]) if residuals else ())
+    return _fwd_cuda(x_proj, wh, h0, c0, lengths, forget_bias, reverse,
+                     residuals)
+
+
 class _LSTMScan(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x_proj, wh, h0, c0, lengths, forget_bias, reverse,
-                residuals):
-        return _fwd_cuda(x_proj, wh, h0, c0, lengths, forget_bias, reverse,
-                         residuals)
+    def forward(ctx, x_proj, wh, h0, c0, lengths, forget_bias, reverse):
+        ys, h_last, c_last, acts, cs = _forward(
+            x_proj, wh, h0, c0, lengths, forget_bias, reverse, True)
+        ctx.reverse = reverse
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(wh, h0, c0, lengths, ys, acts, cs)
+        return ys, h_last, c_last
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the LSTM scan kernel has no backward yet: B3's backward comes "
-            "with the training slice of the RNN speech models (ROADMAP.md)")
+    def backward(ctx, dys, dh_last, dc_last):
+        wh, h0, c0, lengths, ys, acts, cs = ctx.saved_tensors
+        dt = acts.dtype
+        H = acts.shape[2] // 4
+        # BiRNN discards the last states: their cotangents arrive as None
+        dys = torch.zeros_like(ys) if dys is None else dys
+        dh_last = h0.new_zeros(h0.shape, dtype=dt) if dh_last is None \
+            else dh_last
+        dc_last = torch.zeros_like(cs[:, 0]) if dc_last is None else dc_last
+        bwd = lstm_scan_bwd_plain if acts.device.type == "cpu" \
+            else _bwd_cuda
+        dgates, dh0, dc0 = bwd(wh, c0, lengths, acts, cs, dys, dh_last,
+                               dc_last, ctx.reverse)
+        dwh = None
+        if ctx.needs_input_grad[1]:
+            h_prev = rnn_scan.prev_states(ys, h0, lengths, ctx.reverse)
+            dwh = (h_prev.reshape(-1, H).float().t() @
+                   dgates.reshape(-1, 4 * H).float()).to(dt).to(wh.dtype)
+        return (dgates, dwh, dh0.to(h0.dtype), dc0.to(c0.dtype), None, None,
+                None)
 
 
 def lstm_scan(x_proj: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
               c0: torch.Tensor, lengths: torch.Tensor,
               forget_bias: float = 1.0, reverse: bool = False,
               residuals: bool = False) -> Tuple:
-    """(ys, (h_last, c_last)), or (ys, (h_last, c_last), (acts, cs)) with
-    ``residuals``."""
-    if x_proj.device.type == "cpu":
-        return lstm_scan_plain(x_proj, wh, h0, c0, lengths, forget_bias,
-                               reverse, residuals)
-    out = _LSTMScan.apply(x_proj, wh, h0, c0, lengths, forget_bias, reverse,
-                          residuals)
+    """(ys, (h_last, c_last)), differentiable; or, with ``residuals`` and
+    outside autograd, (ys, (h_last, c_last), (acts, cs))."""
+    if not residuals and rnn_scan.needs_grad(x_proj, wh, h0, c0):
+        ys, h_last, c_last = _LSTMScan.apply(x_proj, wh, h0, c0, lengths,
+                                             float(forget_bias), reverse)
+        return ys, (h_last, c_last)
+    with torch.no_grad():
+        out = _forward(x_proj, wh, h0, c0, lengths, forget_bias, reverse,
+                       residuals)
     if residuals:
         return out[0], (out[1], out[2]), (out[3], out[4])
     return out[0], (out[1], out[2])

@@ -1,12 +1,15 @@
 """What the GRU and LSTM scan wrappers (``ops/gru_scan.py``,
 ``ops/lstm_scan.py``) share: their input checks, the CTA layout, the
-launch of ``csrc/gru_scan_fwd.cu`` or ``csrc/lstm_scan_fwd.cu`` through
-ctypes, and the plain versions' stacking of their steps.
+launch of their forward and backward kernels (``csrc/{gru,lstm}_scan_
+{fwd,bwd}.cu``) through ctypes, the plain versions' stacking of their
+steps, the state before each step (:func:`prev_states`) and whether a
+call must keep what its backward needs (:func:`needs_grad`).
 
-Both kernels run the whole recurrence of one direction of one layer in
-one cooperative launch of ``H / units`` CTAs that meet at a grid-wide
-barrier every step (``csrc/rnn_scan.cuh``). The launcher checks with the
-occupancy API that the whole grid fits on the card at once and raises
+Each kernel runs the whole recurrence of one direction of one layer, or
+its reverse-time backward, in one cooperative launch of ``H / units``
+CTAs that meet at a grid-wide barrier every step (``csrc/rnn_scan.cuh``,
+``csrc/rnn_scan_bwd.cuh``). The launcher checks with the occupancy API
+that the whole grid fits on the card at once and raises
 :class:`NotCoResident` otherwise; nothing is launched then.
 """
 from __future__ import annotations
@@ -66,6 +69,38 @@ def stack_steps(steps, empty, like: torch.Tensor) -> torch.Tensor:
     """The plain versions' per-step (B, ...) tensors stacked on the time
     axis; a new tensor of shape ``empty`` like ``like`` when T is 0."""
     return torch.stack(steps, dim=1) if steps else like.new_zeros(empty)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd will differentiate a call on ``tensors``: then
+    the forward keeps the residuals its backward needs."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def backward_steps(T: int, reverse: bool) -> range:
+    """The times t in the order the backward visits them: the forward's
+    order reversed, so t walks down for a forward cell and up for a
+    reverse one."""
+    return range(T) if reverse else range(T - 1, -1, -1)
+
+
+def prev_states(seq: torch.Tensor, init: torch.Tensor,
+                lengths: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """(B, T, H): the state each step t started from, in the forward's
+    order: ``seq[:, t_prev]`` with t_prev = t - 1 (t + 1 for a reverse
+    cell) where 0 <= t_prev < T and t_prev < length, else ``init``.
+
+    ``seq`` is the forward's ys (the LSTM's cs for c): zero past each
+    length (ys) or not the carried state (cs), so a reverse row's first
+    valid step (t = length - 1) takes ``init``, never ``seq`` (C15, C16).
+    The kernels and the plain backward versions take the same rule."""
+    B, T = seq.shape[:2]
+    t_prev = torch.arange(T, device=seq.device) + (1 if reverse else -1)
+    valid = (t_prev >= 0) & (t_prev < T)
+    valid = valid[None, :] & (t_prev[None, :] < lengths[:, None])
+    gathered = seq[:, t_prev.clamp(0, max(T - 1, 0))]
+    return torch.where(valid[:, :, None], gathered,
+                       init.to(seq.dtype)[:, None, :])
 
 
 def _kernel(name: str, n_ptr: int, n_int: int, n_float: int):

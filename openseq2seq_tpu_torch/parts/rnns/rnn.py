@@ -14,9 +14,11 @@ Two paths, chosen per call exactly where the JAX package chooses:
 
   * ``fused`` (the model key ``fused_rnn``, passed down explicitly) and a
     shape that ``ops/gru_scan.supported`` / ``ops/lstm_scan.supported``
-    takes: the whole recurrence in one call, the hand-written CUDA kernel
-    on the card (kernels B4 and B3) or its plain version on the CPU, with
-    the TPU kernel's numbers;
+    takes: the whole recurrence in one call, the hand-written CUDA kernels
+    on the card (kernels B4 and B3, forward and, in training, backward)
+    or their plain versions on the CPU, with the TPU kernels' numbers;
+    the forward keeps the backward's residuals only when autograd will
+    need them, so eval and infer hold no more than ys;
   * otherwise the scan: a Python loop of torch operations with the
     ``lax.scan``'s numbers. Under a bf16 compute type these round where
     the scan rounds: the LSTM adds x_proj + h W_h in bf16, the GRU rounds

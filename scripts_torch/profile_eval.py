@@ -10,7 +10,9 @@ synthetic speech, ``example_configs_torch/speech2text/
 jasper10x5_synthetic.py``; for the NMT transformer-big,
 ``example_configs_torch/text2text/transformer_big_synthetic.py``; for
 DeepSpeech2-medium, ``example_configs_torch/speech2text/
-ds2_medium_synthetic.py``) on the card with seeded weights, in eval mode, in infer mode with ``--infer``
+ds2_medium_synthetic.py``, whose train step ``--train`` profiles with
+it) on the card with seeded weights, in eval mode, in infer mode with
+``--infer``
 (for the transformer: the beam decode alone) or, with ``--train``, in
 train mode (the config's ``train_params`` merged in; dropout drawn from
 a generator seeded per step). ``--train-nmt`` is ``--train`` on the
@@ -29,13 +31,15 @@ It prints:
    and device milliseconds and launches per step for each kernel group
    (the port's own kernels each have theirs: "ctc kernel", "flash
    attention kernel" forward and backward, "fused dropout kernel", "rnn
-   scan kernels" for the GRU and LSTM recurrences);
+   scan kernels" and "rnn scan backward kernels" for the GRU and LSTM
+   recurrences);
 3. FLOP per step of the convolutions and dense layers, counted from the
    shapes their forward hooks see (in training also their backward: the
    weight gradient, and the input gradient where the input needs one),
    and the rate they reach over the time of the conv and GEMM kernels,
    and over the whole busy time; and apart, the FLOP of the recurrent
-   layers' products h W_h, which the scan kernels do;
+   layers' products h W_h, which the scan kernels do (in training also
+   the backward kernels' products and the dW_h GEMMs);
 4. the host's busiest operators and the number of kernel launches per
    step.
 
@@ -66,8 +70,10 @@ GROUPS = (
     ("ctc kernel", ("ctc_alpha_fwd", "ctc_beta_bwd")),
     ("flash attention kernel", ("flash_attn_fwd", "flash_attn_bwd")),
     ("fused dropout kernel", ("dropout_mask",)),
-    # the GRU and LSTM kernels, rnn_scan::scan_fwd_kernel<...>
+    # the GRU and LSTM kernels, rnn_scan::scan_fwd_kernel<...> and
+    # rnn_scan::scan_bwd_kernel<...>
     ("rnn scan kernels", ("scan_fwd_kernel",)),
+    ("rnn scan backward kernels", ("scan_bwd_kernel",)),
     # cuDNN's direct NHWC kernel takes the one-channel first conv of DS2
     ("convs (implicit GEMM, k > 1)", ("fprop", "dgrad", "wgrad",
                                       "convolve_common_engine")),
@@ -135,16 +141,19 @@ def count_flops(module, run, train: bool = False) -> int:
     return total[0]
 
 
-def count_recurrent_flops(module, run) -> int:
+def count_recurrent_flops(module, run, train: bool = False) -> int:
     """FLOP of the recurrent products h W_h of ``module``'s GRU and LSTM
     layers during ``run()``: 2 G H^2 for every row and step, masked steps
-    included (the scan kernels compute them)."""
+    included (the scan kernels compute them). With ``train`` three times
+    that: the backward kernel's product with W_h^T and the dW_h GEMM
+    outside it cost what the forward's does."""
     from openseq2seq_tpu_torch.parts.rnns.rnn import GRU, LSTM
     total = [0]
 
     def hook(mod, inp, out):
         B, T = inp[0].shape[:2]
-        total[0] += 2 * B * T * mod.recurrent_kernel.numel()
+        total[0] += (3 if train else 1) * 2 * B * T * \
+            mod.recurrent_kernel.numel()
 
     handles = [m.register_forward_hook(hook) for m in module.modules()
                if isinstance(m, (GRU, LSTM))]
@@ -249,8 +258,8 @@ def main(argv=None):
     # the warm-up steps count the FLOP
     flop_per_batch = count_flops(module, lambda: step(batches[0]),
                                  args.train)
-    rnn_flop_per_batch = count_recurrent_flops(module,
-                                               lambda: step(batches[0]))
+    rnn_flop_per_batch = count_recurrent_flops(
+        module, lambda: step(batches[0]), args.train)
     torch.cuda.synchronize()
     print("[model] {}: {} step, {} batches of {} x {} steps, dtype {}; "
           "{:.4e} FLOP per step in convs and dense layers, {:.4e} in "

@@ -20,7 +20,9 @@ bit-identical, forward and backward, with and without the residual. The
 GRU and LSTM scan kernels against their plain versions, forward and
 reverse, residuals included: fp32 (TF32 off) max abs error 1e-5, bf16
 within 3 bf16 ulps of max(1, |value|), two calls bit-identical; and what
-they refuse."""
+they refuse. Their backward kernels the same way, on the forward
+kernel's residuals, and autograd through both kernels against the CPU's
+plain versions (fp32, rtol 1e-4, atol 1e-5: dW_h sums over B x T)."""
 import numpy as np
 import pytest
 import torch
@@ -263,8 +265,74 @@ def test_scan_kernels_refuse_what_they_do_not_take(device):
     x, wh, _, h0, c0, lengths = _scan_inputs(device, "lstm", 8, 9, 128, 0)
     with pytest.raises(ValueError):
         lstm_scan.lstm_scan(x, wh, h0, c0[:4], lengths)
-    # no backward yet: it comes with the training slice
-    leaf = x.clone().requires_grad_()
-    ys, _ = lstm_scan.lstm_scan(leaf, wh, h0, c0, lengths)
-    with pytest.raises(NotImplementedError):
-        ys.sum().backward()
+
+
+def _scan_bwd(cell, x, wh, bh, h0, c0, lengths, dys, dh, dc, reverse,
+              plain=False):
+    """The forward kernel with its residuals, then the backward kernel
+    (or its plain version) on them: the flat (dx_proj, dh0[, dc0])."""
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
+    if cell == "gru":
+        ys, _, (acts, hn) = gru_scan.gru_scan(x, wh, bh, h0, lengths,
+                                              reverse, True)
+        fn = gru_scan.gru_scan_bwd_plain if plain else gru_scan._bwd_cuda
+        return list(fn(wh, h0, lengths, ys, acts, hn, dys, dh, reverse))
+    _, _, (acts, cs) = lstm_scan.lstm_scan(x, wh, h0, c0, lengths, 1.0,
+                                           reverse, True)
+    fn = lstm_scan.lstm_scan_bwd_plain if plain else lstm_scan._bwd_cuda
+    return list(fn(wh, c0, lengths, acts, cs, dys, dh, dc, reverse))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("cell,B,T,H", [
+    ("gru", 8, 37, 128), ("gru", 4, 120, 1024), ("lstm", 8, 37, 128),
+    ("lstm", 4, 120, 512), ("lstm", 40, 9, 256)])
+def test_scan_backward_kernels_match_plain(device, cell, B, T, H, reverse):
+    """The backward kernels on the forward kernel's residuals against
+    their plain versions, h0 and c0 non-zero, the cotangent of ys
+    non-zero past each length: fp32 (TF32 off) max abs error 1e-5, bf16
+    within 3 bf16 ulps of max(1, |value|), mean 1e-3; dx_proj zero past
+    each length; one launch per call; two calls bit-identical. Then
+    autograd through both kernels on the card against the CPU's plain
+    versions, fp32."""
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
+    kernel = gru_scan if cell == "gru" else lstm_scan
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, wh, bh, h0, c0, lengths = _scan_inputs(device, cell, B, T, H,
+                                              T + H + 1)
+    g = torch.Generator(device=device).manual_seed(T)
+    dys, dh, dc = (torch.randn(shape, generator=g, device=device)
+                   for shape in ((B, T, H), (B, H), (B, H)))
+    live = torch.arange(T, device=device)[None] < lengths[:, None]
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (x.to(dtype), wh, bh, h0.to(dtype), c0, lengths,
+                dys.to(dtype), dh.to(dtype), dc, reverse)
+        before = kernel.BWD_LAUNCHES
+        got = _scan_bwd(cell, *args)
+        assert kernel.BWD_LAUNCHES == before + 1
+        again = _scan_bwd(cell, *args)
+        want = _scan_bwd(cell, *args, plain=True)
+        torch.cuda.synchronize()
+        assert not got[0][~live].any()
+        for a, b, w in zip(got, again, want):
+            assert torch.equal(a, b) and a.dtype == w.dtype
+            err = (a.float() - w.float()).abs()
+            if dtype == torch.float32:
+                assert float(err.max()) <= 1e-5
+            else:
+                rel = err / w.float().abs().clamp(min=1.0)
+                assert float(rel.max()) <= 3 * 2.0 ** -7
+                assert float(rel.mean()) <= 1e-3
+    grads = {}
+    for dev in (device, torch.device("cpu")):
+        leaves = [t.to(dev).clone().requires_grad_()
+                  for t in ((x, wh, bh, h0) if cell == "gru"
+                            else (x, wh, h0, c0))]
+        if cell == "gru":
+            ys, _ = gru_scan.gru_scan(*leaves, lengths.to(dev), reverse)
+        else:
+            ys, _ = lstm_scan.lstm_scan(*leaves, lengths.to(dev), 1.0,
+                                        reverse)
+        grads[dev.type] = torch.autograd.grad(ys, leaves, dys.to(dev))
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)

@@ -3,8 +3,8 @@
 GRU and LSTM cells; then the whole tiny ``Speech2Text`` of
 ``example_configs_torch/speech2text/ds2_tiny_synthetic.py`` through
 ``eval_step`` (logits, loss, greedy transcripts) and in infer mode; the
-port's ``run.main`` in eval and infer on that config; DS2 training and
-``row_conv`` refused; and the converter's round trip through the DS2
+port's ``run.main`` in eval and infer on that config; ``row_conv``
+refused; and the converter's round trip through the DS2
 tree (2-D conv kernels, the recurrent weights, batch norms without an
 inner module).
 
@@ -193,12 +193,16 @@ def test_run_main_eval_and_infer(tiny_logdir):
 
 
 def test_training_and_row_conv_are_refused(tmp_path):
-    config = tmp_path / "ds2_train.py"
+    """``row_conv`` (no recipe sets it) is refused, in training through
+    ``run.main`` before anything is written, and in eval."""
+    config = tmp_path / "ds2_row_conv.py"
     config.write_text("import runpy\n_c = runpy.run_path({!r})\n"
                       "base_model = _c['base_model']\n"
-                      "base_params = dict(_c['base_params'], max_steps=1)\n"
+                      "base_params = _c['base_params']\n"
+                      "base_params['encoder_params'] = dict(\n"
+                      "    base_params['encoder_params'], row_conv=True)\n"
                       .format(TINY))
-    with pytest.raises(NotImplementedError, match="DeepSpeech2 training"):
+    with pytest.raises(NotImplementedError, match="row_conv"):
         run.main(["--config_file=" + str(config), "--mode=train",
                   "--logdir=" + str(tmp_path / "logs"), "--device=cpu"])
     assert not os.path.exists(tmp_path / "logs" / "checkpoints")

@@ -2,10 +2,10 @@
 torch's FlopCounterMode on a small Jasper, for the eval step and for the
 train step (``--train``: forward and backward of every conv and dense
 layer), the tiny transformer's train step (``--train-nmt`` on the tiny
-twin of its config), the tiny DeepSpeech2's eval step (2-D convs and
-the recurrent products apart), its busy-time union, its kernel grouping and its
-arguments. And the GPU scripts import nothing of JAX or of the JAX
-package themselves."""
+twin of its config), the tiny DeepSpeech2's eval and train steps (2-D
+convs and the recurrent products apart), its busy-time union, its kernel
+grouping and its arguments. And the GPU scripts import nothing of JAX or
+of the JAX package themselves."""
 import ast
 import os
 import sys
@@ -130,6 +130,33 @@ def test_ds2_flop_counts():
         counts.get("aten.mm", 0) - rnn
 
 
+def test_ds2_train_step_flop_counts():
+    """The tiny DeepSpeech2 config's train step: FlopCounterMode's total,
+    less the plain CTC backward's ``bmm``, is the convs' and dense
+    layers' forward and backward plus three times the recurrent products
+    (the forward's h W_h, the backward's dg W_h^T and the dW_h products,
+    all ``mm`` in the plain versions on the CPU)."""
+    import runpy
+    cfg = runpy.run_path(os.path.join(
+        REPO, "example_configs_torch", "speech2text",
+        "ds2_tiny_synthetic.py"))
+    model = cfg["base_model"](cfg["base_params"], mode="train", device="cpu")
+    module, step = profile_eval.make_step(model, train=True)
+    batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+    got = profile_eval.count_flops(module, lambda: step(batch), train=True)
+    rnn = profile_eval.count_recurrent_flops(module, lambda: step(batch),
+                                             train=True)
+    with FlopCounterMode(display=False) as counter:
+        metrics = step(batch)
+    counts = {str(op): n for op, n in
+              counter.get_flop_counts()["Global"].items()}
+    B, T = 8, 20                      # 40 frames after the time stride 2
+    assert rnn == 3 * 2 * 2 * B * T * 2 * 128 * 3 * 128
+    assert got > 0 and got + rnn == counter.get_total_flops() - \
+        counts["aten.bmm"], counts
+    assert bool(torch.isfinite(metrics["loss"]))
+
+
 def test_busy_time_is_the_union_of_intervals():
     intervals = [(0, 10, "a"), (5, 12, "b"), (20, 25, "c"), (21, 22, "d")]
     assert profile_eval.busy_us(intervals) == 17
@@ -165,6 +192,9 @@ def test_busy_time_is_the_union_of_intervals():
      "namespace)::GruCell>(rnn_scan::Params)", "rnn scan kernels"),
     ("void rnn_scan::scan_fwd_kernel<float, 4, 4, (anonymous "
      "namespace)::LstmCell>(rnn_scan::Params)", "rnn scan kernels"),
+    ("void rnn_scan::scan_bwd_kernel<__nv_bfloat16, 3, 8, (anonymous "
+     "namespace)::GruBwdCell>(rnn_scan::BwdParams)",
+     "rnn scan backward kernels"),
 ])
 def test_kernel_groups(name, group):
     assert profile_eval.group_of(name) == group
