@@ -11,8 +11,10 @@ Phases, one informative line or a few each:
 2. build: the CTC kernels (``openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu``
    and ``ctc_beta_bwd.cu``), the flash attention forward and backward
    (``flash_attn_fwd.cu``, ``flash_attn_bwd.cu``), the fused dropout
-   (``dropout_mask.cu``) and the GRU and LSTM scans, forward and backward
-   (``{gru,lstm}_scan_{fwd,bwd}.cu``), one ``nvcc`` each for ``sm_90a``,
+   (``dropout_mask.cu``), the GRU and LSTM scans, forward and backward
+   (``{gru,lstm}_scan_{fwd,bwd}.cu``), the rel-pos flash attention
+   (``flash_relpos_fwd.cu``) and the Conformer conv module
+   (``conformer_conv_fwd.cu``), one ``nvcc`` each for ``sm_90a``,
    started together, and what ``ptxas`` reports for them (registers,
    spills; of the scans' 20 instantiations each, the main paths' and a
    summary);
@@ -68,6 +70,23 @@ Phases, one informative line or a few each:
    times of the kernel, the plain version, the dW_h GEMM outside it
    (fp32) and cuDNN's ``torch.nn.GRU``/``torch.nn.LSTM`` forward plus
    backward (timed only, never on the path) at the main shapes in bf16;
+4g. the rel-pos flash kernel against ``relpos_attention_plain`` on the
+   same folded inputs at Conformer-M's shape (B=64, H=4, T=250, Dh=64,
+   D=256), Conformer-L's (H=8, D=512) and a ragged T=37 (Dh=32, D=128),
+   lengths from 1 to T and one 0 (clamped to 1): fp32 (TF32 off) context
+   max abs err 2e-5 and lse 1e-5, bf16 against the plain version on the
+   same bf16 inputs within RELPOS_BF16_ATOL (both round p to bf16, at
+   other running maxima), two calls bit-identical; times of the kernel,
+   the plain version and ``scaled_dot_product_attention`` on the
+   materialised q~, k~ and v with the length mask (timed only, never on
+   the path) at Conformer-M's shape in bf16;
+4h. the Conformer conv module kernel against
+   ``conformer_conv_module_plain`` at Conformer-M's shape (B=64, T=250,
+   D=256, k=31), at D=512 and at an odd T=37 with a zero-length row:
+   fp32 (TF32 off) max abs err 1e-4, bf16 within CONV_BF16_TOL of
+   max(1, |y|), two calls bit-identical; times of the kernel and the
+   plain version, and of the module's unfused torch chain for
+   information (no single PyTorch call computes the module);
 5. a small fp32 Jasper on the card and on the CPU: eval outputs agree, and
    one ``train_step`` gives the same loss and updated weights (rtol 1e-4);
 6. the eval/infer slice: Jasper-10x5 at full width from
@@ -130,6 +149,18 @@ Phases, one informative line or a few each:
    throughput is printed as information;
 7k. lstm_small the same way, 8 LSTM forward and 8 backward launches per
    step;
+7l. the tiny fp32 Conformer config (both kernel flags on) on the card
+   (2 rel-pos flash and 2 conv module launches) and on the CPU (their
+   plain versions): eval logits within 1e-4, the same lengths and greedy
+   ids;
+7m. Conformer-M from ``example_configs_torch/speech2text/
+   conformer_m_synthetic.py`` (16 blocks, d 256, 4 heads, k 31, "mixed",
+   4 batches of 64 x 1000 frames), a seeded-init checkpoint, then
+   ``run.main`` in ``--mode=eval`` and ``--mode=infer``: each kernel
+   launches 16 times per batch, the CTC forward once per eval batch
+   (never in infer), a finite loss equal to the plain CTC on the same
+   logits, a WER, 256 infer rows; eval utterances per second printed as
+   information;
 8. one JSON line for the kernels, then ``{"ok": true, "device": ...}``
    last.
 
@@ -171,6 +202,10 @@ LSTM_SMALL = os.path.join(REPO, "example_configs_torch", "speech2text",
                           "lstm_small_synthetic.py")
 DS2_TINY = os.path.join(REPO, "example_configs_torch", "speech2text",
                         "ds2_tiny_synthetic.py")
+CONFORMER_M = os.path.join(REPO, "example_configs_torch", "speech2text",
+                           "conformer_m_synthetic.py")
+CONFORMER_TINY = os.path.join(REPO, "example_configs_torch", "speech2text",
+                              "conformer_tiny_synthetic.py")
 # the recipe warms up over 8000 steps (lr under 2e-6 for 20 steps); the
 # smoke run cuts the warmup so that the loss falls within its 20 steps
 NMT_WARMUP_OVERRIDE = "--lr_policy_params/warmup_steps=20"
@@ -1114,6 +1149,261 @@ def phase_scan_bwd(card):
     return worst, times
 
 
+# name, B, H, T, Dh, D: Conformer-M's attention (the main path's), then
+# Conformer-L's (bench_conformer.py with BENCH_SCALE=l) and a ragged tile
+RELPOS_CASES = (
+    ("conformer-m", 64, 4, 250, 64, 256),
+    ("conformer-l", 64, 8, 250, 64, 512),
+    ("ragged T=37", 3, 4, 37, 32, 128),
+)
+RELPOS_FP32_ATOL, RELPOS_LSE_ATOL = 2e-5, 1e-5
+# bf16: both sides round each weight p to bf16 before P.V, the kernel at
+# its running maximum and the plain version at the row's final one, so a
+# weight may differ by one bf16 rounding (2^-9 of it) on either side; with
+# |v| <= 1 that moves a context by up to 2^-8, and its own rounding to
+# bf16 (2^-9 on each side) can take it across a rounding boundary: four
+# bf16 ulps of a context below 1 (the first card run showed two)
+RELPOS_BF16_ATOL = 2.0 ** -6
+
+
+def relpos_case(B, H, T, Dh, D, seed, device):
+    """The kernel's inputs folded from unit-scale q + u, q + w, k ~ N(0, 1)
+    and v ~ U(-1, 1) (B, T, H, Dh) with a (D, H, Dh) table projection of
+    lecun scale, and int32 lengths with row 0 at T, row 1 at 1 and row 2
+    at 0 (clamped to 1)."""
+    import torch
+    from openseq2seq_tpu_torch.ops import flash_relpos as fr
+    g = torch.Generator(device=device).manual_seed(seed)
+    q_u, q_w, k = (torch.randn((B, T, H, Dh), generator=g, device=device)
+                   for _ in range(3))
+    v = 2 * torch.rand((B, T, H, Dh), generator=g, device=device) - 1
+    r_kernel = torch.randn((D, H, Dh), generator=g, device=device) / D ** 0.5
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device=device)
+    lengths[:3] = torch.tensor([T, 1, 0])[:B]
+    qu, qp, kk, kp = fr._operands(q_u, q_w, k, r_kernel)
+    return qu, qp, kk, kp, v, lengths.int()
+
+
+def relpos_bound_ms(qu, qp, kp, lengths):
+    """The least time of one rel-pos flash call: qu, qp, k, kp, v and the
+    context read or written once, 2 (Dh + D + Dh) FLOP per (query, valid
+    key) pair."""
+    B, T, H, Dh = qu.shape
+    D = kp.shape[-1]
+    nbytes = (4 * qu.numel() + qp.numel() + kp.numel()) * qu.element_size() \
+        + 4 * B
+    pairs = H * T * int(lengths.clamp(min=1, max=T).sum())
+    return bound_ms(nbytes, 2.0 * (2 * Dh + D) * pairs, qu.dtype)
+
+
+def phase_relpos(card):
+    """``flash_relpos_fwd`` against ``relpos_attention_plain`` on the
+    card. Returns the worst fp32 error and the timings at Conformer-M's
+    shape."""
+    import torch
+    import torch.nn.functional as F
+    from openseq2seq_tpu_torch.ops import flash_relpos as fr
+    dev = torch.device("cuda")
+    worst, times = 0.0, None
+    for i, (name, B, H, T, Dh, D) in enumerate(RELPOS_CASES):
+        case = relpos_case(B, H, T, Dh, D, 40 + i, dev)
+        scale = Dh ** -0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            qu, qp, k, kp, v = (x.to(dtype) for x in case[:5])
+            args = (qu, qp, k, kp, v, case[5], scale)
+            before = fr.LAUNCHES
+            got, lse = fr.relpos_attention(*args, return_lse=True)
+            again, lse2 = fr.relpos_attention(*args, return_lse=True)
+            want, want_lse = fr.relpos_attention_plain(*args)
+            torch.cuda.synchronize()
+            check(fr.LAUNCHES == before + 2, "{}: launches".format(name))
+            err = float((got.float() - want.float()).abs().max())
+            lse_err = float((lse - want_lse).abs().max())
+            same = torch.equal(got, again) and torch.equal(lse, lse2)
+            print("[relpos] {} B={} H={} T={} Dh={} D={} {}: context max abs "
+                  "err {:.3e}, lse {:.3e}, repeat bit-identical: {}".format(
+                      name, B, H, T, Dh, D, str(dtype)[6:], err, lse_err,
+                      same), flush=True)
+            check(same and got.dtype == dtype and
+                  bool(torch.isfinite(got).all()),
+                  "{}: repeat or dtype".format(name))
+            if dtype == torch.float32:
+                worst = max(worst, err)
+                check(err <= RELPOS_FP32_ATOL and lse_err <= RELPOS_LSE_ATOL,
+                      "{}: fp32 err {} lse {}".format(name, err, lse_err))
+            else:
+                check(err <= RELPOS_BF16_ATOL and lse_err <= 1e-2,
+                      "{}: bf16 err {} lse {}".format(name, err, lse_err))
+            if i > 0 or dtype == torch.float32:
+                continue
+            q_aug = torch.cat([qu.transpose(1, 2), qp], dim=-1)
+            k_aug = torch.cat([k.transpose(1, 2),
+                               kp.expand(B, H, T, D)], dim=-1)
+            v_t = v.transpose(1, 2).contiguous()
+            mask = (torch.arange(T, device=dev)[None, :] <
+                    case[5].clamp(min=1)[:, None])[:, None, None, :]
+            times = {"ms": cuda_ms(lambda: fr.relpos_attention(*args), 50),
+                     "plain_ms": cuda_ms(
+                         lambda: fr.relpos_attention_plain(*args), 10),
+                     "library_ms": cuda_ms(
+                         lambda: F.scaled_dot_product_attention(
+                             q_aug, k_aug, v_t, attn_mask=mask,
+                             scale=scale), 50)}
+            times["bound_ms"], times["bound_by"] = relpos_bound_ms(
+                qu, qp, kp, case[5])
+            print("[relpos] {} bf16: kernel {:.4f} ms, plain {:.4f} ms, SDPA "
+                  "on q~, k~, v {:.4f} ms, bound {:.4f} ms ({}) (CUDA events, "
+                  "back to back; {})".format(
+                      name, times["ms"], times["plain_ms"],
+                      times["library_ms"], times["bound_ms"],
+                      times["bound_by"], card), flush=True)
+    # what the kernel does not take, it refuses
+    qu, qp, k, kp, v, lengths = relpos_case(2, 2, 8, 32, 128, 0, dev)
+    for bad in ((qu.half(), qp.half(), k.half(), kp.half(), v.half(),
+                 lengths),
+                (qu, qp[..., :100].contiguous(), k,
+                 kp[:, :100].contiguous(), v, lengths),
+                (qu[..., :16].contiguous(), qp, k[..., :16].contiguous(), kp,
+                 v[..., :16].contiguous(), lengths),
+                (qu.transpose(1, 2), qp, k, kp, v, lengths),
+                (qu, qp, k, kp, v, lengths.long())):
+        try:
+            fr.relpos_attention_cuda(*bad, 0.25)
+        except ValueError:
+            continue
+        raise RuntimeError("chip_smoke check failed: a bad rel-pos input "
+                           "launched")
+    print("[relpos] wrong dtype, widths, layout and lengths are refused",
+          flush=True)
+    return worst, times
+
+
+# name, B, T, D, k: Conformer-M's conv module (the main path's), D = 512
+# (Conformer-L's width) and an odd T with a zero-length row
+CONV_CASES = (
+    ("conformer-m", 64, 250, 256, 31),
+    ("D=512", 64, 250, 512, 31),
+    ("odd T=37", 5, 37, 256, 31),
+)
+CONV_FP32_ATOL = 1e-4
+# bf16: the two pointwise products' operands (h0, the swish output) are
+# rounded to bf16 on both sides from fp32 values whose sums differ in
+# order, so an operand may round the other way (2^-8 of it), and y is
+# rounded once more: two bf16 ulps of max(1, |y|) where |y| < 4 (the first
+# card run showed one)
+CONV_BF16_TOL = 2.0 ** -5
+
+
+def conv_case(B, T, D, k, seed, device):
+    """x ~ N(0, 1) (B, T, D), lengths with row 0 at T and row 1 at 0, and
+    the module's ten fp32 weights at lecun scale, norms near 1, biases
+    near 0."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, offset=0.0):
+        return offset + scale * torch.randn(shape, generator=g,
+                                            device=device)
+
+    x = randn(B, T, D)
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device=device)
+    lengths[:2] = torch.tensor([T, 0])[:B]
+    weights = (randn(D, scale=0.1, offset=1.0), randn(D, scale=0.1),
+               randn(D, 2 * D, scale=D ** -0.5), randn(2 * D, scale=0.1),
+               randn(k, D, scale=k ** -0.5), randn(D, scale=0.1),
+               randn(D, scale=0.1, offset=1.0), randn(D, scale=0.1),
+               randn(D, D, scale=D ** -0.5), randn(D, scale=0.1))
+    return x, lengths.int(), weights
+
+
+def conv_bound_ms(x, weights):
+    """The least time of one conv module call: x and y read or written
+    once with the fp32 weights and the lengths; 2 D (2D + D + k) FLOP a
+    frame (the two pointwise products and the depthwise taps)."""
+    B, T, D = x.shape
+    k = weights[4].shape[0]
+    nbytes = 2 * x.numel() * x.element_size() + 4 * B + \
+        sum(w.numel() for w in weights) * 4
+    return bound_ms(nbytes, 2.0 * B * T * D * (3 * D + k), x.dtype)
+
+
+def phase_conformer_conv(card):
+    """``conformer_conv_fwd`` against ``conformer_conv_module_plain`` on
+    the card. Returns the worst fp32 error and the timings at
+    Conformer-M's shape."""
+    import torch
+    from openseq2seq_tpu_torch.encoders.conformer_encoder import _ConvModule
+    from openseq2seq_tpu_torch.ops import conformer_conv as cc
+    dev = torch.device("cuda")
+    worst, times = 0.0, None
+    for i, (name, B, T, D, k) in enumerate(CONV_CASES):
+        x, lengths, weights = conv_case(B, T, D, k, 60 + i, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (x.to(dtype), lengths) + weights
+            before = cc.LAUNCHES
+            got = cc.conformer_conv_module(*args)
+            again = cc.conformer_conv_module(*args)
+            want = cc.conformer_conv_module_plain(*args)
+            torch.cuda.synchronize()
+            check(cc.LAUNCHES == before + 2, "{}: launches".format(name))
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            rel = float((diff / want.float().abs().clamp(min=1.0)).max())
+            same = torch.equal(got, again)
+            print("[conv] {} B={} T={} D={} k={} {}: max abs err {:.3e}, of "
+                  "max(1, |y|) {:.3e} (|y| max {:.2f}), repeat "
+                  "bit-identical: {}".format(
+                      name, B, T, D, k, str(dtype)[6:], err, rel,
+                      float(want.float().abs().max()), same), flush=True)
+            check(same and got.dtype == dtype and
+                  bool(torch.isfinite(got).all()),
+                  "{}: repeat or dtype".format(name))
+            if dtype == torch.float32:
+                worst = max(worst, err)
+                check(err <= CONV_FP32_ATOL, "{}: fp32 err {}".format(name,
+                                                                     err))
+            else:
+                check(rel <= CONV_BF16_TOL, "{}: bf16 err {}".format(name,
+                                                                    rel))
+            if i > 0 or dtype == torch.float32:
+                continue
+            module = _ConvModule(D, k, dtype, False,
+                                 torch.Generator().manual_seed(0)).to(dev)
+            with torch.no_grad():
+                for p, w in zip(module.parameters(), weights):
+                    p.copy_(w)
+                times = {"ms": cuda_ms(
+                    lambda: cc.conformer_conv_module(*args), 50),
+                    "plain_ms": cuda_ms(
+                        lambda: cc.conformer_conv_module_plain(*args), 10),
+                    "unfused_ms": cuda_ms(
+                        lambda: module(args[0], lengths), 20)}
+            times["bound_ms"], times["bound_by"] = conv_bound_ms(args[0],
+                                                                 weights)
+            print("[conv] {} bf16: kernel {:.4f} ms, plain {:.4f} ms, bound "
+                  "{:.4f} ms ({}); the module's unfused torch chain {:.4f} "
+                  "ms, for information (CUDA events, back to back; {})"
+                  .format(name, times["ms"], times["plain_ms"],
+                          times["bound_ms"], times["bound_by"],
+                          times["unfused_ms"], card), flush=True)
+    # what the kernel does not take, it refuses
+    x, lengths, w = conv_case(2, 9, 96, 7, 0, dev)
+    x2, lengths2, w2 = conv_case(2, 9, 128, 65, 0, dev)
+    for bad in ((x, lengths) + w, (x2, lengths2) + w2,
+                (x2[..., :64].double(), lengths2) + w2,
+                (x2.transpose(0, 1), lengths2) + w2,
+                (x2, lengths2.long()) + w2):
+        try:
+            cc.conformer_conv_module_cuda(*bad)
+        except ValueError:
+            continue
+        raise RuntimeError("chip_smoke check failed: a bad conv module "
+                           "input launched")
+    print("[conv] widths, taps, dtype, layout and lengths outside the "
+          "kernel's limits are refused", flush=True)
+    return worst, times
+
+
 def _small_params(data_layer, no_dropout=False, **overrides):
     from openseq2seq_tpu_torch.zoo import jasper_model_params
     params = jasper_model_params(
@@ -1769,6 +2059,136 @@ def phase_rnn_model(path, name, kernel, per_batch, card):
     return launches[0] + infer_launches[0], launches[1] + infer_launches[1]
 
 
+def phase_small_conformer():
+    """The tiny fp32 Conformer config (both kernel flags on), same seed,
+    on the card (through the rel-pos flash and conv module kernels) and
+    on the CPU (their plain versions): eval logits within 1e-4 (fp32 sums
+    in other orders through two blocks), the same lengths and greedy
+    ids."""
+    import numpy as np
+    from openseq2seq_tpu_torch.ops import conformer_conv, flash_relpos
+    from openseq2seq_tpu_torch.training import trainer
+    config = runpy.run_path(CONFORMER_TINY)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = config["base_model"](config["base_params"], mode="eval",
+                                     device=device)
+        state = trainer.restore_state(model)
+        batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+        before = flash_relpos.LAUNCHES, conformer_conv.LAUNCHES
+        out[device] = trainer.to_host(model.eval_step(state, batch))
+        out[device]["launches"] = (flash_relpos.LAUNCHES - before[0],
+                                   conformer_conv.LAUNCHES - before[1])
+    gpu, cpu = (out[d]["outputs"]["decoder_output"] for d in ("cuda", "cpu"))
+    err = float(np.abs(gpu["logits"] - cpu["logits"]).max())
+    same = np.array_equal(gpu["src_length"], cpu["src_length"]) and \
+        all(np.array_equal(a, b) for a, b in zip(gpu["outputs"],
+                                                 cpu["outputs"]))
+    print("[conformer] tiny fp32 Conformer, card vs CPU: logits max abs err "
+          "{:.3e} (|logits| max {:.2f}), loss {:.6f} vs {:.6f}, greedy ids "
+          "identical: {}; (rel-pos flash, conv module) launches on the card "
+          "{}, on the CPU {}".format(
+              err, float(np.abs(cpu["logits"]).max()),
+              float(out["cuda"]["loss"]), float(out["cpu"]["loss"]), same,
+              out["cuda"]["launches"], out["cpu"]["launches"]), flush=True)
+    check(out["cuda"]["launches"] == (2, 2) and
+          out["cpu"]["launches"] == (0, 0), "launches in the tiny eval step")
+    check(err <= 1e-4 and same, "tiny Conformer disagrees between card and "
+          "CPU")
+
+
+def phase_conformer(card):
+    """Conformer-M from a seeded-init checkpoint through ``run.main`` in
+    eval and infer: 16 rel-pos flash and 16 conv module launches per
+    batch, the CTC forward once per eval batch, the loss finite and equal
+    to the plain CTC on the same logits, a WER, 256 infer rows; the eval
+    rate is printed as information. Returns the two kernels' launches."""
+    import torch
+    from openseq2seq_tpu_torch.models.model import to_device_batch
+    from openseq2seq_tpu_torch.ops import (conformer_conv, ctc, ctc_cuda,
+                                           flash_relpos)
+    from openseq2seq_tpu_torch.training import CheckpointManager, trainer
+
+    def reset():
+        flash_relpos.LAUNCHES = conformer_conv.LAUNCHES = 0
+        ctc_cuda.LAUNCHES = 0
+
+    def counts():
+        return (flash_relpos.LAUNCHES, conformer_conv.LAUNCHES,
+                ctc_cuda.LAUNCHES)
+
+    config = runpy.run_path(CONFORMER_M)
+    with tempfile.TemporaryDirectory() as logdir:
+        params = dict(config["base_params"], logdir=logdir)
+        n_batches = params["data_layer_params"]["num_batches"]
+        batch_size = params["batch_size_per_gpu"]
+        t0 = time.time()
+        model = config["base_model"](params, mode="eval", device="cuda")
+        state = trainer.restore_state(model)
+        CheckpointManager(logdir).save(state, 0)
+        n_params = sum(p.numel() for p in state.module.parameters())
+        print("[conformer-m] built: {} parameters, dtype {}, seeded "
+              "checkpoint saved in {:.1f} s".format(
+                  n_params, params["dtype"], time.time() - t0), flush=True)
+
+        argv = ["--config_file=" + CONFORMER_M, "--logdir=" + logdir]
+        reset()
+        metrics, _ = _run_quiet(argv + ["--mode=eval"])
+        launches = counts()
+        print("[conformer-m] eval: loss {:.6f}, WER {:.4f}; launches "
+              "(rel-pos flash, conv module, CTC forward) {} for {} batches"
+              .format(metrics["eval_loss"], metrics["Eval WER"], launches,
+                      n_batches), flush=True)
+        check(launches == (16 * n_batches, 16 * n_batches, n_batches),
+              "eval launches {} for {} batches".format(launches, n_batches))
+        check(math.isfinite(metrics["eval_loss"]) and
+              metrics["eval_loss"] > 0, "eval loss not finite")
+        check(0.0 <= metrics["Eval WER"], "WER not computed")
+
+        out_csv = os.path.join(logdir, "infer.csv")
+        reset()
+        _run_quiet(argv + ["--mode=infer", "--infer_output_file=" + out_csv])
+        infer_launches = counts()
+        with open(out_csv) as f:
+            rows = list(csv.reader(f))[1:]
+        print("[conformer-m] infer: {} rows in the CSV; launches {}".format(
+            len(rows), infer_launches), flush=True)
+        check(infer_launches == (16 * n_batches, 16 * n_batches, 0),
+              "infer launches {}".format(infer_launches))
+        check(len(rows) == n_batches * batch_size,
+              "infer CSV has {} rows".format(len(rows)))
+
+        # one batch's loss recomputed from its logits by the plain version
+        batches = list(model.get_data_layer().iterate_one_epoch())
+        out = model.eval_step(state, batches[0])
+        dec = out["outputs"]["decoder_output"]
+        logits = dec["logits"]
+        check(tuple(logits.shape) == (batch_size, 250, 29) and
+              bool(torch.all(torch.isfinite(logits))),
+              "logits shape {} or not finite".format(tuple(logits.shape)))
+        labels, label_lens = to_device_batch(batches[0],
+                                             "cuda")["target_tensors"]
+        plain = ctc.ctc_loss(logits, dec["src_length"], labels, label_lens)
+        rel = abs(float(out["loss"]) - float(plain)) / abs(float(plain))
+        print("[conformer-m] batch loss: kernel {:.6f}, plain {:.6f}, rel "
+              "err {:.3e}".format(float(out["loss"]), float(plain), rel),
+              flush=True)
+        check(rel <= RTOL, "batch loss disagrees with the plain version")
+
+        # eval throughput over the epoch (information, not a claim)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            model.eval_step(state, b)
+        torch.cuda.synchronize()
+        utt = n_batches * batch_size / (time.perf_counter() - t0)
+        print("[conformer-m] eval throughput {:.1f} utt/s (batch {}, 10 s "
+              "utterances, bf16; {})".format(utt, batch_size, card),
+              flush=True)
+    return (launches[0] + infer_launches[0],
+            launches[1] + infer_launches[1])
+
+
 def phase_ctc_library(card):
     """``F.ctc_loss`` at the CTC train shape, forward and forward plus
     backward: the CTC kernels' library yardstick, never on the path."""
@@ -1951,7 +2371,8 @@ def main():
     # 2. build, one nvcc per source, all started together
     names = ("ctc_alpha_fwd", "ctc_beta_bwd", "flash_attn_fwd",
              "flash_attn_bwd", "dropout_mask", "gru_scan_fwd",
-             "lstm_scan_fwd", "gru_scan_bwd", "lstm_scan_bwd")
+             "lstm_scan_fwd", "gru_scan_bwd", "lstm_scan_bwd",
+             "flash_relpos_fwd", "conformer_conv_fwd")
     t0 = time.time()
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(build.build, names))
@@ -1970,6 +2391,8 @@ def main():
     drop = phase_dropout(card)
     scan_err, scan_times = phase_scan(card)
     scan_bwd_err, scan_bwd_times = phase_scan_bwd(card)
+    relpos_err, relpos_times = phase_relpos(card)
+    conv_err, conv_times = phase_conformer_conv(card)
 
     # 5-7. the paths, each with its launch counts set to 0 just before
     config = runpy.run_path(CONFIG)
@@ -1992,6 +2415,8 @@ def main():
                                  8, card)
     scan_launches = {"gru": (gru_launches + ds2_train[0], ds2_train[1]),
                      "lstm": (lstm_launches + lstm_train[0], lstm_train[1])}
+    phase_small_conformer()
+    relpos_launches, conv_launches = phase_conformer(card)
 
     # 8. result
     fwd_bound = ctc_bound_ms(32, 500, 160, 29, 500, backward=False)
@@ -2055,7 +2480,22 @@ def main():
             ("lstm", "fwd", 73, scan_err, scan_times),
             ("gru", "fwd", 64, scan_err, scan_times),
             ("lstm", "bwd", 173, scan_bwd_err, scan_bwd_times),
-            ("gru", "bwd", 150, scan_bwd_err, scan_bwd_times))]}),
+            ("gru", "bwd", 150, scan_bwd_err, scan_bwd_times))] + [{
+        "name": "flash_relpos_fwd", "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/flash_relpos_fwd.cu",
+        "replaces": "openseq2seq_tpu/ops/flash_relpos.py:70",
+        "launches": relpos_launches, "max_abs_err": relpos_err,
+        "ms": relpos_times["ms"], "plain_ms": relpos_times["plain_ms"],
+        "bound_ms": relpos_times["bound_ms"],
+        "bound_by": relpos_times["bound_by"],
+        "library_ms": relpos_times["library_ms"]}, {
+        "name": "conformer_conv_fwd", "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/conformer_conv_fwd.cu",
+        "replaces": "openseq2seq_tpu/ops/conformer_pallas.py:142",
+        "launches": conv_launches, "max_abs_err": conv_err,
+        "ms": conv_times["ms"], "plain_ms": conv_times["plain_ms"],
+        "bound_ms": conv_times["bound_ms"],
+        "bound_by": conv_times["bound_by"], "library_ms": None}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,18 +18,29 @@ such as the TDNN encoder), and returns the ``state_dict`` for
 
   * embedding table            -> ``embedding`` (V, d), as it is
   * layer norm scale / bias    -> weight / bias
+  * the Conformer's explicit leaves (``u_bias``, ``w_bias`` and the conv
+    module's ``ln1_scale`` ... ``pw2_bias``) and the kernels of the
+    ``DenseGeneral`` layers under a module named ``attn`` (``q``, ``k``,
+    ``v``, ``r`` (D, H, Dh) and ``out`` (H, Dh, D))
+                               -> kept as they are, under the same names
+
+These rules go by module and leaf name, never by a kernel's rank: a
+``DenseGeneral`` kernel is 3-D like a conv kernel, and the layouts differ.
 
 The flax ``_Norm`` wrapper's inner ``BatchNorm_0`` folds into the torch
 norm module, so ``enc/net/norm1_1/BatchNorm_0/scale`` becomes
 ``enc.net.norm1_1.weight``; so does the transformer's ``TransformerNorm``
 with its inner ``LayerNorm_0`` (``enc/sa_norms_0/LayerNorm_0/scale`` ->
-``enc.sa_norms_0.weight``). The DeepSpeech2 encoder's batch norms
+``enc.sa_norms_0.weight``), and the Conformer FFN's (``ffn1/LayerNorm_0``
+-> ``ffn1.weight``). The DeepSpeech2 encoder's batch norms
 (``conv1_bn``, named ``*_bn``) are flax's ``BatchNorm`` itself, with no
-inner module.
+inner module, and so are the Conformer block's layer norms (``attn_ln``,
+``final_ln``, named ``*_ln``).
 
 :func:`flax_from_state_dict` is the inverse (a module with running
 statistics is a batch norm, whose flax leaves sit under ``BatchNorm_0``
-unless it is named ``*_bn``),
+unless it is named ``*_bn``; the modules of :func:`layer_norm_modules`
+hold a folded ``LayerNorm_0``),
 so tests can compare the port's updated weights leaf by leaf with the
 JAX package's. :func:`flax_path` names a port parameter as the JAX
 package does (``enc/net/conv1_1/kernel``), which is what
@@ -49,6 +60,13 @@ _LN_INNER = "LayerNorm_0"
 _STATS = {"mean": "running_mean", "var": "running_var"}
 # kept under their flax names and in the flax layout
 _RECURRENT = ("recurrent_kernel", "recurrent_bias")
+_CONFORMER = ("u_bias", "w_bias", "ln1_scale", "ln1_bias", "pw1_kernel",
+              "pw1_bias", "dw_kernel", "dw_bias", "ln2_scale", "ln2_bias",
+              "pw2_kernel", "pw2_bias")
+_KEPT = _RECURRENT + _CONFORMER
+# the parent module of flax DenseGeneral layers, whose kernels are kept
+_DENSE_GENERAL_PARENT = "attn"
+_LN_SUFFIX = "_ln"
 
 
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
@@ -68,7 +86,10 @@ def _param_to_torch(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
     """(torch name, array in torch layout) of the flax param at ``path``."""
     value = np.array(value, dtype=np.float32)
     module, leaf = _module_key(path[:-1]), path[-1]
-    if leaf == "kernel" and value.ndim == 4:
+    if leaf in _KEPT or (leaf == "kernel" and len(path) >= 3 and
+                         path[-3] == _DENSE_GENERAL_PARENT):
+        name = leaf
+    elif leaf == "kernel" and value.ndim == 4:
         name, value = "weight", value.transpose(3, 2, 0, 1)
     elif leaf == "kernel" and value.ndim == 3:
         name, value = "weight", value.transpose(2, 1, 0)
@@ -76,7 +97,7 @@ def _param_to_torch(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
         name, value = "weight", value.T
     elif leaf in ("kernel", "scale"):
         name = "weight"
-    elif leaf in ("bias", "embedding") + _RECURRENT:
+    elif leaf in ("bias", "embedding"):
         name = leaf
     else:
         raise ValueError("no torch name for flax param {}".format(
@@ -112,11 +133,18 @@ def _norm_modules(names: Sequence[str]) -> set:
             if n.endswith(".running_mean")}
 
 
+def layer_norm_modules(module: torch.nn.Module) -> set:
+    """The names of ``module``'s submodules that hold a folded flax
+    ``LayerNorm_0`` (their ``flax_inner``)."""
+    return {n for n, m in module.named_modules()
+            if getattr(m, "flax_inner", None) == _LN_INNER}
+
+
 def flax_path(name: str, norms: set, layer_norms: set = frozenset()
               ) -> Tuple[str, ...]:
     """The flax path of the port's parameter or statistic ``name``;
     ``norms`` holds the names of the batch-norm modules, ``layer_norms``
-    those of the transformer's layer norms."""
+    those of the modules with a folded layer norm."""
     module, leaf = name.rsplit(".", 1) if "." in name else ("", name)
     parts = tuple(module.split(".")) if module else ()
     if module in norms:
@@ -124,30 +152,36 @@ def flax_path(name: str, norms: set, layer_norms: set = frozenset()
         return parts + inner + ({"weight": "scale", "bias": "bias",
                                  "running_mean": "mean",
                                  "running_var": "var"}[leaf],)
-    if module in layer_norms:
+    if module in layer_norms and leaf in ("weight", "bias"):
         return parts + (_LN_INNER, {"weight": "scale", "bias": "bias"}[leaf])
-    if leaf in _RECURRENT:
+    if parts and parts[-1].endswith(_LN_SUFFIX):
+        return parts + ({"weight": "scale", "bias": "bias"}[leaf],)
+    if leaf in _KEPT or leaf == "kernel":
         return parts + (leaf,)
     return parts + ({"weight": "kernel", "bias": "bias",
                      "embedding": "embedding"}[leaf],)
 
 
-def flax_from_state_dict(state_dict: Dict[str, torch.Tensor]
-                         ) -> Dict[str, Any]:
+def flax_from_state_dict(state_dict: Dict[str, torch.Tensor],
+                         layer_norms: set = frozenset()) -> Dict[str, Any]:
     """The port's ``state_dict`` as flax variables of numpy arrays,
-    ``{"params": ..., "batch_stats": ...}``."""
+    ``{"params": ..., "batch_stats": ...}``; ``layer_norms`` names the
+    modules with a folded layer norm (:func:`layer_norm_modules`)."""
     norms = _norm_modules(state_dict)
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     for name, value in state_dict.items():
         if name.endswith(".num_batches_tracked"):
             continue
-        path = flax_path(name, norms)
+        path = flax_path(name, norms, layer_norms)
         value = value.detach().float().cpu().numpy()
-        if path[-1] == "kernel" and value.ndim == 4:
+        # a torch "weight" that flax names "kernel" is transposed back;
+        # kept leaves ("kernel" of a DenseGeneral among them) are not
+        torch_layout = path[-1] == "kernel" and name.endswith("weight")
+        if torch_layout and value.ndim == 4:
             value = value.transpose(2, 3, 1, 0)
-        elif path[-1] == "kernel" and value.ndim == 3:
+        elif torch_layout and value.ndim == 3:
             value = value.transpose(2, 1, 0)
-        elif path[-1] == "kernel" and value.ndim == 2:
+        elif torch_layout and value.ndim == 2:
             value = value.T
         tree = out["batch_stats" if path[-1] in _STATS else "params"]
         for key in path[:-1]:

@@ -2,3 +2,4 @@ from .encoder import Encoder
 from .ds2_encoder import DeepSpeech2Encoder
 from .tdnn_encoder import TDNNEncoder
 from .transformer_encoder import TransformerEncoder
+from .conformer_encoder import ConformerEncoder

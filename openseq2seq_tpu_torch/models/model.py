@@ -37,7 +37,7 @@ import torch
 from ..utils.logging import deco_print
 from ..utils.params import check_params
 
-from ..convert import _norm_modules, flax_path
+from ..convert import _norm_modules, flax_path, layer_norm_modules
 from ..optimizers import (AutomaticLossScaler, build_optimizer, check_grads,
                           get_lr_schedule_from_config, get_mp_policy)
 from ..optimizers.transform import global_norm
@@ -465,8 +465,7 @@ def _named_params(module: torch.nn.Module
     """The module's parameters in their fixed order, each with its flax
     path (``enc/net/conv1_1/kernel``)."""
     norms = _norm_modules([n for n, _ in module.named_buffers()])
-    layer_norms = {n for n, m in module.named_modules()
-                   if getattr(m, "flax_inner", None) == "LayerNorm_0"}
+    layer_norms = layer_norm_modules(module)
     return [(flax_path(n, norms, layer_norms), p)
             for n, p in module.named_parameters()]
 

@@ -3,6 +3,8 @@
 
   * :func:`get_position_encoding`: sinusoids as ``[sin | cos]`` halves
     (not interleaved), fp32, built with numpy as the JAX package does;
+    :func:`rel_pos_embedding`, the Conformer's relative-distance table,
+    likewise;
   * :func:`get_padding_bias` (pad id 0) and
     :func:`get_decoder_self_attention_bias`: additive fp32 biases of
     ``NEG_INF`` = -1e9;
@@ -51,6 +53,16 @@ def get_position_encoding(length: int, hidden_size: int,
         np.arange(num_timescales, dtype=np.float32) * -log_increment)
     scaled = position[:, None] * inv_timescales[None, :]
     return np.concatenate([np.sin(scaled), np.cos(scaled)],
+                          axis=1).astype(np.float32)
+
+
+def rel_pos_embedding(klen: int, dim: int) -> np.ndarray:
+    """Transformer-XL's sinusoids for distances 0 .. klen - 1, shape
+    (klen, dim) laid out ``[sin | cos]``, computed in float64 and rounded
+    to fp32 at the end (``encoders/transformer_xl_encoder.py:53-60``)."""
+    inv_freq = 1.0 / (10000.0 ** (np.arange(0, dim, 2) / dim))
+    pos = np.arange(klen)[:, None] * inv_freq[None, :]
+    return np.concatenate([np.sin(pos), np.cos(pos)],
                           axis=1).astype(np.float32)
 
 

@@ -11,7 +11,9 @@ jasper10x5_synthetic.py``; for the NMT transformer-big,
 ``example_configs_torch/text2text/transformer_big_synthetic.py``; for
 DeepSpeech2-medium, ``example_configs_torch/speech2text/
 ds2_medium_synthetic.py``, whose train step ``--train`` profiles with
-it) on the card with seeded weights, in eval mode, in infer mode with
+it; for Conformer-M, ``example_configs_torch/speech2text/
+conformer_m_synthetic.py``, eval and infer) on the card with seeded
+weights, in eval mode, in infer mode with
 ``--infer``
 (for the transformer: the beam decode alone) or, with ``--train``, in
 train mode (the config's ``train_params`` merged in; dropout drawn from
@@ -32,7 +34,8 @@ It prints:
    (the port's own kernels each have theirs: "ctc kernel", "flash
    attention kernel" forward and backward, "fused dropout kernel", "rnn
    scan kernels" and "rnn scan backward kernels" for the GRU and LSTM
-   recurrences);
+   recurrences, "rel-pos flash kernel" and "conformer conv kernel" for the
+   Conformer's attention and conv module);
 3. FLOP per step of the convolutions and dense layers, counted from the
    shapes their forward hooks see (in training also their backward: the
    weight gradient, and the input gradient where the input needs one),
@@ -68,6 +71,10 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # (group, substrings of the kernel name), first match wins
 GROUPS = (
     ("ctc kernel", ("ctc_alpha_fwd", "ctc_beta_bwd")),
+    ("rel-pos flash kernel", ("flash_relpos_fwd",)),
+    # the conv module's two launches, conformer_conv_pw1_kernel and
+    # conformer_conv_dw_pw2_kernel
+    ("conformer conv kernel", ("conformer_conv_",)),
     ("flash attention kernel", ("flash_attn_fwd", "flash_attn_bwd")),
     ("fused dropout kernel", ("dropout_mask",)),
     # the GRU and LSTM kernels, rnn_scan::scan_fwd_kernel<...> and
@@ -111,6 +118,7 @@ def count_flops(module, run, train: bool = False) -> int:
     (2 G H^2 per row and step, in the scan kernels) are not counted:
     :func:`count_recurrent_flops` counts them."""
     from openseq2seq_tpu_torch.decoders.fc_decoders import Dense
+    from openseq2seq_tpu_torch.encoders.conformer_encoder import DenseGeneral
     from openseq2seq_tpu_torch.encoders.ds2_encoder import SameConv2d
     from openseq2seq_tpu_torch.encoders.tdnn_encoder import SameConv1d
     from openseq2seq_tpu_torch.parts.transformer.common import \
@@ -129,12 +137,17 @@ def count_flops(module, run, train: bool = False) -> int:
     def dense_hook(mod, inp, out):
         total[0] += passes(inp) * 2 * out.numel() * mod.weight.shape[1]
 
+    def dense_general_hook(mod, inp, out):
+        total[0] += passes(inp) * 2 * out.numel() * mod.n_in
+
     handles = [m.register_forward_hook(conv_hook)
                for m in module.modules()
                if isinstance(m, (SameConv1d, SameConv2d))]
     handles += [m.register_forward_hook(dense_hook)
                 for m in module.modules()
                 if isinstance(m, (Dense, TransformerDense))]
+    handles += [m.register_forward_hook(dense_general_hook)
+                for m in module.modules() if isinstance(m, DenseGeneral)]
     run()
     for h in handles:
         h.remove()

@@ -22,7 +22,10 @@ reverse, residuals included: fp32 (TF32 off) max abs error 1e-5, bf16
 within 3 bf16 ulps of max(1, |value|), two calls bit-identical; and what
 they refuse. Their backward kernels the same way, on the forward
 kernel's residuals, and autograd through both kernels against the CPU's
-plain versions (fp32, rtol 1e-4, atol 1e-5: dW_h sums over B x T)."""
+plain versions (fp32, rtol 1e-4, atol 1e-5: dW_h sums over B x T). The
+Conformer's rel-pos flash kernel and conv module kernel against their
+plain versions, fp32 and bf16 (tolerances in each test), repeats
+bit-identical, and what the rel-pos kernel refuses."""
 import numpy as np
 import pytest
 import torch
@@ -336,3 +339,98 @@ def test_scan_backward_kernels_match_plain(device, cell, B, T, H, reverse):
         grads[dev.type] = torch.autograd.grad(ys, leaves, dys.to(dev))
     for a, b in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+def _relpos_inputs(device, B, H, T, Dh, D, seed):
+    from openseq2seq_tpu_torch.ops import flash_relpos as fr
+    g = torch.Generator(device=device).manual_seed(seed)
+    q_u, q_w, k = (torch.randn((B, T, H, Dh), generator=g, device=device)
+                   for _ in range(3))
+    v = 2 * torch.rand((B, T, H, Dh), generator=g, device=device) - 1
+    r_kernel = torch.randn((D, H, Dh), generator=g, device=device) / D ** 0.5
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device=device)
+    lengths[0], lengths[-1] = T, 0
+    return fr._operands(q_u, q_w, k, r_kernel) + (v, lengths.int())
+
+
+@pytest.mark.parametrize("B,H,T,Dh,D", [
+    (4, 4, 250, 64, 256), (2, 8, 130, 64, 512), (3, 4, 37, 32, 128)])
+def test_relpos_kernel_matches_plain(device, B, H, T, Dh, D):
+    """The rel-pos flash kernel (B5) against its plain version on the same
+    folded inputs, lengths from 0 (clamped to 1) to T: fp32 context max
+    abs error 2e-5, lse 1e-5 (sums in another order); bf16 within 2^-6
+    (both round p to bf16, at other running maxima); one launch a call;
+    two calls bit-identical."""
+    from openseq2seq_tpu_torch.ops import flash_relpos as fr
+    case = _relpos_inputs(device, B, H, T, Dh, D, T + D)
+    for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 2.0 ** -6)):
+        args = tuple(x.to(dtype) for x in case[:5]) + (case[5], Dh ** -0.5)
+        before = fr.LAUNCHES
+        got, lse = fr.relpos_attention(*args, return_lse=True)
+        again = fr.relpos_attention(*args)
+        assert fr.LAUNCHES == before + 2
+        want, want_lse = fr.relpos_attention_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=atol)
+        torch.testing.assert_close(lse, want_lse, rtol=0,
+                                   atol=1e-5 if dtype == torch.float32
+                                   else 1e-2)
+
+
+def test_relpos_kernel_refuses_what_it_does_not_take(device):
+    from openseq2seq_tpu_torch.ops import flash_relpos as fr
+    qu, qp, k, kp, v, lengths = _relpos_inputs(device, 2, 2, 8, 32, 128, 0)
+    for bad in ((qu.half(), qp.half(), k.half(), kp.half(), v.half(),
+                 lengths),
+                (qu[..., :16].contiguous(), qp, k[..., :16].contiguous(), kp,
+                 v[..., :16].contiguous(), lengths),
+                (qu.transpose(1, 2), qp, k, kp, v, lengths),
+                (qu, qp, k, kp, v, lengths.long())):
+        with pytest.raises(ValueError):
+            fr.relpos_attention_cuda(*bad, 0.25)
+    with pytest.raises(NotImplementedError, match="backward"):
+        fr.relpos_attention_cuda(qu.requires_grad_(), qp, k, kp, v, lengths,
+                                 0.25)
+
+
+@pytest.mark.parametrize("B,T,D,k", [
+    (4, 250, 256, 31), (2, 130, 512, 31), (5, 37, 128, 7)])
+def test_conformer_conv_kernel_matches_plain(device, B, T, D, k):
+    """The conv module kernel (B6) against its plain version, a
+    zero-length row: fp32 (TF32 off) max abs error 1e-4; bf16 within
+    2^-5 of max(1, |y|) (a product operand rounded to bf16 from fp32
+    sums taken in another order may round the other way); one launch a
+    call; two calls bit-identical."""
+    from openseq2seq_tpu_torch.ops import conformer_conv as cc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=device).manual_seed(T + k)
+
+    def randn(*shape, scale=1.0, offset=0.0):
+        return offset + scale * torch.randn(shape, generator=g,
+                                            device=device)
+
+    x = randn(B, T, D)
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device=device)
+    lengths[0], lengths[-1] = T, 0
+    weights = (randn(D, scale=0.1, offset=1.0), randn(D, scale=0.1),
+               randn(D, 2 * D, scale=D ** -0.5), randn(2 * D, scale=0.1),
+               randn(k, D, scale=k ** -0.5), randn(D, scale=0.1),
+               randn(D, scale=0.1, offset=1.0), randn(D, scale=0.1),
+               randn(D, D, scale=D ** -0.5), randn(D, scale=0.1))
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (x.to(dtype), lengths.int()) + weights
+        before = cc.LAUNCHES
+        got = cc.conformer_conv_module(*args)
+        again = cc.conformer_conv_module(*args)
+        assert cc.LAUNCHES == before + 2
+        want = cc.conformer_conv_module_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and got.dtype == dtype
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.float32:
+            assert float(err.max()) <= 1e-4
+        else:
+            assert float((err / want.float().abs().clamp(min=1.0)).max()) \
+                <= 2.0 ** -5

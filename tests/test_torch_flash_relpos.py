@@ -1,0 +1,140 @@
+"""The port's rel-pos flash attention (``ops/flash_relpos.py``, kernel B5's
+plain version) against the JAX package's ``ops/flash_relpos.py`` with its
+Pallas kernel in interpret mode: the fold (angles and augmented q~, k~),
+the attention's context and lse, and ``RelPosSelfAttention`` on both of
+its paths with weights carried by ``convert.py``.
+
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerances: fp32 rtol and atol 1e-5 (fp32 sums in another order). bf16:
+the fold's products and sums are rounded to bf16 after each operation in
+torch, where XLA may keep an fp32 intermediate in a fused expression, so
+an element of q~ may differ by one bf16 rounding (2^-8 of its value); the
+context then within 2^-7 of max(1, |value|), and lse within 1e-2."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn as nn
+
+from openseq2seq_tpu.encoders import conformer_encoder as jce
+from openseq2seq_tpu.ops import flash_relpos as jfr
+from openseq2seq_tpu_torch.convert import state_dict_from_flax
+from openseq2seq_tpu_torch.encoders.conformer_encoder import \
+    RelPosSelfAttention
+from openseq2seq_tpu_torch.ops import flash_relpos as fr
+
+B, H, Dh, D = 3, 2, 16, 32
+DTYPES = {"fp32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(T, seed=0):
+    rng = np.random.RandomState(seed)
+    q_u, q_w, k, v = (rng.randn(B, T, H, Dh).astype(np.float32)
+                      for _ in range(4))
+    r_kernel = (rng.randn(D, H, Dh) / np.sqrt(D)).astype(np.float32)
+    lengths = np.array([T, 1, 0], np.int32)
+    return q_u, q_w, k, v, r_kernel, lengths
+
+
+def _close(got, want, dtype):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want, np.float32)
+    if dtype == "fp32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert np.all(np.abs(got - want) <=
+                      2.0 ** -7 * np.maximum(1.0, np.abs(want)))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_fold_matches_build_aug(dtype):
+    jdt, tdt = DTYPES[dtype]
+    T = 37
+    q_u, q_w, k, _, r_kernel, _ = _inputs(T)
+    si, ci, k_pos = jfr._angles(T, D)
+    got_si, got_ci, got_kpos = fr.angles(T, D)
+    for got, want in ((got_si, si), (got_ci, ci), (got_kpos, k_pos)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    want_q, want_k = jfr._build_aug(
+        *(jnp.asarray(a, jdt) for a in (q_u, q_w, k)), jnp.asarray(r_kernel),
+        si, ci, k_pos, 0)
+    got_q, got_k = fr.build_aug(
+        *(torch.from_numpy(a).to(tdt) for a in (q_u, q_w, k)),
+        torch.from_numpy(r_kernel))
+    assert got_q.shape == (B, H, T, Dh + D) and got_q.dtype == tdt
+    np.testing.assert_array_equal(got_k.float().numpy(),
+                                  np.asarray(want_k, np.float32))
+    want_q = np.asarray(want_q, np.float32)
+    tol = 1e-5 if dtype == "fp32" else 2.0 ** -8
+    assert np.all(np.abs(got_q.float().numpy() - want_q) <=
+                  tol * np.maximum(1.0, np.abs(want_q)))
+
+
+@pytest.mark.parametrize("T", [20, 37])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_plain_matches_pallas_kernel(dtype, T):
+    """Context and lse against ``_rel_fwd_res`` (the Pallas forward in
+    interpret mode, T padded to its 128-row blocks there); lengths T, 1
+    and 0 (clamped to 1)."""
+    jdt, tdt = DTYPES[dtype]
+    q_u, q_w, k, v, r_kernel, lengths = _inputs(T, seed=T)
+    scale = Dh ** -0.5
+    want, (_, want_lse, _) = jfr._rel_fwd_res(
+        *(jnp.asarray(a, jdt) for a in (q_u, q_w, k, v)),
+        jnp.asarray(r_kernel), jnp.asarray(lengths), scale, 128, 128, True)
+    got, lse = fr.rel_flash_attention_plain(
+        *(torch.from_numpy(a).to(tdt) for a in (q_u, q_w, k, v)),
+        torch.from_numpy(r_kernel), torch.from_numpy(lengths), scale)
+    assert got.shape == (B, T, H, Dh) and got.dtype == tdt
+    _close(got, want, dtype)
+    np.testing.assert_allclose(
+        lse.numpy(), np.asarray(want_lse)[:, :, :T, 0],
+        rtol=1e-5, atol=1e-5 if dtype == "fp32" else 1e-2)
+    # the module-facing entry takes the same path on CPU tensors
+    again = fr.rel_flash_attention(
+        *(torch.from_numpy(a).to(tdt) for a in (q_u, q_w, k, v)),
+        torch.from_numpy(r_kernel), torch.from_numpy(lengths), scale)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["plain", "flash"])
+def test_module_matches_jax(flash, monkeypatch):
+    """``RelPosSelfAttention`` on weights carried over by ``convert.py``
+    (random u and w biases), fp32, on its plain path (reversed table and
+    relative shift) and on its flash path (the Pallas kernel in interpret
+    mode on the JAX side, the plain version of B5 on the port's)."""
+    T, dim, heads = 13, 32, 2
+    rng = np.random.RandomState(3)
+    x = rng.randn(B, T, dim).astype(np.float32)
+    lengths = np.array([T, 7, 1], np.int32)
+    pad_mask = np.arange(T)[None, :] < lengths[:, None]
+    jmod = jce.RelPosSelfAttention(num_heads=heads, dropout=0.0,
+                                   use_flash=flash)
+    params = jax.device_get(jmod.init(jax.random.PRNGKey(0), x, pad_mask,
+                                      False))["params"]
+    params = dict(params, u_bias=rng.randn(heads, dim // heads)
+                  .astype(np.float32),
+                  w_bias=rng.randn(heads, dim // heads).astype(np.float32))
+    monkeypatch.setattr(jfr, "FORCE_INTERPRET", flash)
+    want = jmod.apply({"params": params}, x, pad_mask, False)
+
+    port = nn.ModuleDict({"attn": RelPosSelfAttention(
+        dim, heads, torch.float32, flash, torch.Generator().manual_seed(0))})
+    port.load_state_dict(state_dict_from_flax({"params": {"attn": params}}))
+    with torch.no_grad():
+        got = port["attn"](torch.from_numpy(x), torch.from_numpy(lengths),
+                           torch.from_numpy(pad_mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_cuda_entry_refuses_cpu_tensors():
+    q_u, q_w, k, v, r_kernel, lengths = _inputs(8)
+    t = [torch.from_numpy(a) for a in (q_u, q_w, k, v, r_kernel, lengths)]
+    qu, qp, kk, kp = fr._operands(*t[:3], t[4])
+    before = fr.LAUNCHES
+    with pytest.raises(ValueError, match="device cpu"):
+        fr.relpos_attention_cuda(qu, qp, kk, kp, t[3], t[5], 0.25)
+    assert fr.LAUNCHES == before

@@ -40,11 +40,15 @@ def _import_all(report: str) -> str:
             "openseq2seq_tpu_torch.ops.lstm_scan",
             "openseq2seq_tpu_torch.ops.rnn_scan",
             "openseq2seq_tpu_torch.parts.rnns.rnn",
-            "openseq2seq_tpu_torch.encoders.ds2_encoder"} <= set(modules)
+            "openseq2seq_tpu_torch.encoders.ds2_encoder",
+            "openseq2seq_tpu_torch.encoders.conformer_encoder",
+            "openseq2seq_tpu_torch.ops.flash_relpos",
+            "openseq2seq_tpu_torch.ops.conformer_conv"} <= set(modules)
     names = {os.path.basename(c) for c in CONFIGS}
-    assert len(CONFIGS) >= 9 and {
+    assert len(CONFIGS) >= 11 and {
         "transformer_big_train_synthetic.py", "ds2_medium_synthetic.py",
-        "lstm_small_synthetic.py", "ds2_tiny_synthetic.py"} <= names
+        "lstm_small_synthetic.py", "ds2_tiny_synthetic.py",
+        "conformer_m_synthetic.py", "conformer_tiny_synthetic.py"} <= names
     code = ("import importlib, runpy, sys\n"
             "for m in {!r}: importlib.import_module(m)\n"
             "for c in {!r}: runpy.run_path(c)\n"

@@ -195,6 +195,12 @@ def test_busy_time_is_the_union_of_intervals():
     ("void rnn_scan::scan_bwd_kernel<__nv_bfloat16, 3, 8, (anonymous "
      "namespace)::GruBwdCell>(rnn_scan::BwdParams)",
      "rnn scan backward kernels"),
+    ("void (anonymous namespace)::flash_relpos_fwd_kernel<__nv_bfloat16, "
+     "64>(__nv_bfloat16 const*)", "rel-pos flash kernel"),
+    ("void (anonymous namespace)::conformer_conv_pw1_kernel<__nv_bfloat16>"
+     "(__nv_bfloat16 const*)", "conformer conv kernel"),
+    ("void (anonymous namespace)::conformer_conv_dw_pw2_kernel<float>"
+     "(float const*)", "conformer conv kernel"),
 ])
 def test_kernel_groups(name, group):
     assert profile_eval.group_of(name) == group
@@ -211,3 +217,40 @@ def test_gpu_scripts_import_no_jax_package(script):
               if isinstance(n, ast.ImportFrom) and n.module]
     roots = {name.split(".")[0] for name in names}
     assert not roots & {"jax", "flax", "optax", "openseq2seq_tpu"}, roots
+
+
+def test_conformer_flop_count():
+    """The tiny Conformer config's eval step through the script's own
+    step, both kernel flags off: the convs' and dense layers' FLOP (the
+    front end, the FFNs, the attention's DenseGeneral projections with the
+    position table's) equal FlopCounterMode's ``convolution`` and
+    ``addmm``/``mm`` count. The attention's score and context products,
+    the relative-shift einsums, the conv module's pointwise products and
+    its depthwise conv are no dense layer or front-end conv (on the card,
+    with the flags on, the last two and the attention are the
+    kernels')."""
+    import runpy
+    cfg = runpy.run_path(os.path.join(
+        REPO, "example_configs_torch", "speech2text",
+        "conformer_tiny_synthetic.py"))
+    params = dict(cfg["base_params"])
+    params["encoder_params"] = dict(params["encoder_params"],
+                                    flash_attention=False,
+                                    fused_conv_module=False)
+    model = cfg["base_model"](params, mode="eval", device="cpu")
+    module, step = profile_eval.make_step(model, train=False)
+    batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+    got = profile_eval.count_flops(module, lambda: step(batch))
+    with FlopCounterMode(display=False) as counter:
+        step(batch)
+    counts = {str(op): n for op, n in
+              counter.get_flop_counts()["Global"].items()}
+    B, T, D, k = 4, 10, 128, 7
+    # five DenseGeneral projections a block, r over the 2T - 1 table rows
+    attn = 2 * (4 * B * T + (2 * T - 1)) * D * D
+    # the conv module a block: its pointwise products (D -> 2D, D -> D)
+    # and its depthwise taps
+    conv_module = 2 * B * T * D * (3 * D + k)
+    assert got > 0 and attn < got
+    assert got == counts["aten.convolution"] + counts["aten.addmm"] + \
+        counts["aten.mm"] - 2 * conv_module, counts
