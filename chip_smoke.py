@@ -13,8 +13,9 @@ Phases, one informative line or a few each:
    (``flash_attn_fwd.cu``, ``flash_attn_bwd.cu``), the fused dropout
    (``dropout_mask.cu``), the GRU and LSTM scans, forward and backward
    (``{gru,lstm}_scan_{fwd,bwd}.cu``), the rel-pos flash attention
-   (``flash_relpos_fwd.cu``) and the Conformer conv module
-   (``conformer_conv_fwd.cu``), one ``nvcc`` each for ``sm_90a``,
+   forward and backward (``flash_relpos_{fwd,bwd}.cu``) and the Conformer
+   conv module forward and backward (``conformer_conv_{fwd,bwd}.cu``),
+   one ``nvcc`` each for ``sm_90a``,
    started together, and what ``ptxas`` reports for them (registers,
    spills; of the scans' 20 instantiations each, the main paths' and a
    summary);
@@ -87,6 +88,25 @@ Phases, one informative line or a few each:
    max(1, |y|), two calls bit-identical; times of the kernel and the
    plain version, and of the module's unfused torch chain for
    information (no single PyTorch call computes the module);
+4i. the rel-pos flash backward kernels (dq, then dkv, after the forward
+   kernel with its lse) against ``relpos_attention_bwd_plain`` at the
+   shapes of 4g: fp32 (TF32 off) dqu, dqp, dk, dv max abs err 1e-4; bf16
+   against the plain version on the same bf16 inputs (p and ds rounded
+   where the kernels round them) within 2^-7 of each gradient's largest
+   magnitude; two calls bit-identical; times of each kernel, the plain
+   backward and ``scaled_dot_product_attention`` forward plus backward on
+   the materialised q~, k~ (timed only, never on the path) at
+   Conformer-M's shape in bf16; what the backward does not take, it
+   refuses;
+4j. the conv module backward kernels against
+   ``conformer_conv_module_bwd_plain`` at the shapes of 4h: dx and the ten
+   weight gradients, fp32 (TF32 off) within 1e-5 of max(1, |gradient|)
+   (sums over up to 16,000 rows in another order), bf16 dx within 2^-6
+   and the weight gradients within 2^-8 of it; two calls bit-identical;
+   times of the kernels and the plain version, and of the module's
+   unfused torch chain forward plus backward under autograd as the
+   yardstick, at Conformer-M's shape in bf16; what it does not take, it
+   refuses;
 5. a small fp32 Jasper on the card and on the CPU: eval outputs agree, and
    one ``train_step`` gives the same loss and updated weights (rtol 1e-4);
 6. the eval/infer slice: Jasper-10x5 at full width from
@@ -161,6 +181,16 @@ Phases, one informative line or a few each:
    (never in infer), a finite loss equal to the plain CTC on the same
    logits, a WER, 256 infer rows; eval utterances per second printed as
    information;
+7n. the tiny fp32 Conformer config, dropout off, on the card (2 launches
+   of each Conformer kernel, forward and backward, a step) and on the CPU:
+   three AdamW steps give the same losses and weights (rtol 1e-4, atol
+   1e-5); then Conformer-M through ``run.main --mode=train`` for its
+   config's 20 steps with the warmup cut to 20 (printed): the loss is
+   finite at every step and falls, each step launches the rel-pos flash
+   forward, dq and dkv kernels and the conv module forward and backward
+   16 times each and the CTC forward and backward once, a checkpoint is
+   written, ``--mode=eval`` runs from it and ``--continue_learning``
+   takes 3 more steps; the train rate is printed as information;
 8. one JSON line for the kernels, then ``{"ok": true, "device": ...}``
    last.
 
@@ -206,9 +236,10 @@ CONFORMER_M = os.path.join(REPO, "example_configs_torch", "speech2text",
                            "conformer_m_synthetic.py")
 CONFORMER_TINY = os.path.join(REPO, "example_configs_torch", "speech2text",
                               "conformer_tiny_synthetic.py")
-# the recipe warms up over 8000 steps (lr under 2e-6 for 20 steps); the
-# smoke run cuts the warmup so that the loss falls within its 20 steps
-NMT_WARMUP_OVERRIDE = "--lr_policy_params/warmup_steps=20"
+# transformer_policy recipes warm up over thousands of steps (transformer-
+# big 8000: lr under 2e-6 for 20 steps; Conformer-M 10,000); the smoke
+# runs cut the warmup so that the loss falls within their 20 steps
+WARMUP_OVERRIDE = "--lr_policy_params/warmup_steps=20"
 RTOL = 1e-5
 # fp32 operations per live CTC lattice state: the forward's log-sum-exp
 # of up to three predecessors plus the emission (2 max, 3 sub, 3 exp,
@@ -1404,6 +1435,294 @@ def phase_conformer_conv(card):
     return worst, times
 
 
+RELPOS_BWD_FP32_ATOL = 1e-4
+# bf16: the kernels round p and ds to bf16 where the plain version on the
+# same bf16 inputs does, from fp32 values summed in another order, so a
+# term may round the other way (2^-9 of it) and a gradient sums many: 2^-7
+# of each gradient's largest magnitude
+RELPOS_BWD_BF16_TOL = 2.0 ** -7
+
+
+def relpos_bwd_bound_ms(qu, qp, kp, lengths, kernel):
+    """The least time of the rel-pos backward: ``dq`` reads qu, qp, k, kp,
+    v, o, dO and lse and writes dqu, dqp and delta, 2 (Dh + D) + 2 Dh + 2
+    (Dh + D) FLOP per (query, valid key) pair (scores, dO.v, dq~); ``dkv``
+    reads qu, qp, k, kp, v, dO, lse and delta and writes dk and dv, 2 (Dh +
+    D) + 6 Dh per pair (scores, dO.v, dv, dk); ``all`` is the whole
+    backward: the inputs and gradients read or written once, the scores,
+    dO.v, dv, dk and dq~ once each, 4 (Dh + D) + 6 Dh per pair."""
+    B, T, H, Dh = qu.shape
+    D = kp.shape[-1]
+    e = qu.element_size()
+    head, pos, table = qu.numel() * e, qp.numel() * e, kp.numel() * e
+    rows = B * H * T * 4                     # lse or delta, fp32
+    pairs = H * T * int(lengths.clamp(min=1, max=T).sum())
+    nbytes, per_pair = {
+        "dq": (6 * head + 2 * pos + table + 2 * rows + 4 * B,
+               4 * (Dh + D) + 2 * Dh),
+        "dkv": (6 * head + pos + table + 2 * rows + 4 * B,
+                2 * (Dh + D) + 6 * Dh),
+        "all": (8 * head + 2 * pos + table + rows + 4 * B,
+                4 * (Dh + D) + 6 * Dh)}[kernel]
+    return bound_ms(nbytes, float(per_pair) * pairs, qu.dtype)
+
+
+def _relpos_bwd_kernel_ms(kernel, qu, qp, k, kp, v, lengths, o, lse, do,
+                          scale, reps):
+    """Device ms of one rel-pos backward kernel alone, launched through
+    the same entry point as ``relpos_attention_bwd_cuda`` (not counted)."""
+    import torch
+    from openseq2seq_tpu_torch.ops import flash_relpos as fr
+    B, T, H, Dh = k.shape
+    dqu, dqp, dk, dv = (torch.empty_like(x) for x in (qu, qp, k, v))
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    ints = (B, T, H, Dh, kp.shape[-1], int(k.dtype == torch.bfloat16))
+    inputs = (qu.data_ptr(), qp.data_ptr(), k.data_ptr(), kp.data_ptr(),
+              v.data_ptr(), lengths.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    if kernel == "dq":
+        args = inputs + (o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                         torch.empty_like(lse).data_ptr(), dqu.data_ptr(),
+                         dqp.data_ptr())
+    else:
+        args = inputs + (do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                         dk.data_ptr(), dv.data_ptr())
+    fn = fr._kernel("flash_relpos_bwd_" + kernel)
+
+    def launch():
+        check(fn(*args, *ints, float(scale), stream) == 0,
+              "flash_relpos_bwd_{} launch".format(kernel))
+    return cuda_ms(launch, reps)
+
+
+def phase_relpos_bwd(card):
+    """The rel-pos backward kernels (after the forward kernel with its lse)
+    against ``relpos_attention_bwd_plain`` on the card: fp32 (TF32 off)
+    against the plain version on the same inputs within
+    RELPOS_BWD_FP32_ATOL; bf16 against the plain version on the same bf16
+    inputs (its math in fp32, p and ds rounded where the kernels round
+    them) within RELPOS_BWD_BF16_TOL of each gradient's largest magnitude,
+    and against the plain version's fp32 math for information; two calls
+    bit-identical. Times at Conformer-M's shape in bf16. Returns the worst
+    fp32 errors of dq~ and of dk/dv, and the timings."""
+    import torch
+    import torch.nn.functional as F
+    from openseq2seq_tpu_torch.ops import flash_relpos as fr
+    dev = torch.device("cuda")
+    worst_dq = worst_dkv = 0.0
+    times = None
+    for i, (name, B, H, T, Dh, D) in enumerate(RELPOS_CASES):
+        case = relpos_case(B, H, T, Dh, D, 70 + i, dev)
+        scale = Dh ** -0.5
+        do = torch.randn((B, T, H, Dh), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(i))
+        for dtype in (torch.float32, torch.bfloat16):
+            qu, qp, k, kp, v = (x.to(dtype) for x in case[:5])
+            lens, dod = case[5], do.to(dtype)
+            args = (qu, qp, k, kp, v, lens)
+            o, lse = fr.relpos_attention_cuda(*args, scale, return_lse=True)
+            before = fr.BWD_DQ_LAUNCHES, fr.BWD_DKV_LAUNCHES
+            got = fr.relpos_attention_bwd_cuda(*args, o, lse, dod, scale)
+            again = fr.relpos_attention_bwd_cuda(*args, o, lse, dod, scale)
+            check((fr.BWD_DQ_LAUNCHES, fr.BWD_DKV_LAUNCHES) ==
+                  (before[0] + 2, before[1] + 2), "{}: launches".format(name))
+            want = fr.relpos_attention_bwd_plain(*args, o, lse, dod, scale)
+            up = [x.float() for x in args[:5]]
+            want32 = fr.relpos_attention_bwd_plain(
+                *up, lens, o.float(), lse, dod.float(), scale)
+            torch.cuda.synchronize()
+            errs = [float((g.float() - w.float()).abs().max())
+                    for g, w in zip(got, want)]
+            tops = [float(w.float().abs().max()) for w in want]
+            errs32 = [float((g.float() - w).abs().max())
+                      for g, w in zip(got, want32)]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            print("[relpos bwd] {} B={} H={} T={} Dh={} D={} {}: dqu, dqp, "
+                  "dk, dv max abs err {} (|max| {}); against the plain "
+                  "version's fp32 math {}; repeat bit-identical: {}".format(
+                      name, B, H, T, Dh, D, str(dtype)[6:],
+                      ", ".join("{:.3e}".format(e) for e in errs),
+                      ", ".join("{:.2f}".format(t) for t in tops),
+                      ", ".join("{:.3e}".format(e) for e in errs32), same),
+                  flush=True)
+            check(same and all(g.dtype == dtype and
+                               bool(torch.isfinite(g).all()) for g in got),
+                  "{}: repeat, dtype or non-finite".format(name))
+            if dtype == torch.float32:
+                worst_dq = max(worst_dq, errs[0], errs[1])
+                worst_dkv = max(worst_dkv, errs[2], errs[3])
+                check(max(errs) <= RELPOS_BWD_FP32_ATOL,
+                      "{}: fp32 err {}".format(name, errs))
+            else:
+                check(all(e <= RELPOS_BWD_BF16_TOL * t
+                          for e, t in zip(errs, tops)),
+                      "{}: bf16 err {}".format(name, errs))
+            if i > 0 or dtype == torch.float32:
+                continue
+            q_aug = torch.cat([qu.transpose(1, 2), qp], dim=-1)
+            k_aug = torch.cat([k.transpose(1, 2), kp.expand(B, H, T, D)],
+                              dim=-1)
+            leaves = [x.detach().requires_grad_()
+                      for x in (q_aug, k_aug, v.transpose(1, 2))]
+            mask = (torch.arange(T, device=dev)[None, :] <
+                    lens.clamp(min=1)[:, None])[:, None, None, :]
+            do_t = dod.transpose(1, 2)
+
+            def sdpa_fwd_bwd():
+                F.scaled_dot_product_attention(
+                    *leaves, attn_mask=mask, scale=scale).backward(do_t)
+            bwd_args = args + (o, lse, dod, scale)
+            times = {
+                "ms": cuda_ms(lambda: fr.relpos_attention_bwd_cuda(
+                    *bwd_args), 10),
+                "dq_ms": _relpos_bwd_kernel_ms("dq", *bwd_args, 10),
+                "dkv_ms": _relpos_bwd_kernel_ms("dkv", *bwd_args, 10),
+                "plain_ms": cuda_ms(lambda: fr.relpos_attention_bwd_plain(
+                    *bwd_args), 10),
+                "library_ms": cuda_ms(sdpa_fwd_bwd, 20)}
+            for part in ("all", "dq", "dkv"):
+                times[part + "_bound"] = relpos_bwd_bound_ms(qu, qp, kp,
+                                                             lens, part)
+            print("[relpos bwd] {} bf16: dq+dkv {:.4f} ms (dq {:.4f}, dkv "
+                  "{:.4f}), bound {:.4f} ms ({}; dq {:.4f}, dkv {:.4f}); "
+                  "plain backward {:.4f} ms; SDPA forward+backward on q~, "
+                  "k~, v {:.4f} ms (CUDA events, back to back; {})".format(
+                      name, times["ms"], times["dq_ms"], times["dkv_ms"],
+                      times["all_bound"][0], times["all_bound"][1],
+                      times["dq_bound"][0], times["dkv_bound"][0],
+                      times["plain_ms"], times["library_ms"], card),
+                  flush=True)
+    # what the backward does not take, it refuses
+    qu, qp, k, kp, v, lengths = relpos_case(2, 2, 8, 32, 128, 0, dev)
+    o, lse = fr.relpos_attention_cuda(qu, qp, k, kp, v, lengths, 0.25,
+                                      return_lse=True)
+    for bad in ((qu, qp, k, kp, v, lengths, o.bfloat16(), lse, o),
+                (qu, qp, k, kp, v, lengths, o, lse.double(), o),
+                (qu, qp, k, kp, v, lengths, o, lse, o.transpose(1, 2)),
+                (qu, qp, k, kp, v, lengths.long(), o, lse, o)):
+        try:
+            fr.relpos_attention_bwd_cuda(*bad, 0.25)
+        except ValueError:
+            continue
+        raise RuntimeError("chip_smoke check failed: a bad rel-pos backward "
+                           "input launched")
+    print("[relpos bwd] wrong dtype, layout and lengths are refused",
+          flush=True)
+    return worst_dq, worst_dkv, times
+
+
+# the gradients' largest error, relative to max(1, their largest
+# magnitude): fp32 (TF32 off) sums over up to 16,000 rows in another order;
+# bf16 dx within 2^-6, as the forward's output (a product operand rounded
+# to bf16 from fp32 values summed in another order may round the other
+# way, and dx passes two such products), the weight gradients within 2^-8
+# (sums of many such products)
+CONV_BWD_FP32_TOL = 1e-5
+CONV_BWD_BF16_TOL = (2.0 ** -6, 2.0 ** -8)
+CONV_GRADS = ("dx", "dln1s", "dln1b", "dw1", "db1", "dwd", "dbd", "dln2s",
+              "dln2b", "dw2", "db2")
+
+
+def conv_bwd_bound_ms(x, weights):
+    """The least time of the conv module's backward: x and dy read, dx
+    written, the fp32 weights read and their gradients written, the
+    lengths; 16 D^2 + 6 D k FLOP a frame (pw1 again, dw2, ds, dw1, dh0; the
+    taps, du and dwd)."""
+    B, T, D = x.shape
+    k = weights[4].shape[0]
+    nbytes = 3 * x.numel() * x.element_size() + 4 * B + \
+        2 * sum(w.numel() for w in weights) * 4
+    return bound_ms(nbytes, float(B * T) * (16 * D * D + 6 * D * k),
+                    x.dtype)
+
+
+def phase_conformer_conv_bwd(card):
+    """``conformer_conv_bwd`` against ``conformer_conv_module_bwd_plain``
+    on the card, on the same inputs; times at Conformer-M's shape in bf16
+    beside the module's unfused torch chain, forward plus backward under
+    autograd. Returns the worst fp32 absolute error and the timings."""
+    import torch
+    from openseq2seq_tpu_torch.encoders.conformer_encoder import _ConvModule
+    from openseq2seq_tpu_torch.ops import conformer_conv as cc
+    dev = torch.device("cuda")
+    worst, times = 0.0, None
+    for i, (name, B, T, D, k) in enumerate(CONV_CASES):
+        x, lengths, weights = conv_case(B, T, D, k, 80 + i, dev)
+        dy = torch.randn(x.shape, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(i))
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (x.to(dtype), lengths) + weights + (dy.to(dtype),)
+            before = cc.BWD_LAUNCHES
+            got = cc.conformer_conv_module_cuda_bwd(*args)
+            again = cc.conformer_conv_module_cuda_bwd(*args)
+            check(cc.BWD_LAUNCHES == before + 2, "{}: launches".format(name))
+            want = cc.conformer_conv_module_bwd_plain(*args)
+            torch.cuda.synchronize()
+            rel = [float((g.float() - w.float()).abs().max()) /
+                   max(1.0, float(w.float().abs().max()))
+                   for g, w in zip(got, want)]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            print("[conv bwd] {} B={} T={} D={} k={} {}: max abs err of "
+                  "max(1, |gradient|) {}; repeat bit-identical: {}".format(
+                      name, B, T, D, k, str(dtype)[6:],
+                      ", ".join("{} {:.2e}".format(n, e)
+                                for n, e in zip(CONV_GRADS, rel)), same),
+                  flush=True)
+            check(same and got[0].dtype == dtype and
+                  all(g.dtype == torch.float32 for g in got[1:]) and
+                  all(bool(torch.isfinite(g).all()) for g in got),
+                  "{}: repeat, dtype or non-finite".format(name))
+            if dtype == torch.float32:
+                worst = max(worst, max(float((g - w).abs().max())
+                                       for g, w in zip(got, want)))
+                check(max(rel) <= CONV_BWD_FP32_TOL,
+                      "{}: fp32 err {}".format(name, rel))
+            else:
+                check(rel[0] <= CONV_BWD_BF16_TOL[0] and
+                      max(rel[1:]) <= CONV_BWD_BF16_TOL[1],
+                      "{}: bf16 err {}".format(name, rel))
+            if i > 0 or dtype == torch.float32:
+                continue
+            module = _ConvModule(D, k, dtype, False,
+                                 torch.Generator().manual_seed(0)).to(dev)
+            with torch.no_grad():
+                for p, w in zip(module.parameters(), weights):
+                    p.copy_(w)
+            xg = args[0].detach().requires_grad_()
+
+            def unfused_fwd_bwd():
+                module(xg, lengths).backward(args[-1])
+            times = {"ms": cuda_ms(
+                lambda: cc.conformer_conv_module_cuda_bwd(*args), 20),
+                "plain_ms": cuda_ms(
+                    lambda: cc.conformer_conv_module_bwd_plain(*args), 10),
+                "unfused_ms": cuda_ms(unfused_fwd_bwd, 20)}
+            times["bound_ms"], times["bound_by"] = conv_bwd_bound_ms(
+                args[0], weights)
+            print("[conv bwd] {} bf16: kernels {:.4f} ms, plain {:.4f} ms, "
+                  "bound {:.4f} ms ({}); the module's unfused torch chain, "
+                  "forward plus backward under autograd, {:.4f} ms, the "
+                  "yardstick (CUDA events, back to back; {})".format(
+                      name, times["ms"], times["plain_ms"],
+                      times["bound_ms"], times["bound_by"],
+                      times["unfused_ms"], card), flush=True)
+    # what the backward does not take, it refuses
+    x, lengths, w = conv_case(2, 9, 128, 7, 0, dev)
+    for bad in ((x, lengths) + w + (x.bfloat16(),),
+                (x, lengths) + w + (x[:, :8],),
+                (x.transpose(0, 1), lengths) + w + (x,),
+                (x, lengths.long()) + w + (x,)):
+        try:
+            cc.conformer_conv_module_cuda_bwd(*bad)
+        except ValueError:
+            continue
+        raise RuntimeError("chip_smoke check failed: a bad conv module "
+                           "backward input launched")
+    print("[conv bwd] wrong dtype, shape, layout and lengths are refused",
+          flush=True)
+    return worst, times
+
+
 def _small_params(data_layer, no_dropout=False, **overrides):
     from openseq2seq_tpu_torch.zoo import jasper_model_params
     params = jasper_model_params(
@@ -1711,10 +2030,10 @@ def phase_transformer_train(card):
     steps = runpy.run_path(NMT_TRAIN)["base_params"]["max_steps"]
     with tempfile.TemporaryDirectory() as logdir:
         argv = ["--config_file=" + NMT_TRAIN, "--logdir=" + logdir,
-                NMT_WARMUP_OVERRIDE, "--print_loss_steps=1"]
+                WARMUP_OVERRIDE, "--print_loss_steps=1"]
         print("[nmt train] transformer-big, {} steps of 64 x (64 + 64) "
               "tokens, mixed, dropout on, fused relu dropout; overrides: "
-              "{} --print_loss_steps=1".format(steps, NMT_WARMUP_OVERRIDE),
+              "{} --print_loss_steps=1".format(steps, WARMUP_OVERRIDE),
               flush=True)
         reset()
         t0 = time.time()
@@ -2189,6 +2508,163 @@ def phase_conformer(card):
             launches[1] + infer_launches[1])
 
 
+def phase_small_conformer_train():
+    """The tiny fp32 Conformer config (both kernel flags on), dropout
+    off, same seed, on the card (through the rel-pos flash and conv module
+    kernels, forward and backward) and on the CPU (their plain versions):
+    three AdamW steps give the same losses and weights (rtol 1e-4, atol
+    1e-5: fp32 sums in another order through two blocks, forward and
+    backward), with 2 launches of each Conformer kernel per step on the
+    card. AdamW's epsilon is 1e-4 in place of the config's 1e-9, as in
+    ``tests/test_torch_conformer_train.py``: at 1e-9 a gradient element
+    that is zero up to rounding moves by a whole step of either sign."""
+    import numpy as np
+    from openseq2seq_tpu_torch.ops import conformer_conv, flash_relpos
+    from openseq2seq_tpu_torch.training import trainer
+
+    def counts():
+        return (flash_relpos.LAUNCHES, flash_relpos.BWD_DQ_LAUNCHES,
+                flash_relpos.BWD_DKV_LAUNCHES, conformer_conv.LAUNCHES,
+                conformer_conv.BWD_LAUNCHES)
+
+    config = runpy.run_path(CONFORMER_TINY)
+    params = dict(config["base_params"], optimizer_params=dict(
+        config["base_params"]["optimizer_params"], epsilon=1e-4))
+    params["encoder_params"] = dict(params["encoder_params"],
+                                    dropout_keep_prob=1.0,
+                                    attention_dropout_keep_prob=1.0)
+    trained = {}
+    for device in ("cuda", "cpu"):
+        model = config["base_model"](params, mode="train", device=device)
+        state = trainer.restore_state(model)
+        batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+        before = counts()
+        losses = []
+        for _ in range(3):
+            state, metrics = model.train_step(state, batch)
+            losses.append(float(metrics["loss"]))
+        launches = tuple(a - b for a, b in zip(counts(), before))
+        trained[device] = (losses, launches, {
+            n: p.detach().cpu().numpy()
+            for n, p in state.module.named_parameters()})
+    (loss_gpu, l_gpu, w_gpu), (loss_cpu, l_cpu, w_cpu) = \
+        trained["cuda"], trained["cpu"]
+    w_err = max(float(np.max(np.abs(w_gpu[n] - w_cpu[n]) /
+                             (1e-5 + 1e-4 * np.abs(w_cpu[n]))))
+                for n in w_cpu)
+    print("[conformer train] tiny fp32 Conformer, three AdamW steps, card "
+          "vs CPU: losses {} vs {}; largest weight difference {:.3f} of the "
+          "tolerance (rtol 1e-4, atol 1e-5); launches (rel-pos flash, its dq "
+          "and dkv, conv module, its backward) on the card {}, on the CPU {}"
+          .format(["{:.6f}".format(x) for x in loss_gpu],
+                  ["{:.6f}".format(x) for x in loss_cpu], w_err, l_gpu,
+                  l_cpu), flush=True)
+    check(l_gpu == (6, 6, 6, 6, 6) and l_cpu == (0,) * 5,
+          "launches in the tiny train steps")
+    check(all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(loss_gpu, loss_cpu))
+          and loss_cpu[-1] < loss_cpu[0] and w_err <= 1.0,
+          "tiny Conformer train steps disagree between card and CPU")
+
+
+def phase_conformer_train(card):
+    """Conformer-M through ``run.main --mode=train`` for its config's 20
+    steps with the warmup cut to 20 (the config keeps the bench's 10,000,
+    at which the learning rate stays under 2.4e-5 over 20 steps): the loss
+    is finite at every step and falls; each step launches the rel-pos
+    flash forward, its dq and dkv kernels, the conv module forward and its
+    backward 16 times each and the CTC forward and backward once; a
+    checkpoint is written, ``--mode=eval`` runs from it, and
+    ``--continue_learning`` takes 3 more steps. Returns the launches of
+    the five Conformer kernels and the two CTC kernels over these
+    paths."""
+    import torch
+    from openseq2seq_tpu_torch.ops import conformer_conv, ctc_cuda, \
+        flash_relpos
+
+    def reset():
+        flash_relpos.LAUNCHES = flash_relpos.BWD_DQ_LAUNCHES = 0
+        flash_relpos.BWD_DKV_LAUNCHES = 0
+        conformer_conv.LAUNCHES = conformer_conv.BWD_LAUNCHES = 0
+        ctc_cuda.LAUNCHES = ctc_cuda.BWD_LAUNCHES = 0
+
+    def counts():
+        return (flash_relpos.LAUNCHES, flash_relpos.BWD_DQ_LAUNCHES,
+                flash_relpos.BWD_DKV_LAUNCHES, conformer_conv.LAUNCHES,
+                conformer_conv.BWD_LAUNCHES, ctc_cuda.LAUNCHES,
+                ctc_cuda.BWD_LAUNCHES)
+
+    total = [0] * 7
+    config = runpy.run_path(CONFORMER_M)
+    steps = config["train_params"]["max_steps"]
+    n_batches = config["base_params"]["data_layer_params"]["num_batches"]
+    batch_size = config["base_params"]["batch_size_per_gpu"]
+    with tempfile.TemporaryDirectory() as logdir:
+        argv = ["--config_file=" + CONFORMER_M, "--logdir=" + logdir]
+        print("[conformer-m train] {} training steps of {} x 1000 frames, "
+              "mixed, dropout 0.1 (8-bit masks), AdamW, warmup cut to 20 "
+              "by {}".format(steps, batch_size, WARMUP_OVERRIDE),
+              flush=True)
+        reset()
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train",
+                                           WARMUP_OVERRIDE])
+        wall = time.time() - t0
+        launches = counts()
+        total = [a + b for a, b in zip(total, launches)]
+        losses = [float(x) for x in re.findall(r"loss = ([-+0-9.einaf]+)",
+                                                "\n".join(lines))]
+        print("[conformer-m train] losses {}; launches (rel-pos flash, its "
+              "dq, its dkv, conv module, its backward, CTC forward, CTC "
+              "backward) {}; {:.1f} s with the build of the model".format(
+                  losses, launches, wall), flush=True)
+        check(result["steps"] == steps, "trained {} steps".format(
+            result["steps"]))
+        check(len(losses) == steps and all(math.isfinite(x)
+                                           for x in losses),
+              "losses not finite at every step: {}".format(losses))
+        check(sum(losses[-3:]) < sum(losses[:3]),
+              "loss did not fall: {}".format(losses))
+        check(launches == (16 * steps,) * 5 + (steps, steps),
+              "launches {} in {} steps".format(launches, steps))
+        print("[conformer-m train] train throughput {:.1f} utt/s, {:.1f} ms "
+              "per step over steps {}-{} (batch {}, 10 s utterances, bf16, "
+              "a host read of the loss every step; {})".format(
+                  result["objects_per_sec"] / 1000,
+                  batch_size * 1000 / result["objects_per_sec"] * 1e3,
+                  11, steps, batch_size, card), flush=True)
+        ckpt = os.path.join(logdir, "checkpoints", str(steps), "model.pt")
+        check(os.path.exists(ckpt), "no checkpoint at {}".format(ckpt))
+
+        reset()
+        metrics, _ = _run_quiet(argv + ["--mode=eval"])
+        launches = counts()
+        total = [a + b for a, b in zip(total, launches)]
+        print("[conformer-m train] eval from the step-{} checkpoint: loss "
+              "{:.6f}, WER {:.4f}; launches {}".format(
+                  steps, metrics["eval_loss"], metrics["Eval WER"],
+                  launches), flush=True)
+        check(math.isfinite(metrics["eval_loss"]) and
+              launches == (16 * n_batches, 0, 0, 16 * n_batches, 0,
+                           n_batches, 0), "eval from the trained checkpoint")
+
+        reset()
+        more = _more_steps_config(CONFORMER_M, logdir, steps + 3)
+        result, lines = _run_quiet(["--config_file=" + more, argv[1],
+                                    "--mode=train", "--continue_learning",
+                                    WARMUP_OVERRIDE])
+        launches = counts()
+        total = [a + b for a, b in zip(total, launches)]
+        started = [x for x in lines if "Starting training from step" in x]
+        print("[conformer-m train] --continue_learning: {}; reached step "
+              "{}; launches {}".format(started[0].strip(), result["steps"],
+                                       launches), flush=True)
+        check(started and started[0].endswith("step {}".format(steps)) and
+              result["steps"] == steps + 3 and
+              launches == (48,) * 5 + (3, 3), "resumed run")
+        torch.cuda.synchronize()
+    return total
+
+
 def phase_ctc_library(card):
     """``F.ctc_loss`` at the CTC train shape, forward and forward plus
     backward: the CTC kernels' library yardstick, never on the path."""
@@ -2372,7 +2848,8 @@ def main():
     names = ("ctc_alpha_fwd", "ctc_beta_bwd", "flash_attn_fwd",
              "flash_attn_bwd", "dropout_mask", "gru_scan_fwd",
              "lstm_scan_fwd", "gru_scan_bwd", "lstm_scan_bwd",
-             "flash_relpos_fwd", "conformer_conv_fwd")
+             "flash_relpos_fwd", "conformer_conv_fwd", "flash_relpos_bwd",
+             "conformer_conv_bwd")
     t0 = time.time()
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(build.build, names))
@@ -2393,6 +2870,8 @@ def main():
     scan_bwd_err, scan_bwd_times = phase_scan_bwd(card)
     relpos_err, relpos_times = phase_relpos(card)
     conv_err, conv_times = phase_conformer_conv(card)
+    relpos_dq_err, relpos_dkv_err, relpos_bwd_times = phase_relpos_bwd(card)
+    conv_bwd_err, conv_bwd_times = phase_conformer_conv_bwd(card)
 
     # 5-7. the paths, each with its launch counts set to 0 just before
     config = runpy.run_path(CONFIG)
@@ -2417,6 +2896,8 @@ def main():
                      "lstm": (lstm_launches + lstm_train[0], lstm_train[1])}
     phase_small_conformer()
     relpos_launches, conv_launches = phase_conformer(card)
+    phase_small_conformer_train()
+    conf_train = phase_conformer_train(card)
 
     # 8. result
     fwd_bound = ctc_bound_ms(32, 500, 160, 29, 500, backward=False)
@@ -2428,14 +2909,15 @@ def main():
         "source": "openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu",
         "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:65",
         "launches": eval_launches + train_fwd + ds2_ctc + lstm_ctc +
-        ds2_train[2] + lstm_train[2],
+        ds2_train[2] + lstm_train[2] + conf_train[5],
         "max_abs_err": fwd_err,
         "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound[0],
         "bound_by": fwd_bound[1], "library_ms": ctc_lib_fwd_ms}, {
         "name": "ctc_beta_bwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/ctc_beta_bwd.cu",
         "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:140",
-        "launches": train_bwd + ds2_train[3] + lstm_train[3],
+        "launches": train_bwd + ds2_train[3] + lstm_train[3] +
+        conf_train[6],
         "max_abs_err": bwd_err,
         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0],
         "bound_by": bwd_bound[1], "library_ms": ctc_lib_fwd_bwd_ms}, {
@@ -2484,7 +2966,8 @@ def main():
         "name": "flash_relpos_fwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/flash_relpos_fwd.cu",
         "replaces": "openseq2seq_tpu/ops/flash_relpos.py:70",
-        "launches": relpos_launches, "max_abs_err": relpos_err,
+        "launches": relpos_launches + conf_train[0],
+        "max_abs_err": relpos_err,
         "ms": relpos_times["ms"], "plain_ms": relpos_times["plain_ms"],
         "bound_ms": relpos_times["bound_ms"],
         "bound_by": relpos_times["bound_by"],
@@ -2492,10 +2975,29 @@ def main():
         "name": "conformer_conv_fwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/conformer_conv_fwd.cu",
         "replaces": "openseq2seq_tpu/ops/conformer_pallas.py:142",
-        "launches": conv_launches, "max_abs_err": conv_err,
+        "launches": conv_launches + conf_train[3], "max_abs_err": conv_err,
         "ms": conv_times["ms"], "plain_ms": conv_times["plain_ms"],
         "bound_ms": conv_times["bound_ms"],
-        "bound_by": conv_times["bound_by"], "library_ms": None}]}),
+        "bound_by": conv_times["bound_by"], "library_ms": None}] + [{
+        "name": "flash_relpos_bwd_" + part, "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/flash_relpos_bwd.cu",
+        "replaces": "openseq2seq_tpu/ops/flash_relpos.py:" + line,
+        "launches": launches, "max_abs_err": err,
+        "ms": relpos_bwd_times[part + "_ms"],
+        "plain_ms": relpos_bwd_times["plain_ms"],
+        "bound_ms": relpos_bwd_times[part + "_bound"][0],
+        "bound_by": relpos_bwd_times[part + "_bound"][1],
+        "library_ms": relpos_bwd_times["library_ms"]}
+        for part, line, launches, err in (
+            ("dq", "218", conf_train[1], relpos_dq_err),
+            ("dkv", "167", conf_train[2], relpos_dkv_err))] + [{
+        "name": "conformer_conv_bwd", "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/conformer_conv_bwd.cu",
+        "replaces": "openseq2seq_tpu/ops/conformer_pallas.py:158",
+        "launches": conf_train[4], "max_abs_err": conv_bwd_err,
+        "ms": conv_bwd_times["ms"], "plain_ms": conv_bwd_times["plain_ms"],
+        "bound_ms": conv_bwd_times["bound_ms"],
+        "bound_by": conv_bwd_times["bound_by"], "library_ms": None}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

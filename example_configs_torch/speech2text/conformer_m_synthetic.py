@@ -1,22 +1,25 @@
 # Conformer-M CTC at full published width on synthetic speech, for the
-# PyTorch port's eval and infer:
+# PyTorch port's training, eval and infer:
 #
-#   python -m openseq2seq_tpu_torch.run --mode=eval --logdir=<dir> \
+#   python -m openseq2seq_tpu_torch.run --mode=train --logdir=<dir> \
 #       --config_file=example_configs_torch/speech2text/conformer_m_synthetic.py
 #
-# (and --mode=infer), from a checkpoint in <dir>. The model is the
-# repository's Conformer bench (scripts/bench_conformer.py:51-108 with
+# (and --mode=eval, --mode=infer from a checkpoint in <dir>). The model is
+# the repository's Conformer bench (scripts/bench_conformer.py:51-108 with
 # BENCH_FLASH=1 BENCH_FUSED=1; Gulati et al. 2020, table 1): 16 blocks of
 # width 256 with 4 heads, depthwise kernel 31, FFN x4, 64 front-end
-# channels (d / 4); bf16 compute from fp32 params ("mixed"). With
-# `flash_attention` each block's relative-position attention runs on the
-# hand-written kernel csrc/flash_relpos_fwd.cu and with `fused_conv_module`
-# its convolution module on csrc/conformer_conv_fwd.cu: 16 launches of each
-# per batch (B 64, 250 frames after the 4x subsampling); the CTC loss on
-# csrc/ctc_alpha_fwd.cu once per eval batch. AdamW with transformer_policy
-# is the bench's training setup, kept for the training slice. Data: 4
-# synthetic batches of 64 x 1000 frames x 80 features with 160-label
-# transcripts over 29 symbols.
+# channels (d / 4); bf16 compute from fp32 params ("mixed"); dropout 0.1
+# with 8-bit masks; AdamW with transformer_policy (10,000 warmup steps)
+# and gradient clipping at 5. With `flash_attention` each block's
+# relative-position attention runs on the hand-written kernels
+# csrc/flash_relpos_fwd.cu and csrc/flash_relpos_bwd.cu, and with
+# `fused_conv_module` its convolution module on csrc/conformer_conv_fwd.cu
+# and csrc/conformer_conv_bwd.cu: per batch (B 64, 250 frames after the
+# 4x subsampling) 16 launches of each forward and, in training, 16 of each
+# backward (the attention's dq and dkv kernels 16 times each); the CTC
+# loss on csrc/ctc_alpha_fwd.cu (and csrc/ctc_beta_bwd.cu in training)
+# once. Data: 4 synthetic batches of 64 x 1000 frames x 80 features with
+# 160-label transcripts over 29 symbols; 20 training steps.
 from openseq2seq_tpu_torch.data.synthetic import SyntheticSpeechDataLayer
 from openseq2seq_tpu_torch.decoders import FullyConnectedCTCDecoder
 from openseq2seq_tpu_torch.encoders import ConformerEncoder
@@ -64,4 +67,10 @@ base_params = {
         "label_length": 160,
         "num_batches": 4,
     },
+}
+
+train_params = {
+    "max_steps": 20,
+    "print_loss_steps": 1,
+    "save_checkpoint_steps": 20,
 }

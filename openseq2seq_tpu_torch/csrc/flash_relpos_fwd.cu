@@ -53,7 +53,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mma_sync.cuh"
+
 namespace {
+
+using namespace mma_sync;
 
 constexpr int kRows = 64;                 // queries per CTA
 constexpr int kKeys = 64;                 // keys per tile
@@ -236,25 +240,6 @@ size_t mma_smem_bytes(int D) {
   return sizeof(__nv_bfloat16) *
          (2 * static_cast<size_t>(kRows) * mma_stride(DV + D) +
           static_cast<size_t>(DV) * kVS);
-}
-
-__device__ __forceinline__ unsigned ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // one row of q~ or k~ (Dh + D bf16) from the module's tensors into shared

@@ -29,9 +29,15 @@ Kept from the JAX package:
     ``fused_conv_module`` it runs on kernel B6 (``ops/conformer_conv.py``)
     at that kernel's precision.
 
-On a CPU tensor both kernels run their plain versions. Training (dropout,
-the kernels' backward passes) is not ported yet and is refused, and so is
-``conv_norm: batch_norm`` (its running statistics are training state).
+On a CPU tensor both kernels run their plain versions, forward and
+backward. In training, dropout (``parts/dropout.py``, with the model's
+``dropout_bits``) draws from the ``torch.Generator`` passed to the forward,
+at the JAX module's sites: after ``sub_proj``; in each FFN after the swish
+and after ``ff2``; on the attention's output; on the attention weights on
+the plain path only (the flash kernel has none, as in the JAX package);
+and on the conv module's output, fused or not. ``conv_norm: batch_norm``
+is refused: neither TPU kernel computes it and Conformer-M does not use
+it.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from .ds2_encoder import SameConv2d
 from .encoder import Encoder
 from .tdnn_encoder import _mask_time, _out_length, same_padding
 from ..ops import conformer_conv, flash_relpos
+from ..parts.dropout import dropout
 from ..parts.initializers import resolve_initializer
 from ..parts.transformer.common import Dense, rel_pos_embedding
 
@@ -97,13 +104,27 @@ class DenseGeneral(nn.Module):
         return y.reshape(*lead, *self.out_shape)
 
 
+class _Dropout:
+    """The dropout of one module in training: ``keep_prob`` with the
+    model's ``dropout_bits``; the identity outside training."""
+
+    def __init__(self, keep_prob: float, dropout_bits: int):
+        self.keep_prob, self.dropout_bits = keep_prob, dropout_bits
+
+    def __call__(self, x, train: bool, generator):
+        if not train:
+            return x
+        return dropout(x, self.keep_prob, generator, self.dropout_bits)
+
+
 class RelPosSelfAttention(nn.Module):
     """Bidirectional multi-head self-attention with relative positions
-    (``conformer_encoder.py:79-166``); attention-weight dropout is the
-    JAX module's training path only."""
+    (``conformer_encoder.py:79-166``); dropout of the attention weights
+    in training on the plain path only."""
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
-                 use_flash: bool, generator: torch.Generator):
+                 use_flash: bool, generator: torch.Generator,
+                 drop: _Dropout = _Dropout(1.0, 32)):
         super().__init__()
         H, Dh = num_heads, dim // num_heads
         for name in ("q", "k", "v"):
@@ -114,9 +135,11 @@ class RelPosSelfAttention(nn.Module):
         self.r = DenseGeneral((dim,), (H, Dh), dtype, generator)
         self.out = DenseGeneral((H, Dh), (dim,), dtype, generator)
         self.num_heads, self.dtype, self.use_flash = H, dtype, use_flash
+        self.drop = drop
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
-                pad_mask: torch.Tensor) -> torch.Tensor:
+                pad_mask: torch.Tensor, train: bool = False,
+                generator: torch.Generator = None) -> torch.Tensor:
         B, T, D = x.shape
         Dh = D // self.num_heads
         q, k, v = self.q(x), self.k(x), self.v(x)          # (B, T, H, Dh)
@@ -137,41 +160,45 @@ class RelPosSelfAttention(nn.Module):
         bd = ps.reshape(B, -1, T, 2 * T - 1)[..., :T]
         logits = (ac + bd).float() * scale
         logits = torch.where(pad_mask[:, None, None, :], logits, NEG_INF)
-        weights = torch.softmax(logits, dim=-1).to(self.dtype)
+        weights = self.drop(torch.softmax(logits, dim=-1), train, generator)
+        weights = weights.to(self.dtype)
         return self.out(torch.einsum("bhtk,bkhd->bthd", weights, v))
 
 
 class _FFN(nn.Module):
-    """LN -> expand -> swish -> project (``conformer_encoder.py:169-185``,
-    whose dropout is training's). The layer norm is flax's unnamed inner
-    ``LayerNorm_0``, folded into this module (``flax_inner``) as
+    """LN -> expand -> swish -> dropout -> project -> dropout
+    (``conformer_encoder.py:169-185``). The layer norm is flax's unnamed
+    inner ``LayerNorm_0``, folded into this module (``flax_inner``) as
     ``convert.py`` folds it."""
     flax_inner = "LayerNorm_0"
 
     def __init__(self, dim: int, expansion: int, dtype: torch.dtype,
-                 generator: torch.Generator):
+                 generator: torch.Generator, drop: _Dropout):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.ff1 = Dense(dim, dim * expansion, dtype, generator)
         self.ff2 = Dense(dim * expansion, dim, dtype, generator)
-        self.dtype = dtype
+        self.dtype, self.drop = dtype, drop
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False,
+                generator: torch.Generator = None):
         h = _layer_norm(x, self.weight, self.bias, self.dtype)
-        return self.ff2(F.silu(self.ff1(h)))
+        h = self.drop(F.silu(self.ff1(h)), train, generator)
+        return self.drop(self.ff2(h), train, generator)
 
 
 class _ConvModule(nn.Module):
     """LN -> pointwise (2D) + GLU -> time mask -> depthwise (k) -> LN ->
     swish -> pointwise (``conformer_encoder.py:188-264``, layer-norm
-    variant), its ten parameters under the flax names and layouts. With
-    ``fused`` it is :func:`ops.conformer_conv.conformer_conv_module`
-    (kernel B6 on the card); otherwise the chain below in the compute
-    dtype."""
+    variant), its ten parameters under the flax names and layouts, then
+    dropout. With ``fused`` it is
+    :func:`ops.conformer_conv.conformer_conv_module` (kernel B6 on the
+    card); otherwise the chain below in the compute dtype."""
 
     def __init__(self, dim: int, kernel_size: int, dtype: torch.dtype,
-                 fused: bool, generator: torch.Generator):
+                 fused: bool, generator: torch.Generator,
+                 drop: _Dropout = _Dropout(1.0, 32)):
         super().__init__()
         init = resolve_initializer(None)
 
@@ -191,12 +218,17 @@ class _ConvModule(nn.Module):
         self.pw2_kernel = kernel(dim, dim)                  # (D, D)
         self.pw2_bias = nn.Parameter(torch.zeros(dim))
         self.kernel_size, self.dtype, self.fused = kernel_size, dtype, fused
+        self.drop = drop
 
     def _ln(self, v, scale, bias):
         return conformer_conv._layer_norm(v.float(), scale, bias,
                                           conformer_conv.EPS).to(self.dtype)
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor):
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor,
+                train: bool = False, generator: torch.Generator = None):
+        return self.drop(self._module(x, lengths), train, generator)
+
+    def _module(self, x, lengths):
         if self.fused:
             return conformer_conv.conformer_conv_module(
                 x, lengths, self.ln1_scale, self.ln1_bias, self.pw1_kernel,
@@ -223,22 +255,27 @@ class ConformerBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, conv_kernel_size: int,
                  ffn_expansion: int, dtype: torch.dtype, fused_conv: bool,
-                 flash_attention: bool, generator: torch.Generator):
+                 flash_attention: bool, generator: torch.Generator,
+                 drop: _Dropout, attention_drop: _Dropout):
         super().__init__()
-        self.ffn1 = _FFN(dim, ffn_expansion, dtype, generator)
+        self.ffn1 = _FFN(dim, ffn_expansion, dtype, generator, drop)
         self.attn_ln = LayerNorm(dim, dtype)
         self.attn = RelPosSelfAttention(dim, num_heads, dtype,
-                                        flash_attention, generator)
+                                        flash_attention, generator,
+                                        attention_drop)
         self.conv = _ConvModule(dim, conv_kernel_size, dtype, fused_conv,
-                               generator)
-        self.ffn2 = _FFN(dim, ffn_expansion, dtype, generator)
+                               generator, drop)
+        self.ffn2 = _FFN(dim, ffn_expansion, dtype, generator, drop)
         self.final_ln = LayerNorm(dim, dtype)
+        self.drop = drop
 
-    def forward(self, x, lengths, pad_mask):
-        x = x + 0.5 * self.ffn1(x)
-        x = x + self.attn(self.attn_ln(x), lengths, pad_mask)
-        x = x + self.conv(x, lengths)
-        x = x + 0.5 * self.ffn2(x)
+    def forward(self, x, lengths, pad_mask, train: bool = False,
+                generator: torch.Generator = None):
+        x = x + 0.5 * self.ffn1(x, train, generator)
+        attn = self.attn(self.attn_ln(x), lengths, pad_mask, train, generator)
+        x = x + self.drop(attn, train, generator)
+        x = x + self.conv(x, lengths, train, generator)
+        x = x + 0.5 * self.ffn2(x, train, generator)
         return self.final_ln(x)
 
 
@@ -251,7 +288,9 @@ class ConformerNet(nn.Module):
                  num_heads: int, conv_kernel_size: int, ffn_expansion: int,
                  subsampling_channels: int, dtype: torch.dtype,
                  fused_conv: bool, flash_attention: bool,
-                 generator: torch.Generator):
+                 generator: torch.Generator, dropout_keep_prob: float = 1.0,
+                 attention_dropout_keep_prob: float = 1.0,
+                 dropout_bits: int = 32):
         super().__init__()
         C = subsampling_channels
         init = resolve_initializer(None)
@@ -261,23 +300,29 @@ class ConformerNet(nn.Module):
                                     generator)
         freq = -(-in_features // 4)          # ceil(ceil(F / 2) / 2)
         self.sub_proj = Dense(freq * C, hidden_size, dtype, generator)
+        self.drop = _Dropout(dropout_keep_prob, dropout_bits)
+        attention_drop = _Dropout(attention_dropout_keep_prob, dropout_bits)
         for i in range(num_layers):
             self.add_module("block{}".format(i), ConformerBlock(
                 hidden_size, num_heads, conv_kernel_size, ffn_expansion,
-                dtype, fused_conv, flash_attention, generator))
+                dtype, fused_conv, flash_attention, generator, self.drop,
+                attention_drop))
         self.num_layers, self.dtype = num_layers, dtype
 
-    def forward(self, feats: torch.Tensor, lengths: torch.Tensor):
+    def forward(self, feats: torch.Tensor, lengths: torch.Tensor,
+                train: bool = False, generator: torch.Generator = None):
         x = feats.to(self.dtype)[..., None]                 # (B, T, F, 1)
         for conv in (self.sub_conv1, self.sub_conv2):
             x = F.silu(conv(x))
             lengths = _out_length(lengths, 2)
         B, T, Fr, C = x.shape
-        x = self.sub_proj(x.reshape(B, T, Fr * C))
+        x = self.drop(self.sub_proj(x.reshape(B, T, Fr * C)), train,
+                      generator)
         pad_mask = torch.arange(T, device=x.device)[None, :] < \
             lengths[:, None]
         for i in range(self.num_layers):
-            x = self._modules["block{}".format(i)](x, lengths, pad_mask)
+            x = self._modules["block{}".format(i)](x, lengths, pad_mask,
+                                                   train, generator)
         return _mask_time(x, lengths), lengths
 
 
@@ -290,10 +335,8 @@ class ConformerEncoderModule(nn.Module):
 
     def forward(self, input_dict: Dict[str, Any], train: bool,
                 generator: torch.Generator = None):
-        if train:
-            raise NotImplementedError("Conformer training is not ported yet")
         x, lengths = input_dict["source_tensors"][:2]
-        outputs, out_len = self.net(x, lengths)
+        outputs, out_len = self.net(x, lengths, train, generator)
         return {"outputs": outputs, "src_length": out_len}
 
 
@@ -326,12 +369,10 @@ class ConformerEncoder(Encoder):
     def __init__(self, params, model, name="conformer_encoder",
                  mode="train"):
         super().__init__(params, model, name, mode)
-        if mode == "train":
-            raise NotImplementedError("Conformer training is not ported "
-                                      "yet; eval and infer are")
         norm = self._params.get("conv_norm", "layer_norm")
         if not conformer_conv.supported(norm):
-            raise NotImplementedError("conv_norm {!r} is not ported yet (its "
+            raise NotImplementedError("conv_norm {!r} is not ported (neither "
+                                      "TPU kernel computes it, and its "
                                       "running statistics are training "
                                       "state); layer_norm is".format(norm))
 
@@ -350,4 +391,10 @@ class ConformerEncoder(Encoder):
             dtype=self.compute_dtype,
             fused_conv=p.get("fused_conv_module", False),
             flash_attention=p.get("flash_attention", False),
-            generator=generator))
+            generator=generator,
+            dropout_keep_prob=p.get("dropout_keep_prob", 0.9),
+            attention_dropout_keep_prob=p.get(
+                "attention_dropout_keep_prob",
+                p.get("dropout_keep_prob", 0.9)),
+            dropout_bits=32 if self._model is None
+            else self._model.params.get("dropout_bits", 32)))

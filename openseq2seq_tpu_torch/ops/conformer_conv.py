@@ -1,8 +1,10 @@
-"""The Conformer's convolution module on the hand-written CUDA kernel
-``csrc/conformer_conv_fwd.cu`` (kernel B6, forward).
+"""The Conformer's convolution module on the hand-written CUDA kernels
+``csrc/conformer_conv_fwd.cu`` and ``csrc/conformer_conv_bwd.cu`` (kernel
+B6, forward and backward).
 
-Port of ``openseq2seq_tpu/ops/conformer_pallas.py``'s forward (``_fused``
-with ``_compute_forward``, ``:122-155`` and ``:325-352``; entry
+Port of ``openseq2seq_tpu/ops/conformer_pallas.py`` (``_fused`` with
+``_compute_forward``, ``:122-155`` and ``:325-352``; its VJP ``_fused_bwd``
+with ``_bwd_kernel``, ``:158-247`` and ``:363-420``; entry
 ``conformer_conv_module``, ``:426-441``): the layer-norm variant of
 ``encoders/conformer_encoder._ConvModule`` as one function,
 
@@ -14,19 +16,27 @@ the two pointwise products on operands rounded to x's type with fp32
 accumulation (bf16 for bf16 x, fp32 otherwise), the depthwise taps in
 fp32, and y in x's type. Dropout and the residual add are the caller's.
 
+When a gradient is needed :func:`conformer_conv_module` is a
+``torch.autograd.Function`` on both devices that keeps only x, the
+lengths and the weights, as the JAX package's VJP does: the backward
+recomputes the forward in fp32 and returns dx in x's type and the ten
+weight gradients in fp32, summed over the batch, every product again on
+operands rounded to x's type. Padded frames keep their gradients, as in
+the TPU kernel: only the depthwise input's gradient is masked.
+
 :func:`supported` keeps what belongs to the function: the layer-norm
 variant only (batch norm's running statistics are training state). The
-TPU kernel's VMEM budget has no counterpart; the CUDA kernel's own limits
+TPU kernel's VMEM budget has no counterpart; the CUDA kernels' own limits
 are ``kernel_supports``: D a multiple of 64 from 64 to 512 (Conformer-M's
 256 and -L's 512) and 1 <= k <= 63 (the recipes' 31).
 
-For a CPU tensor :func:`conformer_conv_module` runs the plain version
-:func:`conformer_conv_module_plain`; for a CUDA tensor it launches the
-kernel (its products on the tensor cores for bf16, on the CUDA cores for
-fp32) or raises, outside those limits too. There is no other fallback,
-and no backward yet: on the card it refuses inputs that need a gradient.
-``LAUNCHES`` counts calls that launch the kernel (its two launches, see
-the source, count once).
+For CPU tensors the ops run their plain versions
+(:func:`conformer_conv_module_plain`, :func:`conformer_conv_module_bwd_plain`);
+for CUDA tensors they launch the kernels (the products on the tensor cores
+for bf16, on the CUDA cores for fp32) or raise, outside those limits too.
+There is no other fallback. ``LAUNCHES`` counts calls that launch the
+forward kernels (its two launches, see the source, count once) and
+``BWD_LAUNCHES`` calls that launch the backward's.
 """
 from __future__ import annotations
 
@@ -36,22 +46,36 @@ import torch
 import torch.nn.functional as F
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 KERNEL = "conformer_conv_fwd"
+BWD_KERNEL = "conformer_conv_bwd"
 EPS = 1e-6
 MAX_DIM = 512
 MAX_KERNEL_SIZE = 63
-_fn = []
+_fns = {}
 
 
-def _kernel():
-    if not _fn:
+def _kernel(entry: str = KERNEL):
+    fn = _fns.get(entry)
+    if fn is None:
         from ..kernels import build
-        fn = build.load(KERNEL).conformer_conv_fwd
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + \
-            [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn.append(fn)
-    return _fn[0]
+        if entry == KERNEL:
+            fn = build.load(KERNEL).conformer_conv_fwd
+            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + \
+                [ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        elif entry == BWD_KERNEL:
+            # x, dy, lens, 10 weights, workspace, dx, 10 gradients
+            fn = build.load(BWD_KERNEL).conformer_conv_bwd
+            fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 5 + \
+                [ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        else:
+            fn = build.load(BWD_KERNEL).conformer_conv_bwd_workspace
+            fn.argtypes = [ctypes.c_int] * 4
+            fn.restype = ctypes.c_longlong
+        _fns[entry] = fn
+    return fn
 
 
 def supported(conv_norm: str) -> bool:
@@ -64,10 +88,28 @@ def kernel_supports(D: int, k: int) -> bool:
     return D % 64 == 0 and 64 <= D <= MAX_DIM and 1 <= k <= MAX_KERNEL_SIZE
 
 
-def _layer_norm(x32, scale, bias, eps):
+def _ln_fwd(x32, eps):
+    """``_ln_fwd`` (``conformer_pallas.py:64``) without the affine part:
+    (xh, rstd), the fast variance E[x^2] - E[x]^2."""
     mu = x32.mean(dim=-1, keepdim=True)
     var = (x32 * x32).mean(dim=-1, keepdim=True) - mu * mu
-    return (x32 - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    rstd = torch.rsqrt(var + eps)
+    return (x32 - mu) * rstd, rstd
+
+
+def _layer_norm(x32, scale, bias, eps):
+    return _ln_fwd(x32, eps)[0] * scale.float() + bias.float()
+
+
+def _mxu(x):
+    """The products' operand type: bf16 for bf16 x, fp32 otherwise."""
+    return torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+
+
+def _live(x, lengths):
+    T = x.shape[1]
+    return (torch.arange(T, device=x.device)[None, :] <
+            lengths.to(x.device)[:, None])[..., None]
 
 
 def conformer_conv_module_plain(x, lengths, ln1_scale, ln1_bias, pw1_kernel,
@@ -80,7 +122,7 @@ def conformer_conv_module_plain(x, lengths, ln1_scale, ln1_bias, pw1_kernel,
     dtype."""
     B, T, D = x.shape
     k = dw_kernel.shape[0]
-    mxu = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    mxu = _mxu(x)
 
     def product(a, w):
         # operands rounded to the product type, exact fp32 products
@@ -89,9 +131,7 @@ def conformer_conv_module_plain(x, lengths, ln1_scale, ln1_bias, pw1_kernel,
     h0 = _layer_norm(x.float(), ln1_scale, ln1_bias, eps)
     a = product(h0, pw1_kernel) + pw1_bias.float()
     u = a[..., :D] * torch.sigmoid(a[..., D:])
-    live = torch.arange(T, device=x.device)[None, :] < \
-        lengths.to(x.device)[:, None]
-    u = torch.where(live[..., None], u, 0.0)
+    u = torch.where(_live(x, lengths), u, 0.0)
     # the taps over the row only: zeros outside [0, T), XLA's SAME offsets
     halo = (k - 1) // 2
     up = F.pad(u, (0, 0, halo, k - 1 - halo))
@@ -103,28 +143,93 @@ def conformer_conv_module_plain(x, lengths, ln1_scale, ln1_bias, pw1_kernel,
     return y.to(x.dtype)
 
 
-def conformer_conv_module_cuda(x, lengths, ln1_scale, ln1_bias, pw1_kernel,
-                               pw1_bias, dw_kernel, dw_bias, ln2_scale,
-                               ln2_bias, pw2_kernel, pw2_bias,
-                               eps: float = EPS) -> torch.Tensor:
-    """Launch ``conformer_conv_fwd``; raises on what it does not take."""
-    global LAUNCHES
+def _ln_bwd(dh, xh, rstd, scale):
+    """``_ln_bwd`` (``conformer_pallas.py:75``): (dx, dscale, dbias),
+    the two parameter gradients summed over every row."""
+    dxh = dh * scale
+    dx = rstd * (dxh - dxh.mean(dim=-1, keepdim=True) -
+                 xh * (dxh * xh).mean(dim=-1, keepdim=True))
+    return dx, (dh * xh).sum(dim=(0, 1)), dh.sum(dim=(0, 1))
+
+
+def conformer_conv_module_bwd_plain(x, lengths, ln1_scale, ln1_bias,
+                                    pw1_kernel, pw1_bias, dw_kernel, dw_bias,
+                                    ln2_scale, ln2_bias, pw2_kernel, pw2_bias,
+                                    dy, eps: float = EPS):
+    """The backward kernels' plain version at ``_bwd_kernel``'s precision
+    (``conformer_pallas.py:158-247``): the forward recomputed in fp32,
+    every product on operands rounded to x's type (pw1 again, then dw2 =
+    sw^T dy, ds = dy w2^T, dw1 = h0^T da, dh0 = da w1^T), the depthwise
+    conv's transpose within each row, the time mask on its input's
+    gradient only. Returns dx in x's dtype and the ten weight gradients in
+    fp32, in the order of the weights."""
+    B, T, D = x.shape
+    k = dw_kernel.shape[0]
+    P = (k - 1) // 2
+    mxu = _mxu(x)
+    w = [t.float() for t in (ln1_scale, ln1_bias, pw1_kernel, pw1_bias,
+                             dw_kernel, dw_bias, ln2_scale, ln2_bias,
+                             pw2_kernel, pw2_bias)]
+    ln1s, ln1b, w1, b1, wd, bd, ln2s, ln2b, w2, b2 = w
+
+    def rnd(a):
+        return a.to(mxu).float()
+
+    def rows(a):
+        return a.reshape(-1, a.shape[-1])
+
+    live = _live(x, lengths)
+    xh1, rstd1 = _ln_fwd(x.float(), eps)
+    h0 = xh1 * ln1s + ln1b
+    a = rnd(h0) @ rnd(w1) + b1
+    p, q = a[..., :D], a[..., D:]
+    sq = torch.sigmoid(q)
+    u = torch.where(live, p * sq, 0.0)
+    up = F.pad(u, (0, 0, P, k - 1 - P))
+    c = bd.expand_as(u)
+    for j in range(k):
+        c = c + wd[j] * up[:, j:j + T]
+    xh2, rstd2 = _ln_fwd(c, eps)
+    n = xh2 * ln2s + ln2b
+    sn = torch.sigmoid(n)
+    sw = n * sn
+
+    dy32 = dy.float()
+    dw2 = rows(rnd(sw)).t() @ rows(rnd(dy32))
+    db2 = dy32.sum(dim=(0, 1))
+    ds = rnd(dy32) @ rnd(w2).t()
+    dn = ds * (sn + n * sn * (1.0 - sn))
+    dc, dln2s, dln2b = _ln_bwd(dn, xh2, rstd2, ln2s)
+    dbd = dc.sum(dim=(0, 1))
+    # c[t] = sum_j wd[j] u[t + j - P]: du[t] = sum_j wd[j] dc[t - j + P],
+    # dwd[j] = sum_t u[t + j - P] dc[t], all within the row
+    dcp = F.pad(dc, (0, 0, k - 1 - P, P))
+    du = torch.zeros_like(dc)
+    dwd = torch.empty_like(wd)
+    for j in range(k):
+        du = du + wd[j] * dcp[:, k - 1 - j:k - 1 - j + T]
+        dwd[j] = (up[:, j:j + T] * dc).sum(dim=(0, 1))
+    du = torch.where(live, du, 0.0)
+    da = torch.cat([du * sq, du * p * sq * (1.0 - sq)], dim=-1)
+    dw1 = rows(rnd(h0)).t() @ rows(rnd(da))
+    db1 = da.sum(dim=(0, 1))
+    dh0 = rnd(da) @ rnd(w1).t()
+    dx, dln1s, dln1b = _ln_bwd(dh0, xh1, rstd1, ln1s)
+    return (dx.to(x.dtype), dln1s, dln1b, dw1, db1, dwd, dbd, dln2s, dln2b,
+            dw2, db2)
+
+
+def _check(x, lengths, weights):
+    """Raise on what the kernels do not take."""
     if x.device.type != "cuda":
         raise ValueError("no conformer conv kernel for device {}".format(
             x.device))
-    weights = (ln1_scale, ln1_bias, pw1_kernel, pw1_bias, dw_kernel, dw_bias,
-               ln2_scale, ln2_bias, pw2_kernel, pw2_bias)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x,) + weights):
-        raise NotImplementedError("the conformer conv module backward "
-                                  "(kernel B6's _bwd_kernel) is not ported "
-                                  "yet")
     if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 3 or \
             not x.is_contiguous():
         raise ValueError("x must be a contiguous bf16 or fp32 (B, T, D) "
                          "tensor; got {} {}".format(x.dtype, tuple(x.shape)))
     B, T, D = x.shape
-    k = dw_kernel.shape[0]
+    k = weights[4].shape[0]
     if not kernel_supports(D, k) or min(B, T) < 1:
         raise ValueError("the kernel takes D a multiple of 64 up to {} and "
                          "1 <= k <= {}; got D={}, k={} (B={}, T={})".format(
@@ -142,6 +247,19 @@ def conformer_conv_module_cuda(x, lengths, ln1_scale, ln1_bias, pw1_kernel,
             lengths.device != x.device or not lengths.is_contiguous():
         raise ValueError("lengths must be a contiguous int32 ({},) tensor on "
                          "{}".format(B, x.device))
+
+
+def conformer_conv_module_cuda(x, lengths, ln1_scale, ln1_bias, pw1_kernel,
+                               pw1_bias, dw_kernel, dw_bias, ln2_scale,
+                               ln2_bias, pw2_kernel, pw2_bias,
+                               eps: float = EPS) -> torch.Tensor:
+    """Launch ``conformer_conv_fwd``; raises on what it does not take."""
+    global LAUNCHES
+    weights = (ln1_scale, ln1_bias, pw1_kernel, pw1_bias, dw_kernel, dw_bias,
+               ln2_scale, ln2_bias, pw2_kernel, pw2_bias)
+    _check(x, lengths, weights)
+    B, T, D = x.shape
+    k = dw_kernel.shape[0]
     u = torch.empty((B, T, D), dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -157,17 +275,82 @@ def conformer_conv_module_cuda(x, lengths, ln1_scale, ln1_bias, pw1_kernel,
     return y
 
 
+def conformer_conv_module_cuda_bwd(x, lengths, ln1_scale, ln1_bias,
+                                   pw1_kernel, pw1_bias, dw_kernel, dw_bias,
+                                   ln2_scale, ln2_bias, pw2_kernel, pw2_bias,
+                                   dy, eps: float = EPS):
+    """Launch ``conformer_conv_bwd`` (several launches, counted as one
+    call): (dx, the ten weight gradients) as
+    :func:`conformer_conv_module_bwd_plain` returns them. Raises on what
+    it does not take."""
+    global BWD_LAUNCHES
+    weights = (ln1_scale, ln1_bias, pw1_kernel, pw1_bias, dw_kernel, dw_bias,
+               ln2_scale, ln2_bias, pw2_kernel, pw2_bias)
+    _check(x, lengths, weights)
+    if dy.shape != x.shape or dy.dtype != x.dtype or \
+            dy.device != x.device or not dy.is_contiguous():
+        raise ValueError("dy must be a contiguous {} {} tensor on {}".format(
+            x.dtype, tuple(x.shape), x.device))
+    B, T, D = x.shape
+    k = dw_kernel.shape[0]
+    work = torch.empty(_kernel("workspace")(B, T, D, k), dtype=torch.uint8,
+                       device=x.device)
+    dx = torch.empty_like(x)
+    grads = [torch.empty_like(w) for w in weights]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel(BWD_KERNEL)(
+            x.data_ptr(), dy.data_ptr(), lengths.data_ptr(),
+            *(w.data_ptr() for w in weights), work.data_ptr(), dx.data_ptr(),
+            *(g.data_ptr() for g in grads), B, T, D, k,
+            int(x.dtype == torch.bfloat16), float(eps), stream)
+    if err != 0:
+        raise RuntimeError("{} launch failed: CUDA error {}".format(
+            BWD_KERNEL, err))
+    BWD_LAUNCHES += 1
+    return (dx, *grads)
+
+
+class _ConformerConv(torch.autograd.Function):
+    """The fused module under autograd: only x, the lengths and the
+    weights are kept; the backward recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, x, lengths, eps, *weights):
+        if x.device.type == "cpu":
+            y = conformer_conv_module_plain(x, lengths, *weights, eps=eps)
+        else:
+            y = conformer_conv_module_cuda(x, lengths, *weights, eps=eps)
+        ctx.eps = eps
+        ctx.save_for_backward(x, lengths, *weights)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, lengths, *weights = ctx.saved_tensors
+        bwd = conformer_conv_module_bwd_plain if x.device.type == "cpu" \
+            else conformer_conv_module_cuda_bwd
+        dx, *grads = bwd(x, lengths, *weights, dy.contiguous(), eps=ctx.eps)
+        return (dx, None, None, *grads)
+
+
 def conformer_conv_module(x, lengths, ln1_scale, ln1_bias, pw1_kernel,
                           pw1_bias, dw_kernel, dw_bias, ln2_scale, ln2_bias,
                           pw2_kernel, pw2_bias,
                           eps: float = EPS) -> torch.Tensor:
-    """The fused conv module: the plain version for a CPU tensor, the
-    kernel for a CUDA one."""
+    """The fused conv module: the plain versions for a CPU tensor, the
+    kernels for a CUDA one; differentiable in x and the ten weights."""
     args = (ln1_scale, ln1_bias, pw1_kernel, pw1_bias, dw_kernel, dw_bias,
             ln2_scale, ln2_bias, pw2_kernel, pw2_bias)
     if x.device.type == "cpu":
+        lengths = lengths.to(x.device)
+    else:
+        x = x.contiguous()
+        lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
+        args = tuple(w.float().contiguous() for w in args)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x,) + args):
+        return _ConformerConv.apply(x, lengths, float(eps), *args)
+    if x.device.type == "cpu":
         return conformer_conv_module_plain(x, lengths, *args, eps=eps)
-    return conformer_conv_module_cuda(
-        x.contiguous(), lengths.to(device=x.device,
-                                   dtype=torch.int32).contiguous(),
-        *(w.float().contiguous() for w in args), eps=eps)
+    return conformer_conv_module_cuda(x, lengths, *args, eps=eps)

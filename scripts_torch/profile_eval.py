@@ -12,7 +12,8 @@ jasper10x5_synthetic.py``; for the NMT transformer-big,
 DeepSpeech2-medium, ``example_configs_torch/speech2text/
 ds2_medium_synthetic.py``, whose train step ``--train`` profiles with
 it; for Conformer-M, ``example_configs_torch/speech2text/
-conformer_m_synthetic.py``, eval and infer) on the card with seeded
+conformer_m_synthetic.py``, whose train step ``--train`` profiles too)
+on the card with seeded
 weights, in eval mode, in infer mode with
 ``--infer``
 (for the transformer: the beam decode alone) or, with ``--train``, in
@@ -35,7 +36,8 @@ It prints:
    attention kernel" forward and backward, "fused dropout kernel", "rnn
    scan kernels" and "rnn scan backward kernels" for the GRU and LSTM
    recurrences, "rel-pos flash kernel" and "conformer conv kernel" for the
-   Conformer's attention and conv module);
+   Conformer's attention and conv module, and in training "rel-pos flash
+   backward kernels" and "conformer conv backward kernels");
 3. FLOP per step of the convolutions and dense layers, counted from the
    shapes their forward hooks see (in training also their backward: the
    weight gradient, and the input gradient where the input needs one),
@@ -72,6 +74,11 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 GROUPS = (
     ("ctc kernel", ("ctc_alpha_fwd", "ctc_beta_bwd")),
     ("rel-pos flash kernel", ("flash_relpos_fwd",)),
+    # flash_relpos_bwd_dq_kernel and flash_relpos_bwd_dkv_kernel
+    ("rel-pos flash backward kernels", ("flash_relpos_bwd",)),
+    # the conv module backward's launches, in the namespace
+    # conformer_conv_backward
+    ("conformer conv backward kernels", ("conformer_conv_backward::",)),
     # the conv module's two launches, conformer_conv_pw1_kernel and
     # conformer_conv_dw_pw2_kernel
     ("conformer conv kernel", ("conformer_conv_",)),

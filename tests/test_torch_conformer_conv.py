@@ -1,6 +1,7 @@
 """The port's fused Conformer conv module (``ops/conformer_conv.py``,
 kernel B6's plain version) against the JAX package's
-``ops/conformer_pallas.py`` kernel in interpret mode, and the port's
+``ops/conformer_pallas.py`` kernel in interpret mode, forward and (under
+autograd, against ``jax.vjp``) backward, and the port's
 ``_ConvModule`` on both of its paths against the JAX module's, with
 weights carried by ``convert.py``; and what ``supported`` refuses.
 
@@ -96,6 +97,39 @@ def test_module_matches_jax(fused, monkeypatch):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_backward_matches_jax_vjp(dtype):
+    """``conformer_conv_module`` under autograd on CPU tensors (the plain
+    forward and backward) against ``jax.vjp`` of the JAX op with its Pallas
+    kernels in interpret mode: dx and the ten weight gradients, lengths T,
+    T - 13 and 0. Each gradient within 1e-5 of its largest magnitude in
+    fp32 (sums in another order); in bf16 within 2^-8 of it: both sides
+    round the same product operands, from fp32 values summed in another
+    order, so an operand may round the other way."""
+    jdt, tdt = {"fp32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    T, k = 21, 7
+    x, lengths, w = _case(T, k, seed=11)
+    lengths[2] = 0
+    dy = np.random.RandomState(12).randn(B, T, D).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda xx, *ws: jcp.conformer_conv_module(
+            xx, jnp.asarray(lengths), *ws, interpret=True),
+        jnp.asarray(x, jdt), *(jnp.asarray(w[n]) for n in NAMES))
+    want = vjp(jnp.asarray(dy, jdt))
+    leaves = [torch.from_numpy(x).to(tdt).requires_grad_()] + \
+        [torch.from_numpy(w[n]).requires_grad_() for n in NAMES]
+    y = cc.conformer_conv_module(leaves[0], torch.from_numpy(lengths),
+                                 *leaves[1:])
+    y.backward(torch.from_numpy(dy).to(tdt))
+    tol = 1e-5 if dtype == "fp32" else 2.0 ** -8
+    for name, leaf, g in zip(("x",) + NAMES, leaves, want):
+        g = np.asarray(g, np.float32)
+        assert leaf.grad.dtype == leaf.dtype and leaf.grad.shape == g.shape
+        err = np.abs(leaf.grad.float().numpy() - g).max()
+        assert err <= tol * np.abs(g).max(), (name, err)
+
+
 def test_supported_and_refusals():
     assert cc.supported("layer_norm") and not cc.supported("batch_norm")
     assert cc.kernel_supports(256, 31) and cc.kernel_supports(512, 31)
@@ -104,15 +138,18 @@ def test_supported_and_refusals():
     assert not cc.kernel_supports(256, 65)
     params = {"num_layers": 1, "hidden_size": 128, "num_heads": 4,
               "conv_norm": "batch_norm"}
-    with pytest.raises(NotImplementedError, match="batch_norm"):
-        ConformerEncoder(params, None, mode="eval")
-    with pytest.raises(NotImplementedError, match="training"):
-        ConformerEncoder(dict(params, conv_norm="layer_norm"), None,
-                         mode="train")
+    for mode in ("eval", "train"):
+        with pytest.raises(NotImplementedError, match="batch_norm"):
+            ConformerEncoder(params, None, mode=mode)
+    # training is ported: the layer-norm variant builds in train mode
+    ConformerEncoder(dict(params, conv_norm="layer_norm"), None,
+                     mode="train")
     x, lengths, w = _case(13, 7, seed=0)
-    before = cc.LAUNCHES
+    args = (torch.from_numpy(x), torch.from_numpy(lengths)) + \
+        tuple(torch.from_numpy(w[n]) for n in NAMES)
+    before = cc.LAUNCHES, cc.BWD_LAUNCHES
     with pytest.raises(ValueError, match="device cpu"):
-        cc.conformer_conv_module_cuda(
-            torch.from_numpy(x), torch.from_numpy(lengths),
-            *(torch.from_numpy(w[n]) for n in NAMES))
-    assert cc.LAUNCHES == before
+        cc.conformer_conv_module_cuda(*args)
+    with pytest.raises(ValueError, match="device cpu"):
+        cc.conformer_conv_module_cuda_bwd(*args, args[0])
+    assert (cc.LAUNCHES, cc.BWD_LAUNCHES) == before

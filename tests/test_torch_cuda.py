@@ -24,8 +24,10 @@ they refuse. Their backward kernels the same way, on the forward
 kernel's residuals, and autograd through both kernels against the CPU's
 plain versions (fp32, rtol 1e-4, atol 1e-5: dW_h sums over B x T). The
 Conformer's rel-pos flash kernel and conv module kernel against their
-plain versions, fp32 and bf16 (tolerances in each test), repeats
-bit-identical, and what the rel-pos kernel refuses."""
+plain versions, forward and backward, fp32 and bf16 (tolerances in each
+test), repeats bit-identical, what the rel-pos kernels refuse, and
+autograd through both modules' kernels against the CPU's plain
+versions."""
 import numpy as np
 import pytest
 import torch
@@ -390,9 +392,18 @@ def test_relpos_kernel_refuses_what_it_does_not_take(device):
                 (qu, qp, k, kp, v, lengths.long())):
         with pytest.raises(ValueError):
             fr.relpos_attention_cuda(*bad, 0.25)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fr.relpos_attention_cuda(qu.requires_grad_(), qp, k, kp, v, lengths,
-                                 0.25)
+    # the backward is ported: an input that needs a gradient launches
+    before = fr.LAUNCHES
+    fr.relpos_attention_cuda(qu.requires_grad_(), qp, k, kp, v, lengths,
+                             0.25)
+    assert fr.LAUNCHES == before + 1
+    o, lse = fr.relpos_attention_cuda(qu.detach(), qp, k, kp, v, lengths,
+                                      0.25, return_lse=True)
+    for bad in ((o.bfloat16(), lse, o), (o, lse.double(), o),
+                (o, lse, o.transpose(1, 2))):
+        with pytest.raises(ValueError):
+            fr.relpos_attention_bwd_cuda(qu.detach(), qp, k, kp, v, lengths,
+                                         *bad, 0.25)
 
 
 @pytest.mark.parametrize("B,T,D,k", [
@@ -434,3 +445,130 @@ def test_conformer_conv_kernel_matches_plain(device, B, T, D, k):
         else:
             assert float((err / want.float().abs().clamp(min=1.0)).max()) \
                 <= 2.0 ** -5
+
+
+@pytest.mark.parametrize("B,H,T,Dh,D", [
+    (4, 4, 250, 64, 256), (2, 8, 130, 64, 512), (3, 4, 37, 32, 128)])
+def test_relpos_backward_kernels_match_plain(device, B, H, T, Dh, D):
+    """The rel-pos backward kernels (B5 dq and dkv) against their plain
+    version on the same inputs, from the forward kernel's own output and
+    lse, lengths from 0 (clamped to 1) to T: fp32 (TF32 off) max abs
+    error 1e-4; bf16 within 2^-7 of each gradient's largest magnitude
+    (both round p and ds to bf16, from fp32 sums in another order); one
+    launch of each a call; two calls bit-identical."""
+    from openseq2seq_tpu_torch.ops import flash_relpos as fr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    case = _relpos_inputs(device, B, H, T, Dh, D, T + D + 1)
+    g = torch.Generator(device=device).manual_seed(T)
+    do = torch.randn((B, T, H, Dh), generator=g, device=device)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = tuple(x.to(dtype) for x in case[:5]) + (case[5],)
+        o, lse = fr.relpos_attention_cuda(*args, Dh ** -0.5, return_lse=True)
+        bwd = args + (o, lse, do.to(dtype), Dh ** -0.5)
+        before = fr.BWD_DQ_LAUNCHES, fr.BWD_DKV_LAUNCHES
+        got = fr.relpos_attention_bwd_cuda(*bwd)
+        again = fr.relpos_attention_bwd_cuda(*bwd)
+        assert (fr.BWD_DQ_LAUNCHES, fr.BWD_DKV_LAUNCHES) == \
+            (before[0] + 2, before[1] + 2)
+        want = fr.relpos_attention_bwd_plain(*bwd)
+        torch.cuda.synchronize()
+        for a, b, w in zip(got, again, want):
+            assert torch.equal(a, b) and a.dtype == dtype
+            err = float((a.float() - w.float()).abs().max())
+            top = float(w.float().abs().max())
+            assert err <= (1e-4 if dtype == torch.float32
+                           else 2.0 ** -7 * top), (err, top)
+
+
+def test_relpos_autograd_through_the_kernels(device):
+    """``rel_flash_attention`` under autograd on the card (the forward and
+    backward kernels, then the fold's backward) against the CPU's plain
+    versions, fp32 (TF32 off): the five gradients within rtol 1e-4, atol
+    1e-5 (dK_r sums over B x T)."""
+    from openseq2seq_tpu_torch.ops import flash_relpos as fr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, T, H, Dh, D = 3, 70, 4, 32, 128
+    rng = np.random.RandomState(5)
+    host = [torch.from_numpy(rng.randn(*s).astype(np.float32))
+            for s in [(B, T, H, Dh)] * 4 + [(D, H, Dh)]]
+    host[4] /= D ** 0.5
+    lengths = torch.tensor([T, 1, 33], dtype=torch.int32)
+    do = torch.from_numpy(rng.randn(B, T, H, Dh).astype(np.float32))
+    grads = {}
+    for dev in (device, torch.device("cpu")):
+        leaves = [x.to(dev).requires_grad_() for x in host]
+        before = fr.BWD_DQ_LAUNCHES
+        fr.rel_flash_attention(*leaves, lengths.to(dev), Dh ** -0.5) \
+            .backward(do.to(dev))
+        assert fr.BWD_DQ_LAUNCHES == before + (dev.type == "cuda")
+        grads[dev.type] = [x.grad for x in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+def _conv_inputs(device, B, T, D, k, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, offset=0.0):
+        return offset + scale * torch.randn(shape, generator=g,
+                                            device=device)
+
+    x = randn(B, T, D)
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device=device)
+    lengths[0], lengths[-1] = T, 0
+    weights = (randn(D, scale=0.1, offset=1.0), randn(D, scale=0.1),
+               randn(D, 2 * D, scale=D ** -0.5), randn(2 * D, scale=0.1),
+               randn(k, D, scale=k ** -0.5), randn(D, scale=0.1),
+               randn(D, scale=0.1, offset=1.0), randn(D, scale=0.1),
+               randn(D, D, scale=D ** -0.5), randn(D, scale=0.1))
+    return x, lengths.int(), weights, randn(B, T, D)
+
+
+@pytest.mark.parametrize("B,T,D,k", [
+    (4, 250, 256, 31), (2, 130, 512, 31), (5, 37, 128, 7)])
+def test_conformer_conv_backward_kernels_match_plain(device, B, T, D, k):
+    """The conv module's backward kernels (B6) against their plain version
+    on the same inputs, a zero-length row: dx and the ten weight gradients
+    within 1e-5 of max(1, |gradient|) in fp32 (TF32 off; sums over B x T
+    rows in another order); in bf16 dx within 2^-6 and the weight
+    gradients within 2^-8 of it (a product operand rounded to bf16 from
+    fp32 values summed in another order may round the other way); one call
+    counted; two calls bit-identical."""
+    from openseq2seq_tpu_torch.ops import conformer_conv as cc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, lengths, weights, dy = _conv_inputs(device, B, T, D, k, T + k + 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (x.to(dtype), lengths) + weights + (dy.to(dtype),)
+        before = cc.BWD_LAUNCHES
+        got = cc.conformer_conv_module_cuda_bwd(*args)
+        again = cc.conformer_conv_module_cuda_bwd(*args)
+        assert cc.BWD_LAUNCHES == before + 2
+        want = cc.conformer_conv_module_bwd_plain(*args)
+        torch.cuda.synchronize()
+        for i, (a, b, w) in enumerate(zip(got, again, want)):
+            assert torch.equal(a, b) and a.dtype == w.dtype
+            rel = float((a.float() - w.float()).abs().max()) / \
+                max(1.0, float(w.float().abs().max()))
+            tol = 1e-5 if dtype == torch.float32 else \
+                2.0 ** -6 if i == 0 else 2.0 ** -8
+            assert rel <= tol, (i, rel)
+
+
+def test_conformer_conv_autograd_through_the_kernels(device):
+    """``conformer_conv_module`` under autograd on the card (the forward
+    and backward kernels) against the CPU's plain versions, fp32 (TF32
+    off): dx and the ten weight gradients within rtol 1e-4, atol 1e-5."""
+    from openseq2seq_tpu_torch.ops import conformer_conv as cc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = torch.device("cpu")
+    x, lengths, weights, dy = _conv_inputs(cpu, 3, 45, 128, 7, 9)
+    grads = {}
+    for dev in (device, cpu):
+        leaves = [t.to(dev).requires_grad_() for t in (x,) + weights]
+        before = cc.BWD_LAUNCHES
+        cc.conformer_conv_module(leaves[0], lengths.to(dev),
+                                 *leaves[1:]).backward(dy.to(dev))
+        assert cc.BWD_LAUNCHES == before + (dev.type == "cuda")
+        grads[dev.type] = [t.grad for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)

@@ -1,8 +1,9 @@
 """The port's rel-pos flash attention (``ops/flash_relpos.py``, kernel B5's
 plain version) against the JAX package's ``ops/flash_relpos.py`` with its
 Pallas kernel in interpret mode: the fold (angles and augmented q~, k~),
-the attention's context and lse, and ``RelPosSelfAttention`` on both of
-its paths with weights carried by ``convert.py``.
+the attention's context and lse, its backward under autograd against
+``jax.vjp``, and ``RelPosSelfAttention`` on both of its paths with weights
+carried by ``convert.py``.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: fp32 rtol and atol 1e-5 (fp32 sums in another order). bf16:
@@ -130,11 +131,50 @@ def test_module_matches_jax(flash, monkeypatch):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_backward_matches_jax_vjp(dtype):
+    """``rel_flash_attention`` under autograd on CPU tensors (the plain
+    forward and backward) against ``jax.vjp`` of the JAX op with its Pallas
+    kernels in interpret mode, all five gradients (dq_u, dq_w, dk, dv,
+    dK_r), lengths T, 1 and 0 (clamped to 1). Each gradient within 1e-5 of
+    its largest magnitude in fp32 (sums in another order); in bf16 within
+    2^-8 of it, one rounding: both sides round p, ds and dq~ at the same
+    points, but XLA may keep an fp32 intermediate in the fold's fused
+    elementwise backward where torch rounds each operation."""
+    jdt, tdt = DTYPES[dtype]
+    T = 21
+    q_u, q_w, k, v, r_kernel, lengths = _inputs(T, seed=7)
+    g = np.random.RandomState(8).randn(B, T, H, Dh).astype(np.float32)
+    scale = Dh ** -0.5
+    want_out, vjp = jax.vjp(
+        lambda *a: jfr.rel_flash_attention(*a, jnp.asarray(lengths), scale,
+                                           128, 128, True),
+        *(jnp.asarray(a, jdt) for a in (q_u, q_w, k, v)),
+        jnp.asarray(r_kernel, jdt))
+    want = vjp(jnp.asarray(g, jdt))
+    leaves = [torch.from_numpy(a).to(tdt).requires_grad_()
+              for a in (q_u, q_w, k, v, r_kernel)]
+    out = fr.rel_flash_attention(*leaves, torch.from_numpy(lengths), scale)
+    out.backward(torch.from_numpy(g).to(tdt))
+    _close(out.detach(), want_out, dtype)
+    tol = 1e-5 if dtype == "fp32" else 2.0 ** -8
+    for name, leaf, w in zip(("dq_u", "dq_w", "dk", "dv", "dK_r"), leaves,
+                             want):
+        w = np.asarray(w, np.float32)
+        assert leaf.grad.dtype == tdt and leaf.grad.shape == w.shape, name
+        err = np.abs(leaf.grad.float().numpy() - w).max()
+        assert err <= tol * np.abs(w).max(), (name, err)
+
+
 def test_cuda_entry_refuses_cpu_tensors():
     q_u, q_w, k, v, r_kernel, lengths = _inputs(8)
     t = [torch.from_numpy(a) for a in (q_u, q_w, k, v, r_kernel, lengths)]
     qu, qp, kk, kp = fr._operands(*t[:3], t[4])
-    before = fr.LAUNCHES
+    before = fr.LAUNCHES, fr.BWD_DQ_LAUNCHES, fr.BWD_DKV_LAUNCHES
     with pytest.raises(ValueError, match="device cpu"):
         fr.relpos_attention_cuda(qu, qp, kk, kp, t[3], t[5], 0.25)
-    assert fr.LAUNCHES == before
+    o, lse = fr.relpos_attention_plain(qu, qp, kk, kp, t[3], t[5], 0.25)
+    with pytest.raises(ValueError, match="device cpu"):
+        fr.relpos_attention_bwd_cuda(qu, qp, kk, kp, t[3], t[5], o, lse, o,
+                                     0.25)
+    assert (fr.LAUNCHES, fr.BWD_DQ_LAUNCHES, fr.BWD_DKV_LAUNCHES) == before

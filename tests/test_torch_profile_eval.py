@@ -201,6 +201,14 @@ def test_busy_time_is_the_union_of_intervals():
      "(__nv_bfloat16 const*)", "conformer conv kernel"),
     ("void (anonymous namespace)::conformer_conv_dw_pw2_kernel<float>"
      "(float const*)", "conformer conv kernel"),
+    ("void (anonymous namespace)::flash_relpos_bwd_dq_kernel<__nv_bfloat16, "
+     "64>(__nv_bfloat16 const*)", "rel-pos flash backward kernels"),
+    ("void (anonymous namespace)::flash_relpos_bwd_dkv_kernel<float, 32>"
+     "(float const*)", "rel-pos flash backward kernels"),
+    ("void conformer_conv_backward::product_kernel<__nv_bfloat16, float, "
+     "float>(float const*, long long)", "conformer conv backward kernels"),
+    ("conformer_conv_backward::reduce_kernel(float const*, int, int)",
+     "conformer conv backward kernels"),
 ])
 def test_kernel_groups(name, group):
     assert profile_eval.group_of(name) == group
