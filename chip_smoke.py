@@ -35,17 +35,21 @@ Phases, one informative line or a few each:
 4b. the flash kernel against ``flash_attention_plain`` at the
    transformer-big eval shapes (encoder B=64, H=16, T=64, D=64 with key
    padding; decoder causal T=63; cross Tq=63, Tk=64), causal at T=113,
-   D=128, D=256 and Tk=1000: fp32 (TF32 off) max abs err 2e-5, bf16
-   against the plain version's fp32 math max abs err 1e-2; times
-   of the kernel, the plain version and ``scaled_dot_product_attention``
-   (timed only, never on the path) at the eval shapes, in bf16;
+   D=128, D=256 and Tk=1000: fp32 (TF32 off; the CUDA-core kernel) max
+   abs err 2e-5; bf16 (the tensor-core kernel) against the rounding plain
+   version (weights rounded to bf16 where JAX's stock kernel rounds them)
+   max abs err 2^-7, two calls bit-identical, and against the plain
+   version's fp32 math max abs err 1e-2; times of the kernel, the rounding
+   plain version and ``scaled_dot_product_attention`` (timed only, never
+   on the path) at the eval shapes, in bf16;
 4c. the flash backward kernels (after the forward with its lse) against
    ``flash_attention_bwd_plain`` at the same shapes: lse within 1e-5, fp32
-   (TF32 off) dq, dk, dv max abs err 1e-4, bf16 within one bf16 rounding
-   of the plain version's fp32 math on the same bf16 inputs (2^-8 |want|
-   + 1e-4), two calls bit-identical; times of each kernel, the
-   plain backward and SDPA forward plus backward (timed only) at the
-   train step's shapes, in bf16;
+   (TF32 off) dq, dk, dv max abs err 1e-4; bf16 against the rounding plain
+   version (p^T, ds^T, ds rounded to bf16 as JAX's stock kernels round
+   them) within 2^-7 of each gradient's largest magnitude, and against
+   fp32 math within 2^-6 of it; two calls bit-identical; times of each
+   kernel, the rounding plain backward and SDPA forward plus backward
+   (timed only) at the train step's shapes, in bf16;
 4d. the fused dropout kernel against its plain version, forward and
    backward, with and without the residual, bf16 and fp32, at the FFN
    shape (4096 x 4096) and at M=600, D=256: bit-identical; times
@@ -435,6 +439,34 @@ FLASH_CASES = (
 )
 FLASH_FP32_ATOL = 2e-5
 FLASH_BF16_ATOL = 1e-2
+# bf16 kernels against the rounding plain versions: each output element
+# within flash_attention_bound / flash_attention_bwd_bound, built from its
+# own terms (one bf16 ulp of each rounded weight or ds that may round the
+# other way, the fp32 sums in another order, one ulp of the element); the
+# reading is the largest |kernel - plain| / bound, at most 1. Against the
+# plain version's fp32 math (nothing rounded but the output) a gradient
+# may sit twice the bound away: once for the kernel against the rounding
+# plain version, once for that against fp32 math (half an ulp of each
+# rounded operand and of the output).
+FLASH_BWD_BF16_FP32_MATH_BOUNDS = 2.0
+
+
+def bound_reading(got, want, bound):
+    """The largest |got - want| / bound; an element whose bound is 0 (a
+    masked key's gradient) must match exactly."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    return float(torch.where(err > 0, err / bound, 0.0).max())
+
+
+def planted_fault_reading(x, want, bound):
+    """The reading of ``x`` with every batch row but row 1 (the one with a
+    single valid key where the case pads) zeroed: a fault the bound must
+    refuse."""
+    bad = x.clone()
+    bad[:1] = 0
+    bad[2:] = 0
+    return bound_reading(bad, want, bound)
 
 
 def flash_case(B, Tq, Tk, H, D, padded, seed, device):
@@ -510,12 +542,16 @@ def attention_bwd_bound_ms(q, k, kv_valid, causal, kernel):
 
 def phase_flash(card):
     """``flash_attn_fwd`` against ``flash_attention_plain`` on the card:
-    fp32 (TF32 off) within FLASH_FP32_ATOL, and bf16 against the plain
-    version's fp32 math on the same bf16 inputs within FLASH_BF16_ATOL
-    (the kernel's fp32 result is rounded to bf16 once: at most 2^-9 on
-    outputs, which are averages of v in [-1, 1]). Times at the eval path's
-    shapes, in bf16, against the plain version and SDPA. Returns the worst
-    fp32 error and the timings, by case name."""
+    fp32 (TF32 off, the CUDA-core kernel) within FLASH_FP32_ATOL; bf16 (the
+    tensor-core kernel) against the rounding plain version
+    (``round_weights=True``) within ``flash_attention_bound``, element by
+    element, and refusing a planted fault, two calls
+    bit-identical, and against the plain version's fp32 math on the same
+    bf16 inputs within FLASH_BF16_ATOL (the weights' rounding moves an
+    output by at most 2^-9 of the mass, the output's own rounding by 2^-9).
+    Times at the eval path's shapes, in bf16, against the rounding plain
+    version and SDPA. Returns the worst bf16 error against the rounding
+    plain version and the timings, by case name."""
     import torch
     import torch.nn.functional as F
     from openseq2seq_tpu_torch.ops import flash_attention as fa
@@ -529,20 +565,38 @@ def phase_flash(card):
         want = fa.flash_attention_plain(q, k, v, valid, causal)
         qb, kb, vb = (x.bfloat16() for x in (q, k, v))
         got_b = fa.flash_attention(qb, kb, vb, valid, causal)
+        again = fa.flash_attention(qb, kb, vb, valid, causal)
+        want_r = fa.flash_attention_plain(qb, kb, vb, valid, causal,
+                                          round_weights=True)
         want_b = fa.flash_attention_plain(qb.float(), kb.float(),
                                           vb.float(), valid, causal)
+        bound = fa.flash_attention_bound(qb, kb, vb, valid, causal)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        err_r = float((got_b.float() - want_r.float()).abs().max())
         err_b = float((got_b.float() - want_b).abs().max())
-        worst = max(worst, err)
+        reading = bound_reading(got_b, want_r, bound)
+        planted = planted_fault_reading(got_b, want_r, bound)
+        same = torch.equal(got_b, again)
+        worst = max(worst, err_r)
         print("[flash] {}: B={} Tq={} Tk={} H={} D={} causal={} padded={}: "
-              "fp32 max abs err {:.3e}, bf16 {:.3e}".format(
-                  name, B, Tq, Tk, H, D, causal, padded, err, err_b),
-              flush=True)
+              "fp32 max abs err {:.3e}; bf16 {:.3e} against the rounding "
+              "plain version ({:.4f} of the bound at most; a planted fault, "
+              "o zeroed but in batch row 1, reads {:.1f}), {:.3e} against "
+              "fp32 math; bf16 repeat bit-identical: {}".format(
+                  name, B, Tq, Tk, H, D, causal, padded, err, err_r, reading,
+                  planted, err_b, same), flush=True)
         check(err <= FLASH_FP32_ATOL and bool(torch.isfinite(got).all()),
               "{}: fp32 err {}".format(name, err))
-        check(err_b <= FLASH_BF16_ATOL and got_b.dtype == torch.bfloat16,
-              "{}: bf16 err {}".format(name, err_b))
+        check(reading <= 1.0 and got_b.dtype == torch.bfloat16 and
+              bool(torch.isfinite(got_b).all()),
+              "{}: bf16 err {} times the bound against the rounding plain "
+              "version".format(name, reading))
+        check(planted > 1.0, "{}: the bound takes a planted fault".format(
+            name))
+        check(err_b <= FLASH_BF16_ATOL, "{}: bf16 err {} against fp32 "
+              "math".format(name, err_b))
+        check(same, "{}: two bf16 forward calls differ".format(name))
         if i >= 3:
             continue
         mask = None if valid is None else valid[:, None, None, :]
@@ -550,7 +604,7 @@ def phase_flash(card):
         t = {"ms": cuda_ms(lambda: fa.flash_attention(qb, kb, vb, valid,
                                                       causal), 50),
              "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(
-                 qb, kb, vb, valid, causal), 20),
+                 qb, kb, vb, valid, causal, round_weights=True), 20),
              "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                  qt, kt, vt, attn_mask=mask, is_causal=causal), 50)}
         t["bound_ms"], t["bound_by"] = attention_bound_ms(qb, kb, valid,
@@ -574,16 +628,23 @@ def phase_flash(card):
             continue
         raise RuntimeError("chip_smoke check failed: a bad flash input "
                            "launched")
-    print("[flash] wrong dtype, head dim, layout and mask are refused",
-          flush=True)
+    # the bf16 kernels copy 16 bytes at a time
+    n = q.numel()
+    odd = torch.empty(n + 1, dtype=torch.bfloat16, device=dev)[1:].view(
+        q.shape)
+    try:
+        fa.flash_attention(odd, odd, odd)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("chip_smoke check failed: a misaligned bf16 "
+                           "flash input launched")
+    print("[flash] wrong dtype, head dim, layout, mask and a misaligned "
+          "bf16 input are refused", flush=True)
     return worst, times
 
 
 FLASH_BWD_FP32_ATOL = 1e-4
-# bf16: the kernels accumulate in fp32 and round each gradient to bf16
-# once (at most 2^-9 |value|); twice that plus 1e-4 for the fp32 sums'
-# other order
-FLASH_BWD_BF16_RTOL, FLASH_BWD_BF16_ATOL = 2.0 ** -8, 1e-4
 
 
 def _bwd_kernel_ms(kernel, q, k, v, o, lse, do, valid, causal, reps):
@@ -618,13 +679,21 @@ def _bwd_kernel_ms(kernel, q, k, v, o, lse, do, valid, causal, reps):
 def phase_flash_bwd(card):
     """The forward's lse and the backward kernels against
     ``flash_attention_plain`` and ``flash_attention_bwd_plain`` on the
-    card; times at the train step's shapes in bf16. Returns the worst fp32
-    errors of dq and of dk/dv, and the timings by case name."""
+    card: fp32 (the CUDA-core kernels) against fp32 math within
+    FLASH_BWD_FP32_ATOL; bf16 (the tensor-core kernels) against the
+    rounding plain version (``round_weights=True``, from the kernel
+    forward's own o and lse) within ``flash_attention_bwd_bound``, element
+    by element, refusing a planted fault, and against fp32 math within
+    FLASH_BWD_BF16_FP32_MATH_BOUNDS times that bound; two calls
+    bit-identical.
+    Times at the train step's shapes in bf16. Returns the worst bf16
+    errors of dq and of dk/dv against the rounding plain version, and the
+    timings by case name."""
     import torch
     import torch.nn.functional as F
     from openseq2seq_tpu_torch.ops import flash_attention as fa
     dev = torch.device("cuda")
-    worst_dq = worst_dkv = 0.0
+    worst_dq = worst_dkv = worst_bf16_dq = worst_bf16_dkv = 0.0
     times = {}
     for i, (name, B, Tq, Tk, H, D, causal, padded) in enumerate(
             FLASH_CASES):
@@ -644,14 +713,17 @@ def phase_flash_bwd(card):
                                                    return_lse=True)
             want = fa.flash_attention_bwd_plain(*up, o.float(), want_lse,
                                                 dod.float(), valid, causal)
+            rounded = fa.flash_attention_bwd_plain(
+                qd, kd, vd, o, lse, dod, valid, causal, round_weights=True)
             torch.cuda.synchronize()
             lse_err = float((lse - want_lse).abs().max())
             errs = [float((g.float() - w).abs().max())
                     for g, w in zip(got, want)]
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             print("[flash bwd] {} {}: lse max abs err {:.3e}; dq, dk, dv max "
-                  "abs err {:.3e}, {:.3e}, {:.3e} (|dq|, |dk|, |dv| max "
-                  "{:.2f}, {:.2f}, {:.2f}); repeat bit-identical: {}".format(
+                  "abs err {:.3e}, {:.3e}, {:.3e} against fp32 math (|dq|, "
+                  "|dk|, |dv| max {:.2f}, {:.2f}, {:.2f}); repeat "
+                  "bit-identical: {}".format(
                       name, str(dtype)[6:], lse_err, *errs,
                       *(float(w.abs().max()) for w in want), same),
                   flush=True)
@@ -666,12 +738,38 @@ def phase_flash_bwd(card):
                 worst_dkv = max(worst_dkv, errs[1], errs[2])
                 check(max(errs) <= FLASH_BWD_FP32_ATOL,
                       "{}: fp32 gradient err {}".format(name, errs))
-            else:
-                for g, w in zip(got, want):
-                    excess = (g.float() - w).abs() - (
-                        FLASH_BWD_BF16_RTOL * w.abs() + FLASH_BWD_BF16_ATOL)
-                    check(float(excess.max()) <= 0, "{}: bf16 gradient "
-                          "err beyond one rounding".format(name))
+                continue
+            bounds = fa.flash_attention_bwd_bound(qd, kd, vd, o, lse, dod,
+                                                  valid, causal)
+            fp32_math = fa.flash_attention_bwd_plain(qd, kd, vd, o, lse, dod,
+                                                     valid, causal)
+            readings = [bound_reading(g, w, b)
+                        for g, w, b in zip(got, rounded, bounds)]
+            math_readings = [bound_reading(g, w, b)
+                             for g, w, b in zip(got, fp32_math, bounds)]
+            planted = planted_fault_reading(got[2], rounded[2], bounds[2])
+            print("[flash bwd] {} bf16: dq, dk, dv {:.4f}, {:.4f}, {:.4f} of "
+                  "the bound at most against the rounding plain version "
+                  "(max abs err {:.3e}, {:.3e}, {:.3e}), {:.4f}, {:.4f}, "
+                  "{:.4f} against fp32 math; a planted fault, dv zeroed but "
+                  "in batch row 1, reads {:.1f}".format(
+                      name, *readings, *(
+                          float((g.float() - w.float()).abs().max())
+                          for g, w in zip(got, rounded)),
+                      *math_readings, planted), flush=True)
+            worst_bf16_dq = max(worst_bf16_dq, float(
+                (got[0].float() - rounded[0].float()).abs().max()))
+            worst_bf16_dkv = max(worst_bf16_dkv, *(
+                float((g.float() - w.float()).abs().max())
+                for g, w in zip(got[1:], rounded[1:])))
+            check(max(readings) <= 1.0, "{}: bf16 gradient err {} times "
+                  "the bound against the rounding plain version".format(
+                      name, readings))
+            check(max(math_readings) <= FLASH_BWD_BF16_FP32_MATH_BOUNDS,
+                  "{}: bf16 gradient err {} times the bound against fp32 "
+                  "math".format(name, math_readings))
+            check(planted > 1.0, "{}: the bound takes a planted fault"
+                  .format(name))
         if i >= 3:
             continue
         qb, kb, vb, dob = (x.bfloat16() for x in (q, k, v, do))
@@ -692,7 +790,8 @@ def phase_flash_bwd(card):
              "dkv_ms": _bwd_kernel_ms("dkv", qb, kb, vb, o, lse, dob, valid,
                                       causal, 50),
              "plain_ms": cuda_ms(lambda: fa.flash_attention_bwd_plain(
-                 qb, kb, vb, o, lse, dob, valid, causal), 20),
+                 qb, kb, vb, o, lse, dob, valid, causal,
+                 round_weights=True), 20),
              "library_ms": cuda_ms(sdpa_fwd_bwd, 50)}
         for part in ("all", "dq", "dkv"):
             t[part + "_bound"] = attention_bwd_bound_ms(qb, kb, valid, causal,
@@ -719,7 +818,9 @@ def phase_flash_bwd(card):
         raise RuntimeError("chip_smoke check failed: a bad flash backward "
                            "input launched")
     print("[flash bwd] wrong dtype and layout are refused", flush=True)
-    return worst_dq, worst_dkv, times
+    print("[flash bwd] worst fp32 errors against fp32 math: dq {:.3e}, "
+          "dk/dv {:.3e}".format(worst_dq, worst_dkv), flush=True)
+    return worst_bf16_dq, worst_bf16_dkv, times
 
 
 # ~14 integer operations per element: the hash (two multiplies, xor-shifts
@@ -2923,6 +3024,8 @@ def main():
         "bound_by": bwd_bound[1], "library_ms": ctc_lib_fwd_bwd_ms}, {
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/flash_attn_fwd.cu",
+        "symbol": "flash_attn_fwd_mma_kernel (bf16, timed here; fp32: "
+                  "flash_attn_fwd_kernel)",
         "replaces": "openseq2seq_tpu/parts/transformer/attention.py:120",
         "launches": flash_launches + nmt_fwd, "max_abs_err": flash_err,
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
@@ -2930,6 +3033,8 @@ def main():
         "library_ms": flash["library_ms"]}] + [{
         "name": "flash_attn_bwd_" + part, "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/flash_attn_bwd.cu",
+        "symbol": "flash_attn_bwd_{0}_mma_kernel (bf16, timed here; fp32: "
+                  "flash_attn_bwd_{0}_kernel)".format(part),
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
                     + line + " (via openseq2seq_tpu/parts/transformer/"
                     "attention.py:120)",
@@ -2939,8 +3044,8 @@ def main():
         "bound_by": flash_bwd[part + "_bound"][1],
         "library_ms": flash_bwd["library_ms"]}
         for part, line, launches, err in (
-            ("dq", "1456", nmt_dq, dq_err),
-            ("dkv", "1121", nmt_dkv, dkv_err))] + [{
+            ("dq", "1146", nmt_dq, dq_err),
+            ("dkv", "796", nmt_dkv, dkv_err))] + [{
         "name": "dropout_mask", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/dropout_mask.cu",
         "replaces": "openseq2seq_tpu/ops/dropout_pallas.py:92",

@@ -21,22 +21,45 @@
 // 33.6 MB (10.0 us at 3.35 TB/s). The score matrix never reaches device
 // memory: that is the whole point of the design.
 //
-// Design (a simple kernel that is right; wgmma/TMA are later work):
-//  * one CTA per (64-query tile, head, batch row); 256 threads, four per
-//    query row, so a row's online-softmax state lives in one quad of
-//    lanes and is combined with two xor-shuffles;
-//  * q is staged once and each 64-key K/V tile in turn in shared memory
-//    as fp32, rows padded by one float so that the eight rows a warp reads
-//    fall in eight banks; dynamic shared memory (66 KB at D=64, 214 KB at
-//    D=256) is requested with cudaFuncSetAttribute;
-//  * scores and P.V are fp32 FMAs from shared memory (no tensor cores
-//    yet): each thread computes 16 scores of its row, then its D/4 output
-//    columns from the row's 64 weights, which go through shared memory;
-//  * under `causal`, key tiles wholly above the tile's last query are
-//    skipped: each row keeps its diagonal key, so skipping is exact.
-// The q.k head dim DQK and the v head dim DV are separate template
-// parameters (instantiated equal here) so that a kernel with Dqk != Dv
-// can reuse this one.
+// Two kernels:
+//  * bf16, the main path: `flash_attn_fwd_mma_kernel`, both products on
+//    the tensor cores (mma.sync m16n8k16, bf16 operands, fp32
+//    accumulation), rounding where JAX's stock kernel rounds. When the
+//    keys fit one tile (Tk <= 64, the NMT shapes), the weights are
+//    normalised first, p / l, and rounded to v's type for P.V, as the stock
+//    kernel's single-step variant does (flash_attention.py:547, :556);
+//    across several key tiles p = exp(s - m) is rounded before P.V, l sums
+//    it unrounded and the output is scaled by 1 / l at the end, as its
+//    multi-step variant does (:471). (The stock kernel takes the single
+//    step up to Tk = 128, its key block; between 64 and 128 keys the port
+//    rounds as its multi-step variant does.) A CTA of 4 warps (8 at D = 256; shapes in flash_attn.cuh)
+//    owns 64 queries (32 at D = 256), each warp 16 rows. The tile's q and
+//    each 64-key K/V tile are copied into bf16 shared-memory tiles with
+//    16-byte cp.async, K/V double-buffered when Tk spans several tiles, so
+//    the next tile loads while this one is computed; fragments come from
+//    the tiles by ldmatrix (v's transposed), free of bank conflicts. The
+//    scores' accumulators carry the online softmax (a row in the four lanes
+//    of a quad) and the rounded weights become P.V's A fragments in
+//    registers: P never goes through shared memory. The output is
+//    gathered in the q tile and written with 16-byte stores. Shared
+//    memory 28 KB at D = 64 with one key tile (the NMT shapes), so that
+//    registers rather than shared memory bound the CTAs an SM holds.
+//  * fp32: `flash_attn_fwd_kernel` on the CUDA cores (TF32 would round the
+//    operands), kept for the card-against-CPU checks:
+//    - one CTA per (64-query tile, head, batch row); 256 threads, four per
+//      query row, so a row's online-softmax state lives in one quad of
+//      lanes and is combined with two xor-shuffles;
+//    - q is staged once and each 64-key K/V tile in turn in shared memory
+//      as fp32, rows padded by one float so that the eight rows a warp
+//      reads fall in eight banks; dynamic shared memory (66 KB at D=64,
+//      214 KB at D=256) is requested with cudaFuncSetAttribute;
+//    - scores and P.V are fp32 FMAs from shared memory: each thread
+//      computes 16 scores of its row, then its D/4 output columns from the
+//      row's 64 weights, which go through shared memory.
+//    The q.k head dim DQK and the v head dim DV are separate template
+//    parameters (instantiated equal here).
+// In both, under `causal`, key tiles wholly above the tile's last query
+// are skipped: each row keeps its diagonal key, so skipping is exact.
 //
 // For training the caller passes an fp32 `lse` (B, H, Tq), which receives
 // each row's log-sum-exp m + log(l) (relative to the mask value for a row
@@ -46,22 +69,19 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_attn.cuh"
+
 namespace {
 
 constexpr int kRows = 64;                 // queries per CTA
 constexpr int kKeys = 64;                 // keys per K/V tile
 constexpr int kTpr = 4;                   // threads per query row
 constexpr int kThreads = kRows * kTpr;    // 256
-constexpr float kMasked = -1e9f;
+using flash_attn::kMasked;                // -1e9
 
+// the CUDA-core kernels' loads and stores (fp32)
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <int DQK, int DV>
 constexpr size_t smem_bytes() {
@@ -233,21 +253,204 @@ int launch(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// ---- bf16: tensor cores ------------------------------------------------
+template <int D>
+size_t mma_smem_bytes(int stages) {
+  using C = flash_attn::Shape<D>;
+  return sizeof(__nv_bfloat16) * (static_cast<size_t>(C::ROWS) * C::S +
+                                  2 * static_cast<size_t>(stages) *
+                                      flash_attn::kTile * C::S) +
+         sizeof(float) * flash_attn::kTile;
+}
+
+template <int D>
+__global__ void __launch_bounds__(flash_attn::Shape<D>::THREADS)
+flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const unsigned char* __restrict__ kv_valid,
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int Tq, int Tk, int H,
+                          int causal, float sm_scale, int stages) {
+  using namespace flash_attn;
+  using C = Shape<D>;
+  constexpr int S = C::S, ROWS = C::ROWS, NT = C::THREADS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto* sq = reinterpret_cast<bf16*>(smem_raw);       // ROWS x S
+  bf16* skv = sq + ROWS * S;                          // stages x (K, V)
+  auto* sbias = reinterpret_cast<float*>(skv + 2 * stages * kTile * S);
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int rg = warp % C::RG, c0 = (warp / C::RG) * 64;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int r0 = rg * 16;                 // the warp's rows in the tile
+  const int qi[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+
+  // under causal no row of this tile sees a key past its last real query
+  const int k_end = causal ? min(Tk, min(q0 + ROWS, Tq)) : Tk;
+  const int n_tiles = (k_end + kTile - 1) / kTile;
+  const bool normalized = Tk <= kTile;
+  stage_rows<D, NT>(sq, q, q0, ROWS, Tq, H, h, b);
+  stage_rows<D, NT>(skv, k, 0, kTile, Tk, H, h, b);
+  stage_rows<D, NT>(skv + kTile * S, v, 0, kTile, Tk, H, h, b);
+  cp_async_commit();
+
+  float o[8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = i * kTile;
+    const bf16* sk = skv + 2 * (i & 1) * kTile * S;
+    const bf16* sv = sk + kTile * S;
+    if (i + 1 < n_tiles) {                // the next tile, into the other stage
+      bf16* nk = skv + 2 * ((i + 1) & 1) * kTile * S;
+      stage_rows<D, NT>(nk, k, k0 + kTile, kTile, Tk, H, h, b);
+      stage_rows<D, NT>(nk + kTile * S, v, k0 + kTile, kTile, Tk, H, h, b);
+      cp_async_commit();
+    }
+    if (threadIdx.x < kTile)
+      sbias[threadIdx.x] = key_bias(kv_valid, b, k0 + threadIdx.x, Tk);
+    if (i + 1 < n_tiles)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+
+    // S = q k^T for the warp's 16 rows and the tile's 64 keys
+    float s[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      unsigned a[4];
+      a_frag(a, sq, S, r0, kk);
+      mma_row<true>(s, a, sk, S, 0, kk);
+    }
+
+    // the online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * n + 2 * t4 + (e & 1);
+        float bias = sbias[j];
+        if (causal && bias == 0.f && k0 + j > qi[e / 2]) bias = kMasked;
+        s[n][e] = s[n][e] * sm_scale + bias;
+        mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
+      }
+    float rescale[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // key k0 < Tk is in every tile, so the new maximum is finite
+      const float m_new = fmaxf(m[r], mx[r]);
+      rescale[r] = expf(m[r] - m_new);    // 0 on the first tile
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = expf(s[n][e] - m[e / 2]);   // 0 for keys past Tk
+        sum[e / 2] += s[n][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l[r] = l[r] * rescale[r] + sum[r];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      o[n][0] *= rescale[0];
+      o[n][1] *= rescale[0];
+      o[n][2] *= rescale[1];
+      o[n][3] *= rescale[1];
+    }
+
+    // one key tile: the weights are final, normalise them before rounding
+    if (normalized)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] / l[e / 2];
+    // O += P v over the warp's 64 columns: the weights, rounded to bf16,
+    // are the A fragments of the four 16-key steps
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      unsigned a[4];
+      acc_frag(a, s, ks);
+      mma_row<false>(o, a, sv, S, c0, 16 * ks);
+    }
+    __syncthreads();                      // this stage and sbias are free
+  }
+
+  // the output through the q tile, then 16-byte stores
+  put_acc(sq, S, r0, c0, o, normalized ? 1.f : 1.f / l[0],
+          normalized ? 1.f : 1.f / l[1]);
+  __syncthreads();
+  store_rows<D, NT>(out, sq, q0, ROWS, Tq, H, h, b);
+  // the rows' log-sum-exp, as the fp32 kernel below stores it
+  if (lse != nullptr) {
+    const int first_valid = first_valid_key(kv_valid, b, Tk);
+    if (c0 == 0 && t4 == 0)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (qi[r] < Tq) {
+          const bool none = first_valid > (causal ? qi[r] : Tk - 1);
+          lse[(static_cast<size_t>(b) * H + h) * Tq + qi[r]] =
+              (none ? m[r] - kMasked : m[r]) + logf(l[r]);
+        }
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v,
+               const unsigned char* kv_valid, void* out, float* lse, int B,
+               int Tq, int Tk, int H, int causal, float sm_scale,
+               cudaStream_t stream) {
+  using C = flash_attn::Shape<D>;
+  using bf16 = __nv_bfloat16;
+  const int stages = Tk > flash_attn::kTile ? 2 : 1;
+  const size_t smem = mma_smem_bytes<D>(stages);
+  auto* kernel = flash_attn_fwd_mma_kernel<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Tq + C::ROWS - 1) / C::ROWS, H, B);
+  kernel<<<grid, C::THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), kv_valid, static_cast<bf16*>(out), lse,
+      Tq, Tk, H, causal, sm_scale, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_d(const void* q, const void* k, const void* v,
+             const unsigned char* kv_valid, void* out, float* lse, int B,
+             int Tq, int Tk, int H, int is_bf16, int causal, float sm_scale,
+             cudaStream_t stream) {
+  return is_bf16 ? launch_mma<D>(q, k, v, kv_valid, out, lse, B, Tq, Tk, H,
+                                 causal, sm_scale, stream)
+                 : launch<float, D>(q, k, v, kv_valid, out, lse, B, Tq, Tk,
+                                    H, causal, sm_scale, stream);
+}
+
 int dispatch(const void* q, const void* k, const void* v,
              const unsigned char* kv_valid, void* out, float* lse, int B,
-             int Tq, int Tk, int H, int D, int causal, float sm_scale,
-             cudaStream_t stream) {
+             int Tq, int Tk, int H, int D, int is_bf16, int causal,
+             float sm_scale, cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, kv_valid, out, lse, B, Tq, Tk, H,
-                           causal, sm_scale, stream);
+      return launch_d<64>(q, k, v, kv_valid, out, lse, B, Tq, Tk, H, is_bf16,
+                          causal, sm_scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, kv_valid, out, lse, B, Tq, Tk, H,
-                            causal, sm_scale, stream);
+      return launch_d<128>(q, k, v, kv_valid, out, lse, B, Tq, Tk, H,
+                           is_bf16, causal, sm_scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, kv_valid, out, lse, B, Tq, Tk, H,
-                            causal, sm_scale, stream);
+      return launch_d<256>(q, k, v, kv_valid, out, lse, B, Tq, Tk, H,
+                           is_bf16, causal, sm_scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -258,8 +461,9 @@ int dispatch(const void* q, const void* k, const void* v,
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 on
 // success). The caller guarantees B, Tq, Tk, H >= 1, D in {64, 128, 256},
 // contiguous (B, T, H, D) device buffers of one type (bf16 when is_bf16,
-// else fp32), kv_valid null or a (B, Tk) byte mask, and lse null or a
-// (B, H, Tq) fp32 buffer, which then receives each row's m + log(l).
+// else fp32; bf16 ones 16-byte aligned), kv_valid null or a (B, Tk) byte
+// mask, and lse null or a (B, H, Tq) fp32 buffer, which then receives each
+// row's m + log(l).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               const void* kv_valid, void* out, void* lse,
                               int B, int Tq, int Tk, int H, int D,
@@ -267,10 +471,6 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* stream) {
   const auto* mask = static_cast<const unsigned char*>(kv_valid);
   auto* lse_out = static_cast<float*>(lse);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, mask, out, lse_out, B, Tq, Tk,
-                                   H, D, causal, sm_scale, s);
-  return dispatch<float>(q, k, v, mask, out, lse_out, B, Tq, Tk, H, D,
-                         causal, sm_scale, s);
+  return dispatch(q, k, v, mask, out, lse_out, B, Tq, Tk, H, D, is_bf16,
+                  causal, sm_scale, static_cast<cudaStream_t>(stream));
 }

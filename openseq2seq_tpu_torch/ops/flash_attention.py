@@ -23,14 +23,24 @@ offset.
 
 For a CPU tensor the op runs the plain versions. For a CUDA tensor it
 launches the kernels (bf16 or fp32; D in {64, 128, 256}; contiguous
-inputs) or raises on anything they do not take. There is no other
-fallback. ``LAUNCHES`` counts launches of the forward kernel,
-``BWD_DQ_LAUNCHES`` and ``BWD_DKV_LAUNCHES`` those of the two backward
-kernels.
+inputs, bf16 ones 16-byte aligned) or raises on anything they do not
+take. There is no other fallback. bf16 runs on the tensor cores and
+rounds where JAX's stock TPU kernels round: the weights before P.V in the
+forward, p^T, ds^T and ds before the backward's products (between 64 and
+128 keys the forward rounds as the stock kernel does past 128, see
+:func:`flash_attention_plain`). The plain versions do the same with
+``round_weights=True``, which the card's checks use, each output element
+within :func:`flash_attention_bound` or :func:`flash_attention_bwd_bound`,
+bounds built from that element's own terms; off (the default, and the
+CPU path) they keep fp32 math throughout, as ``_attend`` does, the JAX
+package's path off the TPU. fp32 runs on the CUDA cores. ``LAUNCHES``
+counts launches of the forward kernel, ``BWD_DQ_LAUNCHES`` and
+``BWD_DKV_LAUNCHES`` those of the two backward kernels.
 """
 from __future__ import annotations
 
 import ctypes
+import re
 from typing import Optional, Tuple
 
 import torch
@@ -42,10 +52,25 @@ KERNEL = "flash_attn_fwd"
 BWD_KERNEL = "flash_attn_bwd"
 HEAD_DIMS = (64, 128, 256)
 MASKED = -1e9
+# a bf16 value and its neighbour differ by at most this fraction of it
+# (8 significant bits)
+BF16_ULP = 2.0 ** -7
 # entry point -> (library, pointer arguments)
 _ENTRY = {"flash_attn_fwd": (KERNEL, 6), "flash_attn_bwd_dq": (BWD_KERNEL, 9),
           "flash_attn_bwd_dkv": (BWD_KERNEL, 9)}
 _fns = {}
+
+
+def _key_tile() -> int:
+    """The bf16 kernels' key tile, ``kTile`` in ``csrc/flash_attn.cuh``."""
+    from ..kernels.build import CSRC_DIR
+    text = (CSRC_DIR / "flash_attn.cuh").read_text()
+    return int(re.search(r"constexpr int kTile = (\d+);", text).group(1))
+
+
+# keys of one tile of the bf16 forward kernel: up to this many its weights
+# are normalised before they are rounded
+ONE_TILE = _key_tile()
 
 
 def _kernel(entry: str):
@@ -80,39 +105,160 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_valid: Optional[torch.Tensor] = None,
                           causal: bool = False,
                           sm_scale: Optional[float] = None,
-                          return_lse: bool = False):
+                          return_lse: bool = False,
+                          round_weights: bool = False):
     """The plain version: fp32 scores, the mask as an additive -1e9,
     softmax, then the weighted sum of v in fp32; output in q's dtype.
-    With ``return_lse`` also the rows' log-sum-exp (B, H, Tq), fp32."""
+    With ``return_lse`` also the rows' log-sum-exp (B, H, Tq), fp32.
+    With ``round_weights`` the weights are rounded to v's dtype before the
+    weighted sum, as the bf16 kernel rounds them: normalised first,
+    o = round(p / l) v, where the keys fit the kernel's one key tile
+    (Tk <= ``ONE_TILE``; as the stock kernel's single step,
+    ``flash_attention.py:547, :556``), else o = round(p) v * (1 / l) with
+    l the sum of the unrounded p = exp(s - m) (as its multi-step variant,
+    ``:471``). The stock kernel behind the JAX package's ``_attend_flash``
+    takes its single step up to 128 keys, its key block: between
+    ``ONE_TILE`` and 128 keys the two round the same weight one way and
+    the other, one bf16 ulp of the weight apart at most (within
+    :func:`flash_attention_bound`)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     logits, off = _scores(q, k, kv_valid, causal, sm_scale)
-    weights = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", weights, v.float()).to(q.dtype)
+    if round_weights:
+        p = torch.exp(logits - logits.amax(-1, keepdim=True))
+        if k.shape[1] <= ONE_TILE:
+            out = torch.einsum("bhqk,bkhd->bqhd",
+                               (p / p.sum(-1, keepdim=True)).to(
+                                   v.dtype).float(), v.float()).to(q.dtype)
+        else:
+            inv_l = 1.0 / p.sum(-1).transpose(1, 2)[..., None]
+            out = (torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(),
+                                v.float()) * inv_l).to(q.dtype)
+    else:
+        weights = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights,
+                           v.float()).to(q.dtype)
     if not return_lse:
         return out
     return out, torch.logsumexp(logits - off, dim=-1)
 
 
+def _score_error(q, k, p, sm_scale):
+    """How far an fp32 p = exp(s - c) may sit from this module's: the
+    scores' sums of D products in another order (2 D 2^-24 of their terms'
+    sizes), and 2^-16 in the exponent for the exponential and the
+    scaling."""
+    qa, ka = q.float().abs(), k.float().abs()
+    return p * (2.0 ** -23 * q.shape[-1] * sm_scale *
+                torch.einsum("bqhd,bkhd->bhqk", qa, ka) + 2.0 ** -16)
+
+
+def _sum_bound(grad, a, err_a, b, eq, n):
+    """The bound of a bf16 ``grad`` = sum of a b over n terms against the
+    same sum computed another way (a kernel), where a (fp32, within
+    ``err_a``) is rounded to bf16 before the product and b is exact on
+    both sides: one ulp of
+    ``grad`` for its last rounding; for each term one ulp of the rounded a
+    (it may round the other way) plus ``err_a``, times |b|; the fp32 sum in
+    another order, 2 n 2^-24 of the terms' sizes; and (1 + ``BF16_ULP``)
+    on the terms for their products with the last rounding."""
+    a = a.to(torch.bfloat16).float().abs()
+    terms = torch.einsum(eq, (BF16_ULP + n * 2.0 ** -23) * a + err_a,
+                         b.float().abs())
+    return BF16_ULP * grad.float().abs() + (1 + BF16_ULP) * terms
+
+
+def flash_attention_bound(q, k, v, kv_valid=None, causal=False,
+                          sm_scale=None) -> torch.Tensor:
+    """Element by element, how far a bf16 forward that rounds the weights
+    before P.V may sit from ``flash_attention_plain(...,
+    round_weights=True)`` on the same inputs; fp32, in the output's
+    shape. Each element's bound is built from its own terms w v: one ulp of
+    each rounded weight w = p / l, which may round the other way (one side
+    normalises before it rounds, or rounds against a running maximum,
+    and the other not), plus w's fp32 error (the scores', and 2 Tk 2^-24
+    for l's sum), see ``_sum_bound``."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    want = flash_attention_plain(q, k, v, kv_valid, causal, sm_scale,
+                                 round_weights=True)
+    logits, _ = _scores(q, k, kv_valid, causal, sm_scale)
+    w = torch.softmax(logits, dim=-1)
+    Tk = k.shape[1]
+    err_w = _score_error(q, k, w, sm_scale) + w * Tk * 2.0 ** -23
+    return _sum_bound(want, w, err_w, v, "bhqk,bkhd->bqhd", Tk)
+
+
+def _bwd_terms(q, k, v, o, lse, do, kv_valid, causal, sm_scale):
+    """The backward's recompute in fp32: p from ``lse``, dP = dO v^T and
+    ``di = rowsum(dO * O)``."""
+    logits, off = _scores(q, k, kv_valid, causal, sm_scale)
+    p = torch.exp((logits - off) - lse[..., None])
+    dof = do.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    di = (dof * o.float()).sum(-1).transpose(1, 2)[..., None]
+    return p, dp, di
+
+
 def flash_attention_bwd_plain(q, k, v, o, lse, do, kv_valid=None,
-                              causal=False, sm_scale=None
+                              causal=False, sm_scale=None,
+                              round_weights: bool = False
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """The plain version of the backward, the kernels' recompute written
     out in fp32: p from ``lse``, ``di = rowsum(dO * O)``,
-    ``ds = p * (dO v^T - di)``; (dq, dk, dv) in the inputs' dtypes."""
+    ``ds = p * (dO v^T - di)``; (dq, dk, dv) in the inputs' dtypes. With
+    ``round_weights`` the products' operands are rounded to dO's dtype
+    where JAX's stock TPU kernels round them: p^T for dv
+    (``flash_attention.py:900``), ds^T = (p (dp - di) sm_scale)^T for dk
+    (``:918``) and ds for dq (``:1251-1258``)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    logits, off = _scores(q, k, kv_valid, causal, sm_scale)
-    p = torch.exp((logits - off) - lse[..., None])
-    dof = do.float()
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
-    di = (dof * o.float()).sum(-1).transpose(1, 2)[..., None]
+    p, dp, di = _bwd_terms(q, k, v, o, lse, do, kv_valid, causal, sm_scale)
+
+    def rounded(x):
+        return x.to(do.dtype).float() if round_weights else x
     ds = p * (dp - di)
+    if round_weights:  # the stock kernels round ds with the scale applied
+        ds, sm_scale = rounded(ds * sm_scale), 1.0
+    dv = torch.einsum("bhqk,bqhd->bkhd", rounded(p), do.float())
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * sm_scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * sm_scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_bound(q, k, v, o, lse, do, kv_valid=None,
+                              causal=False, sm_scale=None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Element by element, how far the bf16 gradients of a backward that
+    rounds where JAX's stock kernels round (p^T and ds to dO's dtype, sums
+    in fp32) may sit from ``flash_attention_bwd_plain(...,
+    round_weights=True)`` on the same inputs, o and lse; fp32, in the
+    gradients' shapes. Each element's bound is built from its own terms
+    a b, a = p for dv and ds for dq and dk (see ``_sum_bound``), so that it
+    does not grow with another row's magnitude: a row of one valid key,
+    whose dv sums dO over all queries, sets no other key's bound. a's fp32
+    error: p's (``_score_error``), and for ds also dP's and di's sums of D
+    products in another order (2 D 2^-24 of their terms' sizes each), so
+    that a ds which cancels to 0 keeps room."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do, kv_valid,
+                                           causal, sm_scale,
+                                           round_weights=True)
+    p, dp, di = _bwd_terms(q, k, v, o, lse, do, kv_valid, causal, sm_scale)
+    err_p = _score_error(q, k, p, sm_scale)
+    va, oa, doa = (x.float().abs() for x in (v, o, do))
+    err_dp_di = 2.0 ** -23 * q.shape[-1] * (
+        torch.einsum("bqhd,bkhd->bhqk", doa, va) +
+        (doa * oa).sum(-1).transpose(1, 2)[..., None])
+    ds = p * (dp - di) * sm_scale
+    err_ds = (p * err_dp_di + err_p * (dp - di).abs()) * sm_scale
+    Tq, Tk = q.shape[1], k.shape[1]
+    return (_sum_bound(dq, ds, err_ds, k, "bhqk,bkhd->bqhd", Tk),
+            _sum_bound(dk, ds, err_ds, q, "bhqk,bqhd->bkhd", Tq),
+            _sum_bound(dv, p, err_p, do, "bhqk,bqhd->bkhd", Tq))
 
 
 def _check(q, k, v, kv_valid):
@@ -147,6 +293,14 @@ def _check(q, k, v, kv_valid):
                              tuple(kv_valid.shape), kv_valid.device))
 
 
+def _check_aligned(*tensors):
+    """The bf16 kernels copy rows with 16-byte loads and stores."""
+    for x in tensors:
+        if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+            raise ValueError("bf16 tensors must start on a 16-byte boundary; "
+                             "got address {:#x}".format(x.data_ptr()))
+
+
 def flash_attention_cuda(q, k, v, kv_valid=None, causal=False,
                          sm_scale=None, return_lse: bool = False):
     """Launch ``flash_attn_fwd``; with ``return_lse`` also the rows'
@@ -156,6 +310,7 @@ def flash_attention_cuda(q, k, v, kv_valid=None, causal=False,
         raise ValueError("no flash attention kernel for device {}".format(
             q.device))
     _check(q, k, v, kv_valid)
+    _check_aligned(q, k, v)
     B, Tq, H, D = q.shape
     if sm_scale is None:
         sm_scale = D ** -0.5
@@ -199,6 +354,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_valid=None,
             lse.device != q.device or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous fp32 {} tensor on {}"
                          .format((B, H, Tq), q.device))
+    _check_aligned(q, k, v, o, do)
     if sm_scale is None:
         sm_scale = D ** -0.5
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))

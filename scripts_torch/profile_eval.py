@@ -82,6 +82,8 @@ GROUPS = (
     # the conv module's two launches, conformer_conv_pw1_kernel and
     # conformer_conv_dw_pw2_kernel
     ("conformer conv kernel", ("conformer_conv_",)),
+    # bf16: flash_attn_fwd_mma_kernel, flash_attn_bwd_{dq,dkv}_mma_kernel;
+    # fp32: the same names without _mma
     ("flash attention kernel", ("flash_attn_fwd", "flash_attn_bwd")),
     ("fused dropout kernel", ("dropout_mask",)),
     # the GRU and LSTM kernels, rnn_scan::scan_fwd_kernel<...> and

@@ -15,7 +15,10 @@ bit-identical. The flash attention kernel against
 order), and what it refuses. The flash backward kernels against
 ``flash_attention_bwd_plain`` from the kernel forward's own output and
 lse: fp32, max abs error 1e-4, two calls bit-identical, and autograd
-through the kernels. The fused dropout kernel against its plain version:
+through the kernels. The bf16 flash kernels (tensor cores) against the
+rounding plain versions, forward and backward, at the encoder shape, the
+decoder's causal shape and at D = 128 and 256 (tolerances in the test),
+repeats bit-identical, and the refusal of a misaligned bf16 input. The fused dropout kernel against its plain version:
 bit-identical, forward and backward, with and without the residual. The
 GRU and LSTM scan kernels against their plain versions, forward and
 reverse, residuals included: fp32 (TF32 off) max abs error 1e-5, bf16
@@ -177,6 +180,65 @@ def test_flash_backward_kernels_match_plain(device, B, Tq, Tk, H, D, causal):
     fa.flash_attention(*leaves, valid, causal).backward(do)
     for leaf, w in zip(leaves, want):
         torch.testing.assert_close(leaf.grad, w, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,D,causal", [
+    (64, 64, 64, 16, 64, False), (64, 63, 63, 16, 64, True),
+    (2, 100, 130, 4, 128, False), (1, 70, 200, 2, 256, False)])
+def test_bf16_flash_kernels_match_rounding_plain(device, B, Tq, Tk, H, D,
+                                                 causal):
+    """The bf16 kernels (tensor cores) against the rounding plain versions
+    (``round_weights=True``) on the same inputs, the backward from the
+    kernel forward's own output and lse: each element of the output and
+    of the gradients within ``flash_attention_bound`` and
+    ``flash_attention_bwd_bound``, bounds built from that element's own
+    terms (one bf16 ulp of each rounded weight or ds, the fp32 sums in
+    another order, one ulp of the element); two calls bit-identical; each
+    call one launch of each kernel."""
+    from openseq2seq_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=device).manual_seed(Tq + D + 2)
+    q, do = (torch.randn((B, Tq, H, D), generator=g, device=device)
+             for _ in range(2))
+    k = torch.randn((B, Tk, H, D), generator=g, device=device)
+    v = 2 * torch.rand((B, Tk, H, D), generator=g, device=device) - 1
+    q, k, v, do = (x.bfloat16() for x in (q, k, v, do))
+    valid = None
+    if not causal:
+        lengths = torch.randint(1, Tk + 1, (B,), generator=g, device=device)
+        lengths[0] = Tk
+        valid = torch.arange(Tk, device=device)[None] < lengths[:, None]
+    before = (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    out, lse = fa.flash_attention_cuda(q, k, v, valid, causal, D ** -0.5,
+                                      return_lse=True)
+    again = fa.flash_attention_cuda(q, k, v, valid, causal, D ** -0.5)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, valid, causal)
+    got_again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, valid,
+                                            causal)
+    assert (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES) == (
+        before[0] + 2, before[1] + 2, before[2] + 2)
+    want = fa.flash_attention_plain(q, k, v, valid, causal,
+                                    round_weights=True)
+    want_grads = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, valid,
+                                              causal, round_weights=True)
+    bound = fa.flash_attention_bound(q, k, v, valid, causal)
+    bounds = fa.flash_attention_bwd_bound(q, k, v, out, lse, do, valid,
+                                          causal)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    assert torch.all((out.float() - want.float()).abs() <= bound)
+    for a, b, w, wb in zip(got, got_again, want_grads, bounds):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+        assert torch.all((a.float() - w.float()).abs() <= wb)
+
+
+def test_flash_kernels_refuse_misaligned_bf16(device):
+    """The bf16 kernels copy 16 bytes at a time: a contiguous bf16 view
+    that does not start on a 16-byte boundary is refused."""
+    from openseq2seq_tpu_torch.ops import flash_attention as fa
+    n = 2 * 8 * 2 * 64
+    q = torch.randn(n + 1, device=device).bfloat16()[1:].view(2, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_cuda(q, q, q)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -8,7 +8,14 @@ are held against ``_attend`` with the same additive -1e9 masks: key
 padding, causal, Tq != Tk, head dims 64 and 128, and a row with no valid
 key. Tolerance: fp32, rtol 1e-5 and atol 1e-6. On a CPU tensor the op
 runs the plain version and launches nothing; tests/test_torch_cuda.py
-holds the kernel against the plain version on the card."""
+holds the kernel against the plain version on the card.
+
+The rounding plain versions (``round_weights=True``, which the card holds
+the bf16 kernels to) are held against the JAX package's ``_attend_flash``
+itself, JAX's stock Pallas TPU kernel run in TPU interpret mode, forward
+and ``jax.vjp``, on bf16 inputs (tolerances in the test); with the
+argument off both plain versions stay the fp32 math above, bit for
+bit."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -252,3 +259,174 @@ def test_autograd_on_cpu_runs_the_plain_backward_without_launch():
     with pytest.raises(ValueError, match="no flash attention kernel"):
         fa.flash_attention_bwd_cuda(tq, tk, tv, plain, lse,
                                     torch.from_numpy(do))
+
+
+# -- the rounding plain versions against JAX's stock TPU kernel -----------
+
+STOCK_CASES = [  # Tq, Tk, causal; B=2, H=2, D=64; key padding unless causal
+    (63, 63, False),
+    (63, 63, True),
+    (63, 64, False),
+]
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp of each value (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 1e-30))) - 7)
+
+
+def _stock_case(Tq, Tk, causal):
+    """bf16 q, k, dO ~ N(0, 1) and v ~ U(-1, 1) from numpy, and for key
+    padding a (B, Tk) mask with batch row 1 of length 20 and its additive
+    bias for the JAX package."""
+    rng = np.random.RandomState(Tq + Tk + causal)
+    q, k, do = (torch.from_numpy(rng.randn(2, T, 2, 64).astype(
+        np.float32)).bfloat16() for T in (Tq, Tk, Tq))
+    v = torch.from_numpy(rng.uniform(-1, 1, (2, Tk, 2, 64)).astype(
+        np.float32)).bfloat16()
+    if causal:
+        return q, k, v, do, None, None
+    valid = np.arange(Tk)[None, :] < np.array([Tk, 20])[:, None]
+    return q, k, v, do, torch.from_numpy(valid), _padding_bias(valid)
+
+
+@pytest.mark.parametrize("Tq,Tk,causal", STOCK_CASES)
+def test_rounding_plain_matches_the_stock_tpu_kernel(Tq, Tk, causal):
+    """``round_weights=True`` against the JAX package's ``_attend_flash``,
+    which runs JAX's stock Pallas TPU flash attention (here in TPU
+    interpret mode), and ``jax.vjp`` of it, on the same bf16 inputs; the
+    port's backward takes its own forward's output and lse. At these
+    shapes the stock kernel holds each row's keys in one block: it rounds
+    p / l for P.V, and p^T, ds^T and ds for the backward's products, all
+    sums in fp32. Tolerance: the output within one bf16 ulp of each value
+    (both round the same fp32 math once, sums in another order); each
+    gradient within one bf16 ulp plus 2^-10 of its largest magnitude, for
+    a p or ds that rounds the other way (the stock kernel recomputes p as
+    exp(s - m) / l, the port as exp(s - lse)), and each gradient within
+    ``flash_attention_bwd_bound``, the bound the card holds the bf16
+    kernels to."""
+    import jax
+    from jax.experimental.pallas import tpu as pltpu
+    from openseq2seq_tpu.parts.transformer.attention import (
+        _attend_flash as jax_attend_flash)
+    q, k, v, do, valid, bias = _stock_case(Tq, Tk, causal)
+
+    def jx(x):
+        return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(lambda a, b, c: jax_attend_flash(
+            a, b, c, None if bias is None else jnp.asarray(bias), causal,
+            jnp.bfloat16), jx(q), jx(k), jx(v))
+        want_grads = vjp(jx(do))
+    out, lse = fa.flash_attention_plain(q, k, v, valid, causal,
+                                        return_lse=True, round_weights=True)
+    grads = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, valid,
+                                         causal, round_weights=True)
+    assert out.dtype == torch.bfloat16
+    w = np.asarray(want.astype(jnp.float32))
+    assert np.all(np.abs(out.float().numpy() - w) <= _bf16_ulp(w))
+    bounds = fa.flash_attention_bwd_bound(q, k, v, out, lse, do, valid,
+                                          causal)
+    for g, w, bound in zip(grads, want_grads, bounds):
+        assert g.dtype == torch.bfloat16
+        w = np.asarray(w.astype(jnp.float32))
+        assert np.all(np.abs(g.float().numpy() - w) <=
+                      _bf16_ulp(w) + 2.0 ** -10 * np.abs(w).max())
+        assert np.all(np.abs(g.float().numpy() - w) <= bound.numpy())
+
+
+def test_rounding_plain_past_one_key_tile_matches_the_stock_kernel():
+    """Between ``ONE_TILE`` (the bf16 kernel's key tile) and 128 keys the
+    stock kernel still takes its single step, o = round(p / l) v, where
+    the port rounds p = exp(s - m) and scales by 1 / l: a weight may round
+    one way and the other. The output stays within
+    ``flash_attention_bound`` of the stock kernel's, the bound the card
+    holds the bf16 forward to. The backward takes the stock forward's
+    output: the forward's difference moves di = rowsum(dO * O), and with
+    it ds where dP - di cancels, which is the forward's to answer for; on
+    the same o the gradients stay within ``flash_attention_bwd_bound``."""
+    import jax
+    from jax.experimental.pallas import tpu as pltpu
+    from openseq2seq_tpu.parts.transformer.attention import (
+        _attend_flash as jax_attend_flash)
+    Tq, Tk, causal = 63, 100, False
+    assert fa.ONE_TILE < Tk <= 128
+    q, k, v, do, valid, bias = _stock_case(Tq, Tk, causal)
+
+    def jx(x):
+        return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(lambda a, b, c: jax_attend_flash(
+            a, b, c, None if bias is None else jnp.asarray(bias), causal,
+            jnp.bfloat16), jx(q), jx(k), jx(v))
+        want_grads = vjp(jx(do))
+    out, lse = fa.flash_attention_plain(q, k, v, valid, causal,
+                                        return_lse=True, round_weights=True)
+    want = torch.from_numpy(np.asarray(want.astype(jnp.float32)))
+    assert torch.all((out.float() - want).abs() <=
+                     fa.flash_attention_bound(q, k, v, valid, causal))
+    stock_o = want.bfloat16()
+    grads = fa.flash_attention_bwd_plain(q, k, v, stock_o, lse, do, valid,
+                                         causal, round_weights=True)
+    bounds = fa.flash_attention_bwd_bound(q, k, v, stock_o, lse, do, valid,
+                                          causal)
+    for g, w, bound in zip(grads, want_grads, bounds):
+        w = torch.from_numpy(np.asarray(w.astype(jnp.float32)))
+        assert torch.all((g.float() - w).abs() <= bound)
+
+
+def test_bounds_hold_fp32_math_and_refuse_a_planted_fault():
+    """The bf16 bounds against what they must take and what they must
+    refuse: the plain versions' fp32 math (the weights and ds unrounded,
+    half an ulp from the rounded ones) lies within them; an output or a
+    dv zeroed on every batch row but the one with a single valid key (whose
+    dv, the sum of dO over all queries, is the largest) lies far outside."""
+    q, k, v, do, valid, _ = _stock_case(63, 64, False)
+    out, lse = fa.flash_attention_plain(q, k, v, valid, return_lse=True,
+                                        round_weights=True)
+    bound = fa.flash_attention_bound(q, k, v, valid)
+    assert torch.all((fa.flash_attention_plain(q, k, v, valid).float() -
+                      out.float()).abs() <= bound)
+    rounded = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, valid,
+                                           round_weights=True)
+    bounds = fa.flash_attention_bwd_bound(q, k, v, out, lse, do, valid)
+    for g, w, b in zip(fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                    valid), rounded, bounds):
+        assert torch.all((g.float() - w.float()).abs() <= b)
+    valid[1, 1:] = False
+    out, lse = fa.flash_attention_plain(q, k, v, valid, return_lse=True,
+                                        round_weights=True)
+    dv = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, valid,
+                                      round_weights=True)[2]
+    for bad, good, b in (
+            (out.clone(), out, fa.flash_attention_bound(q, k, v, valid)),
+            (dv.clone(), dv, fa.flash_attention_bwd_bound(
+                q, k, v, out, lse, do, valid)[2])):
+        bad[0] = 0
+        assert torch.any((bad.float() - good.float()).abs() > 10 * b)
+
+
+def test_rounding_off_is_the_fp32_plain_version():
+    """Without ``round_weights`` both plain versions compute as before it
+    existed, bit for bit: softmax and fp32 products, the scale applied
+    after dq's and dk's sums."""
+    q, k, v, do, valid, _ = _stock_case(63, 64, False)
+    out, lse = fa.flash_attention_plain(q, k, v, valid, return_lse=True)
+    logits, off = fa._scores(q, k, valid, False, 64 ** -0.5)
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1),
+                        v.float()).to(q.dtype)
+    assert torch.equal(out, want)
+    assert torch.equal(lse, torch.logsumexp(logits - off, dim=-1))
+    dq, dk, dv = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, valid)
+    p = torch.exp((logits - off) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    di = (do.float() * out.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (dp - di)
+    assert torch.equal(dv, torch.einsum("bhqk,bqhd->bkhd", p,
+                                        do.float()).to(v.dtype))
+    assert torch.equal(dq, (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) *
+                            64 ** -0.5).to(q.dtype))
+    assert torch.equal(dk, (torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) *
+                            64 ** -0.5).to(k.dtype))

@@ -186,6 +186,14 @@ def test_busy_time_is_the_union_of_intervals():
      "64, 64, 64, 4>(__nv_bfloat16 const*)", "flash attention kernel"),
     ("void (anonymous namespace)::flash_attn_bwd_dkv_kernel<float, 256, 256, "
      "32, 8>(float const*)", "flash attention kernel"),
+    ("void (anonymous namespace)::flash_attn_fwd_mma_kernel<64>"
+     "(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "unsigned char const*, __nv_bfloat16*, float*, int, int, int, int, "
+     "float, int)", "flash attention kernel"),
+    ("void (anonymous namespace)::flash_attn_bwd_dq_mma_kernel<64>"
+     "(__nv_bfloat16 const*)", "flash attention kernel"),
+    ("void (anonymous namespace)::flash_attn_bwd_dkv_mma_kernel<256>"
+     "(__nv_bfloat16 const*)", "flash attention kernel"),
     ("void (anonymous namespace)::dropout_mask_kernel<__nv_bfloat16, false>"
      "(__nv_bfloat16 const*)", "fused dropout kernel"),
     ("void rnn_scan::scan_fwd_kernel<__nv_bfloat16, 3, 8, (anonymous "
