@@ -80,9 +80,13 @@ Phases, one informative line or a few each:
    D=256), Conformer-L's (H=8, D=512) and a ragged T=37 (Dh=32, D=128),
    lengths from 1 to T and one 0 (clamped to 1): fp32 (TF32 off) context
    max abs err 2e-5 and lse 1e-5, bf16 against the plain version on the
-   same bf16 inputs within RELPOS_BF16_ATOL (both round p to bf16, at
-   other running maxima), two calls bit-identical; times of the kernel,
-   the plain version and ``scaled_dot_product_attention`` on the
+   same bf16 inputs (which rounds the weights as the kernel and the TPU
+   kernel do, against the running maximum of 128-key blocks) each
+   element within ``relpos_attention_bound``, a planted fault (the
+   context zeroed but in batch row 1) refused, lse within 1e-5 of max(1,
+   |lse|), two calls bit-identical; the CTAs an SM holds of each bf16
+   kernel at Conformer-M's and -L's widths; times of the kernel, the
+   plain version and ``scaled_dot_product_attention`` on the
    materialised q~, k~ and v with the length mask (timed only, never on
    the path) at Conformer-M's shape in bf16;
 4h. the Conformer conv module kernel against
@@ -96,8 +100,10 @@ Phases, one informative line or a few each:
    kernel with its lse) against ``relpos_attention_bwd_plain`` at the
    shapes of 4g: fp32 (TF32 off) dqu, dqp, dk, dv max abs err 1e-4; bf16
    against the plain version on the same bf16 inputs (p and ds rounded
-   where the kernels round them) within 2^-7 of each gradient's largest
-   magnitude; two calls bit-identical; times of each kernel, the plain
+   where the kernels round them) each element within
+   ``relpos_attention_bwd_bound`` and within twice it against the plain
+   version's fp32 math, a planted fault (dv zeroed but in batch row 1)
+   refused; two calls bit-identical; times of each kernel, the plain
    backward and ``scaled_dot_product_attention`` forward plus backward on
    the materialised q~, k~ (timed only, never on the path) at
    Conformer-M's shape in bf16; what the backward does not take, it
@@ -1289,13 +1295,14 @@ RELPOS_CASES = (
     ("ragged T=37", 3, 4, 37, 32, 128),
 )
 RELPOS_FP32_ATOL, RELPOS_LSE_ATOL = 2e-5, 1e-5
-# bf16: both sides round each weight p to bf16 before P.V, the kernel at
-# its running maximum and the plain version at the row's final one, so a
-# weight may differ by one bf16 rounding (2^-9 of it) on either side; with
-# |v| <= 1 that moves a context by up to 2^-8, and its own rounding to
-# bf16 (2^-9 on each side) can take it across a rounding boundary: four
-# bf16 ulps of a context below 1 (the first card run showed two)
-RELPOS_BF16_ATOL = 2.0 ** -6
+# bf16: each context element within relpos_attention_bound of the plain
+# version, which rounds the weights where the kernel and the TPU kernel
+# round them (against the running maximum of 128-key blocks): one bf16 ulp
+# of each weight that may round the other way, the fp32 sums in another
+# order, one ulp of the element; the reading is the largest |kernel -
+# plain| / bound, at most 1, and a planted fault (the context zeroed on
+# every batch row but row 1) must read above 1. lse within RELPOS_LSE_ATOL
+# of max(1, |lse|).
 
 
 def relpos_case(B, H, T, Dh, D, seed, device):
@@ -1330,13 +1337,21 @@ def relpos_bound_ms(qu, qp, kp, lengths):
 
 def phase_relpos(card):
     """``flash_relpos_fwd`` against ``relpos_attention_plain`` on the
-    card. Returns the worst fp32 error and the timings at Conformer-M's
-    shape."""
+    card: fp32 within RELPOS_FP32_ATOL; bf16 within
+    ``relpos_attention_bound``, element by element, refusing a planted
+    fault; two calls bit-identical. Prints the CTAs an SM holds of each
+    bf16 kernel at Conformer-M's and Conformer-L's widths. Returns the
+    worst fp32 error and the timings at Conformer-M's shape."""
     import torch
     import torch.nn.functional as F
     from openseq2seq_tpu_torch.ops import flash_relpos as fr
     dev = torch.device("cuda")
     worst, times = 0.0, None
+    for name, D in (("conformer-m", 256), ("conformer-l", 512)):
+        print("[relpos] {} (Dh 64, D {}) bf16 CTAs an SM: forward {}, dq {}, "
+              "dkv {}".format(name, D, *(fr.ctas_per_sm(kernel, 64, D)
+                                         for kernel in ("fwd", "dq", "dkv"))),
+              flush=True)
     for i, (name, B, H, T, Dh, D) in enumerate(RELPOS_CASES):
         case = relpos_case(B, H, T, Dh, D, 40 + i, dev)
         scale = Dh ** -0.5
@@ -1350,7 +1365,8 @@ def phase_relpos(card):
             torch.cuda.synchronize()
             check(fr.LAUNCHES == before + 2, "{}: launches".format(name))
             err = float((got.float() - want.float()).abs().max())
-            lse_err = float((lse - want_lse).abs().max())
+            lse_err = float(((lse - want_lse).abs() /
+                             want_lse.abs().clamp(min=1.0)).max())
             same = torch.equal(got, again) and torch.equal(lse, lse2)
             print("[relpos] {} B={} H={} T={} Dh={} D={} {}: context max abs "
                   "err {:.3e}, lse {:.3e}, repeat bit-identical: {}".format(
@@ -1359,13 +1375,27 @@ def phase_relpos(card):
             check(same and got.dtype == dtype and
                   bool(torch.isfinite(got).all()),
                   "{}: repeat or dtype".format(name))
+            check(lse_err <= RELPOS_LSE_ATOL, "{}: lse err {}".format(
+                name, lse_err))
             if dtype == torch.float32:
                 worst = max(worst, err)
-                check(err <= RELPOS_FP32_ATOL and lse_err <= RELPOS_LSE_ATOL,
-                      "{}: fp32 err {} lse {}".format(name, err, lse_err))
+                check(err <= RELPOS_FP32_ATOL, "{}: fp32 err {}".format(
+                    name, err))
             else:
-                check(err <= RELPOS_BF16_ATOL and lse_err <= 1e-2,
-                      "{}: bf16 err {} lse {}".format(name, err, lse_err))
+                bound = fr.relpos_attention_bound(*args)
+                reading = bound_reading(got, want, bound)
+                planted = planted_fault_reading(got, want, bound)
+                math_reading = bound_reading(got, fr.relpos_attention_plain(
+                    *args, round_weights=False)[0], bound)
+                print("[relpos] {} bf16: {:.4f} of the bound at most against "
+                      "the plain version ({:.4f} against its fp32 math); a "
+                      "planted fault, the context zeroed but in batch row 1, "
+                      "reads {:.1f}".format(name, reading, math_reading,
+                                            planted), flush=True)
+                check(reading <= 1.0, "{}: bf16 err {} times the bound"
+                      .format(name, reading))
+                check(planted > 1.0, "{}: the bound takes a planted fault"
+                      .format(name))
             if i > 0 or dtype == torch.float32:
                 continue
             q_aug = torch.cat([qu.transpose(1, 2), qp], dim=-1)
@@ -1537,11 +1567,12 @@ def phase_conformer_conv(card):
 
 
 RELPOS_BWD_FP32_ATOL = 1e-4
-# bf16: the kernels round p and ds to bf16 where the plain version on the
-# same bf16 inputs does, from fp32 values summed in another order, so a
-# term may round the other way (2^-9 of it) and a gradient sums many: 2^-7
-# of each gradient's largest magnitude
-RELPOS_BWD_BF16_TOL = 2.0 ** -7
+# bf16: each gradient element within relpos_attention_bwd_bound of the
+# plain version on the same bf16 inputs (one bf16 ulp of each p or ds
+# that may round the other way, the fp32 sums in another order, one ulp of
+# the element), and within twice it of the plain version's fp32 math (the
+# bf16 inputs upcast, p and ds unrounded); a planted fault, dv zeroed on
+# every batch row but row 1, must read above 1
 
 
 def relpos_bwd_bound_ms(qu, qp, kp, lengths, kernel):
@@ -1602,8 +1633,9 @@ def phase_relpos_bwd(card):
     against the plain version on the same inputs within
     RELPOS_BWD_FP32_ATOL; bf16 against the plain version on the same bf16
     inputs (its math in fp32, p and ds rounded where the kernels round
-    them) within RELPOS_BWD_BF16_TOL of each gradient's largest magnitude,
-    and against the plain version's fp32 math for information; two calls
+    them) within ``relpos_attention_bwd_bound``, element by element, and
+    within FLASH_BWD_BF16_FP32_MATH_BOUNDS times it against the plain
+    version's fp32 math, refusing a planted fault; two calls
     bit-identical. Times at Conformer-M's shape in bf16. Returns the worst
     fp32 errors of dq~ and of dk/dv, and the timings."""
     import torch
@@ -1655,9 +1687,29 @@ def phase_relpos_bwd(card):
                 check(max(errs) <= RELPOS_BWD_FP32_ATOL,
                       "{}: fp32 err {}".format(name, errs))
             else:
-                check(all(e <= RELPOS_BWD_BF16_TOL * t
-                          for e, t in zip(errs, tops)),
-                      "{}: bf16 err {}".format(name, errs))
+                bounds = fr.relpos_attention_bwd_bound(*args, o, lse, dod,
+                                                       scale)
+                readings = [bound_reading(g, w, b)
+                            for g, w, b in zip(got, want, bounds)]
+                math_readings = [bound_reading(g, w, b)
+                                 for g, w, b in zip(got, want32, bounds)]
+                planted = planted_fault_reading(got[3], want[3], bounds[3])
+                print("[relpos bwd] {} bf16: dqu, dqp, dk, dv {} of the "
+                      "bound at most against the plain version, {} against "
+                      "its fp32 math; a planted fault, dv zeroed but in "
+                      "batch row 1, reads {:.1f}".format(
+                          name, ", ".join("{:.4f}".format(r)
+                                          for r in readings),
+                          ", ".join("{:.4f}".format(r)
+                                    for r in math_readings), planted),
+                      flush=True)
+                check(max(readings) <= 1.0, "{}: bf16 gradient err {} times "
+                      "the bound".format(name, readings))
+                check(max(math_readings) <= FLASH_BWD_BF16_FP32_MATH_BOUNDS,
+                      "{}: bf16 gradient err {} times the bound against fp32 "
+                      "math".format(name, math_readings))
+                check(planted > 1.0, "{}: the bound takes a planted fault"
+                      .format(name))
             if i > 0 or dtype == torch.float32:
                 continue
             q_aug = torch.cat([qu.transpose(1, 2), qp], dim=-1)
@@ -2898,6 +2950,31 @@ def phase_train(card):
 SCAN_MAIN_INSTANCES = ("Li3ELi8E", "Li4ELi4E", "Li3ELi1E", "Li4ELi1E")
 
 
+# the bf16 rel-pos kernels' instantiations at Conformer-M and Conformer-L
+# (Dh 64; the dq kernel's chunk buckets 5 at D 256, 9 at D 512), by their
+# mangled names: none may spill
+RELPOS_MAIN_INSTANCES = ("flash_relpos_fwd_mma_kernelILi64E",
+                         "flash_relpos_bwd_dq_mma_kernelILi64ELi5E",
+                         "flash_relpos_bwd_dq_mma_kernelILi64ELi9E",
+                         "flash_relpos_bwd_dkv_mma_kernelILi64E")
+
+
+def check_relpos_spills(logs):
+    """Each of RELPOS_MAIN_INSTANCES in the rel-pos build logs, with its
+    registers; fails if one is missing or spills."""
+    entries = re.findall(r"Compiling entry function '(\S+)'.*?"
+                         r"(\d+) bytes spill stores, (\d+) bytes spill "
+                         r"loads.*?Used (\d+) registers", "".join(logs),
+                         re.S)
+    for instance in RELPOS_MAIN_INSTANCES:
+        found = [e for e in entries if instance in e[0]]
+        check(len(found) == 1, "{}: not built".format(instance))
+        _, stores, loads, regs = found[0]
+        print("[build] {} (Conformer-M/-L): {} registers, {} bytes spilled"
+              .format(instance, regs, int(stores) + int(loads)), flush=True)
+        check(int(stores) + int(loads) == 0, "{} spills".format(instance))
+
+
 def print_ptxas(name, log):
     """What ``ptxas`` reports for each kernel of a build log: every entry
     point's registers and spills; of the scan kernels' 20 instantiations
@@ -2959,6 +3036,9 @@ def main():
         time.time() - t0), flush=True)
     for name, lib in zip(names, libs):
         print_ptxas(name, lib.with_suffix(".log").read_text())
+    check_relpos_spills([lib.with_suffix(".log").read_text()
+                         for name, lib in zip(names, libs)
+                         if name.startswith("flash_relpos")])
 
     # 3-4. kernels against their plain versions, and the library calls
     fwd_err, (fwd_ms, fwd_plain_ms) = phase_kernel(card)

@@ -6,7 +6,8 @@
 //
 // Tiles: a CTA owns ROWS rows (queries in the forward and the dq kernel,
 // keys in the dkv kernel) and streams the other side in tiles of kTile = 64
-// rows, double-buffered when there is more than one. A warp computes the
+// rows (the forward past 64 keys: of kRoundBlock = 128, its rounding
+// block), double-buffered when there is more than one. A warp computes the
 // scores of 16 own rows against a whole streamed tile (8 n-tiles of 8) and
 // accumulates 64 columns of its output; at D > 64 the WC = D / 64 warps of
 // a row group split the output's columns and each computes the (same)
@@ -41,20 +42,6 @@ struct Shape {
   static constexpr int THREADS = 32 * RG * WC;
   static constexpr int S = D + 8;          // tile row stride (elements)
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 // starts copying rows t0 .. t0 + rows - 1 of head h of batch row b of a
 // (B, T, H, D) tensor into dst (rows x (D + 8)), 16 bytes a copy; rows past
@@ -98,61 +85,6 @@ __device__ __forceinline__ float key_bias(
          : (kv_valid != nullptr && !kv_valid[static_cast<size_t>(b) * Tk + t])
              ? kMasked
              : 0.f;
-}
-
-// A fragment: rows r0 .. r0 + 15, columns kk .. kk + 15 of a row-major tile
-__device__ __forceinline__ void a_frag(unsigned (&a)[4], const bf16* tile,
-                                       int stride, int r0, int kk) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4(a, tile + (r0 + lane % 16) * stride + kk + (lane / 16) * 8);
-}
-
-// B fragments of n-tiles n0 and n0 + 8 over k = kk .. kk + 15 from a tile
-// stored [n][k] (B = the tile's rows transposed): {b0, b1} of n0 in r[0],
-// r[1], of n0 + 8 in r[2], r[3]
-__device__ __forceinline__ void b_frag_nk(unsigned (&r)[4], const bf16* tile,
-                                          int stride, int n0, int kk) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4(r, tile + (n0 + lane % 8 + (lane / 16) * 8) * stride + kk +
-                 ((lane / 8) % 2) * 8);
-}
-
-// the same from a tile stored [k][n] (B = the tile itself), transposed by
-// ldmatrix
-__device__ __forceinline__ void b_frag_kn(unsigned (&r)[4], const bf16* tile,
-                                          int stride, int kk, int n0) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4_trans(r, tile + (kk + lane % 8 + ((lane / 8) % 2) * 8) * stride +
-                       n0 + (lane / 16) * 8);
-}
-
-// c[0..7] += a (16 x 16) . (the 64 columns from n0 of B over k = kk ..
-// kk + 15), B read by b_frag_nk (kNK) or b_frag_kn
-template <bool kNK>
-__device__ __forceinline__ void mma_row(float (&c)[8][4],
-                                        const unsigned (&a)[4],
-                                        const bf16* tile, int stride, int n0,
-                                        int kk) {
-#pragma unroll
-  for (int n = 0; n < 8; n += 2) {
-    unsigned r[4];
-    if (kNK)
-      b_frag_nk(r, tile, stride, n0 + 8 * n, kk);
-    else
-      b_frag_kn(r, tile, stride, kk, n0 + 8 * n);
-    mma_bf16(c[n], a, r[0], r[1]);
-    mma_bf16(c[n + 1], a, r[2], r[3]);
-  }
-}
-
-// the accumulators of n-tiles 2 ks and 2 ks + 1, rounded to bf16, as the A
-// fragment of the next product's k-step ks
-__device__ __forceinline__ void acc_frag(unsigned (&f)[4],
-                                         const float (&c)[8][4], int ks) {
-  f[0] = pack_bf16(c[2 * ks][0], c[2 * ks][1]);
-  f[1] = pack_bf16(c[2 * ks][2], c[2 * ks][3]);
-  f[2] = pack_bf16(c[2 * ks + 1][0], c[2 * ks + 1][1]);
-  f[3] = pack_bf16(c[2 * ks + 1][2], c[2 * ks + 1][3]);
 }
 
 // a warp's accumulator (rows r0 + g and r0 + g + 8, columns c0 + 8 n + 2 t4

@@ -24,17 +24,19 @@
 // Two kernels:
 //  * bf16, the main path: `flash_attn_fwd_mma_kernel`, both products on
 //    the tensor cores (mma.sync m16n8k16, bf16 operands, fp32
-//    accumulation), rounding where JAX's stock kernel rounds. When the
-//    keys fit one tile (Tk <= 64, the NMT shapes), the weights are
-//    normalised first, p / l, and rounded to v's type for P.V, as the stock
-//    kernel's single-step variant does (flash_attention.py:547, :556);
-//    across several key tiles p = exp(s - m) is rounded before P.V, l sums
-//    it unrounded and the output is scaled by 1 / l at the end, as its
-//    multi-step variant does (:471). (The stock kernel takes the single
-//    step up to Tk = 128, its key block; between 64 and 128 keys the port
-//    rounds as its multi-step variant does.) A CTA of 4 warps (8 at D = 256; shapes in flash_attn.cuh)
+//    accumulation), rounding where JAX's stock kernel rounds: its key
+//    block is 128 keys, kRoundBlock. Up to 64 keys (the NMT shapes) the
+//    keys are one 64-key tile; past 64, one tile is a whole 128-key block,
+//    scored before any of its weights is exponentiated. When the keys fit
+//    one tile (Tk <= 64, or Tk <= 128), the weights are normalised first,
+//    p / l, and rounded to v's type for P.V, as the stock kernel's
+//    single-step variant does (flash_attention.py:547, :556); past 128 keys
+//    p = exp(s - m) is rounded against the running maximum m, which moves
+//    once a 128-key block, l sums it unrounded and the output is scaled by
+//    1 / l at the end, as its multi-step variant does (:471). A CTA of 4
+//    warps (8 at D = 256; shapes in flash_attn.cuh)
 //    owns 64 queries (32 at D = 256), each warp 16 rows. The tile's q and
-//    each 64-key K/V tile are copied into bf16 shared-memory tiles with
+//    each K/V tile are copied into bf16 shared-memory tiles with
 //    16-byte cp.async, K/V double-buffered when Tk spans several tiles, so
 //    the next tile loads while this one is computed; fragments come from
 //    the tiles by ldmatrix (v's transposed), free of bank conflicts. The
@@ -43,7 +45,9 @@
 //    registers: P never goes through shared memory. The output is
 //    gathered in the q tile and written with 16-byte stores. Shared
 //    memory 28 KB at D = 64 with one key tile (the NMT shapes), so that
-//    registers rather than shared memory bound the CTAs an SM holds.
+//    registers rather than shared memory bound the CTAs an SM holds; the
+//    128-key tiles are single-buffered where two stages would not fit
+//    (D = 256).
 //  * fp32: `flash_attn_fwd_kernel` on the CUDA cores (TF32 would round the
 //    operands), kept for the card-against-CPU checks:
 //    - one CTA per (64-query tile, head, batch row); 256 threads, four per
@@ -254,16 +258,18 @@ int launch(const void* q, const void* k, const void* v,
 }
 
 // ---- bf16: tensor cores ------------------------------------------------
-template <int D>
+template <int D, int KB>
 size_t mma_smem_bytes(int stages) {
   using C = flash_attn::Shape<D>;
   return sizeof(__nv_bfloat16) * (static_cast<size_t>(C::ROWS) * C::S +
-                                  2 * static_cast<size_t>(stages) *
-                                      flash_attn::kTile * C::S) +
-         sizeof(float) * flash_attn::kTile;
+                                  2 * static_cast<size_t>(stages) * KB *
+                                      C::S) +
+         sizeof(float) * KB;
 }
 
-template <int D>
+// KB keys a streamed tile, which is the rounding block: 64 when Tk <= 64
+// (the NMT shapes), else kRoundBlock = 128
+template <int D, int KB>
 __global__ void __launch_bounds__(flash_attn::Shape<D>::THREADS)
 flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -274,11 +280,12 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           int causal, float sm_scale, int stages) {
   using namespace flash_attn;
   using C = Shape<D>;
-  constexpr int S = C::S, ROWS = C::ROWS, NT = C::THREADS;
+  constexpr int S = C::S, ROWS = C::ROWS, NT = C::THREADS, NS = KB / 8;
+  static_assert(NT >= KB, "one thread a key of the tile's mask");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto* sq = reinterpret_cast<bf16*>(smem_raw);       // ROWS x S
   bf16* skv = sq + ROWS * S;                          // stages x (K, V)
-  auto* sbias = reinterpret_cast<float*>(skv + 2 * stages * kTile * S);
+  auto* sbias = reinterpret_cast<float*>(skv + 2 * stages * KB * S);
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t4 = lane % 4;
@@ -289,35 +296,38 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   // under causal no row of this tile sees a key past its last real query
   const int k_end = causal ? min(Tk, min(q0 + ROWS, Tq)) : Tk;
-  const int n_tiles = (k_end + kTile - 1) / kTile;
-  const bool normalized = Tk <= kTile;
+  const int n_tiles = (k_end + KB - 1) / KB;
+  // one block: the weights are final before they are rounded
+  const bool normalized = Tk <= KB;
   stage_rows<D, NT>(sq, q, q0, ROWS, Tq, H, h, b);
-  stage_rows<D, NT>(skv, k, 0, kTile, Tk, H, h, b);
-  stage_rows<D, NT>(skv + kTile * S, v, 0, kTile, Tk, H, h, b);
+  stage_rows<D, NT>(skv, k, 0, KB, Tk, H, h, b);
+  stage_rows<D, NT>(skv + KB * S, v, 0, KB, Tk, H, h, b);
   cp_async_commit();
 
   float o[8][4] = {};
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   for (int i = 0; i < n_tiles; ++i) {
-    const int k0 = i * kTile;
-    const bf16* sk = skv + 2 * (i & 1) * kTile * S;
-    const bf16* sv = sk + kTile * S;
-    if (i + 1 < n_tiles) {                // the next tile, into the other stage
-      bf16* nk = skv + 2 * ((i + 1) & 1) * kTile * S;
-      stage_rows<D, NT>(nk, k, k0 + kTile, kTile, Tk, H, h, b);
-      stage_rows<D, NT>(nk + kTile * S, v, k0 + kTile, kTile, Tk, H, h, b);
+    const int k0 = i * KB;
+    const bf16* sk = skv + 2 * (stages == 2 ? i & 1 : 0) * KB * S;
+    const bf16* sv = sk + KB * S;
+    const bool prefetch = stages == 2 && i + 1 < n_tiles;
+    if (prefetch) {                       // the next tile, into the other stage
+      bf16* nk = skv + 2 * ((i + 1) % 2) * KB * S;
+      stage_rows<D, NT>(nk, k, k0 + KB, KB, Tk, H, h, b);
+      stage_rows<D, NT>(nk + KB * S, v, k0 + KB, KB, Tk, H, h, b);
       cp_async_commit();
     }
-    if (threadIdx.x < kTile)
+    if (threadIdx.x < KB)
       sbias[threadIdx.x] = key_bias(kv_valid, b, k0 + threadIdx.x, Tk);
-    if (i + 1 < n_tiles)
+    if (prefetch)
       cp_async_wait<1>();
     else
       cp_async_wait<0>();
     __syncthreads();
 
-    // S = q k^T for the warp's 16 rows and the tile's 64 keys
-    float s[8][4] = {};
+    // S = q k^T for the warp's 16 rows and the tile's KB keys: the whole
+    // rounding block is scored before any weight is exponentiated
+    float s[NS][4] = {};
 #pragma unroll
     for (int kk = 0; kk < D; kk += 16) {
       unsigned a[4];
@@ -328,7 +338,7 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // the online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3)
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NS; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int j = 8 * n + 2 * t4 + (e & 1);
@@ -348,7 +358,7 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       m[r] = m_new;
     }
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NS; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[n][e] = expf(s[n][e] - m[e / 2]);   // 0 for keys past Tk
@@ -368,21 +378,26 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       o[n][3] *= rescale[1];
     }
 
-    // one key tile: the weights are final, normalise them before rounding
     if (normalized)
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] / l[e / 2];
     // O += P v over the warp's 64 columns: the weights, rounded to bf16,
-    // are the A fragments of the four 16-key steps
+    // are the A fragments of the KB / 16 key steps
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
+    for (int ks = 0; ks < KB / 16; ++ks) {
       unsigned a[4];
       acc_frag(a, s, ks);
       mma_row<false>(o, a, sv, S, c0, 16 * ks);
     }
     __syncthreads();                      // this stage and sbias are free
+    if (stages == 1 && i + 1 < n_tiles) {   // the next tile, into the stage
+      bf16* nk = skv;
+      stage_rows<D, NT>(nk, k, k0 + KB, KB, Tk, H, h, b);
+      stage_rows<D, NT>(nk + KB * S, v, k0 + KB, KB, Tk, H, h, b);
+      cp_async_commit();
+    }
   }
 
   // the output through the q tile, then 16-byte stores
@@ -404,16 +419,21 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
-int launch_mma(const void* q, const void* k, const void* v,
-               const unsigned char* kv_valid, void* out, float* lse, int B,
-               int Tq, int Tk, int H, int causal, float sm_scale,
-               cudaStream_t stream) {
+// the card's shared memory a block can use
+constexpr size_t kSmemLimit = 232448;
+
+template <int D, int KB>
+int launch_mma_kb(const void* q, const void* k, const void* v,
+                  const unsigned char* kv_valid, void* out, float* lse,
+                  int B, int Tq, int Tk, int H, int causal, float sm_scale,
+                  cudaStream_t stream) {
   using C = flash_attn::Shape<D>;
   using bf16 = __nv_bfloat16;
-  const int stages = Tk > flash_attn::kTile ? 2 : 1;
-  const size_t smem = mma_smem_bytes<D>(stages);
-  auto* kernel = flash_attn_fwd_mma_kernel<D>;
+  // double-buffered when several tiles stream and two stages fit
+  const int stages =
+      Tk > KB && mma_smem_bytes<D, KB>(2) <= kSmemLimit ? 2 : 1;
+  const size_t smem = mma_smem_bytes<D, KB>(stages);
+  auto* kernel = flash_attn_fwd_mma_kernel<D, KB>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -424,6 +444,18 @@ int launch_mma(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(v), kv_valid, static_cast<bf16*>(out), lse,
       Tq, Tk, H, causal, sm_scale, stages);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v,
+               const unsigned char* kv_valid, void* out, float* lse, int B,
+               int Tq, int Tk, int H, int causal, float sm_scale,
+               cudaStream_t stream) {
+  if (Tk <= flash_attn::kTile)
+    return launch_mma_kb<D, flash_attn::kTile>(
+        q, k, v, kv_valid, out, lse, B, Tq, Tk, H, causal, sm_scale, stream);
+  return launch_mma_kb<D, mma_sync::kRoundBlock>(
+      q, k, v, kv_valid, out, lse, B, Tq, Tk, H, causal, sm_scale, stream);
 }
 
 template <int D>

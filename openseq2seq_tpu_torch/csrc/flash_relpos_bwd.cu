@@ -32,30 +32,44 @@
 // TFLOP/s), against 115 MB that the dq kernel must move and 83 MB the dkv
 // kernel (34 + 25 us at 3.35 TB/s).
 //
-// Design (a pair that is right and simple; wgmma, TMA and asynchronous
-// staging are later work):
-//  * bf16, the main path: tensor cores through mma.sync m16n8k16 (bf16
-//    operands, fp32 accumulation, the TPU kernels' precision), tiles of 64
-//    queries and 64 keys staged in shared memory in bf16, fragments read
-//    straight from it at row strides (Dh + D + 8, Dh + 8 and 72 elements)
-//    that put a fragment's 32 words in 32 banks, as flash_relpos_fwd.cu
-//    does. The weights p and ds, rounded to bf16 as the TPU kernels round
-//    them, become the next product's A fragments in place.
-//    - dkv: one CTA of 4 warps per (64-key tile, head, batch row), each
-//      warp 16 keys. It computes the transposed scores S^T = k~ q~^T and
-//      dP^T = v dO^T of each query tile, so that P^T and dS^T are A
-//      fragments for dv += P^T dO and dk += dS^T q~[:, :Dh]; dO and
-//      q~[:, :Dh] are staged transposed for those B operands. 118 KB of
-//      shared memory at Conformer-M, 183 KB at Conformer-L.
-//    - dq: one CTA of 8 warps per (64-query tile, head, batch row). Its
-//      accumulator is Dh + D columns wide (320 at Conformer-M, 576 at
-//      Conformer-L), too many registers for one warp's 16 rows, so the two
-//      warps of a row group split the columns, 20 n-tiles each at
-//      Conformer-M (36 at -L). They split the scores' contraction the same
-//      way and add the two partial scores through shared memory in a fixed
-//      order, so both hold the same scores; both compute dP (over Dh) and
-//      the weights. dq~'s B operand (key, column) comes from k~'s rows, two
-//      16-bit loads a register. 133 KB at Conformer-M, 197 KB at -L.
+// Design:
+//  * bf16, the main path (flash_relpos.cuh): bf16 operands and fp32
+//    accumulation on the tensor cores (the TPU kernels' precision),
+//    fragments by ldmatrix and ldmatrix.trans from shared memory (nothing
+//    is transposed by hand), p and ds rounded to bf16 in registers where
+//    the TPU kernels round them and used as the next product's A
+//    fragments. The CTA's own tile (q~ and dO in dq, k~ and v in dkv) is
+//    copied once with 16-byte cp.async; the other side streams through a
+//    ring of 64 x 64 slots, two chunks copied ahead of the products. The
+//    key table's chunks are the same for every batch row and head and come
+//    from L2. Tiles at or past a row's length are not read: their weights
+//    are exactly 0.
+//    - dq: one CTA per (48-query tile at Conformer-M, 64 at Conformer-L;
+//      head; batch row), two warps a 16-row group; warp (wr, wc) scores
+//      rows 16 wr .. + 15 against keys 32 wc .. + 31 of each key tile over
+//      the whole Dh + D, so no partial sums are exchanged; the warps' ds
+//      go, rounded, into one shared tile, and each warp adds ds k~ to its
+//      half of every 64-column chunk of dq~, held in registers (80 at
+//      Conformer-M, 144 at Conformer-L). k~ streams twice a key tile, for
+//      the scores and for dq~, its second pass from L2; v once between.
+//      The 48-row tile is what lets two CTAs (12 warps) share an SM at
+//      Conformer-M with nothing spilled: a 64-row CTA of 8 warps needs
+//      more registers than two CTAs an SM leave it, and spills when held
+//      to them. 74 KB of shared memory at Conformer-M, 118 KB at
+//      Conformer-L (one CTA an SM).
+//    - dkv: one CTA of 4 warps, one warpgroup, per (64-key tile, head,
+//      batch row), each warp 16 keys. It computes the transposed scores
+//      S^T = k~ q~^T and dP^T = v dO^T of each query tile by wgmma
+//      m64n64k16 from shared memory in the 128-byte swizzled layout (k~
+//      and v its own tiles, q~'s pos chunks, its head chunks and dO's
+//      chunks from the ring), then dv += P^T dO and dk += dS^T q~[:, :Dh]
+//      by mma.sync with the head and dO chunks, still in their slots, as B
+//      operands through ldmatrix.trans. 81 KB at Conformer-M, 113 KB at
+//      Conformer-L (two CTAs an SM). A key tile wholly at or past the
+//      length writes zeros and reads nothing.
+//    The dq kernel stays on mma.sync: its 48-row tile is not a 64-row
+//    warpgroup tile, and a 64-row one would need 80 KB of registers for
+//    the dq~ accumulator alone.
 //  * fp32: fp32 FMAs on the CUDA cores (TF32 would round the operands),
 //    256 threads a CTA, four per row, operands staged in shared memory as
 //    fp32 and read with 16-byte loads; the scores summed over Dh + D in
@@ -66,11 +80,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "mma_sync.cuh"
+#include "flash_relpos.cuh"
 
 namespace {
-
-using namespace mma_sync;
 
 constexpr int kRows = 64;                 // queries (dq) or keys (dkv) a CTA
 constexpr int kTpr = 4;                   // threads per row
@@ -380,140 +392,114 @@ flash_relpos_bwd_dkv_kernel(const float* __restrict__ qu,
   }
 }
 
+}  // namespace
+
 // ---- bf16: tensor cores ------------------------------------------------
-constexpr int kTS = kRows + 8;            // transposed tiles' row stride
-constexpr int kDqWarps = 8;               // dq: 4 row groups x 2 column halves
-constexpr int kDkvWarps = 4;              // dkv: 16 keys each
+namespace flash_relpos {
 
-// two bf16 of one column in consecutive rows, low half first
-__device__ __forceinline__ unsigned ld_pair(const __nv_bfloat16* p,
-                                            int stride) {
-  return static_cast<unsigned>(
-             *reinterpret_cast<const unsigned short*>(p)) |
-         (static_cast<unsigned>(
-              *reinterpret_cast<const unsigned short*>(p + stride))
-          << 16);
-}
+constexpr int kDqStages = 3, kDqAhead = 2;
+constexpr int kDkvThreads = 128;          // 4 warps of 16 keys
+constexpr int kDkvAhead = 2;
+// the dq kernel keeps its half of each 64-column chunk of dq~ in
+// registers: at most this many chunks of Dh + D
+constexpr int kMaxDqChunks = 9;
 
-// the A fragment of rows g, g + 8 and columns kk + 2 t4 (+ 8) of a
-// row-major tile, `a` pointing at row g, column 2 t4
-__device__ __forceinline__ void a_frag(unsigned (&f)[4],
-                                       const __nv_bfloat16* a, int stride,
-                                       int kk) {
-  f[0] = ld32(a + kk);
-  f[1] = ld32(a + 8 * stride + kk);
-  f[2] = ld32(a + kk + 8);
-  f[3] = ld32(a + 8 * stride + kk + 8);
-}
-
-// the accumulators of n-tiles 2 ks and 2 ks + 1, rounded to bf16, as the A
-// fragment of the next product's k-step ks
-__device__ __forceinline__ void acc_frag(unsigned (&f)[4],
-                                         const float (&c)[8][4], int ks) {
-  f[0] = pack_bf16(c[2 * ks][0], c[2 * ks][1]);
-  f[1] = pack_bf16(c[2 * ks][2], c[2 * ks][3]);
-  f[2] = pack_bf16(c[2 * ks + 1][0], c[2 * ks + 1][1]);
-  f[3] = pack_bf16(c[2 * ks + 1][2], c[2 * ks + 1][3]);
-}
-
-// rows t0 .. t0 + 63 of q~ or k~ into dst (kRows x (Dh + D + 8) bf16): head
-// (B, T, H, Dh) and the (T, D) rows pos_bh, 8 elements a load; zeros past T
-__device__ __forceinline__ void stage_aug(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* head,
-                                          const __nv_bfloat16* pos_bh,
-                                          int t0, int Tn, int H, int h, int b,
-                                          int DV, int D, int nthreads) {
-  const int DQK = DV + D, vecs = DQK / 8;
-  for (int i = threadIdx.x; i < kRows * vecs; i += nthreads) {
-    const int r = i / vecs, c = (i % vecs) * 8, t = t0 + r;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (t < Tn)
-      x = *reinterpret_cast<const uint4*>(
-          c < DV ? head + ((static_cast<size_t>(b) * Tn + t) * H + h) * DV + c
-                 : pos_bh + static_cast<size_t>(t) * D + c - DV);
-    *reinterpret_cast<uint4*>(dst + r * (DQK + 8) + c) = x;
-  }
-}
-
-// rows t0 .. t0 + 63 of a (B, T, H, DV) bf16 tensor into dst (kRows x (DV +
-// 8)), and with `dst_t` also transposed (DV x kTS)
+// the dkv kernel's ring: its last tile's q~ head chunks and dO chunks
+// stay valid until dk and dv are added
 template <int DV>
-__device__ __forceinline__ void stage_head(__nv_bfloat16* dst,
-                                           __nv_bfloat16* dst_t,
-                                           const __nv_bfloat16* src, int t0,
-                                           int Tn, int H, int h, int b,
-                                           int nthreads) {
-  for (int i = threadIdx.x; i < kRows * DV / 8; i += nthreads) {
-    const int r = i / (DV / 8), c = (i % (DV / 8)) * 8, t = t0 + r;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (t < Tn)
-      x = *reinterpret_cast<const uint4*>(
-          src + ((static_cast<size_t>(b) * Tn + t) * H + h) * DV + c);
-    if (dst != nullptr)
-      *reinterpret_cast<uint4*>(dst + r * (DV + 8) + c) = x;
-    if (dst_t != nullptr) {
-      const auto* e = reinterpret_cast<const __nv_bfloat16*>(&x);
-#pragma unroll
-      for (int q = 0; q < 8; ++q) dst_t[(c + q) * kTS + r] = e[q];
-    }
-  }
+__host__ __device__ constexpr int dkv_stages() {
+  return kDkvAhead + 2 * head_chunks(DV);
 }
 
 template <int DV>
-size_t dq_mma_smem_bytes(int D) {
-  return sizeof(__nv_bfloat16) *
-             (2 * static_cast<size_t>(kRows) * (DV + D + 8) +
-              2 * static_cast<size_t>(kRows) * (DV + 8)) +
-         sizeof(float) * (static_cast<size_t>(kDqWarps) * 32 * 32 +
-                          2 * kRows);
+size_t dkv_smem_bytes(int D) {
+  return sizeof(bf16) * static_cast<size_t>(panels(DV + D) + panels(DV) +
+                                            dkv_stages<DV>()) *
+             kPanel + kAlignPad;
 }
 
-template <int DV>
-size_t dkv_mma_smem_bytes(int D) {
-  return sizeof(__nv_bfloat16) *
-             (2 * static_cast<size_t>(kRows) * (DV + D + 8) +
-              2 * static_cast<size_t>(kRows) * (DV + 8) +
-              2 * static_cast<size_t>(DV) * kTS) +
-         sizeof(float) * 2 * kRows;
+// dq: RG row groups of 16 queries, two warps each; warp (wr, wc) =
+// (warp % RG, warp / RG) for queries q0 + 16 wr .. + 15. Per 64-key tile
+// it scores its rows against keys 32 wc .. 32 wc + 31 over the whole Dh +
+// D (and dP over Dh), writes their ds, rounded to bf16, into a shared tile
+// of the CTA's rows by 64 keys, and then adds ds k~ to the columns of dq~
+// it owns: in each chunk of k~'s columns, the wc-th half. The key tile's
+// k~ chunks stream through the ring twice (once for the scores, once for
+// dq~; the second time from L2), v's once between. Its dq~ share stays in
+// registers: 80 of them at Conformer-M's 320 columns, 144 at Conformer-L's
+// 576. At Conformer-M the CTA owns 48 queries (RG 3, 6 warps) so that two
+// CTAs an SM fit 168 registers a thread with nothing spilled; at
+// Conformer-L 64 (RG 4), one CTA an SM.
+template <int MAXCH>
+__host__ __device__ constexpr int dq_row_groups() {
+  return MAXCH <= 5 ? 3 : 4;
+}
+template <int MAXCH>
+__host__ __device__ constexpr int dq_threads() {
+  return 64 * dq_row_groups<MAXCH>();
 }
 
-// dq on the tensor cores: 8 warps, warp (wr, wc) = (warp % 4, warp / 4)
-// for queries q0 + 16 wr .. + 15. The dq~ accumulator of 16 rows x (Dh +
-// D) columns is split between the two warps of a row group, each holding
-// the n-tiles of one column half in registers (MAXNT of them at most); the
-// scores are split the same way over the contraction and the two partial
-// sums added through shared memory in a fixed order, so both warps hold the
-// same scores. dP (over Dh) and the weights are computed by both.
-template <int DV, int MAXNT>
-__global__ void __launch_bounds__(kDqWarps * 32)
+template <int DV, int MAXCH>
+size_t dq_smem_bytes(int D) {
+  constexpr int QR = 16 * dq_row_groups<MAXCH>();
+  return sizeof(bf16) * (static_cast<size_t>(QR) * (DV + D + 8) +
+                         static_cast<size_t>(QR) * (DV + 8) +
+                         static_cast<size_t>(1 + kDqStages) * kSlot) +
+         sizeof(float) * 2 * QR;
+}
+
+template <int DV, int MAXCH>
+__global__ void __launch_bounds__(dq_threads<MAXCH>(), MAXCH <= 5 ? 2 : 1)
 flash_relpos_bwd_dq_mma_kernel(
-    const __nv_bfloat16* __restrict__ qu, const __nv_bfloat16* __restrict__ qp,
-    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ kp,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ lens,
-    const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+    const bf16* __restrict__ qu, const bf16* __restrict__ qp,
+    const bf16* __restrict__ k, const bf16* __restrict__ kp,
+    const bf16* __restrict__ v, const int* __restrict__ lens,
+    const bf16* __restrict__ o, const bf16* __restrict__ dout,
     const float* __restrict__ lse, float* __restrict__ delta_out,
-    __nv_bfloat16* __restrict__ dqu, __nv_bfloat16* __restrict__ dqp, int Tn,
-    int H, int D, float scale) {
-  constexpr int NT = kDqWarps * 32, VS = DV + 8;
-  const int DQK = DV + D, QS = DQK + 8;
+    bf16* __restrict__ dqu, bf16* __restrict__ dqp, int Tn, int H, int D,
+    float scale) {
+  constexpr int RG = dq_row_groups<MAXCH>(), NT = dq_threads<MAXCH>();
+  constexpr int QR = 16 * RG;             // the CTA's query rows
+  constexpr int NVC = head_chunks(DV), VW = DV < 64 ? DV : 64;
+  constexpr int DS = DV + 8;
+  const int QS = DV + D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // kRows x QS
-  __nv_bfloat16* sk = sq + kRows * QS;                    // kRows x QS
-  __nv_bfloat16* sdo = sk + kRows * QS;                   // kRows x VS
-  __nv_bfloat16* sv = sdo + kRows * VS;                   // kRows x VS
-  auto* spart = reinterpret_cast<float*>(sv + kRows * VS);  // 8 x 32 x 32
-  float* slse = spart + kDqWarps * 32 * 32;               // kRows
-  float* sdelta = slse + kRows;                           // kRows
+  auto* sq = reinterpret_cast<bf16*>(smem_raw);   // QR x QS: q~
+  bf16* sdo = sq + QR * QS;                       // QR x DS: dO
+  bf16* sds = sdo + QR * DS;                      // kSlot: ds [query][key]
+  bf16* slots = sds + kSlot;                      // kDqStages x kSlot
+  auto* slse = reinterpret_cast<float*>(slots + kDqStages * kSlot);
+  float* sdelta = slse + QR;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t4 = lane % 4, wr = warp % 4, wc = warp / 4;
-  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const int valid = min(max(lens[b], 1), Tn);
-  const __nv_bfloat16* qp_bh = qp + (static_cast<size_t>(b) * H + h) * Tn * D;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wr = warp % RG, wc = warp / RG;
+  const int r0 = 16 * wr;
+  const int q0 = blockIdx.x * QR, h = blockIdx.y, b = blockIdx.z;
+  const int len = min(max(lens[b], 1), Tn);
+  const int nkc = aug_chunks(DV, D);
+  const int per_tile = 2 * nkc + NVC;
+  const int total = (len + kRows - 1) / kRows * per_tile;
+  const bf16* qp_bh = qp + (static_cast<size_t>(b) * H + h) * Tn * D;
+  auto src = [=](int i) {
+    const int r = i % per_tile, t0 = i / per_tile * kRows;
+    if (r < nkc) return aug_chunk(k, kp, b, t0, h, r, Tn, H, DV, D);
+    if (r < nkc + NVC)
+      return head_chunk(v, b, t0, h, (r - nkc) * 64, VW, Tn, H, DV);
+    return aug_chunk(k, kp, b, t0, h, r - nkc - NVC, Tn, H, DV, D);
+  };
 
-  stage_aug(sq, qu, qp_bh, q0, Tn, H, h, b, DV, D, NT);
-  stage_head<DV>(sdo, nullptr, dout, q0, Tn, H, h, b, NT);
-  {
+  stage_aug<NT, QR>(sq, qu, qp_bh, b, q0, h, Tn, H, DV, D);
+  for (int i = tid; i < QR * DV / 8; i += NT) {
+    const int r = i / (DV / 8), c = i % (DV / 8) * 8, t = q0 + r;
+    const bool live = t < Tn;
+    cp_async16(sdo + r * DS + c,
+               dout + ((static_cast<size_t>(b) * Tn + (live ? t : 0)) * H +
+                       h) * DV + c,
+               live ? 16 : 0);
+  }
+  cp_async_commit();
+  if (tid < 4 * QR) {
     // delta = rowsum(do * o), four threads a row
     const int row = tid / 4, sub = tid % 4, t = q0 + row;
     float d = 0.f;
@@ -532,204 +518,235 @@ flash_relpos_bwd_dq_mma_kernel(
       if (t < Tn) delta_out[at] = d;
     }
   }
-  // this warp's n-tiles of dq~ and k-steps of the scores
-  const int nt_half = (DQK / 8 + 1) / 2, ks_half = (DQK / 16 + 1) / 2;
-  const int n_begin = wc * nt_half;
-  const int n_count = min(DQK / 8 - n_begin, nt_half);
-  const int ks_begin = wc * ks_half, ks_end = min(DQK / 16, ks_begin + ks_half);
-  float acc[MAXNT][4];
-#pragma unroll
-  for (int i = 0; i < MAXNT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  const __nv_bfloat16* qa = sq + (wr * 16 + g) * QS + 2 * t4;
-  const __nv_bfloat16* da = sdo + (wr * 16 + g) * VS + 2 * t4;
+  auto ring = make_ring<kDqStages, kDqAhead, NT>(slots, total, src);
+  ring.start();
 
-  for (int k0 = 0; k0 < Tn; k0 += kRows) {
-    __syncthreads();                      // the last tile's reads are done
-    stage_aug(sk, k, kp, k0, Tn, H, h, b, DV, D, NT);
-    stage_head<DV>(sv, nullptr, v, k0, Tn, H, h, b, NT);
-    __syncthreads();
-    float s[8][4] = {}, dp[8][4] = {};
-    for (int ks = ks_begin; ks < ks_end; ++ks) {
-      unsigned a[4];
-      a_frag(a, qa, QS, 16 * ks);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* kb = sk + (8 * n + g) * QS + 16 * ks + 2 * t4;
-        mma_bf16(s[n], a, ld32(kb), ld32(kb + 8));
+  float acc[MAXCH][4][4] = {};
+  for (int k0 = 0; k0 < len; k0 += kRows) {
+    // the scores and dP of the warp's 16 rows and 32 keys
+    float s[4][4] = {}, dp[4][4] = {};
+    for (int j = 0; j < nkc; ++j) {
+      const bf16* slot = ring.acquire();
+      const AugCol c = aug_col(j, DV, D);
+      const int qc = c.head ? c.col : DV + c.col;
+      for (int kk = 0; kk < c.width; kk += 16) {
+        unsigned a[4];
+        a_frag(a, sq, QS, r0, qc + kk);
+        mma_row<true>(s, a, slot, kCS, 32 * wc, kk);
       }
     }
-    float* mine = spart + (wc * 4 + wr) * 32 * 32;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int jv = 0; jv < NVC; ++jv) {
+      const bf16* slot = ring.acquire();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) mine[(4 * n + e) * 32 + lane] = s[n][e];
-#pragma unroll
-    for (int kk = 0; kk < DV; kk += 16) {
-      unsigned a[4];
-      a_frag(a, da, VS, kk);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* vb = sv + (8 * n + g) * VS + kk + 2 * t4;
-        mma_bf16(dp[n], a, ld32(vb), ld32(vb + 8));
+      for (int kk = 0; kk < VW; kk += 16) {
+        unsigned a[4];
+        a_frag(a, sdo, DS, r0, 64 * jv + kk);
+        mma_row<true>(dp, a, slot, kCS, 32 * wc, kk);
       }
     }
-    __syncthreads();                      // both partial scores are written
-    const float* p0 = spart + wr * 32 * 32;
-    const float* p1 = spart + (4 + wr) * 32 * 32;
-    unsigned dsa[4][4];
+    // p = exp(s scale - lse) over the valid keys, ds = p (dP - delta)
+    // scale, rounded to bf16 into the shared ds tile
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int idx = (4 * n + e) * 32 + lane;
-        const int r = wr * 16 + g + 8 * (e / 2);
-        const float sc = p0[idx] + p1[idx];
-        const float p = k0 + 8 * n + 2 * t4 + (e & 1) < valid
-                            ? expf(sc * scale - slse[r]) : 0.f;
-        dp[n][e] = p * (dp[n][e] - sdelta[r]) * scale;
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + g + 8 * r, key = 32 * wc + 8 * n + 2 * t4;
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = k0 + key + e < len
+                              ? expf(s[n][2 * r + e] * scale - slse[row])
+                              : 0.f;
+          ds[e] = p * (dp[n][2 * r + e] - sdelta[row]) * scale;
+        }
+        *reinterpret_cast<unsigned*>(sds + row * kCS + key) =
+            pack_bf16(ds[0], ds[1]);
       }
+    // dq~ += ds k~ over the warp's half of each chunk's columns (its
+    // n-tiles: 4, or 2 of a 32-column chunk); the ring's next barrier
+    // makes every warp's ds visible
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) acc_frag(dsa[ks], dp, ks);
-    // dq~ += ds k~: B (key, column) from k~'s rows, two keys a register
+    for (int j = 0; j < MAXCH; ++j) {
+      if (j >= nkc) break;
+      const bf16* slot = ring.acquire();
+      const int half = aug_col(j, DV, D).width / 16;
 #pragma unroll
-    for (int i = 0; i < MAXNT; ++i)
-      if (i < n_count) {
-        const int col = 8 * (n_begin + i) + g;
+      for (int ks = 0; ks < 4; ++ks) {
+        unsigned a[4];
+        a_frag(a, sds, kCS, r0, 16 * ks);
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-          const __nv_bfloat16* kb = sk + (16 * ks + 2 * t4) * QS + col;
-          mma_bf16(acc[i], dsa[ks], ld_pair(kb, QS),
-                   ld_pair(kb + 8 * QS, QS));
+        for (int n = 0; n < 4; n += 2) {
+          if (n >= half) break;
+          unsigned r[4];
+          b_frag_kn(r, slot, kCS, 16 * ks, 8 * (wc * half + n));
+          mma_bf16(acc[j][n], a, r[0], r[1]);
+          mma_bf16(acc[j][n + 1], a, r[2], r[3]);
         }
       }
+    }
   }
 
+  // dq~ through the q~ tile, then 16-byte stores of dqu and dqp
+  __syncthreads();                        // every warp is done with q~
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int t = q0 + wr * 16 + g + 8 * r;
+  for (int j = 0; j < MAXCH; ++j) {
+    if (j >= nkc) break;
+    const AugCol c = aug_col(j, DV, D);
+    const int half = c.width / 16;
+    const int col0 = (c.head ? c.col : DV + c.col) + 8 * wc * half + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      if (n >= half) break;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<unsigned*>(sq + (r0 + g + 8 * r) * QS + col0 +
+                                     8 * n) =
+            pack_bf16(acc[j][n][2 * r], acc[j][n][2 * r + 1]);
+    }
+  }
+  __syncthreads();
+  const int units = (DV + D) / 8;
+  for (int i = tid; i < QR * units; i += NT) {
+    const int r = i / units, c = i % units * 8, t = q0 + r;
     if (t >= Tn) continue;
-    __nv_bfloat16* dst_u =
-        dqu + ((static_cast<size_t>(b) * Tn + t) * H + h) * DV;
-    __nv_bfloat16* dst_p =
-        dqp + ((static_cast<size_t>(b) * H + h) * Tn + t) * D;
-#pragma unroll
-    for (int i = 0; i < MAXNT; ++i)
-      if (i < n_count) {
-        const int c = 8 * (n_begin + i) + 2 * t4;
-        const unsigned x = pack_bf16(acc[i][2 * r], acc[i][2 * r + 1]);
-        *reinterpret_cast<unsigned*>(c < DV ? dst_u + c : dst_p + c - DV) =
-            x;
-      }
+    bf16* dst = c < DV
+        ? dqu + ((static_cast<size_t>(b) * Tn + t) * H + h) * DV + c
+        : dqp + ((static_cast<size_t>(b) * H + h) * Tn + t) * D + c - DV;
+    *reinterpret_cast<uint4*>(dst) =
+        *reinterpret_cast<const uint4*>(sq + r * QS + c);
   }
 }
 
-// dkv on the tensor cores: 4 warps of 16 keys, each computing its keys'
-// transposed scores S^T = k~ q~^T and dP^T = v dO^T against a 64-query
-// tile, then dv += P^T dO and dk += dS^T q~[:, :Dh] from the weights in
-// registers, with dO and q~[:, :Dh] staged transposed as their B operands.
+// dkv: 4 warps of 16 keys (k~ and v of the CTA's 64 keys stay in shared
+// memory as the A operands), each computing its keys' transposed scores
+// S^T = k~ q~^T and dP^T = v dO^T against every 64-query tile, whose q~
+// and dO chunks stream through the ring, then dv += P^T dO and dk += dS^T
+// q~[:, :Dh] from the weights in registers, with dO and q~[:, :Dh] read as
+// B operands by ldmatrix.trans from the chunks the scores used.
 template <int DV>
-__global__ void __launch_bounds__(kDkvWarps * 32)
+__global__ void __launch_bounds__(kDkvThreads)
 flash_relpos_bwd_dkv_mma_kernel(
-    const __nv_bfloat16* __restrict__ qu, const __nv_bfloat16* __restrict__ qp,
-    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ kp,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ lens,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int Tn, int H, int D, float scale) {
-  constexpr int NT = kDkvWarps * 32, VS = DV + 8, NV = DV / 8;
-  const int DQK = DV + D, QS = DQK + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // kRows x QS
-  __nv_bfloat16* sq = sk + kRows * QS;                    // kRows x QS
-  __nv_bfloat16* sv = sq + kRows * QS;                    // kRows x VS
-  __nv_bfloat16* sdo = sv + kRows * VS;                   // kRows x VS
-  __nv_bfloat16* sdot = sdo + kRows * VS;                 // DV x kTS
-  __nv_bfloat16* sqht = sdot + DV * kTS;                  // DV x kTS
-  auto* slse = reinterpret_cast<float*>(sqht + DV * kTS);  // kRows
-  float* sdelta = slse + kRows;                            // kRows
+    const bf16* __restrict__ qu, const bf16* __restrict__ qp,
+    const bf16* __restrict__ k, const bf16* __restrict__ kp,
+    const bf16* __restrict__ v, const int* __restrict__ lens,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int Tn, int H, int D, float scale) {
+  constexpr int NHC = head_chunks(DV), VW = DV < 64 ? DV : 64;
+  constexpr int NVT = DV / 8, NS = dkv_stages<DV>();
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // k~, v and the slots in the swizzled layout that wgmma reads
+  auto* sk = reinterpret_cast<bf16*>(aligned_smem(smem_raw));  // k~ panels
+  bf16* sv = sk + panels(DV + D) * kPanel;        // v's panels
+  bf16* slots = sv + panels(DV) * kPanel;         // NS panels
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t4 = lane % 4;
+  const int g = lane / 4, t4 = lane % 4, r0 = 16 * warp;
   const int k0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const int valid = min(max(lens[b], 1), Tn);
-  const bool key_ok[2] = {k0 + warp * 16 + g < valid,
-                          k0 + warp * 16 + g + 8 < valid};
-  const __nv_bfloat16* qp_bh = qp + (static_cast<size_t>(b) * H + h) * Tn * D;
+  const int len = min(max(lens[b], 1), Tn);
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  if (k0 >= len) {
+    // keys at or past the length weigh 0 for every query: zero gradients
+    for (int i = tid; i < kRows * DV / 8; i += kDkvThreads) {
+      const int r = i / (DV / 8), c = i % (DV / 8) * 8, t = k0 + r;
+      if (t >= Tn) continue;
+      const size_t at = ((static_cast<size_t>(b) * Tn + t) * H + h) * DV + c;
+      *reinterpret_cast<uint4*>(dk + at) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(dv + at) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  const int npc = (D + 63) / 64;          // q~'s pos chunks
+  const int per_tile = npc + 2 * NHC;
+  const int total = (Tn + kRows - 1) / kRows * per_tile;
+  const bf16* qp_bh = qp + bh * Tn * D;
+  // a query tile: q~'s pos chunks, its head chunks, dO's chunks
+  auto src = [=](int i) {
+    const int r = i % per_tile, t0 = i / per_tile * kRows;
+    if (r < npc) return aug_chunk(qu, qp_bh, b, t0, h, NHC + r, Tn, H, DV, D);
+    if (r < npc + NHC)
+      return head_chunk(qu, b, t0, h, (r - npc) * 64, VW, Tn, H, DV);
+    return head_chunk(dout, b, t0, h, (r - npc - NHC) * 64, VW, Tn, H, DV);
+  };
 
-  stage_aug(sk, k, kp, k0, Tn, H, h, b, DV, D, NT);
-  stage_head<DV>(sv, nullptr, v, k0, Tn, H, h, b, NT);
-  float acc_k[NV][4] = {}, acc_v[NV][4] = {};
-  const __nv_bfloat16* ka = sk + (warp * 16 + g) * QS + 2 * t4;
-  const __nv_bfloat16* va = sv + (warp * 16 + g) * VS + 2 * t4;
+  stage_aug<kDkvThreads, kRows, true>(sk, k, kp, b, k0, h, Tn, H, DV, D);
+  stage_head_sw<kDkvThreads, DV>(sv, v, b, k0, h, Tn, H);
+  cp_async_commit();
+  auto ring = make_ring<NS, kDkvAhead, kDkvThreads, true>(slots, total, src);
+  ring.start();
 
+  const bool key_ok[2] = {k0 + r0 + g < len, k0 + r0 + g + 8 < len};
+  float acc_k[NVT][4] = {}, acc_v[NVT][4] = {};
   for (int q0 = 0; q0 < Tn; q0 += kRows) {
-    __syncthreads();                      // the last tile's reads are done
-    stage_aug(sq, qu, qp_bh, q0, Tn, H, h, b, DV, D, NT);
-    stage_head<DV>(sdo, sdot, dout, q0, Tn, H, h, b, NT);
-    stage_head<DV>(nullptr, sqht, qu, q0, Tn, H, h, b, NT);
-    if (tid < kRows) {
-      const int t = q0 + tid;
-      const size_t at = (static_cast<size_t>(b) * H + h) * Tn + t;
-      slse[tid] = t < Tn ? lse[at] : 0.f;
-      sdelta[tid] = t < Tn ? delta[at] : 0.f;
-    }
-    __syncthreads();
+    // S^T and dP^T of the CTA's 64 keys (the warp's 16 in its registers)
+    // and the tile's 64 queries, by wgmma from shared memory
     float s[8][4] = {}, dp[8][4] = {};
-    for (int kk = 0; kk < DQK; kk += 16) {
-      unsigned a[4];
-      a_frag(a, ka, QS, kk);
+    for (int j = 0; j < npc; ++j) {
+      const bf16* slot = ring.acquire();
+      const AugCol c = aug_col(NHC + j, DV, D);
+      wgmma_chunk(s, sk, DV + c.col, slot, c.width);
+      wgmma_wait<1>();
+    }
+    const bf16* qh[NHC];
+    const bf16* dos[NHC];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* qb = sq + (8 * n + g) * QS + kk + 2 * t4;
-        mma_bf16(s[n], a, ld32(qb), ld32(qb + 8));
-      }
+    for (int j = 0; j < NHC; ++j) {
+      qh[j] = ring.acquire();
+      wgmma_chunk(s, sk, 64 * j, qh[j], VW);
+      wgmma_wait<1>();
     }
 #pragma unroll
-    for (int kk = 0; kk < DV; kk += 16) {
-      unsigned a[4];
-      a_frag(a, va, VS, kk);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* db = sdo + (8 * n + g) * VS + kk + 2 * t4;
-        mma_bf16(dp[n], a, ld32(db), ld32(db + 8));
-      }
+    for (int j = 0; j < NHC; ++j) {
+      dos[j] = ring.acquire();
+      wgmma_chunk(dp, sv, 64 * j, dos[j], VW);
+      wgmma_wait<1>();
     }
+    wgmma_wait<0>();
     // the weights of the warp's keys (rows g, g + 8) and the tile's
     // queries (columns 8 n + 2 t4 + e % 2)
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int i = 8 * n + 2 * t4 + (e & 1);
-        const float p = key_ok[e / 2] && q0 + i < Tn
-                            ? expf(s[n][e] * scale - slse[i]) : 0.f;
+        const int t = q0 + 8 * n + 2 * t4 + (e & 1);
+        float p = 0.f, d = 0.f;
+        if (t < Tn) {
+          const size_t at = bh * Tn + t;
+          d = __ldg(delta + at);
+          if (key_ok[e / 2]) p = expf(s[n][e] * scale - __ldg(lse + at));
+        }
         s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - sdelta[i]) * scale;
+        dp[n][e] = p * (dp[n][e] - d) * scale;
       }
+    // dv += P^T dO and dk += dS^T q~[:, :Dh], 16 queries a step
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
       unsigned pa[4], dsa[4];
       acc_frag(pa, s, ks);
       acc_frag(dsa, dp, ks);
 #pragma unroll
-      for (int n = 0; n < NV; ++n) {
-        const __nv_bfloat16* ob = sdot + (8 * n + g) * kTS + 16 * ks + 2 * t4;
-        mma_bf16(acc_v[n], pa, ld32(ob), ld32(ob + 8));
-        const __nv_bfloat16* hb = sqht + (8 * n + g) * kTS + 16 * ks + 2 * t4;
-        mma_bf16(acc_k[n], dsa, ld32(hb), ld32(hb + 8));
-      }
+      for (int j = 0; j < NHC; ++j)
+#pragma unroll
+        for (int n = 0; n < VW / 8; n += 2) {
+          unsigned r[4];
+          b_frag_kn_sw(r, dos[j], 16 * ks, 8 * n);
+          mma_bf16(acc_v[8 * j + n], pa, r[0], r[1]);
+          mma_bf16(acc_v[8 * j + n + 1], pa, r[2], r[3]);
+          b_frag_kn_sw(r, qh[j], 16 * ks, 8 * n);
+          mma_bf16(acc_k[8 * j + n], dsa, r[0], r[1]);
+          mma_bf16(acc_k[8 * j + n + 1], dsa, r[2], r[3]);
+        }
     }
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int t = k0 + warp * 16 + g + 8 * r;
+    const int t = k0 + r0 + g + 8 * r;
     if (t >= Tn) continue;
     const size_t at = ((static_cast<size_t>(b) * Tn + t) * H + h) * DV + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < NV; ++n) {
+    for (int n = 0; n < NVT; ++n) {
       *reinterpret_cast<unsigned*>(dk + at + 8 * n) =
           pack_bf16(acc_k[n][2 * r], acc_k[n][2 * r + 1]);
       *reinterpret_cast<unsigned*>(dv + at + 8 * n) =
@@ -737,6 +754,10 @@ flash_relpos_bwd_dkv_mma_kernel(
     }
   }
 }
+
+}  // namespace flash_relpos
+
+namespace {
 
 struct Args {
   const void *qu, *qp, *k, *kp, *v;
@@ -788,17 +809,20 @@ int launch_dkv(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the dq kernel's accumulator n-tiles a warp: buckets of MAXNT
-template <int DV, int MAXNT>
-int launch_dq_mma_as(const Args& a, size_t smem) {
-  auto* kernel = flash_relpos_bwd_dq_mma_kernel<DV, MAXNT>;
+// the dq kernel's chunks of Dh + D a warp holds in registers: buckets of
+// MAXCH
+template <int DV, int MAXCH>
+int launch_dq_mma_as(const Args& a) {
+  using flash_relpos::bf16;
+  const size_t smem = flash_relpos::dq_smem_bytes<DV, MAXCH>(a.D);
+  auto* kernel = flash_relpos::flash_relpos_bwd_dq_mma_kernel<DV, MAXCH>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  using bf16 = __nv_bfloat16;
-  const dim3 grid((a.Tn + kRows - 1) / kRows, a.H, a.B);
-  kernel<<<grid, kDqWarps * 32, smem, a.stream>>>(
+  constexpr int rows = 16 * flash_relpos::dq_row_groups<MAXCH>();
+  const dim3 grid((a.Tn + rows - 1) / rows, a.H, a.B);
+  kernel<<<grid, flash_relpos::dq_threads<MAXCH>(), smem, a.stream>>>(
       static_cast<const bf16*>(a.qu), static_cast<const bf16*>(a.qp),
       static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.kp),
       static_cast<const bf16*>(a.v), a.lens, static_cast<const bf16*>(a.o),
@@ -808,36 +832,77 @@ int launch_dq_mma_as(const Args& a, size_t smem) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the largest Dh + D whose n-tiles a dq warp holds in registers
-constexpr int kMaxMmaDqk = 2 * 8 * 44;
+// the bucket of the dq kernel for (Dh, D): 5 chunks or kMaxDqChunks, 0
+// past that
+template <int DV>
+int dq_bucket(int D) {
+  const int chunks = flash_relpos::aug_chunks(DV, D);
+  return chunks <= 5 ? 5
+         : chunks <= flash_relpos::kMaxDqChunks ? flash_relpos::kMaxDqChunks
+                                                : 0;
+}
 
 template <int DV>
 int launch_dq_mma(const Args& a) {
-  const size_t smem = dq_mma_smem_bytes<DV>(a.D);
-  const int nt_half = ((DV + a.D) / 8 + 1) / 2;
-  if (nt_half <= 20) return launch_dq_mma_as<DV, 20>(a, smem);
-  if (nt_half <= 36) return launch_dq_mma_as<DV, 36>(a, smem);
-  if (nt_half <= 44) return launch_dq_mma_as<DV, 44>(a, smem);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (dq_bucket<DV>(a.D)) {
+    case 5: return launch_dq_mma_as<DV, 5>(a);
+    case flash_relpos::kMaxDqChunks:
+      return launch_dq_mma_as<DV, flash_relpos::kMaxDqChunks>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <int DV>
 int launch_dkv_mma(const Args& a) {
-  const size_t smem = dkv_mma_smem_bytes<DV>(a.D);
-  auto* kernel = flash_relpos_bwd_dkv_mma_kernel<DV>;
+  using flash_relpos::bf16;
+  const size_t smem = flash_relpos::dkv_smem_bytes<DV>(a.D);
+  auto* kernel = flash_relpos::flash_relpos_bwd_dkv_mma_kernel<DV>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  using bf16 = __nv_bfloat16;
   const dim3 grid((a.Tn + kRows - 1) / kRows, a.H, a.B);
-  kernel<<<grid, kDkvWarps * 32, smem, a.stream>>>(
+  kernel<<<grid, flash_relpos::kDkvThreads, smem, a.stream>>>(
       static_cast<const bf16*>(a.qu), static_cast<const bf16*>(a.qp),
       static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.kp),
       static_cast<const bf16*>(a.v), a.lens, static_cast<const bf16*>(a.dout),
       a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
       a.Tn, a.H, a.D, a.scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs an SM holds of a kernel with `threads` threads and `smem` bytes of
+// dynamic shared memory, or a negative CUDA error
+template <class K>
+int occupancy(K* kernel, int threads, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                        smem);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+template <int DV>
+int ctas_per_sm_dh(bool dq, int D) {
+  namespace fr = flash_relpos;
+  if (!dq)
+    return occupancy(fr::flash_relpos_bwd_dkv_mma_kernel<DV>,
+                     fr::kDkvThreads, fr::dkv_smem_bytes<DV>(D));
+  switch (dq_bucket<DV>(D)) {
+    case 5:
+      return occupancy(fr::flash_relpos_bwd_dq_mma_kernel<DV, 5>,
+                       fr::dq_threads<5>(), fr::dq_smem_bytes<DV, 5>(D));
+    case fr::kMaxDqChunks:
+      return occupancy(
+          fr::flash_relpos_bwd_dq_mma_kernel<DV, fr::kMaxDqChunks>,
+          fr::dq_threads<fr::kMaxDqChunks>(),
+          fr::dq_smem_bytes<DV, fr::kMaxDqChunks>(D));
+    default:
+      return -static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // bf16 on the tensor cores, fp32 on the CUDA cores
@@ -860,10 +925,15 @@ int dispatch(const Args& a, int Dh, int is_bf16) {
 template <int DV>
 long long smem_bytes_dh(bool dq, int D, int is_bf16) {
   if (!is_bf16) return dq ? dq_smem_bytes<DV>(D) : dkv_smem_bytes<DV>();
-  // a width the dq kernel's registers cannot hold takes no shared memory
-  // that fits: the wrapper refuses it
-  if (DV + D > kMaxMmaDqk) return 1LL << 40;
-  return dq ? dq_mma_smem_bytes<DV>(D) : dkv_mma_smem_bytes<DV>(D);
+  if (!dq) return flash_relpos::dkv_smem_bytes<DV>(D);
+  switch (dq_bucket<DV>(D)) {
+    case 5: return flash_relpos::dq_smem_bytes<DV, 5>(D);
+    case flash_relpos::kMaxDqChunks:
+      return flash_relpos::dq_smem_bytes<DV, flash_relpos::kMaxDqChunks>(D);
+    // a width the dq kernel's registers cannot hold takes no shared
+    // memory that fits: the wrapper refuses it
+    default: return 1LL << 40;
+  }
 }
 
 long long smem_bytes(bool dq, int Dh, int D, int is_bf16) {
@@ -924,4 +994,15 @@ extern "C" long long flash_relpos_bwd_dq_smem(int Dh, int D, int is_bf16) {
 
 extern "C" long long flash_relpos_bwd_dkv_smem(int Dh, int D, int is_bf16) {
   return smem_bytes(false, Dh, D, is_bf16);
+}
+
+// The CTAs of the bf16 dq or dkv kernel for (Dh, D) that one SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or a negative CUDA error.
+extern "C" int flash_relpos_bwd_ctas_per_sm(int dq, int Dh, int D) {
+  switch (Dh) {
+    case 32: return ctas_per_sm_dh<32>(dq != 0, D);
+    case 64: return ctas_per_sm_dh<64>(dq != 0, D);
+    case 128: return ctas_per_sm_dh<128>(dq != 0, D);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -7,13 +7,17 @@
 //
 // Replaces `_fwd_kernel` in openseq2seq_tpu/ops/flash_relpos.py:70 (its
 // pallas_call at :123), which `rel_flash_attention` (:497) runs under the
-// Conformer's RelPosSelfAttention. As there: a masked key's score is
-// replaced by -1e30 (not added to), the lengths are clamped to at least
-// 1 so that key 0 is always valid and a masked key's weight is exactly
-// 0; query rows t >= len are computed like the others (finite outputs
-// over the valid keys, masked later by the caller); p is rounded to v's
-// type before P.V while l sums the unrounded p; the output has the
-// inputs' type and, when asked, each row's lse = m + log(l) in fp32.
+// Conformer's RelPosSelfAttention with 128-key blocks (:497, and the
+// encoder's call, encoders/conformer_encoder.py:74). As there: a masked
+// key's score is replaced by -1e30 (not added to), the lengths are clamped
+// to at least 1 so that key 0 is always valid and a masked key's weight is
+// exactly 0; query rows t >= len are computed like the others (finite
+// outputs over the valid keys, masked later by the caller); the weights
+// are rounded where the TPU kernel rounds them: p = exp(s - m) against the
+// running maximum m, which moves once a 128-key block, rounded to v's type
+// before P.V, while l sums the unrounded p and the output is acc / l; the
+// output has the inputs' type and, when asked, each row's lse = m + log(l)
+// in fp32.
 //
 // Inputs are read where the module has them, so q~ and k~ are never
 // written to device memory whole: qu = q + u (B, T, H, Dh) and k, v
@@ -26,22 +30,31 @@
 // at 989 TFLOP/s) and must move qu, qp, k, v and o, 65.7 MB (19.6 us at
 // 3.35 TB/s); materialised (B, H, T, Dh + D) q~ and k~ would be 98 MB.
 //
-// Design, two kernels over the same inputs (a simple pair that is right;
-// wgmma, TMA and warp specialisation are later work):
-//  * bf16, the main path: `flash_relpos_fwd_mma_kernel`, tensor cores
-//    through mma.sync m16n8k16 (bf16 operands, fp32 accumulation, the
-//    TPU kernel's own precision). One CTA of four warps per (64-query
-//    tile, head, batch row), each warp 16 query rows. The tile's q~ rows
-//    stay in shared memory for the whole key loop; each 64-key tile's k~
-//    rows and v (transposed, so that a B fragment is one 32-bit load) are
-//    staged beside them with 16-byte loads. Fragments are read straight
-//    from shared memory, whose row strides (Dh + D + 8 and 72 elements)
-//    put a fragment's 32 words in 32 banks. The scores' accumulators are
-//    the online softmax's state: a row lives in the four lanes of a quad,
-//    combined with two xor-shuffles, and the weights, rounded to bf16,
-//    become P.V's A fragments in place. 41 + 41 + 9 KB of shared memory
-//    at Conformer-M (two CTAs an SM), 159 KB at Conformer-L's Dh + D =
-//    576.
+// Design, two kernels over the same inputs:
+//  * bf16, the main path: `flash_relpos_fwd_mma_kernel` (flash_relpos.cuh),
+//    bf16 operands and fp32 accumulation on the tensor cores, the TPU
+//    kernel's own precision. One CTA of four warps, one warpgroup, per
+//    (64-query tile, head, batch row); q~'s 64 rows are copied once into
+//    shared memory with 16-byte cp.async. The keys stream through a ring
+//    of four 64 x 64 slots, two chunks copied ahead of the products, so
+//    that the copies overlap the tensor cores: for each 128-key block, the
+//    k~ chunks (64 keys by 64 columns of k or of the key table) of its two
+//    64-key tiles, then their v chunks. The key table's chunks are the same
+//    for every batch row and head: at Conformer-M it is 128 KB and stays in
+//    the 50 MB L2, so its share of the copies comes from L2, not device
+//    memory. The scores are wgmma m64n64k16 products of q~ and a k~ chunk,
+//    both read from shared memory in the 128-byte swizzled layout, one
+//    chunk's products in flight while the next chunk arrives; the
+//    warpgroup keeps the scores of its 64 rows and the block's 128 keys in
+//    registers (a warp's 16 rows, a row in the four lanes of a quad) until
+//    the block is scored whole, then runs the online softmax and uses the
+//    rounded weights as the A fragments of P.V (mma.sync m16n8k16), whose
+//    B fragments come from v's chunk by ldmatrix.trans: nothing is
+//    transposed by hand and P never leaves the registers. Keys at or past
+//    the row's length weigh exactly 0 and do not move the maximum, so the
+//    tiles past it are not read. Shared memory 40 KB of q~ and 32 KB of
+//    slots at Conformer-M (three CTAs an SM), 72 + 32 KB at Conformer-L's
+//    Dh + D = 576 (two), each with 1 KB to align the panels.
 //  * fp32: `flash_relpos_fwd_kernel`, fp32 FMAs on the CUDA cores (TF32
 //    would round the operands): 256 threads, four per query row; q~ in
 //    shared memory, each key tile's k~ staged in chunks of 32 columns so
@@ -53,11 +66,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "mma_sync.cuh"
+#include "flash_relpos.cuh"
 
 namespace {
-
-using namespace mma_sync;
 
 constexpr int kRows = 64;                 // queries per CTA
 constexpr int kKeys = 64;                 // keys per tile
@@ -226,119 +237,105 @@ flash_relpos_fwd_kernel(const float* __restrict__ qu,
   }
 }
 
+}  // namespace
+
 // ---- bf16: tensor cores ------------------------------------------------
-constexpr int kMmaWarps = 4;               // 16 query rows each
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kVS = kKeys + 8;             // v^T row stride (elements)
+namespace flash_relpos {
 
-// q~ and k~ row stride in elements: (Dh + D) / 2 + 4 words, 4 or 20 mod 32,
-// puts the 8 x 4 words of a fragment in 32 banks
-__host__ __device__ constexpr int mma_stride(int dqk) { return dqk + 8; }
+constexpr int kFwdThreads = 128;          // 4 warps of 16 query rows
+constexpr int kFwdStages = 4;             // ring slots
+constexpr int kFwdAhead = 2;              // chunks copied ahead
 
 template <int DV>
-size_t mma_smem_bytes(int D) {
-  return sizeof(__nv_bfloat16) *
-         (2 * static_cast<size_t>(kRows) * mma_stride(DV + D) +
-          static_cast<size_t>(DV) * kVS);
-}
-
-// one row of q~ or k~ (Dh + D bf16) from the module's tensors into shared
-// memory, 8 elements a load; zeros for t past T
-__device__ __forceinline__ void stage_row(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* head,
-                                          const __nv_bfloat16* pos, int DV,
-                                          int D, bool live, int c) {
-  uint4 x = make_uint4(0u, 0u, 0u, 0u);
-  if (live)
-    x = *reinterpret_cast<const uint4*>(c < DV ? head + c : pos + c - DV);
-  *reinterpret_cast<uint4*>(dst + c) = x;
+size_t fwd_smem_bytes(int D) {
+  return sizeof(bf16) * static_cast<size_t>(panels(DV + D) + kFwdStages) *
+             kPanel + kAlignPad;
 }
 
 template <int DV>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_relpos_fwd_mma_kernel(const __nv_bfloat16* __restrict__ qu,
-                            const __nv_bfloat16* __restrict__ qp,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ kp,
-                            const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kFwdThreads)
+flash_relpos_fwd_mma_kernel(const bf16* __restrict__ qu,
+                            const bf16* __restrict__ qp,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ kp,
+                            const bf16* __restrict__ v,
                             const int* __restrict__ lens,
-                            __nv_bfloat16* __restrict__ out,
-                            float* __restrict__ lse, int Tn, int H, int D,
-                            float scale) {
-  constexpr int NV = DV / 8;              // P.V's n-tiles
-  const int DQK = DV + D;
-  const int QS = mma_stride(DQK);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // kRows x QS
-  __nv_bfloat16* sk = sq + kRows * QS;                     // kKeys x QS
-  __nv_bfloat16* svt = sk + kKeys * QS;                    // DV x kVS
+                            bf16* __restrict__ out, float* __restrict__ lse,
+                            int Tn, int H, int D, float scale) {
+  constexpr int NVT = DV / 8;             // P.V's n-tiles
+  constexpr int NVC = head_chunks(DV);    // v's chunks a key tile
+  constexpr int VW = DV < 64 ? DV : 64;   // their width
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // q~ and the slots in the swizzled layout that wgmma reads
+  auto* sq = reinterpret_cast<bf16*>(aligned_smem(smem_raw));  // panels
+  bf16* slots = sq + panels(DV + D) * kPanel;     // kFwdStages panels
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t4 = lane % 4;  // fragment row and column pair
-  const int q0 = blockIdx.x * kRows;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int len = max(lens[b], 1);
-  const int vecs = DQK / 8;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t4 = lane % 4, r0 = 16 * warp;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  // keys past the row's length weigh exactly 0 and leave the running
+  // maximum where it is: only the 64-key tiles below it are read
+  const int len = min(max(lens[b], 1), Tn);
+  const int n_sub = (len + kRows - 1) / kRows;
+  const int nkc = aug_chunks(DV, D);
+  // a 128-key block streams the k~ chunks of its (one or two) 64-key
+  // tiles, then their v chunks
+  const int per_blk = 2 * (nkc + NVC);
+  const int n_blk = (n_sub + 1) / 2;
+  const int total =
+      (n_blk - 1) * per_blk + (n_sub - 2 * (n_blk - 1)) * (nkc + NVC);
+  auto src = [=](int i) {
+    const int blk = i / per_blk, r = i % per_blk;
+    const int ns = min(2, n_sub - 2 * blk), k0 = blk * kRoundBlock;
+    if (r < ns * nkc)
+      return aug_chunk(k, kp, b, k0 + r / nkc * kRows, h, r % nkc, Tn, H, DV,
+                       D);
+    const int rv = r - ns * nkc;
+    return head_chunk(v, b, k0 + rv / NVC * kRows, h, rv % NVC * 64, VW, Tn,
+                      H, DV);
+  };
 
-  // the tile's q~ rows: [q + u | A | B], zero past T
-  for (int i = tid; i < kRows * vecs; i += kMmaThreads) {
-    const int r = i / vecs, c = (i % vecs) * 8, t = q0 + r;
-    const bool live = t < Tn;
-    const size_t tt = live ? t : 0;
-    stage_row(sq + r * QS, qu + ((b * Tn + tt) * H + h) * DV,
-              qp + ((static_cast<size_t>(b) * H + h) * Tn + tt) * D, DV, D,
-              live, c);
-  }
+  stage_aug<kFwdThreads, kRows, true>(
+      sq, qu, qp + (static_cast<size_t>(b) * H + h) * Tn * D, b, q0, h, Tn,
+      H, DV, D);
+  cp_async_commit();
+  auto ring = make_ring<kFwdStages, kFwdAhead, kFwdThreads, true>(
+      slots, total, src);
+  ring.start();
 
-  float o[NV][4];
-#pragma unroll
-  for (int n = 0; n < NV; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float o[NVT][4] = {};
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const __nv_bfloat16* qa = sq + (warp * 16 + g) * QS + 2 * t4;
-
-  for (int k0 = 0; k0 < Tn; k0 += kKeys) {
-    __syncthreads();                      // the last tile's reads are done
-    for (int i = tid; i < kKeys * vecs; i += kMmaThreads) {
-      const int j = i / vecs, c = (i % vecs) * 8, t = k0 + j;
-      const bool live = t < Tn;
-      const size_t tt = live ? t : 0;
-      stage_row(sk + j * QS, k + ((b * Tn + tt) * H + h) * DV, kp + tt * D,
-                DV, D, live, c);
-    }
-    for (int i = tid; i < kKeys * DV; i += kMmaThreads) {
-      const int j = i / DV, d = i % DV, t = k0 + j;
-      svt[d * kVS + j] =
-          t < Tn ? v[((static_cast<size_t>(b) * Tn + t) * H + h) * DV + d]
-                 : __float2bfloat16(0.f);
-    }
-    __syncthreads();
-
-    // S = q~ k~^T for the warp's 16 rows and the tile's 64 keys
-    float s[8][4];
+  for (int blk = 0; blk < n_blk; ++blk) {
+    const int ns = min(2, n_sub - 2 * blk), k0 = blk * kRoundBlock;
+    // S = q~ k~^T for the CTA's 64 rows (the warp's 16 in its registers)
+    // and the block's 128 keys, chunk by chunk of the contraction, by
+    // wgmma from shared memory: the whole rounding block is scored before
+    // any of its weights is exponentiated
+    float s[16][4] = {};
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    for (int kk = 0; kk < DQK; kk += 16) {
-      const unsigned a[4] = {ld32(qa + kk), ld32(qa + 8 * QS + kk),
-                             ld32(qa + kk + 8), ld32(qa + 8 * QS + kk + 8)};
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* kb = sk + (8 * n + g) * QS + kk + 2 * t4;
-        mma_bf16(s[n], a, ld32(kb), ld32(kb + 8));
+    for (int sub = 0; sub < 2; ++sub) {
+      if (sub >= ns) continue;
+      for (int j = 0; j < nkc; ++j) {
+        const bf16* slot = ring.acquire();
+        const AugCol c = aug_col(j, DV, D);
+        wgmma_chunk(tiles8(s, 8 * sub), sq, c.head ? c.col : DV + c.col,
+                    slot, c.width);
+        // the last chunk's products are done, so its slot may be copied
+        // over after the next barrier; this one's run on
+        wgmma_wait<1>();
       }
     }
+    wgmma_wait<0>();
 
-    // the online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    // the online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3), its
+    // maximum moved once a block, as `_fwd_kernel` moves it
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < 16; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int t = k0 + 8 * n + 2 * t4 + (e & 1);
-        s[n][e] = t >= Tn ? -INFINITY : t >= len ? kMasked : s[n][e] * scale;
+        s[n][e] = t < len ? s[n][e] * scale : kMasked;
         mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
       }
     float rescale[2], sum[2] = {0.f, 0.f};
@@ -346,13 +343,13 @@ flash_relpos_fwd_mma_kernel(const __nv_bfloat16* __restrict__ qu,
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // key k0 < Tn is in every tile, so the new maximum is finite
+      // key k0 < len is in every block, so the new maximum is finite
       const float m_new = fmaxf(m[r], mx[r]);
-      rescale[r] = expf(m[r] - m_new);    // 0 on the first tile
+      rescale[r] = expf(m[r] - m_new);    // 0 on the first block
       m[r] = m_new;
     }
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < 16; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[n][e] = expf(s[n][e] - m[e / 2]);   // 0 for masked keys
@@ -365,7 +362,7 @@ flash_relpos_fwd_mma_kernel(const __nv_bfloat16* __restrict__ qu,
       l[r] = l[r] * rescale[r] + sum[r];
     }
 #pragma unroll
-    for (int n = 0; n < NV; ++n) {
+    for (int n = 0; n < NVT; ++n) {
       o[n][0] *= rescale[0];
       o[n][1] *= rescale[0];
       o[n][2] *= rescale[1];
@@ -373,56 +370,93 @@ flash_relpos_fwd_mma_kernel(const __nv_bfloat16* __restrict__ qu,
     }
 
     // O += P v: the weights, rounded to bf16, are the A fragments of the
-    // four 16-key steps (n-tiles 2 ks and 2 ks + 1)
+    // 16-key steps, straight from the scores' registers; v's chunks give
+    // the B fragments through ldmatrix.trans
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const unsigned a[4] = {pack_bf16(s[2 * ks][0], s[2 * ks][1]),
-                             pack_bf16(s[2 * ks][2], s[2 * ks][3]),
-                             pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]),
-                             pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3])};
+    for (int sub = 0; sub < 2; ++sub) {
+      if (sub >= ns) continue;
 #pragma unroll
-      for (int n = 0; n < NV; ++n) {
-        const __nv_bfloat16* vb = svt + (8 * n + g) * kVS + 16 * ks + 2 * t4;
-        mma_bf16(o[n], a, ld32(vb), ld32(vb + 8));
+      for (int jv = 0; jv < NVC; ++jv) {
+        const bf16* slot = ring.acquire();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          unsigned a[4];
+          acc_frag(a, s, 4 * sub + ks);
+#pragma unroll
+          for (int n = 0; n < VW / 8; n += 2) {
+            unsigned r[4];
+            b_frag_kn_sw(r, slot, 16 * ks, 8 * n);
+            mma_bf16(o[8 * jv + n], a, r[0], r[1]);
+            mma_bf16(o[8 * jv + n + 1], a, r[2], r[3]);
+          }
+        }
       }
     }
   }
 
+  // the output o / l through the q~ tile, then 16-byte stores
+  __syncthreads();                        // every warp is done with q~
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int t = q0 + warp * 16 + g + 8 * r;
-    if (t >= Tn) continue;
-    const float inv = 1.f / l[r];
-    __nv_bfloat16* dst =
-        out + ((static_cast<size_t>(b) * Tn + t) * H + h) * DV + 2 * t4;
+  for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int n = 0; n < NV; ++n)
-      *reinterpret_cast<unsigned*>(dst + 8 * n) =
-          pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
-    if (lse != nullptr && t4 == 0)
-      lse[(static_cast<size_t>(b) * H + h) * Tn + t] = m[r] + logf(l[r]);
+    for (int n = 0; n < NVT; ++n)
+      *reinterpret_cast<unsigned*>(sq + sw_off(r0 + g + 8 * r,
+                                               8 * n + 2 * t4)) =
+          pack_bf16(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kRows * DV / 8; i += kFwdThreads) {
+    const int r = i / (DV / 8), c = i % (DV / 8) * 8, t = q0 + r;
+    if (t < Tn)
+      *reinterpret_cast<uint4*>(
+          out + ((static_cast<size_t>(b) * Tn + t) * H + h) * DV + c) =
+          *reinterpret_cast<const uint4*>(sq + sw_off(r, c));
   }
+  if (lse != nullptr && t4 == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = q0 + r0 + g + 8 * r;
+      if (t < Tn)
+        lse[(static_cast<size_t>(b) * H + h) * Tn + t] = m[r] + logf(l[r]);
+    }
 }
 
 template <int DV>
 int launch_mma(const void* qu, const void* qp, const void* k, const void* kp,
                const void* v, const int* lens, void* out, float* lse, int B,
                int Tn, int H, int D, float scale, cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
-  const size_t smem = mma_smem_bytes<DV>(D);
+  const size_t smem = fwd_smem_bytes<DV>(D);
   auto* kernel = flash_relpos_fwd_mma_kernel<DV>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Tn + kRows - 1) / kRows, H, B);
-  kernel<<<grid, kMmaThreads, smem, stream>>>(
+  kernel<<<grid, kFwdThreads, smem, stream>>>(
       static_cast<const bf16*>(qu), static_cast<const bf16*>(qp),
       static_cast<const bf16*>(k), static_cast<const bf16*>(kp),
       static_cast<const bf16*>(v), lens, static_cast<bf16*>(out), lse, Tn, H,
       D, scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+// CTAs of the kernel for (Dh, D) an SM holds, or a negative CUDA error
+template <int DV>
+int ctas_per_sm(int D) {
+  const size_t smem = fwd_smem_bytes<DV>(D);
+  auto* kernel = flash_relpos_fwd_mma_kernel<DV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
+                                                        kFwdThreads, smem);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+}  // namespace flash_relpos
+
+namespace {
 
 template <int DV>
 int launch_fma(const void* qu, const void* qp, const void* k, const void* kp,
@@ -448,15 +482,16 @@ int launch(const void* qu, const void* qp, const void* k, const void* kp,
            const void* v, const int* lens, void* out, float* lse, int B,
            int Tn, int H, int D, int is_bf16, float scale,
            cudaStream_t stream) {
-  return is_bf16 ? launch_mma<DV>(qu, qp, k, kp, v, lens, out, lse, B, Tn, H,
-                                  D, scale, stream)
+  return is_bf16 ? flash_relpos::launch_mma<DV>(qu, qp, k, kp, v, lens, out,
+                                                lse, B, Tn, H, D, scale,
+                                                stream)
                  : launch_fma<DV>(qu, qp, k, kp, v, lens, out, lse, B, Tn, H,
                                   D, scale, stream);
 }
 
 template <int DV>
 long long smem_bytes(int D, int is_bf16) {
-  return static_cast<long long>(is_bf16 ? mma_smem_bytes<DV>(D)
+  return static_cast<long long>(is_bf16 ? flash_relpos::fwd_smem_bytes<DV>(D)
                                         : fma_smem_bytes<DV>(D));
 }
 
@@ -500,5 +535,16 @@ extern "C" long long flash_relpos_fwd_smem(int Dh, int D, int is_bf16) {
     case 64: return smem_bytes<64>(D, is_bf16);
     case 128: return smem_bytes<128>(D, is_bf16);
     default: return -1;
+  }
+}
+
+// The CTAs of the bf16 kernel for (Dh, D) that one SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or a negative CUDA error.
+extern "C" int flash_relpos_fwd_ctas_per_sm(int Dh, int D) {
+  switch (Dh) {
+    case 32: return flash_relpos::ctas_per_sm<32>(D);
+    case 64: return flash_relpos::ctas_per_sm<64>(D);
+    case 128: return flash_relpos::ctas_per_sm<128>(D);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }

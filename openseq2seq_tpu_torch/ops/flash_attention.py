@@ -26,9 +26,9 @@ launches the kernels (bf16 or fp32; D in {64, 128, 256}; contiguous
 inputs, bf16 ones 16-byte aligned) or raises on anything they do not
 take. There is no other fallback. bf16 runs on the tensor cores and
 rounds where JAX's stock TPU kernels round: the weights before P.V in the
-forward, p^T, ds^T and ds before the backward's products (between 64 and
-128 keys the forward rounds as the stock kernel does past 128, see
-:func:`flash_attention_plain`). The plain versions do the same with
+forward (normalised up to 128 keys, against the running maximum of
+128-key blocks past that, see :func:`flash_attention_plain`), p^T, ds^T
+and ds before the backward's products. The plain versions do the same with
 ``round_weights=True``, which the card's checks use, each output element
 within :func:`flash_attention_bound` or :func:`flash_attention_bwd_bound`,
 bounds built from that element's own terms; off (the default, and the
@@ -61,16 +61,43 @@ _ENTRY = {"flash_attn_fwd": (KERNEL, 6), "flash_attn_bwd_dq": (BWD_KERNEL, 9),
 _fns = {}
 
 
-def _key_tile() -> int:
-    """The bf16 kernels' key tile, ``kTile`` in ``csrc/flash_attn.cuh``."""
+def _round_block() -> int:
+    """The keys of one rounding block of the bf16 forward kernels,
+    ``kRoundBlock`` in ``csrc/mma_sync.cuh``."""
     from ..kernels.build import CSRC_DIR
-    text = (CSRC_DIR / "flash_attn.cuh").read_text()
-    return int(re.search(r"constexpr int kTile = (\d+);", text).group(1))
+    text = (CSRC_DIR / "mma_sync.cuh").read_text()
+    return int(re.search(r"constexpr int kRoundBlock = (\d+);",
+                         text).group(1))
 
 
-# keys of one tile of the bf16 forward kernel: up to this many its weights
-# are normalised before they are rounded
-ONE_TILE = _key_tile()
+# keys of one rounding block, the key block of JAX's TPU kernels (128):
+# up to this many keys the stock kernel normalises the weights before it
+# rounds them; past it the running maximum moves once a block
+ROUND_BLOCK = _round_block()
+
+
+def block_weights(logits: torch.Tensor, dtype: torch.dtype,
+                  block: int = ROUND_BLOCK
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The weights of fp32 scores ``logits`` (..., Tk) rounded to ``dtype``
+    as a flash kernel over ``block``-key blocks rounds them: p = exp(s -
+    m_j), m_j the running maximum after key block j, rounded, then
+    brought to the row's final maximum m by the fp32 factor exp(m_j - m).
+    Returns those weights and l, the sum of the unrounded p brought to m
+    the same way, both fp32: the output is (weights . v) / l, as the TPU
+    kernels' multi-step variants compute it
+    (``openseq2seq_tpu/ops/flash_relpos.py:95-113``)."""
+    Tk = logits.shape[-1]
+    n_blocks = -(-Tk // block)
+    padded = torch.nn.functional.pad(logits, (0, n_blocks * block - Tk),
+                                     value=-float("inf"))
+    m_run = torch.cummax(padded.unflatten(-1, (n_blocks, block)).amax(-1),
+                         dim=-1).values
+    m_key = m_run.repeat_interleave(block, dim=-1)[..., :Tk]
+    p = torch.exp(logits - m_key)
+    to_final = torch.exp(m_key - m_run[..., -1:])
+    return p.to(dtype).float() * to_final, \
+        (p * to_final).sum(-1, keepdim=True)
 
 
 def _kernel(entry: str):
@@ -111,29 +138,27 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     softmax, then the weighted sum of v in fp32; output in q's dtype.
     With ``return_lse`` also the rows' log-sum-exp (B, H, Tq), fp32.
     With ``round_weights`` the weights are rounded to v's dtype before the
-    weighted sum, as the bf16 kernel rounds them: normalised first,
-    o = round(p / l) v, where the keys fit the kernel's one key tile
-    (Tk <= ``ONE_TILE``; as the stock kernel's single step,
-    ``flash_attention.py:547, :556``), else o = round(p) v * (1 / l) with
-    l the sum of the unrounded p = exp(s - m) (as its multi-step variant,
-    ``:471``). The stock kernel behind the JAX package's ``_attend_flash``
-    takes its single step up to 128 keys, its key block: between
-    ``ONE_TILE`` and 128 keys the two round the same weight one way and
-    the other, one bf16 ulp of the weight apart at most (within
-    :func:`flash_attention_bound`)."""
+    weighted sum where JAX's stock kernel behind the JAX package's
+    ``_attend_flash`` rounds them, as the bf16 kernel does: up to
+    ``ROUND_BLOCK`` keys, its key block, normalised first, o = round(p /
+    l) v (the stock kernel's single step, ``flash_attention.py:547,
+    :556``); past it p = exp(s - m) rounded against the running maximum
+    of each block, o = (round(p) v) * (1 / l) with l the sum of the
+    unrounded p (its multi-step variant, ``:471``; see
+    :func:`block_weights`)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     logits, off = _scores(q, k, kv_valid, causal, sm_scale)
-    if round_weights:
+    if round_weights and k.shape[1] <= ROUND_BLOCK:
         p = torch.exp(logits - logits.amax(-1, keepdim=True))
-        if k.shape[1] <= ONE_TILE:
-            out = torch.einsum("bhqk,bkhd->bqhd",
-                               (p / p.sum(-1, keepdim=True)).to(
-                                   v.dtype).float(), v.float()).to(q.dtype)
-        else:
-            inv_l = 1.0 / p.sum(-1).transpose(1, 2)[..., None]
-            out = (torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(),
-                                v.float()) * inv_l).to(q.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd",
+                           (p / p.sum(-1, keepdim=True)).to(
+                               v.dtype).float(), v.float()).to(q.dtype)
+    elif round_weights:
+        w, l = block_weights(logits, v.dtype)
+        inv_l = 1.0 / l.transpose(1, 2)
+        out = (torch.einsum("bhqk,bkhd->bqhd", w, v.float()) *
+               inv_l).to(q.dtype)
     else:
         weights = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhqk,bkhd->bqhd", weights,

@@ -36,8 +36,14 @@ For CPU tensors the ops run their plain versions (the augmented attention
 written out with a (B, H, T, T) score). For CUDA tensors they launch the
 kernels (bf16 on the tensor cores, fp32 on the CUDA cores, forward and
 backward; Dh in {32, 64, 128}; D a multiple of 32 within the kernels'
-shared memory and, for the bf16 backward, Dh + D up to 704) or raise.
-There is no other fallback.
+shared memory and, for the bf16 backward, at most nine 64-column chunks
+of Dh + D, 576 at Dh = 64) or raise. There is no other fallback. The
+bf16 forward rounds the weights where ``_fwd_kernel`` rounds them (against
+the running maximum of 128-key blocks, see :func:`flash_attention_plain`),
+the bf16 backward p and ds where ``_bwd_pallas`` does; the card holds them
+to the plain versions within :func:`relpos_attention_bound` and
+:func:`relpos_attention_bwd_bound`, bounds built from each element's own
+terms.
 ``LAUNCHES`` counts launches of the forward kernel, ``BWD_DQ_LAUNCHES``
 and ``BWD_DKV_LAUNCHES`` those of the two backward kernels.
 """
@@ -50,6 +56,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .flash_attention import _sum_bound, block_weights
+
 LAUNCHES = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
@@ -60,7 +68,8 @@ NEG_INF = -1e30
 # the card's shared memory a block can use
 SMEM_LIMIT = 232448
 # entry point -> (library, pointer arguments, int arguments); the
-# ``*_smem`` entries take (Dh, D, is_bf16) and return a byte count
+# ``*_smem`` entries take (Dh, D, is_bf16) and return a byte count, the
+# ``*_ctas_per_sm`` ones ([dq,] Dh, D) and return a CTA count
 _ENTRY = {"flash_relpos_fwd": (KERNEL, 8, 6),
           "flash_relpos_bwd_dq": (BWD_KERNEL, 12, 6),
           "flash_relpos_bwd_dkv": (BWD_KERNEL, 11, 6)}
@@ -71,19 +80,36 @@ def _kernel(entry: str = KERNEL):
     fn = _fns.get(entry)
     if fn is None:
         from ..kernels import build
+        lib = BWD_KERNEL if entry.startswith(BWD_KERNEL) else KERNEL
+        fn = getattr(build.load(lib), entry)
         if entry in _ENTRY:
-            lib, n_ptr, n_int = _ENTRY[entry]
-            fn = getattr(build.load(lib), entry)
+            _, n_ptr, n_int = _ENTRY[entry]
             fn.argtypes = [ctypes.c_void_p] * n_ptr + \
                 [ctypes.c_int] * n_int + [ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        elif entry.endswith("_ctas_per_sm"):
+            fn.argtypes = [ctypes.c_int] * (3 if lib == BWD_KERNEL else 2)
+            fn.restype = ctypes.c_int
         else:
-            lib = BWD_KERNEL if entry.startswith(BWD_KERNEL) else KERNEL
-            fn = getattr(build.load(lib), entry)
             fn.argtypes = [ctypes.c_int] * 3
             fn.restype = ctypes.c_longlong
         _fns[entry] = fn
     return fn
+
+
+def ctas_per_sm(kernel: str, Dh: int, D: int) -> int:
+    """The CTAs of the bf16 kernel ``kernel`` ("fwd", "dq" or "dkv") for
+    (Dh, D) that one SM of the current card holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    if kernel == "fwd":
+        n = _kernel("flash_relpos_fwd_ctas_per_sm")(Dh, D)
+    else:
+        n = _kernel("flash_relpos_bwd_ctas_per_sm")(int(kernel == "dq"),
+                                                     Dh, D)
+    if n < 0:
+        raise RuntimeError("occupancy of the {} kernel: CUDA error {}"
+                           .format(kernel, -n))
+    return n
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,37 +156,79 @@ def build_aug(q_u, q_w, k, r_kernel) -> Tuple[torch.Tensor, torch.Tensor]:
     return q_aug, k_aug
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          lengths: torch.Tensor, sm_scale: float
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain attention over q~, k~ (B, H, T, dqk) and v (B, H, T, dv):
-    fp32 scores, keys t >= max(length, 1) replaced by -1e30, softmax with
-    p rounded to v's dtype before P.V (l sums the unrounded p). Returns o
-    (B, H, T, dv) in q's dtype and lse (B, H, T), fp32."""
+def _masked_scores(q, k, lengths, sm_scale):
+    """fp32 scaled scores q~ k~^T (B, H, T, T), keys t >= max(length, 1)
+    replaced by -1e30."""
     T = k.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     lens = lengths.to(device=q.device, dtype=torch.int64).clamp(min=1)
     valid = torch.arange(T, device=q.device)[None, :] < lens[:, None]
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float()) / l
-    return o.to(q.dtype), (m + torch.log(l))[..., 0]
+    return torch.where(valid[:, None, None, :], s, NEG_INF)
 
 
-def relpos_attention_plain(qu, qp, k, kp, v, lengths, sm_scale
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          lengths: torch.Tensor, sm_scale: float,
+                          round_weights: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain attention over q~, k~ (B, H, T, dqk) and v (B, H, T, dv):
+    fp32 scores, keys t >= max(length, 1) replaced by -1e30, softmax.
+    With ``round_weights`` (the default) the weights are rounded to v's
+    dtype where the TPU kernel ``_fwd_kernel`` rounds them: p = exp(s -
+    m) against the running maximum m of its 128-key blocks, l summing the
+    unrounded p, the output divided by l (:func:`block_weights`); without
+    it, or in fp32, nothing is rounded but the output. Returns o (B, H, T,
+    dv) in q's dtype and lse (B, H, T), fp32."""
+    s = _masked_scores(q, k, lengths, sm_scale)
+    lse = torch.logsumexp(s, dim=-1)
+    if round_weights and v.dtype != torch.float32:
+        w, l = block_weights(s, v.dtype)
+        o = torch.einsum("bhqk,bhkd->bhqd", w, v.float()) / l
+    else:
+        o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
+                         v.float())
+    return o.to(q.dtype), lse
+
+
+def relpos_attention_plain(qu, qp, k, kp, v, lengths, sm_scale,
+                           round_weights: bool = True
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain version on the kernel's inputs: qu, k, v
     (B, T, H, Dh), qp (B, H, T, D), kp (T, D). Returns the context
-    (B, T, H, Dh) and lse (B, H, T)."""
-    B, T, H, _ = k.shape
-    q_aug = torch.cat([qu.transpose(1, 2), qp], dim=-1)
-    k_aug = torch.cat([k.transpose(1, 2),
-                       kp.expand(B, H, T, kp.shape[-1])], dim=-1)
+    (B, T, H, Dh) and lse (B, H, T); ``round_weights`` as
+    :func:`flash_attention_plain` takes it."""
+    q_aug, k_aug = _augmented(qu, qp, k, kp)
     o, lse = flash_attention_plain(q_aug, k_aug, v.transpose(1, 2),
-                                   lengths, sm_scale)
+                                   lengths, sm_scale, round_weights)
     return o.transpose(1, 2).contiguous(), lse
+
+
+def _augmented(qu, qp, k, kp):
+    """q~ and k~ (B, H, T, Dh + D) from the kernel's inputs."""
+    B, T, H, _ = k.shape
+    return (torch.cat([qu.transpose(1, 2), qp], dim=-1),
+            torch.cat([k.transpose(1, 2),
+                       kp.expand(B, H, T, kp.shape[-1])], dim=-1))
+
+
+def _bwd_terms(qu, qp, k, kp, v, lengths, o, lse, do, sm_scale):
+    """The backward's recompute in fp32, (B, H, T, .) layouts: q~, k~, p
+    = exp(s - lse) over the valid keys (0 elsewhere), dO, dP = dO v^T and
+    delta = rowsum(dO * O)."""
+    q_aug, k_aug = (x.float() for x in _augmented(qu, qp, k, kp))
+    p = torch.exp(_masked_scores(q_aug, k_aug, lengths, sm_scale) -
+                  lse[..., None])
+    do_t = do.transpose(1, 2).float()
+    dp = torch.einsum("bhqd,bhkd->bhqk", do_t, v.transpose(1, 2).float())
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
+    return q_aug, k_aug, p, do_t, dp, delta
+
+
+def _split_grads(dq, dk, dv, Dh):
+    """(B, H, T, .) gradients -> dqu (B, T, H, Dh), dqp (B, H, T, D), dk,
+    dv (B, T, H, Dh)."""
+    return (dq[..., :Dh].transpose(1, 2).contiguous(),
+            dq[..., Dh:].contiguous(), dk.transpose(1, 2).contiguous(),
+            dv.transpose(1, 2).contiguous())
 
 
 def relpos_attention_bwd_plain(qu, qp, k, kp, v, lengths, o, lse, do,
@@ -168,28 +236,80 @@ def relpos_attention_bwd_plain(qu, qp, k, kp, v, lengths, o, lse, do,
     """The backward kernels' plain version on the kernel's inputs (as
     :func:`relpos_attention_plain` takes them), the forward's context o
     and lse (B, H, T), and the context's cotangent do (B, T, H, Dh), at
-    ``_bwd_pallas``'s precision. Returns dqu (B, T, H, Dh), dqp (B, H, T,
-    D), dk and dv (B, T, H, Dh) in the inputs' dtype."""
-    B, T, H, Dh = k.shape
-    q_aug = torch.cat([qu.transpose(1, 2), qp], dim=-1).float()
-    k_aug = torch.cat([k.transpose(1, 2),
-                       kp.expand(B, H, T, kp.shape[-1])], dim=-1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q_aug, k_aug) * sm_scale
-    lens = lengths.to(device=k.device, dtype=torch.int64).clamp(min=1)
-    valid = torch.arange(T, device=k.device)[None, :] < lens[:, None]
-    p = torch.where(valid[:, None, None, :], torch.exp(s - lse[..., None]),
-                    0.0)
-    do_t = do.transpose(1, 2).float()
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)   # (B, H, T)
+    ``_bwd_pallas``'s precision: p = exp(s - lse) over the valid keys,
+    rounded to do's dtype for dv = p^T dO; ds = p (dP - delta) * scale
+    rounded to q's dtype for dk = ds^T q~[:, :Dh] and dq~ = ds k~; sums in
+    fp32. Returns dqu (B, T, H, Dh), dqp (B, H, T, D), dk and dv (B, T, H,
+    Dh) in the inputs' dtype."""
+    Dh = k.shape[-1]
+    q_aug, k_aug, p, do_t, dp, delta = _bwd_terms(qu, qp, k, kp, v, lengths,
+                                                  o, lse, do, sm_scale)
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), do_t)
-    dp = torch.einsum("bhqd,bhkd->bhqk", do_t, v.transpose(1, 2).float())
-    ds = (p * (dp - delta[..., None]) * sm_scale).to(qu.dtype).float()
+    ds = (p * (dp - delta) * sm_scale).to(qu.dtype).float()
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q_aug[..., :Dh])
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k_aug).to(qu.dtype)
-    return (dq[..., :Dh].transpose(1, 2).contiguous(),
-            dq[..., Dh:].contiguous(),
-            dk.transpose(1, 2).to(k.dtype).contiguous(),
-            dv.transpose(1, 2).to(v.dtype).contiguous())
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k_aug)
+    return _split_grads(dq.to(qu.dtype), dk.to(k.dtype), dv.to(v.dtype), Dh)
+
+
+def _score_error(q_aug, k_aug, p, sm_scale):
+    """How far an fp32 p = exp(s - c) may sit from this module's: the
+    scores' sums of Dh + D products in another order (2 (Dh + D) 2^-24 of
+    their terms' sizes), and 2^-16 in the exponent for the exponential
+    and the scaling."""
+    return p * (2.0 ** -23 * q_aug.shape[-1] * sm_scale * torch.einsum(
+        "bhqd,bhkd->bhqk", q_aug.abs(), k_aug.abs()) + 2.0 ** -16)
+
+
+def relpos_attention_bound(qu, qp, k, kp, v, lengths, sm_scale
+                           ) -> torch.Tensor:
+    """Element by element, how far a bf16 forward that rounds the weights
+    as ``_fwd_kernel`` does may sit from ``relpos_attention_plain`` (which
+    rounds them so) on the same inputs; fp32, in the context's shape (B,
+    T, H, Dh). Each element's bound is built from its own terms w v: one
+    ulp of each rounded weight w = p / l, which may round the other way
+    from fp32 values computed in another order, plus w's fp32 error (the
+    scores', and 2 T 2^-24 for l's sum), see ``_sum_bound``."""
+    want, _ = relpos_attention_plain(qu, qp, k, kp, v, lengths, sm_scale)
+    q_aug, k_aug = (x.float() for x in _augmented(qu, qp, k, kp))
+    w = torch.softmax(_masked_scores(q_aug, k_aug, lengths, sm_scale), -1)
+    T = k.shape[1]
+    err_w = _score_error(q_aug, k_aug, w, sm_scale) + w * T * 2.0 ** -23
+    return _sum_bound(want, w, err_w, v, "bhqk,bkhd->bqhd", T)
+
+
+def relpos_attention_bwd_bound(qu, qp, k, kp, v, lengths, o, lse, do,
+                               sm_scale):
+    """Element by element, how far the bf16 gradients of a backward that
+    rounds where ``_bwd_pallas`` rounds (p to dO's dtype for dv, ds to q's
+    for dk and dq~, sums in fp32) may sit from
+    ``relpos_attention_bwd_plain`` on the same inputs, o and lse; fp32, in
+    the shapes of (dqu, dqp, dk, dv). Each element's bound is built from
+    its own terms a b, a = p for dv and ds for dq~ and dk (see
+    ``_sum_bound``), so that a key of a one-key row, whose dv sums dO over
+    all queries, sets no other element's bound. a's fp32 error: p's
+    (``_score_error``), and for ds also dP's and delta's sums of Dh
+    products in another order (2 Dh 2^-24 of their terms' sizes each), so
+    that a ds which cancels to 0 keeps room."""
+    Dh, T = k.shape[-1], k.shape[1]
+    dqu, dqp, dk, dv = relpos_attention_bwd_plain(qu, qp, k, kp, v, lengths,
+                                                  o, lse, do, sm_scale)
+    q_aug, k_aug, p, do_t, dp, delta = _bwd_terms(qu, qp, k, kp, v, lengths,
+                                                  o, lse, do, sm_scale)
+    err_p = _score_error(q_aug, k_aug, p, sm_scale)
+    va = v.transpose(1, 2).float().abs()
+    err_dp_delta = 2.0 ** -23 * Dh * (
+        torch.einsum("bhqd,bhkd->bhqk", do_t.abs(), va) +
+        (do.float().abs() * o.float().abs()).sum(-1).transpose(1, 2)[
+            ..., None])
+    ds = p * (dp - delta) * sm_scale
+    err_ds = (p * err_dp_delta + err_p * (dp - delta).abs()) * sm_scale
+    dq = torch.cat([dqu.transpose(1, 2), dqp], dim=-1)
+    return _split_grads(
+        _sum_bound(dq, ds, err_ds, k_aug, "bhqk,bhkd->bhqd", T),
+        _sum_bound(dk.transpose(1, 2), ds, err_ds, q_aug[..., :Dh],
+                   "bhqk,bhqd->bhkd", T),
+        _sum_bound(dv.transpose(1, 2), p, err_p, do_t, "bhqk,bhqd->bhkd", T),
+        Dh)
 
 
 def _check(qu, qp, k, kp, v, lengths):

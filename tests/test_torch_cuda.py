@@ -417,17 +417,36 @@ def _relpos_inputs(device, B, H, T, Dh, D, seed):
     return fr._operands(q_u, q_w, k, r_kernel) + (v, lengths.int())
 
 
-@pytest.mark.parametrize("B,H,T,Dh,D", [
-    (4, 4, 250, 64, 256), (2, 8, 130, 64, 512), (3, 4, 37, 32, 128)])
+def _reading(got, want, bound):
+    """The largest |got - want| / bound; an element whose bound is 0 must
+    match exactly."""
+    err = (got.float() - want.float()).abs()
+    return float(torch.where(err > 0, err / bound, 0.0).max())
+
+
+def _zero_but_row_1(x):
+    bad = x.clone()
+    bad[:1] = 0
+    bad[2:] = 0
+    return bad
+
+
+RELPOS_SHAPES = [(4, 4, 250, 64, 256), (2, 8, 130, 64, 512),
+                 (3, 4, 37, 32, 128)]
+
+
+@pytest.mark.parametrize("B,H,T,Dh,D", RELPOS_SHAPES)
 def test_relpos_kernel_matches_plain(device, B, H, T, Dh, D):
     """The rel-pos flash kernel (B5) against its plain version on the same
     folded inputs, lengths from 0 (clamped to 1) to T: fp32 context max
-    abs error 2e-5, lse 1e-5 (sums in another order); bf16 within 2^-6
-    (both round p to bf16, at other running maxima); one launch a call;
+    abs error 2e-5, lse 1e-5 (sums in another order); bf16 each element
+    within ``relpos_attention_bound`` of the plain version, which rounds
+    the weights as the kernel does (against the running maximum of
+    128-key blocks), lse within 1e-5 of max(1, |lse|); one launch a call;
     two calls bit-identical."""
     from openseq2seq_tpu_torch.ops import flash_relpos as fr
     case = _relpos_inputs(device, B, H, T, Dh, D, T + D)
-    for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 2.0 ** -6)):
+    for dtype in (torch.float32, torch.bfloat16):
         args = tuple(x.to(dtype) for x in case[:5]) + (case[5], Dh ** -0.5)
         before = fr.LAUNCHES
         got, lse = fr.relpos_attention(*args, return_lse=True)
@@ -436,11 +455,14 @@ def test_relpos_kernel_matches_plain(device, B, H, T, Dh, D):
         want, want_lse = fr.relpos_attention_plain(*args)
         torch.cuda.synchronize()
         assert torch.equal(got, again) and got.dtype == dtype
-        torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                                   atol=atol)
-        torch.testing.assert_close(lse, want_lse, rtol=0,
-                                   atol=1e-5 if dtype == torch.float32
-                                   else 1e-2)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+            torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+            continue
+        bound = fr.relpos_attention_bound(*args)
+        assert _reading(got, want, bound) <= 1.0
+        assert float(((lse - want_lse).abs() /
+                      want_lse.abs().clamp(min=1.0)).max()) <= 1e-5
 
 
 def test_relpos_kernel_refuses_what_it_does_not_take(device):
@@ -509,13 +531,12 @@ def test_conformer_conv_kernel_matches_plain(device, B, T, D, k):
                 <= 2.0 ** -5
 
 
-@pytest.mark.parametrize("B,H,T,Dh,D", [
-    (4, 4, 250, 64, 256), (2, 8, 130, 64, 512), (3, 4, 37, 32, 128)])
+@pytest.mark.parametrize("B,H,T,Dh,D", RELPOS_SHAPES)
 def test_relpos_backward_kernels_match_plain(device, B, H, T, Dh, D):
     """The rel-pos backward kernels (B5 dq and dkv) against their plain
     version on the same inputs, from the forward kernel's own output and
     lse, lengths from 0 (clamped to 1) to T: fp32 (TF32 off) max abs
-    error 1e-4; bf16 within 2^-7 of each gradient's largest magnitude
+    error 1e-4; bf16 each element within ``relpos_attention_bwd_bound``
     (both round p and ds to bf16, from fp32 sums in another order); one
     launch of each a call; two calls bit-identical."""
     from openseq2seq_tpu_torch.ops import flash_relpos as fr
@@ -533,13 +554,34 @@ def test_relpos_backward_kernels_match_plain(device, B, H, T, Dh, D):
         assert (fr.BWD_DQ_LAUNCHES, fr.BWD_DKV_LAUNCHES) == \
             (before[0] + 2, before[1] + 2)
         want = fr.relpos_attention_bwd_plain(*bwd)
+        bounds = fr.relpos_attention_bwd_bound(*bwd) \
+            if dtype == torch.bfloat16 else [None] * 4
         torch.cuda.synchronize()
-        for a, b, w in zip(got, again, want):
+        for a, b, w, bound in zip(got, again, want, bounds):
             assert torch.equal(a, b) and a.dtype == dtype
-            err = float((a.float() - w.float()).abs().max())
-            top = float(w.float().abs().max())
-            assert err <= (1e-4 if dtype == torch.float32
-                           else 2.0 ** -7 * top), (err, top)
+            if bound is None:
+                assert float((a - w).abs().max()) <= 1e-4
+            else:
+                assert _reading(a, w, bound) <= 1.0
+
+
+def test_bf16_relpos_bounds_refuse_planted_faults(device):
+    """The element-wise bounds the bf16 kernels are held to refuse a
+    wrong kernel: the context, or dv, zeroed on every batch row but row 1
+    (one valid key) reads far above 1 at Conformer-M's width."""
+    from openseq2seq_tpu_torch.ops import flash_relpos as fr
+    B, H, T, Dh, D = 4, 4, 250, 64, 256
+    case = _relpos_inputs(device, B, H, T, Dh, D, 3)
+    args = tuple(x.bfloat16() for x in case[:5]) + (case[5],)
+    o, lse = fr.relpos_attention_cuda(*args, Dh ** -0.5, return_lse=True)
+    do = torch.randn((B, T, H, Dh), device=device).bfloat16()
+    bwd = args + (o, lse, do, Dh ** -0.5)
+    dv = fr.relpos_attention_bwd_cuda(*bwd)[3]
+    torch.cuda.synchronize()
+    assert _reading(_zero_but_row_1(o), o,
+                    fr.relpos_attention_bound(*args, Dh ** -0.5)) > 10
+    assert _reading(_zero_but_row_1(dv), dv,
+                    fr.relpos_attention_bwd_bound(*bwd)[3]) > 10
 
 
 def test_relpos_autograd_through_the_kernels(device):

@@ -336,45 +336,72 @@ def test_rounding_plain_matches_the_stock_tpu_kernel(Tq, Tk, causal):
         assert np.all(np.abs(g.float().numpy() - w) <= bound.numpy())
 
 
-def test_rounding_plain_past_one_key_tile_matches_the_stock_kernel():
-    """Between ``ONE_TILE`` (the bf16 kernel's key tile) and 128 keys the
-    stock kernel still takes its single step, o = round(p / l) v, where
-    the port rounds p = exp(s - m) and scales by 1 / l: a weight may round
-    one way and the other. The output stays within
-    ``flash_attention_bound`` of the stock kernel's, the bound the card
-    holds the bf16 forward to. The backward takes the stock forward's
-    output: the forward's difference moves di = rowsum(dO * O), and with
-    it ds where dP - di cancels, which is the forward's to answer for; on
-    the same o the gradients stay within ``flash_attention_bwd_bound``."""
+def _one_rounding_tolerance(q, k, v, valid, want):
+    """One bf16 ulp of each output plus its fp32 sums in another order,
+    2 Tk 2^-24 of the sizes of its terms w v: no room for a weight that
+    rounds the other way."""
+    logits, _ = fa._scores(q, k, valid, False, q.shape[-1] ** -0.5)
+    w, l = fa.block_weights(logits, torch.bfloat16)
+    terms = torch.einsum("bhqk,bkhd->bqhd", w, v.float().abs()) / \
+        l.transpose(1, 2)
+    return torch.from_numpy(_bf16_ulp(want.numpy())) + \
+        2 * k.shape[1] * 2.0 ** -24 * terms
+
+
+def _past_one_tile_case(Tq, Tk):
+    """The rounding plain version and the JAX package's ``_attend_flash``
+    (the stock kernel in TPU interpret mode) on one key-padding case: the
+    port's output, lse and gradients on the stock output, the stock
+    output and gradients, and the inputs."""
     import jax
     from jax.experimental.pallas import tpu as pltpu
     from openseq2seq_tpu.parts.transformer.attention import (
         _attend_flash as jax_attend_flash)
-    Tq, Tk, causal = 63, 100, False
-    assert fa.ONE_TILE < Tk <= 128
-    q, k, v, do, valid, bias = _stock_case(Tq, Tk, causal)
+    q, k, v, do, valid, bias = _stock_case(Tq, Tk, False)
 
     def jx(x):
         return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
 
     with pltpu.force_tpu_interpret_mode():
         want, vjp = jax.vjp(lambda a, b, c: jax_attend_flash(
-            a, b, c, None if bias is None else jnp.asarray(bias), causal,
-            jnp.bfloat16), jx(q), jx(k), jx(v))
+            a, b, c, jnp.asarray(bias), False, jnp.bfloat16), jx(q), jx(k),
+            jx(v))
         want_grads = vjp(jx(do))
-    out, lse = fa.flash_attention_plain(q, k, v, valid, causal,
+    out, lse = fa.flash_attention_plain(q, k, v, valid, False,
                                         return_lse=True, round_weights=True)
     want = torch.from_numpy(np.asarray(want.astype(jnp.float32)))
-    assert torch.all((out.float() - want).abs() <=
-                     fa.flash_attention_bound(q, k, v, valid, causal))
     stock_o = want.bfloat16()
     grads = fa.flash_attention_bwd_plain(q, k, v, stock_o, lse, do, valid,
-                                         causal, round_weights=True)
+                                         False, round_weights=True)
     bounds = fa.flash_attention_bwd_bound(q, k, v, stock_o, lse, do, valid,
-                                          causal)
+                                          False)
+    assert torch.all((out.float() - want).abs() <=
+                     _one_rounding_tolerance(q, k, v, valid, want))
     for g, w, bound in zip(grads, want_grads, bounds):
         w = torch.from_numpy(np.asarray(w.astype(jnp.float32)))
         assert torch.all((g.float() - w).abs() <= bound)
+
+
+def test_rounding_plain_past_one_key_tile_matches_the_stock_kernel():
+    """Past the kernel's 64-key tile, up to ``ROUND_BLOCK`` (128) keys,
+    the stock kernel still takes its single step, o = round(p / l) v, and
+    so does the rounding plain version: the output within one bf16 ulp
+    plus fp32 sums in another order, with no room for a weight that
+    rounds the other way. The backward takes the stock forward's output
+    (the gradients recompute p from lse, as the kernels do; a p that
+    rounds the other way from exp(s - m) / l is the bound's to cover): on
+    the same o they stay within ``flash_attention_bwd_bound``."""
+    assert 64 < 100 <= fa.ROUND_BLOCK
+    _past_one_tile_case(63, 100)
+
+
+def test_rounding_plain_past_one_block_matches_the_stock_kernel():
+    """Past ``ROUND_BLOCK`` keys (200, two blocks) the stock kernel's
+    multi-step variant rounds p = exp(s - m) against the running maximum
+    of its 128-key blocks and scales by 1 / l, and so does the rounding
+    plain version: the tolerances of the 100-key case."""
+    assert 200 > fa.ROUND_BLOCK
+    _past_one_tile_case(63, 200)
 
 
 def test_bounds_hold_fp32_math_and_refuse_a_planted_fault():

@@ -166,6 +166,114 @@ def test_backward_matches_jax_vjp(dtype):
         assert err <= tol * np.abs(w).max(), (name, err)
 
 
+def _bf16_ulp(x):
+    """One bf16 ulp of each value (8 significant bits)."""
+    return 2.0 ** (torch.floor(torch.log2(x.abs().clamp(min=1e-30))) - 7)
+
+
+def _two_block_case():
+    """bf16 q~, k~ (B, H, T, Dh + D) built once by the port's ``build_aug``
+    and v (B, H, T, Dh) at T = 200, two of the TPU kernel's 128-key
+    blocks, with lengths 200, 150 and 0 (clamped to 1)."""
+    T = 200
+    q_u, q_w, k, v, r_kernel, _ = _inputs(T, seed=T)
+    q_aug, k_aug = fr.build_aug(
+        *(torch.from_numpy(a).bfloat16() for a in (q_u, q_w, k)),
+        torch.from_numpy(r_kernel))
+    v = torch.from_numpy(v).bfloat16().transpose(1, 2)
+    return q_aug, k_aug, v, torch.tensor([T, 150, 0], dtype=torch.int32)
+
+
+def test_rounding_matches_the_pallas_kernel_over_two_blocks():
+    """The plain forward at T = 200 against ``_fwd`` (the Pallas forward in
+    interpret mode, 128-query and 128-key blocks) on the same bf16 q~, k~
+    and v, padded as ``_rel_fwd_res`` pads them (T to 256, Dh + D to 128
+    lanes). The TPU kernel rounds p = exp(s - m) against the running
+    maximum m after each 128-key block and divides by l at the end; so
+    does the plain version. Tolerance: one bf16 ulp of each output plus
+    its fp32 sums in another order (2 T 2^-24 of the sizes of its terms w
+    v), with no room for a weight that rounds the other way: rounding
+    against the row's final maximum instead fails it."""
+    q_aug, k_aug, v, lengths = _two_block_case()
+    B_, H_, T, dqk = q_aug.shape
+    scale = Dh ** -0.5
+
+    def padded(x, lanes):
+        x = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+        return jnp.pad(x, ((0, 0), (0, 0), (0, 256 - T),
+                           (0, -x.shape[-1] % lanes)))
+
+    o, lse = jfr._fwd(padded(q_aug, 128), padded(k_aug, 128), padded(v, 1),
+                      jnp.maximum(jnp.asarray(lengths.numpy()),
+                                  1).reshape(-1, 1), scale, 128, 128, True)
+    want = torch.from_numpy(np.array(o.astype(jnp.float32))[:, :, :T])
+    got, got_lse = fr.flash_attention_plain(q_aug, k_aug, v, lengths, scale)
+    assert got.dtype == torch.bfloat16
+    s = fr._masked_scores(q_aug, k_aug, lengths, scale)
+    w, l = fr.block_weights(s, torch.bfloat16)
+    tol = _bf16_ulp(want) + 2 * T * 2.0 ** -24 * torch.einsum(
+        "bhqk,bhkd->bhqd", w, v.float().abs()) / l
+    assert torch.all((got.float() - want).abs() <= tol)
+    np.testing.assert_allclose(got_lse.numpy(),
+                               np.asarray(lse)[:, :, :T, 0], rtol=1e-5,
+                               atol=1e-5)
+    # the whole-row rounding, p = exp(s - max over the row), differs
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    whole_row = (torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(),
+                              v.float()) / p.sum(-1, keepdim=True)
+                 ).bfloat16()
+    assert torch.any((whole_row.float() - want).abs() > tol)
+
+
+def _bf16_case(T, lengths, seed):
+    q_u, q_w, k, v, r_kernel, _ = _inputs(T, seed=seed)
+    qu, qp, kk, kp = fr._operands(
+        *(torch.from_numpy(a).bfloat16() for a in (q_u, q_w, k)),
+        torch.from_numpy(r_kernel).bfloat16())
+    return (qu, qp, kk, kp, torch.from_numpy(v).bfloat16(),
+            torch.tensor(lengths, dtype=torch.int32), Dh ** -0.5)
+
+
+def _reading(got, want, bound):
+    err = (got.float() - want.float()).abs()
+    return float(torch.where(err > 0, err / bound, 0.0).max())
+
+
+def _zero_but_row_1(x):
+    bad = x.clone()
+    bad[:1] = 0
+    bad[2:] = 0
+    return bad
+
+
+@pytest.mark.parametrize("T", [37, 200])
+def test_bounds_hold_fp32_math_and_refuse_a_planted_fault(T):
+    """``relpos_attention_bound`` and ``relpos_attention_bwd_bound``, the
+    element-wise bounds the card holds the bf16 kernels to, against what
+    they must take and what they must refuse: the plain versions' fp32
+    math (no weight or ds rounded, half an ulp from the rounded ones) lies
+    within them; the context or dv zeroed on every batch row but row 1
+    (one valid key) lies far outside."""
+    args = _bf16_case(T, [T, 1, T // 2], T + 1)
+    o, lse = fr.relpos_attention_plain(*args)
+    up = [x.float() for x in args[:5]] + list(args[5:])
+    fp32_o, _ = fr.relpos_attention_plain(*up)
+    bound = fr.relpos_attention_bound(*args)
+    assert bound.shape == o.shape
+    assert _reading(fp32_o, o, bound) <= 1.0
+    do = torch.from_numpy(np.random.RandomState(T).randn(
+        *o.shape).astype(np.float32)).bfloat16()
+    bwd = args[:6] + (o, lse, do, args[6])
+    grads = fr.relpos_attention_bwd_plain(*bwd)
+    bounds = fr.relpos_attention_bwd_bound(*bwd)
+    fp32_grads = fr.relpos_attention_bwd_plain(
+        *up[:6], o.float(), lse, do.float(), args[6])
+    for g, w, b in zip(fp32_grads, grads, bounds):
+        assert b.shape == w.shape and _reading(g, w, b) <= 1.0
+    assert _reading(_zero_but_row_1(o), o, bound) > 10
+    assert _reading(_zero_but_row_1(grads[3]), grads[3], bounds[3]) > 10
+
+
 def test_cuda_entry_refuses_cpu_tensors():
     q_u, q_w, k, v, r_kernel, lengths = _inputs(8)
     t = [torch.from_numpy(a) for a in (q_u, q_w, k, v, r_kernel, lengths)]
