@@ -25,12 +25,14 @@
 // ys and dys 32.8 MB each), W_h (6.3 MB) and write dx (98.3 MB): 91 us at
 // 3.35 TB/s; and do 100.7 GFLOP, 102 us at the bf16 tensor-core peak. As
 // the forward, it is latency-bound in practice: 500 dependent steps, each
-// ending in a grid-wide barrier, with the products as fp32 FMAs on the
-// CUDA cores. The design (rnn_scan_bwd.cuh): each CTA keeps its 8 units'
-// rows of W_h (3H = 3072 values each) in shared memory for all steps and
-// owns those units' carries, so only dhp crosses CTAs, through a 384 KiB
-// ping-pong buffer in L2 that every CTA streams whole each step: three
-// times the forward's bytes per step (192 KiB at B = 32).
+// ending in a grid-wide barrier. The design (rnn_scan_bwd.cuh): each CTA
+// keeps its 8 units' rows of W_h (3H = 3072 values each) on chip for all
+// steps (bf16: mma.sync B fragments in registers, 48 a thread) and owns
+// those units' carries, so only dhp crosses CTAs, through a 384 KiB
+// ping-pong buffer in L2 that every CTA needs whole each step: three
+// times the forward's bytes per step (192 KiB at B = 32). That stream
+// from L2 sets the pace once the products run on the tensor cores, so in
+// bf16 clusters of two CTAs read each row once and multicast it.
 #include "rnn_scan_bwd.cuh"
 
 namespace {
@@ -70,13 +72,14 @@ struct GruBwdCell {
                                               T* dhp) {
     const int H = p.H;
     const float r = res[0], z = res[1], n = res[2], hn = res[3];
+    const size_t bt = static_cast<size_t>(b) * p.T + t;
+    if (p.carries != nullptr) p.carries[bt * H + col] = carry;
     const float dh = carry + (live ? res[5] : 0.f);
     const float dh_new = live ? dh : 0.f;
     const float dz = dh_new * (res[4] - n);
     const float dn = dh_new * (1.f - z) * (1.f - n * n);
     const float dr = dn * hn * r * (1.f - r);
     const float dzp = dz * z * (1.f - z);
-    const size_t bt = static_cast<size_t>(b) * p.T + t;
     T* dx = static_cast<T*>(p.dx) + bt * 3 * H + col;
     dx[0] = from_f<T>(dr);
     dx[H] = from_f<T>(dzp);
@@ -100,14 +103,17 @@ struct GruBwdCell {
 // else fp32) unless said otherwise: W_h (H, 3H), the forward's acts
 // (B, T, 3H) and hn (B, T, H), ys (B, T, H), h0 (B, H), lengths (B,)
 // int32, dys (B, T, H), hcarry (B, H) fp32 holding dh_last, dx (B, T, 3H)
-// and dh0 (B, H) out, a (2, B, 3H) exchange buffer and a zeroed uint32
-// barrier counter.
+// and dh0 (B, H) out, a (2, B, 3H) exchange buffer, carries (B, T, H) fp32
+// out (the dh carried into each step) or null, and a zeroed uint32
+// barrier counter. bf16 runs on the tensor cores (scan_bwd_mma_kernel),
+// fp32 on the CUDA cores (scan_bwd_kernel).
 extern "C" int gru_scan_bwd(const void* wh, const void* acts, const void* hn,
                             const void* ys, const void* h0,
                             const void* lengths, const void* dys,
                             void* hcarry, void* dx, void* xbuf, void* dh0,
-                            void* barrier, int B, int T, int H, int units,
-                            int reverse, int is_bf16, void* stream) {
+                            void* carries, void* barrier, int B, int T,
+                            int H, int units, int reverse, int is_bf16,
+                            void* stream) {
   BwdParams p{};
   p.wh = wh;
   p.acts = acts;
@@ -121,6 +127,8 @@ extern "C" int gru_scan_bwd(const void* wh, const void* acts, const void* hn,
   p.dx = dx;
   p.xbuf = xbuf;
   p.dh0 = dh0;
+  p.carries = static_cast<float*>(carries);
+  p.ccarries = nullptr;
   p.barrier = static_cast<unsigned int*>(barrier);
   p.B = B;
   p.T = T;
@@ -131,4 +139,19 @@ extern "C" int gru_scan_bwd(const void* wh, const void* acts, const void* hn,
     return rnn_scan::dispatch_bwd_units<__nv_bfloat16, 3, GruBwdCell>(
         p, units, s);
   return rnn_scan::dispatch_bwd_units<float, 3, GruBwdCell>(p, units, s);
+}
+
+// The dynamic shared memory (out[0], bytes) and the CTAs an SM holds
+// (out[1]) of the kernel gru_scan_bwd launches at width H with `units` a
+// CTA; nothing is launched. Returns 0 or a CUDA error code.
+extern "C" int gru_scan_bwd_resources(int H, int units, int is_bf16,
+                                      int* out) {
+  BwdParams p{};
+  p.H = H;
+  p.query = out;
+  if (is_bf16)
+    return rnn_scan::dispatch_bwd_units<__nv_bfloat16, 3, GruBwdCell>(
+        p, units, nullptr);
+  return rnn_scan::dispatch_bwd_units<float, 3, GruBwdCell>(
+        p, units, nullptr);
 }

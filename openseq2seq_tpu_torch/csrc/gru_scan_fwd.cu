@@ -102,3 +102,18 @@ extern "C" int gru_scan_fwd(const void* x_proj, const void* wh,
     return rnn_scan::dispatch_units<__nv_bfloat16, 3, GruCell>(p, units, s);
   return rnn_scan::dispatch_units<float, 3, GruCell>(p, units, s);
 }
+
+// The dynamic shared memory (out[0], bytes) and the CTAs an SM holds
+// (out[1]) of the kernel gru_scan_fwd launches at width H with `units` a
+// CTA; nothing is launched. Returns 0 or a CUDA error code.
+extern "C" int gru_scan_fwd_resources(int H, int units, int is_bf16,
+                                      int* out) {
+  Params p{};
+  p.H = H;
+  p.query = out;
+  if (is_bf16)
+    return rnn_scan::dispatch_units<__nv_bfloat16, 3, GruCell>(
+        p, units, nullptr);
+  return rnn_scan::dispatch_units<float, 3, GruCell>(
+        p, units, nullptr);
+}

@@ -30,11 +30,12 @@
 // (16.4 MB) and W_h (2.1 MB) and write dgates (65.5 MB): 54 us at 3.35
 // TB/s; and do 33.6 GFLOP, 34 us at the bf16 tensor-core peak. In
 // practice it is latency-bound as the forward is (500 dependent steps,
-// each ending in a grid-wide barrier; fp32 FMAs on the CUDA cores). The
-// design is the GRU's (rnn_scan_bwd.cuh), 4 units (rows of W_h, 4H =
-// 2048 values each) per CTA over 128 CTAs at H = 512, with no exchange
-// buffer: the dgates a step writes to its output are what every CTA
-// streams back from L2 for the product.
+// each ending in a grid-wide barrier). The design is the GRU's
+// (rnn_scan_bwd.cuh; bf16 on the tensor cores, the 4 units padded to an
+// n8 tile, 32 fragment registers a thread, clusters of two), 4 units
+// (rows of W_h, 4H = 2048 values each) per CTA over 128 CTAs at H = 512,
+// with no exchange buffer: the dgates a step writes to its output are
+// what every CTA reads back from L2 for the product.
 #include "rnn_scan_bwd.cuh"
 
 namespace {
@@ -75,12 +76,16 @@ struct LstmBwdCell {
     const int H = p.H;
     const float si = res[0], sf = res[1], tg = res[2], so = res[3];
     const size_t i = static_cast<size_t>(b) * H + col;
+    const size_t bt = static_cast<size_t>(b) * p.T + t;
     const float dh = carry + (live ? res[6] : 0.f);
     const float dc = p.ccarry[i];
+    if (p.carries != nullptr) {
+      p.carries[bt * H + col] = carry;
+      p.ccarries[bt * H + col] = dc;
+    }
     const float dh_new = live ? dh : 0.f;
     const float tc = tanhf(res[4]);
     const float dc_new = (live ? dc : 0.f) + dh_new * so * (1.f - tc * tc);
-    const size_t bt = static_cast<size_t>(b) * p.T + t;
     T* dg = static_cast<T*>(p.dx) + bt * 4 * H + col;
     dg[0] = from_f<T>(dc_new * tg * si * (1.f - si));
     dg[H] = from_f<T>(dc_new * res[5] * sf * (1.f - sf));
@@ -102,13 +107,17 @@ struct LstmBwdCell {
 // (B, T, 4H) and cs (B, T, H) fp32, c0 (B, H) fp32, lengths (B,) int32,
 // dys (B, T, H), hcarry (B, H) fp32 holding dh_last, ccarry (B, H) fp32
 // holding dc_last (dc0 on return), dgates (B, T, 4H) and dh0 (B, H) out,
-// and a zeroed uint32 barrier counter.
+// carries and ccarries (B, T, H) fp32 out (the dh and dc carried into each
+// step) or both null, and a zeroed uint32 barrier counter. bf16 runs on
+// the tensor cores (scan_bwd_mma_kernel), fp32 on the CUDA cores
+// (scan_bwd_kernel).
 extern "C" int lstm_scan_bwd(const void* wh, const void* acts, const void* cs,
                              const void* c0, const void* lengths,
                              const void* dys, void* hcarry, void* ccarry,
-                             void* dgates, void* dh0, void* barrier, int B,
-                             int T, int H, int units, int reverse,
-                             int is_bf16, void* stream) {
+                             void* dgates, void* dh0, void* carries,
+                             void* ccarries, void* barrier, int B, int T,
+                             int H, int units, int reverse, int is_bf16,
+                             void* stream) {
   BwdParams p{};
   p.wh = wh;
   p.acts = acts;
@@ -122,6 +131,8 @@ extern "C" int lstm_scan_bwd(const void* wh, const void* acts, const void* cs,
   p.dx = dgates;
   p.xbuf = nullptr;
   p.dh0 = dh0;
+  p.carries = static_cast<float*>(carries);
+  p.ccarries = static_cast<float*>(ccarries);
   p.barrier = static_cast<unsigned int*>(barrier);
   p.B = B;
   p.T = T;
@@ -132,4 +143,19 @@ extern "C" int lstm_scan_bwd(const void* wh, const void* acts, const void* cs,
     return rnn_scan::dispatch_bwd_units<__nv_bfloat16, 4, LstmBwdCell>(
         p, units, s);
   return rnn_scan::dispatch_bwd_units<float, 4, LstmBwdCell>(p, units, s);
+}
+
+// The dynamic shared memory (out[0], bytes) and the CTAs an SM holds
+// (out[1]) of the kernel lstm_scan_bwd launches at width H with `units` a
+// CTA; nothing is launched. Returns 0 or a CUDA error code.
+extern "C" int lstm_scan_bwd_resources(int H, int units, int is_bf16,
+                                       int* out) {
+  BwdParams p{};
+  p.H = H;
+  p.query = out;
+  if (is_bf16)
+    return rnn_scan::dispatch_bwd_units<__nv_bfloat16, 4, LstmBwdCell>(
+        p, units, nullptr);
+  return rnn_scan::dispatch_bwd_units<float, 4, LstmBwdCell>(
+        p, units, nullptr);
 }

@@ -103,3 +103,18 @@ extern "C" int lstm_scan_fwd(const void* x_proj, const void* wh,
     return rnn_scan::dispatch_units<__nv_bfloat16, 4, LstmCell>(p, units, s);
   return rnn_scan::dispatch_units<float, 4, LstmCell>(p, units, s);
 }
+
+// The dynamic shared memory (out[0], bytes) and the CTAs an SM holds
+// (out[1]) of the kernel lstm_scan_fwd launches at width H with `units` a
+// CTA; nothing is launched. Returns 0 or a CUDA error code.
+extern "C" int lstm_scan_fwd_resources(int H, int units, int is_bf16,
+                                       int* out) {
+  Params p{};
+  p.H = H;
+  p.query = out;
+  if (is_bf16)
+    return rnn_scan::dispatch_units<__nv_bfloat16, 4, LstmCell>(
+        p, units, nullptr);
+  return rnn_scan::dispatch_units<float, 4, LstmCell>(
+        p, units, nullptr);
+}

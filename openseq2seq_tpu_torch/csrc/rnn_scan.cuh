@@ -68,6 +68,7 @@ struct Params {
   void* acts;             // (B, T, G*H) compute type gate activations, or null
   void* aux;              // (B, T, H): the cell's second residual, or null
   unsigned int* barrier;  // one counter, zero at launch
+  int* query;             // or: (smem bytes, CTAs an SM) out, no launch
   int B, T, H, reverse;
   float forget_bias;
 };
@@ -291,14 +292,50 @@ scan_fwd_kernel(const Params p) {
 }
 
 // One cooperative launch of `ctas` CTAs of `kernel(args)`, after the
-// occupancy API has shown that they can all be resident at once.
+// occupancy API has shown that they can all be resident at once; with
+// `cluster` > 1 in clusters of that many CTAs, checked with
+// cudaOccupancyMaxActiveClusters. With `p.query` set it launches nothing
+// and writes the kernel's dynamic shared memory and the CTAs an SM holds
+// there.
 template <typename Args>
 int launch_cooperative(void (*kernel)(const Args), size_t smem, int ctas,
-                       const Args& p, cudaStream_t stream) {
+                       const Args& p, cudaStream_t stream, int cluster = 1) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (p.query != nullptr) {       // the kernel's resources, no launch
+    p.query[0] = static_cast<int>(smem);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        p.query + 1, kernel, kThreads, smem));
+  }
+  Args args = p;
+  if (cluster > 1) {
+    cudaLaunchAttribute attrs[2];
+    attrs[0].id = cudaLaunchAttributeClusterDimension;
+    attrs[0].val.clusterDim.x = cluster;
+    attrs[0].val.clusterDim.y = 1;
+    attrs[0].val.clusterDim.z = 1;
+    attrs[1].id = cudaLaunchAttributeCooperative;
+    attrs[1].val.cooperative = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(ctas);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attrs;
+    cfg.numAttrs = 1;                  // the query takes the clusters alone
+    int clusters = 0;
+    if ((err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) !=
+        cudaSuccess)
+      return static_cast<int>(err);
+    if (static_cast<long long>(clusters) * cluster < ctas)
+      return kNotCoResident;
+    cfg.numAttrs = 2;
+    err = cudaLaunchKernelEx(&cfg, kernel, args);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
   int device = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
@@ -308,7 +345,6 @@ int launch_cooperative(void (*kernel)(const Args), size_t smem, int ctas,
     return static_cast<int>(err);
   // the barrier needs every CTA resident at once: checked, never assumed
   if (static_cast<long long>(per_sm) * sms < ctas) return kNotCoResident;
-  Args args = p;
   void* argv[] = {&args};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                     dim3(ctas), dim3(kThreads), argv, smem,

@@ -45,8 +45,13 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from .bounds import BF16_ULP, CELL, F32_U, flips, sigmoid
+
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+# the backward's results: dx, then the ten weight gradients
+GRADS = ("dx", "dln1s", "dln1b", "dw1", "db1", "dwd", "dbd", "dln2s",
+         "dln2b", "dw2", "db2")
 KERNEL = "conformer_conv_fwd"
 BWD_KERNEL = "conformer_conv_bwd"
 EPS = 1e-6
@@ -115,11 +120,13 @@ def _live(x, lengths):
 def conformer_conv_module_plain(x, lengths, ln1_scale, ln1_bias, pw1_kernel,
                                 pw1_bias, dw_kernel, dw_bias, ln2_scale,
                                 ln2_bias, pw2_kernel, pw2_bias,
-                                eps: float = EPS) -> torch.Tensor:
+                                eps: float = EPS,
+                                intermediates: bool = False):
     """The kernel's function in torch ops at its precision. x (B, T, D);
     lengths (B,); pw1_kernel (D, 2D), dw_kernel (k, D), pw2_kernel (D, D)
     and the norms' and biases' vectors, fp32. Returns (B, T, D) in x's
-    dtype."""
+    dtype; with ``intermediates`` (y, {"u": u}), u = mask(GLU(pw1(LN1(x))))
+    as the kernel's first launch writes it."""
     B, T, D = x.shape
     k = dw_kernel.shape[0]
     mxu = _mxu(x)
@@ -140,7 +147,7 @@ def conformer_conv_module_plain(x, lengths, ln1_scale, ln1_bias, pw1_kernel,
         c = c + dw_kernel[j].float() * up[:, j:j + T]
     n = _layer_norm(c + dw_bias.float(), ln2_scale, ln2_bias, eps)
     y = product(n * torch.sigmoid(n), pw2_kernel) + pw2_bias.float()
-    return y.to(x.dtype)
+    return (y.to(x.dtype), {"u": u}) if intermediates else y.to(x.dtype)
 
 
 def _ln_bwd(dh, xh, rstd, scale):
@@ -155,14 +162,17 @@ def _ln_bwd(dh, xh, rstd, scale):
 def conformer_conv_module_bwd_plain(x, lengths, ln1_scale, ln1_bias,
                                     pw1_kernel, pw1_bias, dw_kernel, dw_bias,
                                     ln2_scale, ln2_bias, pw2_kernel, pw2_bias,
-                                    dy, eps: float = EPS):
+                                    dy, eps: float = EPS,
+                                    intermediates: bool = False):
     """The backward kernels' plain version at ``_bwd_kernel``'s precision
     (``conformer_pallas.py:158-247``): the forward recomputed in fp32,
     every product on operands rounded to x's type (pw1 again, then dw2 =
     sw^T dy, ds = dy w2^T, dw1 = h0^T da, dh0 = da w1^T), the depthwise
     conv's transpose within each row, the time mask on its input's
     gradient only. Returns dx in x's dtype and the ten weight gradients in
-    fp32, in the order of the weights."""
+    fp32, in the order of the weights (``GRADS``); with ``intermediates``
+    also a dict of the values the kernels keep in their workspace
+    (``bwd_intermediates``)."""
     B, T, D = x.shape
     k = dw_kernel.shape[0]
     P = (k - 1) // 2
@@ -215,8 +225,259 @@ def conformer_conv_module_bwd_plain(x, lengths, ln1_scale, ln1_bias,
     db1 = da.sum(dim=(0, 1))
     dh0 = rnd(da) @ rnd(w1).t()
     dx, dln1s, dln1b = _ln_bwd(dh0, xh1, rstd1, ln1s)
-    return (dx.to(x.dtype), dln1s, dln1b, dw1, db1, dwd, dbd, dln2s, dln2b,
-            dw2, db2)
+    grads = (dx.to(x.dtype), dln1s, dln1b, dw1, db1, dwd, dbd, dln2s, dln2b,
+             dw2, db2)
+    if intermediates:
+        return grads, {"h0": h0, "a": a, "c": c, "ds": ds, "sw": sw,
+                       "dc": dc, "da": da, "dh0": dh0}
+    return grads
+
+
+# The bf16 bounds. Like the scans' (``ops/scan_bounds.py``) they hold each
+# stage on its own, from the state the implementation under test reached
+# before it: the forward kernel's u (the output of its first launch) and
+# the backward kernels' fp32 intermediates (their workspace, see
+# ``bwd_intermediates``), each stage recomputed in fp64 from its inputs.
+# An element's bound is built from its own terms: 2 n 2^-24 of the terms'
+# sizes for a sum of n terms in another order, ``bounds.CELL`` of the
+# magnitude of elementwise math, slopes times their inputs' errors, and for a product on
+# operands rounded to bf16 ``_sum_bound``'s terms. A stage whose operand
+# is the implementation's own fp32 value rounds it as the implementation
+# does; one whose operand is recomputed (h0 before pw1, in the forward)
+# may round it the other way only where the value's error straddles a
+# rounding point (``bounds.flips``); y's last product takes one ulp of each
+# rounded swish(n), as ``_sum_bound`` does. An output rounded to bf16 adds
+# one ulp of itself.
+
+
+def _rnd(v):
+    return v.to(torch.bfloat16).double()
+
+
+def _ln_err(v, e_v, eps):
+    """``_ln_fwd`` of rows v within e_v: (xh, rstd, e_xh, e_rstd)."""
+    D = v.shape[-1]
+    mu = v.mean(-1, keepdim=True)
+    m2 = (v * v).mean(-1, keepdim=True)
+    rstd = torch.rsqrt(m2 - mu * mu + eps)
+    e_mu = e_v.mean(-1, keepdim=True) + \
+        2 * (D + 1) * F32_U * v.abs().mean(-1, keepdim=True)
+    e_m2 = ((2 * v.abs() + e_v) * e_v).mean(-1, keepdim=True) + \
+        2 * (D + 2) * F32_U * m2
+    e_var = e_m2 + (2 * mu.abs() + e_mu) * e_mu + 4 * F32_U * (m2 + mu * mu)
+    # rsqrt's slope and its change over e_var; 2 ulps of rsqrtf
+    e_rstd = 0.5 * rstd ** 3 * e_var * (1 + 2 * e_var * rstd ** 2) + \
+        8 * F32_U * rstd
+    xc = v - mu
+    xh = xc * rstd
+    e_xh = (e_v + e_mu) * (rstd + e_rstd) + xc.abs() * e_rstd + \
+        4 * F32_U * xh.abs()
+    return xh, rstd, e_xh, e_rstd
+
+
+def _ln_bwd_err(dh, e_dh, xh, e_xh, rstd, e_rstd, scale):
+    """``_ln_bwd`` with errors: (dx, e_dx, dscale, e_dscale, dbias,
+    e_dbias), the parameter gradients summed over every row."""
+    D = dh.shape[-1]
+    rows = dh.numel() // D
+    dxh = dh * scale
+    e_dxh = scale.abs() * e_dh + 2 * F32_U * dxh.abs()
+    a = dxh.mean(-1, keepdim=True)
+    e_a = e_dxh.mean(-1, keepdim=True) + \
+        2 * (D + 1) * F32_U * dxh.abs().mean(-1, keepdim=True)
+    b = (dxh * xh).mean(-1, keepdim=True)
+    e_b = (e_dxh * (xh.abs() + e_xh) + dxh.abs() * e_xh).mean(
+        -1, keepdim=True) + 2 * (D + 2) * F32_U * (dxh * xh).abs().mean(
+            -1, keepdim=True)
+    inner = dxh - a - xh * b
+    e_in = e_dxh + e_a + e_xh * (b.abs() + e_b) + xh.abs() * e_b + \
+        CELL * (dxh.abs() + a.abs() + (xh * b).abs())
+    dx = rstd * inner
+    e_dx = inner.abs() * e_rstd + (rstd + e_rstd) * e_in + \
+        2 * F32_U * dx.abs()
+    e_dh_xh = e_dh * (xh.abs() + e_xh) + dh.abs() * e_xh
+    return (dx, e_dx, (dh * xh).sum(dim=(0, 1)),
+            e_dh_xh.sum(dim=(0, 1)) +
+            2 * rows * F32_U * (dh * xh).abs().sum(dim=(0, 1)),
+            dh.sum(dim=(0, 1)),
+            e_dh.sum(dim=(0, 1)) + 2 * rows * F32_U * dh.abs().sum(dim=(0, 1)))
+
+
+def _taps(v, wd, P, reverse=False):
+    """sum_j wd[j] v[t + j - P] within each row (the depthwise conv), or
+    with ``reverse`` its transpose sum_j wd[j] v[t - j + P]."""
+    k, T = wd.shape[0], v.shape[1]
+    vp = F.pad(v, (0, 0, k - 1 - P, P) if reverse else (0, 0, P, k - 1 - P))
+    out = torch.zeros_like(v)
+    for j in range(k):
+        s = k - 1 - j if reverse else j
+        out = out + wd[j] * vp[:, s:s + T]
+    return out
+
+
+def _sum(out, terms, n):
+    """The bound of a sum of n terms taken in another order, ``terms``
+    their sizes summed, plus the fp32 add into out."""
+    return 2 * n * F32_U * terms + 2 * F32_U * out.abs()
+
+
+def _glu(a, e_a, live):
+    """u = mask(GLU(a)) from a (fp64) within e_a: u, its error, p,
+    sigmoid(q) and that's error."""
+    D = a.shape[-1] // 2
+    p, e_p = a[..., :D], e_a[..., :D]
+    sq, e_sq = sigmoid(a[..., D:], e_a[..., D:])
+    u = torch.where(live, p * sq, 0.0)
+    return u, torch.where(live, sq * e_p + (p.abs() + e_p) * e_sq +
+                          CELL * u.abs(), 0.0), p, sq, e_sq
+
+
+def _swish(c, e_c, eps, ln2s, ln2b):
+    """LN2 and the swish from c (fp64) within e_c: the LN statistics, n,
+    sigmoid(n), sw and their errors."""
+    xh, rstd, e_xh, e_rstd = _ln_err(c, e_c, eps)
+    n = xh * ln2s + ln2b
+    e_n = ln2s.abs() * e_xh + 4 * F32_U * ((xh * ln2s).abs() + ln2b.abs())
+    sn = torch.sigmoid(n)
+    # the swish's slope is at most 1.1, its change at most 0.5 a unit
+    e_sw = ((sn + n * sn * (1 - sn)).abs() + 0.5 * e_n) * e_n + \
+        CELL * (n * sn).abs()
+    return xh, rstd, e_xh, e_rstd, n, e_n, sn, n * sn, e_sw
+
+
+def _conv_c(u, e_u, wd, bd):
+    k = wd.shape[0]
+    P = (k - 1) // 2
+    c = bd + _taps(u, wd, P)
+    return c, _taps(e_u, wd.abs(), P) + 2 * (k + 1) * F32_U * (
+        bd.abs() + _taps(u.abs(), wd.abs(), P))
+
+
+def conformer_conv_module_bounds(x, lengths, u, ln1_scale, ln1_bias,
+                                 pw1_kernel, pw1_bias, dw_kernel, dw_bias,
+                                 ln2_scale, ln2_bias, pw2_kernel, pw2_bias,
+                                 eps: float = EPS) -> dict:
+    """Bounds of a bf16 forward's u (its first launch's fp32 output, held
+    from x) and y (held from that u): ``{"u": (want, bound), "y": (want,
+    bound)}``, fp64 in their shapes."""
+    ln1s, ln1b, w1, b1, wd, bd, ln2s, ln2b, w2, b2 = (w.double() for w in (
+        ln1_scale, ln1_bias, pw1_kernel, pw1_bias, dw_kernel, dw_bias,
+        ln2_scale, ln2_bias, pw2_kernel, pw2_bias))
+    D = x.shape[2]
+    live = _live(x, lengths)
+    xh1, _, e_xh1, _ = _ln_err(x.double(), torch.zeros_like(
+        x, dtype=torch.float64), eps)
+    h0 = xh1 * ln1s + ln1b
+    e_h0 = ln1s.abs() * e_xh1 + 4 * F32_U * ((xh1 * ln1s).abs() + ln1b.abs())
+    w1r, w2r = _rnd(w1), _rnd(w2)
+    a = _rnd(h0) @ w1r + b1
+    e_a = flips(h0, e_h0).abs() @ w1r.abs() + _sum(
+        a, _rnd(h0).abs() @ w1r.abs() + b1.abs(), D + 1)
+    want_u, e_u = _glu(a, e_a, live)[:2]
+    c, e_c = _conv_c(u.double(), torch.zeros_like(e_u), wd, bd)
+    *_, sw, e_sw = _swish(c, e_c, eps, ln2s, ln2b)
+    y = _rnd(sw) @ w2r + b2
+    # flash_attention._sum_bound's terms, in fp64, and the bias's add
+    ulp = BF16_ULP
+    terms = ((ulp + D * 2.0 ** -23) * _rnd(sw).abs() + e_sw) @ w2r.abs()
+    return {"u": (want_u, e_u),
+            "y": (y, ulp * y.abs() + (1 + ulp) * (terms +
+                                                  _sum(y, b2.abs(), 1)))}
+
+
+def bwd_intermediates(work, B, T, D) -> dict:
+    """The backward kernels' fp32 intermediates, views into their
+    workspace at ``csrc/conformer_conv_bwd.cu``'s ``Layout``: h0, a, c,
+    ds, sw, dc, da and dh0, (B, T, D) or (B, T, 2D)."""
+    nd = B * T * D
+    f = work.view(torch.float32)
+    out, at = {}, 0
+    for name, width in (("h0", 1), ("a", 2), ("c", 1), ("ds", 1), ("sw", 1),
+                        ("dc", 1), ("da", 2), ("dh0", 1)):
+        out[name] = f[at:at + width * nd].view(B, T, width * D)
+        at += width * nd
+    return out
+
+
+def conformer_conv_module_bwd_bounds(x, lengths, inter, ln1_scale, ln1_bias,
+                                     pw1_kernel, pw1_bias, dw_kernel,
+                                     dw_bias, ln2_scale, ln2_bias,
+                                     pw2_kernel, pw2_bias, dy,
+                                     eps: float = EPS) -> dict:
+    """Bounds of a bf16 backward's intermediates ``inter`` (h0, a, c, ds,
+    sw, dc, da, dh0: its fp32 values, each held from the ones before it)
+    and of its outputs (dx, held from its dh0, and the ten weight
+    gradients from its intermediates): ``{name: (want, bound)}``, fp64,
+    the gradients named as in ``GRADS``."""
+    ln1s, ln1b, w1, b1, wd, bd, ln2s, ln2b, w2, b2 = (w.double() for w in (
+        ln1_scale, ln1_bias, pw1_kernel, pw1_bias, dw_kernel, dw_bias,
+        ln2_scale, ln2_bias, pw2_kernel, pw2_bias))
+    B, T, D = x.shape
+    k, N = wd.shape[0], B * T
+    P = (k - 1) // 2
+    live = _live(x, lengths)
+    h0_k, a_k, c_k, ds_k, sw_k, dc_k, da_k, dh0_k = (
+        inter[n].double() for n in ("h0", "a", "c", "ds", "sw", "dc", "da",
+                                    "dh0"))
+    w1r, w2r, dy = _rnd(w1), _rnd(w2), dy.double()
+    out = {}
+    xh1, rstd1, e_xh1, e_rstd1 = _ln_err(x.double(), torch.zeros_like(
+        x, dtype=torch.float64), eps)
+    h0 = xh1 * ln1s + ln1b
+    out["h0"] = (h0, ln1s.abs() * e_xh1 + 4 * F32_U * (
+        (xh1 * ln1s).abs() + ln1b.abs()))
+    a = _rnd(h0_k) @ w1r + b1
+    out["a"] = (a, _sum(a, _rnd(h0_k).abs() @ w1r.abs() + b1.abs(), D + 1))
+    u, e_u, p, sq, e_sq = _glu(a_k, torch.zeros_like(a_k), live)
+    out["c"] = _conv_c(u, e_u, wd, bd)
+    ds = dy @ w2r.t()
+    out["ds"] = (ds, _sum(ds, dy.abs() @ w2r.abs().t(), D + 1))
+    xh2, rstd2, e_xh2, e_rstd2, n, e_n, sn, sw, e_sw = _swish(
+        c_k, torch.zeros_like(c_k), eps, ln2s, ln2b)
+    out["sw"] = (sw, e_sw)
+    g = sn + n * sn * (1 - sn)
+    dn = ds_k * g
+    e_dn = ds_k.abs() * (0.5 * e_n + CELL * (sn + n.abs() * sn * (1 + sn)))
+    dc, e_dc, dln2s, e_dln2s, dln2b, e_dln2b = _ln_bwd_err(
+        dn, e_dn + CELL * dn.abs(), xh2, e_xh2, rstd2, e_rstd2, ln2s)
+    out["dc"] = (dc, e_dc)
+    du = torch.where(live, _taps(dc_k, wd, P, reverse=True), 0.0)
+    e_du = torch.where(live, 2 * (k + 1) * F32_U * _taps(
+        dc_k.abs(), wd.abs(), P, reverse=True), 0.0)
+    f2 = p * sq * (1 - sq)
+    e_f2 = p.abs() * e_sq + CELL * p.abs() * sq * (1 + sq)
+    da = torch.cat([du * sq, du * f2], dim=-1)
+    out["da"] = (da, torch.cat([sq * e_du + du.abs() * e_sq,
+                                f2.abs() * e_du + du.abs() * e_f2], dim=-1) +
+                 CELL * da.abs())
+    dh0 = _rnd(da_k) @ w1r.t()
+    out["dh0"] = (dh0, _sum(dh0, _rnd(da_k).abs() @ w1r.abs().t(), 2 * D))
+    dx, e_dx, dln1s, e_dln1s, dln1b, e_dln1b = _ln_bwd_err(
+        dh0_k, torch.zeros_like(dh0_k), xh1, e_xh1, rstd1, e_rstd1, ln1s)
+    out["dx"] = (dx, BF16_ULP * dx.abs() + (1 + BF16_ULP) * e_dx)
+    out["dln1s"], out["dln1b"] = (dln1s, e_dln1s), (dln1b, e_dln1b)
+
+    def rows_product(lhs, rhs):
+        prod = torch.einsum("btd,bte->de", lhs, rhs)
+        return prod, _sum(prod, torch.einsum("btd,bte->de", lhs.abs(),
+                                             rhs.abs()), N)
+    out["dw1"] = rows_product(_rnd(h0_k), _rnd(da_k))
+    out["db1"] = (da_k.sum(dim=(0, 1)),
+                  _sum(da_k.sum(dim=(0, 1)), da_k.abs().sum(dim=(0, 1)), N))
+    up, e_up = (F.pad(v, (0, 0, P, k - 1 - P)) for v in (u, e_u))
+    dwd = torch.stack([(up[:, j:j + T] * dc_k).sum(dim=(0, 1))
+                       for j in range(k)])
+    out["dwd"] = (dwd, torch.stack([
+        (e_up[:, j:j + T] * dc_k.abs()).sum(dim=(0, 1)) for j in range(k)]) +
+        _sum(dwd, torch.stack([(up[:, j:j + T] * dc_k).abs().sum(dim=(0, 1))
+                               for j in range(k)]), N))
+    out["dbd"] = (dc_k.sum(dim=(0, 1)),
+                  _sum(dc_k.sum(dim=(0, 1)), dc_k.abs().sum(dim=(0, 1)), N))
+    out["dln2s"], out["dln2b"] = (dln2s, e_dln2s), (dln2b, e_dln2b)
+    out["dw2"] = rows_product(_rnd(sw_k), dy)
+    out["db2"] = (dy.sum(dim=(0, 1)),
+                  _sum(dy.sum(dim=(0, 1)), dy.abs().sum(dim=(0, 1)), N))
+    return out
 
 
 def _check(x, lengths, weights):
@@ -252,8 +513,10 @@ def _check(x, lengths, weights):
 def conformer_conv_module_cuda(x, lengths, ln1_scale, ln1_bias, pw1_kernel,
                                pw1_bias, dw_kernel, dw_bias, ln2_scale,
                                ln2_bias, pw2_kernel, pw2_bias,
-                               eps: float = EPS) -> torch.Tensor:
-    """Launch ``conformer_conv_fwd``; raises on what it does not take."""
+                               eps: float = EPS,
+                               intermediates: bool = False):
+    """Launch ``conformer_conv_fwd``; raises on what it does not take.
+    With ``intermediates`` (y, {"u": u}), as the plain version's."""
     global LAUNCHES
     weights = (ln1_scale, ln1_bias, pw1_kernel, pw1_bias, dw_kernel, dw_bias,
                ln2_scale, ln2_bias, pw2_kernel, pw2_bias)
@@ -272,17 +535,19 @@ def conformer_conv_module_cuda(x, lengths, ln1_scale, ln1_bias, pw1_kernel,
         raise RuntimeError("{} launch failed: CUDA error {}".format(KERNEL,
                                                                     err))
     LAUNCHES += 1
-    return y
+    return (y, {"u": u}) if intermediates else y
 
 
 def conformer_conv_module_cuda_bwd(x, lengths, ln1_scale, ln1_bias,
                                    pw1_kernel, pw1_bias, dw_kernel, dw_bias,
                                    ln2_scale, ln2_bias, pw2_kernel, pw2_bias,
-                                   dy, eps: float = EPS):
+                                   dy, eps: float = EPS,
+                                   intermediates: bool = False):
     """Launch ``conformer_conv_bwd`` (several launches, counted as one
     call): (dx, the ten weight gradients) as
-    :func:`conformer_conv_module_bwd_plain` returns them. Raises on what
-    it does not take."""
+    :func:`conformer_conv_module_bwd_plain` returns them, with
+    ``intermediates`` also its workspace's (``bwd_intermediates``).
+    Raises on what it does not take."""
     global BWD_LAUNCHES
     weights = (ln1_scale, ln1_bias, pw1_kernel, pw1_bias, dw_kernel, dw_bias,
                ln2_scale, ln2_bias, pw2_kernel, pw2_bias)
@@ -308,6 +573,8 @@ def conformer_conv_module_cuda_bwd(x, lengths, ln1_scale, ln1_bias,
         raise RuntimeError("{} launch failed: CUDA error {}".format(
             BWD_KERNEL, err))
     BWD_LAUNCHES += 1
+    if intermediates:
+        return (dx, *grads), bwd_intermediates(work, B, T, D)
     return (dx, *grads)
 
 

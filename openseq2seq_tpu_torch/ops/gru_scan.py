@@ -106,22 +106,24 @@ def gru_scan_bwd_plain(wh: torch.Tensor, h0: torch.Tensor,
                        lengths: torch.Tensor, ys: torch.Tensor,
                        acts: torch.Tensor, hn: torch.Tensor,
                        dys: torch.Tensor, dh_last: torch.Tensor,
-                       reverse: bool = False):
+                       reverse: bool = False, carries: bool = False):
     """The backward kernel's arithmetic, one step at a time, from the
     forward's ys and residuals: (dx_proj (B, T, 3H), dh0 (B, H)), both in
-    the compute type. ``dys`` past each length is dropped (ys is the
-    constant 0 there)."""
+    the compute type; with ``carries`` also the fp32 dh carried into each
+    step (B, T, H), before its ys cotangent is added. ``dys`` past each
+    length is dropped (ys is the constant 0 there)."""
     B, T, H3 = acts.shape
     H = H3 // 3
     dt = acts.dtype
     w = wh.to(dt).float()
     h_prev = rnn_scan.prev_states(ys, h0, lengths, reverse)
     dh = dh_last.float()
-    dx = [None] * T
+    dx, seen = [None] * T, [None] * T
     for t in rnn_scan.backward_steps(T, reverse):
         live = (t < lengths)[:, None]
         a = acts[:, t].float()
         r, z, n = a[:, :H], a[:, H:2 * H], a[:, 2 * H:]
+        seen[t] = dh
         dh = dh + torch.where(live, dys[:, t].float(), 0.0)
         dh_new = torch.where(live, dh, 0.0)
         dz = dh_new * (h_prev[:, t].float() - n)
@@ -131,7 +133,10 @@ def gru_scan_bwd_plain(wh: torch.Tensor, h0: torch.Tensor,
         dx[t] = torch.cat([dr, dzp, dn], dim=1).to(dt)
         dhp = torch.cat([dr, dzp, dn * r], dim=1).to(dt).float()
         dh = torch.where(live, 0.0, dh) + dh_new * z + dhp @ w.t()
-    return rnn_scan.stack_steps(dx, (B, 0, H3), acts), dh.to(dt)
+    out = rnn_scan.stack_steps(dx, (B, 0, H3), acts), dh.to(dt)
+    if carries:
+        out += (rnn_scan.stack_steps(seen, (B, 0, H), dh),)
+    return out
 
 
 def _fwd_cuda(x_proj, wh, bh, h0, lengths, reverse, residuals):
@@ -162,7 +167,8 @@ def _fwd_cuda(x_proj, wh, bh, h0, lengths, reverse, residuals):
     return (ys, h_last) + (res if residuals else ())
 
 
-def _bwd_cuda(wh, h0, lengths, ys, acts, hn, dys, dh_last, reverse):
+def _bwd_cuda(wh, h0, lengths, ys, acts, hn, dys, dh_last, reverse,
+              carries=False):
     """Launch ``gru_scan_bwd``; same arguments and results as
     :func:`gru_scan_bwd_plain`."""
     global BWD_LAUNCHES
@@ -171,19 +177,20 @@ def _bwd_cuda(wh, h0, lengths, ys, acts, hn, dys, dh_last, reverse):
     dt, dev = acts.dtype, acts.device
     hcarry = dh_last.float().contiguous().clone()
     dx = torch.empty((B, T, H3), dtype=dt, device=dev)
+    seen = torch.empty((B, T, H), device=dev) if carries else None
     if not (B and T):
-        return dx, hcarry.to(dt)
+        return (dx, hcarry.to(dt)) + ((seen,) if carries else ())
     dh0 = torch.empty((B, H), dtype=dt, device=dev)
     rnn_scan.launch(BWD_KERNEL, (
         wh.to(dt).contiguous(), acts.contiguous(), hn.contiguous(),
         ys.contiguous(), h0.to(dt).contiguous(), lengths.int().contiguous(),
         dys.to(dt).contiguous(), hcarry, dx,
-        torch.empty((2, B, H3), dtype=dt, device=dev), dh0,
+        torch.empty((2, B, H3), dtype=dt, device=dev), dh0, seen,
         torch.zeros(1, dtype=torch.int32, device=dev)),
         (B, T, H, rnn_scan.units_per_cta(H), int(reverse),
          int(dt == torch.bfloat16)))
     BWD_LAUNCHES += 1
-    return dx, dh0
+    return (dx, dh0) + ((seen,) if carries else ())
 
 
 def _forward(x_proj, wh, bh, h0, lengths, reverse, residuals):

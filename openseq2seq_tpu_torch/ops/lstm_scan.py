@@ -107,23 +107,26 @@ def lstm_scan_bwd_plain(wh: torch.Tensor, c0: torch.Tensor,
                         lengths: torch.Tensor, acts: torch.Tensor,
                         cs: torch.Tensor, dys: torch.Tensor,
                         dh_last: torch.Tensor, dc_last: torch.Tensor,
-                        reverse: bool = False):
+                        reverse: bool = False, carries: bool = False):
     """The backward kernel's arithmetic, one step at a time, from the
     forward's residuals: (dgates = dx_proj (B, T, 4H) and dh0 (B, H) in
-    the compute type, dc0 (B, H) in fp32). ``dys`` past each length is
-    dropped (ys is the constant 0 there)."""
+    the compute type, dc0 (B, H) in fp32); with ``carries`` also the fp32
+    dh and dc carried into each step (B, T, H) each, dh before its ys
+    cotangent is added. ``dys`` past each length is dropped (ys is the
+    constant 0 there)."""
     B, T, H4 = acts.shape
     H = H4 // 4
     dt = acts.dtype
     w = wh.to(dt).float()
     c_prev = rnn_scan.prev_states(cs, c0.float(), lengths, reverse)
     dh, dc = dh_last.float(), dc_last.float()
-    dgates = [None] * T
+    dgates, seen_h, seen_c = [None] * T, [None] * T, [None] * T
     for t in rnn_scan.backward_steps(T, reverse):
         live = (t < lengths)[:, None]
         a = acts[:, t].float()
         si, sf, tg, so = a[:, :H], a[:, H:2 * H], a[:, 2 * H:3 * H], \
             a[:, 3 * H:]
+        seen_h[t], seen_c[t] = dh, dc
         dh = dh + torch.where(live, dys[:, t].float(), 0.0)
         dh_new = torch.where(live, dh, 0.0)
         tc = torch.tanh(cs[:, t])
@@ -135,7 +138,11 @@ def lstm_scan_bwd_plain(wh: torch.Tensor, c0: torch.Tensor,
         dgates[t] = dg
         dh = torch.where(live, 0.0, dh) + dg.float() @ w.t()
         dc = torch.where(live, 0.0, dc) + dc_new * sf
-    return rnn_scan.stack_steps(dgates, (B, 0, H4), acts), dh.to(dt), dc
+    out = rnn_scan.stack_steps(dgates, (B, 0, H4), acts), dh.to(dt), dc
+    if carries:
+        out += tuple(rnn_scan.stack_steps(s, (B, 0, H), dc)
+                     for s in (seen_h, seen_c))
+    return out
 
 
 def _fwd_cuda(x_proj, wh, h0, c0, lengths, forget_bias, reverse, residuals):
@@ -169,7 +176,8 @@ def _fwd_cuda(x_proj, wh, h0, c0, lengths, forget_bias, reverse, residuals):
     return (ys, h_last, c_last) + (res if residuals else ())
 
 
-def _bwd_cuda(wh, c0, lengths, acts, cs, dys, dh_last, dc_last, reverse):
+def _bwd_cuda(wh, c0, lengths, acts, cs, dys, dh_last, dc_last, reverse,
+              carries=False):
     """Launch ``lstm_scan_bwd``; same arguments and results as
     :func:`lstm_scan_bwd_plain`."""
     global BWD_LAUNCHES
@@ -179,18 +187,20 @@ def _bwd_cuda(wh, c0, lengths, acts, cs, dys, dh_last, dc_last, reverse):
     hcarry = dh_last.float().contiguous().clone()
     ccarry = dc_last.float().contiguous().clone()
     dgates = torch.empty((B, T, H4), dtype=dt, device=dev)
+    seen = tuple(torch.empty((B, T, H), device=dev) for _ in range(2)) \
+        if carries else (None, None)
     if not (B and T):
-        return dgates, hcarry.to(dt), ccarry
+        return (dgates, hcarry.to(dt), ccarry) + (seen if carries else ())
     dh0 = torch.empty((B, H), dtype=dt, device=dev)
     rnn_scan.launch(BWD_KERNEL, (
         wh.to(dt).contiguous(), acts.contiguous(), cs.contiguous(),
         c0.float().contiguous(), lengths.int().contiguous(),
-        dys.to(dt).contiguous(), hcarry, ccarry, dgates, dh0,
+        dys.to(dt).contiguous(), hcarry, ccarry, dgates, dh0, *seen,
         torch.zeros(1, dtype=torch.int32, device=dev)),
         (B, T, H, rnn_scan.units_per_cta(H), int(reverse),
          int(dt == torch.bfloat16)))
     BWD_LAUNCHES += 1
-    return dgates, dh0, ccarry
+    return (dgates, dh0, ccarry) + (seen if carries else ())
 
 
 def _forward(x_proj, wh, h0, c0, lengths, forget_bias, reverse, residuals):

@@ -10,7 +10,10 @@ its reverse-time backward, in one cooperative launch of ``H / units``
 CTAs that meet at a grid-wide barrier every step (``csrc/rnn_scan.cuh``,
 ``csrc/rnn_scan_bwd.cuh``). The launcher checks with the occupancy API
 that the whole grid fits on the card at once and raises
-:class:`NotCoResident` otherwise; nothing is launched then.
+:class:`NotCoResident` otherwise; nothing is launched then. The bf16
+backward runs on the tensor cores in clusters of two CTAs, the fp32 one
+on the CUDA cores; a failed build or launch raises, and nothing falls
+back to another design.
 """
 from __future__ import annotations
 
@@ -113,6 +116,22 @@ def _kernel(name: str, n_ptr: int, n_int: int, n_float: int):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def resources(name: str, H: int, bf16: bool = True) -> tuple:
+    """(dynamic shared memory in bytes, CTAs an SM holds) of the kernel
+    that the entry ``name`` (``gru_scan_fwd`` ...) launches at width H,
+    from its C entry ``<name>_resources``; nothing is launched."""
+    from ..kernels import build
+    fn = getattr(build.load(name), name + "_resources")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    err = fn(H, units_per_cta(H), int(bf16), out)
+    if err != 0:
+        raise RuntimeError("{}_resources failed: CUDA error {}".format(name,
+                                                                     err))
+    return out[0], out[1]
 
 
 def launch(name: str, tensors: Sequence, ints: Sequence[int],

@@ -87,9 +87,10 @@ GROUPS = (
     ("flash attention kernel", ("flash_attn_fwd", "flash_attn_bwd")),
     ("fused dropout kernel", ("dropout_mask",)),
     # the GRU and LSTM kernels, rnn_scan::scan_fwd_kernel<...> and
-    # rnn_scan::scan_bwd_kernel<...>
+    # rnn_scan::scan_bwd_kernel<...> (bf16: scan_bwd_mma_kernel<...>)
     ("rnn scan kernels", ("scan_fwd_kernel",)),
-    ("rnn scan backward kernels", ("scan_bwd_kernel",)),
+    ("rnn scan backward kernels", ("scan_bwd_kernel",
+                                   "scan_bwd_mma_kernel")),
     # cuDNN's direct NHWC kernel takes the one-channel first conv of DS2
     ("convs (implicit GEMM, k > 1)", ("fprop", "dgrad", "wgrad",
                                       "convolve_common_engine")),

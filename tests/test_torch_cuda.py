@@ -30,7 +30,10 @@ Conformer's rel-pos flash kernel and conv module kernel against their
 plain versions, forward and backward, fp32 and bf16 (tolerances in each
 test), repeats bit-identical, what the rel-pos kernels refuse, and
 autograd through both modules' kernels against the CPU's plain
-versions."""
+versions. The bf16 scan kernels and conv module kernels are also held
+element by element within the bounds of ``ops/scan_bounds.py`` and
+``ops/conformer_conv.py``, each step or stage from the kernel's own
+state, and must refuse planted faults."""
 import numpy as np
 import pytest
 import torch
@@ -405,6 +408,97 @@ def test_scan_backward_kernels_match_plain(device, cell, B, T, H, reverse):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("cell,B,T,H", [
+    ("gru", 8, 37, 128), ("gru", 32, 60, 1024), ("lstm", 8, 37, 128),
+    ("lstm", 32, 60, 512), ("lstm", 40, 9, 256), ("lstm", 4, 20, 1024),
+    ("lstm", 40, 9, 1152)])
+def test_bf16_scan_kernels_within_one_step_bounds(device, cell, B, T, H,
+                                                  reverse):
+    """The bf16 scan kernels, forward and backward (the tensor-core
+    backward in clusters of two; for the LSTM at H = 1024 and 1152 each
+    warp's slice of dg in two windows, at 1152 in three parts each), each
+    step held from the kernel's own state within ``ops/scan_bounds``'s
+    per-element bounds; the planted faults refused (the output zeroed on
+    all rows but row 1; one step without the recurrent product for one
+    CTA's units: the forward's ys, the backward's carry with dx from it;
+    every backward carry rounded to bf16, up to G H = 3072); two backward
+    calls bit-identical, carries and all, and their dx, dh0 (and dc0)
+    bit-identical to the launch's without carries."""
+    from openseq2seq_tpu_torch.ops import bounds as eb
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan, rnn_scan
+    from openseq2seq_tpu_torch.ops import scan_bounds as sb
+    x, wh, bh, h0, c0, lengths = _scan_inputs(device, cell, B, T, H, B + H)
+    g = torch.Generator(device=device).manual_seed(H)
+    dys, dh, dc = (torch.randn(shape, generator=g, device=device)
+                   for shape in ((B, T, H), (B, H), (B, H)))
+    bf = torch.bfloat16
+    x, h0, dys, dh = x.to(bf), h0.to(bf), dys.to(bf), dh.to(bf)
+    U = rnn_scan.units_per_cta(H)
+    units = slice(U, 2 * U)
+    if cell == "gru":
+        ys, h_last, (acts, hn) = gru_scan.gru_scan(x, wh, bh, h0, lengths,
+                                                   reverse, True)
+        fwd = sb.gru_fwd_bounds(x, wh, bh, h0, lengths, ys, reverse)
+        outs = {"ys": ys, "h_last": h_last, "acts": acts, "hn": hn}
+        kw = dict(x_proj=x, wh=wh, bh=bh, h0=h0, lengths=lengths, ys=ys,
+                  reverse=reverse)
+
+        def bwd(carries=True):
+            return gru_scan._bwd_cuda(wh, h0, lengths, ys, acts, hn, dys, dh,
+                                      reverse, carries=carries)
+        got = bwd()
+        bwd_outs = dict(zip(("dx", "dh0", "carry"), got))
+        bwd_kw = dict(wh=wh, h0=h0, lengths=lengths, ys=ys, acts=acts, hn=hn,
+                      dys=dys, dh_last=dh, carries=got[2], reverse=reverse)
+    else:
+        ys, (h_last, c_last), (acts, cs) = lstm_scan.lstm_scan(
+            x, wh, h0, c0, lengths, 1.0, reverse, True)
+        fwd = sb.lstm_fwd_bounds(x, wh, h0, c0, lengths, ys, cs, 1.0,
+                                 reverse)
+        outs = {"ys": ys, "h_last": h_last, "c_last": c_last, "acts": acts,
+                "cs": cs}
+        kw = dict(x_proj=x, wh=wh, h0=h0, c0=c0, cs=cs, lengths=lengths,
+                  ys=ys, reverse=reverse)
+
+        def bwd(carries=True):
+            return lstm_scan._bwd_cuda(wh, c0, lengths, acts, cs, dys, dh,
+                                       dc, reverse, carries=carries)
+        got = bwd()
+        bwd_outs = dict(zip(("dx", "dh0", "dc0", "carry", "ccarry"), got))
+        bwd_kw = dict(wh=wh, c0=c0, lengths=lengths, acts=acts, cs=cs,
+                      dys=dys, dh_last=dh, dc_last=dc, carries=got[3],
+                      ccarries=got[4], reverse=reverse)
+    again, plain = bwd(), bwd(carries=False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert len(plain) == len(got) - (1 if cell == "gru" else 2)
+    assert all(torch.equal(a, b) for a, b in zip(plain, got))
+    bounds = sb.bwd_bounds(cell, **bwd_kw)
+    for readings in (eb.readings(outs, fwd), eb.readings(bwd_outs, bounds)):
+        assert max(readings.values()) <= 1.0, readings
+    assert eb.reading(eb.zero_but_row_1(ys), *fwd["ys"]) > 1.0
+    assert eb.reading(sb.drop_product(cell, T // 2, units, **kw),
+                      *fwd["ys"]) > 1.0
+    faults = sb.bwd_faults(cell, T // 2, units, got[0], **bwd_kw)
+    if acts.shape[2] > sb.BF16_CARRY_MAX_GH:
+        del faults["bf16 carry"]
+    assert min(faults.values()) > 1.0, faults
+
+
+@pytest.mark.parametrize("cell,H", [("gru", 1024), ("lstm", 512),
+                                    ("lstm", 1152)])
+def test_bf16_scan_backward_resources(device, cell, H):
+    """The bf16 backward's C entry reports the shared memory the launcher
+    asks for and one CTA an SM (the grid of H / U = 128 CTAs is resident
+    on an H100's 132 SMs); nothing is launched."""
+    from openseq2seq_tpu_torch.ops import rnn_scan
+    smem, ctas = rnn_scan.resources(cell + "_scan_bwd", H)
+    assert 200_000 < smem <= 227 * 1024 and ctas == 1
+    fwd_smem, fwd_ctas = rnn_scan.resources(cell + "_scan_fwd", H)
+    assert fwd_smem > 0 and fwd_ctas >= 1
+
+
 def _relpos_inputs(device, B, H, T, Dh, D, seed):
     from openseq2seq_tpu_torch.ops import flash_relpos as fr
     g = torch.Generator(device=device).manual_seed(seed)
@@ -494,11 +588,12 @@ def test_relpos_kernel_refuses_what_it_does_not_take(device):
     (4, 250, 256, 31), (2, 130, 512, 31), (5, 37, 128, 7)])
 def test_conformer_conv_kernel_matches_plain(device, B, T, D, k):
     """The conv module kernel (B6) against its plain version, a
-    zero-length row: fp32 (TF32 off) max abs error 1e-4; bf16 within
-    2^-5 of max(1, |y|) (a product operand rounded to bf16 from fp32
-    sums taken in another order may round the other way); one launch a
-    call; two calls bit-identical."""
+    zero-length row: fp32 (TF32 off) max abs error 1e-4; bf16 its u and
+    y element by element within ``conformer_conv_module_bounds`` (y from
+    the kernel's own u), and y zeroed on all rows but row 1 refused; one
+    launch a call; two calls bit-identical."""
     from openseq2seq_tpu_torch.ops import conformer_conv as cc
+    from openseq2seq_tpu_torch.ops import bounds as eb
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=device).manual_seed(T + k)
 
@@ -527,8 +622,14 @@ def test_conformer_conv_kernel_matches_plain(device, B, T, D, k):
         if dtype == torch.float32:
             assert float(err.max()) <= 1e-4
         else:
-            assert float((err / want.float().abs().clamp(min=1.0)).max()) \
-                <= 2.0 ** -5
+            y, inter = cc.conformer_conv_module_cuda(*args,
+                                                     intermediates=True)
+            bounds = cc.conformer_conv_module_bounds(args[0], lengths.int(),
+                                                     inter["u"], *weights)
+            assert torch.equal(y, got)
+            readings = eb.readings(dict(inter, y=y), bounds)
+            assert max(readings.values()) <= 1.0, readings
+            assert eb.reading(eb.zero_but_row_1(y), *bounds["y"]) > 1.0
 
 
 @pytest.mark.parametrize("B,H,T,Dh,D", RELPOS_SHAPES)
@@ -634,11 +735,13 @@ def test_conformer_conv_backward_kernels_match_plain(device, B, T, D, k):
     """The conv module's backward kernels (B6) against their plain version
     on the same inputs, a zero-length row: dx and the ten weight gradients
     within 1e-5 of max(1, |gradient|) in fp32 (TF32 off; sums over B x T
-    rows in another order); in bf16 dx within 2^-6 and the weight
-    gradients within 2^-8 of it (a product operand rounded to bf16 from
-    fp32 values summed in another order may round the other way); one call
+    rows in another order); in bf16 the kernels' intermediates, dx and the
+    ten weight gradients element by element within
+    ``conformer_conv_module_bwd_bounds`` (each from the kernels' own
+    intermediates), and dx zeroed on all rows but row 1 refused; one call
     counted; two calls bit-identical."""
     from openseq2seq_tpu_torch.ops import conformer_conv as cc
+    from openseq2seq_tpu_torch.ops import bounds as eb
     torch.backends.cuda.matmul.allow_tf32 = False
     x, lengths, weights, dy = _conv_inputs(device, B, T, D, k, T + k + 1)
     for dtype in (torch.float32, torch.bfloat16):
@@ -653,9 +756,18 @@ def test_conformer_conv_backward_kernels_match_plain(device, B, T, D, k):
             assert torch.equal(a, b) and a.dtype == w.dtype
             rel = float((a.float() - w.float()).abs().max()) / \
                 max(1.0, float(w.float().abs().max()))
-            tol = 1e-5 if dtype == torch.float32 else \
-                2.0 ** -6 if i == 0 else 2.0 ** -8
-            assert rel <= tol, (i, rel)
+            if dtype == torch.float32:
+                assert rel <= 1e-5, (i, rel)
+        if dtype == torch.bfloat16:
+            grads, inter = cc.conformer_conv_module_cuda_bwd(
+                *args, intermediates=True)
+            bounds = cc.conformer_conv_module_bwd_bounds(
+                args[0], lengths, inter, *weights, args[-1])
+            readings = eb.readings(dict(inter, **dict(zip(cc.GRADS, grads))),
+                                   bounds)
+            assert max(readings.values()) <= 1.0, readings
+            assert eb.reading(eb.zero_but_row_1(grads[0]),
+                              *bounds["dx"]) > 1.0
 
 
 def test_conformer_conv_autograd_through_the_kernels(device):

@@ -1,0 +1,193 @@
+"""The per-element bounds that hold the bf16 scan kernels (B3, B4) and the
+conv module kernels (B6) on the card, checked here on the CPU against the
+kernels' plain versions, which compute the same function in fp32 with
+the same roundings to bf16.
+
+- ``ops/scan_bounds``: each step of the bf16 ``gru_scan_plain``,
+  ``lstm_scan_plain`` and their backward versions, recomputed in fp64
+  from the state the plain version carried into it (its ys and cs; its
+  fp32 carries), lies within the step's bounds (reading at most 1), and
+  the planted faults read above 1: the output zeroed on every batch row
+  but row 1; one step without the recurrent product for one CTA's block
+  of units (the forward's ys; the backward's carry into the step, with
+  dx recomputed from it, which dx's bound alone cannot see); every
+  backward carry rounded to bf16.
+- ``conformer_conv_module_bounds`` and ``conformer_conv_module_bwd_bounds``:
+  each stage of the bf16 ``conformer_conv_module_plain`` and its backward,
+  from the plain version's own intermediates (those the kernels keep),
+  within its bounds; y or dx zeroed on every batch row but row 1 reads
+  above 1.
+
+Inputs from numpy with fixed seeds, B <= 8, T <= 40, H = 128."""
+import numpy as np
+import pytest
+import torch
+
+from openseq2seq_tpu_torch.ops import bounds as eb
+from openseq2seq_tpu_torch.ops import conformer_conv as cc
+from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan, rnn_scan
+from openseq2seq_tpu_torch.ops import scan_bounds as sb
+
+BF = torch.bfloat16
+
+
+def _scan_case(cell, seed, B=8, T=37, H=128):
+    G = 3 if cell == "gru" else 4
+    rng = np.random.RandomState(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.randn(*shape)).astype(
+            np.float32))
+    lengths = rng.randint(1, T + 1, size=B).astype(np.int32)
+    lengths[0], lengths[1] = T, 1
+    return {"x": randn(B, T, G * H).to(BF), "wh": randn(H, G * H) / H ** 0.5,
+            "bh": randn(G * H, scale=0.3), "h0": randn(B, H, scale=0.5).to(BF),
+            "c0": randn(B, H), "lengths": torch.from_numpy(lengths),
+            "dys": randn(B, T, H).to(BF), "dh": randn(B, H).to(BF),
+            "dc": randn(B, H)}
+
+
+def _scan_run(cell, c, reverse):
+    """The plain versions forward and backward (with their carries): the
+    outputs and bounds of each, and the planted faults' keyword
+    arguments (the backward's: the bound function's)."""
+    if cell == "gru":
+        ys, h_last, (acts, hn) = gru_scan.gru_scan_plain(
+            c["x"], c["wh"], c["bh"], c["h0"], c["lengths"], reverse, True)
+        fwd = (dict(ys=ys, h_last=h_last, acts=acts, hn=hn),
+               sb.gru_fwd_bounds(c["x"], c["wh"], c["bh"], c["h0"],
+                                 c["lengths"], ys, reverse),
+               dict(x_proj=c["x"], wh=c["wh"], bh=c["bh"], h0=c["h0"],
+                    lengths=c["lengths"], ys=ys, reverse=reverse))
+        dx, dh0, carries = gru_scan.gru_scan_bwd_plain(
+            c["wh"], c["h0"], c["lengths"], ys, acts, hn, c["dys"], c["dh"],
+            reverse, carries=True)
+        kw = dict(wh=c["wh"], h0=c["h0"], lengths=c["lengths"], ys=ys,
+                  acts=acts, hn=hn, dys=c["dys"], dh_last=c["dh"],
+                  carries=carries, reverse=reverse)
+        bwd = (dict(dx=dx, dh0=dh0, carry=carries),
+               sb.gru_bwd_bounds(c["wh"], c["h0"], c["lengths"], ys, acts,
+                                 hn, c["dys"], c["dh"], carries, reverse), kw)
+        return fwd, bwd
+    ys, (h_last, c_last), (acts, cs) = lstm_scan.lstm_scan_plain(
+        c["x"], c["wh"], c["h0"], c["c0"], c["lengths"], 1.0, reverse, True)
+    fwd = (dict(ys=ys, h_last=h_last, c_last=c_last, acts=acts, cs=cs),
+           sb.lstm_fwd_bounds(c["x"], c["wh"], c["h0"], c["c0"],
+                              c["lengths"], ys, cs, 1.0, reverse),
+           dict(x_proj=c["x"], wh=c["wh"], h0=c["h0"], c0=c["c0"], cs=cs,
+                lengths=c["lengths"], ys=ys, reverse=reverse))
+    dx, dh0, dc0, carries, ccarries = lstm_scan.lstm_scan_bwd_plain(
+        c["wh"], c["c0"], c["lengths"], acts, cs, c["dys"], c["dh"], c["dc"],
+        reverse, carries=True)
+    kw = dict(wh=c["wh"], c0=c["c0"], lengths=c["lengths"], acts=acts, cs=cs,
+              dys=c["dys"], dh_last=c["dh"], dc_last=c["dc"],
+              carries=carries, ccarries=ccarries, reverse=reverse)
+    bwd = (dict(dx=dx, dh0=dh0, dc0=dc0, carry=carries, ccarry=ccarries),
+           sb.bwd_bounds("lstm", **kw), kw)
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_scan_bounds_hold_the_plain_versions(cell, reverse):
+    """Every output element of every step of the bf16 plain versions,
+    forward and backward, within its one-step bound of the fp64
+    recompute; the last states exactly the last live step's."""
+    (outs, bounds, _), (bouts, bbounds, _) = _scan_run(
+        cell, _scan_case(cell, 3 + reverse), reverse)
+    readings = eb.readings(outs, bounds)
+    assert max(readings.values()) <= 1.0, readings
+    assert readings["h_last"] == 0.0
+    readings = eb.readings(bouts, bbounds)
+    assert max(readings.values()) <= 1.0, readings
+
+
+@pytest.mark.parametrize("way", ["fwd", "bwd"])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_scan_bounds_refuse_planted_faults(cell, way):
+    """The output (ys, or dx) zeroed on every batch row but row 1 and one
+    step without the recurrent product for the second CTA's units read
+    far above 1; so does every backward carry rounded to bf16. The
+    backward's product fault is a consistent kernel: its dx at that step
+    follows from its carry and passes dx's bound, so that the carry's
+    bound alone refuses it."""
+    c = _scan_case(cell, 11)
+    fwd, bwd = _scan_run(cell, c, False)
+    U = rnn_scan.units_per_cta(128)
+    units = slice(U, 2 * U)
+    if way == "fwd":
+        outs, bounds, kw = fwd
+        bad = sb.drop_product(cell, 18, units, **kw)
+        assert not torch.equal(bad, outs["ys"])
+        assert eb.reading(eb.zero_but_row_1(outs["ys"]), *bounds["ys"]) > 10
+        assert eb.reading(bad, *bounds["ys"]) > 10
+        return
+    outs, bounds, kw = bwd
+    faults = sb.bwd_faults(cell, 18, units, outs["dx"], **kw)
+    assert faults["rows zeroed"] > 10, faults
+    assert faults["product left out"] > 10, faults
+    assert faults["bf16 carry"] > 1, faults
+    bad_dx, carries = sb.drop_product_bwd(cell, 18, units, outs["dx"], **kw)
+    assert not torch.equal(carries, kw["carries"])
+    assert not torch.equal(bad_dx, outs["dx"])
+    bad = sb.bwd_bounds(cell, **dict(kw, carries=carries))
+    assert eb.reading(bad_dx, *bad["dx"]) <= 1.0
+    want, bound = bad["carry"]
+    assert eb.reading(carries[:, 18], want[:, 18], bound[:, 18]) > 10
+
+
+def test_plain_backward_carries():
+    """The plain backward's carries: dh_last into the first step it
+    visits, the same dx and dh0 with and without them."""
+    c = _scan_case("gru", 5)
+    ys, _, (acts, hn) = gru_scan.gru_scan_plain(
+        c["x"], c["wh"], c["bh"], c["h0"], c["lengths"], False, True)
+    args = (c["wh"], c["h0"], c["lengths"], ys, acts, hn, c["dys"], c["dh"])
+    dx, dh0, carries = gru_scan.gru_scan_bwd_plain(*args, carries=True)
+    dx2, dh02 = gru_scan.gru_scan_bwd_plain(*args)
+    assert torch.equal(dx, dx2) and torch.equal(dh0, dh02)
+    assert carries.dtype == torch.float32
+    assert torch.equal(carries[:, -1], c["dh"].float())
+
+
+def _conv_case(B, T, D, k, seed):
+    rng = np.random.RandomState(seed)
+
+    def randn(*shape, scale=1.0, offset=0.0):
+        return torch.from_numpy((offset + scale * rng.randn(*shape)).astype(
+            np.float32))
+    lengths = rng.randint(1, T + 1, size=B).astype(np.int32)
+    lengths[0], lengths[-1] = T, 0
+    weights = (randn(D, scale=0.1, offset=1.0), randn(D, scale=0.1),
+               randn(D, 2 * D, scale=D ** -0.5), randn(2 * D, scale=0.1),
+               randn(k, D, scale=k ** -0.5), randn(D, scale=0.1),
+               randn(D, scale=0.1, offset=1.0), randn(D, scale=0.1),
+               randn(D, D, scale=D ** -0.5), randn(D, scale=0.1))
+    return (randn(B, T, D).to(BF), torch.from_numpy(lengths), weights,
+            randn(B, T, D).to(BF))
+
+
+@pytest.mark.parametrize("B,T,D,k", [(5, 37, 128, 7), (3, 40, 256, 31)])
+def test_conv_bounds_hold_the_plain_versions(B, T, D, k):
+    """The bf16 plain conv module, forward (u, y) and backward (its
+    intermediates, dx and the ten weight gradients), each stage within
+    its bound of the fp64 recompute from the stage before; y or dx zeroed
+    on every batch row but row 1 reads far above 1."""
+    x, lengths, weights, dy = _conv_case(B, T, D, k, T + k)
+    y, inter = cc.conformer_conv_module_plain(x, lengths, *weights,
+                                              intermediates=True)
+    assert torch.equal(y, cc.conformer_conv_module_plain(x, lengths,
+                                                         *weights))
+    bounds = cc.conformer_conv_module_bounds(x, lengths, inter["u"],
+                                             *weights)
+    readings = eb.readings(dict(inter, y=y), bounds)
+    assert max(readings.values()) <= 1.0, readings
+    assert eb.reading(eb.zero_but_row_1(y), *bounds["y"]) > 10
+    grads, inter = cc.conformer_conv_module_bwd_plain(
+        x, lengths, *weights, dy, intermediates=True)
+    bounds = cc.conformer_conv_module_bwd_bounds(x, lengths, inter,
+                                                 *weights, dy)
+    assert set(bounds) == set(inter) | set(cc.GRADS)
+    readings = eb.readings(dict(inter, **dict(zip(cc.GRADS, grads))), bounds)
+    assert max(readings.values()) <= 1.0, readings
+    assert eb.reading(eb.zero_but_row_1(grads[0]), *bounds["dx"]) > 10
