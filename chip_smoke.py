@@ -55,23 +55,26 @@ Phases, one informative line or a few each:
    shape (4096 x 4096) and at M=600, D=256: bit-identical; times
    of the kernel and the plain version (``F.dropout``, another function,
    timed for information);
-4e. the GRU and LSTM scan kernels against ``gru_scan_plain`` and
-   ``lstm_scan_plain`` at the main paths' shapes (GRU B=32, T=500,
-   H=1024; LSTM B=32, T=500, H=512), at B=8, T=37, H=128 and an LSTM at
-   H=1024, forward and reverse, lengths from 1 to T, with the residual
-   outputs: fp32 (TF32 off) max abs error 1e-5 at T=37 and 1e-4 at
-   T=500; bf16 each step held from the kernel's own state (ys[t_prev],
-   cs) element by element within ``ops/scan_bounds``'s bounds (reading
-   at most 1), two planted faults refused (ys zeroed but in row 1; one
-   step without the recurrent product for one CTA's units), and end to
-   end max abs error 3 bf16 ulps and mean 1e-3 (both of max(1, |value|))
-   as a sanity check; ys zero past each length, two calls bit-identical;
-   times of the kernel, the plain version and cuDNN's
-   ``torch.nn.GRU``/``torch.nn.LSTM`` (timed only, never on the path;
-   its input GEMM timed beside it) at the main shapes in bf16, and the
-   per-step floor (B=8, T=500, H=128); a GRU layer at H=800, which
-   ``supported`` rejects, runs the scan with no launch; what the kernels
-   do not take, they refuse;
+4e. the GRU and LSTM scan kernels (bf16 ``scan_fwd_mma_kernel``: the
+   tensor cores in clusters of two; fp32 on the CUDA cores) against
+   ``gru_scan_plain`` and ``lstm_scan_plain`` at the main paths' shapes
+   (GRU B=32, T=500, H=1024; LSTM B=32, T=500, H=512), at B=8, T=37,
+   H=128 and LSTMs at H=1024 and 1280, forward and reverse, lengths from
+   1 to T, with the residual outputs: fp32 (TF32 off) max abs error 1e-5
+   at T=37 and 1e-4 at T=500 (the fp32 LSTM at H=1280 refused with
+   ValueError before any launch); bf16 each step held from the kernel's
+   own state (ys[t_prev], cs) element by element within
+   ``ops/scan_bounds``'s bounds (reading at most 1), four wrong kernels
+   refused (ys zeroed but in row 1; one step without the recurrent
+   product for one CTA's units; h carried unrounded; the LSTM's c carried
+   in bf16), and end to end max abs error 3 bf16 ulps and mean 1e-3
+   (both of max(1, |value|)) as a sanity check; ys zero past each
+   length, two calls bit-identical; times of the kernel, the plain
+   version and cuDNN's ``torch.nn.GRU``/``torch.nn.LSTM`` (timed only,
+   never on the path; its input GEMM timed beside it, and cuDNN's time
+   less it) at the main shapes in bf16, and the per-step floor (B=8,
+   T=500, H=128); a GRU layer at H=800, which ``supported`` rejects, runs
+   the scan with no launch; what the kernels do not take, they refuse;
 4f. the GRU and LSTM backward kernels (bf16 on the tensor cores in
    clusters of two) against ``gru_scan_bwd_plain`` and
    ``lstm_scan_bwd_plain`` on the forward kernel's residuals, at the same
@@ -88,7 +91,8 @@ Phases, one informative line or a few each:
    bit-identical; times of the kernel, the plain version, the dW_h GEMM
    outside it (fp32) and cuDNN's ``torch.nn.GRU``/``torch.nn.LSTM``
    forward plus backward (timed only, never on the path) at the main
-   shapes in bf16, and the backward's per-step floor;
+   shapes in bf16, and the backward's per-step floor (the fp32 LSTM's
+   backward at H=1280 refused before any launch);
 4g. the rel-pos flash kernel against ``relpos_attention_plain`` on the
    same folded inputs at Conformer-M's shape (B=64, H=4, T=250, Dh=64,
    D=256), Conformer-L's (H=8, D=512) and a ragged T=37 (Dh=32, D=128),
@@ -939,25 +943,62 @@ SCAN_FP32_ATOL = {37: 1e-5, 500: 1e-4}
 SCAN_BF16_MEAN, SCAN_BF16_MAX = 1e-3, 3 * 2.0 ** -7
 # bf16, besides that end-to-end sanity check: each step held on its own,
 # from the state the kernel carried into it, element by element within
-# ``ops/scan_bounds``'s bounds (one ulp of each rounding to bf16, the fp32
-# sums in another order, the fp32 cell math); the reading is the largest
-# |kernel - one-step fp64 recompute| / bound, at most 1, and planted
-# faults must read above 1: the output zeroed on every batch row but row
-# 1, and one step without the recurrent product for one CTA's block of
-# units (the forward's ys; the backward's carry into the step, with dx
-# recomputed from it), and in the backward every carry rounded to bf16
-# (``scan_bounds.bwd_faults``)
+# ``ops/scan_bounds``'s bounds (the forward's rounded outputs a rounding
+# of a value within the recompute's error, the backward's within one ulp
+# of each rounding to bf16; the fp32 sums in another order, the fp32 cell
+# math); the reading is the largest |kernel - one-step fp64 recompute| /
+# bound, at most 1, and planted faults must read above 1: the output
+# zeroed on every batch row but row 1, and one step without the recurrent
+# product for one CTA's block of units (the forward's ys; the backward's
+# carry into the step, with dx recomputed from it); in the forward the
+# state carried unrounded (h) or rounded to bf16 (the LSTM's c)
+# (``scan_bounds.fwd_faults``), in the backward every carry rounded to
+# bf16 (``scan_bounds.bwd_faults``)
 # name, cell, B, T, H: the main paths' shapes (DS2-medium's GRU layers,
-# lstm_small's LSTM layers), the smallest shape the kernels take, and an
-# LSTM at H = 1024, whose bf16 backward stages each warp's slice of dg in
-# two windows (its slice does not fit the warp's room at once)
+# lstm_small's LSTM layers), the smallest shape the kernels take, an LSTM
+# at H = 1024, whose bf16 backward stages each warp's slice of dg in two
+# windows (its slice does not fit the warp's room at once), and one at the
+# widest H the kernels take, 1280, where the fp32 forward and backward are
+# refused before any launch (their fp32 copy of W_h passes a CTA's shared
+# memory; the bf16 kernels keep W_h in registers)
 SCAN_CASES = (
     ("ds2-medium", "gru", 32, 500, 1024),
     ("lstm_small", "lstm", 32, 500, 512),
     ("small gru", "gru", 8, 37, 128),
     ("small lstm", "lstm", 8, 37, 128),
     ("wide lstm", "lstm", 8, 37, 1024),
+    ("widest lstm", "lstm", 8, 37, 1280),
 )
+
+
+def scan_fits(cell, way, H, dtype):
+    """Whether a CTA of the scan kernel (``way`` "fwd" or "bwd") at width
+    H in ``dtype`` fits an SM, as its own resources entry reports; fails
+    unless the only ones that do not are the fp32 LSTM's at H = 1280."""
+    import torch
+    from openseq2seq_tpu_torch.ops import rnn_scan
+    fits = rnn_scan.resources("{}_scan_{}".format(cell, way), H,
+                              dtype == torch.bfloat16)[1] > 0
+    check(fits or (cell, H, dtype) == ("lstm", 1280, torch.float32),
+          "{} {} at H = {} in {} does not fit".format(cell, way, H, dtype))
+    return fits
+
+
+def check_refused(fn, counter, tag):
+    """``fn()`` must raise ValueError with nothing launched: ``counter()``
+    unchanged and no CUDA error after."""
+    import torch
+    before = counter()
+    try:
+        fn()
+    except ValueError as e:
+        torch.cuda.synchronize()
+        check(counter() == before, "{}: launched".format(tag))
+        print("[scan] {}: refused before any launch ({})".format(tag, e),
+              flush=True)
+        return
+    raise RuntimeError("chip_smoke check failed: {} was not refused"
+                       .format(tag))
 # gate math per (row, step, hidden unit) beyond the recurrent product:
 # GRU 3 sigmoid/tanh (~4 operations each) and ~10 adds and multiplies;
 # LSTM 5 sigmoid/tanh and ~8 adds and multiplies; negligible beside the
@@ -1033,7 +1074,9 @@ def _fault_units(H):
 def scan_fwd_readings(cell, case, dtype, reverse, got):
     """The one-step bounds' readings of the forward kernel's outputs
     ``got`` (ys, h_last[, c_last], acts, hn or cs), by output, and of the
-    two planted faults on ys."""
+    wrong kernels of ``scan_bounds.fwd_faults``: ys zeroed but in row 1,
+    a step without the recurrent product, h carried unrounded, the
+    LSTM's c carried in bf16."""
     from openseq2seq_tpu_torch.ops import bounds as eb
     from openseq2seq_tpu_torch.ops import scan_bounds as sb
     xp, h0, lengths = case["x_proj"].to(dtype), case["h0"].to(dtype), \
@@ -1053,12 +1096,8 @@ def scan_fwd_readings(cell, case, dtype, reverse, got):
         kw.update(c0=case["c0"], cs=cs)
         bounds = sb.lstm_fwd_bounds(xp, case["wh"], h0, case["c0"], lengths,
                                     ys, cs, 1.0, reverse)
-    faults = {"rows zeroed": eb.reading(eb.zero_but_row_1(ys),
-                                        *bounds["ys"]),
-              "product left out": eb.reading(
-                  sb.drop_product(cell, ys.shape[1] // 2,
-                                  _fault_units(ys.shape[2]), **kw),
-                  *bounds["ys"])}
+    faults = sb.fwd_faults(cell, ys.shape[1] // 2, _fault_units(ys.shape[2]),
+                           **kw)
     return eb.readings(outs, bounds), faults, {}
 
 
@@ -1112,9 +1151,11 @@ def phase_scan(card):
     the kernel, the plain version, and cuDNN's ``torch.nn.GRU`` /
     ``torch.nn.LSTM`` on the same (B, T, H) with a 2H-wide input (timed
     only, never on the path) with its input projection's GEMM timed
-    beside it. Then a layer whose shape ``supported`` rejects takes the
-    scan and launches nothing, and what the kernels do not take, they
-    refuse. Returns the worst fp32 error and the timings, by cell."""
+    beside it. What a kernel cannot fit (the fp32 LSTM at H = 1280) is
+    refused with ValueError before any launch. Then a layer whose shape
+    ``supported`` rejects takes the scan and launches nothing, and what
+    the kernels do not take, they refuse. Returns the worst fp32 error and
+    the timings, by cell."""
     import torch
     from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
     from openseq2seq_tpu_torch.parts.rnns import rnn
@@ -1125,6 +1166,13 @@ def phase_scan(card):
     for i, (name, cell, B, T, H) in enumerate(SCAN_CASES):
         case = scan_case(cell, B, T, H, 20 + i, dev)
         for dtype in (torch.float32, torch.bfloat16):
+            if not scan_fits(cell, "fwd", H, dtype):
+                kernel = gru_scan if cell == "gru" else lstm_scan
+                check_refused(lambda: scan_call(cell, case, dtype, False,
+                                                True),
+                              lambda: kernel.LAUNCHES, "{} {} {}".format(
+                                  name, cell, str(dtype)[6:]))
+                continue
             for reverse in (False, True):
                 got = scan_call(cell, case, dtype, reverse, True)
                 again = scan_call(cell, case, dtype, reverse, True)
@@ -1180,14 +1228,17 @@ def phase_scan(card):
                                     20)}
         t["bound_ms"], t["bound_by"] = scan_bound_ms(cell, full)
         times[cell] = t
-        print("[scan] {} {} bf16 B={} T={} H={}: kernel {:.4f} ms, plain "
-              "{:.4f} ms, bound {:.4f} ms ({}; 500 dependent steps, each "
-              "ending in a grid-wide barrier, make it latency-bound); cuDNN "
-              "torch.nn.{} with a {}-wide input {:.4f} ms, of which its "
-              "input GEMM alone takes {:.4f} ms (CUDA events, back to back; "
-              "{})".format(name, cell, B, T, H, t["ms"], t["plain_ms"],
-                           t["bound_ms"], t["bound_by"], cell.upper(), 2 * H,
-                           t["library_ms"], t["gemm_ms"], card), flush=True)
+        print("[scan] {} {} bf16 B={} T={} H={}: kernel "
+              "(scan_fwd_mma_kernel) {:.4f} ms, plain {:.4f} ms, bound "
+              "{:.4f} ms ({}; 500 dependent steps, each ending in a "
+              "grid-wide barrier, make it latency-bound); cuDNN torch.nn.{} "
+              "with a {}-wide input {:.4f} ms, of which its input GEMM alone "
+              "takes {:.4f} ms: cuDNN less its GEMM {:.4f} ms (CUDA events, "
+              "back to back; {})".format(
+                  name, cell, B, T, H, t["ms"], t["plain_ms"],
+                  t["bound_ms"], t["bound_by"], cell.upper(), 2 * H,
+                  t["library_ms"], t["gemm_ms"],
+                  t["library_ms"] - t["gemm_ms"], card), flush=True)
     # the per-step floor: one hidden unit per CTA and few rows, so the
     # products are negligible and what is left is the step's latency (the
     # h and x_proj reads, the gate math, the grid-wide barrier)
@@ -1350,6 +1401,7 @@ def phase_scan_bwd(card):
     yardstick, never on the path). Returns the worst fp32 error and the
     timings, by cell."""
     import torch
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
     dev = torch.device("cuda")
     worst = {"gru": 0.0, "lstm": 0.0}
     times = {}
@@ -1366,6 +1418,17 @@ def phase_scan_bwd(card):
     for i, (name, cell, B, T, H) in enumerate(SCAN_CASES):
         case = with_cotangents(scan_case(cell, B, T, H, 50 + i, dev), 60 + i)
         for dtype in (torch.float32, torch.bfloat16):
+            if not scan_fits(cell, "bwd", H, dtype):
+                # the residuals' shapes, from the inputs: the forward
+                # that would make them is refused too
+                xp, c0 = case["x_proj"], case["c0"]
+                kernel = gru_scan if cell == "gru" else lstm_scan
+                check_refused(lambda: lstm_scan._bwd_cuda(
+                    case["wh"], c0, case["lengths"], xp, xp[..., :H],
+                    xp[..., :H], c0, c0, False),
+                    lambda: kernel.BWD_LAUNCHES, "{} {} backward {}".format(
+                        name, cell, str(dtype)[6:]))
+                continue
             for reverse in (False, True):
                 kernel = scan_bwd_fn(cell, case, dtype, reverse)
                 got, again = kernel(), kernel()
@@ -3158,9 +3221,9 @@ def check_relpos_spills(logs):
 def print_ptxas(name, log):
     """What ``ptxas`` reports for each kernel of a build log: every entry
     point's registers and spills; of the scan kernels' instantiations
-    (units per CTA 1 to 10, bf16 and fp32; the bf16 backward's on the
-    tensor cores), the bf16 ones of the main paths, and the register
-    range and spills of all."""
+    (units per CTA 1 to 10, bf16 and fp32; the bf16 ones on the tensor
+    cores), the bf16 ones of the main paths, and the register range and
+    spills of all."""
     entries = re.findall(r"Compiling entry function '(\S+)'.*?"
                          r"(\d+) bytes spill stores, (\d+) bytes spill "
                          r"loads.*?Used (\d+) registers", log, re.S)
@@ -3318,9 +3381,8 @@ def main():
         "source": "openseq2seq_tpu_torch/csrc/{}_scan_{}.cu".format(cell,
                                                                     way),
         "replaces": "openseq2seq_tpu/ops/{}_pallas.py:{}".format(cell, line),
-        "symbol": "rnn_scan::scan_bwd_mma_kernel (bf16, timed here; fp32: "
-                  "rnn_scan::scan_bwd_kernel)" if way == "bwd" else
-                  "rnn_scan::scan_fwd_kernel",
+        "symbol": "rnn_scan::scan_{0}_mma_kernel (bf16, timed here; fp32: "
+                  "rnn_scan::scan_{0}_kernel)".format(way),
         "launches": scan_launches[cell][way == "bwd"],
         "bound_reading": times[cell]["bound_reading"],
         "max_abs_err": err[cell], "ms": times[cell]["ms"],

@@ -20,14 +20,21 @@
 // T = 500, H = 1024, bf16) it must read x_proj (98.3 MB) and W_h (6.3 MB)
 // and write ys (32.8 MB), 41 us at 3.35 TB/s, and do 100.7 GFLOP, 102 us
 // at the bf16 tensor-core peak: operations, in principle. In practice the
-// 500 steps are dependent and each ends in a grid-wide barrier, so it is
-// latency-bound, and this first version does its products with fp32 FMAs
-// on the CUDA cores (about 1.7 ms of issue at H = 1024 alone). The design
-// (rnn_scan.cuh): W_h's columns stay in shared memory across all steps,
-// 8 hidden units (24 columns) per CTA over 128 CTAs; h_{t-1} comes from
-// L2, where the 64 KiB ping-pong buffer stays; no atomics in the sums.
-// Tensor cores (mma.sync on the per-step B x 24 x H product) and both
-// directions in one launch are the next steps.
+// 500 steps are dependent and each ends in a grid-wide barrier, so a
+// step's latency sets the pace: the barrier, the read of h_{t-1} from L2,
+// the product, the sum across warps, the gate math and the stores (about
+// 2.7 us a step at B = 8, H = 128, where the product is next to nothing).
+// The design (rnn_scan.cuh) keeps that path short: 8 hidden units (24
+// columns of W_h) a CTA over 128 CTAs, W_h on chip for all steps; in bf16
+// (scan_fwd_mma_kernel) W_h in registers as mma.sync fragments, the
+// per-step (32 x 1024) . (1024 x 24) product on the tensor cores (48
+// mma.sync a warp, where the fp32 design does 3,072 FMAs a thread on the
+// CUDA cores, about 1.7 ms to dispatch over the 500 steps), each warp
+// waiting only for its own slice of h, which clusters of two CTAs read
+// from L2 once and multicast (4 MiB of L2 reads a step, not 8); x_proj
+// read while h lands; no atomics in the sums. fp32 keeps the CUDA-core
+// design. Both directions in one launch (half the grid barriers) is the
+// next step.
 #include "rnn_scan.cuh"
 
 namespace {
@@ -37,10 +44,15 @@ using rnn_scan::Params;
 using rnn_scan::sigmoid;
 
 struct GruCell {
+  // the GRU carries h alone
+  static __device__ __forceinline__ float state(const Params&, int, int) {
+    return 0.f;
+  }
   template <typename T>
   static __device__ __forceinline__ void step(
       const Params& p, int b, int t, int col, const float (&pre)[3],
-      const float (&x)[3], float h_prev, bool live, bool last, T* dst) {
+      const float (&x)[3], float h_prev, float, bool live, bool last,
+      T* dst) {
     const int H = p.H;
     const float hr = pre[0] + p.bh[col];
     const float hz = pre[1] + p.bh[H + col];
@@ -68,7 +80,8 @@ struct GruCell {
 
 // Launches on `stream`; returns 0 on success, a CUDA error code, or
 // rnn_scan::kNotCoResident (-2) when the H / units CTAs cannot all be
-// resident at once (nothing is launched then), or kBadUnits (-3). The
+// resident at once, kTooMuchSmem (-4) when a CTA's shared memory passes
+// what an SM gives one (nothing is launched then), or kBadUnits (-3). The
 // caller guarantees B, T >= 1, H % 128 == 0, 1 <= units <= 10 dividing H,
 // and contiguous device buffers: x_proj (B, T, 3H) and W_h (H, 3H) in the
 // compute type (bf16 when is_bf16, else fp32), b_h (3H,) fp32, lengths
@@ -103,9 +116,11 @@ extern "C" int gru_scan_fwd(const void* x_proj, const void* wh,
   return rnn_scan::dispatch_units<float, 3, GruCell>(p, units, s);
 }
 
-// The dynamic shared memory (out[0], bytes) and the CTAs an SM holds
-// (out[1]) of the kernel gru_scan_fwd launches at width H with `units` a
-// CTA; nothing is launched. Returns 0 or a CUDA error code.
+// The dynamic shared memory (out[0], bytes), the CTAs an SM holds
+// (out[1]) and the CTAs that can be resident at once in its clusters
+// (out[2]) of the kernel gru_scan_fwd launches at width H with `units` a
+// CTA, out[1] and out[2] 0 where a CTA's shared memory passes what an
+// SM gives one; nothing is launched. Returns 0 or a CUDA error code.
 extern "C" int gru_scan_fwd_resources(int H, int units, int is_bf16,
                                       int* out) {
   Params p{};

@@ -100,7 +100,8 @@ struct LstmBwdCell {
 
 // Launches on `stream`; returns 0 on success, a CUDA error code, or
 // rnn_scan::kNotCoResident (-2) when the H / units CTAs cannot all be
-// resident at once (nothing is launched then), or kBadUnits (-3). The
+// resident at once, kTooMuchSmem (-4) when a CTA's shared memory passes
+// what an SM gives one (nothing is launched then), or kBadUnits (-3). The
 // caller guarantees B, T >= 1, H % 128 == 0, 1 <= units <= 10 dividing H,
 // and contiguous device buffers in the compute type (bf16 when is_bf16,
 // else fp32) unless said otherwise: W_h (H, 4H), the forward's acts
@@ -145,9 +146,11 @@ extern "C" int lstm_scan_bwd(const void* wh, const void* acts, const void* cs,
   return rnn_scan::dispatch_bwd_units<float, 4, LstmBwdCell>(p, units, s);
 }
 
-// The dynamic shared memory (out[0], bytes) and the CTAs an SM holds
-// (out[1]) of the kernel lstm_scan_bwd launches at width H with `units` a
-// CTA; nothing is launched. Returns 0 or a CUDA error code.
+// The dynamic shared memory (out[0], bytes), the CTAs an SM holds
+// (out[1]) and the CTAs that can be resident at once in its clusters
+// (out[2]) of the kernel lstm_scan_bwd launches at width H with `units` a
+// CTA, out[1] and out[2] 0 where a CTA's shared memory passes what an
+// SM gives one; nothing is launched. Returns 0 or a CUDA error code.
 extern "C" int lstm_scan_bwd_resources(int H, int units, int is_bf16,
                                        int* out) {
   BwdParams p{};

@@ -20,11 +20,15 @@
 // H = 512, bf16) it must read x_proj (65.5 MB) and W_h (2.1 MB) and write
 // ys (16.4 MB), 25 us at 3.35 TB/s, and do 33.6 GFLOP, 34 us at the bf16
 // tensor-core peak: operations, in principle. In practice 500 dependent
-// steps, each ending in a grid-wide barrier, make it latency-bound, and
-// the products run as fp32 FMAs on the CUDA cores. The design is the
-// GRU's (rnn_scan.cuh): W_h's columns in shared memory for all steps, 4
-// hidden units (16 columns) per CTA over 128 CTAs at H = 512, h_{t-1}
-// from L2, fixed-order sums.
+// steps, each ending in a grid-wide barrier, make a step's latency set the
+// pace (about 3.3 us a step at B = 8, H = 128). The design is the GRU's
+// (rnn_scan.cuh): 4 hidden units (16 columns) a CTA over 128 CTAs at H =
+// 512; in bf16 W_h in registers as mma.sync fragments (16 a thread; 100
+// at H = 1280, where an fp32 copy of W_h would not fit a CTA's shared
+// memory), the product on the tensor cores, h_{t-1} read from L2 once a
+// cluster of two CTAs and multicast, c kept in fp32; fp32 keeps W_h's
+// columns in shared memory and the products on the CUDA cores (it is
+// refused at H = 1280 before any launch); fixed-order sums.
 #include "rnn_scan.cuh"
 
 namespace {
@@ -34,20 +38,24 @@ using rnn_scan::Params;
 using rnn_scan::sigmoid;
 
 struct LstmCell {
+  // c, which this thread wrote in the step before (or c0)
+  static __device__ __forceinline__ float state(const Params& p, int b,
+                                                int col) {
+    return p.cstate[static_cast<size_t>(b) * p.H + col];
+  }
   template <typename T>
   static __device__ __forceinline__ void step(
       const Params& p, int b, int t, int col, const float (&pre)[4],
-      const float (&x)[4], float h_prev, bool live, bool last, T* dst) {
+      const float (&x)[4], float h_prev, float c, bool live, bool last,
+      T* dst) {
     const int H = p.H;
     const float si = sigmoid(x[0] + pre[0]);
     const float sf = sigmoid(x[1] + pre[1] + p.forget_bias);
     const float tg = tanhf(x[2] + pre[2]);
     const float so = sigmoid(x[3] + pre[3]);
-    float* cp = p.cstate + static_cast<size_t>(b) * H + col;
-    const float c = *cp;
     const float c_new = sf * c + si * tg;
     const float h_new = so * tanhf(c_new);
-    *cp = live ? c_new : c;
+    p.cstate[static_cast<size_t>(b) * H + col] = live ? c_new : c;
     const T h = from_f<T>(live ? h_new : h_prev);
     const size_t bt = static_cast<size_t>(b) * p.T + t;
     dst[static_cast<size_t>(b) * H + col] = h;
@@ -68,7 +76,8 @@ struct LstmCell {
 
 // Launches on `stream`; returns 0 on success, a CUDA error code, or
 // rnn_scan::kNotCoResident (-2) when the H / units CTAs cannot all be
-// resident at once (nothing is launched then), or kBadUnits (-3). The
+// resident at once, kTooMuchSmem (-4) when a CTA's shared memory passes
+// what an SM gives one (nothing is launched then), or kBadUnits (-3). The
 // caller guarantees B, T >= 1, H % 128 == 0, 1 <= units <= 10 dividing H,
 // and contiguous device buffers: x_proj (B, T, 4H) and W_h (H, 4H) in the
 // compute type (bf16 when is_bf16, else fp32), lengths (B,) int32, hbuf
@@ -104,9 +113,11 @@ extern "C" int lstm_scan_fwd(const void* x_proj, const void* wh,
   return rnn_scan::dispatch_units<float, 4, LstmCell>(p, units, s);
 }
 
-// The dynamic shared memory (out[0], bytes) and the CTAs an SM holds
-// (out[1]) of the kernel lstm_scan_fwd launches at width H with `units` a
-// CTA; nothing is launched. Returns 0 or a CUDA error code.
+// The dynamic shared memory (out[0], bytes), the CTAs an SM holds
+// (out[1]) and the CTAs that can be resident at once in its clusters
+// (out[2]) of the kernel lstm_scan_fwd launches at width H with `units` a
+// CTA, out[1] and out[2] 0 where a CTA's shared memory passes what an
+// SM gives one; nothing is launched. Returns 0 or a CUDA error code.
 extern "C" int lstm_scan_fwd_resources(int H, int units, int is_bf16,
                                        int* out) {
   Params p{};

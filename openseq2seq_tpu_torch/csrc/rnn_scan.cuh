@@ -1,29 +1,37 @@
 // The persistent scan shared by the GRU and LSTM forward kernels
 // (gru_scan_fwd.cu, lstm_scan_fwd.cu): one cooperative launch walks all
-// T steps of one direction of one layer. Its grid barrier, cp.async
-// helpers, cooperative launcher and unit dispatch also carry the
-// backward kernels (rnn_scan_bwd.cuh).
+// T steps of one direction of one layer. Its grid barrier, cp.async,
+// cluster and bulk-copy helpers, cooperative launcher and unit dispatch
+// also carry the backward kernels (rnn_scan_bwd.cuh).
 //
 // Layout. The gate pre-activations of step t are x_proj[t] + h_{t-1} W_h
 // with W_h (H, G*H) for G gates. CTA j owns U consecutive hidden units
 // (the grid is H / U CTAs, 128 by default) and so the U columns of each
-// gate block of W_h, G*U columns in all. Those columns are read once,
-// widened to fp32 and kept in shared memory for all T steps (1024 x 24 x
-// 4 B = 96 KiB for the GRU at H = 1024).
+// gate block of W_h, G*U columns in all, which it keeps on chip for all
+// T steps. The T steps are dependent and each ends in a grid-wide
+// barrier, so a step's latency, not the card's rates, sets the pace (the
+// bounds in gru_scan_fwd.cu and lstm_scan_fwd.cu); both designs keep the
+// step's path short.
 //
 // Each step, for each tile of 32 batch rows:
 //  1. the tile's h_{t-1} rows (B x H in the compute type, written by all
-//     CTAs in the previous step and read from L2 with cp.async.cg, which
-//     bypasses the SM's incoherent L1) stream through shared memory in
-//     256-byte column chunks, four stages deep;
-//  2. lane b of warp w accumulates row b's G*U pre-activations over
-//     warp w's eighth of each chunk in fp32 registers: one 16-byte read
-//     of h and G*U/4 broadcast 16-byte reads of W_h per 8 (bf16) or 4
-//     (fp32) products per column, fp32 FMAs on the CUDA cores;
-//  3. the eight warps' partial sums meet in shared memory and are added
+//     CTAs in the previous step) come from L2, and the CTA forms its G*U
+//     columns of h_{t-1} W_h:
+//     - bf16 (scan_fwd_mma_kernel, below): on the tensor cores, W_h in
+//       registers, each warp staging its own slice of h's columns, in
+//       clusters of two CTAs that share each row's L2 read by multicast;
+//     - fp32 (scan_fwd_kernel): W_h's columns widened to fp32 in shared
+//       memory (1024 x 24 x 4 B = 96 KiB for the GRU at H = 1024); the
+//       rows stream through shared memory with cp.async.cg (which
+//       bypasses the SM's incoherent L1) in 256-byte column chunks, four
+//       stages deep, two CTA barriers a chunk; lane b of warp w
+//       accumulates row b's G*U pre-activations over warp w's eighth of
+//       each chunk in fp32 registers, fp32 FMAs on the CUDA cores;
+//  2. the eight warps' partial sums meet in shared memory and are added
 //     in a fixed order (no atomics: two calls give the same bits);
-//  4. one thread per (row, unit) pair adds x_proj[t] (read before the
-//     products, so its latency hides behind them), runs the cell's gate
+//  3. one thread per (row, unit) pair adds x_proj[t] (read, with the
+//     LSTM's c, before the products, so that their latency hides behind
+//     them), runs the cell's gate
 //     math and length mask in fp32, and writes h_t rounded to the
 //     compute type (as the TPU kernel carries it) to the other half of a
 //     ping-pong buffer, to ys[t] (zero past the row's length) and, when
@@ -42,6 +50,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_sync.cuh"
+
 namespace rnn_scan {
 
 constexpr int kThreads = 256;
@@ -52,9 +64,14 @@ constexpr int kRowStride = kChunkBytes + 16;  // 16-byte reads conflict-free
 constexpr int kStages = 4;
 constexpr int kStageBytes = kRows * kRowStride;
 constexpr int kMaxUnits = 10;              // H <= 1280 at 128 CTAs
-// returned when the grid cannot be co-resident, or `units` is not built
+// returned when the grid cannot be co-resident, `units` is not built, or
+// a CTA needs more shared memory than an SM gives one (nothing launches)
 constexpr int kNotCoResident = -2;
 constexpr int kBadUnits = -3;
+constexpr int kTooMuchSmem = -4;
+// the clusters' size of the tensor-core kernels: clusters of four are not
+// co-resident at 128 CTAs on an H100
+constexpr int kCluster = 2;
 
 struct Params {
   const void* xp;         // (B, T, G*H) compute type: x_proj, gates blocked
@@ -68,7 +85,8 @@ struct Params {
   void* acts;             // (B, T, G*H) compute type gate activations, or null
   void* aux;              // (B, T, H): the cell's second residual, or null
   unsigned int* barrier;  // one counter, zero at launch
-  int* query;             // or: (smem bytes, CTAs an SM) out, no launch
+  int* query;             // or: (smem bytes, CTAs an SM, CTAs resident at
+                          // once) out, no launch
   int B, T, H, reverse;
   float forget_bias;
 };
@@ -145,6 +163,58 @@ __device__ __forceinline__ void grid_sync(unsigned int* counter,
   __syncthreads();
 }
 
+// The tensor-core kernels' cluster and bulk-copy helpers (this one's
+// forward and rnn_scan_bwd.cuh's backward).
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// a copy that never lands traps (the launch then fails) rather than
+// hanging the card: a step's wait is microseconds, the limit seconds
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  for (unsigned spins = 0; !done; ++spins) {
+    if (spins == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+// `bytes` from global `src` to `dst` in the shared memory of every CTA of
+// the cluster in `mask`, completing on the mbarrier at `bar`'s offset
+__device__ __forceinline__ void bulk_multicast(void* dst, const void* src,
+                                               unsigned bytes, uint64_t* bar,
+                                               unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)),
+         "h"(mask) : "memory");
+}
+// generic stores to global memory made visible to (before) reads of the
+// async proxy, which the bulk copies are
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
 template <int G, int U>
 __host__ __device__ constexpr int padded_cols() { return (G * U + 3) / 4 * 4; }
 
@@ -157,8 +227,12 @@ size_t smem_bytes(int H) {
          (red > stages ? red : stages);
 }
 
-// Cell::step(p, b, t, col, pre[G], x[G], h_prev, live, last, dst) runs the
-// gate math of row b, hidden unit col at time t and writes its outputs.
+// Cell::state(p, b, col) reads the fp32 state besides h that row b,
+// hidden unit col carries (the LSTM's c; 0 for the GRU), before the
+// products so that its latency hides behind them;
+// Cell::step(p, b, t, col, pre[G], x[G], h_prev, c_prev, live, last, dst)
+// runs the gate math of row b, hidden unit col at time t and writes its
+// outputs.
 template <typename E, int G, int U, class Cell>
 __global__ void __launch_bounds__(kThreads, 1)
 scan_fwd_kernel(const Params p) {
@@ -199,7 +273,7 @@ scan_fwd_kernel(const Params p) {
     E* dst = hbuf + static_cast<size_t>((s + 1) & 1) * B * H;
     for (int tile = 0; tile < tiles; ++tile) {
       const int b0 = tile * kRows;
-      float xv[kPairs][G], hprev[kPairs];
+      float xv[kPairs][G], hprev[kPairs], cprev[kPairs];
 #pragma unroll
       for (int q = 0; q < kPairs; ++q) {
         const int pair = tid + q * kThreads;
@@ -209,6 +283,7 @@ scan_fwd_kernel(const Params p) {
 #pragma unroll
           for (int g = 0; g < G; ++g) xv[q][g] = to_f(x[g * H]);
           hprev[q] = load_cg(src + static_cast<size_t>(b) * H + col);
+          cprev[q] = Cell::state(p, b, col);
         }
       }
 
@@ -281,7 +356,7 @@ scan_fwd_kernel(const Params p) {
               sum += red[(w * NCP + g * U + u) * kRows + bl];
             pre[g] = sum;
           }
-          Cell::step(p, b, t, unit0 + u, pre, xv[q], hprev[q],
+          Cell::step(p, b, t, unit0 + u, pre, xv[q], hprev[q], cprev[q],
                      t < __ldg(p.lens + b), s == T - 1, dst);
         }
       }
@@ -291,34 +366,250 @@ scan_fwd_kernel(const Params p) {
   }
 }
 
+// The bf16 design on the tensor cores: the backward's (rnn_scan_bwd.cuh)
+// transposed, with a smaller shared operand. The grid and the ownership
+// are the CUDA-core kernel's; what differs is the product and how h
+// reaches it:
+//  - warp w owns the K-slice [16 U w, 16 U (w + 1)) of h's H columns (U
+//    k16 steps; the slices tile H since H = 128 U) and keeps the CTA's
+//    G U columns of W_h over that slice in registers, in bf16, as the B
+//    fragments of mma.sync m16n8k16 for all T steps (U ceil(G U / 8) 2
+//    registers: 48 for the GRU at H = 1024, 16 for the LSTM at H = 512,
+//    100 for the LSTM at H = 1280; padded to n8 with zeros); there is no
+//    copy of W_h in shared memory, so every width up to kMaxUnits fits;
+//  - the CTAs run in clusters of two, which need the same h rows: each
+//    step, CTA r of a cluster loads rows [16 r, 16 r + 16) of each warp's
+//    slice of the tile's 32 h rows (32 U bytes a row: 256 at the GRU's
+//    main width), one bulk copy a row, and multicasts them to both CTAs'
+//    shared memories (cp.async.bulk ... multicast::cluster, completing on
+//    the warp's mbarrier), so that L2 serves each h byte to 64 SMs, not
+//    128 (4 MiB a step at the GRU's main shape, not 8); rows past B are
+//    not loaded, and the product rows they give are dropped (a product's
+//    rows do not mix);
+//  - a warp waits on its own mbarrier (no CTA barrier: no warp reads
+//    another's slice) and runs 2 U ceil(G U / 8) products on ldmatrix A
+//    fragments (48 at the GRU's main shape, against 3,072 FMAs a thread on
+//    the CUDA cores), exact products of bf16 summed in fp32;
+//  - the eight warps' (32 x 8 ceil(G U / 8)) partial tiles meet in shared
+//    memory and are added in a fixed order (no atomics: two calls give the
+//    same bits), and one CTA barrier later the cells run as in the
+//    CUDA-core kernel, x_proj[t] (and the LSTM's c) read while the copies
+//    land.
+// The ordering is the backward's: every thread fences its generic h
+// stores for the async proxy before the grid barrier, the copying lanes
+// fence again after it; the grid barrier between steps and a cluster
+// barrier between tiles keep a CTA from multicasting into a peer's room
+// that the peer still reads. Three CTA barriers a step in all (two in the
+// grid barrier), against two a 256-byte chunk on the CUDA cores.
+template <int U>
+__host__ __device__ constexpr int fwd_row_bytes() { return U * 32 + 16; }
+
+template <int G, int U>
+__host__ __device__ constexpr int fwd_col_tiles() { return (G * U + 7) / 8; }
+
+template <int G, int U>
+size_t fwd_mma_smem_bytes() {
+  return static_cast<size_t>(kWarps) * kRows * fwd_row_bytes<U>() +
+         sizeof(float) * kWarps * kRows * 8 * fwd_col_tiles<G, U>() +
+         sizeof(uint64_t) * kWarps;
+}
+
+template <int G, int U, class Cell>
+__global__ void __launch_bounds__(kThreads, 1)
+scan_fwd_mma_kernel(const Params p) {
+  using E = __nv_bfloat16;
+  constexpr int NC = G * U;                       // this CTA's columns
+  constexpr int NT = fwd_col_tiles<G, U>();       // n8 tiles of them
+  constexpr int NP = 8 * NT;
+  constexpr int kRow = fwd_row_bytes<U>();        // a staged row, padded
+  constexpr int kOwn = kRows / kCluster;          // rows this CTA loads
+  constexpr int kPairs = (kRows * U + kThreads - 1) / kThreads;
+  static_assert(kRows == 32, "two m16 tiles of batch rows");
+  static_assert(kOwn <= 32, "a lane a row");
+
+  extern __shared__ float4 smem4[];
+  const int H = p.H, GH = G * H, B = p.B, T = p.T;
+  const int unit0 = blockIdx.x * U;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 2, tig = lane & 3;
+  char* room = reinterpret_cast<char*>(smem4) + warp * kRows * kRow;
+  float* red = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) +
+                                        kWarps * kRows * kRow);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(red + kWarps * kRows * NP) +
+                  warp;
+  const E* xp = static_cast<const E*>(p.xp);
+  const unsigned short* wbits = static_cast<const unsigned short*>(p.wh);
+  E* hbuf = static_cast<E*>(p.hbuf);
+  const int k0 = warp * U * 16;                   // this warp's K-slice
+
+  // B fragments: rows k = 2 tig, + 1 (and + 8, + 9) of k-step s, column
+  // n = 8 nt + grp of this CTA's (gate n / U, unit n % U), zero past NC
+  unsigned bw[U][NT][2];
+#pragma unroll
+  for (int s = 0; s < U; ++s) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int n = 8 * nt + grp;
+      const unsigned short* w =
+          wbits + static_cast<size_t>(k0 + 16 * s + 2 * tig) * GH +
+          (n < NC ? (n / U) * H + unit0 + n % U : 0);
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const unsigned short* wk = w + static_cast<size_t>(8 * hi) * GH;
+        bw[s][nt][hi] = n < NC ? static_cast<unsigned>(wk[0]) |
+                                       static_cast<unsigned>(wk[GH]) << 16
+                                 : 0u;
+      }
+    }
+  }
+
+  const unsigned rank = cluster_rank();
+  unsigned uses = 0;
+  if (lane == 0) {
+    mbar_init(bar);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();
+
+  const int tiles = (B + kRows - 1) / kRows;
+  for (int s = 0; s < T; ++s) {
+    const int t = p.reverse ? T - 1 - s : s;
+    const E* src = hbuf + static_cast<size_t>(s & 1) * B * H;
+    E* dst = hbuf + static_cast<size_t>((s + 1) & 1) * B * H;
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int b0 = tile * kRows, rows = min(kRows, B - b0);
+      // this CTA's rows of the warp's slice, one copy a row, multicast to
+      // the cluster
+      if (lane == 0) mbar_expect(bar, rows * U * 32);
+      fence_proxy_async_global();
+      const int row = rank * kOwn + lane;
+      if (lane < kOwn && row < rows)
+        bulk_multicast(room + row * kRow,
+                       src + static_cast<size_t>(b0 + row) * H + k0, U * 32,
+                       bar, static_cast<unsigned short>((1u << kCluster) - 1));
+
+      float xv[kPairs][G], hprev[kPairs], cprev[kPairs];
+#pragma unroll
+      for (int q = 0; q < kPairs; ++q) {
+        const int pair = tid + q * kThreads;
+        const int b = b0 + pair / U, col = unit0 + pair % U;
+        if (pair < kRows * U && b < B) {
+          const E* x = xp + (static_cast<size_t>(b) * T + t) * GH + col;
+#pragma unroll
+          for (int g = 0; g < G; ++g) xv[q][g] = to_f(x[g * H]);
+          hprev[q] = load_cg(src + static_cast<size_t>(b) * H + col);
+          cprev[q] = Cell::state(p, b, col);
+        }
+      }
+
+      float acc[2][NT][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][nt][e] = 0.f;
+      mbar_wait(bar, uses & 1);
+      ++uses;
+      const E* tile_rows = reinterpret_cast<const E*>(room);
+#pragma unroll
+      for (int ks = 0; ks < U; ++ks) {
+        unsigned a[2][4];
+        mma_sync::a_frag(a[0], tile_rows, kRow / 2, 0, 16 * ks);
+        mma_sync::a_frag(a[1], tile_rows, kRow / 2, 16, 16 * ks);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma_sync::mma_bf16(acc[0][nt], a[0], bw[ks][nt][0], bw[ks][nt][1]);
+          mma_sync::mma_bf16(acc[1][nt], a[1], bw[ks][nt][0], bw[ks][nt][1]);
+        }
+      }
+
+      // the warps' partial tiles (rows 16 m + grp and + 8, columns 8 nt +
+      // 2 tig and + 1), then the cells
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float* r0 = red + (warp * kRows + 16 * m + grp) * NP + 8 * nt +
+                      2 * tig;
+          *reinterpret_cast<float2*>(r0) =
+              make_float2(acc[m][nt][0], acc[m][nt][1]);
+          *reinterpret_cast<float2*>(r0 + 8 * NP) =
+              make_float2(acc[m][nt][2], acc[m][nt][3]);
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < kPairs; ++q) {
+        const int pair = tid + q * kThreads;
+        const int bl = pair / U, u = pair % U, b = b0 + bl;
+        if (pair < kRows * U && b < B) {
+          float pre[G];
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            float sum = 0.f;
+#pragma unroll
+            for (int w = 0; w < kWarps; ++w)
+              sum += red[(w * kRows + bl) * NP + g * U + u];
+            pre[g] = sum;
+          }
+          Cell::step(p, b, t, unit0 + u, pre, xv[q], hprev[q], cprev[q],
+                     t < __ldg(p.lens + b), s == T - 1, dst);
+        }
+      }
+      // the next tile reuses red and the rooms
+      if (tile + 1 < tiles) cluster_sync();
+    }
+    // the h written here is read next by the async proxy of every CTA
+    fence_proxy_async_global();
+    if (s + 1 < T) grid_sync(p.barrier, gridDim.x * (s + 1u));
+  }
+  // no CTA leaves while a peer's copies into it may be in flight
+  cluster_sync();
+}
+
 // One cooperative launch of `ctas` CTAs of `kernel(args)`, after the
 // occupancy API has shown that they can all be resident at once; with
 // `cluster` > 1 in clusters of that many CTAs, checked with
-// cudaOccupancyMaxActiveClusters. With `p.query` set it launches nothing
-// and writes the kernel's dynamic shared memory and the CTAs an SM holds
-// there.
+// cudaOccupancyMaxActiveClusters. A kernel whose shared memory passes
+// what an SM gives a CTA is not launched (kTooMuchSmem). With `p.query`
+// set it launches nothing and writes the kernel's dynamic shared memory,
+// the CTAs an SM holds and the CTAs that can be resident at once in the
+// launch's clusters (both 0 where the shared memory does not fit).
 template <typename Args>
 int launch_cooperative(void (*kernel)(const Args), size_t smem, int ctas,
                        const Args& p, cudaStream_t stream, int cluster = 1) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (p.query != nullptr) {       // the kernel's resources, no launch
+  int device = 0, optin = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
+          cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (smem > static_cast<size_t>(optin)) {
+    if (p.query == nullptr) return kTooMuchSmem;
     p.query[0] = static_cast<int>(smem);
-    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        p.query + 1, kernel, kThreads, smem));
+    p.query[1] = p.query[2] = 0;
+    return 0;
   }
-  Args args = p;
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           static_cast<int>(smem))) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  long long resident = static_cast<long long>(per_sm) * sms;
+  cudaLaunchAttribute attrs[2];
+  cudaLaunchConfig_t cfg = {};
   if (cluster > 1) {
-    cudaLaunchAttribute attrs[2];
     attrs[0].id = cudaLaunchAttributeClusterDimension;
     attrs[0].val.clusterDim.x = cluster;
     attrs[0].val.clusterDim.y = 1;
     attrs[0].val.clusterDim.z = 1;
     attrs[1].id = cudaLaunchAttributeCooperative;
     attrs[1].val.cooperative = 1;
-    cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(ctas);
     cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = smem;
@@ -329,26 +620,26 @@ int launch_cooperative(void (*kernel)(const Args), size_t smem, int ctas,
     if ((err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) !=
         cudaSuccess)
       return static_cast<int>(err);
-    if (static_cast<long long>(clusters) * cluster < ctas)
-      return kNotCoResident;
+    resident = static_cast<long long>(clusters) * cluster;
+  }
+  if (p.query != nullptr) {       // the kernel's resources, no launch
+    p.query[0] = static_cast<int>(smem);
+    p.query[1] = per_sm;
+    p.query[2] = static_cast<int>(resident < (1 << 30) ? resident : 1 << 30);
+    return 0;
+  }
+  // the barrier needs every CTA resident at once: checked, never assumed
+  if (resident < ctas) return kNotCoResident;
+  Args args = p;
+  if (cluster > 1) {
     cfg.numAttrs = 2;
     err = cudaLaunchKernelEx(&cfg, kernel, args);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
+  } else {
+    void* argv[] = {&args};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                      dim3(ctas), dim3(kThreads), argv, smem,
+                                      stream);
   }
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  // the barrier needs every CTA resident at once: checked, never assumed
-  if (static_cast<long long>(per_sm) * sms < ctas) return kNotCoResident;
-  void* argv[] = {&args};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                    dim3(ctas), dim3(kThreads), argv, smem,
-                                    stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -380,9 +671,23 @@ struct FwdLaunch {
   }
 };
 
+template <int G, class Cell>
+struct FwdMmaLaunch {
+  template <int U>
+  static int run(const Params& p, cudaStream_t stream) {
+    return launch_cooperative(scan_fwd_mma_kernel<G, U, Cell>,
+                              fwd_mma_smem_bytes<G, U>(), p.H / U, p, stream,
+                              kCluster);
+  }
+};
+
+// bf16 on the tensor cores, fp32 on the CUDA cores
 template <typename E, int G, class Cell>
 int dispatch_units(const Params& p, int units, cudaStream_t stream) {
-  return for_units<FwdLaunch<E, G, Cell>>(units, p, stream);
+  if constexpr (std::is_same_v<E, __nv_bfloat16>)
+    return for_units<FwdMmaLaunch<G, Cell>>(units, p, stream);
+  else
+    return for_units<FwdLaunch<E, G, Cell>>(units, p, stream);
 }
 
 }  // namespace rnn_scan

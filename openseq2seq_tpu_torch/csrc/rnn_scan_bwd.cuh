@@ -1,7 +1,8 @@
 // The persistent reverse-time scan shared by the GRU and LSTM backward
 // kernels (gru_scan_bwd.cu, lstm_scan_bwd.cu): one cooperative launch
 // walks all T steps of one direction of one layer backward, on the
-// machinery of rnn_scan.cuh (grid barrier, cp.async, occupancy check).
+// machinery of rnn_scan.cuh (grid barrier, cp.async, clusters and bulk
+// copies, occupancy check).
 //
 // Layout. A step's recurrent cotangent is dh_prev = carry + dg W_h^T,
 // where dg (B, G*H) is the step's gate cotangent rounded to the compute
@@ -49,9 +50,6 @@
 // through unchanged.
 #pragma once
 
-#include <type_traits>
-
-#include "mma_sync.cuh"
 #include "rnn_scan.cuh"
 
 namespace rnn_scan {
@@ -308,51 +306,8 @@ scan_bwd_kernel(const BwdParams p) {
 //    kernel, their residuals read before the products.
 // Three CTA barriers a step in all (two in the grid barrier) at the main
 // widths, against two a 256-byte chunk before, and no fp32 copy of W_h in
-// shared memory.
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-// a copy that never lands traps (the launch then fails) rather than
-// hanging the card: a step's wait is microseconds, the limit seconds
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  for (unsigned spins = 0; !done; ++spins) {
-    if (spins == (1u << 24)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-// `bytes` from global `src` to `dst` in the shared memory of every CTA of
-// the cluster in `mask`, completing on the mbarrier at `bar`'s offset
-__device__ __forceinline__ void bulk_multicast(void* dst, const void* src,
-                                               unsigned bytes, uint64_t* bar,
-                                               unsigned short mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1], %2, [%3], %4;"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)),
-         "h"(mask) : "memory");
-}
+// shared memory. The cluster and bulk-copy helpers are rnn_scan.cuh's, as
+// the bf16 forward's design is this one transposed.
 
 // a warp's room: 32 rows of kMaxWindow k16 steps, padded by 16 bytes so
 // that ldmatrix is conflict-free
@@ -385,10 +340,6 @@ size_t bwd_mma_smem_bytes() {
          sizeof(float) * kWarps * kRows * 8 * unit_tiles<U>() +
          sizeof(uint64_t) * kWarps * kMaxParts;
 }
-
-// the clusters' size: clusters of four are not co-resident at 128 CTAs on
-// an H100
-constexpr int kCluster = 2;
 
 template <int G, int U, class Cell>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -457,7 +408,7 @@ scan_bwd_mma_kernel(const BwdParams p) {
   for (int k = 0; k < T; ++k) {
     // the cells' dg, written by this thread, is read next by the async
     // proxy of every CTA
-    asm volatile("fence.proxy.async.global;" ::: "memory");
+    fence_proxy_async_global();
     grid_sync(p.barrier, gridDim.x * (k + 1u));
     const int t = bwd_time(p, k);
     const bool more = k + 1 < T;
@@ -525,7 +476,7 @@ scan_bwd_mma_kernel(const BwdParams p) {
             mbar_expect(bars + q, min(kRows, B - b0) * 32 *
                                       min(kPart, wlen - q * kPart));
         }
-        asm volatile("fence.proxy.async.global;" ::: "memory");
+        fence_proxy_async_global();
         for (int i = lane; i < kParts * kOwn; i += 32) {
           const int q = i / kOwn, row = rank * kOwn + i % kOwn;
           if (b0 + row < B)

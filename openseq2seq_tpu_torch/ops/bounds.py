@@ -26,12 +26,18 @@ def sigmoid(x, err):
     return y, (y * (1 - y) + 0.1 * err) * err + CELL * y
 
 
+def roundings(v, err, dtype=torch.bfloat16):
+    """(lo, hi): the least and greatest roundings to ``dtype`` of the
+    values within err of v (fp64), in fp64."""
+    m = err + 2.0 ** -22 * v.abs()   # and the conversions' own rounding
+    return (v - m).to(dtype).double(), (v + m).to(dtype).double()
+
+
 def flips(v, err):
     """The gap between the bf16 roundings of any two values within err of
     v (fp64): 0 where they all round alike."""
-    m = err + 2.0 ** -22 * v.abs()   # and the conversions' own rounding
-    return (v + m).to(torch.bfloat16).double() - \
-        (v - m).to(torch.bfloat16).double()
+    lo, hi = roundings(v, err)
+    return hi - lo
 
 
 def reading(got, want, bound) -> float:

@@ -28,8 +28,9 @@ tensors the two plain versions run in their place, so the CPU gives the
 JAX ``custom_vjp``'s numbers. dW_h and db_h come from products over all
 steps outside the kernel, as the JAX VJP leaves them to XLA
 (``gru_pallas.py:279-292``). Without gradients (eval, infer) the forward
-alone runs, with no residuals. Anything the kernels do not take raises;
-there is no fallback.
+alone runs, with no residuals. Anything the kernels do not take raises
+ValueError before any launch (``rnn_scan.check_inputs``,
+``rnn_scan.check_fits``); there is no fallback.
 
 :func:`supported` is the JAX package's gate (``gru_pallas.supported``)
 without its backend test, with ``_pick_bblk``'s VMEM budget kept as it
@@ -149,6 +150,7 @@ def _fwd_cuda(x_proj, wh, bh, h0, lengths, reverse, residuals):
         raise ValueError("bh must be ({},) on {}, got {} on {}".format(
             H3, x_proj.device, tuple(bh.shape), bh.device))
     dt, dev = x_proj.dtype, x_proj.device
+    rnn_scan.check_fits(KERNEL, H, dt, dev)
     hbuf = torch.empty((2, B, H), dtype=dt, device=dev)
     hbuf[0].copy_(h0)
     ys = torch.empty((B, T, H), dtype=dt, device=dev)
@@ -175,6 +177,7 @@ def _bwd_cuda(wh, h0, lengths, ys, acts, hn, dys, dh_last, reverse,
     B, T, H3 = acts.shape
     H = H3 // 3
     dt, dev = acts.dtype, acts.device
+    rnn_scan.check_fits(BWD_KERNEL, H, dt, dev)
     hcarry = dh_last.float().contiguous().clone()
     dx = torch.empty((B, T, H3), dtype=dt, device=dev)
     seen = torch.empty((B, T, H), device=dev) if carries else None

@@ -31,7 +31,9 @@ its backward ``lstm_scan_bwd`` (``BWD_LAUNCHES``); on CPU tensors the
 two plain versions run in their place. dW_h = h_prev^T dgates is one
 product over all steps outside the kernel (``lstm_pallas.py:329-334``).
 Without gradients the forward alone runs, with no residuals. Anything
-the kernels do not take raises; there is no fallback.
+the kernels do not take raises ValueError before any launch (the fp32
+forward and backward at H = 1280, whose fp32 copy of W_h does not fit a
+CTA's shared memory, among them); there is no fallback.
 
 :func:`supported` is the JAX package's gate (``lstm_pallas.supported``)
 without its backend test, with ``_pick_bblk``'s VMEM budget kept as it
@@ -156,6 +158,7 @@ def _fwd_cuda(x_proj, wh, h0, c0, lengths, forget_bias, reverse, residuals):
         raise ValueError("c0 must be ({}, {}) on {}, got {} on {}".format(
             B, H, x_proj.device, tuple(c0.shape), c0.device))
     dt, dev = x_proj.dtype, x_proj.device
+    rnn_scan.check_fits(KERNEL, H, dt, dev)
     hbuf = torch.empty((2, B, H), dtype=dt, device=dev)
     hbuf[0].copy_(h0)
     c_last = c0.float().clone()
@@ -184,6 +187,7 @@ def _bwd_cuda(wh, c0, lengths, acts, cs, dys, dh_last, dc_last, reverse,
     B, T, H4 = acts.shape
     H = H4 // 4
     dt, dev = acts.dtype, acts.device
+    rnn_scan.check_fits(BWD_KERNEL, H, dt, dev)
     hcarry = dh_last.float().contiguous().clone()
     ccarry = dc_last.float().contiguous().clone()
     dgates = torch.empty((B, T, H4), dtype=dt, device=dev)

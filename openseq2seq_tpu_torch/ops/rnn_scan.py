@@ -8,12 +8,16 @@ call must keep what its backward needs (:func:`needs_grad`).
 Each kernel runs the whole recurrence of one direction of one layer, or
 its reverse-time backward, in one cooperative launch of ``H / units``
 CTAs that meet at a grid-wide barrier every step (``csrc/rnn_scan.cuh``,
-``csrc/rnn_scan_bwd.cuh``). The launcher checks with the occupancy API
-that the whole grid fits on the card at once and raises
-:class:`NotCoResident` otherwise; nothing is launched then. The bf16
-backward runs on the tensor cores in clusters of two CTAs, the fp32 one
-on the CUDA cores; a failed build or launch raises, and nothing falls
-back to another design.
+``csrc/rnn_scan_bwd.cuh``). Before a launch, :func:`check_fits` asks the
+kernel's own ``*_resources`` entry whether a CTA of it fits an SM at that
+width and dtype, and raises ValueError where it does not (the fp32 LSTM
+at H = 1280, forward and backward, and at H = 1152 backward: their fp32
+copies of W_h pass a CTA's shared memory). The launcher checks with the
+occupancy API that the whole grid fits on the card at once and raises
+:class:`NotCoResident` otherwise; nothing is launched then. In bf16 both
+directions run on the tensor cores in clusters of two CTAs, in fp32 on
+the CUDA cores; a failed build or launch raises, and nothing falls back
+to another design.
 """
 from __future__ import annotations
 
@@ -25,8 +29,10 @@ import torch
 # the kernels' status codes besides CUDA's own
 _NOT_CO_RESIDENT = -2
 _BAD_UNITS = -3
+_TOO_MUCH_SMEM = -4
 MAX_UNITS = 10
 _fns = {}
+_fits = {}
 
 
 class NotCoResident(RuntimeError):
@@ -119,19 +125,40 @@ def _kernel(name: str, n_ptr: int, n_int: int, n_float: int):
 
 
 def resources(name: str, H: int, bf16: bool = True) -> tuple:
-    """(dynamic shared memory in bytes, CTAs an SM holds) of the kernel
-    that the entry ``name`` (``gru_scan_fwd`` ...) launches at width H,
-    from its C entry ``<name>_resources``; nothing is launched."""
+    """(dynamic shared memory in bytes, CTAs an SM holds, CTAs resident
+    at once in the launch's clusters) of the kernel that the entry
+    ``name`` (``gru_scan_fwd`` ...) launches at width H, from its C entry
+    ``<name>_resources``, the last two 0 where a CTA's shared memory
+    passes what an SM gives one; nothing is launched."""
     from ..kernels import build
     fn = getattr(build.load(name), name + "_resources")
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * 3)()
     err = fn(H, units_per_cta(H), int(bf16), out)
     if err != 0:
         raise RuntimeError("{}_resources failed: CUDA error {}".format(name,
                                                                      err))
-    return out[0], out[1]
+    return tuple(out)
+
+
+def check_fits(name: str, H: int, dtype: torch.dtype,
+               device: torch.device) -> None:
+    """Raise ValueError, naming the width, unless a CTA of the kernel that
+    the entry ``name`` launches at width H in ``dtype`` fits an SM of
+    ``device``, as the kernel's own ``<name>_resources`` entry reports (no
+    launch; remembered per entry, width, dtype and device)."""
+    key = (name, H, dtype, device.index)
+    if key not in _fits:
+        with torch.cuda.device(device):
+            _fits[key] = resources(name, H, dtype == torch.bfloat16)
+    smem, per_sm, _ = _fits[key]
+    if per_sm == 0:
+        raise ValueError(
+            "{} takes no {} scan at H = {}: a CTA of it needs {} bytes of "
+            "shared memory, more than an SM of {} gives one".format(
+                name, str(dtype)[6:], H, smem,
+                torch.cuda.get_device_name(device)))
 
 
 def launch(name: str, tensors: Sequence, ints: Sequence[int],
@@ -150,6 +177,9 @@ def launch(name: str, tensors: Sequence, ints: Sequence[int],
             "{}: a grid of {} CTAs cannot be resident on {} at once, which "
             "its grid-wide barrier needs".format(
                 name, ints[2] // ints[3], torch.cuda.get_device_name(dev)))
+    if err == _TOO_MUCH_SMEM:
+        raise ValueError("{}: a CTA at H = {} needs more shared memory than "
+                         "an SM gives one".format(name, ints[2]))
     if err == _BAD_UNITS:
         raise ValueError("{}: {} units per CTA is not built (1 to {})".format(
             name, ints[3], MAX_UNITS))

@@ -10,10 +10,13 @@ recomputed in fp64 with the plain versions' arithmetic, and each output
 element of the step is held within a bound built from that element's own
 terms, as ``flash_attention._sum_bound`` builds them:
 
-- one ulp of each rounding to the compute type (the outputs), and for
-  each rounded dg of the backward whose error straddles a rounding
-  point, so that it may round the other way (``bounds.flips``), the gap
-  times |W_h| in the next carry;
+- for the forward's outputs rounded to the compute type, none beyond the
+  rounding itself: each must be a rounding of a value within the
+  recompute's error (:func:`_rounding`, exact), so that a right kernel
+  reads 0 or 1 there; for the backward's, one ulp of each rounding, and
+  for each rounded dg whose error straddles a rounding point, so that it
+  may round the other way (``bounds.flips``), the gap times |W_h| in the
+  next carry;
 - the fp32 sums of the recurrent product in another order: 2 n 2^-24 of
   the sum of the terms' sizes, n = H (forward) or G H (backward);
 - the fp32 cell math: ``CELL`` of the magnitude of each expression (the
@@ -29,7 +32,9 @@ step, which the backward never reads). ``bounds.reading`` is the largest
 |got - want| / bound, at most 1 for a right kernel. The planted faults a
 check must refuse: ``bounds.zero_but_row_1``; :func:`drop_product`, the
 forward's ys at one step recomputed with the recurrent product left out
-for one CTA's block of units; and the backward's, :func:`bwd_faults`.
+for one CTA's block of units; the forward's controls (h carried
+unrounded, the LSTM's c carried in bf16), all four in :func:`fwd_faults`;
+and the backward's, :func:`bwd_faults`.
 """
 from __future__ import annotations
 
@@ -38,8 +43,8 @@ import math
 import torch
 
 from . import rnn_scan
-from .bounds import (BF16_ULP, CELL, F32_U, flips, reading, sigmoid,
-                     zero_but_row_1)
+from .bounds import (BF16_ULP, CELL, F32_U, flips, reading, roundings,
+                     sigmoid, zero_but_row_1)
 
 
 def _ulp(dtype) -> float:
@@ -51,6 +56,19 @@ def _rounded(want, err, dtype):
     ``err`` of ``want``: one ulp, plus the error."""
     u = _ulp(dtype)
     return u * want.abs() + (1 + u) * err
+
+
+def _rounding(want, err, dtype):
+    """(want, bound) of an output rounded to ``dtype`` from a value within
+    ``err`` of ``want`` (fp64), exactly: the output must be one of the
+    roundings of the values within err of want, from the least to the
+    greatest (``bounds.roundings``), so the pair is their midpoint and half
+    their gap. Where they all round alike the bound is 0 and the output
+    must be that rounding; a right kernel reads 0 or 1 (the other rounding
+    of a value whose error straddles a rounding point), a kernel off by a
+    rounding elsewhere reads inf."""
+    lo, hi = roundings(want, err, dtype)
+    return (lo + hi) / 2, (hi - lo) / 2
 
 
 def _tanh(x, err):
@@ -127,15 +145,16 @@ def _lstm_fwd(x, w, h_prev, c_prev, forget_bias):
 
 
 def _fwd_out(step, live, dt, acts, extra):
-    """(want, bound) of ys and the residuals from one step's values: ys 0
-    past the length, residuals there not held."""
+    """(want, bound) of ys and the residuals from one step's values, the
+    rounded ones by :func:`_rounding`: ys 0 past the length, residuals
+    there not held."""
     inf = torch.full_like(step["h"], math.inf)
-    ys = (torch.where(live, step["h"], 0.0),
-          torch.where(live, _rounded(step["h"], step["e_h"], dt), 0.0))
-    a_want = torch.cat([step[k] for k in acts], dim=-1)
-    a_bound = torch.cat([torch.where(live, _rounded(step[k], step["e_" + k],
-                                                    dt), inf)
-                         for k in acts], dim=-1)
+    h, e_h = _rounding(step["h"], step["e_h"], dt)
+    ys = (torch.where(live, h, 0.0), torch.where(live, e_h, 0.0))
+    rounded = [_rounding(step[k], step["e_" + k], dt) for k in acts]
+    a_want = torch.cat([want for want, _ in rounded], dim=-1)
+    a_bound = torch.cat([torch.where(live, bound, inf)
+                         for _, bound in rounded], dim=-1)
     out = {"ys": ys, "acts": (a_want, a_bound)}
     for name, (want, bound) in extra.items():
         out[name] = (want, torch.where(live, bound, inf))
@@ -151,8 +170,7 @@ def gru_fwd_bounds(x_proj, wh, bh, h0, lengths, ys,
     h_prev = rnn_scan.prev_states(ys, h0, lengths, reverse).to(d)
     step = _gru_fwd(x_proj.to(d), wh.to(dt).to(d), bh.to(d), h_prev)
     out = _fwd_out(step, _live(lengths, T), dt, ("r", "z", "n"),
-                   {"hn": (step["hn"], _rounded(step["hn"], step["e_hn"],
-                                                 dt))})
+                   {"hn": _rounding(step["hn"], step["e_hn"], dt)})
     last = _last_state(ys, h0, lengths, reverse).to(d)
     out["h_last"] = (last, torch.zeros_like(last))
     return out
@@ -327,6 +345,89 @@ def drop_product(cell, t, units, **kw):
     bad = ys.clone()
     bad[:, t, units] = torch.where(live, step["h"], 0.0)[:, units].to(dt)
     return bad
+
+
+def fwd_bounds(cell, **kw) -> dict:
+    """:func:`gru_fwd_bounds` (``cell`` "gru") or :func:`lstm_fwd_bounds`
+    ("lstm") on their keyword arguments."""
+    return (gru_fwd_bounds if cell == "gru" else lstm_fwd_bounds)(**kw)
+
+
+def carried_run(cell, h_carry, c_carry=torch.float32, **kw):
+    """(ys, cs) of a forward kernel that carries h rounded to ``h_carry``
+    and the LSTM's c rounded to ``c_carry`` from step to step, each step
+    in fp64 (:func:`_gru_fwd`, :func:`_lstm_fwd`) from the bound
+    function's inputs (``cell`` "gru" or "lstm"), ys rounded to x_proj's
+    dtype, cs (the LSTM's unmasked c', fp32; None for the GRU) as the
+    kernel writes it. ``h_carry`` x_proj's dtype and ``c_carry`` fp32 is
+    the right kernel's carry; the others are wrong kernels a bound must
+    refuse."""
+    d, dt = torch.float64, kw["x_proj"].dtype
+    lengths, reverse = kw["lengths"], kw.get("reverse", False)
+    x = kw["x_proj"].to(d)
+    B, T = x.shape[:2]
+    w = kw["wh"].to(dt).to(d)
+    H = w.shape[0]
+    h = kw["h0"].to(dt).to(d)
+    ys = torch.zeros((B, T, H), dtype=dt, device=x.device)
+    cs = None
+    if cell == "lstm":
+        c = kw["c0"].float().to(d)
+        cs = torch.zeros((B, T, H), device=x.device)
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        live = (t < lengths)[:, None]
+        if cell == "gru":
+            step = _gru_fwd(x[:, t], w, kw["bh"].to(d), h)
+        else:
+            step = _lstm_fwd(x[:, t], w, h, c, kw.get("forget_bias", 1.0))
+            cs[:, t] = step["c"].float()
+            c = torch.where(live, step["c"].to(c_carry).to(d), c)
+        ys[:, t] = torch.where(live, step["h"], 0.0).to(dt)
+        h = torch.where(live, step["h"].to(h_carry).to(d), h)
+    return ys, cs
+
+
+def fwd_faults(cell, t, units, **kw) -> dict:
+    """The readings of wrong forward kernels against the bounds, from the
+    bound function's keyword arguments (the right kernel's ys, and cs for
+    the LSTM), by name:
+
+    - "rows zeroed": ys zeroed on every batch row but row 1;
+    - "product left out": :func:`drop_product` at step t for ``units``;
+    - "fp32 h carry": :func:`carried_run` with h carried unrounded (fp32)
+      while ys is written rounded, each step's ys against the bounds from
+      its own ys (the state a kernel keeping h on chip in fp32 would
+      carry);
+    - "bf16 c carry" (the LSTM): c carried rounded to bf16, its cs and ys
+      against the bounds from its own cs and ys.
+
+    A check must read all of them above 1. Both controls move a step by
+    less than a rounding of h or c, so the bounds tell them only because
+    each rounded output must be a rounding of the recompute's value within
+    its error (:func:`_rounding`) and the fp32 cs is held to its fp32
+    error alone. h carried unrounded moves the LSTM's step only through
+    h W_h, by about 2^-9 of its terms, against the sum's term 2 H 2^-24 of
+    their sizes: the share of ys it puts outside falls as H grows, but
+    stays above none at every width the kernels take (the card tests and
+    ``chip_smoke.py`` 4e hold it up to H 1280); the GRU's z h_prev shows
+    it at every element whose rounding it moves."""
+    bounds = fwd_bounds(cell, **kw)
+    ys = kw["ys"]
+    out = {"rows zeroed": reading(zero_but_row_1(ys), *bounds["ys"]),
+           "product left out": reading(drop_product(cell, t, units, **kw),
+                                       *bounds["ys"])}
+    controls = {"fp32 h carry": (torch.float32, torch.float32)}
+    if cell == "lstm":
+        controls["bf16 c carry"] = (ys.dtype, torch.bfloat16)
+    for name, (h_carry, c_carry) in controls.items():
+        bad_ys, bad_cs = carried_run(cell, h_carry, c_carry, **kw)
+        bad = dict(kw, ys=bad_ys)
+        got = {"ys": bad_ys}
+        if cell == "lstm":
+            bad["cs"] = got["cs"] = bad_cs
+        bad_bounds = fwd_bounds(cell, **bad)
+        out[name] = max(reading(got[k], *bad_bounds[k]) for k in got)
+    return out
 
 
 def _bwd_step(cell, carries, kw):

@@ -19,8 +19,9 @@ LSTM, B 32, T 500, H 512; every row at full length, as the synthetic
 batches have them); the per-step floors, forward and backward, at B 8,
 T 500, H 128 (one unit a CTA: the step's latency with next to no
 product); and cuDNN's ``torch.nn.GRU`` / ``torch.nn.LSTM`` with a
-2H-wide input, forward and forward plus backward (timed only, the
-yardstick). The last line is a JSON object of all of it.
+2H-wide input, forward (with its input GEMM timed beside it, and the
+forward less it: the recurrence alone) and forward plus backward (timed
+only, the yardstick). The last line is a JSON object of all of it.
 
 ``--compare`` runs PARENT_DIR, this checkout, this checkout, PARENT_DIR,
 one process each, so that both designs are timed on one card in one
@@ -61,10 +62,10 @@ def kernel_resources(build):
                                  r"(\d+) bytes spill stores, (\d+) bytes "
                                  r"spill loads.*?Used (\d+) registers", log,
                                  re.S)
-            names = ("scan_bwd_mma_kernelILi{}ELi{}E".format(G, U),
+            names = ("scan_{}_mma_kernelILi{}ELi{}E".format(way, G, U),
                      "scan_{}_kernelI13__nv_bfloat16Li{}ELi{}E".format(
                          way, G, U))
-            smem, ctas = rnn_scan.resources(lib, H) if hasattr(
+            smem, ctas = rnn_scan.resources(lib, H)[:2] if hasattr(
                 rnn_scan, "resources") else (None, None)
             for entry, stores, loads, regs in entries:
                 if any(n in entry for n in names):
@@ -116,10 +117,13 @@ def run_one(root: str) -> dict:
 
         def cudnn_fwd_bwd():
             mod(x)[0].backward(dy)
+        w_ih = mod.weight_ih_l0
         with torch.no_grad():
             fwd_ms = cs.cuda_ms(lambda: cs.scan_call(cell, full, bf, False,
                                                      False), 10)
             cudnn_fwd_ms = cs.cuda_ms(lambda: mod(x), 10)
+            cudnn_gemm_ms = cs.cuda_ms(lambda: x.view(-1, 2 * H) @ w_ih.t(),
+                                       20)
             floor_fwd_ms = cs.cuda_ms(lambda: cs.scan_call(
                 cell, floor, bf, False, False), 10)
         t = {"fwd_ms": fwd_ms,
@@ -127,12 +131,15 @@ def run_one(root: str) -> dict:
                  cell, full, bf, False, True), 10),
              "bwd_ms": cs.cuda_ms(cs.scan_bwd_fn(cell, full, bf, False), 10),
              "cudnn_fwd_ms": cudnn_fwd_ms,
+             "cudnn_gemm_ms": cudnn_gemm_ms,
+             "cudnn_fwd_less_gemm_ms": cudnn_fwd_ms - cudnn_gemm_ms,
              "cudnn_fwd_bwd_ms": cs.cuda_ms(cudnn_fwd_bwd, 5),
              "floor_fwd_us_per_step": 1e3 * floor_fwd_ms / FLOOR[1],
              "floor_bwd_us_per_step": 1e3 * cs.cuda_ms(
                  cs.scan_bwd_fn(cell, floor, bf, False), 10) / FLOOR[1],
              "fwd_bound_ms": cs.scan_bound_ms(cell, full)[0],
              "bwd_bound_ms": cs.scan_bwd_bound_ms(cell, full)[0]}
+        t["fwd_us_per_step"] = 1e3 * t["fwd_ms"] / T
         t["bwd_us_per_step"] = 1e3 * t["bwd_ms"] / T
         result[cell] = t
     return result

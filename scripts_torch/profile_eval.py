@@ -87,8 +87,9 @@ GROUPS = (
     ("flash attention kernel", ("flash_attn_fwd", "flash_attn_bwd")),
     ("fused dropout kernel", ("dropout_mask",)),
     # the GRU and LSTM kernels, rnn_scan::scan_fwd_kernel<...> and
-    # rnn_scan::scan_bwd_kernel<...> (bf16: scan_bwd_mma_kernel<...>)
-    ("rnn scan kernels", ("scan_fwd_kernel",)),
+    # rnn_scan::scan_bwd_kernel<...> (bf16: scan_fwd_mma_kernel<...>,
+    # scan_bwd_mma_kernel<...>)
+    ("rnn scan kernels", ("scan_fwd_kernel", "scan_fwd_mma_kernel")),
     ("rnn scan backward kernels", ("scan_bwd_kernel",
                                    "scan_bwd_mma_kernel")),
     # cuDNN's direct NHWC kernel takes the one-channel first conv of DS2

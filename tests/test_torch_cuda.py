@@ -335,6 +335,17 @@ def test_scan_kernels_refuse_what_they_do_not_take(device):
     x, wh, _, h0, c0, lengths = _scan_inputs(device, "lstm", 8, 9, 128, 0)
     with pytest.raises(ValueError):
         lstm_scan.lstm_scan(x, wh, h0, c0[:4], lengths)
+    # the fp32 LSTM at H = 1280, whose fp32 copy of W_h passes a CTA's
+    # shared memory, forward and backward: refused before any launch
+    x, wh, _, h0, c0, lengths = _scan_inputs(device, "lstm", 4, 3, 1280, 0)
+    before = (lstm_scan.LAUNCHES, lstm_scan.BWD_LAUNCHES)
+    with pytest.raises(ValueError, match="1280"):
+        lstm_scan.lstm_scan(x, wh, h0, c0, lengths)
+    with pytest.raises(ValueError, match="1280"):
+        lstm_scan._bwd_cuda(wh, c0, lengths, x, x[..., :1280].contiguous(),
+                            x[..., :1280].contiguous(), h0, c0, False)
+    torch.cuda.synchronize()
+    assert (lstm_scan.LAUNCHES, lstm_scan.BWD_LAUNCHES) == before
 
 
 def _scan_bwd(cell, x, wh, bh, h0, c0, lengths, dys, dh, dc, reverse,
@@ -412,19 +423,22 @@ def test_scan_backward_kernels_match_plain(device, cell, B, T, H, reverse):
 @pytest.mark.parametrize("cell,B,T,H", [
     ("gru", 8, 37, 128), ("gru", 32, 60, 1024), ("lstm", 8, 37, 128),
     ("lstm", 32, 60, 512), ("lstm", 40, 9, 256), ("lstm", 4, 20, 1024),
-    ("lstm", 40, 9, 1152)])
+    ("lstm", 40, 9, 1152), ("gru", 8, 20, 1280), ("lstm", 8, 20, 1280)])
 def test_bf16_scan_kernels_within_one_step_bounds(device, cell, B, T, H,
                                                   reverse):
-    """The bf16 scan kernels, forward and backward (the tensor-core
-    backward in clusters of two; for the LSTM at H = 1024 and 1152 each
-    warp's slice of dg in two windows, at 1152 in three parts each), each
-    step held from the kernel's own state within ``ops/scan_bounds``'s
-    per-element bounds; the planted faults refused (the output zeroed on
-    all rows but row 1; one step without the recurrent product for one
-    CTA's units: the forward's ys, the backward's carry with dx from it;
-    every backward carry rounded to bf16, up to G H = 3072); two backward
-    calls bit-identical, carries and all, and their dx, dh0 (and dc0)
-    bit-identical to the launch's without carries."""
+    """The bf16 scan kernels, forward and backward (both on the tensor
+    cores in clusters of two; for the LSTM from H = 1024 each warp's slice
+    of dg in two windows, at 1152 and 1280 in three parts each; at H =
+    1280 the widest the kernels take), each step held from the kernel's
+    own state within ``ops/scan_bounds``'s per-element bounds; the planted
+    faults and controls refused (the output zeroed on all rows but row 1;
+    one step without the recurrent product for one CTA's units: the
+    forward's ys, the backward's carry with dx from it; the forward's h
+    carried unrounded and the LSTM's c carried in bf16,
+    ``scan_bounds.fwd_faults``; every backward carry rounded to bf16, up
+    to G H = 3072); two forward calls bit-identical; two
+    backward calls bit-identical, carries and all, and their dx, dh0 (and
+    dc0) bit-identical to the launch's without carries."""
     from openseq2seq_tpu_torch.ops import bounds as eb
     from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan, rnn_scan
     from openseq2seq_tpu_torch.ops import scan_bounds as sb
@@ -470,16 +484,18 @@ def test_bf16_scan_kernels_within_one_step_bounds(device, cell, B, T, H,
                       dys=dys, dh_last=dh, dc_last=dc, carries=got[3],
                       ccarries=got[4], reverse=reverse)
     again, plain = bwd(), bwd(carries=False)
+    fwd_again = _scan(cell, x, wh, bh, h0, c0, lengths, reverse)
     torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(fwd_again,
+                                                 outs.values()))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert len(plain) == len(got) - (1 if cell == "gru" else 2)
     assert all(torch.equal(a, b) for a, b in zip(plain, got))
     bounds = sb.bwd_bounds(cell, **bwd_kw)
     for readings in (eb.readings(outs, fwd), eb.readings(bwd_outs, bounds)):
         assert max(readings.values()) <= 1.0, readings
-    assert eb.reading(eb.zero_but_row_1(ys), *fwd["ys"]) > 1.0
-    assert eb.reading(sb.drop_product(cell, T // 2, units, **kw),
-                      *fwd["ys"]) > 1.0
+    faults = sb.fwd_faults(cell, T // 2, units, **kw)
+    assert min(faults.values()) > 1.0, faults
     faults = sb.bwd_faults(cell, T // 2, units, got[0], **bwd_kw)
     if acts.shape[2] > sb.BF16_CARRY_MAX_GH:
         del faults["bf16 carry"]
@@ -487,16 +503,39 @@ def test_bf16_scan_kernels_within_one_step_bounds(device, cell, B, T, H,
 
 
 @pytest.mark.parametrize("cell,H", [("gru", 1024), ("lstm", 512),
-                                    ("lstm", 1152)])
+                                    ("lstm", 1152), ("lstm", 1280)])
 def test_bf16_scan_backward_resources(device, cell, H):
     """The bf16 backward's C entry reports the shared memory the launcher
-    asks for and one CTA an SM (the grid of H / U = 128 CTAs is resident
-    on an H100's 132 SMs); nothing is launched."""
+    asks for and one CTA an SM, and the grid of H / U = 128 CTAs resident
+    at once in clusters of two on an H100's 132 SMs; the fp32 backward's
+    copy of W_h's rows fits but for the LSTM from H = 1152, which the
+    wrapper then refuses; nothing is launched."""
     from openseq2seq_tpu_torch.ops import rnn_scan
-    smem, ctas = rnn_scan.resources(cell + "_scan_bwd", H)
+    smem, ctas, resident = rnn_scan.resources(cell + "_scan_bwd", H)
     assert 200_000 < smem <= 227 * 1024 and ctas == 1
-    fwd_smem, fwd_ctas = rnn_scan.resources(cell + "_scan_fwd", H)
-    assert fwd_smem > 0 and fwd_ctas >= 1
+    assert resident >= 128
+    _, ctas32, _ = rnn_scan.resources(cell + "_scan_bwd", H, bf16=False)
+    assert (ctas32 == 0) == (cell == "lstm" and H >= 1152)
+
+
+@pytest.mark.parametrize("cell,H", [("gru", 512), ("gru", 1024),
+                                    ("gru", 1280), ("lstm", 512),
+                                    ("lstm", 1024), ("lstm", 1280)])
+def test_bf16_scan_forward_resources(device, cell, H):
+    """The bf16 forward's C entry: its dynamic shared memory (its rooms
+    for h and its partial sums) is less than the fp32 forward's, which
+    holds an fp32 copy of W_h's columns (4 G H U bytes), and the grid of
+    H / U = 128 CTAs is resident at once in clusters of two; the fp32
+    forward at H = 1280 fits for the GRU and not for the LSTM, which the
+    wrapper then refuses; nothing is launched."""
+    from openseq2seq_tpu_torch.ops import rnn_scan
+    G, U = (3 if cell == "gru" else 4), rnn_scan.units_per_cta(H)
+    smem, ctas, resident = rnn_scan.resources(cell + "_scan_fwd", H)
+    smem32, ctas32, _ = rnn_scan.resources(cell + "_scan_fwd", H,
+                                           bf16=False)
+    assert 0 < smem < smem32 and smem32 > 4 * G * H * U
+    assert ctas >= 1 and resident >= 128
+    assert (ctas32 == 0) == (cell == "lstm" and H == 1280)
 
 
 def _relpos_inputs(device, B, H, T, Dh, D, seed):

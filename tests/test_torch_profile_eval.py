@@ -203,6 +203,11 @@ def test_busy_time_is_the_union_of_intervals():
     ("void rnn_scan::scan_bwd_kernel<__nv_bfloat16, 3, 8, (anonymous "
      "namespace)::GruBwdCell>(rnn_scan::BwdParams)",
      "rnn scan backward kernels"),
+    ("void rnn_scan::scan_fwd_mma_kernel<3, 8, (anonymous "
+     "namespace)::GruCell>(rnn_scan::Params)", "rnn scan kernels"),
+    ("void rnn_scan::scan_bwd_mma_kernel<4, 4, (anonymous "
+     "namespace)::LstmBwdCell>(rnn_scan::BwdParams)",
+     "rnn scan backward kernels"),
     ("void (anonymous namespace)::flash_relpos_fwd_kernel<__nv_bfloat16, "
      "64>(__nv_bfloat16 const*)", "rel-pos flash kernel"),
     ("void (anonymous namespace)::conformer_conv_pw1_kernel<__nv_bfloat16>"

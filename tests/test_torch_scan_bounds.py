@@ -10,8 +10,10 @@ the same roundings to bf16.
   the planted faults read above 1: the output zeroed on every batch row
   but row 1; one step without the recurrent product for one CTA's block
   of units (the forward's ys; the backward's carry into the step, with
-  dx recomputed from it, which dx's bound alone cannot see); every
-  backward carry rounded to bf16.
+  dx recomputed from it, which dx's bound alone cannot see); the forward
+  run with h carried unrounded, and the LSTM's with c carried in bf16
+  (the rounded outputs are held exactly: each a rounding of a value
+  within the recompute's error); every backward carry rounded to bf16.
 - ``conformer_conv_module_bounds`` and ``conformer_conv_module_bwd_bounds``:
   each stage of the bf16 ``conformer_conv_module_plain`` and its backward,
   from the plain version's own intermediates (those the kernels keep),
@@ -134,6 +136,39 @@ def test_scan_bounds_refuse_planted_faults(cell, way):
     assert eb.reading(bad_dx, *bad["dx"]) <= 1.0
     want, bound = bad["carry"]
     assert eb.reading(carries[:, 18], want[:, 18], bound[:, 18]) > 10
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_scan_bounds_refuse_forward_controls(cell, reverse):
+    """``scan_bounds.fwd_faults`` on the bf16 plain forward: besides ys
+    zeroed but in row 1 and a step without the recurrent product, the
+    forward run with h carried unrounded (fp32) while ys is written in
+    bf16, and for the LSTM with c carried in bf16, read above 1 against
+    the bounds from their own ys (and cs); the same run with the right
+    carries (h in bf16, c in fp32) reads at most 1."""
+    c = _scan_case(cell, 13 + reverse)
+    (_, _, kw), _ = _scan_run(cell, c, reverse)
+    U = rnn_scan.units_per_cta(128)
+    faults = sb.fwd_faults(cell, 18, slice(U, 2 * U), **kw)
+    names = {"rows zeroed", "product left out", "fp32 h carry"}
+    assert set(faults) == names | ({"bf16 c carry"} if cell == "lstm"
+                                   else set())
+    assert min(faults.values()) > 1.0, faults
+    ys, cs = sb.carried_run(cell, BF, **kw)
+    right = dict(kw, ys=ys, **({"cs": cs} if cell == "lstm" else {}))
+    bounds = sb.fwd_bounds(cell, **right)
+    assert eb.reading(ys, *bounds["ys"]) <= 1.0
+    if cell == "lstm":
+        assert eb.reading(cs, *bounds["cs"]) <= 1.0
+    # the rounded outputs are held exactly: ys moved by 2^-7 of itself (a
+    # rounding or two) at one live element whose bound is 0 reads inf
+    want, bound = bounds["ys"]
+    i = tuple(torch.nonzero((bound == 0) & (want != 0))[0].tolist())
+    bad = ys.clone()
+    bad[i] = (ys[i].float() * (1 + 2.0 ** -7)).to(BF)
+    assert bad[i] != ys[i]
+    assert eb.reading(bad, *bounds["ys"]) == float("inf")
 
 
 def test_plain_backward_carries():
