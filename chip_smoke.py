@@ -110,12 +110,17 @@ Phases, one informative line or a few each:
 4h. the Conformer conv module kernel against
    ``conformer_conv_module_plain`` at Conformer-M's shape (B=64, T=250,
    D=256, k=31), at D=512 and at an odd T=37 with a zero-length row:
-   fp32 (TF32 off) max abs err 1e-4; bf16 the kernel's u (its first
-   launch's output) held from x and y from that u within
-   ``conformer_conv_module_bounds`` (reading at most 1), y zeroed but in
-   row 1 refused; two calls bit-identical; times of the kernel and the
-   plain version, and of the module's unfused torch chain for
-   information (no single PyTorch call computes the module);
+   fp32 (TF32 off) max abs err 1e-4; bf16 (one fused launch after the
+   weights' rounding pre-pass; its tile, shared memory and CTAs an SM
+   printed) the kernel's u (written out by the CTA that owns the frame)
+   held from x and y from that u within ``conformer_conv_module_bounds``
+   (reading at most 1), the planted faults of ``fwd_faults`` (y zeroed
+   but in row 1; a tile's y from u without its halo) refused, y
+   bit-identical with u written out and at every other tile of frames
+   that fits (other tile edges); two calls bit-identical; times of the
+   kernel and the plain version, and of the module's unfused torch chain
+   for information (no single PyTorch call computes the module); what it
+   does not take it refuses, a tile that does not fit an SM too;
 4i. the rel-pos flash backward kernels (dq, then dkv, after the forward
    kernel with its lse) against ``relpos_attention_bwd_plain`` at the
    shapes of 4g: fp32 (TF32 off) dqu, dqp, dk, dv max abs err 1e-4; bf16
@@ -131,11 +136,17 @@ Phases, one informative line or a few each:
 4j. the conv module backward kernels against
    ``conformer_conv_module_bwd_plain`` at the shapes of 4h: dx and the ten
    weight gradients, fp32 (TF32 off) within 1e-5 of max(1, |gradient|)
-   (sums over up to 16,000 rows in another order); bf16 each of the
-   kernels' fp32 intermediates (their workspace) held from the ones
-   before it, dx and the ten weight gradients from them, within
-   ``conformer_conv_module_bwd_bounds`` (reading at most 1), dx zeroed
-   but in row 1 refused; two calls bit-identical;
+   (sums over up to 16,000 rows in another order); bf16 (six launches;
+   their tiles, shared memory, CTAs an SM and the workspace printed) each
+   of the kernels' fp32 intermediates (written out where asked for) held
+   from the ones before it, dx and the ten weight gradients from them,
+   within ``conformer_conv_module_bwd_bounds`` (db1 and dwd at the
+   kernels' summation depth; reading at most 1), the planted faults of
+   ``bwd_faults`` (dx zeroed but in row 1; a CTA's partial left out of
+   dw1 and of dwd; db1 from bf16 da) refused, the gradients bit-identical
+   with the intermediates written out, the second launch's a the
+   first's, and the intermediates, dx, dw1 and dw2 bit-identical at every
+   other tile that fits; two calls bit-identical;
    times of the kernels and the plain version, and of the module's
    unfused torch chain forward plus backward under autograd as the
    yardstick, at Conformer-M's shape in bf16; what it does not take, it
@@ -1677,11 +1688,12 @@ CONV_CASES = (
     ("odd T=37", 5, 37, 256, 31),
 )
 CONV_FP32_ATOL = 1e-4
-# bf16: the kernel's u (its first launch's output) held from x and its y
-# from that u, element by element within ``conformer_conv_module_bounds``
-# (one ulp of each rounding to bf16, sums in another order, the fp32
-# chain); the reading is the largest |kernel - fp64 recompute| / bound, at
-# most 1, and y zeroed on every batch row but row 1 must read above 1
+# bf16: the kernel's u (written out by the CTA that owns the frame) held
+# from x and its y from that u, element by element within
+# ``conformer_conv_module_bounds`` (one ulp of each rounding to bf16, sums
+# in another order, the fp32 chain); the reading is the largest |kernel -
+# fp64 recompute| / bound, at most 1, and each of ``fwd_faults`` must read
+# above 1
 
 
 def conv_case(B, T, D, k, seed, device):
@@ -1740,12 +1752,31 @@ def phase_conformer_conv(card):
             if dtype == torch.bfloat16:
                 y, inter = cc.conformer_conv_module_cuda(
                     *args, intermediates=True)
+                check(torch.equal(y, got), "{}: y differs with u written "
+                      "out".format(name))
+                tile, smem, ctas = cc.fwd_resources(D, k)
+                print("[conv] {} bf16: one fused launch of {} frames a CTA, "
+                      "{} bytes of shared memory, {} CTA(s) an SM, after a "
+                      "pre-pass that rounds w1 and w2 to bf16 ({} bytes); y "
+                      "bit-identical with u written out".format(
+                          name, tile, smem, ctas, 6 * D * D), flush=True)
                 bounds = cc.conformer_conv_module_bounds(
                     args[0], lengths, inter["u"], *weights)
                 reading = max(reading, print_readings(
                     "conv " + name, eb.readings(dict(inter, y=y), bounds),
-                    {"y rows zeroed": eb.reading(eb.zero_but_row_1(y),
-                                                 *bounds["y"])}))
+                    cc.fwd_faults(bounds, inter["u"], y, weights, tile)))
+                # other tiles put the tile edges elsewhere: a halo frame's
+                # u must be its owner's bits
+                for t in (64, 32, 16):
+                    if t != tile and cc.fwd_resources(D, k, t)[2] > 0:
+                        yt, it = cc.conformer_conv_module_cuda(
+                            *args, intermediates=True, tile=t)
+                        check(torch.equal(yt, y) and
+                              torch.equal(it["u"], inter["u"]),
+                              "{}: tile {} differs".format(name, t))
+                        print("[conv] {} bf16: y and u at {} frames a CTA "
+                              "bit-identical to {}".format(name, t, tile),
+                              flush=True)
             diff = (got.float() - want.float()).abs()
             err = float(diff.max())
             rel = float((diff / want.float().abs().clamp(min=1.0)).max())
@@ -1786,18 +1817,24 @@ def phase_conformer_conv(card):
     # what the kernel does not take, it refuses
     x, lengths, w = conv_case(2, 9, 96, 7, 0, dev)
     x2, lengths2, w2 = conv_case(2, 9, 128, 65, 0, dev)
-    for bad in ((x, lengths) + w, (x2, lengths2) + w2,
-                (x2[..., :64].double(), lengths2) + w2,
-                (x2.transpose(0, 1), lengths2) + w2,
-                (x2, lengths2.long()) + w2):
+    x3, lengths3, w3 = conv_case(2, 9, 512, 63, 0, dev)
+    before = cc.LAUNCHES
+    for bad, tile in (((x, lengths) + w, 0), ((x2, lengths2) + w2, 0),
+                      ((x2[..., :64].double(), lengths2) + w2, 0),
+                      ((x2.transpose(0, 1), lengths2) + w2, 0),
+                      ((x2, lengths2.long()) + w2, 0),
+                      ((x3.bfloat16(), lengths3) + w3, 64)):
         try:
-            cc.conformer_conv_module_cuda(*bad)
+            cc.conformer_conv_module_cuda(*bad, tile=tile)
         except ValueError:
             continue
         raise RuntimeError("chip_smoke check failed: a bad conv module "
                            "input launched")
+    check(cc.LAUNCHES == before, "a refused conv module input counted")
     print("[conv] widths, taps, dtype, layout and lengths outside the "
-          "kernel's limits are refused", flush=True)
+          "kernel's limits are refused, and a tile of 64 frames at D 512, "
+          "k 63 (more shared memory than an SM gives a CTA), before any "
+          "launch", flush=True)
     times["bound_reading"] = reading
     return worst, times
 
@@ -2002,12 +2039,13 @@ def phase_relpos_bwd(card):
 
 # the gradients' largest error, relative to max(1, their largest
 # magnitude): fp32 (TF32 off) sums over up to 16,000 rows in another order.
-# bf16: each of the kernels' fp32 intermediates (their workspace) held from
-# the ones before it, dx from their dh0 and the ten weight gradients from
-# their intermediates, element by element within
-# ``conformer_conv_module_bwd_bounds``; the reading is the largest
-# |kernel - fp64 recompute| / bound, at most 1, and dx zeroed on every
-# batch row but row 1 must read above 1
+# bf16: each of the kernels' fp32 intermediates held from the ones before
+# it, dx from their dh0 and the ten weight gradients from their
+# intermediates, element by element within
+# ``conformer_conv_module_bwd_bounds`` (db1 and dwd at the kernels'
+# summation depth, ``sum_depth``); the reading is the largest |kernel -
+# fp64 recompute| / bound, at most 1, and each of ``bwd_faults`` must read
+# above 1
 CONV_BWD_FP32_TOL = 1e-5
 
 
@@ -2069,13 +2107,43 @@ def phase_conformer_conv_bwd(card):
             else:
                 grads, inter = cc.conformer_conv_module_cuda_bwd(
                     *args, intermediates=True)
+                check(all(torch.equal(a, b) for a, b in zip(grads, got)),
+                      "{}: gradients differ with the intermediates written "
+                      "out".format(name))
+                check(torch.equal(inter["a again"], inter["a"]),
+                      "{}: the second launch's a differs".format(name))
+                res = cc.bwd_resources(D, k)
+                print("[conv bwd] {} bf16: 6 launches (the weights' pre-"
+                      "pass; then, as (tile, bytes of shared memory, CTAs "
+                      "an SM), launch 1 {}, 2 {}, 3 {}, 4 {}; the "
+                      "reduction); workspace {} bytes; the gradients "
+                      "bit-identical with the intermediates written out, "
+                      "the second launch's a the first's".format(
+                          name, *res, cc.bwd_workspace(B, T, D, k)),
+                      flush=True)
+                tile = res[1][0]
                 bounds = cc.conformer_conv_module_bwd_bounds(
-                    args[0], lengths, inter, *weights, args[-1])
+                    args[0], lengths, inter, *weights, args[-1],
+                    depth=cc.sum_depth(B, T, tile))
                 reading = max(reading, print_readings(
                     "conv bwd " + name, eb.readings(
                         dict(inter, **dict(zip(cc.GRADS, grads))), bounds),
-                    {"dx rows zeroed": eb.reading(
-                        eb.zero_but_row_1(grads[0]), *bounds["dx"])}))
+                    cc.bwd_faults(bounds, lengths, inter, grads, weights[4],
+                                  tile)))
+                for t in (64, 32, 16):
+                    if all(r[0] == t or j > 1 for j, r in enumerate(res)) \
+                            or not all(r[2] > 0 for r in
+                                       cc.bwd_resources(D, k, t)):
+                        continue
+                    gt, it = cc.conformer_conv_module_cuda_bwd(
+                        *args, intermediates=True, tile=t)
+                    check(all(torch.equal(it[n], inter[n]) for n in inter)
+                          and all(torch.equal(gt[j], grads[j])
+                                  for j in (0, 3, 9)),
+                          "{}: tile {} differs".format(name, t))
+                    print("[conv bwd] {} bf16: the intermediates, dx, dw1 "
+                          "and dw2 at {} frames a CTA bit-identical".format(
+                              name, t), flush=True)
             if i > 0 or dtype == torch.float32:
                 continue
             module = _ConvModule(D, k, dtype, False,
@@ -2103,17 +2171,23 @@ def phase_conformer_conv_bwd(card):
                       times["unfused_ms"], card), flush=True)
     # what the backward does not take, it refuses
     x, lengths, w = conv_case(2, 9, 128, 7, 0, dev)
-    for bad in ((x, lengths) + w + (x.bfloat16(),),
-                (x, lengths) + w + (x[:, :8],),
-                (x.transpose(0, 1), lengths) + w + (x,),
-                (x, lengths.long()) + w + (x,)):
+    x3, lengths3, w3 = conv_case(2, 9, 512, 63, 0, dev)
+    before = cc.BWD_LAUNCHES
+    for bad, tile in (((x, lengths) + w + (x.bfloat16(),), 0),
+                      ((x, lengths) + w + (x[:, :8],), 0),
+                      ((x.transpose(0, 1), lengths) + w + (x,), 0),
+                      ((x, lengths.long()) + w + (x,), 0),
+                      ((x3.bfloat16(), lengths3) + w3 + (x3.bfloat16(),),
+                       64)):
         try:
-            cc.conformer_conv_module_cuda_bwd(*bad)
+            cc.conformer_conv_module_cuda_bwd(*bad, tile=tile)
         except ValueError:
             continue
         raise RuntimeError("chip_smoke check failed: a bad conv module "
                            "backward input launched")
-    print("[conv bwd] wrong dtype, shape, layout and lengths are refused",
+    check(cc.BWD_LAUNCHES == before, "a refused conv backward counted")
+    print("[conv bwd] wrong dtype, shape, layout and lengths are refused, "
+          "and a tile of 64 frames at D 512, k 63, before any launch",
           flush=True)
     times["bound_reading"] = reading
     return worst, times

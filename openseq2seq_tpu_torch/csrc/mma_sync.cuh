@@ -3,8 +3,9 @@
 // flash_attn.cuh): a 32-bit load of two bf16, two fp32 rounded and packed,
 // the m16n8k16 product with fp32 accumulation, ldmatrix's four 8 x 8
 // matrices from shared memory, plain or transposed, the A and B fragments
-// read with it from row-major tiles, a row of products, accumulators as
-// the next product's A fragments, and 16-byte cp.async staging.
+// read with it from row-major tiles (A also from a transposed one), a row
+// of products, accumulators as the next product's A fragments, and
+// 16-byte cp.async staging.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -80,6 +81,16 @@ __device__ __forceinline__ void a_frag(unsigned (&a)[4],
                                        int r0, int kk) {
   const int lane = threadIdx.x % 32;
   ldsm_x4(a, tile + (r0 + lane % 16) * stride + kk + (lane / 16) * 8);
+}
+
+// the same from a tile stored [k][m] (A = the tile transposed), transposed
+// by ldmatrix
+__device__ __forceinline__ void a_frag_km(unsigned (&a)[4],
+                                          const __nv_bfloat16* tile,
+                                          int stride, int m0, int kk) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4_trans(a, tile + (kk + lane % 8 + (lane / 16) * 8) * stride + m0 +
+                       ((lane / 8) % 2) * 8);
 }
 
 // B fragments of n-tiles n0 and n0 + 8 over k = kk .. kk + 15 from a tile

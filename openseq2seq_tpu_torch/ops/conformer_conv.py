@@ -33,19 +33,28 @@ are ``kernel_supports``: D a multiple of 64 from 64 to 512 (Conformer-M's
 For CPU tensors the ops run their plain versions
 (:func:`conformer_conv_module_plain`, :func:`conformer_conv_module_bwd_plain`);
 for CUDA tensors they launch the kernels (the products on the tensor cores
-for bf16, on the CUDA cores for fp32) or raise, outside those limits too.
-There is no other fallback. ``LAUNCHES`` counts calls that launch the
-forward kernels (its two launches, see the source, count once) and
-``BWD_LAUNCHES`` calls that launch the backward's.
+for bf16, on the CUDA cores for fp32) or raise, outside those limits too,
+and where a bf16 launch's CTA would not fit an SM (:func:`check_fits`,
+from the kernels' own resource entries, before any launch). There is no
+other fallback. ``LAUNCHES`` counts calls that launch the forward kernels
+(bf16: the weights' rounding pre-pass and one fused launch; fp32: two
+launches; a call counts once) and ``BWD_LAUNCHES`` calls that launch the
+backward's (six for bf16, fifteen for fp32).
+
+The bf16 checks (below) hold every stage from the kernels' own state and
+must refuse planted faults: ``bounds.zero_but_row_1``, and those a tiled
+design could commit (:func:`fwd_faults`, :func:`bwd_faults`).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
 
-from .bounds import BF16_ULP, CELL, F32_U, flips, sigmoid
+from .bounds import (BF16_ULP, CELL, F32_U, flips, reading, sigmoid,
+                     zero_but_row_1)
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -58,29 +67,95 @@ EPS = 1e-6
 MAX_DIM = 512
 MAX_KERNEL_SIZE = 63
 _fns = {}
+_fits = {}        # (entry, D, k, tile, device) -> the bf16 resources
+_workspaces = {}  # (B, T, D, k, bf16, tile, device) -> bytes
 
 
 def _kernel(entry: str = KERNEL):
     fn = _fns.get(entry)
     if fn is None:
         from ..kernels import build
+        lib = build.load(BWD_KERNEL if entry.startswith(BWD_KERNEL)
+                         else KERNEL)
+        fn = getattr(lib, entry)
         if entry == KERNEL:
-            fn = build.load(KERNEL).conformer_conv_fwd
-            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + \
+            # x, lens, 10 weights, wb, u, y; B, T, D, k, is_bf16, tile
+            fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + \
                 [ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         elif entry == BWD_KERNEL:
-            # x, dy, lens, 10 weights, workspace, dx, 10 gradients
-            fn = build.load(BWD_KERNEL).conformer_conv_bwd
-            fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 5 + \
+            # x, dy, lens, 10 weights, workspace, dx, 10 gradients, inter
+            fn.argtypes = [ctypes.c_void_p] * 26 + [ctypes.c_int] * 6 + \
                 [ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        else:
-            fn = build.load(BWD_KERNEL).conformer_conv_bwd_workspace
-            fn.argtypes = [ctypes.c_int] * 4
+        elif entry.endswith("_workspace"):
+            fn.argtypes = [ctypes.c_int] * 6
             fn.restype = ctypes.c_longlong
+        else:                                   # the *_resources entries
+            fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
         _fns[entry] = fn
     return fn
+
+
+def fwd_resources(D: int, k: int, tile: int = 0) -> tuple:
+    """(frames a CTA, dynamic shared memory in bytes, CTAs an SM) of the
+    bf16 forward's fused kernel at width D and k taps, from its C entry
+    ``conformer_conv_fwd_resources`` (nothing launched): ``tile`` 0 takes
+    the largest of 64, 32, 16 frames that fits an SM, else that tile; 0
+    frames or 0 CTAs where it does not fit. Needs a CUDA device."""
+    out = (ctypes.c_int * 3)()
+    err = _kernel(KERNEL + "_resources")(D, k, tile, out)
+    if err != 0:
+        raise RuntimeError("{}_resources failed: CUDA error {}".format(
+            KERNEL, err))
+    return tuple(out)
+
+
+def bwd_resources(D: int, k: int, tile: int = 0) -> tuple:
+    """Four (tile, dynamic shared memory, CTAs an SM) of the bf16
+    backward's launches 1 to 4 (``csrc/conformer_conv_bwd.cu``): the
+    frames a CTA of launches 1 and 2 (chosen as ``fwd_resources`` does),
+    the rows of launch 3, the 128 columns of launch 4; from its C entry
+    ``conformer_conv_bwd_resources``, nothing launched."""
+    out = (ctypes.c_int * 12)()
+    err = _kernel(BWD_KERNEL + "_resources")(D, k, tile, out)
+    if err != 0:
+        raise RuntimeError("{}_resources failed: CUDA error {}".format(
+            BWD_KERNEL, err))
+    return tuple(tuple(out[i:i + 3]) for i in range(0, 12, 3))
+
+
+def bwd_workspace(B: int, T: int, D: int, k: int, bf16: bool = True,
+                  tile: int = 0) -> int:
+    """The backward's workspace in bytes, from its C entry
+    ``conformer_conv_bwd_workspace`` (the bf16 chain's: h0, sw and da in
+    bf16, dc in fp32, the rounded weights and the partials; the fp32
+    chain's: its fp32 intermediates and partials)."""
+    return _kernel(BWD_KERNEL + "_workspace")(B, T, D, k, int(bf16), tile)
+
+
+def check_fits(entry: str, D: int, k: int, tile: int,
+               device: torch.device) -> None:
+    """Raise ValueError, naming the shape, where a CTA of a bf16 launch of
+    ``entry`` (``KERNEL`` or ``BWD_KERNEL``) at (D, k, tile) does not fit
+    an SM of ``device``, as the kernels' own resource entries report it
+    (``fwd_resources``, ``bwd_resources``; remembered); nothing is
+    launched."""
+    key = (entry, D, k, tile, device.index)
+    if key not in _fits:
+        with torch.cuda.device(device):
+            _fits[key] = (fwd_resources(D, k, tile),) if entry == KERNEL \
+                else bwd_resources(D, k, tile)
+    for i, (tm, smem, ctas) in enumerate(_fits[key]):
+        if tm == 0 or ctas == 0:
+            raise ValueError(
+                "the conv module's bf16 {} takes no CTA at D = {}, k = {}, "
+                "tile {}: it needs {} bytes of shared memory, more than an "
+                "SM of {} gives one".format(
+                    "forward" if entry == KERNEL else
+                    "backward launch {}".format(i + 1), D, k,
+                    tile or "any", smem, torch.cuda.get_device_name(device)))
 
 
 def supported(conv_norm: str) -> bool:
@@ -385,15 +460,21 @@ def conformer_conv_module_bounds(x, lengths, u, ln1_scale, ln1_bias,
                                                   _sum(y, b2.abs(), 1)))}
 
 
-def bwd_intermediates(work, B, T, D) -> dict:
-    """The backward kernels' fp32 intermediates, views into their
-    workspace at ``csrc/conformer_conv_bwd.cu``'s ``Layout``: h0, a, c,
-    ds, sw, dc, da and dh0, (B, T, D) or (B, T, 2D)."""
+# the backward's fp32 intermediates in order, with their widths in D: the
+# fp32 chain's workspace begins with the first eight; the bf16 chain writes
+# all nine to the buffer ``intermediates=True`` passes it, "a again" being
+# its second launch's recompute of a (the same bits as the first's)
+INTERMEDIATES = (("h0", 1), ("a", 2), ("c", 1), ("ds", 1), ("sw", 1),
+                 ("dc", 1), ("da", 2), ("dh0", 1), ("a again", 2))
+
+
+def bwd_intermediates(buf, B, T, D, count: int = len(INTERMEDIATES)) -> dict:
+    """Views of the backward kernels' fp32 intermediates in ``buf`` (the
+    first ``count`` of ``INTERMEDIATES``, each (B, T, width D))."""
     nd = B * T * D
-    f = work.view(torch.float32)
+    f = buf.view(torch.float32)
     out, at = {}, 0
-    for name, width in (("h0", 1), ("a", 2), ("c", 1), ("ds", 1), ("sw", 1),
-                        ("dc", 1), ("da", 2), ("dh0", 1)):
+    for name, width in INTERMEDIATES[:count]:
         out[name] = f[at:at + width * nd].view(B, T, width * D)
         at += width * nd
     return out
@@ -403,12 +484,16 @@ def conformer_conv_module_bwd_bounds(x, lengths, inter, ln1_scale, ln1_bias,
                                      pw1_kernel, pw1_bias, dw_kernel,
                                      dw_bias, ln2_scale, ln2_bias,
                                      pw2_kernel, pw2_bias, dy,
-                                     eps: float = EPS) -> dict:
+                                     eps: float = EPS,
+                                     depth: dict | None = None) -> dict:
     """Bounds of a bf16 backward's intermediates ``inter`` (h0, a, c, ds,
     sw, dc, da, dh0: its fp32 values, each held from the ones before it)
     and of its outputs (dx, held from its dh0, and the ten weight
     gradients from its intermediates): ``{name: (want, bound)}``, fp64,
-    the gradients named as in ``GRADS``."""
+    the gradients named as in ``GRADS``. ``depth`` (``sum_depth``) gives
+    the most additions a term of db1 or dwd passes through in the
+    kernels' fixed order of summation; without it those sums are held
+    for any order (B T terms)."""
     ln1s, ln1b, w1, b1, wd, bd, ln2s, ln2b, w2, b2 = (w.double() for w in (
         ln1_scale, ln1_bias, pw1_kernel, pw1_bias, dw_kernel, dw_bias,
         ln2_scale, ln2_bias, pw2_kernel, pw2_bias))
@@ -461,22 +546,111 @@ def conformer_conv_module_bwd_bounds(x, lengths, inter, ln1_scale, ln1_bias,
         prod = torch.einsum("btd,bte->de", lhs, rhs)
         return prod, _sum(prod, torch.einsum("btd,bte->de", lhs.abs(),
                                              rhs.abs()), N)
+    depth = depth or {"db1": N, "dwd": N}
     out["dw1"] = rows_product(_rnd(h0_k), _rnd(da_k))
     out["db1"] = (da_k.sum(dim=(0, 1)),
-                  _sum(da_k.sum(dim=(0, 1)), da_k.abs().sum(dim=(0, 1)), N))
+                  _sum(da_k.sum(dim=(0, 1)), da_k.abs().sum(dim=(0, 1)),
+                       depth["db1"]))
     up, e_up = (F.pad(v, (0, 0, P, k - 1 - P)) for v in (u, e_u))
     dwd = torch.stack([(up[:, j:j + T] * dc_k).sum(dim=(0, 1))
                        for j in range(k)])
     out["dwd"] = (dwd, torch.stack([
         (e_up[:, j:j + T] * dc_k.abs()).sum(dim=(0, 1)) for j in range(k)]) +
         _sum(dwd, torch.stack([(up[:, j:j + T] * dc_k).abs().sum(dim=(0, 1))
-                               for j in range(k)]), N))
+                               for j in range(k)]), depth["dwd"]))
     out["dbd"] = (dc_k.sum(dim=(0, 1)),
                   _sum(dc_k.sum(dim=(0, 1)), dc_k.abs().sum(dim=(0, 1)), N))
     out["dln2s"], out["dln2b"] = (dln2s, e_dln2s), (dln2b, e_dln2b)
     out["dw2"] = rows_product(_rnd(sw_k), dy)
     out["db2"] = (dy.sum(dim=(0, 1)),
                   _sum(dy.sum(dim=(0, 1)), dy.abs().sum(dim=(0, 1)), N))
+    return out
+
+
+# The planted faults a check must refuse, each a wrong kernel's output read
+# against the right one's bounds: besides ``bounds.zero_but_row_1``, the
+# faults a tiled design could commit. ``tile`` is the frames a CTA owns
+# (the forward kernel's, or the backward's second launch's: the
+# ``*_resources`` entries report them).
+
+def fault_tile(T: int, tile: int) -> tuple:
+    """(t0, n): the frames of batch row 0 whose halo :func:`fwd_faults`
+    drops: the kernel's second tile where the row holds three, else its
+    middle third (a shorter row's tile edges lie at 0 and T)."""
+    if 3 * tile <= T:
+        return tile, tile
+    return T // 3, max(1, T // 3)
+
+
+def dw_splits(N: int) -> tuple:
+    """(splits, rows a split) of the B T rows over which the backward sums
+    dw1 and dw2: about 1024 rows a split, at most 32 splits, the rows a
+    multiple of 64 (``csrc/conformer_conv_bwd.cu``, ``Plan``)."""
+    splits = min(32, max(1, -(-N // 1024)))
+    rows = -(-(-(-N // splits)) // 64) * 64
+    return -(-N // rows), rows
+
+
+def sum_depth(B: int, T: int, tile: int) -> dict:
+    """The most additions a term of db1 or dwd passes through in the
+    backward kernels' order, for their second launch's ``tile`` frames a
+    CTA: a thread's rows (tile / 8 for db1, the tile for dwd), the eight
+    thread groups (db1), then the B ceil(T / tile) partials, summed in
+    blocks of ceil(sqrt) of them (``reduce_all_kernel``)."""
+    parts = B * -(-T // tile)
+    blk = math.isqrt(parts - 1) + 1
+    tail = blk + -(-parts // blk)
+    return {"db1": tile // 8 + 8 + tail, "dwd": tile + tail}
+
+
+def fwd_faults(bounds, u, y, weights, tile, eps: float = EPS) -> dict:
+    """Readings against a forward's ``bounds`` (``conformer_conv_module_
+    bounds``, from its u) of y zeroed on every batch row but row 1, and of
+    y with frames :func:`fault_tile` of row 0 recomputed (fp64) from c
+    taken with u zero at their halo frames, as a CTA that dropped its
+    neighbours' rows would compute them."""
+    wd, bd, ln2s, ln2b, w2, b2 = (w.double() for w in weights[4:])
+    t0, n = fault_tile(u.shape[1], tile)
+    uz = torch.zeros_like(u[:1], dtype=torch.float64)
+    uz[:, t0:t0 + n] = u[:1, t0:t0 + n].double()
+    c, _ = _conv_c(uz, torch.zeros_like(uz), wd, bd)
+    sw = _swish(c, torch.zeros_like(c), eps, ln2s, ln2b)[7]
+    bad = y.clone()
+    bad[0, t0:t0 + n] = (_rnd(sw) @ _rnd(w2) + b2)[0, t0:t0 + n].to(y.dtype)
+    return {"rows zeroed": reading(zero_but_row_1(y), *bounds["y"]),
+            "halo zeroed": reading(bad, *bounds["y"])}
+
+
+def bwd_faults(bounds, lengths, inter, grads, dw_kernel, tile) -> dict:
+    """Readings against a backward's ``bounds`` (``conformer_conv_module_
+    bwd_bounds``, from its intermediates ``inter``) of four wrong
+    gradients: dx zeroed on every batch row but row 1; dw1 without the
+    partial of its first CTA (rows d < 128, the first 64 channels' value
+    and gate columns, over the first of ``dw_splits``); dwd without the
+    partial of the second launch's first CTA (frames 0 .. tile - 1 of
+    batch row 0); db1 summed from da rounded to bf16."""
+    h0, a, dc, da = (inter[n].double() for n in ("h0", "a", "dc", "da"))
+    B, T, D = h0.shape
+    k = dw_kernel.shape[0]
+    P = (k - 1) // 2
+    out = {"rows zeroed": reading(zero_but_row_1(grads[0]),
+                                  *bounds["dx"])}
+    rows = dw_splits(B * T)[1]
+    d1, c1 = min(128, D), min(64, D)
+    cols = list(range(c1)) + list(range(D, D + c1))
+    dw1 = grads[3].double().clone()
+    dw1[:d1, cols] -= _rnd(h0).reshape(-1, D)[:rows, :d1].t() @ \
+        _rnd(da).reshape(-1, 2 * D)[:rows, cols]
+    out["dw1 partial left out"] = reading(dw1, *bounds["dw1"])
+    u = _glu(a[:1], torch.zeros_like(a[:1]), _live(a[:1], lengths[:1]))[0]
+    up = F.pad(u, (0, 0, P, k - 1 - P))
+    n = min(tile, T)
+    dwd = grads[5].double().clone()
+    for j in range(k):
+        dwd[j] -= (up[0, j:j + n] * dc[0, :n]).sum(dim=0)
+    out["dwd partial left out"] = reading(dwd, *bounds["dwd"])
+    out["db1 from bf16 da"] = reading(_rnd(da).sum(dim=(0, 1)),
+                                      *bounds["db1"])
     return out
 
 
@@ -514,23 +688,32 @@ def conformer_conv_module_cuda(x, lengths, ln1_scale, ln1_bias, pw1_kernel,
                                pw1_bias, dw_kernel, dw_bias, ln2_scale,
                                ln2_bias, pw2_kernel, pw2_bias,
                                eps: float = EPS,
-                               intermediates: bool = False):
+                               intermediates: bool = False, tile: int = 0):
     """Launch ``conformer_conv_fwd``; raises on what it does not take.
-    With ``intermediates`` (y, {"u": u}), as the plain version's."""
+    With ``intermediates`` (y, {"u": u}), as the plain version's; ``tile``
+    picks the bf16 kernel's frames a CTA (64, 32, 16; 0 the largest that
+    fits, ``fwd_resources``)."""
     global LAUNCHES
     weights = (ln1_scale, ln1_bias, pw1_kernel, pw1_bias, dw_kernel, dw_bias,
                ln2_scale, ln2_bias, pw2_kernel, pw2_bias)
     _check(x, lengths, weights)
     B, T, D = x.shape
     k = dw_kernel.shape[0]
-    u = torch.empty((B, T, D), dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        check_fits(KERNEL, D, k, tile, x.device)
+    wb = torch.empty(3 * D * D, dtype=torch.bfloat16, device=x.device) \
+        if bf16 else None
+    u = torch.empty((B, T, D), dtype=torch.float32, device=x.device) \
+        if intermediates or not bf16 else None
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(x.data_ptr(), lengths.data_ptr(),
-                        *(w.data_ptr() for w in weights), u.data_ptr(),
-                        y.data_ptr(), B, T, D, k,
-                        int(x.dtype == torch.bfloat16), float(eps), stream)
+                        *(w.data_ptr() for w in weights),
+                        None if wb is None else wb.data_ptr(),
+                        None if u is None else u.data_ptr(), y.data_ptr(),
+                        B, T, D, k, int(bf16), tile, float(eps), stream)
     if err != 0:
         raise RuntimeError("{} launch failed: CUDA error {}".format(KERNEL,
                                                                     err))
@@ -542,12 +725,15 @@ def conformer_conv_module_cuda_bwd(x, lengths, ln1_scale, ln1_bias,
                                    pw1_kernel, pw1_bias, dw_kernel, dw_bias,
                                    ln2_scale, ln2_bias, pw2_kernel, pw2_bias,
                                    dy, eps: float = EPS,
-                                   intermediates: bool = False):
+                                   intermediates: bool = False,
+                                   tile: int = 0):
     """Launch ``conformer_conv_bwd`` (several launches, counted as one
     call): (dx, the ten weight gradients) as
     :func:`conformer_conv_module_bwd_plain` returns them, with
-    ``intermediates`` also its workspace's (``bwd_intermediates``).
-    Raises on what it does not take."""
+    ``intermediates`` also its fp32 intermediates (``bwd_intermediates``:
+    bf16 writes them to a buffer of their own, fp32 keeps them in its
+    workspace). ``tile`` as in :func:`conformer_conv_module_cuda`, for its
+    first two launches. Raises on what it does not take."""
     global BWD_LAUNCHES
     weights = (ln1_scale, ln1_bias, pw1_kernel, pw1_bias, dw_kernel, dw_bias,
                ln2_scale, ln2_bias, pw2_kernel, pw2_bias)
@@ -558,8 +744,16 @@ def conformer_conv_module_cuda_bwd(x, lengths, ln1_scale, ln1_bias,
             x.dtype, tuple(x.shape), x.device))
     B, T, D = x.shape
     k = dw_kernel.shape[0]
-    work = torch.empty(_kernel("workspace")(B, T, D, k), dtype=torch.uint8,
-                       device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        check_fits(BWD_KERNEL, D, k, tile, x.device)
+    key = (B, T, D, k, bf16, tile, x.device.index)
+    if key not in _workspaces:
+        with torch.cuda.device(x.device):
+            _workspaces[key] = bwd_workspace(B, T, D, k, bf16, tile)
+    work = torch.empty(_workspaces[key], dtype=torch.uint8, device=x.device)
+    inter = torch.empty(12 * B * T * D, dtype=torch.float32,
+                        device=x.device) if intermediates and bf16 else None
     dx = torch.empty_like(x)
     grads = [torch.empty_like(w) for w in weights]
     with torch.cuda.device(x.device):
@@ -567,14 +761,16 @@ def conformer_conv_module_cuda_bwd(x, lengths, ln1_scale, ln1_bias,
         err = _kernel(BWD_KERNEL)(
             x.data_ptr(), dy.data_ptr(), lengths.data_ptr(),
             *(w.data_ptr() for w in weights), work.data_ptr(), dx.data_ptr(),
-            *(g.data_ptr() for g in grads), B, T, D, k,
-            int(x.dtype == torch.bfloat16), float(eps), stream)
+            *(g.data_ptr() for g in grads),
+            None if inter is None else inter.data_ptr(), B, T, D, k,
+            int(bf16), tile, float(eps), stream)
     if err != 0:
         raise RuntimeError("{} launch failed: CUDA error {}".format(
             BWD_KERNEL, err))
     BWD_LAUNCHES += 1
     if intermediates:
-        return (dx, *grads), bwd_intermediates(work, B, T, D)
+        return (dx, *grads), (bwd_intermediates(inter, B, T, D) if bf16
+                              else bwd_intermediates(work, B, T, D, 8))
     return (dx, *grads)
 
 

@@ -77,10 +77,12 @@ GROUPS = (
     # flash_relpos_bwd_dq_kernel and flash_relpos_bwd_dkv_kernel
     ("rel-pos flash backward kernels", ("flash_relpos_bwd",)),
     # the conv module backward's launches, in the namespace
-    # conformer_conv_backward
+    # conformer_conv_backward (bf16: round_weights_kernel, front_kernel,
+    # glu_bwd_kernel, dh0_kernel, weight_grads_kernel, reduce_all_kernel)
     ("conformer conv backward kernels", ("conformer_conv_backward::",)),
-    # the conv module's two launches, conformer_conv_pw1_kernel and
-    # conformer_conv_dw_pw2_kernel
+    # the conv module forward's launches: bf16
+    # conformer_conv_round_weights_kernel and conformer_conv_fused_kernel;
+    # fp32 conformer_conv_pw1_kernel and conformer_conv_dw_pw2_kernel
     ("conformer conv kernel", ("conformer_conv_",)),
     # bf16: flash_attn_fwd_mma_kernel, flash_attn_bwd_{dq,dkv}_mma_kernel;
     # fp32: the same names without _mma

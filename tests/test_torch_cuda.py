@@ -629,8 +629,11 @@ def test_conformer_conv_kernel_matches_plain(device, B, T, D, k):
     """The conv module kernel (B6) against its plain version, a
     zero-length row: fp32 (TF32 off) max abs error 1e-4; bf16 its u and
     y element by element within ``conformer_conv_module_bounds`` (y from
-    the kernel's own u), and y zeroed on all rows but row 1 refused; one
-    launch a call; two calls bit-identical."""
+    the kernel's own u), and the planted faults of ``fwd_faults`` (y
+    zeroed on all rows but row 1, a tile's y from u without its halo)
+    refused; one launch a call; two calls bit-identical, and in bf16 y
+    bit-identical with u written out and with every other tile of frames
+    that fits (other tile edges: a halo frame's u is its owner's)."""
     from openseq2seq_tpu_torch.ops import conformer_conv as cc
     from openseq2seq_tpu_torch.ops import bounds as eb
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -668,7 +671,37 @@ def test_conformer_conv_kernel_matches_plain(device, B, T, D, k):
             assert torch.equal(y, got)
             readings = eb.readings(dict(inter, y=y), bounds)
             assert max(readings.values()) <= 1.0, readings
-            assert eb.reading(eb.zero_but_row_1(y), *bounds["y"]) > 1.0
+            tile = cc.fwd_resources(D, k)[0]
+            faults = cc.fwd_faults(bounds, inter["u"], y, weights, tile)
+            assert min(faults.values()) > 1.0, faults
+            for t in (64, 32, 16):
+                if t != tile and cc.fwd_resources(D, k, t)[2] > 0:
+                    yt, it = cc.conformer_conv_module_cuda(
+                        *args, intermediates=True, tile=t)
+                    assert torch.equal(yt, y) and \
+                        torch.equal(it["u"], inter["u"]), t
+
+
+def test_conformer_conv_resources_and_refusals(device):
+    """The bf16 conv module kernels' resources, from their C entries,
+    nothing launched: every launch fits an SM at the widths and tap
+    counts the kernels take, with 64 frames a CTA at Conformer-M's shape;
+    a tile that does not fit is refused with ValueError before any
+    launch, forward and backward."""
+    from openseq2seq_tpu_torch.ops import conformer_conv as cc
+    assert cc.fwd_resources(256, 31)[0] == 64
+    assert [r[0] for r in cc.bwd_resources(256, 31)] == [64, 64, 64, 128]
+    for D, k in ((64, 1), (256, 63), (512, 31), (512, 63)):
+        assert cc.fwd_resources(D, k)[2] >= 1, (D, k)
+        assert all(r[2] >= 1 for r in cc.bwd_resources(D, k)), (D, k)
+    x, lengths, weights, dy = _conv_inputs(device, 2, 40, 512, 63, 0)
+    args = (x.bfloat16(), lengths) + weights
+    before = cc.LAUNCHES, cc.BWD_LAUNCHES
+    with pytest.raises(ValueError):
+        cc.conformer_conv_module_cuda(*args, tile=64)
+    with pytest.raises(ValueError):
+        cc.conformer_conv_module_cuda_bwd(*args, dy.bfloat16(), tile=64)
+    assert (cc.LAUNCHES, cc.BWD_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("B,H,T,Dh,D", RELPOS_SHAPES)
@@ -777,8 +810,13 @@ def test_conformer_conv_backward_kernels_match_plain(device, B, T, D, k):
     rows in another order); in bf16 the kernels' intermediates, dx and the
     ten weight gradients element by element within
     ``conformer_conv_module_bwd_bounds`` (each from the kernels' own
-    intermediates), and dx zeroed on all rows but row 1 refused; one call
-    counted; two calls bit-identical."""
+    intermediates, db1 and dwd at the kernels' summation depth), and the
+    planted faults of ``bwd_faults`` refused; one call counted; two calls
+    bit-identical; in bf16 the gradients bit-identical with the
+    intermediates written out, the second launch's recompute of a the
+    first's bits, and with every other tile of frames that fits the
+    intermediates, dx, dw1 and dw2 bit-identical (the sums over frames
+    take another order)."""
     from openseq2seq_tpu_torch.ops import conformer_conv as cc
     from openseq2seq_tpu_torch.ops import bounds as eb
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -800,13 +838,27 @@ def test_conformer_conv_backward_kernels_match_plain(device, B, T, D, k):
         if dtype == torch.bfloat16:
             grads, inter = cc.conformer_conv_module_cuda_bwd(
                 *args, intermediates=True)
+            assert all(torch.equal(a, b) for a, b in zip(grads, got))
+            assert torch.equal(inter["a again"], inter["a"])
+            tile = cc.bwd_resources(D, k)[1][0]
             bounds = cc.conformer_conv_module_bwd_bounds(
-                args[0], lengths, inter, *weights, args[-1])
+                args[0], lengths, inter, *weights, args[-1],
+                depth=cc.sum_depth(B, T, tile))
             readings = eb.readings(dict(inter, **dict(zip(cc.GRADS, grads))),
                                    bounds)
             assert max(readings.values()) <= 1.0, readings
-            assert eb.reading(eb.zero_but_row_1(grads[0]),
-                              *bounds["dx"]) > 1.0
+            faults = cc.bwd_faults(bounds, lengths, inter, grads, weights[4],
+                                   tile)
+            assert min(faults.values()) > 1.0, faults
+            for t in (64, 32, 16):
+                if all(r[0] == t or j > 1 for j, r in enumerate(
+                        cc.bwd_resources(D, k))) or not all(
+                            r[2] > 0 for r in cc.bwd_resources(D, k, t)):
+                    continue
+                gt, it = cc.conformer_conv_module_cuda_bwd(
+                    *args, intermediates=True, tile=t)
+                assert all(torch.equal(it[n], inter[n]) for n in inter), t
+                assert all(torch.equal(gt[i], grads[i]) for i in (0, 3, 9))
 
 
 def test_conformer_conv_autograd_through_the_kernels(device):

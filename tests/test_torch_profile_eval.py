@@ -222,13 +222,32 @@ def test_busy_time_is_the_union_of_intervals():
      "float>(float const*, long long)", "conformer conv backward kernels"),
     ("conformer_conv_backward::reduce_kernel(float const*, int, int)",
      "conformer conv backward kernels"),
+    ("void (anonymous namespace)::conformer_conv_fused_kernel<64>"
+     "(__nv_bfloat16 const*, int const*)", "conformer conv kernel"),
+    ("(anonymous namespace)::conformer_conv_round_weights_kernel(float "
+     "const*, float const*, __nv_bfloat16*, int)", "conformer conv kernel"),
+    ("conformer_conv_backward::round_weights_kernel(float const*, float "
+     "const*, __nv_bfloat16*, int)", "conformer conv backward kernels"),
+    ("void conformer_conv_backward::front_kernel<64>(__nv_bfloat16 "
+     "const*, __nv_bfloat16 const*)", "conformer conv backward kernels"),
+    ("void conformer_conv_backward::glu_bwd_kernel<32>(__nv_bfloat16 "
+     "const*, float const*)", "conformer conv backward kernels"),
+    ("void conformer_conv_backward::dh0_kernel<2, 8>(__nv_bfloat16 "
+     "const*)", "conformer conv backward kernels"),
+    ("conformer_conv_backward::weight_grads_kernel(__nv_bfloat16 const*)",
+     "conformer conv backward kernels"),
+    ("conformer_conv_backward::reduce_all_kernel(conformer_conv_backward::"
+     "Pieces, int)", "conformer conv backward kernels"),
 ])
 def test_kernel_groups(name, group):
     assert profile_eval.group_of(name) == group
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
-                                    "scripts_torch/profile_eval.py"])
+                                    "scripts_torch/profile_eval.py",
+                                    "scripts_torch/bench_scan.py",
+                                    "scripts_torch/bench_relpos.py",
+                                    "scripts_torch/bench_conv.py"])
 def test_gpu_scripts_import_no_jax_package(script):
     with open(os.path.join(REPO, script)) as f:
         tree = ast.parse(f.read())

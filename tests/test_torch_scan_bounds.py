@@ -18,9 +18,12 @@ the same roundings to bf16.
   each stage of the bf16 ``conformer_conv_module_plain`` and its backward,
   from the plain version's own intermediates (those the kernels keep),
   within its bounds; y or dx zeroed on every batch row but row 1 reads
-  above 1.
+  above 1, and so does each fault a tiled design could commit
+  (``fwd_faults``, ``bwd_faults``): a tile's y from u without its halo,
+  a CTA's partial left out of dw1 or of dwd, db1 summed from bf16 da.
 
-Inputs from numpy with fixed seeds, B <= 8, T <= 40, H = 128."""
+Inputs from numpy with fixed seeds, B <= 8, T <= 40, H = 128 (the conv
+module's D 128 and 256)."""
 import numpy as np
 import pytest
 import torch
@@ -226,3 +229,30 @@ def test_conv_bounds_hold_the_plain_versions(B, T, D, k):
     readings = eb.readings(dict(inter, **dict(zip(cc.GRADS, grads))), bounds)
     assert max(readings.values()) <= 1.0, readings
     assert eb.reading(eb.zero_but_row_1(grads[0]), *bounds["dx"]) > 10
+
+
+@pytest.mark.parametrize("fault", ["halo zeroed", "dw1 partial left out",
+                                   "dwd partial left out",
+                                   "db1 from bf16 da"])
+def test_conv_bounds_refuse_tiled_faults(fault):
+    """Each planted fault a tiled design could commit (``fwd_faults``,
+    ``bwd_faults``: a tile's y from u without its halo, a CTA's partial
+    left out of dw1 or of dwd, db1 summed from da rounded to bf16), built
+    from the bf16 plain versions' intermediates with tiles of 16 frames,
+    reads above 1 against ``conformer_conv_module_bounds`` /
+    ``_bwd_bounds`` (their sums held for any order)."""
+    B, T, D, k = 5, 37, 128, 7
+    x, lengths, weights, dy = _conv_case(B, T, D, k, T + k)
+    if fault == "halo zeroed":
+        y, inter = cc.conformer_conv_module_plain(x, lengths, *weights,
+                                                  intermediates=True)
+        bounds = cc.conformer_conv_module_bounds(x, lengths, inter["u"],
+                                                 *weights)
+        faults = cc.fwd_faults(bounds, inter["u"], y, weights, 16)
+    else:
+        grads, inter = cc.conformer_conv_module_bwd_plain(
+            x, lengths, *weights, dy, intermediates=True)
+        bounds = cc.conformer_conv_module_bwd_bounds(x, lengths, inter,
+                                                     *weights, dy)
+        faults = cc.bwd_faults(bounds, lengths, inter, grads, weights[4], 16)
+    assert faults[fault] > 1.0, faults
