@@ -20,18 +20,29 @@ Phases, one informative line or a few each:
    spills; of the scans' instantiations, the main paths' and a
    summary);
 3. the forward kernel against its plain PyTorch version, both fp32 on the
-   card, at the Jasper eval shape (B=32, T=500, L=160, V=29), at L=600
-   (more extended states than a CTA has threads) and at T=37: max
-   relative error 1e-5 on the NLL of feasible rows, exact zeros on
-   infeasible ones; times from CUDA events;
-4. the backward kernel (after the forward with its alpha lattice) against
-   the plain ``ctc_nll_grad`` at the train shape, at L=600 and at T=37:
-   NLL max relative error 1e-5, d log-probs max abs error 1e-5, exact
-   zeros on infeasible rows and past each length, the posteriors of a live
-   frame summing to 1 within 1e-4, two calls bit-identical; times
-   of kernel fwd+bwd against plain fwd+bwd; ``F.ctc_loss`` timed at the
-   same shapes, forward and forward plus backward, as their library
-   yardstick;
+   card, at the Jasper eval shape (B=32, T=500, L=160, V=29), at
+   Conformer-M's (B=64, T=250), at L=600 (two states a thread), at T=37
+   and at lengths that end on either side of the kernels' chunk edges
+   (``ctc_chunk_case``): max relative error 1e-5 on the NLL of feasible
+   rows, exact zeros on infeasible ones; the kernels' resources
+   (``ctc_resources``) at L=160 and 600; times from CUDA events; wrong
+   inputs refused, and L=3000, whose CTA does not fit an SM, refused with
+   ValueError and nothing counted;
+4. the backward's two launches (after the forward with its alpha
+   lattice) against the plain versions at the same shapes, through
+   ``ctc_cuda.readings``: NLL max relative error 1e-5, d log-probs max abs
+   error 1e-5 against ``ctc_nll_grad``, exact zeros on infeasible rows and
+   past each length, the posteriors of a live frame summing to 1 within
+   1e-4, the first launch's posteriors within 1e-5 of ``ctc_posteriors``
+   on the kernel forward's own NLL and lattice, element by element, two
+   calls bit-identical; at the Jasper and Conformer-M shapes and the chunk
+   case the planted faults of ``ctc_cuda.planted_faults`` (frame t+1's
+   emission at a chunk edge; a lattice frame read from its neighbour; a
+   repeated symbol's state left out of the scatter; d log-probs zeroed but
+   on row 1), each of whose largest reading must pass 1 and is printed;
+   times of kernel fwd+bwd against plain fwd+bwd; ``F.ctc_loss`` timed at
+   the Jasper and Conformer-M shapes, forward and forward plus backward,
+   as their library yardstick;
 4b. the flash kernel against ``flash_attention_plain`` at the
    transformer-big eval shapes (encoder B=64, H=16, T=64, D=64 with key
    padding; decoder causal T=63; cross Tq=63, Tk=64), causal at T=113,
@@ -343,22 +354,61 @@ def ctc_case(B, T, L, V, seed, device):
             for a in (logits, logit_lens, labels, label_lens)]
 
 
+def ctc_chunk_case(device, seed=41):
+    """Like ``ctc_case`` (B=12, T=41, L=6, V=29), with lengths that end on
+    either side of the CTC kernels' chunk edges: the forward's chunks of
+    CHUNK = 32 frames start at frames 1, 33, the backward's at len - 1,
+    len - 33, ... Row 1 keeps an empty label, row 2 a repeated symbol;
+    every row is feasible."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    logit_lens = np.array([41, 34, 33, 32, 31, 18, 17, 16, 15, 9, 2, 1],
+                          dtype=np.int32)
+    B, T, L, V = len(logit_lens), 41, 6, 29
+    logits = (2.0 * rng.randn(B, T, V)).astype(np.float32)
+    labels = rng.randint(0, V - 1, size=(B, L)).astype(np.int32)
+    label_lens = np.minimum(rng.randint(1, 5, size=B),
+                            logit_lens // 2).astype(np.int32)
+    label_lens[1], label_lens[2] = 0, 4
+    labels[2, :] = labels[2, 0]
+    return [torch.from_numpy(a).to(device)
+            for a in (logits, logit_lens, labels, label_lens)]
+
+
+# name, (B, T, L) or None for ctc_chunk_case: the CTC kernels' checks
+CTC_CASES = (("jasper", (32, 500, 160)), ("conformer-m", (64, 250, 160)),
+             ("L=600", (8, 1400, 600)), ("T=37", (8, 37, 12)),
+             ("chunk edges", None))
+
+
+def ctc_check_case(name, shape, seed, dev):
+    if shape is None:
+        return ctc_chunk_case(dev, seed)
+    B, T, L = shape
+    return ctc_case(B, T, L, 29, seed, dev)
+
+
 def phase_kernel(card):
     import torch
     from openseq2seq_tpu_torch.ops import ctc, ctc_cuda
     dev = torch.device("cuda")
     worst_abs = 0.0
     timing = None
-    for name, (B, T, L) in (("eval", (32, 500, 160)),
-                            ("L=600", (8, 1400, 600)),
-                            ("T=37", (8, 37, 12))):
-        case = ctc_case(B, T, L, 29, seed=T, device=dev)
+    for L in (160, 600):
+        print("[kernel] resources at L={}, V=29: {}".format(
+            L, ctc_cuda.ctc_resources(L, 29)), flush=True)
+    for name, shape in CTC_CASES:
+        case = ctc_check_case(name, shape, shape[1] if shape else 41, dev)
+        B, T, _ = case[0].shape
+        L = case[2].shape[1]
         got = ctc_cuda.ctc_loss_cuda(*case, average_across_batch=False)
         want = ctc.ctc_loss(*case, average_across_batch=False)
         torch.cuda.synchronize()
         feasible = ctc.feasible_rows(case[1], case[2], case[3])
-        check(bool(torch.all(feasible[[0, 1, 2]])) and
-              not bool(feasible[3]), "{}: edge rows".format(name))
+        if shape is not None:
+            check(bool(torch.all(feasible[[0, 1, 2]])) and
+                  not bool(feasible[3]), "{}: edge rows".format(name))
         check(bool(torch.all(got[~feasible] == 0)) and
               bool(torch.all(want[~feasible] == 0)),
               "{}: infeasible rows not zero".format(name))
@@ -373,7 +423,7 @@ def phase_kernel(card):
                   float(want[feasible].mean())), flush=True)
         check(rel_err <= RTOL, "{}: rel err {} > {}".format(
             name, rel_err, RTOL))
-        if name == "eval":
+        if name == "jasper":
             lp = ctc.log_probs(case[0]).contiguous()
             args = (lp, case[1], case[2], case[3], 28)
             timing = (cuda_ms(lambda: ctc_cuda.ctc_nll_cuda(*args), 50),
@@ -392,59 +442,91 @@ def phase_kernel(card):
         except ValueError:
             continue
         raise RuntimeError("chip_smoke check failed: a bad input launched")
-    print("[kernel] wrong dtype and layout are refused", flush=True)
+    # a label length whose CTA does not fit an SM: refused, nothing counted
+    big = torch.ones((4, 3000), dtype=torch.int32, device=dev)
+    before = (ctc_cuda.LAUNCHES, ctc_cuda.BWD_LAUNCHES)
+    res = ctc_cuda.ctc_resources(3000, 29)
+    for fn in (lambda: ctc_cuda.alpha_fwd(lp, n, big, n, 28, False),
+               lambda: ctc_cuda.beta_bwd(
+                   lp, n, big, n, 28, torch.zeros(4, device=dev),
+                   torch.zeros((4, 9, 6001), device=dev))):
+        try:
+            fn()
+        except ValueError:
+            continue
+        raise RuntimeError("chip_smoke check failed: L=3000 launched")
+    check((ctc_cuda.LAUNCHES, ctc_cuda.BWD_LAUNCHES) == before and
+          res["fwd"][4] == 0 and res["bwd"][4] == 0,
+          "L=3000: counted or reported to fit: {}".format(res))
+    print("[kernel] wrong dtype and layout are refused; L=3000 refused "
+          "before any launch ({})".format(res), flush=True)
     return worst_abs, timing
 
 
 def phase_backward(card):
-    """The backward kernel after the forward with its lattice, against
-    ``ctc_nll_grad`` on the card."""
+    """The backward's two launches after the forward with its lattice,
+    against the plain versions on the card (``ctc_cuda.readings``): the
+    NLL, d log-probs and their zeros and sums against ``ctc_nll_grad``'s
+    composition, the first launch's posteriors against ``ctc_posteriors``
+    on the kernel forward's own NLL and lattice; and the planted faults of
+    ``ctc_cuda.planted_faults``, which the same readings must refuse."""
     import torch
     from openseq2seq_tpu_torch.ops import ctc, ctc_cuda
     dev = torch.device("cuda")
     worst_abs = 0.0
     timing = None
-    for name, (B, T, L) in (("train", (32, 500, 160)),
-                            ("L=600", (8, 1400, 600)),
-                            ("T=37", (8, 37, 12))):
-        logits, lens, labels, label_lens = ctc_case(B, T, L, 29, seed=T + 1,
-                                                    device=dev)
+    for name, shape in CTC_CASES:
+        logits, lens, labels, label_lens = ctc_check_case(
+            name, shape, shape[1] + 1 if shape else 42, dev)
+        B, T, _ = logits.shape
+        L = labels.shape[1]
         lp = ctc.log_probs(logits).contiguous()
         args = (lp, lens, labels, label_lens, 28)
 
         def kernels():
             nll, lattice = ctc_cuda.alpha_fwd(*args, True)
-            return nll, ctc_cuda.beta_bwd(*args, nll, lattice)
+            return (nll, lattice) + ctc_cuda.beta_bwd(*args, nll, lattice,
+                                                      posteriors=True)
 
-        nll, got = kernels()
-        _, again = kernels()
-        want_nll, want = ctc.ctc_nll_grad(*args)
+        nll, lattice, got, post = kernels()
+        again = kernels()[2]
+        plain = ctc_cuda.plain_results(*args)
+        want = {"nll": plain["nll"], "dlp": plain["dlp"],
+                "post": ctc.ctc_posteriors(*args, nll, lattice)}
         torch.cuda.synchronize()
-        feasible = ctc.feasible_rows(lens, labels, label_lens)
-        live = torch.arange(T, device=dev)[None, :] < lens[:, None]
-        nll_rel = float(((nll - want_nll).abs() / want_nll.abs())[feasible]
-                        .max())
-        abs_err = float((got - want).abs().max())
-        sums = got.sum(dim=2)[feasible[:, None] & live]
-        sum_err = float((sums + 1).abs().max())
-        worst_abs = max(worst_abs, abs_err)
+        reads = ctc_cuda.readings({"nll": nll, "dlp": got, "post": post},
+                                  want, lens, labels, label_lens)
+        worst_abs = max(worst_abs, reads["dlp"] * ctc_cuda.DLP_ATOL)
         print("[backward] {} B={} T={} L={}: NLL max rel err {:.3e}, "
               "dlogprobs max abs err {:.3e}, |sum_v dlp + 1| max {:.3e}, "
-              "repeat bit-identical: {}".format(
-                  name, B, T, L, nll_rel, abs_err, sum_err,
-                  bool(torch.equal(got, again))), flush=True)
-        check(nll_rel <= RTOL, "{}: NLL rel err {}".format(name, nll_rel))
-        check(abs_err <= 1e-5, "{}: dlogprobs abs err {}".format(
-            name, abs_err))
-        check(bool(torch.all(got[~feasible] == 0)) and
-              bool(torch.all(got[~live] == 0)),
-              "{}: gradient not zero on infeasible rows or past the "
-              "length".format(name))
-        check(sum_err <= 1e-4, "{}: posteriors sum to 1 within {}".format(
-            name, sum_err))
+              "posteriors max abs err {:.3e}, repeat bit-identical: {}; "
+              "readings {}".format(
+                  name, B, T, L, reads["nll"] * ctc_cuda.NLL_RTOL,
+                  reads["dlp"] * ctc_cuda.DLP_ATOL,
+                  reads["sums"] * ctc_cuda.SUM_ATOL,
+                  reads["post"] * ctc_cuda.POST_ATOL,
+                  bool(torch.equal(got, again)),
+                  {k: round(v, 4) for k, v in reads.items()}), flush=True)
+        check(reads["nll"] <= 1, "{}: NLL rel err".format(name))
+        check(reads["dlp"] <= 1, "{}: dlogprobs abs err".format(name))
+        check(reads["zeros"] <= 1, "{}: gradient not zero on infeasible "
+              "rows or past the length".format(name))
+        check(reads["sums"] <= 1, "{}: posteriors sum to 1".format(name))
+        check(reads["post"] <= 1, "{}: posteriors abs err".format(name))
         check(bool(torch.equal(got, again)), "{}: two calls differ".format(
             name))
-        if name == "train":
+        if name in ("jasper", "conformer-m", "chunk edges"):
+            faults = ctc_cuda.planted_faults(*args, plain)
+            worst = {k: max(ctc_cuda.readings(f, plain, lens, labels,
+                                              label_lens).values())
+                     for k, f in faults.items()}
+            print("[backward] {} planted faults, largest reading each: {}"
+                  .format(name, {k: round(v, 1) for k, v in worst.items()}),
+                  flush=True)
+            check(len(worst) == 4, "{}: faults missing".format(name))
+            check(all(v > 1 for v in worst.values()),
+                  "{}: a planted fault passed: {}".format(name, worst))
+        if name == "jasper":
             nll, lattice = ctc_cuda.alpha_fwd(*args, True)
             timing = (cuda_ms(kernels, 50),
                       cuda_ms(lambda: ctc.ctc_nll_grad(*args), 5),
@@ -452,7 +534,7 @@ def phase_backward(card):
                               50),
                       cuda_ms(lambda: ctc_cuda.alpha_fwd(*args, True), 50))
             print("[backward] train shape: kernels fwd+bwd {:.4f} ms, plain "
-                  "fwd+bwd {:.4f} ms; backward kernel alone {:.4f} ms, "
+                  "fwd+bwd {:.4f} ms; backward kernels alone {:.4f} ms, "
                   "forward with lattice {:.4f} ms (CUDA events, back to "
                   "back; {})".format(*timing, card), flush=True)
     return worst_abs, timing
@@ -3136,35 +3218,40 @@ def phase_conformer_train(card):
 
 
 def phase_ctc_library(card):
-    """``F.ctc_loss`` at the CTC train shape, forward and forward plus
-    backward: the CTC kernels' library yardstick, never on the path."""
+    """``F.ctc_loss`` at the CTC train shapes (Jasper's B=32, T=500 and
+    Conformer-M's B=64, T=250; L=160, V=29), forward and forward plus
+    backward: the CTC kernels' library yardstick, never on the path.
+    Returns the Jasper shape's times."""
     import torch
     import torch.nn.functional as F
     from openseq2seq_tpu_torch.ops import ctc
     dev = torch.device("cuda")
-    # the inputs of the kernels' timings: phase_kernel's eval case and
-    # phase_backward's train case
-    cases = []
-    for seed in (500, 501):
-        logits, lens, labels, label_lens = ctc_case(32, 500, 160, 29, seed,
-                                                    dev)
-        lp = ctc.log_probs(logits).transpose(0, 1).detach()  # (T, B, V)
-        cases.append((lp, labels, lens, label_lens))
-    lp_grad = cases[1][0].clone().requires_grad_()
+    out = None
+    for B, T in ((32, 500), (64, 250)):
+        # the inputs of the kernels' timings: phase_kernel's eval case and
+        # phase_backward's train case
+        cases = []
+        for seed in (T, T + 1):
+            logits, lens, labels, label_lens = ctc_case(B, T, 160, 29, seed,
+                                                        dev)
+            lp = ctc.log_probs(logits).transpose(0, 1).detach()  # (T, B, V)
+            cases.append((lp, labels, lens, label_lens))
+        lp_grad = cases[1][0].clone().requires_grad_()
 
-    def fwd():
-        return F.ctc_loss(*cases[0], blank=28, reduction="none",
-                          zero_infinity=True)
+        def fwd():
+            return F.ctc_loss(*cases[0], blank=28, reduction="none",
+                              zero_infinity=True)
 
-    def fwd_bwd():
-        F.ctc_loss(lp_grad, *cases[1][1:], blank=28, reduction="sum",
-                   zero_infinity=True).backward()
+        def fwd_bwd():
+            F.ctc_loss(lp_grad, *cases[1][1:], blank=28, reduction="sum",
+                       zero_infinity=True).backward()
 
-    times = (cuda_ms(fwd, 50), cuda_ms(fwd_bwd, 50))
-    print("[ctc] F.ctc_loss at B=32 T=500 L=160 V=29: forward {:.4f} ms, "
-          "forward+backward {:.4f} ms (CUDA events, back to back; {})"
-          .format(*times, card), flush=True)
-    return times
+        times = (cuda_ms(fwd, 50), cuda_ms(fwd_bwd, 50))
+        print("[ctc] F.ctc_loss at B={} T={} L=160 V=29: forward {:.4f} ms, "
+              "forward+backward {:.4f} ms (CUDA events, back to back; {})"
+              .format(B, T, *times, card), flush=True)
+        out = out or times
+    return out
 
 
 def ctc_bound_ms(B, T, L, V, seed, backward):

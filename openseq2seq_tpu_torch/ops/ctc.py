@@ -5,7 +5,9 @@ Port of ``openseq2seq_tpu/ops/ctc.py``:
   * :func:`ctc_loss` — fp32 log-space alpha (forward) recursion, a
     Python loop over time vectorized over batch and extended label
     positions. :func:`ctc_nll` is that recursion on log-probs; it is also
-    the plain version that ``ops/ctc_cuda.py`` holds its kernel against.
+    the plain version that ``ops/ctc_cuda.py`` holds its kernel against,
+    as :func:`ctc_nll_grad` (:func:`ctc_nll_lattice`, then
+    :func:`ctc_posteriors` and :func:`ctc_scatter`) is of its backward.
   * :func:`ctc_greedy_decode` — argmax, collapse repeats, drop blanks,
     compacted into a dense (B, T) id matrix padded with -1, plus lengths.
 
@@ -58,8 +60,7 @@ def _extended(labels: torch.Tensor, label_lengths: torch.Tensor,
 
 def _alpha_lattice(logprobs, logit_lengths, labels, label_lengths,
                    blank_id, keep_lattice: bool):
-    """The alpha recursion: (nll (B,), alphas (B, T, S) or None, emit,
-    and the extended-label tensors for the backward)."""
+    """The alpha recursion: nll (B,), and alphas (B, T, S) or None."""
     B, T, _ = logprobs.shape
     labels = labels.long()
     label_lengths = label_lengths.long()
@@ -98,7 +99,7 @@ def _alpha_lattice(logprobs, logit_lengths, labels, label_lengths,
     a_end_m1 = torch.where(has_label, a_end_m1, NEG)
     nll = -_logaddexp(a_end, a_end_m1)
     lattice = torch.stack(alphas, dim=1) if keep_lattice else None
-    return nll, lattice, emit, (ext, can_skip, valid_s, ext_len)
+    return nll, lattice
 
 
 def ctc_nll(logprobs: torch.Tensor, logit_lengths: torch.Tensor,
@@ -112,36 +113,38 @@ def ctc_nll(logprobs: torch.Tensor, logit_lengths: torch.Tensor,
                           blank_id, keep_lattice=False)[0]
 
 
-def ctc_nll_grad(logprobs: torch.Tensor, logit_lengths: torch.Tensor,
-                 labels: torch.Tensor, label_lengths: torch.Tensor,
-                 blank_id: int):
-    """``(nll, dlogprobs)``: the NLL of :func:`ctc_nll` and its gradient
-    with respect to the (B, T, V) fp32 log-probs.
+def ctc_nll_lattice(logprobs: torch.Tensor, logit_lengths: torch.Tensor,
+                    labels: torch.Tensor, label_lengths: torch.Tensor,
+                    blank_id: int):
+    """``(nll, lattice)``: the NLL of :func:`ctc_nll` and its (B, T, 2L+1)
+    alpha lattice, frozen past each row's length. The plain twin of the
+    CUDA kernel ``ctc_alpha_fwd`` with its lattice (which writes only the
+    frames t < length and states s < 2 len + 1)."""
+    return _alpha_lattice(logprobs, logit_lengths, labels, label_lengths,
+                          blank_id, keep_lattice=True)
 
-    The plain twin of the CUDA kernels ``ctc_alpha_fwd`` (with its alpha
-    lattice) and ``ctc_beta_bwd``, and of the TPU kernel
-    ``_beta_chunk_kernel`` (``openseq2seq_tpu/ops/ctc_pallas.py:140``):
-    the beta recursion runs in reverse over the kept alpha lattice with
-    the same ``NEG``, ``_logaddexp``, skip and freeze rules, then
-    ``gamma = alpha + beta - logZ``, the posterior ``exp(max(gamma,
-    -80))`` of each state, its sum over the states s with ext[s] = v, and
-    ``dlp[t, v] = -that / (its sum over v)``. Frames ``t >= length``,
-    states ``s >= 2 len + 1`` and rows that fail :func:`feasible_rows`
-    get exactly 0 (the infeasible rows' loss is masked to 0 by the
-    caller, so their gradient is 0 too).
 
-    The division by the frame's posterior mass (1 in exact arithmetic)
-    is not in the TPU kernel. In fp32, gamma subtracts log-values of the
-    size of logZ (about 1500 at the Jasper train shape, T=500 and L=160),
-    and without it the posteriors of a frame sum to 1 only within about
-    1.6e-3 there; with it, within rounding, and the gradient's largest
-    error against an fp64 run falls from about 1.6e-3 to 2e-4."""
-    B, T, V = logprobs.shape
-    nll, alphas, emit, (ext, can_skip, valid_s, ext_len) = _alpha_lattice(
-        logprobs.detach(), logit_lengths, labels, label_lengths, blank_id,
-        keep_lattice=True)
+def ctc_posteriors(logprobs: torch.Tensor, logit_lengths: torch.Tensor,
+                   labels: torch.Tensor, label_lengths: torch.Tensor,
+                   blank_id: int, nll: torch.Tensor,
+                   lattice: torch.Tensor) -> torch.Tensor:
+    """(B, T, 2L+1) posteriors of the extended states, from the forward's
+    NLL and alpha lattice (:func:`ctc_nll_lattice`): the beta recursion.
+
+    The plain twin of the CUDA backward's first launch
+    (``ctc_beta_bwd_kernel``) and of the TPU kernel ``_beta_chunk_kernel``'s
+    recursion (``openseq2seq_tpu/ops/ctc_pallas.py:140``): beta runs in
+    reverse with the same ``NEG``, ``_logaddexp``, skip and freeze rules,
+    then ``gamma = alpha + beta - logZ`` and the posterior ``exp(max(gamma,
+    -80))`` of each state. Frames ``t >= length``, states ``s >= 2 len +
+    1`` and rows that fail :func:`feasible_rows` get exactly 0; the
+    lattice is read nowhere else, so its values there may be anything."""
+    B, T, _ = logprobs.shape
+    ext, can_skip, valid_s, ext_len, _ = _extended(
+        labels.long(), label_lengths.long(), blank_id)
     S = ext.shape[1]
     dev = logprobs.device
+    emit = torch.gather(logprobs, 2, ext[:, None, :].expand(B, T, S))
     lens = torch.clamp(logit_lengths.long(), max=T)
     logz = -nll
     s_idx = torch.arange(S, device=dev)
@@ -167,19 +170,60 @@ def ctc_nll_grad(logprobs: torch.Tensor, logit_lengths: torch.Tensor,
         beta = torch.where((t == lens - 1)[:, None], beta_last, beta)
         live = (t < lens)[:, None]
         beta = torch.where(live, beta, neg)
-        gamma = alphas[:, t] + beta - logz[:, None]
+        gamma = lattice[:, t] + beta - logz[:, None]
         post = torch.exp(torch.clamp(gamma, min=-80.0))
         grads[:, t] = torch.where(valid_s & live, post, 0.0)
         z = beta + emit[:, t]
 
     feasible = feasible_rows(logit_lengths, labels, label_lengths)
-    grads = torch.where(feasible[:, None, None], grads, 0.0)
+    return torch.where(feasible[:, None, None], grads, 0.0)
+
+
+def ctc_scatter(posteriors: torch.Tensor, labels: torch.Tensor,
+                label_lengths: torch.Tensor, blank_id: int,
+                vocab: int) -> torch.Tensor:
+    """(B, T, V) d NLL / d log-probs from the (B, T, 2L+1) posteriors of
+    :func:`ctc_posteriors`: each state's posterior summed onto its
+    vocabulary id (a label outside [0, V) has none), and ``dlp[t, v] =
+    -that / (its sum over v)``; 0 on frames whose posteriors are all 0.
+    The plain twin of the CUDA backward's second launch
+    (``ctc_beta_bwd_scatter_kernel``) and of the TPU kernel's one-hot
+    matmul."""
+    ext = _extended(labels.long(), label_lengths.long(), blank_id)[0]
+    dev = posteriors.device
     # vocabulary scatter as a matmul with the exact 0/1 one-hot of the
-    # extended labels; a label outside [0, V) has no column
-    onehot = (ext[:, :, None] == torch.arange(V, device=dev)).to(grads.dtype)
-    mass = torch.einsum("bts,bsv->btv", grads, onehot)
+    # extended labels
+    onehot = (ext[:, :, None] == torch.arange(vocab, device=dev)).to(
+        posteriors.dtype)
+    mass = torch.einsum("bts,bsv->btv", posteriors, onehot)
     total = mass.sum(dim=2, keepdim=True)
-    return nll, torch.where(total > 0, -mass / total, 0.0)
+    return torch.where(total > 0, -mass / total, 0.0)
+
+
+def ctc_nll_grad(logprobs: torch.Tensor, logit_lengths: torch.Tensor,
+                 labels: torch.Tensor, label_lengths: torch.Tensor,
+                 blank_id: int):
+    """``(nll, dlogprobs)``: the NLL of :func:`ctc_nll` and its gradient
+    with respect to the (B, T, V) fp32 log-probs: :func:`ctc_nll_lattice`,
+    :func:`ctc_posteriors` and :func:`ctc_scatter` in turn, the plain
+    twins of the CUDA kernels ``ctc_alpha_fwd`` (with its alpha lattice)
+    and ``ctc_beta_bwd``'s two launches. Frames ``t >= length`` and rows
+    that fail :func:`feasible_rows` get exactly 0 (the infeasible rows'
+    loss is masked to 0 by the caller, so their gradient is 0 too).
+
+    Each frame is divided by its posterior mass (1 in exact arithmetic),
+    which the TPU kernel does not do. In fp32, gamma subtracts log-values
+    of the size of logZ (about 1500 at the Jasper train shape, T=500 and
+    L=160), and without it the posteriors of a frame sum to 1 only within
+    about 1.6e-3 there; with it, within rounding, and the gradient's
+    largest error against an fp64 run falls from about 1.6e-3 to 2e-4."""
+    lp = logprobs.detach()
+    nll, lattice = ctc_nll_lattice(lp, logit_lengths, labels, label_lengths,
+                                   blank_id)
+    post = ctc_posteriors(lp, logit_lengths, labels, label_lengths, blank_id,
+                          nll, lattice)
+    return nll, ctc_scatter(post, labels, label_lengths, blank_id,
+                            logprobs.shape[2])
 
 
 def feasible_rows(logit_lengths: torch.Tensor, labels: torch.Tensor,

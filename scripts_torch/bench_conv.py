@@ -91,7 +91,8 @@ def split_ms(fn, calls: int = 10) -> dict:
         raise SystemExit("bench_conv: the trace holds no device activity")
     ms, count = collections.Counter(), collections.Counter()
     for s, e, name in intervals:
-        key = re.sub(r"\(.*", "", name)[:80]
+        # the name less its parameter list ("(anonymous namespace)" kept)
+        key = re.sub(r"\([^()]*\)$", "", name)[:80]
         ms[key] += (e - s) / 1e3 / calls
         count[key] += 1
     return {k: {"ms": v, "launches": count[k] / calls}

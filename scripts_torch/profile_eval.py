@@ -72,6 +72,8 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 # (group, substrings of the kernel name), first match wins
 GROUPS = (
+    # ctc_alpha_fwd_kernel<K, floor>; the backward's ctc_beta_bwd_kernel<K>
+    # (the recursion) and ctc_beta_bwd_scatter_kernel
     ("ctc kernel", ("ctc_alpha_fwd", "ctc_beta_bwd")),
     ("rel-pos flash kernel", ("flash_relpos_fwd",)),
     # flash_relpos_bwd_dq_kernel and flash_relpos_bwd_dkv_kernel

@@ -10,7 +10,11 @@ likelihood of feasible rows; infeasible rows are exactly 0 on both. The
 backward kernel against ``ctc_nll_grad`` on the card: max abs error 1e-5
 on d log-probs, exact zeros on infeasible rows and past each length, the
 posteriors of a live frame summing to 1 within 1e-4, and two calls
-bit-identical. The flash attention kernel against
+bit-identical; the first launch's posteriors element by element against
+``ctc_posteriors`` within 1e-5, lengths on either side of the chunk
+edges, planted faults refused through ``ctc_cuda.readings``, and a label
+length whose CTA does not fit refused before any launch. The flash
+attention kernel against
 ``flash_attention_plain``: fp32, max abs error 2e-5 (sums in another
 order), and what it refuses. The flash backward kernels against
 ``flash_attention_bwd_plain`` from the kernel forward's own output and
@@ -63,7 +67,8 @@ def _case(device, B, T, L, V=29, seed=0):
                                    torch.from_numpy(label_lens))]
 
 
-@pytest.mark.parametrize("B,T,L", [(8, 37, 12), (4, 1300, 600)])
+@pytest.mark.parametrize("B,T,L", [(8, 37, 12), (4, 1300, 600),
+                                   (64, 250, 160)])
 def test_kernel_matches_plain(device, B, T, L):
     case = _case(device, B, T, L)
     before = ctc_cuda.LAUNCHES
@@ -77,7 +82,7 @@ def test_kernel_matches_plain(device, B, T, L):
 
 
 @pytest.mark.parametrize("B,T,L", [(8, 37, 12), (32, 500, 160),
-                                   (4, 1300, 600)])
+                                   (4, 1300, 600), (64, 250, 160)])
 def test_backward_kernel_matches_plain(device, B, T, L):
     logits, lens, labels, label_lens = _case(device, B, T, L)
     lp = ctc.log_probs(logits).contiguous()
@@ -109,6 +114,18 @@ def test_autograd_through_the_kernels(device):
     torch.testing.assert_close(x.grad, y.grad, rtol=1e-4, atol=1e-6)
 
 
+def test_backward_twice_with_retain_graph(device):
+    """The backward's posterior buffer is its own allocation: the saved
+    lattice is left as it was, so a second backward through a retained
+    graph gives the first one's gradient bit for bit."""
+    logits, lens, labels, label_lens = _case(device, 8, 80, 12)
+    x = logits.clone().requires_grad_()
+    loss = ctc_cuda.ctc_loss_cuda(x, lens, labels, label_lens)
+    first, = torch.autograd.grad(loss, x, retain_graph=True)
+    second, = torch.autograd.grad(loss, x)
+    assert torch.equal(first, second) and first.abs().max() > 0
+
+
 def test_kernel_refuses_what_it_does_not_take(device):
     lp = ctc.log_probs(_case(device, 2, 9, 3)[0])
     lengths = torch.full((2,), 9, dtype=torch.int32, device=device)
@@ -120,6 +137,75 @@ def test_kernel_refuses_what_it_does_not_take(device):
                               lengths, 28)
     with pytest.raises(ValueError):
         ctc_cuda.ctc_nll_cuda(lp, lengths.long(), labels, lengths, 28)
+
+
+def _chunk_case(device, seed=41):
+    """Lengths that end on either side of the CTC kernels' chunk edges
+    (the forward's chunks of ``ctc_cuda.CHUNK`` = 32 frames start at
+    frames 1, 33, the backward's at len - 1, len - 33, ...), an empty
+    label (row 1) and a repeated symbol (row 2)."""
+    rng = np.random.RandomState(seed)
+    logit_lens = np.array([41, 34, 33, 32, 31, 18, 17, 16, 15, 9, 2, 1],
+                          dtype=np.int32)
+    B, T, L, V = len(logit_lens), 41, 6, 29
+    logits = (2.0 * rng.randn(B, T, V)).astype(np.float32)
+    labels = rng.randint(0, V - 1, size=(B, L)).astype(np.int32)
+    label_lens = np.minimum(rng.randint(1, 5, size=B),
+                            logit_lens // 2).astype(np.int32)
+    label_lens[1], label_lens[2] = 0, 4
+    labels[2, :] = labels[2, 0]
+    return [torch.from_numpy(a).to(device)
+            for a in (logits, logit_lens, labels, label_lens)]
+
+
+@pytest.mark.parametrize("shape", ["chunk", (8, 80, 12), (64, 250, 160)])
+def test_backward_posteriors_and_planted_faults(device, shape):
+    """Both launches of the backward against the plain versions through
+    ``ctc_cuda.readings`` (the first launch's posteriors against
+    ``ctc_posteriors`` on the kernel forward's own NLL and lattice, within
+    1e-5), every reading at most 1; each planted fault of
+    ``ctc_cuda.planted_faults`` reads above 1."""
+    logits, lens, labels, label_lens = _chunk_case(device) \
+        if shape == "chunk" else _case(device, *shape)
+    args = (ctc.log_probs(logits).contiguous(), lens, labels, label_lens, 28)
+    nll, lattice = ctc_cuda.alpha_fwd(*args, True)
+    dlp, post = ctc_cuda.beta_bwd(*args, nll, lattice, posteriors=True)
+    plain = ctc_cuda.plain_results(*args)
+    want = {"nll": plain["nll"], "dlp": plain["dlp"],
+            "post": ctc.ctc_posteriors(*args, nll, lattice)}
+    reads = ctc_cuda.readings({"nll": nll, "dlp": dlp, "post": post}, want,
+                              lens, labels, label_lens)
+    assert all(v <= 1 for v in reads.values()), reads
+    faults = ctc_cuda.planted_faults(*args, plain)
+    assert len(faults) == 4
+    for name, got in faults.items():
+        worst = max(ctc_cuda.readings(got, plain, lens, labels,
+                                      label_lens).values())
+        assert worst > 1, name
+
+
+def test_ctc_resources_and_refusals(device):
+    """The kernels' own resource entries: one state a thread and chunks of
+    ``ctc_cuda.CHUNK`` frames at L = 160, two states at L = 600, and a
+    label length whose CTA does not fit (L = 3000) refused with ValueError
+    before any launch, nothing counted."""
+    res = ctc_cuda.ctc_resources(160, 29)
+    assert res["fwd"][:3] == (352, 1, ctc_cuda.CHUNK)
+    assert res["bwd"][:3] == (352, 1, ctc_cuda.CHUNK)
+    assert res["fwd"][4] > 0 and res["bwd"][4] > 0 and res["scatter"][4] > 0
+    assert ctc_cuda.ctc_resources(600, 29)["fwd"][1] == 2
+    big = ctc_cuda.ctc_resources(3000, 29)
+    assert big["fwd"][4] == 0 and big["bwd"][4] == 0
+    lp = ctc.log_probs(_case(device, 2, 9, 3)[0])
+    n = torch.full((2,), 9, dtype=torch.int32, device=device)
+    labels = torch.ones((2, 3000), dtype=torch.int32, device=device)
+    before = (ctc_cuda.LAUNCHES, ctc_cuda.BWD_LAUNCHES)
+    with pytest.raises(ValueError):
+        ctc_cuda.alpha_fwd(lp, n, labels, n, 28, True)
+    with pytest.raises(ValueError):
+        ctc_cuda.beta_bwd(lp, n, labels, n, 28, torch.zeros(2, device=device),
+                          torch.zeros((2, 9, 6001), device=device))
+    assert (ctc_cuda.LAUNCHES, ctc_cuda.BWD_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("B,Tq,Tk,H,D,causal", [

@@ -165,6 +165,13 @@ def test_busy_time_is_the_union_of_intervals():
 @pytest.mark.parametrize("name,group", [
     ("(anonymous namespace)::ctc_alpha_fwd_kernel(float const*)",
      "ctc kernel"),
+    ("void (anonymous namespace)::ctc_alpha_fwd_kernel<1, false>(float "
+     "const*, int const*, int const*, int const*, float*, float*, int, int, "
+     "int, int, int, int)", "ctc kernel"),
+    ("void (anonymous namespace)::ctc_beta_bwd_kernel<2>(float const*, int "
+     "const*)", "ctc kernel"),
+    ("(anonymous namespace)::ctc_beta_bwd_scatter_kernel(float const*, int "
+     "const*, float*, int, int, int, int)", "ctc kernel"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
      "convs (implicit GEMM, k > 1)"),
     ("void convolve_common_engine_float_NHWC<__nv_bfloat16, __nv_bfloat16, "
@@ -247,7 +254,8 @@ def test_kernel_groups(name, group):
                                     "scripts_torch/profile_eval.py",
                                     "scripts_torch/bench_scan.py",
                                     "scripts_torch/bench_relpos.py",
-                                    "scripts_torch/bench_conv.py"])
+                                    "scripts_torch/bench_conv.py",
+                                    "scripts_torch/bench_ctc.py"])
 def test_gpu_scripts_import_no_jax_package(script):
     with open(os.path.join(REPO, script)) as f:
         tree = ast.parse(f.read())
