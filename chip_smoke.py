@@ -69,8 +69,9 @@ Phases, one informative line or a few each:
 4e. the GRU and LSTM scan kernels (bf16 ``scan_fwd_mma_kernel``: the
    tensor cores in clusters of two; fp32 on the CUDA cores) against
    ``gru_scan_plain`` and ``lstm_scan_plain`` at the main paths' shapes
-   (GRU B=32, T=500, H=1024; LSTM B=32, T=500, H=512), at B=8, T=37,
-   H=128 and LSTMs at H=1024 and 1280, forward and reverse, lengths from
+   (GRU B=32, T=500, H=1024; LSTM B=32, T=500, H=512; the LSTM language
+   model's B=224, T=96, H=1024, seven tiles of 32 rows a step), at B=8,
+   T=37, H=128 and LSTMs at H=1024 and 1280, forward and reverse, lengths from
    1 to T, with the residual outputs: fp32 (TF32 off) max abs error 1e-5
    at T=37 and 1e-4 at T=500 (the fp32 LSTM at H=1280 refused with
    ValueError before any launch); bf16 each step held from the kernel's
@@ -78,13 +79,16 @@ Phases, one informative line or a few each:
    ``ops/scan_bounds``'s bounds (reading at most 1), four wrong kernels
    refused (ys zeroed but in row 1; one step without the recurrent
    product for one CTA's units; h carried unrounded; the LSTM's c carried
-   in bf16), and end to end max abs error 3 bf16 ulps and mean 1e-3
+   in bf16; and at B=224 a step whose second tile of rows takes the first
+   tile's h), and end to end max abs error 3 bf16 ulps and mean 1e-3
    (both of max(1, |value|)) as a sanity check; ys zero past each
    length, two calls bit-identical; times of the kernel, the plain
    version and cuDNN's ``torch.nn.GRU``/``torch.nn.LSTM`` (timed only,
    never on the path; its input GEMM timed beside it, and cuDNN's time
-   less it) at the main shapes in bf16, and the per-step floor (B=8,
-   T=500, H=128); a GRU layer at H=800, which ``supported`` rejects, runs
+   less it; the speech layers' with a 2H-wide input, the LM's with an
+   H-wide one) at the main shapes in bf16, with the tiles and the time a
+   step, and the per-step floor (B=8, T=500, H=128); a GRU layer at
+   H=800, which ``supported`` rejects, runs
    the scan with no launch; what the kernels do not take, they refuse;
 4f. the GRU and LSTM backward kernels (bf16 on the tensor cores in
    clusters of two) against ``gru_scan_bwd_plain`` and
@@ -98,7 +102,9 @@ Phases, one informative line or a few each:
    with three wrong kernels refused: dx zeroed but in row 1; the carry
    into one step without the recurrent product for one CTA's units, dx
    recomputed from it; every carry rounded to bf16 (refused up to G H =
-   3072, reported past it); dx_proj zero past each length, two calls
+   3072, reported past it: the LM's G H is 4096); at B=224 the carry into
+   one step of the second tile of rows taken from the first tile's, dx
+   recomputed from it; dx_proj zero past each length, two calls
    bit-identical; times of the kernel, the plain version, the dW_h GEMM
    outside it (fp32) and cuDNN's ``torch.nn.GRU``/``torch.nn.LSTM``
    forward plus backward (timed only, never on the path) at the main
@@ -246,8 +252,31 @@ Phases, one informative line or a few each:
    16 times each and the CTC forward and backward once, a checkpoint is
    written, ``--mode=eval`` runs from it and ``--continue_learning``
    takes 3 more steps; the train rate is printed as information;
-8. one JSON line for the kernels, then ``{"ok": true, "device": ...}``
-   last.
+7o. the tiny fp32 LSTM LM config (``example_configs_torch/lm/
+   lstm_lm_tiny_synthetic.py``), dropout off and ``num_sampled`` 0, on the
+   card (2 LSTM forward launches an eval step, 2 forward and 2 backward a
+   train step) and on the CPU: eval logits within 1e-4 and the same loss,
+   one Adam ``train_step`` gives the same loss and weights (rtol 1e-4,
+   atol 1e-6; epsilon 1e-5); ``sampled_softmax_nll`` on the same inputs
+   and candidate ids, one an accidental hit, the same loss and gradients;
+7p. the LSTM language model from ``example_configs_torch/lm/
+   lstm_wkt103_synthetic.py`` (V 267,744, embedding 320, 3 x 1024 LSTM,
+   "mixed", 2 batches of 224 x 96 tokens), a seeded-init checkpoint, then
+   ``run.main`` in ``--mode=eval`` and ``--mode=infer``: the LSTM forward
+   kernel launches 3 times per batch and its backward never, a finite
+   loss and a perplexity, 448 infer lines of 96 ids, one batch's loss
+   equal to the plain fp64 NLL of the same fp32 logits (rtol 1e-5); the
+   parameter count, the peak device memory and the eval tokens per second
+   printed as information;
+7q. the same config through ``run.main --mode=train`` for its 20 steps
+   (8192 sampled candidates, dropout on): the loss is finite at every
+   step and falls, each step launches the LSTM forward and backward
+   kernels 3 times each, a checkpoint is written, ``--mode=eval`` runs
+   from it and ``--continue_learning`` takes 3 more steps; the train
+   tokens per second and the peak device memory printed as information;
+8. one JSON line for the kernels (the LSTM scans' entries with their
+   times at the LM's shape under ``at_lm_shape``), then ``{"ok": true,
+   "device": ...}`` last.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after. Any failed check raises, and the script exits non-zero
@@ -291,6 +320,10 @@ CONFORMER_M = os.path.join(REPO, "example_configs_torch", "speech2text",
                            "conformer_m_synthetic.py")
 CONFORMER_TINY = os.path.join(REPO, "example_configs_torch", "speech2text",
                               "conformer_tiny_synthetic.py")
+LM_CONFIG = os.path.join(REPO, "example_configs_torch", "lm",
+                         "lstm_wkt103_synthetic.py")
+LM_TINY = os.path.join(REPO, "example_configs_torch", "lm",
+                       "lstm_lm_tiny_synthetic.py")
 # transformer_policy recipes warm up over thousands of steps (transformer-
 # big 8000: lr under 2e-6 for 20 steps; Conformer-M 10,000); the smoke
 # runs cut the warmup so that the loss falls within their 20 steps
@@ -1048,7 +1081,10 @@ SCAN_BF16_MEAN, SCAN_BF16_MAX = 1e-3, 3 * 2.0 ** -7
 # (``scan_bounds.fwd_faults``), in the backward every carry rounded to
 # bf16 (``scan_bounds.bwd_faults``)
 # name, cell, B, T, H: the main paths' shapes (DS2-medium's GRU layers,
-# lstm_small's LSTM layers), the smallest shape the kernels take, an LSTM
+# lstm_small's LSTM layers, the LSTM language model's, whose 224 rows are
+# seven tiles of 32 a step: the tiles' hand-off through the CTA's
+# reduction buffer and multicast rooms runs only there), the smallest
+# shape the kernels take, an LSTM
 # at H = 1024, whose bf16 backward stages each warp's slice of dg in two
 # windows (its slice does not fit the warp's room at once), and one at the
 # widest H the kernels take, 1280, where the fp32 forward and backward are
@@ -1057,11 +1093,21 @@ SCAN_BF16_MEAN, SCAN_BF16_MAX = 1e-3, 3 * 2.0 ** -7
 SCAN_CASES = (
     ("ds2-medium", "gru", 32, 500, 1024),
     ("lstm_small", "lstm", 32, 500, 512),
+    ("lstm-lm", "lstm", 224, 96, 1024),
     ("small gru", "gru", 8, 37, 128),
     ("small lstm", "lstm", 8, 37, 128),
     ("wide lstm", "lstm", 8, 37, 1024),
     ("widest lstm", "lstm", 8, 37, 1280),
 )
+
+
+# the timed cases: name, the layer's input width over H (the speech
+# layers' are bidirectional stacks, the LM's are not); cuDNN's one layer
+# is timed with that input width
+SCAN_TIMED = {"ds2-medium": 2, "lstm_small": 2, "lstm-lm": 1}
+# the bf16 kernels walk a step's batch rows in tiles of 32 (kRows in
+# csrc/rnn_scan.cuh and csrc/rnn_scan_bwd.cuh)
+SCAN_TILE_ROWS = 32
 
 
 def scan_fits(cell, way, H, dtype):
@@ -1302,13 +1348,14 @@ def phase_scan(card):
                 if dtype == torch.float32:
                     worst[cell] = max(worst[cell],
                                       max(e[0] for e in errs))
-        if T < 500:
+        if name not in SCAN_TIMED:
             continue
+        width = SCAN_TIMED[name] * H
         full = scan_case(cell, B, T, H, 30 + i, dev, full=True)
         mod = (torch.nn.GRU if cell == "gru" else torch.nn.LSTM)(
-            2 * H, H, batch_first=True).to(dev, torch.bfloat16)
+            width, H, batch_first=True).to(dev, torch.bfloat16)
         mod.flatten_parameters()
-        x = torch.randn((B, T, 2 * H), device=dev, dtype=torch.bfloat16)
+        x = torch.randn((B, T, width), device=dev, dtype=torch.bfloat16)
         w_ih = mod.weight_ih_l0
         with torch.no_grad():
             t = {"ms": cuda_ms(lambda: scan_call(
@@ -1317,21 +1364,25 @@ def phase_scan(card):
                      cell, full, torch.bfloat16, False, False, plain=True),
                      2),
                  "library_ms": cuda_ms(lambda: mod(x), 10),
-                 "gemm_ms": cuda_ms(lambda: x.view(-1, 2 * H) @ w_ih.t(),
+                 "gemm_ms": cuda_ms(lambda: x.view(-1, width) @ w_ih.t(),
                                     20)}
         t["bound_ms"], t["bound_by"] = scan_bound_ms(cell, full)
-        times[cell] = t
+        t["tiles_per_step"] = -(-B // SCAN_TILE_ROWS)
+        t["us_per_step"] = 1e3 * t["ms"] / T
+        times[cell if name != "lstm-lm" else name] = t
         print("[scan] {} {} bf16 B={} T={} H={}: kernel "
               "(scan_fwd_mma_kernel) {:.4f} ms, plain {:.4f} ms, bound "
-              "{:.4f} ms ({}; 500 dependent steps, each ending in a "
+              "{:.4f} ms ({}; {} dependent steps, each ending in a "
               "grid-wide barrier, make it latency-bound); cuDNN torch.nn.{} "
               "with a {}-wide input {:.4f} ms, of which its input GEMM alone "
-              "takes {:.4f} ms: cuDNN less its GEMM {:.4f} ms (CUDA events, "
-              "back to back; {})".format(
+              "takes {:.4f} ms: cuDNN less its GEMM {:.4f} ms; {} tiles of "
+              "{} rows a step, {:.2f} us a step (CUDA events, back to back; "
+              "{})".format(
                   name, cell, B, T, H, t["ms"], t["plain_ms"],
-                  t["bound_ms"], t["bound_by"], cell.upper(), 2 * H,
+                  t["bound_ms"], t["bound_by"], T, cell.upper(), width,
                   t["library_ms"], t["gemm_ms"],
-                  t["library_ms"] - t["gemm_ms"], card), flush=True)
+                  t["library_ms"] - t["gemm_ms"], t["tiles_per_step"],
+                  SCAN_TILE_ROWS, t["us_per_step"], card), flush=True)
     # the per-step floor: one hidden unit per CTA and few rows, so the
     # products are negligible and what is left is the step's latency (the
     # h and x_proj reads, the gate math, the grid-wide barrier)
@@ -1346,6 +1397,13 @@ def phase_scan(card):
               "step (CUDA events, back to back; {})".format(
                   cell, ms, 1e3 * ms / 500, 1e3 * times[cell]["ms"] / 500,
                   card), flush=True)
+    lm = times["lstm-lm"]
+    print("[scan] lstm-lm: {:.2f} us a step of {} tiles against {:.2f} us a "
+          "step of one tile at lstm_small's shape (B 32, H 512) and a floor "
+          "of {:.2f} us ({})".format(
+              lm["us_per_step"], lm["tiles_per_step"],
+              times["lstm"]["us_per_step"],
+              times["lstm"]["floor_us_per_step"], card), flush=True)
     # a shape that `supported` rejects (DS2-large's H = 800) takes the scan
     check(gru_scan.supported(32, 500, 1024) and
           not gru_scan.supported(32, 500, 800), "supported()")
@@ -1556,8 +1614,9 @@ def phase_scan_bwd(card):
                       "dx_proj dtype or not zero past the length")
                 if dtype == torch.float32:
                     worst[cell] = max(worst[cell], max(e[0] for e in errs))
-        if T < 500:
+        if name not in SCAN_TIMED:
             continue
+        width = SCAN_TIMED[name] * H
         full = with_cotangents(scan_case(cell, B, T, H, 70 + i, dev,
                                          full=True), 80 + i)
         G = 4 if cell == "lstm" else 3
@@ -1565,9 +1624,9 @@ def phase_scan_bwd(card):
         h_prev = full["x_proj"][..., :H].reshape(-1, H)
         dg = full["x_proj"].reshape(-1, G * H)
         mod = (torch.nn.GRU if cell == "gru" else torch.nn.LSTM)(
-            2 * H, H, batch_first=True).to(dev, torch.bfloat16)
+            width, H, batch_first=True).to(dev, torch.bfloat16)
         mod.flatten_parameters()
-        x = torch.randn((B, T, 2 * H), device=dev, dtype=torch.bfloat16,
+        x = torch.randn((B, T, width), device=dev, dtype=torch.bfloat16,
                         requires_grad=True)
         dy = full["dys"].bfloat16()
 
@@ -1583,17 +1642,22 @@ def phase_scan_bwd(card):
              "library_ms": cuda_ms(cudnn_fwd_bwd, 5),
              "gemm_ms": cuda_ms(lambda: h_prev.t() @ dg, 10)}
         t["bound_ms"], t["bound_by"] = scan_bwd_bound_ms(cell, full)
-        times[cell] = t
+        t["tiles_per_step"] = -(-B // SCAN_TILE_ROWS)
+        t["us_per_step"] = 1e3 * t["ms"] / T
+        times[cell if name != "lstm-lm" else name] = t
         print("[scan bwd] {} {} bf16 B={} T={} H={}: backward kernel {:.4f} "
               "ms (its forward with residuals {:.4f} ms), plain {:.4f} ms, "
               "bound {:.4f} ms ({}); the dW_h GEMM outside it, fp32, "
               "{:.4f} ms ({:.1f} TFLOP/s); cuDNN torch.nn.{} forward plus "
-              "backward with a {}-wide input {:.4f} ms (CUDA events, back "
-              "to back; {})".format(
-                  name, cell, B, T, H, t["ms"], t["fwd_ms"], t["plain_ms"],
-                  t["bound_ms"], t["bound_by"], t["gemm_ms"],
-                  2 * B * T * H * G * H / t["gemm_ms"] / 1e9, cell.upper(),
-                  2 * H, t["library_ms"], card), flush=True)
+              "backward with a {}-wide input {:.4f} ms; {} tiles of {} rows "
+              "a step, {:.2f} us a step (CUDA events, back to back; {})"
+              .format(name, cell, B, T, H, t["ms"], t["fwd_ms"],
+                      t["plain_ms"], t["bound_ms"], t["bound_by"],
+                      t["gemm_ms"],
+                      2 * B * T * H * G * H / t["gemm_ms"] / 1e9,
+                      cell.upper(), width, t["library_ms"],
+                      t["tiles_per_step"], SCAN_TILE_ROWS, t["us_per_step"],
+                      card), flush=True)
     # the per-step floor, as the forward's (4e)
     for cell in ("gru", "lstm"):
         floor = with_cotangents(scan_case(cell, 8, 500, 128, 90, dev,
@@ -1606,6 +1670,13 @@ def phase_scan_bwd(card):
               "step (CUDA events, back to back; {})".format(
                   cell, ms, 1e3 * ms / 500, 1e3 * times[cell]["ms"] / 500,
                   card), flush=True)
+    lm = times["lstm-lm"]
+    print("[scan bwd] lstm-lm: {:.2f} us a step of {} tiles against {:.2f} "
+          "us a step of one tile at lstm_small's shape (B 32, H 512) and a "
+          "floor of {:.2f} us ({})".format(
+              lm["us_per_step"], lm["tiles_per_step"],
+              times["lstm"]["us_per_step"],
+              times["lstm"]["floor_us_per_step"], card), flush=True)
     return worst, times
 
 
@@ -3217,6 +3288,313 @@ def phase_conformer_train(card):
     return total
 
 
+def _lm_no_dropout(params, **encoder):
+    """A copy of an LM config's params with the four dropouts off and the
+    encoder keys ``encoder`` set."""
+    params = dict(params)
+    params["encoder_params"] = dict(
+        params["encoder_params"], encoder_emb_keep_prob=1.0,
+        encoder_dp_input_keep_prob=1.0, encoder_dp_output_keep_prob=1.0,
+        encoder_last_output_keep_prob=1.0, **encoder)
+    return params
+
+
+def phase_small_lm():
+    """The tiny fp32 LSTM LM config, dropout off and ``num_sampled`` 0,
+    same seed, on the card (through the LSTM kernels: 2 forward launches
+    an eval step, 2 forward and 2 backward a train step) and on the CPU
+    (their plain versions): the eval logits within 1e-4 and the same
+    loss; one Adam ``train_step`` gives the same loss and updated weights
+    (rtol 1e-4, atol 1e-6; Adam's epsilon 1e-5 as in
+    ``tests/test_torch_lm_train.py``, since Adam divides each gradient by
+    its own size and turns the rounding noise of a gradient near epsilon
+    into an update of up to lr dg / (4 epsilon)). Then
+    ``sampled_softmax_nll`` on the same inputs and candidate ids (one of
+    them an accidental hit) gives the same loss (rtol 1e-5) and gradients
+    (rtol 1e-5, atol 1e-7) on both devices."""
+    import numpy as np
+    import torch
+    from openseq2seq_tpu_torch.losses.sequence_loss import \
+        sampled_softmax_nll
+    from openseq2seq_tpu_torch.models.model import to_device_batch
+    from openseq2seq_tpu_torch.ops import lstm_scan
+    from openseq2seq_tpu_torch.training import trainer
+    config = runpy.run_path(LM_TINY)
+    params = _lm_no_dropout(config["base_params"], num_sampled=0)
+    params.update(max_steps=1, optimizer_params={"learning_rate": 5e-3,
+                                                  "epsilon": 1e-5})
+    rng = np.random.RandomState(12)
+    B, T, H, V, S = 8, 16, 128, 1000, 64
+    arrays = (rng.randn(B, T, H).astype(np.float32),
+              (0.3 * rng.randn(V, H)).astype(np.float32),
+              (0.1 * rng.randn(V)).astype(np.float32))
+    labels = rng.randint(0, V, (B, T))
+    lengths = np.array([16, 15, 9, 1, 16, 12, 4, 16])
+    sampled = np.exp(rng.uniform(0, np.log(V + 1), S)).astype(int) - 1
+    labels[0, 0] = sampled[0]
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = config["base_model"](params, mode="eval", device=device)
+        state = trainer.restore_state(model)
+        batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+        with torch.no_grad():
+            logits = state.module(to_device_batch(batch, device), train=False
+                                  )["decoder_output"]["logits"]
+        before = lstm_scan.LAUNCHES
+        loss = float(model.eval_step(state, batch)["loss"])
+        eval_launches = lstm_scan.LAUNCHES - before
+        model = config["base_model"](params, mode="train", device=device)
+        state = trainer.restore_state(model)
+        before = lstm_scan.LAUNCHES, lstm_scan.BWD_LAUNCHES
+        state, metrics = model.train_step(state, batch)
+        train_launches = (lstm_scan.LAUNCHES - before[0],
+                          lstm_scan.BWD_LAUNCHES - before[1])
+        tensors = [torch.tensor(a, device=device, requires_grad=True)
+                   for a in arrays]
+        nll = sampled_softmax_nll(
+            *tensors, torch.tensor(labels, device=device),
+            torch.tensor(lengths, device=device),
+            torch.tensor(sampled, device=device), V)
+        nll.backward()
+        out[device] = {
+            "logits": logits.cpu().numpy(), "loss": loss,
+            "launches": (eval_launches, train_launches),
+            "train_loss": float(metrics["loss"]),
+            "weights": {n: p.detach().cpu().numpy()
+                        for n, p in state.module.named_parameters()},
+            "nll": nll.item(), "grads": [t.grad.cpu().numpy()
+                                         for t in tensors]}
+    gpu, cpu = out["cuda"], out["cpu"]
+    logit_err = float(np.abs(gpu["logits"] - cpu["logits"]).max())
+    w_err = max(float(np.max(np.abs(gpu["weights"][n] - cpu["weights"][n]) /
+                             (1e-6 + 1e-4 * np.abs(cpu["weights"][n]))))
+                for n in cpu["weights"])
+    g_err = max(float(np.max(np.abs(g - c) / (1e-7 + 1e-5 * np.abs(c))))
+                for g, c in zip(gpu["grads"], cpu["grads"]))
+    print("[lm] tiny fp32 LSTM LM, card vs CPU: logits max abs err {:.3e} "
+          "(|logits| max {:.2f}), eval loss {:.6f} vs {:.6f}; one Adam "
+          "train step: loss {:.6f} vs {:.6f}, largest weight difference "
+          "{:.3f} of the tolerance (rtol 1e-4, atol 1e-6); launches (eval; "
+          "train forward, backward) on the card {}, on the CPU {}".format(
+              logit_err, float(np.abs(cpu["logits"]).max()), gpu["loss"],
+              cpu["loss"], gpu["train_loss"], cpu["train_loss"], w_err,
+              gpu["launches"], cpu["launches"]), flush=True)
+    print("[lm] sampled_softmax_nll (B {}, T {}, H {}, V {}, S {}, an "
+          "accidental hit) card vs CPU: loss {:.7f} vs {:.7f}, largest "
+          "gradient difference {:.3f} of the tolerance (rtol 1e-5, atol "
+          "1e-7)".format(B, T, H, V, S, gpu["nll"], cpu["nll"], g_err),
+          flush=True)
+    check(gpu["launches"] == (2, (2, 2)) and cpu["launches"] == (0, (0, 0)),
+          "launches in the tiny LM steps")
+    check(logit_err <= 1e-4 and
+          abs(gpu["loss"] - cpu["loss"]) <= 1e-5 * abs(cpu["loss"]),
+          "tiny LM eval disagrees between card and CPU")
+    check(abs(gpu["train_loss"] - cpu["train_loss"]) <=
+          1e-4 * abs(cpu["train_loss"]) and w_err <= 1.0,
+          "tiny LM train step disagrees between card and CPU")
+    check(abs(gpu["nll"] - cpu["nll"]) <= 1e-5 * abs(cpu["nll"]) and
+          g_err <= 1.0, "sampled_softmax_nll disagrees between card and CPU")
+
+
+def _plain_lm_nll(logits, labels):
+    """The mean NLL of ``labels`` under the softmax of ``logits`` (B, T,
+    V), in fp64 over blocks of 1024 rows: the plain version of the
+    loss."""
+    import torch
+    V = logits.shape[-1]
+    flat, lab = logits.reshape(-1, V), labels.reshape(-1).long()
+    total = 0.0
+    for i in range(0, flat.shape[0], 1024):
+        block = flat[i:i + 1024].double()
+        gold = block.gather(1, lab[i:i + 1024, None])[:, 0]
+        total += float((torch.logsumexp(block, 1) - gold).sum())
+    return total / flat.shape[0]
+
+
+def phase_lm(card):
+    """The LSTM language model at full width from
+    ``example_configs_torch/lm/lstm_wkt103_synthetic.py`` (V 267,744, 3 x
+    1024 LSTM, "mixed", 2 batches of 224 x 96 tokens by a CLI override), a
+    seeded-init checkpoint, then ``run.main`` in ``--mode=eval`` and
+    ``--mode=infer``: the LSTM forward kernel launches 3 times per batch
+    and its backward never, a finite loss, a perplexity, 448 infer lines
+    of 96 ids; one batch's loss equals the plain full-softmax NLL of the
+    same logits (fp64); the peak device memory of the eval run and the
+    eval tokens per second are printed as information. Returns the
+    forward launches."""
+    import torch
+    from openseq2seq_tpu_torch.models.model import to_device_batch
+    from openseq2seq_tpu_torch.ops import lstm_scan
+    from openseq2seq_tpu_torch.training import CheckpointManager, trainer
+    config = runpy.run_path(LM_CONFIG)
+    n_batches = 2
+    with tempfile.TemporaryDirectory() as logdir:
+        params = dict(config["base_params"], logdir=logdir)
+        params["data_layer_params"] = dict(params["data_layer_params"],
+                                           num_batches=n_batches)
+        batch_size = params["batch_size_per_gpu"]
+        bptt = params["data_layer_params"]["bptt"]
+        t0 = time.time()
+        model = config["base_model"](params, mode="eval", device="cuda")
+        state = trainer.restore_state(model)
+        CheckpointManager(logdir).save(state, 0)
+        n_params = sum(p.numel() for p in state.module.parameters())
+        print("[lm] built: {} parameters ({}), dtype {}, seeded checkpoint "
+              "saved in {:.1f} s".format(
+                  n_params, ", ".join("{} {}".format(n, p.numel()) for n, p
+                                      in state.module.named_parameters()),
+                  params["dtype"], time.time() - t0), flush=True)
+
+        argv = ["--config_file=" + LM_CONFIG, "--logdir=" + logdir,
+                "--data_layer_params/num_batches={}".format(n_batches)]
+        lstm_scan.LAUNCHES = lstm_scan.BWD_LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        metrics, _ = _run_quiet(argv + ["--mode=eval"])
+        launches = (lstm_scan.LAUNCHES, lstm_scan.BWD_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print("[lm] eval: loss {:.6f}, perplexity {:.2f}; lstm_scan_fwd "
+              "launches {}, lstm_scan_bwd {}, for {} batches; peak device "
+              "memory {:.2f} GiB (with the checkpoint's model resident; "
+              "{})".format(metrics["eval_loss"], metrics["Eval perplexity"],
+                           *launches, n_batches, peak, card), flush=True)
+        check(launches == (3 * n_batches, 0),
+              "eval launches {} for {} batches".format(launches, n_batches))
+        check(math.isfinite(metrics["eval_loss"]) and
+              math.isfinite(metrics["Eval perplexity"]),
+              "eval loss or perplexity not finite")
+
+        out_file = os.path.join(logdir, "infer.txt")
+        lstm_scan.LAUNCHES = lstm_scan.BWD_LAUNCHES = 0
+        _run_quiet(argv + ["--mode=infer", "--infer_output_file=" + out_file])
+        infer_launches = lstm_scan.LAUNCHES, lstm_scan.BWD_LAUNCHES
+        with open(out_file) as f:
+            rows = [line.split() for line in f.read().splitlines()]
+        print("[lm] infer: {} lines of {} ids; lstm_scan_fwd launches {}, "
+              "lstm_scan_bwd {}".format(len(rows), len(rows[0]),
+                                        *infer_launches), flush=True)
+        check(infer_launches == (3 * n_batches, 0),
+              "infer launches {}".format(infer_launches))
+        check(len(rows) == n_batches * batch_size and
+              all(len(r) == bptt for r in rows),
+              "infer wrote {} lines".format(len(rows)))
+
+        # one batch's loss against the plain NLL of the same logits
+        batches = list(model.get_data_layer().iterate_one_epoch())
+        loss = float(model.eval_step(state, batches[0])["loss"])
+        device_batch = to_device_batch(batches[0], "cuda")
+        with torch.no_grad():
+            logits = state.module(device_batch, train=False)[
+                "decoder_output"]["logits"]
+            finite = bool(torch.isfinite(logits).all())
+            plain = _plain_lm_nll(logits,
+                                  device_batch["target_tensors"][0])
+        shape = tuple(logits.shape)
+        del logits
+        rel = abs(loss - plain) / abs(plain)
+        print("[lm] batch loss {:.6f}, plain fp64 NLL of the same logits "
+              "{:.6f}, rel err {:.3e}; logits {} fp32".format(
+                  loss, plain, rel, shape), flush=True)
+        check(finite and shape == (batch_size, bptt, 267744),
+              "logits shape {} or not finite".format(shape))
+        check(rel <= RTOL, "batch loss disagrees with the plain NLL")
+
+        # eval throughput over the batches (information, not a claim)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            model.eval_step(state, b)
+        torch.cuda.synchronize()
+        rate = n_batches * batch_size * bptt / (time.perf_counter() - t0)
+        print("[lm] eval throughput {:.0f} tokens/s (batch {} x {}, the "
+              "fp32 logits over 267,744 words; {})".format(
+                  rate, batch_size, bptt, card), flush=True)
+    return launches[0] + infer_launches[0]
+
+
+def phase_lm_train(card):
+    """The LSTM language model at full width through ``run.main
+    --mode=train`` for its config's 20 steps (8192 sampled candidates,
+    dropout on): the loss is finite at every step and falls; each step
+    launches the LSTM forward and backward kernels 3 times each; a
+    checkpoint is written, ``--mode=eval`` runs from it (2 batches), and
+    ``--continue_learning`` takes 3 more steps. The train tokens per
+    second and the peak device memory are printed as information.
+    Returns the forward and backward launches over these paths."""
+    import torch
+    from openseq2seq_tpu_torch.ops import lstm_scan
+
+    def reset():
+        lstm_scan.LAUNCHES = lstm_scan.BWD_LAUNCHES = 0
+
+    def counts():
+        return lstm_scan.LAUNCHES, lstm_scan.BWD_LAUNCHES
+
+    total = [0, 0]
+    config = runpy.run_path(LM_CONFIG)
+    steps = config["train_params"]["max_steps"]
+    with tempfile.TemporaryDirectory() as logdir:
+        argv = ["--config_file=" + LM_CONFIG, "--logdir=" + logdir]
+        print("[lm train] {} training steps of 224 x 96 tokens, mixed, 8192 "
+              "sampled candidates, dropout on".format(steps), flush=True)
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train"])
+        wall = time.time() - t0
+        launches = counts()
+        total = [a + b for a, b in zip(total, launches)]
+        losses = [float(x) for x in re.findall(r"loss = ([-+0-9.einaf]+)",
+                                                "\n".join(lines))]
+        print("[lm train] losses {}; launches lstm_scan_fwd {}, "
+              "lstm_scan_bwd {}; {:.1f} s with the build of the model; peak "
+              "device memory {:.2f} GiB".format(
+                  losses, *launches, wall,
+                  torch.cuda.max_memory_allocated() / 2 ** 30), flush=True)
+        check(result["steps"] == steps, "trained {} steps".format(
+            result["steps"]))
+        check(len(losses) == steps and all(math.isfinite(x)
+                                           for x in losses),
+              "losses not finite at every step: {}".format(losses))
+        check(sum(losses[-3:]) < sum(losses[:3]),
+              "loss did not fall: {}".format(losses))
+        check(launches == (3 * steps, 3 * steps),
+              "launches {} in {} steps".format(launches, steps))
+        print("[lm train] train throughput {:.0f} tokens/s over steps "
+              "{}-{} (224 x 96 tokens a step, a host read of the loss every "
+              "step; {})".format(result["objects_per_sec"], 11, steps, card),
+              flush=True)
+        ckpt = os.path.join(logdir, "checkpoints", str(steps), "model.pt")
+        check(os.path.exists(ckpt), "no checkpoint at {}".format(ckpt))
+
+        reset()
+        metrics, _ = _run_quiet(argv + ["--mode=eval",
+                                         "--data_layer_params/num_batches=2"])
+        launches = counts()
+        total = [a + b for a, b in zip(total, launches)]
+        print("[lm train] eval from the step-{} checkpoint: loss {:.6f}, "
+              "perplexity {:.2f}; launches {}".format(
+                  steps, metrics["eval_loss"], metrics["Eval perplexity"],
+                  launches), flush=True)
+        check(math.isfinite(metrics["eval_loss"]) and launches == (6, 0),
+              "eval from the trained checkpoint")
+
+        reset()
+        more = _more_steps_config(LM_CONFIG, logdir, steps + 3)
+        result, lines = _run_quiet(["--config_file=" + more, argv[1],
+                                    "--mode=train", "--continue_learning"])
+        launches = counts()
+        total = [a + b for a, b in zip(total, launches)]
+        started = [x for x in lines if "Starting training from step" in x]
+        print("[lm train] --continue_learning: {}; reached step {}; "
+              "launches {}".format(started[0].strip(), result["steps"],
+                                   launches), flush=True)
+        check(started and started[0].endswith("step {}".format(steps)) and
+              result["steps"] == steps + 3 and launches == (9, 9),
+              "resumed run")
+        torch.cuda.synchronize()
+    return total
+
+
 def phase_ctc_library(card):
     """``F.ctc_loss`` at the CTC train shapes (Jasper's B=32, T=500 and
     Conformer-M's B=64, T=250; L=160, V=29), forward and forward plus
@@ -3484,6 +3862,12 @@ def main():
     relpos_launches, conv_launches = phase_conformer(card)
     phase_small_conformer_train()
     conf_train = phase_conformer_train(card)
+    phase_small_lm()
+    lm_launches = phase_lm(card)
+    lm_train = phase_lm_train(card)
+    scan_launches["lstm"] = (scan_launches["lstm"][0] + lm_launches +
+                             lm_train[0], scan_launches["lstm"][1] +
+                             lm_train[1])
 
     # 8. result
     fwd_bound = ctc_bound_ms(32, 500, 160, 29, 500, backward=False)
@@ -3550,7 +3934,10 @@ def main():
         "plain_ms": times[cell]["plain_ms"],
         "bound_ms": times[cell]["bound_ms"],
         "bound_by": times[cell]["bound_by"],
-        "library_ms": times[cell]["library_ms"]}
+        "library_ms": times[cell]["library_ms"],
+        **({"at_lm_shape": {k: times["lstm-lm"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "tiles_per_step", "us_per_step")}} if cell == "lstm" else {})}
         for cell, way, line, err, times in (
             ("lstm", "fwd", 73, scan_err, scan_times),
             ("gru", "fwd", 64, scan_err, scan_times),

@@ -16,7 +16,11 @@ such as the TDNN encoder), and returns the ``state_dict`` for
   * batch_stats mean / var     -> running_mean / running_var, plus a zero
                                   ``num_batches_tracked``
 
-  * embedding table            -> ``embedding`` (V, d), as it is
+  * embedding table            -> ``embedding`` (V, d), as it is (the
+                                  LM's ``embedding``, its untied
+                                  ``softmax/kernel`` (E, V) a dense kernel
+                                  -> weight (V, E), its tied
+                                  ``softmax_bias`` kept)
   * layer norm scale / bias    -> weight / bias
   * the Conformer's explicit leaves (``u_bias``, ``w_bias`` and the conv
     module's ``ln1_scale`` ... ``pw2_bias``) and the kernels of the
@@ -45,8 +49,8 @@ so tests can compare the port's updated weights leaf by leaf with the
 JAX package's. :func:`flax_path` names a port parameter as the JAX
 package does (``enc/net/conv1_1/kernel``), which is what
 ``freeze_variables_regex`` and the regularizer match against.
-:func:`optimizer_state_from_optax` carries a NovoGrad (+ LARC, + clip)
-optax state into the port's optimizer state.
+:func:`optimizer_state_from_optax` carries a NovoGrad (+ LARC, + clip) or
+Adam (+ clip) optax state into the port's optimizer state.
 """
 from __future__ import annotations
 
@@ -60,10 +64,11 @@ _LN_INNER = "LayerNorm_0"
 _STATS = {"mean": "running_mean", "var": "running_var"}
 # kept under their flax names and in the flax layout
 _RECURRENT = ("recurrent_kernel", "recurrent_bias")
+_LM = ("softmax_bias",)
 _CONFORMER = ("u_bias", "w_bias", "ln1_scale", "ln1_bias", "pw1_kernel",
               "pw1_bias", "dw_kernel", "dw_bias", "ln2_scale", "ln2_bias",
               "pw2_kernel", "pw2_bias")
-_KEPT = _RECURRENT + _CONFORMER
+_KEPT = _RECURRENT + _CONFORMER + _LM
 # the parent module of flax DenseGeneral layers, whose kernels are kept
 _DENSE_GENERAL_PARENT = "attn"
 _LN_SUFFIX = "_ln"
@@ -200,7 +205,8 @@ def _params_list(tree: Dict[str, Any], names: List[str]
 def optimizer_state_from_optax(opt_state: Any, param_names: List[str]
                                ) -> Any:
     """An optax state of the JAX package's NovoGrad chain (optionally
-    behind LARC and global-norm clipping) as the port's optimizer state,
+    behind LARC and global-norm clipping) or Adam chain (optionally behind
+    global-norm clipping) as the port's optimizer state,
     for parameters named ``param_names`` in the port's order. Moments are
     transposed into the torch layout; the per-tensor ``grads_ema`` become
     one (n,) tensor."""
@@ -209,6 +215,10 @@ def optimizer_state_from_optax(opt_state: Any, param_names: List[str]
         return None
     if kind in ("LARCState", "ScaleByScheduleState"):
         return {"count": int(opt_state.count)}
+    if kind == "ScaleByAdamState":
+        return {"count": int(opt_state.count),
+                "mu": _params_list(opt_state.mu, param_names),
+                "nu": _params_list(opt_state.nu, param_names)}
     if kind == "ScaleByNovoGradState":
         ema = [t.reshape(()) for t in _params_list(
             opt_state.grads_ema, param_names)]

@@ -1,2 +1,3 @@
 from .data_layer import DataLayer
-from .synthetic import SyntheticSpeechDataLayer, SyntheticTextDataLayer
+from .synthetic import (SyntheticLMDataLayer, SyntheticSpeechDataLayer,
+                        SyntheticTextDataLayer)

@@ -1,8 +1,8 @@
 """Synthetic fixed-shape data layers (the port's copy of
-``SyntheticSpeechDataLayer`` and ``SyntheticTextDataLayer`` from
-``openseq2seq_tpu/data/synthetic.py``, unchanged in behaviour: the same
-seeds give the same batches, so the port and the JAX package see the
-same data).
+``SyntheticSpeechDataLayer``, ``SyntheticTextDataLayer`` and
+``SyntheticLMDataLayer`` from ``openseq2seq_tpu/data/synthetic.py``,
+unchanged in behaviour: the same seeds give the same batches, so the port
+and the JAX package see the same data).
 """
 from __future__ import annotations
 
@@ -142,5 +142,55 @@ class SyntheticTextDataLayer(DataLayer):
     def decode_ids(self, ids, side: str = "tgt"):
         """Ids as text; ``side`` (the text layer's source or target
         vocabulary) is the same vocabulary here."""
+        return " ".join(str(int(i)) for i in np.asarray(ids).tolist()
+                        if int(i) >= 0)
+
+
+class SyntheticLMDataLayer(DataLayer):
+    """Random token tracks with the WKT batch contract
+    (``data/lm/lmdata.py:131-146``): next-token-aligned (x, y) windows of
+    ``bptt`` steps, for the LSTM language model."""
+
+    @staticmethod
+    def get_required_params():
+        return dict(DataLayer.get_required_params(), **{
+            "vocab_size": int,
+        })
+
+    @staticmethod
+    def get_optional_params():
+        return dict(DataLayer.get_optional_params(), **{
+            "bptt": int,
+            "num_batches": int,
+            "end_token": int,
+        })
+
+    def __init__(self, params, model, num_workers=1, worker_id=0):
+        super().__init__(params, model, num_workers, worker_id)
+        p = self._params
+        p.setdefault("bptt", 96)
+        p.setdefault("num_batches", 100)
+        p.setdefault("batch_size", 32)
+        p.setdefault("end_token", 1)
+
+    def get_size_in_samples(self) -> int:
+        return self._params["num_batches"] * self._params["batch_size"]
+
+    def iterate_one_epoch(self) -> Iterator[Dict[str, Any]]:
+        p = self._params
+        B, T, V = p["batch_size"], p["bptt"], p["vocab_size"]
+        rng = np.random.RandomState(
+            1 if p.get("mode") == "train" else 2)
+        track = rng.randint(0, V, size=(B, T + 1)).astype(np.int32)
+        x, y = track[:, :-1], track[:, 1:]
+        lengths = np.full((B,), T, np.int32)
+        batch = {"source_tensors": [np.ascontiguousarray(x), lengths],
+                 "target_tensors": [np.ascontiguousarray(y), lengths],
+                 "source_ids": np.arange(B, dtype=np.int32),
+                 "batch_valid": np.int32(B)}
+        for _ in range(p["num_batches"]):
+            yield batch
+
+    def decode_ids(self, ids):
         return " ".join(str(int(i)) for i in np.asarray(ids).tolist()
                         if int(i) >= 0)

@@ -1,3 +1,4 @@
 from .decoder import Decoder
 from .fc_decoders import FullyConnectedTimeDecoder, FullyConnectedCTCDecoder
+from .lm_decoders import FakeDecoder
 from .transformer_decoder import TransformerDecoder

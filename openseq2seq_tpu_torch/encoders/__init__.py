@@ -1,5 +1,6 @@
 from .encoder import Encoder
 from .ds2_encoder import DeepSpeech2Encoder
+from .lm_encoders import LMEncoder
 from .tdnn_encoder import TDNNEncoder
 from .transformer_encoder import TransformerEncoder
 from .conformer_encoder import ConformerEncoder

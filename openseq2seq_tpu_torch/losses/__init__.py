@@ -1,3 +1,4 @@
 from .loss import Loss
 from .ctc_loss import CTCLoss
-from .sequence_loss import PaddedCrossEntropyLossWithSmoothing
+from .sequence_loss import (BasicSampledSequenceLoss, BasicSequenceLoss,
+                            PaddedCrossEntropyLossWithSmoothing)

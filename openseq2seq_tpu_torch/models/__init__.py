@@ -2,3 +2,4 @@ from .model import Model, TrainState
 from .encoder_decoder import EncoderDecoderModel
 from .speech2text import Speech2Text
 from .text2text import Text2Text
+from .lstm_lm import LSTMLM

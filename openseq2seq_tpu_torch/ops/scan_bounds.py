@@ -34,7 +34,9 @@ check must refuse: ``bounds.zero_but_row_1``; :func:`drop_product`, the
 forward's ys at one step recomputed with the recurrent product left out
 for one CTA's block of units; the forward's controls (h carried
 unrounded, the LSTM's c carried in bf16), all four in :func:`fwd_faults`;
-and the backward's, :func:`bwd_faults`.
+and the backward's, :func:`bwd_faults`; at more than one tile of rows a
+step (``TILE_ROWS``), both also refuse a step whose tiles take one
+another's rows (:func:`cross_tile`, :func:`cross_tile_bwd`).
 """
 from __future__ import annotations
 
@@ -320,30 +322,76 @@ def bwd_bounds(cell, **kw) -> dict:
     return (gru_bwd_bounds if cell == "gru" else lstm_bwd_bounds)(**kw)
 
 
-# the planted faults: one step without the recurrent product for one CTA
+# the planted faults: one step without the recurrent product for one CTA,
+# or one whose tiles of rows take one another's state
+
+def _fwd_step_at(cell, t, w, h_prev, **kw):
+    """Step t of the forward in fp64 with W_h ``w`` (fp64) from ``h_prev``
+    (B, H) and, for the LSTM, the c each row carried into step t, from
+    the bound function's arguments."""
+    d = torch.float64
+    lengths, reverse = kw["lengths"], kw.get("reverse", False)
+    x = kw["x_proj"][:, t].to(d)
+    if cell == "gru":
+        return _gru_fwd(x, w, kw["bh"].to(d), h_prev.to(d))
+    c_prev = rnn_scan.prev_states(kw["cs"], kw["c0"].float(), lengths,
+                                  reverse)[:, t]
+    return _lstm_fwd(x, w, h_prev.to(d), c_prev.to(d),
+                     kw.get("forget_bias", 1.0))
+
+
+def _h_prev_at(t, **kw):
+    return rnn_scan.prev_states(kw["ys"], kw["h0"], kw["lengths"],
+                                kw.get("reverse", False))[:, t]
+
 
 def drop_product(cell, t, units, **kw):
     """The forward kernel's ys with step t's values for the hidden units
     ``units`` (a slice: one CTA's block) recomputed with the recurrent
     product left out, from the bound function's arguments (``cell`` "gru"
     or "lstm"): a wrong kernel a bound must refuse."""
-    d = torch.float64
-    lengths, reverse = kw["lengths"], kw.get("reverse", False)
-    x_proj, ys = kw["x_proj"], kw["ys"]
-    live = _live(lengths, ys.shape[1])[:, t]
+    ys = kw["ys"]
+    live = _live(kw["lengths"], ys.shape[1])[:, t]
     dt, H = ys.dtype, ys.shape[2]
-    w = kw["wh"].to(dt).to(d).clone()
+    w = kw["wh"].to(dt).to(torch.float64).clone()
     w[:, _unit_columns(w.shape[1] // H, H, units)] = 0
-    h_prev = rnn_scan.prev_states(ys, kw["h0"], lengths, reverse)[:, t]
-    if cell == "gru":
-        step = _gru_fwd(x_proj[:, t].to(d), w, kw["bh"].to(d), h_prev.to(d))
-    else:
-        c_prev = rnn_scan.prev_states(kw["cs"], kw["c0"].float(), lengths,
-                                      reverse)[:, t]
-        step = _lstm_fwd(x_proj[:, t].to(d), w, h_prev.to(d), c_prev.to(d),
-                         kw.get("forget_bias", 1.0))
+    step = _fwd_step_at(cell, t, w, _h_prev_at(t, **kw), **kw)
     bad = ys.clone()
     bad[:, t, units] = torch.where(live, step["h"], 0.0)[:, units].to(dt)
+    return bad
+
+
+# The batch rows a CTA of the bf16 scan kernels walks at once (``kRows`` in
+# csrc/rnn_scan.cuh and csrc/rnn_scan_bwd.cuh): at B > 32 each step runs
+# B / 32 tiles, one after the other, reusing the CTA's reduction buffer and
+# multicast rooms after a cluster barrier, so that a hand-off out of order
+# shows only in rows past the first tile.
+TILE_ROWS = 32
+
+
+def _tiles(B):
+    """(rows, src): the second tile of rows, and the first, whose state a
+    wrong hand-off between tiles gives it; None at one tile a step."""
+    if B < 2 * TILE_ROWS:
+        return None
+    return slice(TILE_ROWS, 2 * TILE_ROWS), slice(0, TILE_ROWS)
+
+
+def cross_tile(cell, t, rows, src, **kw):
+    """The forward kernel's ys with step t's values for the batch rows
+    ``rows`` (one tile, a slice) recomputed from the h that the rows
+    ``src`` (another tile) carried into step t, each row with its own
+    x_proj (and c): a kernel whose tiles of a step take one another's
+    rows of h, a wrong kernel a bound must refuse."""
+    ys = kw["ys"]
+    live = _live(kw["lengths"], ys.shape[1])[:, t]
+    dt = ys.dtype
+    h_prev = _h_prev_at(t, **kw).clone()
+    h_prev[rows] = h_prev[src]
+    step = _fwd_step_at(cell, t, kw["wh"].to(dt).to(torch.float64), h_prev,
+                        **kw)
+    bad = ys.clone()
+    bad[rows, t] = torch.where(live, step["h"], 0.0)[rows].to(dt)
     return bad
 
 
@@ -399,7 +447,9 @@ def fwd_faults(cell, t, units, **kw) -> dict:
       its own ys (the state a kernel keeping h on chip in fp32 would
       carry);
     - "bf16 c carry" (the LSTM): c carried rounded to bf16, its cs and ys
-      against the bounds from its own cs and ys.
+      against the bounds from its own cs and ys;
+    - "rows from another tile" (B >= 2 ``TILE_ROWS``): :func:`cross_tile`
+      at step t, the second tile of rows from the first's h.
 
     A check must read all of them above 1. Both controls move a step by
     less than a rounding of h or c, so the bounds tell them only because
@@ -416,6 +466,10 @@ def fwd_faults(cell, t, units, **kw) -> dict:
     out = {"rows zeroed": reading(zero_but_row_1(ys), *bounds["ys"]),
            "product left out": reading(drop_product(cell, t, units, **kw),
                                        *bounds["ys"])}
+    tiles = _tiles(ys.shape[0])
+    if tiles:
+        out["rows from another tile"] = reading(
+            cross_tile(cell, t, *tiles, **kw), *bounds["ys"])
     controls = {"fp32 h carry": (torch.float32, torch.float32)}
     if cell == "lstm":
         controls["bf16 c carry"] = (ys.dtype, torch.bfloat16)
@@ -447,6 +501,26 @@ def _bwd_step(cell, carries, kw):
                      live, acts, kw["cs"].to(d), c_prev)
 
 
+def _carry_fault(cell, t, bad_carries, dx, units, **kw):
+    """(dx, carries) of a backward kernel whose dh carries are
+    ``bad_carries``, wrong into step t, its dx at step t recomputed from
+    them for the columns of the hidden units ``units`` (all units: every
+    column), so that the two agree and only the carry's bound can refuse
+    them."""
+    dt, H = kw["acts"].dtype, kw["dys"].shape[2]
+    G = kw["acts"].shape[2] // H
+    cols = _unit_columns(G, H, units)
+    bad = dx.clone()
+    bad[:, t, cols] = _bwd_step(cell, bad_carries, kw)["dx"][
+        :, t, cols].to(dt)
+    return bad, bad_carries
+
+
+def _t_before(t, kw):
+    """The step the backward visits before step t."""
+    return t - 1 if kw.get("reverse", False) else t + 1
+
+
 def drop_product_bwd(cell, t, units, dx, **kw):
     """(dx, carries) of a backward kernel that left the recurrent product
     out of the dh carry into step t for the hidden units ``units`` (one
@@ -454,16 +528,25 @@ def drop_product_bwd(cell, t, units, dx, **kw):
     dx: that carry as the step visited before left it, and step t's dx
     recomputed from it, so that the two agree and only the carry's bound
     can refuse them."""
-    dt, H = kw["acts"].dtype, kw["dys"].shape[2]
-    G = kw["acts"].shape[2] // H
-    t_before = t - 1 if kw.get("reverse", False) else t + 1
     carries = kw["carries"].clone()
     carries[:, t, units] = _bwd_step(cell, carries, kw)["next"][
-        :, t_before, units].float()
-    cols = _unit_columns(G, H, units)
-    bad = dx.clone()
-    bad[:, t, cols] = _bwd_step(cell, carries, kw)["dx"][:, t, cols].to(dt)
-    return bad, carries
+        :, _t_before(t, kw), units].float()
+    return _carry_fault(cell, t, carries, dx, units, **kw)
+
+
+def cross_tile_bwd(cell, t, rows, src, dx, **kw):
+    """(dx, carries) of a backward kernel whose tiles of a step take one
+    another's rows: the dh carry into step t of the batch rows ``rows``
+    (one tile) is the one the step visited before left for the rows
+    ``src`` (another tile), product and all, and step t's dx of those
+    rows is recomputed from it."""
+    dt = kw["acts"].dtype
+    nxt, _ = _product(_bwd_step(cell, kw["carries"], kw),
+                      kw["wh"].to(dt).to(torch.float64), dt)
+    carries = kw["carries"].clone()
+    carries[rows, t] = nxt[src, _t_before(t, kw)].float()
+    H = kw["dys"].shape[2]
+    return _carry_fault(cell, t, carries, dx, slice(0, H), **kw)
 
 
 # The widest G H at which the carry's bound is finer than a bf16 rounding
@@ -486,16 +569,23 @@ def bwd_faults(cell, t, units, dx, **kw) -> dict:
       kernel, so they are not read);
     - "bf16 carry": every dh carry rounded to bf16, as in a kernel that
       kept its carries in bf16 (the carries at the live steps, where the
-      product moves them).
+      product moves them);
+    - "rows from another tile" (B >= 2 ``TILE_ROWS``):
+      :func:`cross_tile_bwd` at step t, the second tile of rows carrying
+      the first's dh into it (the carry into step t).
 
-    A check must read all three above 1, "bf16 carry" where G H <=
+    A check must read all of them above 1, "bf16 carry" where G H <=
     ``BF16_CARRY_MAX_GH``."""
     bounds = bwd_bounds(cell, **kw)
     out = {"rows zeroed": reading(zero_but_row_1(dx), *bounds["dx"])}
-    _, carries = drop_product_bwd(cell, t, units, dx, **kw)
-    want, bound = bwd_bounds(cell, **dict(kw, carries=carries))["carry"]
-    out["product left out"] = reading(carries[:, t], want[:, t],
-                                      bound[:, t])
+    faults = {"product left out": drop_product_bwd(cell, t, units, dx, **kw)}
+    tiles = _tiles(dx.shape[0])
+    if tiles:
+        faults["rows from another tile"] = cross_tile_bwd(cell, t, *tiles,
+                                                          dx, **kw)
+    for name, (_, carries) in faults.items():
+        want, bound = bwd_bounds(cell, **dict(kw, carries=carries))["carry"]
+        out[name] = reading(carries[:, t], want[:, t], bound[:, t])
     carries = kw["carries"].to(torch.bfloat16).float()
     want, bound = bwd_bounds(cell, **dict(kw, carries=carries))["carry"]
     live = _live(kw["lengths"], carries.shape[1]).expand_as(carries)

@@ -1,6 +1,9 @@
 """Dropout drawn from an explicit ``torch.Generator`` (port of the
 training half of ``openseq2seq_tpu/parts/dropout.py``): :func:`dropout`
-and the transformer FFN's :func:`relu_dropout`.
+(with ``broadcast_dims``, one mask shared along those dimensions, as
+flax's ``Dropout(broadcast_dims=...)`` draws it), the transformer FFN's
+:func:`relu_dropout` and the language model's whole-word
+:func:`word_dropout_scale`.
 
 The mask is ``torch.rand(shape, generator=g) < keep`` on the tensor's
 device: never ``F.dropout`` or torch's global generator, so a run is
@@ -37,15 +40,19 @@ def keep_spec(keep_prob: float, dropout_bits: int = 32
 
 
 def dropout(x: torch.Tensor, keep_prob: float, generator: torch.Generator,
-            dropout_bits: int = 32) -> torch.Tensor:
-    """``where(rand < p, x / q, 0)`` with (p, q) from :func:`keep_spec`;
-    ``x`` unchanged when ``keep_prob >= 1``."""
+            dropout_bits: int = 32,
+            broadcast_dims: Tuple[int, ...] = ()) -> torch.Tensor:
+    """``where(rand < p, x / q, 0)`` with (p, q) from :func:`keep_spec`,
+    the mask drawn with size 1 along ``broadcast_dims`` (the language
+    model's (B, 1, D) masks, shared over time) and broadcast; ``x``
+    unchanged when ``keep_prob >= 1``."""
     if keep_prob >= 1.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
     p, q = keep_spec(keep_prob, dropout_bits)
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < p
+    shape = [1 if d in broadcast_dims else n for d, n in enumerate(x.shape)]
+    mask = torch.rand(shape, generator=generator, device=x.device) < p
     return torch.where(mask, x / q, torch.zeros((), dtype=x.dtype,
                                                 device=x.device))
 
@@ -61,6 +68,22 @@ def relu_dropout(x: torch.Tensor, rate: float,
     if rate <= 0.0:
         return h
     return dropout(h, 1.0 - rate, generator, dropout_bits)
+
+
+def word_dropout_scale(ids: torch.Tensor, vocab_size: int, keep_prob: float,
+                       generator: Optional[torch.Generator],
+                       dtype: torch.dtype) -> torch.Tensor:
+    """The embedding's whole-word dropout (``encoders/lm_encoders.py:
+    56-62``): one exact Bernoulli(keep_prob) draw per vocabulary entry,
+    (V, 1), scaled by 1 / keep_prob (0 where dropped), rounded to
+    ``dtype`` and gathered by ``ids``: (..., 1), to multiply the embedded
+    words by, so that every occurrence of a dropped word is dropped."""
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = torch.rand((vocab_size, 1), generator=generator,
+                      device=ids.device) < keep_prob
+    scale = torch.where(keep, 1.0 / keep_prob, 0.0).to(dtype)
+    return scale[ids.long()]
 
 
 def bernoulli(p: float, generator: Optional[torch.Generator],

@@ -26,9 +26,10 @@ Two paths, chosen per call exactly where the JAX package chooses:
 
 :class:`BiRNN` concatenates a forward and a reverse cell (``fw``, ``bw``)
 and :func:`make_rnn` maps the configs' ``rnn_type`` strings as the JAX
-package does. The layers of the language-model and speech-synthesis
-recipes (``GLSTM``, ``SLSTM``, ``FLSTM``, ``LayerNormLSTM``,
-``TemporalConvolutionalLayer``) are not ported yet and raise.
+package does. The language model's other cells (``GLSTM``, ``SLSTM``,
+``FLSTM``, ``LayerNormLSTM``; its plain LSTM and GRU layers are these) and
+the speech-synthesis recipes' ``TemporalConvolutionalLayer`` are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -207,19 +208,19 @@ class _NotPorted(nn.Module):
 
 
 class GLSTM(_NotPorted):
-    slice_name = "LSTM language model"
+    slice_name = "LM cells"
 
 
 class SLSTM(_NotPorted):
-    slice_name = "LSTM language model"
+    slice_name = "LM cells"
 
 
 class FLSTM(_NotPorted):
-    slice_name = "LSTM language model"
+    slice_name = "LM cells"
 
 
 class LayerNormLSTM(_NotPorted):
-    slice_name = "LSTM language model"
+    slice_name = "LM cells"
 
 
 class TemporalConvolutionalLayer(_NotPorted):

@@ -9,19 +9,24 @@ card in turns.
 With ``--root`` (default: this checkout) the package is imported from DIR
 and its kernels are built there. It prints the card's name and power
 limit, then for each bf16 scan kernel at the main paths' widths (the
-GRU's 8 units a CTA at H = 1024, the LSTM's 4 at H = 512) ``ptxas``'s
+GRU's 8 units a CTA at H = 1024, the LSTM's 4 at H = 512 and 8 at
+H = 1024) ``ptxas``'s
 registers and spills, its dynamic shared memory and the CTAs an SM holds
 (from the kernels' C entries, where the checkout has them), and the
 device milliseconds, by ``chip_smoke.py``'s back-to-back method, of: the
-forward without and with its residuals and the backward
+forward without and with its residuals and the backward, and the plain
+versions' forward and backward,
 at the main shapes (DS2-medium's GRU, B 32, T 500, H 1024; lstm_small's
-LSTM, B 32, T 500, H 512; every row at full length, as the synthetic
-batches have them); the per-step floors, forward and backward, at B 8,
-T 500, H 128 (one unit a CTA: the step's latency with next to no
-product); and cuDNN's ``torch.nn.GRU`` / ``torch.nn.LSTM`` with a
-2H-wide input, forward (with its input GEMM timed beside it, and the
-forward less it: the recurrence alone) and forward plus backward (timed
-only, the yardstick). The last line is a JSON object of all of it.
+LSTM, B 32, T 500, H 512; the LSTM language model's, B 224, T 96,
+H 1024, seven tiles of 32 rows a step; every row at full length, as the
+synthetic batches have them), each with its time a step; the per-step
+floors, forward and backward, at B 8, T 500, H 128 (one unit a CTA: the
+step's latency with next to no product); and cuDNN's ``torch.nn.GRU`` /
+``torch.nn.LSTM`` (one layer) with the layer's input width (2H for the
+bidirectional speech layers, H for the LM's), forward (with its input
+GEMM timed beside it, and the forward less it: the recurrence alone) and
+forward plus backward (timed only, the yardstick). The last line is a
+JSON object of all of it.
 
 ``--compare`` runs PARENT_DIR, this checkout, this checkout, PARENT_DIR,
 one process each, so that both designs are timed on one card in one
@@ -41,8 +46,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts_torch"))
 from bench_relpos import _chip_smoke  # noqa: E402
 
-# cell: (G, B, T, H) at the main paths' shapes
-MAIN = {"gru": (3, 32, 500, 1024), "lstm": (4, 32, 500, 512)}
+# name: (cell, G, B, T, H, the layer's input width) at the main paths'
+# shapes: DS2-medium's GRU, lstm_small's LSTM, the LSTM language model's
+MAIN = {"gru": ("gru", 3, 32, 500, 1024, 2048),
+        "lstm": ("lstm", 4, 32, 500, 512, 1024),
+        "lstm-lm": ("lstm", 4, 224, 96, 1024, 1024)}
 FLOOR = (8, 500, 128)
 
 
@@ -53,7 +61,7 @@ def kernel_resources(build):
     them)."""
     from openseq2seq_tpu_torch.ops import rnn_scan
     out = {}
-    for cell, (G, _, _, H) in MAIN.items():
+    for name, (cell, G, _, _, H, _) in MAIN.items():
         U = H // 128
         for way in ("fwd", "bwd"):
             lib = "{}_scan_{}".format(cell, way)
@@ -69,7 +77,7 @@ def kernel_resources(build):
                 rnn_scan, "resources") else (None, None)
             for entry, stores, loads, regs in entries:
                 if any(n in entry for n in names):
-                    out["{}_{}".format(cell, way)] = {
+                    out["{}_{}".format(name, way)] = {
                         "entry": entry, "registers": int(regs),
                         "spill_bytes": int(stores) + int(loads),
                         "smem": smem, "ctas_per_sm": ctas}
@@ -103,15 +111,15 @@ def run_one(root: str) -> dict:
                     dh=torch.randn((B, H), generator=g, device=dev),
                     dc=torch.randn((B, H), generator=g, device=dev))
 
-    for cell, (G, B, T, H) in MAIN.items():
+    for name, (cell, G, B, T, H, width) in MAIN.items():
         full = with_cotangents(cs.scan_case(cell, B, T, H, 70, dev,
                                             full=True), 80)
         floor = with_cotangents(cs.scan_case(cell, *FLOOR, 90, dev,
                                              full=True), 91)
         mod = (torch.nn.GRU if cell == "gru" else torch.nn.LSTM)(
-            2 * H, H, batch_first=True).to(dev, bf)
+            width, H, batch_first=True).to(dev, bf)
         mod.flatten_parameters()
-        x = torch.randn((B, T, 2 * H), device=dev, dtype=bf,
+        x = torch.randn((B, T, width), device=dev, dtype=bf,
                         requires_grad=True)
         dy = full["dys"].to(bf)
 
@@ -122,7 +130,7 @@ def run_one(root: str) -> dict:
             fwd_ms = cs.cuda_ms(lambda: cs.scan_call(cell, full, bf, False,
                                                      False), 10)
             cudnn_fwd_ms = cs.cuda_ms(lambda: mod(x), 10)
-            cudnn_gemm_ms = cs.cuda_ms(lambda: x.view(-1, 2 * H) @ w_ih.t(),
+            cudnn_gemm_ms = cs.cuda_ms(lambda: x.view(-1, width) @ w_ih.t(),
                                        20)
             floor_fwd_ms = cs.cuda_ms(lambda: cs.scan_call(
                 cell, floor, bf, False, False), 10)
@@ -130,6 +138,10 @@ def run_one(root: str) -> dict:
              "fwd_residuals_ms": cs.cuda_ms(lambda: cs.scan_call(
                  cell, full, bf, False, True), 10),
              "bwd_ms": cs.cuda_ms(cs.scan_bwd_fn(cell, full, bf, False), 10),
+             "plain_fwd_ms": cs.cuda_ms(lambda: cs.scan_call(
+                 cell, full, bf, False, False, plain=True), 2),
+             "plain_bwd_ms": cs.cuda_ms(cs.scan_bwd_fn(cell, full, bf, False,
+                                                       plain=True), 2),
              "cudnn_fwd_ms": cudnn_fwd_ms,
              "cudnn_gemm_ms": cudnn_gemm_ms,
              "cudnn_fwd_less_gemm_ms": cudnn_fwd_ms - cudnn_gemm_ms,
@@ -141,7 +153,8 @@ def run_one(root: str) -> dict:
              "bwd_bound_ms": cs.scan_bwd_bound_ms(cell, full)[0]}
         t["fwd_us_per_step"] = 1e3 * t["fwd_ms"] / T
         t["bwd_us_per_step"] = 1e3 * t["bwd_ms"] / T
-        result[cell] = t
+        t["tiles_per_step"] = -(-B // cs.SCAN_TILE_ROWS)
+        result[name] = t
     return result
 
 
@@ -158,8 +171,8 @@ def main():
         print(result["card"], flush=True)
         for kind, rec in result["kernels"].items():
             print("[resources] {}: {}".format(kind, rec), flush=True)
-        for cell in MAIN:
-            print("[{}] {}".format(cell, result[cell]), flush=True)
+        for name in MAIN:
+            print("[{}] {}".format(name, result[name]), flush=True)
         print(json.dumps(result), flush=True)
         return
     lines = []

@@ -2,8 +2,9 @@
 """Profile the PyTorch port's eval step, its infer step or its train
 step, on one NVIDIA GPU.
 
-    python3 scripts_torch/profile_eval.py [--train | --infer | --train-nmt]
-        [--config_file=PATH] [--steps=4] [--repeats=3] [--trace=PATH]
+    python3 scripts_torch/profile_eval.py [--train | --infer | --train-nmt |
+        --train-lm | --eval-lm] [--config_file=PATH] [--steps=4]
+        [--repeats=3] [--trace=PATH]
 
 Builds the model of a port config (default: Jasper-10x5 at full width on
 synthetic speech, ``example_configs_torch/speech2text/
@@ -20,7 +21,10 @@ weights, in eval mode, in infer mode with
 train mode (the config's ``train_params`` merged in; dropout drawn from
 a generator seeded per step). ``--train-nmt`` is ``--train`` on the
 transformer-big training config,
-``example_configs_torch/text2text/transformer_big_train_synthetic.py``.
+``example_configs_torch/text2text/transformer_big_train_synthetic.py``;
+``--train-lm`` and ``--eval-lm`` are ``--train`` and the eval step on the
+LSTM language model at full width, ``example_configs_torch/lm/
+lstm_wkt103_synthetic.py`` (tokens are its objects).
 It prints:
 
 1. wall milliseconds per step without the profiler, for each of
@@ -37,7 +41,9 @@ It prints:
    scan kernels" and "rnn scan backward kernels" for the GRU and LSTM
    recurrences, "rel-pos flash kernel" and "conformer conv kernel" for the
    Conformer's attention and conv module, and in training "rel-pos flash
-   backward kernels" and "conformer conv backward kernels");
+   backward kernels" and "conformer conv backward kernels"; the LM's
+   sampled softmax gathers and scatters rows of its weight, "sampled
+   softmax gathers and scatters");
 3. FLOP per step of the convolutions and dense layers, counted from the
    shapes their forward hooks see (in training also their backward: the
    weight gradient, and the input gradient where the input needs one),
@@ -68,6 +74,8 @@ CONFIG = os.path.join(REPO, "example_configs_torch", "speech2text",
                       "jasper10x5_synthetic.py")
 NMT_TRAIN_CONFIG = os.path.join(REPO, "example_configs_torch", "text2text",
                                 "transformer_big_train_synthetic.py")
+LM_CONFIG = os.path.join(REPO, "example_configs_torch", "lm",
+                         "lstm_wkt103_synthetic.py")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 # (group, substrings of the kernel name), first match wins
@@ -107,6 +115,15 @@ GROUPS = (
     ("reductions", ("reduce_kernel",)),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("sorts and top-k (beam search)", ("sort", "Sort", "topk", "TopK")),
+    # the sampled softmax's rows of its weight, w[labels] and w[sampled]
+    # (aten::index: index_elementwise_kernel or vectorized_gather_kernel)
+    # and their gradients' accumulation (indexing_backward_kernel or
+    # index_put_with_sort_kernel); the embedding's F.embedding is
+    # indexSelect* and embedding_backward* below
+    ("sampled softmax gathers and scatters", ("index_elementwise",
+                                              "vectorized_gather",
+                                              "indexing_backward",
+                                              "index_put")),
     ("gathers and scatters (embedding, beam reorder)", ("index", "gather",
                                                         "scatter")),
     ("H2D copies", ("HtoD",)),
@@ -129,12 +146,17 @@ def count_flops(module, run, train: bool = False) -> int:
     during ``run()``, from the output shapes their forward hooks see.
     With ``train``, also their backward: the weight gradient costs what
     the forward does, and so does the input gradient where the input
-    needs one. The recurrent products h W_h of the GRU and LSTM layers
-    (2 G H^2 per row and step, in the scan kernels) are not counted:
+    needs one. The language model's vocabulary products count too: the
+    logits, 2 E V a token (in training with ``train`` three times), or in
+    training the sampled softmax's product with its S candidates, 3 x 2 E
+    S a token (its true logits are an elementwise product, uncounted).
+    The recurrent products h W_h of the GRU and LSTM layers (2 G H^2 per
+    row and step, in the scan kernels) are not counted:
     :func:`count_recurrent_flops` counts them."""
     from openseq2seq_tpu_torch.decoders.fc_decoders import Dense
     from openseq2seq_tpu_torch.encoders.conformer_encoder import DenseGeneral
     from openseq2seq_tpu_torch.encoders.ds2_encoder import SameConv2d
+    from openseq2seq_tpu_torch.encoders.lm_encoders import LMNet
     from openseq2seq_tpu_torch.encoders.tdnn_encoder import SameConv1d
     from openseq2seq_tpu_torch.parts.transformer.common import \
         Dense as TransformerDense
@@ -155,6 +177,13 @@ def count_flops(module, run, train: bool = False) -> int:
     def dense_general_hook(mod, inp, out):
         total[0] += passes(inp) * 2 * out.numel() * mod.n_in
 
+    def lm_head_hook(mod, inp, out):
+        h = out["outputs"]
+        width = h.shape[0] * h.shape[1] * h.shape[2]
+        n = out["logits"].shape[-1] if "logits" in out \
+            else out["num_sampled"]
+        total[0] += (3 if train else 1) * 2 * width * n
+
     handles = [m.register_forward_hook(conv_hook)
                for m in module.modules()
                if isinstance(m, (SameConv1d, SameConv2d))]
@@ -163,6 +192,8 @@ def count_flops(module, run, train: bool = False) -> int:
                 if isinstance(m, (Dense, TransformerDense))]
     handles += [m.register_forward_hook(dense_general_hook)
                 for m in module.modules() if isinstance(m, DenseGeneral)]
+    handles += [m.register_forward_hook(lm_head_hook)
+                for m in module.modules() if isinstance(m, LMNet)]
     run()
     for h in handles:
         h.remove()
@@ -243,10 +274,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                        help="profile the transformer-big train step (the "
                             "train step on {})".format(
                                 os.path.relpath(NMT_TRAIN_CONFIG, REPO)))
+    which.add_argument("--train-lm", action="store_true",
+                       help="profile the LSTM LM's train step (the train "
+                            "step on {})".format(
+                                os.path.relpath(LM_CONFIG, REPO)))
+    which.add_argument("--eval-lm", action="store_true",
+                       help="profile the LSTM LM's eval step on {}".format(
+                           os.path.relpath(LM_CONFIG, REPO)))
     ap.add_argument("--config_file", default=None,
-                    help="the port config (default: Jasper-10x5, or the "
+                    help="the port config (default: Jasper-10x5, the "
                          "transformer-big training config with "
-                         "--train-nmt)")
+                         "--train-nmt, the LSTM LM with --train-lm and "
+                         "--eval-lm)")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--trace", default=None,
@@ -254,8 +293,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "temporary file)")
     args = ap.parse_args(argv)
     if args.config_file is None:
-        args.config_file = NMT_TRAIN_CONFIG if args.train_nmt else CONFIG
-    args.train = args.train or args.train_nmt
+        args.config_file = NMT_TRAIN_CONFIG if args.train_nmt else \
+            LM_CONFIG if args.train_lm or args.eval_lm else CONFIG
+    args.train = args.train or args.train_nmt or args.train_lm
     return args
 
 

@@ -43,12 +43,16 @@ def _import_all(report: str) -> str:
             "openseq2seq_tpu_torch.encoders.ds2_encoder",
             "openseq2seq_tpu_torch.encoders.conformer_encoder",
             "openseq2seq_tpu_torch.ops.flash_relpos",
-            "openseq2seq_tpu_torch.ops.conformer_conv"} <= set(modules)
+            "openseq2seq_tpu_torch.ops.conformer_conv",
+            "openseq2seq_tpu_torch.encoders.lm_encoders",
+            "openseq2seq_tpu_torch.decoders.lm_decoders",
+            "openseq2seq_tpu_torch.models.lstm_lm"} <= set(modules)
     names = {os.path.basename(c) for c in CONFIGS}
-    assert len(CONFIGS) >= 11 and {
+    assert len(CONFIGS) >= 13 and {
         "transformer_big_train_synthetic.py", "ds2_medium_synthetic.py",
         "lstm_small_synthetic.py", "ds2_tiny_synthetic.py",
-        "conformer_m_synthetic.py", "conformer_tiny_synthetic.py"} <= names
+        "conformer_m_synthetic.py", "conformer_tiny_synthetic.py",
+        "lstm_wkt103_synthetic.py", "lstm_lm_tiny_synthetic.py"} <= names
     code = ("import importlib, runpy, sys\n"
             "for m in {!r}: importlib.import_module(m)\n"
             "for c in {!r}: runpy.run_path(c)\n"

@@ -157,6 +157,36 @@ def test_ds2_train_step_flop_counts():
     assert bool(torch.isfinite(metrics["loss"]))
 
 
+@pytest.mark.parametrize("train", [False, True])
+def test_lm_flop_counts(train):
+    """The tiny LSTM LM's eval step (the full softmax: 2 E V a token) and
+    train step (64 sampled candidates: 3 x 2 E S a token) through the
+    script's own step: the dense layers' and vocabulary products' FLOP
+    plus the recurrent count equal FlopCounterMode's total; the arguments
+    pick the full-width LM config."""
+    import runpy
+    cfg = runpy.run_path(os.path.join(REPO, "example_configs_torch", "lm",
+                                      "lstm_lm_tiny_synthetic.py"))
+    model = cfg["base_model"](cfg["base_params"],
+                              mode="train" if train else "eval",
+                              device="cpu")
+    module, step = profile_eval.make_step(model, train=train)
+    batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+    got = profile_eval.count_flops(module, lambda: step(batch), train)
+    rnn = profile_eval.count_recurrent_flops(module, lambda: step(batch),
+                                             train)
+    with FlopCounterMode(display=False) as counter:
+        step(batch)
+    tokens = 8 * 16
+    head = 3 * 2 * tokens * 128 * 64 if train else 2 * tokens * 128 * 1000
+    assert rnn == (3 if train else 1) * 2 * 2 * tokens * 128 * 4 * 128
+    assert got > head and got + rnn == counter.get_total_flops()
+    for flag in ("--train-lm", "--eval-lm"):
+        args = profile_eval.parse_args([flag])
+        assert args.config_file == profile_eval.LM_CONFIG
+        assert args.train == (flag == "--train-lm")
+
+
 def test_busy_time_is_the_union_of_intervals():
     intervals = [(0, 10, "a"), (5, 12, "b"), (20, 25, "c"), (21, 22, "d")]
     assert profile_eval.busy_us(intervals) == 17
@@ -245,6 +275,18 @@ def test_busy_time_is_the_union_of_intervals():
      "conformer conv backward kernels"),
     ("conformer_conv_backward::reduce_all_kernel(conformer_conv_backward::"
      "Pieces, int)", "conformer conv backward kernels"),
+    ("void at::native::index_elementwise_kernel<128, 4, at::native::"
+     "gpu_index_kernel<...>>(long, ...)", "sampled softmax gathers and "
+     "scatters"),
+    ("void at::native::vectorized_gather_kernel<16, long>(char*, char*, "
+     "long*, int, long, long, long, long, bool)",
+     "sampled softmax gathers and scatters"),
+    ("void at::native::(anonymous namespace)::indexing_backward_kernel<"
+     "float, 4>(long const*, long const*, float const*, float*, long, "
+     "long, long, long, bool)", "sampled softmax gathers and scatters"),
+    ("void at::native::(anonymous namespace)::indexSelectLargeIndex<float, "
+     "long, unsigned int, 2, 2, -2, true>(...)",
+     "gathers and scatters (embedding, beam reorder)"),
 ])
 def test_kernel_groups(name, group):
     assert profile_eval.group_of(name) == group

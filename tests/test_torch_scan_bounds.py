@@ -13,7 +13,9 @@ the same roundings to bf16.
   dx recomputed from it, which dx's bound alone cannot see); the forward
   run with h carried unrounded, and the LSTM's with c carried in bf16
   (the rounded outputs are held exactly: each a rounding of a value
-  within the recompute's error); every backward carry rounded to bf16.
+  within the recompute's error); every backward carry rounded to bf16;
+  at B 64, two tiles of 32 rows a step, a step whose second tile takes
+  the first tile's h (forward) or dh carry (backward).
 - ``conformer_conv_module_bounds`` and ``conformer_conv_module_bwd_bounds``:
   each stage of the bf16 ``conformer_conv_module_plain`` and its backward,
   from the plain version's own intermediates (those the kernels keep),
@@ -22,7 +24,8 @@ the same roundings to bf16.
   (``fwd_faults``, ``bwd_faults``): a tile's y from u without its halo,
   a CTA's partial left out of dw1 or of dwd, db1 summed from bf16 da.
 
-Inputs from numpy with fixed seeds, B <= 8, T <= 40, H = 128 (the conv
+Inputs from numpy with fixed seeds, B <= 8 (64 for the tiles), T <= 40,
+H = 128 (the conv
 module's D 128 and 256)."""
 import numpy as np
 import pytest
@@ -139,6 +142,45 @@ def test_scan_bounds_refuse_planted_faults(cell, way):
     assert eb.reading(bad_dx, *bad["dx"]) <= 1.0
     want, bound = bad["carry"]
     assert eb.reading(carries[:, 18], want[:, 18], bound[:, 18]) > 10
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_scan_bounds_refuse_rows_from_another_tile(cell, reverse):
+    """At B = 64, two tiles of 32 rows a step: the forward's step whose
+    second tile of rows starts from the first tile's h, and the
+    backward's whose second tile carries the first's dh into the step
+    (dx recomputed from it), read above 1 among the faults of
+    ``fwd_faults`` and ``bwd_faults``; at one tile (B = 8) neither fault
+    is asked for. The plain versions themselves read at most 1."""
+    c = _scan_case(cell, 17 + reverse, B=64, T=12)
+    fwd, bwd = _scan_run(cell, c, reverse)
+    (outs, bounds, kw), (bouts, bbounds, bkw) = fwd, bwd
+    assert max(eb.readings(outs, bounds).values()) <= 1.0
+    assert max(eb.readings(bouts, bbounds).values()) <= 1.0
+    U = rnn_scan.units_per_cta(128)
+    units = slice(U, 2 * U)
+    rows, src = slice(32, 64), slice(0, 32)
+    bad = sb.cross_tile(cell, 6, rows, src, **kw)
+    changed = (bad != outs["ys"]).any(-1)
+    assert changed[32:, 6].any() and not changed[:32].any() and \
+        not changed[:, [5, 7]].any()
+    faults = sb.fwd_faults(cell, 6, units, **kw)
+    assert faults["rows from another tile"] > 10, faults
+    bfaults = sb.bwd_faults(cell, 6, units, bouts["dx"], **bkw)
+    assert bfaults["rows from another tile"] > 10, bfaults
+    bad_dx, carries = sb.cross_tile_bwd(cell, 6, rows, src, bouts["dx"],
+                                        **bkw)
+    assert not torch.equal(carries[32:, 6], bkw["carries"][32:, 6])
+    assert torch.equal(carries[:32], bkw["carries"][:32])
+    bad = sb.bwd_bounds(cell, **dict(bkw, carries=carries))
+    assert eb.reading(bad_dx, *bad["dx"]) <= 1.0
+    one = _scan_case(cell, 19)
+    (_, _, kw1), (bouts1, _, bkw1) = _scan_run(cell, one, reverse)
+    assert "rows from another tile" not in sb.fwd_faults(cell, 6, units,
+                                                          **kw1)
+    assert "rows from another tile" not in sb.bwd_faults(
+        cell, 6, units, bouts1["dx"], **bkw1)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
