@@ -71,7 +71,8 @@ Phases, one informative line or a few each:
    ``gru_scan_plain`` and ``lstm_scan_plain`` at the main paths' shapes
    (GRU B=32, T=500, H=1024; LSTM B=32, T=500, H=512; the LSTM language
    model's B=224, T=96, H=1024, seven tiles of 32 rows a step), at B=8,
-   T=37, H=128 and LSTMs at H=1024 and 1280, forward and reverse, lengths from
+   T=37, H=128, LSTMs at H=1024 and 1280 and the DS2 toy's GRU (fp32,
+   B=10, T=48, H=64; bf16 refused there), forward and reverse, lengths from
    1 to T, with the residual outputs: fp32 (TF32 off) max abs error 1e-5
    at T=37 and 1e-4 at T=500 (the fp32 LSTM at H=1280 refused with
    ValueError before any launch); bf16 each step held from the kernel's
@@ -101,8 +102,9 @@ Phases, one informative line or a few each:
    without them) within the bounds, dx, the next carries, dh0 and dc0,
    with three wrong kernels refused: dx zeroed but in row 1; the carry
    into one step without the recurrent product for one CTA's units, dx
-   recomputed from it; every carry rounded to bf16 (refused up to G H =
-   3072, reported past it: the LM's G H is 4096); at B=224 the carry into
+   recomputed from it; every carry rounded to bf16 (refused at every
+   width, the LM's G H 4096 among them: the carry's bound sums at the
+   kernel's own depth, ``scan_bounds.sum_depth``); at B=224 the carry into
    one step of the second tile of rows taken from the first tile's, dx
    recomputed from it; dx_proj zero past each length, two calls
    bit-identical; times of the kernel, the plain version, the dW_h GEMM
@@ -274,6 +276,32 @@ Phases, one informative line or a few each:
    kernels 3 times each, a checkpoint is written, ``--mode=eval`` runs
    from it and ``--continue_learning`` takes 3 more steps; the train
    tokens per second and the peak device memory printed as information;
+7r. the Jasper-10x5 LibriSpeech recipe
+   (``example_configs_torch/speech2text/jasper10x5_librispeech.py``, full
+   width, "mixed", bf16 features, SpecAugment masks, dither, the feature
+   cache) from wav files: a LibriSpeech-shaped corpus of 256 utterances
+   of 10 s (``test_utils/fake_librispeech``, 8 batches of 32; the first
+   64 its dev and test lists); the data layer's featurization rates alone
+   (cold and warm cache on its thread pool, cold on a pool of worker
+   processes); ``run.main --mode=train`` for 20 steps (the first epoch
+   fills the cache, the later ones read it): the loss finite and falling,
+   the CTC forward and backward once a step, the train rate in utt/s
+   against the synthetic config's in phase 7; 10 more steps with
+   ``--continue_learning`` under the profiler, the card's idle share over
+   the last 6 (past the new process's cuDNN autotuning); ``--mode=eval``
+   ("Validation WER" over the 64 dev utterances, the CTC forward once a
+   batch) and ``--mode=infer`` (the CSV names each wav of the test list
+   once, in order); rates with the card's name and power
+   limit;
+7s. the w2lplus toy recipe (``w2lplus_toy.py``, 150 epochs of the 10 toy
+   wavs) through ``run.main --mode=train_eval`` to its end: its last
+   validation must read WER 0.0000; eval and infer from its checkpoint
+   (the infer CSV's transcripts the toy sentences);
+7t. the DeepSpeech2 toy (``ds2_toy_config.py``: its GRU fp32 at B 10,
+   H 64 on the scan kernels, 2 forward and 2 backward launches a step)
+   and the Conformer toy (``conformer_toy.py``, no kernel flag) from the
+   toy wavs, each cut to 20 steps: the loss finite and falling, then eval
+   and infer from the checkpoint;
 8. one JSON line for the kernels (the LSTM scans' entries with their
    times at the LM's shape under ``at_lm_shape``), then ``{"ok": true,
    "device": ...}`` last.
@@ -293,6 +321,7 @@ import math
 import os
 import re
 import runpy
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -324,6 +353,14 @@ LM_CONFIG = os.path.join(REPO, "example_configs_torch", "lm",
                          "lstm_wkt103_synthetic.py")
 LM_TINY = os.path.join(REPO, "example_configs_torch", "lm",
                        "lstm_lm_tiny_synthetic.py")
+LIBRI_CONFIG = os.path.join(REPO, "example_configs_torch", "speech2text",
+                            "jasper10x5_librispeech.py")
+W2L_TOY = os.path.join(REPO, "example_configs_torch", "speech2text",
+                       "w2lplus_toy.py")
+DS2_TOY = os.path.join(REPO, "example_configs_torch", "speech2text",
+                       "ds2_toy_config.py")
+CONFORMER_TOY = os.path.join(REPO, "example_configs_torch", "speech2text",
+                             "conformer_toy.py")
 # transformer_policy recipes warm up over thousands of steps (transformer-
 # big 8000: lr under 2e-6 for 20 steps; Conformer-M 10,000); the smoke
 # runs cut the warmup so that the loss falls within their 20 steps
@@ -1089,7 +1126,9 @@ SCAN_BF16_MEAN, SCAN_BF16_MAX = 1e-3, 3 * 2.0 ** -7
 # windows (its slice does not fit the warp's room at once), and one at the
 # widest H the kernels take, 1280, where the fp32 forward and backward are
 # refused before any launch (their fp32 copy of W_h passes a CTA's shared
-# memory; the bf16 kernels keep W_h in registers)
+# memory; the bf16 kernels keep W_h in registers), and the DS2 toy's GRU
+# (fp32, B 10, about 48 frames after its stride-2 conv, H 64: 64 CTAs of
+# one unit, a width the bf16 kernels refuse)
 SCAN_CASES = (
     ("ds2-medium", "gru", 32, 500, 1024),
     ("lstm_small", "lstm", 32, 500, 512),
@@ -1098,6 +1137,7 @@ SCAN_CASES = (
     ("small lstm", "lstm", 8, 37, 128),
     ("wide lstm", "lstm", 8, 37, 1024),
     ("widest lstm", "lstm", 8, 37, 1280),
+    ("ds2-toy", "gru", 10, 48, 64),
 )
 
 
@@ -1237,24 +1277,19 @@ def scan_fwd_readings(cell, case, dtype, reverse, got):
                                     ys, cs, 1.0, reverse)
     faults = sb.fwd_faults(cell, ys.shape[1] // 2, _fault_units(ys.shape[2]),
                            **kw)
-    return eb.readings(outs, bounds), faults, {}
+    return eb.readings(outs, bounds), faults
 
 
-def print_readings(tag, readings, faults, unheld=None):
-    """One line of bound readings, planted-fault readings and readings of
-    faults a check is not asked to refuse here (``unheld``; dicts by
+def print_readings(tag, readings, faults):
+    """One line of bound readings and planted-fault readings (dicts by
     name); fails unless every reading is at most 1 and every fault reads
     above 1."""
     worst = max(readings.values())
     print("[{}] bound readings {} (largest {:.4f}); planted faults read "
-          "{}{}".format(tag, ", ".join("{} {:.4f}".format(k, v)
-                                       for k, v in readings.items()), worst,
-                        ", ".join("{:.1f} ({})".format(v, k)
-                                  for k, v in faults.items()),
-                        "".join("; not held at this width: {:.2f} ({})"
-                                .format(v, k)
-                                for k, v in (unheld or {}).items())),
-          flush=True)
+          "{}".format(tag, ", ".join("{} {:.4f}".format(k, v)
+                                     for k, v in readings.items()), worst,
+                      ", ".join("{:.1f} ({})".format(v, k)
+                                for k, v in faults.items())), flush=True)
     check(worst <= 1.0, "{}: a bound reading above 1: {}".format(
         tag, readings))
     check(min(faults.values()) > 1.0, "{}: a planted fault passed: "
@@ -1296,7 +1331,7 @@ def phase_scan(card):
     the kernels do not take, they refuse. Returns the worst fp32 error and
     the timings, by cell."""
     import torch
-    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan, rnn_scan
     from openseq2seq_tpu_torch.parts.rnns import rnn
     dev = torch.device("cuda")
     worst = {"gru": 0.0, "lstm": 0.0}
@@ -1305,6 +1340,13 @@ def phase_scan(card):
     for i, (name, cell, B, T, H) in enumerate(SCAN_CASES):
         case = scan_case(cell, B, T, H, 20 + i, dev)
         for dtype in (torch.float32, torch.bfloat16):
+            if not rnn_scan.takes(H, dtype):
+                kernel = gru_scan if cell == "gru" else lstm_scan
+                check_refused(lambda: scan_call(cell, case, dtype, False,
+                                                True),
+                              lambda: kernel.LAUNCHES, "{} {} bf16 at H = "
+                              "{}".format(name, cell, H))
+                continue
             if not scan_fits(cell, "fwd", H, dtype):
                 kernel = gru_scan if cell == "gru" else lstm_scan
                 check_refused(lambda: scan_call(cell, case, dtype, False,
@@ -1405,8 +1447,9 @@ def phase_scan(card):
               times["lstm"]["us_per_step"],
               times["lstm"]["floor_us_per_step"], card), flush=True)
     # a shape that `supported` rejects (DS2-large's H = 800) takes the scan
-    check(gru_scan.supported(32, 500, 1024) and
-          not gru_scan.supported(32, 500, 800), "supported()")
+    check(gru_scan.supported(32, 500, 1024, torch.bfloat16) and
+          not gru_scan.supported(32, 500, 800, torch.bfloat16),
+          "supported()")
     layer = rnn.GRU(64, 800, dtype=torch.bfloat16, fused=True).to(dev)
     before = gru_scan.LAUNCHES
     with torch.no_grad():
@@ -1477,8 +1520,8 @@ def scan_bwd_fn(cell, case, dtype, reverse, plain=False):
 def scan_bwd_readings(cell, case, dtype, reverse, got):
     """The backward kernel with its carries on the forward kernel's
     residuals: the one-step bounds' readings by output, and those of the
-    wrong kernels of ``scan_bounds.bwd_faults`` (the bf16 carries apart
-    past ``BF16_CARRY_MAX_GH``). Fails unless its dx, dh0 (and dc0) are
+    wrong kernels of ``scan_bounds.bwd_faults``, each of which a check
+    must refuse. Fails unless its dx, dh0 (and dc0) are
     bit-identical to ``got``, the outputs of the launch without carries
     on the same inputs."""
     import torch
@@ -1510,13 +1553,12 @@ def scan_bwd_readings(cell, case, dtype, reverse, got):
     check(all(torch.equal(a, b) for a, b in zip(flat, got)),
           "{}: the backward with carries differs from the one without"
           .format(cell))
-    kw.update(wh=wh, lengths=lengths, acts=acts, dys=dys, dh_last=dh,
-              carries=carries, reverse=reverse)
     T, H = acts.shape[1], dys.shape[2]
+    kw.update(wh=wh, lengths=lengths, acts=acts, dys=dys, dh_last=dh,
+              carries=carries, reverse=reverse,
+              depth=sb.sum_depth(acts.shape[2] // H, H, dtype))
     faults = sb.bwd_faults(cell, T // 2, _fault_units(H), dx, **kw)
-    unheld = {} if acts.shape[2] <= sb.BF16_CARRY_MAX_GH else \
-        {"bf16 carry": faults.pop("bf16 carry")}
-    return eb.readings(outs, sb.bwd_bounds(cell, **kw)), faults, unheld
+    return eb.readings(outs, sb.bwd_bounds(cell, **kw)), faults
 
 
 def scan_bwd_bound_ms(cell, case):
@@ -1552,7 +1594,7 @@ def phase_scan_bwd(card):
     yardstick, never on the path). Returns the worst fp32 error and the
     timings, by cell."""
     import torch
-    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan, rnn_scan
     dev = torch.device("cuda")
     worst = {"gru": 0.0, "lstm": 0.0}
     times = {}
@@ -1569,6 +1611,14 @@ def phase_scan_bwd(card):
     for i, (name, cell, B, T, H) in enumerate(SCAN_CASES):
         case = with_cotangents(scan_case(cell, B, T, H, 50 + i, dev), 60 + i)
         for dtype in (torch.float32, torch.bfloat16):
+            if not rnn_scan.takes(H, dtype):
+                xp = case["x_proj"].to(dtype)
+                check_refused(lambda: gru_scan._bwd_cuda(
+                    case["wh"], xp[:, 0, :H], case["lengths"], xp[..., :H],
+                    xp, xp[..., :H], xp[..., :H], xp[:, 0, :H], False),
+                    lambda: gru_scan.BWD_LAUNCHES, "{} {} backward bf16 at "
+                    "H = {}".format(name, cell, H))
+                continue
             if not scan_fits(cell, "bwd", H, dtype):
                 # the residuals' shapes, from the inputs: the forward
                 # that would make them is refused too
@@ -2664,8 +2714,7 @@ def phase_transformer_train(card):
         wall = time.time() - t0
         launches = counts()
         total = [a + b for a, b in zip(total, launches)]
-        losses = [float(x) for x in re.findall(r"loss = ([-+0-9.einaf]+)",
-                                                "\n".join(lines))]
+        losses = _losses(lines)
         print("[nmt train] losses {}; launches flash fwd {}, bwd dq {}, "
               "bwd dkv {}, dropout {}; {:.1f} s with the build of the "
               "model".format(losses, *launches, wall), flush=True)
@@ -2819,19 +2868,6 @@ def phase_small_ds2_train():
               "between card and CPU".format(cell))
 
 
-def _more_steps_config(path, logdir, steps):
-    """A config file in ``logdir`` that is ``path`` with its
-    ``train_params`` ``max_steps`` set to ``steps``."""
-    more = os.path.join(logdir, "more_steps.py")
-    with open(more, "w") as f:
-        f.write("import runpy\n_c = runpy.run_path({!r})\n"
-                "base_model = _c['base_model']\n"
-                "base_params = _c['base_params']\n"
-                "train_params = dict(_c['train_params'], max_steps={})\n"
-                .format(path, steps))
-    return more
-
-
 def phase_rnn_train(path, name, kernel, per_step, card):
     """A recurrent speech config at full width through ``run.main
     --mode=train`` for its ``train_params``' steps: the loss is finite at
@@ -2867,8 +2903,7 @@ def phase_rnn_train(path, name, kernel, per_step, card):
         wall = time.time() - t0
         launches = counts()
         total = [a + b for a, b in zip(total, launches)]
-        losses = [float(x) for x in re.findall(r"loss = ([-+0-9.einaf]+)",
-                                                "\n".join(lines))]
+        losses = _losses(lines)
         print("[{}] losses {}; launches {} {}, {} {}, CTC forward {}, "
               "backward {}; {:.1f} s with the build of the model".format(
                   name, losses, kernel.KERNEL, launches[0], kernel.BWD_KERNEL,
@@ -2902,7 +2937,7 @@ def phase_rnn_train(path, name, kernel, per_step, card):
               "eval from the trained checkpoint")
 
         reset()
-        more = _more_steps_config(path, logdir, steps + 3)
+        more = _recipe_config(path, logdir, steps + 3)
         result, lines = _run_quiet(["--config_file=" + more, argv[1],
                                     "--mode=train", "--continue_learning"])
         launches = counts()
@@ -3234,8 +3269,7 @@ def phase_conformer_train(card):
         wall = time.time() - t0
         launches = counts()
         total = [a + b for a, b in zip(total, launches)]
-        losses = [float(x) for x in re.findall(r"loss = ([-+0-9.einaf]+)",
-                                                "\n".join(lines))]
+        losses = _losses(lines)
         print("[conformer-m train] losses {}; launches (rel-pos flash, its "
               "dq, its dkv, conv module, its backward, CTC forward, CTC "
               "backward) {}; {:.1f} s with the build of the model".format(
@@ -3271,7 +3305,7 @@ def phase_conformer_train(card):
                            n_batches, 0), "eval from the trained checkpoint")
 
         reset()
-        more = _more_steps_config(CONFORMER_M, logdir, steps + 3)
+        more = _recipe_config(CONFORMER_M, logdir, steps + 3)
         result, lines = _run_quiet(["--config_file=" + more, argv[1],
                                     "--mode=train", "--continue_learning",
                                     WARMUP_OVERRIDE])
@@ -3543,8 +3577,7 @@ def phase_lm_train(card):
         wall = time.time() - t0
         launches = counts()
         total = [a + b for a, b in zip(total, launches)]
-        losses = [float(x) for x in re.findall(r"loss = ([-+0-9.einaf]+)",
-                                                "\n".join(lines))]
+        losses = _losses(lines)
         print("[lm train] losses {}; launches lstm_scan_fwd {}, "
               "lstm_scan_bwd {}; {:.1f} s with the build of the model; peak "
               "device memory {:.2f} GiB".format(
@@ -3579,7 +3612,7 @@ def phase_lm_train(card):
               "eval from the trained checkpoint")
 
         reset()
-        more = _more_steps_config(LM_CONFIG, logdir, steps + 3)
+        more = _recipe_config(LM_CONFIG, logdir, steps + 3)
         result, lines = _run_quiet(["--config_file=" + more, argv[1],
                                     "--mode=train", "--continue_learning"])
         launches = counts()
@@ -3659,10 +3692,17 @@ def _run_quiet(argv):
     return result, buf.getvalue().splitlines()
 
 
+def _losses(lines):
+    """The losses of the printed ``loss = ...`` lines, in order."""
+    return [float(x) for x in re.findall(r"loss = ([-+0-9.einaf]+)",
+                                         "\n".join(lines))]
+
+
 def phase_train(card):
     """Jasper-10x5 through ``run.main --mode=train``, then eval from its
     checkpoint and a resumed run. Returns the launch counts of the
-    forward and backward kernels over these paths."""
+    forward and backward kernels over these paths, and the train rate in
+    utt/s."""
     import torch
     from openseq2seq_tpu_torch.ops import ctc_cuda
     fwd = bwd = 0
@@ -3675,8 +3715,7 @@ def phase_train(card):
         wall = time.time() - t0
         launches = (ctc_cuda.LAUNCHES, ctc_cuda.BWD_LAUNCHES)
         fwd, bwd = fwd + launches[0], bwd + launches[1]
-        losses = [float(x) for x in re.findall(r"loss = ([-+0-9.einaf]+)",
-                                                "\n".join(lines))]
+        losses = _losses(lines)
         print("[train] Jasper-10x5, {} steps of 32 x 1000 frames, mixed: "
               "losses at the printed steps {}; kernel launches fwd {}, bwd "
               "{}; {:.1f} s with the build of the model".format(
@@ -3707,7 +3746,7 @@ def phase_train(card):
         check(math.isfinite(metrics["eval_loss"]) and launches == (4, 0),
               "eval from the trained checkpoint")
 
-        more = _more_steps_config(CONFIG, logdir, steps + 3)
+        more = _recipe_config(CONFIG, logdir, steps + 3)
         ctc_cuda.LAUNCHES = ctc_cuda.BWD_LAUNCHES = 0
         result, lines = _run_quiet(["--config_file=" + more,
                                     "--logdir=" + logdir, "--mode=train",
@@ -3723,7 +3762,304 @@ def phase_train(card):
               result["steps"] == steps + 3 and launches == (3, 3),
               "resumed run")
         torch.cuda.synchronize()
+    return fwd, bwd, utt_s
+
+
+def _recipe_config(path, logdir, steps, **base):
+    """A config file in ``logdir`` that is ``path`` run for ``steps``
+    training steps (its ``train_params``' ``max_steps``, in place of any
+    ``num_epochs``), its ``base_params`` updated with ``base``."""
+    cut = os.path.join(logdir, "cut_" + os.path.basename(path))
+    with open(cut, "w") as f:
+        f.write("import runpy\n_c = runpy.run_path({!r})\n"
+                "base_model = _c['base_model']\n"
+                "base_params = dict(_c['base_params'], **{!r})\n"
+                "base_params.pop('num_epochs', None)\n"
+                "train_params = dict(_c.get('train_params', {{}}), "
+                "max_steps={})\n"
+                "eval_params = _c.get('eval_params', {{}})\n"
+                "infer_params = _c.get('infer_params', {{}})\n"
+                .format(path, base, steps))
+    return cut
+
+
+def _infer_rows(path):
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    check(rows and rows[0] == ["wav_filename", "predicted_transcript"],
+          "infer CSV header {}".format(rows[:1]))
+    return rows[1:]
+
+
+def featurization_rates(params, cache_dir, card):
+    """utt/s of the wav data layer alone over one epoch of the train list
+    with the feature cache cold, then one with it warm (the recipe's
+    thread pool), and one cold epoch in a pool of worker processes, one
+    for each CPU core."""
+    from openseq2seq_tpu_torch.data.speech2text import Speech2TextDataLayer
+    rates = {}
+    runs = (("cold", dict(params, cache_format=cache_dir + "/threads")),
+            ("warm", dict(params, cache_format=cache_dir + "/threads")),
+            ("cold, processes", dict(params, cache_format=cache_dir +
+                                     "/processes", use_process_pool=True,
+                                     map_parallel_calls=os.cpu_count())))
+    for name, p in runs:
+        dl = Speech2TextDataLayer(dict(p), None)
+        dl.seed(0)
+        t0 = time.perf_counter()
+        n = sum(int(b["batch_valid"]) for b in dl.iterate_one_epoch())
+        rates[name] = n / (time.perf_counter() - t0)
+        print("[wav] featurization, the data layer alone, {}: {} "
+              "utterances of 10 s at {:.1f} utt/s ({} workers; {} CPU "
+              "cores; {})".format(name, n, rates[name],
+                                  p.get("map_parallel_calls", 4),
+                                  os.cpu_count(), card), flush=True)
+    return rates
+
+
+def device_idle_share(argv, skip):
+    """``run.main(argv)`` (a training run) under the profiler, device
+    activity only: the idle share of the card, 1 - busy / span, from the
+    CTC forward kernel of step ``skip`` + 1 (past the model's build, its
+    restore and the first steps' cuDNN autotuning) to the end of the
+    last CTC kernel. Returns (share, busy ms, span ms, steps in the
+    window, lines)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, lines = _run_quiet(argv)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    kernels = sorted((e["ts"], e["ts"] + e.get("dur", 0), e["name"])
+                     for e in events if e.get("cat") in ("kernel",
+                                                         "gpu_memcpy",
+                                                         "gpu_memset"))
+    starts = [k[0] for k in kernels if "ctc_alpha_fwd" in k[2]]
+    check(len(starts) > skip, "the trace holds {} CTC forward kernels"
+          .format(len(starts)))
+    t0, t1 = starts[skip], max(k[1] for k in kernels if "ctc" in k[2])
+    busy, end = 0.0, t0
+    for s, e, _ in kernels:
+        s, e = max(s, t0), min(e, t1)
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return (1 - busy / (t1 - t0), busy / 1e3, (t1 - t0) / 1e3,
+            len(starts) - skip, lines)
+
+
+def phase_librispeech(card, synthetic_utt_s):
+    """Jasper-10x5 at full width, its LibriSpeech recipe
+    (``jasper10x5_librispeech.py``) from wav files: a LibriSpeech-shaped
+    corpus of 256 ten-second utterances (8 batches of 32) written by
+    ``test_utils/fake_librispeech``, with a copy of its dev list as the
+    test list that infer reads. The data layer's featurization rates
+    alone; 20 training steps through ``run.main --mode=train`` (the
+    first epoch featurizes into the cold feature cache, the later ones
+    read it warm): the loss finite and falling, one CTC forward and
+    backward launch a step, the train rate in utt/s over steps 11-20
+    against the synthetic config's (``phase_train``, same process);
+    10 more steps with ``--continue_learning`` under the profiler, the
+    card's idle share over the last 6; eval from the checkpoint
+    ("Validation WER" over the 64 dev utterances, one CTC forward a
+    batch); infer, whose CSV names each wav of the test list once.
+    Returns the CTC forward and backward launches over these paths."""
+    import torch
+    from openseq2seq_tpu_torch.ops import ctc_cuda
+    from openseq2seq_tpu_torch.test_utils import fake_librispeech
+    fwd = bwd = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "librispeech")
+        t0 = time.time()
+        fake_librispeech.generate(data, n_utts=256)
+        shutil.copy(os.path.join(data, "librivox-dev-clean.csv"),
+                    os.path.join(data, "librivox-test-clean.csv"))
+        print("[wav] a LibriSpeech-shaped corpus of 256 utterances of 10 s "
+              "(140-char transcripts; dev and test lists: the first 64) "
+              "written in {:.1f} s".format(time.time() - t0), flush=True)
+        os.environ["LIBRISPEECH_DIR"] = data
+        config = runpy.run_path(LIBRI_CONFIG)
+        params = dict(config["base_params"]["data_layer_params"],
+                      **config["train_params"]["data_layer_params"],
+                      mode="train", batch_size=32)
+        rates = featurization_rates(params, os.path.join(tmp, "rate_cache"),
+                                    card)
+
+        logdir = os.path.join(tmp, "logs")
+        os.makedirs(logdir)
+        steps = 20
+        cut = _recipe_config(LIBRI_CONFIG, logdir, steps,
+                             print_loss_steps=5)
+        argv = ["--config_file=" + cut, "--logdir=" + logdir]
+        ctc_cuda.LAUNCHES = ctc_cuda.BWD_LAUNCHES = 0
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train"])
+        wall = time.time() - t0
+        launches = (ctc_cuda.LAUNCHES, ctc_cuda.BWD_LAUNCHES)
+        fwd, bwd = fwd + launches[0], bwd + launches[1]
+        losses = _losses(lines)
+        print("[wav] Jasper-10x5 recipe from wav files, {} steps of 32 "
+              "utterances, mixed, bf16 features: losses at the printed steps "
+              "{}; CTC launches fwd {}, bwd {}; {:.1f} s with the build of "
+              "the model".format(result["steps"], losses, *launches, wall),
+              flush=True)
+        check(result["steps"] == steps, "trained {} steps".format(
+            result["steps"]))
+        check(len(losses) == steps // 5 and
+              all(math.isfinite(x) for x in losses),
+              "losses not finite: {}".format(losses))
+        check(losses[-1] < losses[0], "loss did not fall: {}".format(losses))
+        check(launches == (steps, steps), "CTC launched {} times in {} "
+              "steps".format(launches, steps))
+        frames = 1 + 10 * 16000 // 160      # a 10 s utterance's frames
+        utt_s = result["objects_per_sec"] / frames
+        print("[wav] train rate fed from wav files {:.1f} utt/s over steps "
+              "11-20 (warm feature cache), against {:.1f} utt/s of the "
+              "synthetic config's one repeated batch in this process; the "
+              "data layer alone featurizes {:.1f} utt/s cold, {:.1f} warm, "
+              "{:.1f} cold in {} processes ({})".format(
+                  utt_s, synthetic_utt_s, rates["cold"], rates["warm"],
+                  rates["cold, processes"], os.cpu_count(), card),
+              flush=True)
+
+        more = _recipe_config(LIBRI_CONFIG, logdir, steps + 10,
+                              print_loss_steps=5)
+        ctc_cuda.LAUNCHES = ctc_cuda.BWD_LAUNCHES = 0
+        share, busy, span, window, lines = device_idle_share(
+            ["--config_file=" + more, argv[1], "--mode=train",
+             "--continue_learning"], skip=4)
+        launches = (ctc_cuda.LAUNCHES, ctc_cuda.BWD_LAUNCHES)
+        fwd, bwd = fwd + launches[0], bwd + launches[1]
+        started = [x for x in lines if "Starting training from step" in x]
+        print("[wav] --continue_learning from step {}, 10 steps under the "
+              "profiler: over the last {} (warm cache) the card busy "
+              "{:.3f} ms of a {:.3f} ms span, idle share {:.2%}; CTC "
+              "launches fwd {}, bwd {} ({})".format(
+                  steps, window, busy, span, share, *launches, card),
+              flush=True)
+        check(started and started[0].endswith("step {}".format(steps)) and
+              launches == (10, 10), "resumed run")
+
+        ctc_cuda.LAUNCHES = ctc_cuda.BWD_LAUNCHES = 0
+        metrics, lines = _run_quiet(argv + ["--mode=eval"])
+        launches = (ctc_cuda.LAUNCHES, ctc_cuda.BWD_LAUNCHES)
+        fwd, bwd = fwd + launches[0], bwd + launches[1]
+        wer = [x for x in lines if "Validation WER" in x]
+        print("[wav] eval from the step-{} checkpoint over the 64 dev "
+              "utterances: {}, loss {:.6f}; CTC launches fwd {}, bwd {}"
+              .format(steps + 10, wer[-1].strip() if wer else None,
+                      metrics["eval_loss"], *launches), flush=True)
+        check(wer and math.isfinite(metrics["eval_loss"]) and
+              launches == (2, 0), "eval from the trained checkpoint")
+
+        out = os.path.join(tmp, "infer.csv")
+        ctc_cuda.LAUNCHES = ctc_cuda.BWD_LAUNCHES = 0
+        _run_quiet(argv + ["--mode=infer", "--infer_output_file=" + out])
+        launches = (ctc_cuda.LAUNCHES, ctc_cuda.BWD_LAUNCHES)
+        fwd, bwd = fwd + launches[0], bwd + launches[1]
+        rows = _infer_rows(out)
+        with open(os.path.join(data, "librivox-test-clean.csv")) as f:
+            wavs = [r["wav_filename"] for r in csv.DictReader(f)]
+        print("[wav] infer: {} rows, each wav of the test list once, in "
+              "its order: {}; CTC launches fwd {}, bwd {}".format(
+                  len(rows), [r[0] for r in rows] == wavs, *launches),
+              flush=True)
+        check([r[0] for r in rows] == wavs, "the infer CSV does not name "
+              "each wav of the test list once")
+        torch.cuda.synchronize()
     return fwd, bwd
+
+
+def _toy_env(tmp):
+    os.environ["OS2S_TOY_DATA_DIR"] = os.path.join(tmp, "toy_speech")
+    os.environ["OS2S_TOY_LOGDIR"] = os.path.join(tmp, "logs")
+
+
+def phase_w2lplus_toy(card):
+    """The w2lplus toy recipe (``w2lplus_toy.py``: 150 epochs of the 10
+    toy utterances, featurized from their wavs every epoch) through
+    ``run.main --mode=train_eval`` to its end: its last validation must
+    read WER 0.0000; then eval and infer from its checkpoint, the infer
+    CSV's transcripts the toy sentences, in order."""
+    from openseq2seq_tpu_torch.test_utils import toy_speech
+    with tempfile.TemporaryDirectory() as tmp:
+        _toy_env(tmp)
+        argv = ["--config_file=" + W2L_TOY]
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train_eval"])
+        wer = [x.strip() for x in lines if "Validation WER" in x]
+        losses = _losses(lines)
+        print("[toy] w2lplus_toy --mode=train_eval: {} steps in {:.1f} s, "
+              "losses at the printed steps {}; validations {} ({})".format(
+                  result["steps"], time.time() - t0, losses, wer, card),
+              flush=True)
+        check(result["steps"] == 150 and wer and
+              wer[-1].endswith("Validation WER: 0.0000"),
+              "the w2lplus toy did not reach WER 0")
+        metrics, _ = _run_quiet(argv + ["--mode=eval"])
+        out = os.path.join(tmp, "infer.csv")
+        _run_quiet(argv + ["--mode=infer", "--infer_output_file=" + out])
+        rows = _infer_rows(out)
+        print("[toy] eval from the checkpoint: WER {:.4f}; infer: {}"
+              .format(metrics["Eval WER"], [r[1] for r in rows]), flush=True)
+        check(metrics["Eval WER"] == 0.0 and
+              [r[1] for r in rows] == toy_speech.TRANSCRIPTS,
+              "eval or infer from the toy checkpoint")
+
+
+def phase_toy(path, name, kernel, per_step, card):
+    """A toy recipe (``ds2_toy_config.py``, ``conformer_toy.py``) from the
+    toy wavs, cut to 20 steps through ``run.main --mode=train``: the loss
+    finite and falling; ``kernel`` (the GRU scan module, or None) launches
+    ``per_step`` forward and backward kernels a step and ``per_step``
+    forward kernels a batch in eval and infer; then eval and infer from
+    the checkpoint (10 rows, one a wav). Returns the kernel's forward and
+    backward launches."""
+    total = [0, 0]
+
+    def launches():
+        return (kernel.LAUNCHES, kernel.BWD_LAUNCHES) if kernel else (0, 0)
+
+    def reset():
+        if kernel:
+            kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        _toy_env(tmp)
+        steps = 20
+        cut = _recipe_config(path, tmp, steps, print_loss_steps=5)
+        argv = ["--config_file=" + cut]
+        reset()
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train"])
+        got = launches()
+        losses = _losses(lines)
+        print("[toy] {}: {} steps in {:.1f} s, losses {}; launches forward "
+              "{}, backward {} ({})".format(name, result["steps"],
+                                            time.time() - t0, losses, *got,
+                                            card), flush=True)
+        check(result["steps"] == steps and len(losses) == 4 and
+              all(math.isfinite(x) for x in losses) and
+              losses[-1] < losses[0], "{} losses {}".format(name, losses))
+        check(got == (per_step * steps, per_step * steps),
+              "{}: launches {}".format(name, got))
+        total = [a + b for a, b in zip(total, got)]
+        reset()
+        metrics, _ = _run_quiet(argv + ["--mode=eval"])
+        out = os.path.join(tmp, "infer.csv")
+        _run_quiet(argv + ["--mode=infer", "--infer_output_file=" + out])
+        got = launches()
+        rows = _infer_rows(out)
+        print("[toy] {}: eval WER {:.4f}, loss {:.4f}; infer {} rows; "
+              "launches forward {}, backward {}".format(
+                  name, metrics["Eval WER"], metrics["eval_loss"], len(rows),
+                  *got), flush=True)
+        check(math.isfinite(metrics["eval_loss"]) and len(rows) == 10 and
+              got == (2 * per_step, 0), "{} eval and infer".format(name))
+        total = [a + b for a, b in zip(total, got)]
+    return total
 
 
 # the scan kernels' instantiations that the main paths run, by their
@@ -3841,7 +4177,7 @@ def main():
     config = runpy.run_path(CONFIG)
     phase_small_reference(config)
     eval_launches = phase_slice(config, card)
-    train_fwd, train_bwd = phase_train(card)
+    train_fwd, train_bwd, synthetic_utt_s = phase_train(card)
     phase_small_transformer()
     flash_launches = phase_transformer(card)
     phase_small_transformer_train()
@@ -3868,6 +4204,12 @@ def main():
     scan_launches["lstm"] = (scan_launches["lstm"][0] + lm_launches +
                              lm_train[0], scan_launches["lstm"][1] +
                              lm_train[1])
+    wav_fwd, wav_bwd = phase_librispeech(card, synthetic_utt_s)
+    phase_w2lplus_toy(card)
+    ds2_toy = phase_toy(DS2_TOY, "ds2_toy_config", gru_scan, 2, card)
+    phase_toy(CONFORMER_TOY, "conformer_toy", None, 0, card)
+    scan_launches["gru"] = (scan_launches["gru"][0] + ds2_toy[0],
+                            scan_launches["gru"][1] + ds2_toy[1])
 
     # 8. result
     fwd_bound = ctc_bound_ms(32, 500, 160, 29, 500, backward=False)
@@ -3879,7 +4221,7 @@ def main():
         "source": "openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu",
         "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:65",
         "launches": eval_launches + train_fwd + ds2_ctc + lstm_ctc +
-        ds2_train[2] + lstm_train[2] + conf_train[5],
+        ds2_train[2] + lstm_train[2] + conf_train[5] + wav_fwd,
         "max_abs_err": fwd_err,
         "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound[0],
         "bound_by": fwd_bound[1], "library_ms": ctc_lib_fwd_ms}, {
@@ -3887,7 +4229,7 @@ def main():
         "source": "openseq2seq_tpu_torch/csrc/ctc_beta_bwd.cu",
         "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:140",
         "launches": train_bwd + ds2_train[3] + lstm_train[3] +
-        conf_train[6],
+        conf_train[6] + wav_bwd,
         "max_abs_err": bwd_err,
         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0],
         "bound_by": bwd_bound[1], "library_ms": ctc_lib_fwd_bwd_ms}, {

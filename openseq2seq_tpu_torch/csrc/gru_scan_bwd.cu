@@ -99,15 +99,15 @@ struct GruBwdCell {
 // rnn_scan::kNotCoResident (-2) when the H / units CTAs cannot all be
 // resident at once, kTooMuchSmem (-4) when a CTA's shared memory passes
 // what an SM gives one (nothing is launched then), or kBadUnits (-3). The
-// caller guarantees B, T >= 1, H % 128 == 0, 1 <= units <= 10 dividing H,
-// and contiguous device buffers in the compute type (bf16 when is_bf16,
-// else fp32) unless said otherwise: W_h (H, 3H), the forward's acts
-// (B, T, 3H) and hn (B, T, H), ys (B, T, H), h0 (B, H), lengths (B,)
-// int32, dys (B, T, H), hcarry (B, H) fp32 holding dh_last, dx (B, T, 3H)
-// and dh0 (B, H) out, a (2, B, 3H) exchange buffer, carries (B, T, H) fp32
-// out (the dh carried into each step) or null, and a zeroed uint32
-// barrier counter. bf16 runs on the tensor cores (scan_bwd_mma_kernel),
-// fp32 on the CUDA cores (scan_bwd_kernel).
+// caller guarantees B, T >= 1, H % 128 == 0 (or H = 64 in fp32), 1 <=
+// units <= 10 dividing H, and contiguous device buffers in the compute
+// type (bf16 when is_bf16, else fp32) unless said otherwise: W_h (H, 3H),
+// the forward's acts (B, T, 3H) and hn (B, T, H), ys (B, T, H), h0 (B, H),
+// lengths (B,) int32, dys (B, T, H), hcarry (B, H) fp32 holding dh_last,
+// dx (B, T, 3H) and dh0 (B, H) out, a (2, B, 3H) exchange buffer, carries
+// (B, T, H) fp32 out (the dh carried into each step) or null, and a zeroed
+// uint32 barrier counter. bf16 runs on the tensor cores
+// (scan_bwd_mma_kernel), fp32 on the CUDA cores (scan_bwd_kernel).
 extern "C" int gru_scan_bwd(const void* wh, const void* acts, const void* hn,
                             const void* ys, const void* h0,
                             const void* lengths, const void* dys,

@@ -82,12 +82,12 @@ struct GruCell {
 // rnn_scan::kNotCoResident (-2) when the H / units CTAs cannot all be
 // resident at once, kTooMuchSmem (-4) when a CTA's shared memory passes
 // what an SM gives one (nothing is launched then), or kBadUnits (-3). The
-// caller guarantees B, T >= 1, H % 128 == 0, 1 <= units <= 10 dividing H,
-// and contiguous device buffers: x_proj (B, T, 3H) and W_h (H, 3H) in the
-// compute type (bf16 when is_bf16, else fp32), b_h (3H,) fp32, lengths
-// (B,) int32, hbuf (2, B, H) with h0 in hbuf[0], ys (B, T, H), h_last
-// (B, H), acts (B, T, 3H) and hn (B, T, H) both null or both given, and a
-// zeroed uint32 barrier counter.
+// caller guarantees B, T >= 1, H % 128 == 0 (or H = 64 in fp32), 1 <=
+// units <= 10 dividing H, and contiguous device buffers: x_proj (B, T,
+// 3H) and W_h (H, 3H) in the compute type (bf16 when is_bf16, else fp32),
+// b_h (3H,) fp32, lengths (B,) int32, hbuf (2, B, H) with h0 in hbuf[0],
+// ys (B, T, H), h_last (B, H), acts (B, T, 3H) and hn (B, T, H) both null
+// or both given, and a zeroed uint32 barrier counter.
 extern "C" int gru_scan_fwd(const void* x_proj, const void* wh,
                             const void* bh, const void* lengths, void* hbuf,
                             void* ys, void* h_last, void* acts, void* hn,

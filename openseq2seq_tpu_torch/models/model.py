@@ -472,15 +472,17 @@ def _named_params(module: torch.nn.Module
 
 def to_device_batch(batch: Any, device: torch.device) -> Any:
     """numpy batch -> tensors on ``device`` (lists and dicts recursed;
-    scalars kept). To a CUDA device the copy goes through pinned memory
-    and does not wait for the device."""
+    scalars kept; a host tensor, such as the bf16 features of the speech
+    data layer, moved as it is). To a CUDA device the copy goes through
+    pinned memory and does not wait for the device."""
     if isinstance(batch, dict):
         return {k: to_device_batch(v, device) for k, v in batch.items()}
     if isinstance(batch, (list, tuple)):
         return [to_device_batch(v, device) for v in batch]
     if isinstance(batch, np.ndarray) and batch.ndim > 0:
-        t = torch.from_numpy(batch)
+        batch = torch.from_numpy(batch)
+    if isinstance(batch, torch.Tensor) and batch.ndim > 0:
         if torch.device(device).type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t.to(device)
+            return batch.pin_memory().to(device, non_blocking=True)
+        return batch.to(device)
     return batch

@@ -1,11 +1,10 @@
 """Speech-to-text task model: WER, the infer CSV, training samples and
 frame counts (port of ``openseq2seq_tpu/models/speech2text.py``).
 
-Infer runs on the synthetic data layer here, where the JAX package's
-does not: its ``finalize_inference`` reads the data layer's
-``all_files``, which the synthetic layer lacks; this one names such rows
-by index. Reading on-device features (``featurize_on_device``) and
-pickling logits for a language-model decode are not ported yet.
+Infer writes one CSV row per utterance in the data layer's order: with
+the wav data layer (``data/speech2text``) each row names its wav, as in
+the JAX package, and with the synthetic layer, which has no files, its
+index. Pickling logits for a language-model decode is not ported yet.
 """
 from __future__ import annotations
 
@@ -28,12 +27,6 @@ class Speech2Text(EncoderDecoderModel):
         self._params["decoder_params"]["tgt_vocab_size"] = \
             self.get_data_layer().params["tgt_vocab_size"]
         return super()._create_decoder()
-
-    def build_module(self, example_batch, generator):
-        if self.get_data_layer().params.get("featurize_on_device", False):
-            raise NotImplementedError(
-                "featurize_on_device is not ported yet")
-        return super().build_module(example_batch, generator)
 
     def _decode_batch(self, output_values) -> List[str]:
         """Decoded ids (B, T) and lengths -> list of transcripts."""

@@ -34,8 +34,9 @@ ValueError before any launch (``rnn_scan.check_inputs``,
 
 :func:`supported` is the JAX package's gate (``gru_pallas.supported``)
 without its backend test, with ``_pick_bblk``'s VMEM budget kept as it
-is, so that a layer takes the fused path exactly where the JAX package's
-does.
+is, so that a layer takes the fused path where the JAX package's does;
+and in fp32 also at H 64, at any B, which the TPU kernel's blocks refuse
+and the CUDA kernels take (64 CTAs of one unit: ``rnn_scan.units_per_cta``).
 """
 from __future__ import annotations
 
@@ -63,8 +64,12 @@ def _pick_bblk(B: int, H: int) -> int:
     return 0
 
 
-def supported(B: int, T: int, H: int) -> bool:
-    if H % 128 != 0 or B < 8:
+def supported(B: int, T: int, H: int, dtype: torch.dtype) -> bool:
+    if not rnn_scan.takes(H, dtype):
+        return False
+    if H == rnn_scan.NARROW_FP32:
+        return B > 0
+    if B < 8:
         return False
     bblk = _pick_bblk(B, H)
     return bblk != 0 and bblk % 8 == 0

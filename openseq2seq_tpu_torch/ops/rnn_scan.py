@@ -31,6 +31,10 @@ _NOT_CO_RESIDENT = -2
 _BAD_UNITS = -3
 _TOO_MUCH_SMEM = -4
 MAX_UNITS = 10
+# the one width under 128 that the fp32 kernels take: a row of h is one
+# 256-byte chunk (``kChunkBytes`` in csrc/rnn_scan.cuh), the grid 64 CTAs
+# of one unit; the bf16 kernels' warps need H = 128 U
+NARROW_FP32 = 64
 _fns = {}
 _fits = {}
 
@@ -39,17 +43,24 @@ class NotCoResident(RuntimeError):
     """The scan's grid cannot be resident on the card all at once."""
 
 
+def takes(H: int, dtype: torch.dtype) -> bool:
+    """Whether the scan kernels' warps take width H in ``dtype``: H a
+    multiple of 128 (H = 128 U), or, in fp32 only, ``NARROW_FP32``."""
+    return H % 128 == 0 or (dtype == torch.float32 and H == NARROW_FP32)
+
+
 def units_per_cta(H: int) -> int:
     """Hidden units per CTA: H / 128, so that the grid is 128 CTAs, one
-    per SM of an H100, whatever H."""
-    return H // 128
+    per SM of an H100, whatever H; one at ``NARROW_FP32``."""
+    return max(H // 128, 1)
 
 
 def check_inputs(x_proj: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
                  lengths: torch.Tensor, gates: int) -> None:
     """Raise ValueError unless x_proj is (B, T, gates * H) bf16 or fp32 on
-    a CUDA device with H % 128 == 0 and H <= 128 * MAX_UNITS, and W_h,
-    h0 and lengths are (H, gates * H), (B, H) and (B,) on its device."""
+    a CUDA device with H % 128 == 0 and H <= 128 * MAX_UNITS (or, in
+    fp32, H = ``NARROW_FP32``), and W_h, h0 and lengths are (H, gates *
+    H), (B, H) and (B,) on its device."""
     if x_proj.device.type != "cuda":
         raise ValueError("no scan kernel for device {}".format(
             x_proj.device))
@@ -61,9 +72,10 @@ def check_inputs(x_proj: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
             gates, tuple(x_proj.shape)))
     B, _, GH = x_proj.shape
     H = GH // gates
-    if H % 128 or not 0 < H <= 128 * MAX_UNITS:
+    if not takes(H, x_proj.dtype) or not 0 < H <= 128 * MAX_UNITS:
         raise ValueError("the scan kernels take H a multiple of 128 up to "
-                         "{}, got {}".format(128 * MAX_UNITS, H))
+                         "{} (and {} in fp32), got {}".format(
+                             128 * MAX_UNITS, NARROW_FP32, H))
     for name, t, shape in (("wh", wh, (H, GH)), ("h0", h0, (B, H)),
                            ("lengths", lengths, (B,))):
         if t.device != x_proj.device:
@@ -147,7 +159,11 @@ def check_fits(name: str, H: int, dtype: torch.dtype,
     """Raise ValueError, naming the width, unless a CTA of the kernel that
     the entry ``name`` launches at width H in ``dtype`` fits an SM of
     ``device``, as the kernel's own ``<name>_resources`` entry reports (no
-    launch; remembered per entry, width, dtype and device)."""
+    launch; remembered per entry, width, dtype and device), and unless
+    the kernels take H in ``dtype`` (:func:`takes`)."""
+    if not takes(H, dtype):
+        raise ValueError("{} takes no {} scan at H = {}: its warps need H "
+                         "a multiple of 128".format(name, str(dtype)[6:], H))
     key = (name, H, dtype, device.index)
     if key not in _fits:
         with torch.cuda.device(device):

@@ -18,7 +18,11 @@ terms, as ``flash_attention._sum_bound`` builds them:
   may round the other way (``bounds.flips``), the gap times |W_h| in the
   next carry;
 - the fp32 sums of the recurrent product in another order: 2 n 2^-24 of
-  the sum of the terms' sizes, n = H (forward) or G H (backward);
+  the sum of the terms' sizes, n = H in the forward; in the backward
+  n = G H for a sum in any order (the plain version's), or, given
+  ``depth``, the most additions a term passes through in the backward
+  kernel's own order (:func:`sum_depth`), so that a kernel whose carry is
+  rounded to bf16 is refused at every width;
 - the fp32 cell math: ``CELL`` of the magnitude of each expression (the
   same expression on absolute values, each difference a sum), which
   covers 32 roundings, transcendentals at 2 ulps each;
@@ -246,16 +250,42 @@ def _lstm_bwd(c, cc, dys, live, acts, cs, c_prev):
                                 m_dcn * sf)}
 
 
-def _product(step, w, dt):
+# the warps of a CTA of the backward kernels, each summing its own slice
+# of the product's G H columns (``kWarps`` in csrc/rnn_scan.cuh)
+WARPS = 8
+
+
+def sum_depth(G: int, H: int, dtype) -> int:
+    """The most fp32 additions a term of the backward's product dg W_h^T
+    passes through in the kernel's order (``csrc/rnn_scan_bwd.cuh``), at
+    G gates of width H: warp w of a CTA sums the G H / 8 columns of its
+    slice, then the eight warps' partial sums are added in a fixed order.
+
+    bf16 (``scan_bwd_mma_kernel``): a warp's slice is G U k16 steps of
+    mma.sync m16n8k16, U = H / 128 units a CTA; a term passes through its
+    own k16 step, whose 16 products and accumulator the tensor core adds
+    in an order PTX does not state (counted as 32 additions, twice its
+    terms, so that a truncating adder is covered too), then each later
+    k16 step of the slice, whose adder aligns the running sum with its 16
+    new products and truncates it with them (counted as 17 additions, one
+    for each of the step's terms). fp32 (``scan_bwd_kernel``): one FMA
+    for each of the slice's G H / 8 columns. Then the eight partials."""
+    if dtype == torch.bfloat16:
+        return 32 + 17 * (G * rnn_scan.units_per_cta(H) - 1) + WARPS
+    return G * H // WARPS + WARPS
+
+
+def _product(step, w, dt, depth=None):
     """The next dh carry with dg rounded to ``dt`` times W_h^T, and its
     error: where dg's error may move its rounding (``flips``), the gap,
-    times |W_h| (unrounded, dg's error); the fp32 sum of G H terms in
-    another order; the add to the carry."""
+    times |W_h| (unrounded, dg's error); the fp32 sum, ``depth``
+    additions at most for each term (None: G H, any order); the add to
+    the carry."""
     dg_r = step["dg"].to(dt).to(torch.float64)
     e_dg = flips(step["dg"], step["e_dg"]).abs() \
         if dt == torch.bfloat16 else step["e_dg"]
     nxt = step["next"] + dg_r @ w.t()
-    n = w.shape[1]
+    n = w.shape[1] if depth is None else depth
     terms = (2 * n * F32_U * dg_r.abs() + e_dg) @ w.abs().t()
     return nxt, step["e_next"] + terms + 2 * F32_U * nxt.abs()
 
@@ -280,15 +310,16 @@ def _final(x, reverse):
 
 
 def gru_bwd_bounds(wh, h0, lengths, ys, acts, hn, dys, dh_last, carries,
-                   reverse=False) -> dict:
+                   reverse=False, depth=None) -> dict:
     """Bounds of the GRU backward kernel's dx, its carries (``carry``)
-    and dh0, each step recomputed from the kernel's own carry."""
+    and dh0, each step recomputed from the kernel's own carry; ``depth``
+    as :func:`_product` takes it (a kernel's: :func:`sum_depth`)."""
     d, dt, T = torch.float64, acts.dtype, acts.shape[1]
     live = _live(lengths, T)
     h_prev = rnn_scan.prev_states(ys, h0, lengths, reverse).to(d)
     step = _gru_bwd(carries.to(d), dys.to(d), live, acts.to(d), hn.to(d),
                     h_prev)
-    nxt, e_nxt = _product(step, wh.to(dt).to(d), dt)
+    nxt, e_nxt = _product(step, wh.to(dt).to(d), dt, depth)
     last, e_last = _final(nxt, reverse), _final(e_nxt, reverse)
     return {"dx": (step["dx"], _rounded(step["dx"], step["e_dx"], dt)),
             "carry": _carried(nxt, e_nxt, dh_last, reverse),
@@ -296,16 +327,17 @@ def gru_bwd_bounds(wh, h0, lengths, ys, acts, hn, dys, dh_last, carries,
 
 
 def lstm_bwd_bounds(wh, c0, lengths, acts, cs, dys, dh_last, dc_last,
-                    carries, ccarries, reverse=False) -> dict:
+                    carries, ccarries, reverse=False, depth=None) -> dict:
     """Bounds of the LSTM backward kernel's dx (dgates), its dh and dc
     carries (``carry``, ``ccarry``), dh0 and dc0 (fp32: its error
-    alone), each step recomputed from the kernel's own carries."""
+    alone), each step recomputed from the kernel's own carries;
+    ``depth`` as :func:`_product` takes it."""
     d, dt, T = torch.float64, acts.dtype, acts.shape[1]
     live = _live(lengths, T)
     c_prev = rnn_scan.prev_states(cs, c0.float(), lengths, reverse).to(d)
     step = _lstm_bwd(carries.to(d), ccarries.to(d), dys.to(d), live,
                      acts.to(d), cs.to(d), c_prev)
-    nxt, e_nxt = _product(step, wh.to(dt).to(d), dt)
+    nxt, e_nxt = _product(step, wh.to(dt).to(d), dt, depth)
     last, e_last = _final(nxt, reverse), _final(e_nxt, reverse)
     last_c = _final(step["next_c"], reverse)
     return {"dx": (step["dx"], _rounded(step["dx"], step["e_dx"], dt)),
@@ -542,21 +574,12 @@ def cross_tile_bwd(cell, t, rows, src, dx, **kw):
     rows is recomputed from it."""
     dt = kw["acts"].dtype
     nxt, _ = _product(_bwd_step(cell, kw["carries"], kw),
-                      kw["wh"].to(dt).to(torch.float64), dt)
+                      kw["wh"].to(dt).to(torch.float64), dt,
+                      kw.get("depth"))
     carries = kw["carries"].clone()
     carries[rows, t] = nxt[src, _t_before(t, kw)].float()
     H = kw["dys"].shape[2]
     return _carry_fault(cell, t, carries, dx, slice(0, H), **kw)
-
-
-# The widest G H at which the carry's bound is finer than a bf16 rounding
-# of the carry, so that "bf16 carry" must be refused: the sum's term, 2 G
-# H 2^-24 of the product's terms, grows with G H, and at 4096 (an LSTM at
-# H 1024, whose carry at a live step is the product alone) it reaches
-# about 2^-9 of |carry| (the plain version read 0.88 to 1.08 there at B 4
-# to 8, T 16 to 37, against 2.3 to 82 up to G H 3072, on the CPU; the
-# kernel 0.98 and 1.02 at B 8, T 37 on an H100, against 3.1 to 74).
-BF16_CARRY_MAX_GH = 3072
 
 
 def bwd_faults(cell, t, units, dx, **kw) -> dict:
@@ -574,8 +597,11 @@ def bwd_faults(cell, t, units, dx, **kw) -> dict:
       :func:`cross_tile_bwd` at step t, the second tile of rows carrying
       the first's dh into it (the carry into step t).
 
-    A check must read all of them above 1, "bf16 carry" where G H <=
-    ``BF16_CARRY_MAX_GH``."""
+    A check must read all of them above 1, at every width, given the
+    kernel's own summation depth (``depth``, :func:`sum_depth`), so that
+    the carry's sum term stays below a bf16 rounding of the carry (at G H
+    4096, the LSTM at H 1024, "bf16 carry" read 0.88 to 1.08 against a
+    bound of any order, G H additions, short of refusing it)."""
     bounds = bwd_bounds(cell, **kw)
     out = {"rows zeroed": reading(zero_but_row_1(dx), *bounds["dx"])}
     faults = {"product left out": drop_product_bwd(cell, t, units, dx, **kw)}

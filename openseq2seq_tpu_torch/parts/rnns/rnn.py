@@ -92,7 +92,8 @@ class LSTM(_Cell):
             c0 = torch.zeros((B, H), device=x.device)
         else:
             h0, c0 = initial_state
-        if self.fused and lstm_scan.supported(B, T, H):
+        if self.fused and lstm_scan.supported(B, T, H,
+                                                 x_proj.dtype):
             return lstm_scan.lstm_scan(
                 x_proj, self.recurrent_kernel, h0, c0.float(), lengths,
                 float(self.forget_bias), self.reverse)
@@ -132,7 +133,8 @@ class GRU(_Cell):
         x_proj = self.input_proj(x)                          # (B, T, 3H)
         h0 = x_proj.new_zeros((B, H)) if initial_state is None \
             else initial_state
-        if self.fused and gru_scan.supported(B, T, H):
+        if self.fused and gru_scan.supported(B, T, H,
+                                                 x_proj.dtype):
             return gru_scan.gru_scan(x_proj, self.recurrent_kernel,
                                      self.recurrent_bias, h0, lengths,
                                      self.reverse)

@@ -5,6 +5,7 @@ card in turns.
 
     python3 scripts_torch/bench_scan.py [--root DIR]
     python3 scripts_torch/bench_scan.py --compare PARENT_DIR
+    python3 scripts_torch/bench_scan.py --carry-seeds 3
 
 With ``--root`` (default: this checkout) the package is imported from DIR
 and its kernels are built there. It prints the card's name and power
@@ -27,6 +28,14 @@ bidirectional speech layers, H for the LM's), forward (with its input
 GEMM timed beside it, and the forward less it: the recurrence alone) and
 forward plus backward (timed only, the yardstick). The last line is a
 JSON object of all of it.
+
+With ``--carry-seeds N`` it times nothing: it prints, for N seeds, the
+bf16 LSTM backward's bound readings and planted-fault readings at the
+language model's shape (B 224, T 96, H 1024, ``chip_smoke.py`` 4f's
+lengths: T, 1, T / 2 and uniform), forward and reverse, the bound at
+the kernel's summation depth (``scan_bounds.sum_depth``); the first
+seed is 4f's own. It fails unless every bound reading is at most 1 and
+every fault ("bf16 carry" among them) reads above 1.
 
 ``--compare`` runs PARENT_DIR, this checkout, this checkout, PARENT_DIR,
 one process each, so that both designs are timed on one card in one
@@ -158,14 +167,52 @@ def run_one(root: str) -> dict:
     return result
 
 
+def carry_readings(seeds: int) -> dict:
+    """The LM-shape bf16 LSTM backward's readings at ``seeds`` seeds,
+    forward and reverse, by ``chip_smoke.py``'s ``scan_bwd_readings``."""
+    sys.path.insert(0, REPO)
+    import torch
+    cs = _chip_smoke()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    cell, _, B, T, H, _ = MAIN["lstm-lm"]
+    runs = []
+    for k in range(seeds):
+        # 4f's own seeds first (its third case: 52, cotangents 62)
+        seed = 52 + 100 * k
+        case = cs.scan_case(cell, B, T, H, seed, dev)
+        g = torch.Generator(device=dev).manual_seed(seed + 10)
+        case.update(dys=torch.randn((B, T, H), generator=g, device=dev),
+                    dh=torch.randn((B, H), generator=g, device=dev),
+                    dc=torch.randn((B, H), generator=g, device=dev))
+        for reverse in (False, True):
+            got = cs.scan_bwd_fn(cell, case, bf, reverse)()
+            readings, faults = cs.scan_bwd_readings(cell, case, bf, reverse,
+                                                    got)
+            cs.print_readings("carry seed {} {} ({})".format(
+                seed, "reverse" if reverse else "forward", card), readings,
+                faults)
+            runs.append({"seed": seed, "reverse": reverse,
+                         "readings": readings, "faults": faults})
+    return {"card": card, "runs": runs}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=REPO)
     parser.add_argument("--compare", default=None)
+    parser.add_argument("--carry-seeds", type=int, default=0)
     opts = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("bench_scan: no CUDA device")
+    if opts.carry_seeds:
+        print(json.dumps(carry_readings(opts.carry_seeds)), flush=True)
+        return
     if opts.compare is None:
         result = run_one(opts.root)
         print(result["card"], flush=True)

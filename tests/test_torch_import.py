@@ -1,7 +1,7 @@
-"""The port imports torch and never jax, flax, optax or pandas, nor any
-module of the JAX package; its CUDA wrapper leaves the kernel alone for
-CPU tensors; and its entry point runs on the card unless asked for the
-CPU."""
+"""The port imports torch and never jax, flax, optax, pandas or
+ml_dtypes, nor any module of the JAX package; its CUDA wrapper leaves the
+kernel alone for CPU tensors; and its entry point runs on the card unless
+asked for the CPU."""
 import glob
 import os
 import subprocess
@@ -15,7 +15,7 @@ from openseq2seq_tpu_torch import run
 from openseq2seq_tpu_torch.ops import ctc, ctc_cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "optax", "pandas")
+FORBIDDEN = ("jax", "flax", "optax", "pandas", "ml_dtypes")
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "example_configs_torch", "*",
                                         "*.py")))
 
@@ -46,13 +46,20 @@ def _import_all(report: str) -> str:
             "openseq2seq_tpu_torch.ops.conformer_conv",
             "openseq2seq_tpu_torch.encoders.lm_encoders",
             "openseq2seq_tpu_torch.decoders.lm_decoders",
-            "openseq2seq_tpu_torch.models.lstm_lm"} <= set(modules)
+            "openseq2seq_tpu_torch.models.lstm_lm",
+            "openseq2seq_tpu_torch.ops.features",
+            "openseq2seq_tpu_torch.data.speech2text.speech2text",
+            "openseq2seq_tpu_torch.test_utils.toy_speech",
+            "openseq2seq_tpu_torch.test_utils.fake_librispeech"} <= \
+        set(modules)
     names = {os.path.basename(c) for c in CONFIGS}
     assert len(CONFIGS) >= 13 and {
         "transformer_big_train_synthetic.py", "ds2_medium_synthetic.py",
         "lstm_small_synthetic.py", "ds2_tiny_synthetic.py",
         "conformer_m_synthetic.py", "conformer_tiny_synthetic.py",
-        "lstm_wkt103_synthetic.py", "lstm_lm_tiny_synthetic.py"} <= names
+        "lstm_wkt103_synthetic.py", "lstm_lm_tiny_synthetic.py",
+        "jasper10x5_librispeech.py", "w2lplus_toy.py", "ds2_toy_config.py",
+        "conformer_toy.py"} <= names
     code = ("import importlib, runpy, sys\n"
             "for m in {!r}: importlib.import_module(m)\n"
             "for c in {!r}: runpy.run_path(c)\n"

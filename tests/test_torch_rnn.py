@@ -201,10 +201,11 @@ def test_supported_is_the_jax_gate(kind):
                         "gru": (gru_scan, gru_pallas)}[kind]
     for b in (4, 8, 12, 16, 32, 48, 64, 256):
         for h in (64, 128, 384, 512, 800, 1024, 1152, 1280, 1408):
-            assert port.supported(b, 100, h) == jax_kernel.supported(
-                b, 100, h, interpret=True), (b, h)
+            assert port.supported(b, 100, h, torch.bfloat16) == \
+                jax_kernel.supported(b, 100, h, interpret=True), (b, h)
     # DeepSpeech2-medium takes the kernel, DeepSpeech2-large (H = 800) not
-    assert port.supported(32, 500, 1024) and not port.supported(32, 500, 800)
+    assert port.supported(32, 500, 1024, torch.bfloat16) and \
+        not port.supported(32, 500, 800, torch.bfloat16)
 
 
 def test_cpu_wrapper_runs_the_plain_version_with_gradients():
