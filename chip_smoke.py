@@ -70,7 +70,8 @@ Phases, one informative line or a few each:
    tensor cores in clusters of two; fp32 on the CUDA cores) against
    ``gru_scan_plain`` and ``lstm_scan_plain`` at the main paths' shapes
    (GRU B=32, T=500, H=1024; LSTM B=32, T=500, H=512; the LSTM language
-   model's B=224, T=96, H=1024, seven tiles of 32 rows a step), at B=8,
+   model's B=224, T=96, H=1024, seven tiles of 32 rows a step; GNMT-like's
+   encoder, B=32, T=50, H=1024, one tile), at B=8,
    T=37, H=128, LSTMs at H=1024 and 1280 and the DS2 toy's GRU (fp32,
    B=10, T=48, H=64; bf16 refused there), forward and reverse, lengths from
    1 to T, with the residual outputs: fp32 (TF32 off) max abs error 1e-5
@@ -87,7 +88,8 @@ Phases, one informative line or a few each:
    version and cuDNN's ``torch.nn.GRU``/``torch.nn.LSTM`` (timed only,
    never on the path; its input GEMM timed beside it, and cuDNN's time
    less it; the speech layers' with a 2H-wide input, the LM's with an
-   H-wide one) at the main shapes in bf16, with the tiles and the time a
+   H-wide one, as GNMT's) at the main shapes in bf16, with the tiles and
+   the time a
    step, and the per-step floor (B=8, T=500, H=128); a GRU layer at
    H=800, which ``supported`` rejects, runs
    the scan with no launch; what the kernels do not take, they refuse;
@@ -302,9 +304,34 @@ Phases, one informative line or a few each:
    and the Conformer toy (``conformer_toy.py``, no kernel flag) from the
    toy wavs, each cut to 20 steps: the loss finite and falling, then eval
    and infer from the checkpoint;
+7u. the transformer reversal toy (``example_configs_torch/text2text/
+   nmt_reversal_toy.py``, 100 epochs of 512 digit sequences) through
+   ``run.main --mode=train_eval`` to its end: its last "Validation BLEU"
+   above 80 (NMT's toy run); eval and infer from its checkpoint (32
+   lines);
+7v. the RNN reversal toy (``nmt_reversal_toy_rnn.py``: a bidirectional
+   LSTM encoder, a Bahdanau attention LSTM decoder, beam 4) the same way,
+   its BLEU above 80 too;
+7w. transformer-big from text (``transformer_big_wmt.py``, every key of
+   the JAX recipe, flash attention on) on a WMT-shaped corpus written
+   first (``test_utils/fake_wmt``: 60,000 pairs, the recipe's 32K
+   vocabulary, dev and test cut to 64 sentences): ``run.main --mode=train``
+   for 20 steps of 256 sentence pairs with the warmup cut to 200 steps,
+   the loss finite at every step and its mean over the last five steps
+   below that over the first five, the flash forward, dq and dkv kernels 18
+   times each a step, the parameter count and the peak device memory;
+   eval from the checkpoint ("Validation BLEU" over the 64 dev sentences,
+   18 flash launches a batch of 16) and infer (64 lines, 6 launches a
+   batch);
+7x. GNMT-like at full width from text (``en_de_gnmt_like_wmt.py``, every
+   key of the JAX recipe) on the same corpus the same way: 20 steps of 32
+   pairs, the LSTM forward and backward kernels 8 times each a step (the
+   encoder's bidirectional layer and six unidirectional ones), eval with
+   beam 10 ("Validation BLEU", 8 forward launches a batch) and infer (64
+   lines);
 8. one JSON line for the kernels (the LSTM scans' entries with their
-   times at the LM's shape under ``at_lm_shape``), then ``{"ok": true,
-   "device": ...}`` last.
+   times at the LM's shape under ``at_lm_shape`` and at GNMT's under
+   ``at_gnmt_shape``), then ``{"ok": true, "device": ...}`` last.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after. Any failed check raises, and the script exits non-zero
@@ -361,6 +388,17 @@ DS2_TOY = os.path.join(REPO, "example_configs_torch", "speech2text",
                        "ds2_toy_config.py")
 CONFORMER_TOY = os.path.join(REPO, "example_configs_torch", "speech2text",
                              "conformer_toy.py")
+NMT_TOY = os.path.join(REPO, "example_configs_torch", "text2text",
+                       "nmt_reversal_toy.py")
+NMT_TOY_RNN = os.path.join(REPO, "example_configs_torch", "text2text",
+                           "nmt_reversal_toy_rnn.py")
+NMT_WMT = os.path.join(REPO, "example_configs_torch", "text2text",
+                       "transformer_big_wmt.py")
+GNMT_WMT = os.path.join(REPO, "example_configs_torch", "text2text",
+                        "en_de_gnmt_like_wmt.py")
+# the recipes' parameter counts at the 32,768 vocabulary
+TRANSFORMER_PARAMS = 209915904
+GNMT_PARAMS = 308382720
 # transformer_policy recipes warm up over thousands of steps (transformer-
 # big 8000: lr under 2e-6 for 20 steps; Conformer-M 10,000); the smoke
 # runs cut the warmup so that the loss falls within their 20 steps
@@ -1133,6 +1171,7 @@ SCAN_CASES = (
     ("ds2-medium", "gru", 32, 500, 1024),
     ("lstm_small", "lstm", 32, 500, 512),
     ("lstm-lm", "lstm", 224, 96, 1024),
+    ("gnmt", "lstm", 32, 50, 1024),
     ("small gru", "gru", 8, 37, 128),
     ("small lstm", "lstm", 8, 37, 128),
     ("wide lstm", "lstm", 8, 37, 1024),
@@ -1144,7 +1183,9 @@ SCAN_CASES = (
 # the timed cases: name, the layer's input width over H (the speech
 # layers' are bidirectional stacks, the LM's are not); cuDNN's one layer
 # is timed with that input width
-SCAN_TIMED = {"ds2-medium": 2, "lstm_small": 2, "lstm-lm": 1}
+SCAN_TIMED = {"ds2-medium": 2, "lstm_small": 2, "lstm-lm": 1, "gnmt": 1}
+# the timed cases kept apart from their cell's main entry
+SCAN_OWN_ENTRY = ("lstm-lm", "gnmt")
 # the bf16 kernels walk a step's batch rows in tiles of 32 (kRows in
 # csrc/rnn_scan.cuh and csrc/rnn_scan_bwd.cuh)
 SCAN_TILE_ROWS = 32
@@ -1411,7 +1452,7 @@ def phase_scan(card):
         t["bound_ms"], t["bound_by"] = scan_bound_ms(cell, full)
         t["tiles_per_step"] = -(-B // SCAN_TILE_ROWS)
         t["us_per_step"] = 1e3 * t["ms"] / T
-        times[cell if name != "lstm-lm" else name] = t
+        times[name if name in SCAN_OWN_ENTRY else cell] = t
         print("[scan] {} {} bf16 B={} T={} H={}: kernel "
               "(scan_fwd_mma_kernel) {:.4f} ms, plain {:.4f} ms, bound "
               "{:.4f} ms ({}; {} dependent steps, each ending in a "
@@ -1694,7 +1735,7 @@ def phase_scan_bwd(card):
         t["bound_ms"], t["bound_by"] = scan_bwd_bound_ms(cell, full)
         t["tiles_per_step"] = -(-B // SCAN_TILE_ROWS)
         t["us_per_step"] = 1e3 * t["ms"] / T
-        times[cell if name != "lstm-lm" else name] = t
+        times[name if name in SCAN_OWN_ENTRY else cell] = t
         print("[scan bwd] {} {} bf16 B={} T={} H={}: backward kernel {:.4f} "
               "ms (its forward with residuals {:.4f} ms), plain {:.4f} ms, "
               "bound {:.4f} ms ({}); the dW_h GEMM outside it, fp32, "
@@ -4062,6 +4103,210 @@ def phase_toy(path, name, kernel, per_step, card):
     return total
 
 
+def _bleu_lines(lines):
+    return [float(x) for x in re.findall(r"Validation BLEU: ([0-9.]+)",
+                                         "\n".join(lines))]
+
+
+def _toy_nmt_env(tmp):
+    os.environ["OS2S_TOY_NMT_DIR"] = os.path.join(tmp, "toy_nmt")
+    os.environ["OS2S_TOY_NMT_LOGDIR"] = os.path.join(tmp, "logs")
+
+
+def phase_nmt_toy(path, name, bar, card):
+    """A reversal toy recipe (``nmt_reversal_toy.py``: the transformer;
+    ``nmt_reversal_toy_rnn.py``: the RNN pair) through ``run.main
+    --mode=train_eval`` to its end: the losses finite and falling, its
+    last "Validation BLEU" above ``bar`` where one is given (else
+    printed); then eval and infer from its checkpoint, one line for each
+    of the 32 eval sentences. Neither recipe sets a kernel flag. Returns
+    the last validation BLEU."""
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        _toy_nmt_env(tmp)
+        argv = ["--config_file=" + path]
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train_eval"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        bleu, losses = _bleu_lines(lines), _losses(lines)
+        print("[toy nmt] {} --mode=train_eval: {} steps in {:.1f} s, losses "
+              "at the printed steps {}; validation BLEU {} ({})".format(
+                  name, result["steps"], wall, losses, bleu, card),
+              flush=True)
+        check(len(losses) >= 2 and all(math.isfinite(x) for x in losses) and
+              losses[-1] < losses[0], "{} losses {}".format(name, losses))
+        check(bool(bleu) and (bar is None or bleu[-1] > bar),
+              "{}: validation BLEU {}".format(name, bleu))
+        metrics, _ = _run_quiet(argv + ["--mode=eval"])
+        out = os.path.join(tmp, "infer.txt")
+        _run_quiet(argv + ["--mode=infer", "--infer_output_file=" + out])
+        with open(out) as f:
+            rows = f.read().splitlines()
+        print("[toy nmt] {}: eval from the checkpoint BLEU {:.4f}, loss "
+              "{:.4f}; infer {} lines, the first {}".format(
+                  name, metrics["Eval BLEU"], metrics["eval_loss"],
+                  len(rows), rows[:3]), flush=True)
+        check(math.isfinite(metrics["eval_loss"]) and len(rows) == 32,
+              "{} eval and infer".format(name))
+    return bleu[-1]
+
+
+def phase_wmt(path, name, wmt_dir, kernel, per_step, per_batch, n_params,
+              card, **base):
+    """A full-width NMT recipe from the WMT-shaped text files in
+    ``wmt_dir`` through ``run.main``: ``--mode=train`` for 20 steps (the
+    loss of every step finite, and the mean of the last five below that
+    of the first five: each step's batch differs; the parameter count
+    ``n_params``; the peak device memory), then ``--mode=eval`` from the
+    checkpoint over the dev split ("Validation BLEU" printed) and
+    ``--mode=infer`` over the test split (one line a source sentence).
+    ``kernel()`` reads the launch counts of the path's kernels and
+    ``kernel(0)`` sets them to 0; a step launches ``per_step`` of them, an
+    eval or infer batch ``per_batch`` (eval) and ``per_batch`` less the
+    teacher-forced pass's (infer; ``base["infer_per_batch"]``). Returns
+    the launch counts over the three runs."""
+    import torch
+    infer_per_batch = base.pop("infer_per_batch")
+    os.environ["WMT16_DIR"] = wmt_dir
+    config = runpy.run_path(path)
+    eval_batch = config.get("eval_params", {}).get(
+        "batch_size_per_gpu", config["base_params"]["batch_size_per_gpu"])
+    infer_batch = config.get("infer_params", {}).get(
+        "batch_size_per_gpu", config["base_params"]["batch_size_per_gpu"])
+    with open(os.path.join(wmt_dir, "wmt13-en-de.src.BPE_common.32K.tok")) \
+            as f:
+        n_dev = len(f.read().splitlines())
+    with open(os.path.join(wmt_dir, "wmt14-en-de.src.BPE_common.32K.tok")) \
+            as f:
+        n_test = len(f.read().splitlines())
+    steps = 20
+    total = [0] * len(kernel())
+    with tempfile.TemporaryDirectory() as logdir:
+        cut = _recipe_config(path, logdir, steps, print_loss_steps=1,
+                             save_checkpoint_steps=steps, **base)
+        argv = ["--config_file=" + cut, "--logdir=" + logdir]
+        kernel(0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = kernel()
+        total = [a + b for a, b in zip(total, got)]
+        losses = _losses(lines)
+        count = sum(p.numel() for p in result["state"].module.parameters())
+        print("[wmt] {}: {} parameters, {} steps of {} sentence pairs from "
+              "text, {}; losses {}; launches {} ({} a "
+              "step); peak device memory {:.2f} GiB; {:.1f} s with the "
+              "build of the model; {:.1f} tokens/s (source + target) over "
+              "steps 11-20 ({})".format(
+                  name, count, result["steps"],
+                  config["base_params"]["batch_size_per_gpu"],
+                  config["base_params"]["dtype"], losses, got,
+                  [x / steps for x in got], peak, wall,
+                  result["objects_per_sec"], card), flush=True)
+        check(count == n_params, "{}: {} parameters".format(name, count))
+        check(result["steps"] == steps and len(losses) == steps and
+              all(math.isfinite(x) for x in losses) and
+              sum(losses[-5:]) < sum(losses[:5]),
+              "{} losses {}".format(name, losses))
+        check(tuple(got) == tuple(steps * x for x in per_step),
+              "{}: launches {} in {} steps".format(name, got, steps))
+        del result
+
+        kernel(0)
+        metrics, lines = _run_quiet(argv + ["--mode=eval"])
+        got = kernel()
+        total = [a + b for a, b in zip(total, got)]
+        batches = -(-n_dev // eval_batch)
+        bleu = [x.strip() for x in lines if "Validation BLEU" in x]
+        print("[wmt] {}: eval from the step-{} checkpoint over the {} dev "
+              "sentences: {}, loss {:.4f}; launches {}".format(
+                  name, steps, n_dev, bleu, metrics["eval_loss"], got),
+              flush=True)
+        check(bool(bleu) and math.isfinite(metrics["eval_loss"]) and
+              tuple(got) == tuple(batches * x for x in per_batch),
+              "{} eval".format(name))
+
+        kernel(0)
+        out = os.path.join(logdir, "infer.txt")
+        t0 = time.time()
+        _run_quiet(argv + ["--mode=infer", "--infer_output_file=" + out])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        got = kernel()
+        total = [a + b for a, b in zip(total, got)]
+        with open(out) as f:
+            rows = f.read().splitlines()
+        batches = -(-n_test // infer_batch)
+        print("[wmt] {}: infer over the {} test sentences: {} lines in "
+              "{:.1f} s with the build of the model, the first {}; "
+              "launches {}".format(name, n_test, len(rows), wall, rows[:2],
+                                   got), flush=True)
+        check(len(rows) == n_test and
+              tuple(got) == tuple(batches * x for x in infer_per_batch),
+              "{} infer".format(name))
+    return total
+
+
+def wmt_corpus(root):
+    """The WMT-shaped corpus of the full-width NMT phases: 60,000 training
+    pairs, dev and test splits cut to 64 sentences each, and 10,921 word
+    types, so that the shared vocabulary holds 4 + 3 x 10921 = 32,767
+    tokens, the recipes' 32K."""
+    from openseq2seq_tpu_torch.test_utils import fake_wmt
+    t0 = time.time()
+    out = fake_wmt.generate(os.path.join(root, "wmt"), n_train=60000,
+                            n_dev=64, n_test=64, n_types=10921,
+                            with_t2t=False)
+    with open(os.path.join(out, "m_common.vocab")) as f:
+        vocab = len(f.read().splitlines())
+    print("[wmt] fake_wmt corpus: 60,000 training pairs, 64 dev and 64 test "
+          "sentences, a vocabulary of {} tokens, in {:.1f} s".format(
+              vocab, time.time() - t0), flush=True)
+    check(vocab == 32767, "vocabulary of {}".format(vocab))
+    return out
+
+
+def phase_nmt_text(card):
+    """7u to 7x: the reversal toys, then transformer-big and GNMT-like at
+    full width from text files. Returns the flash attention's (forward,
+    dq, dkv) launches and the LSTM scan's (forward, backward)."""
+    from openseq2seq_tpu_torch.ops import flash_attention as fa
+    from openseq2seq_tpu_torch.ops import fused_dropout as fd
+    from openseq2seq_tpu_torch.ops import lstm_scan
+
+    def flash(zero=None):
+        if zero is not None:
+            fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+            fd.LAUNCHES = 0
+        return (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES,
+                fd.LAUNCHES)
+
+    def scan(zero=None):
+        if zero is not None:
+            lstm_scan.LAUNCHES = lstm_scan.BWD_LAUNCHES = 0
+        return (lstm_scan.LAUNCHES, lstm_scan.BWD_LAUNCHES)
+
+    phase_nmt_toy(NMT_TOY, "nmt_reversal_toy", 80.0, card)
+    phase_nmt_toy(NMT_TOY_RNN, "nmt_reversal_toy_rnn", 80.0, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        wmt_dir = wmt_corpus(tmp)
+        # Adam at the recipe's lr 2.0 (x d^-0.5) with the warmup cut to 200
+        # steps: 4.4e-4 at step 20
+        fl = phase_wmt(NMT_WMT, "transformer-big", wmt_dir, flash,
+                       (18, 18, 18, 0), (18, 0, 0, 0), TRANSFORMER_PARAMS,
+                       card, infer_per_batch=(6, 0, 0, 0),
+                       lr_policy_params={"learning_rate": 2.0,
+                                         "warmup_steps": 200,
+                                         "d_model": 1024})
+        sc = phase_wmt(GNMT_WMT, "GNMT-like", wmt_dir, scan, (8, 8), (8, 0),
+                       GNMT_PARAMS, card, infer_per_batch=(8, 0))
+    return fl[:3], sc
+
+
 # the scan kernels' instantiations that the main paths run, by their
 # (gates, units per CTA) in the mangled name: DS2-medium's GRU (3, 8),
 # lstm_small's LSTM (4, 4), the tiny configs' (3, 1) and (4, 1)
@@ -4210,6 +4455,11 @@ def main():
     phase_toy(CONFORMER_TOY, "conformer_toy", None, 0, card)
     scan_launches["gru"] = (scan_launches["gru"][0] + ds2_toy[0],
                             scan_launches["gru"][1] + ds2_toy[1])
+    wmt_flash, gnmt_scan = phase_nmt_text(card)
+    nmt_fwd, nmt_dq, nmt_dkv = (a + b for a, b in zip(
+        (nmt_fwd, nmt_dq, nmt_dkv), wmt_flash))
+    scan_launches["lstm"] = (scan_launches["lstm"][0] + gnmt_scan[0],
+                             scan_launches["lstm"][1] + gnmt_scan[1])
 
     # 8. result
     fwd_bound = ctc_bound_ms(32, 500, 160, 29, 500, backward=False)
@@ -4277,9 +4527,12 @@ def main():
         "bound_ms": times[cell]["bound_ms"],
         "bound_by": times[cell]["bound_by"],
         "library_ms": times[cell]["library_ms"],
-        **({"at_lm_shape": {k: times["lstm-lm"][k] for k in (
+        **({shape: {k: times[case][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "tiles_per_step", "us_per_step")}} if cell == "lstm" else {})}
+            "tiles_per_step", "us_per_step")}
+            for shape, case in (("at_lm_shape", "lstm-lm"),
+                                ("at_gnmt_shape", "gnmt"))}
+           if cell == "lstm" else {})}
         for cell, way, line, err, times in (
             ("lstm", "fwd", 73, scan_err, scan_times),
             ("gru", "fwd", 64, scan_err, scan_times),

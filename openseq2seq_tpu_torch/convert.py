@@ -22,7 +22,11 @@ such as the TDNN encoder), and returns the ``state_dict`` for
                                   -> weight (V, E), its tied
                                   ``softmax_bias`` kept)
   * layer norm scale / bias    -> weight / bias
-  * the Conformer's explicit leaves (``u_bias``, ``w_bias`` and the conv
+  * the NMT attention decoder's raw leaves (``lstm{i}_wx``, ``lstm{i}_wh``,
+    ``lstm{i}_b``, ``att_q``, ``att_v``, ``att_b``, ``out_w``, ``out_b``,
+    ``tied_proj``; its ``bahdanau_keys`` and ``luong_keys`` are dense
+    layers, the latter without a bias), the Conformer's explicit leaves
+    (``u_bias``, ``w_bias`` and the conv
     module's ``ln1_scale`` ... ``pw2_bias``) and the kernels of the
     ``DenseGeneral`` layers under a module named ``attn`` (``q``, ``k``,
     ``v``, ``r`` (D, H, Dh) and ``out`` (H, Dh, D))
@@ -54,6 +58,7 @@ Adam (+ clip) optax state into the port's optimizer state.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
@@ -68,7 +73,11 @@ _LM = ("softmax_bias",)
 _CONFORMER = ("u_bias", "w_bias", "ln1_scale", "ln1_bias", "pw1_kernel",
               "pw1_bias", "dw_kernel", "dw_bias", "ln2_scale", "ln2_bias",
               "pw2_kernel", "pw2_bias")
-_KEPT = _RECURRENT + _CONFORMER + _LM
+# the NMT attention decoder's raw leaves (``lstm{i}_wx``, ``lstm{i}_wh``,
+# ``lstm{i}_b`` match by pattern)
+_RNN_DECODER = ("att_q", "att_v", "att_b", "out_w", "out_b", "tied_proj")
+_RNN_DECODER_CELL = re.compile(r"lstm[0-9]+_(wx|wh|b)")
+_KEPT = _RECURRENT + _CONFORMER + _LM + _RNN_DECODER
 # the parent module of flax DenseGeneral layers, whose kernels are kept
 _DENSE_GENERAL_PARENT = "attn"
 _LN_SUFFIX = "_ln"
@@ -83,6 +92,11 @@ def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
             yield prefix + (key,), value
 
 
+def _kept(leaf: str) -> bool:
+    """Whether the flax leaf ``leaf`` is kept under its name and layout."""
+    return leaf in _KEPT or bool(_RNN_DECODER_CELL.fullmatch(leaf))
+
+
 def _module_key(path: Tuple[str, ...]) -> str:
     return ".".join(p for p in path if p not in (_BN_INNER, _LN_INNER))
 
@@ -91,7 +105,7 @@ def _param_to_torch(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
     """(torch name, array in torch layout) of the flax param at ``path``."""
     value = np.array(value, dtype=np.float32)
     module, leaf = _module_key(path[:-1]), path[-1]
-    if leaf in _KEPT or (leaf == "kernel" and len(path) >= 3 and
+    if _kept(leaf) or (leaf == "kernel" and len(path) >= 3 and
                          path[-3] == _DENSE_GENERAL_PARENT):
         name = leaf
     elif leaf == "kernel" and value.ndim == 4:
@@ -161,7 +175,7 @@ def flax_path(name: str, norms: set, layer_norms: set = frozenset()
         return parts + (_LN_INNER, {"weight": "scale", "bias": "bias"}[leaf])
     if parts and parts[-1].endswith(_LN_SUFFIX):
         return parts + ({"weight": "scale", "bias": "bias"}[leaf],)
-    if leaf in _KEPT or leaf == "kernel":
+    if _kept(leaf) or leaf == "kernel":
         return parts + (leaf,)
     return parts + ({"weight": "kernel", "bias": "bias",
                      "embedding": "embedding"}[leaf],)

@@ -2,3 +2,5 @@ from .decoder import Decoder
 from .fc_decoders import FullyConnectedTimeDecoder, FullyConnectedCTCDecoder
 from .lm_decoders import FakeDecoder
 from .transformer_decoder import TransformerDecoder
+from .rnn_decoders import (BeamSearchRNNDecoderWithAttention,
+                           RNNDecoderWithAttention)

@@ -26,20 +26,23 @@ from ..parts.initializers import resolve_initializer
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: y = x W + b in ``dtype``, W stored (out, in)."""
+    """flax ``nn.Dense``: y = x W + b in ``dtype``, W stored (out, in);
+    no b with ``use_bias`` False."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype, kernel_init,
-                 generator: torch.Generator):
+                 generator: torch.Generator, use_bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias \
+            else None
         kernel_init(self.weight, generator)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+                        None if self.bias is None
+                        else self.bias.to(self.dtype))
 
 
 class FCTimeDecoderModule(nn.Module):

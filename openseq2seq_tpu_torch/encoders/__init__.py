@@ -4,3 +4,7 @@ from .lm_encoders import LMEncoder
 from .tdnn_encoder import TDNNEncoder
 from .transformer_encoder import TransformerEncoder
 from .conformer_encoder import ConformerEncoder
+from .rnn_encoders import (BidirectionalRNNEncoderWithEmbedding,
+                           GNMTLikeEncoderWithEmbedding,
+                           GNMTLikeEncoderWithEmbedding_cuDNN,
+                           UnidirectionalRNNEncoderWithEmbedding)

@@ -1,4 +1,5 @@
 from .loss import Loss
 from .ctc_loss import CTCLoss
 from .sequence_loss import (BasicSampledSequenceLoss, BasicSequenceLoss,
+                            CrossEntropyWithSmoothing,
                             PaddedCrossEntropyLossWithSmoothing)

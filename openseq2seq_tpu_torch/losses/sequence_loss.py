@@ -17,12 +17,22 @@ all in fp32:
     threefry bits cannot be drawn here, so the two agree in law, and
     :func:`sampled_softmax_nll` agrees with the JAX estimator given the
     same candidates;
+  * :class:`CrossEntropyWithSmoothing` (``:66-108``): the same
+    reductions as :class:`BasicSequenceLoss` over the cross entropy with
+    the smoothed targets ``onehot (1 - s) + s / V``, computed as
+    ``lse - (1 - s) logits[gold] - (s / V) sum(logits)`` with the blocked
+    logsumexp, so that no (B, T, V) one-hot is built;
   * :class:`PaddedCrossEntropyLossWithSmoothing` (``:111-146``): label
     smoothing with confidence 1 - s on the gold class and s / (V - 1) on
     each other class, the exact normalizing constant (the least possible
     loss) subtracted, averaged over non-pad (id != 0) positions.
 
-``CrossEntropyWithSmoothing`` is not ported yet.
+``offset_target_by_one`` (on by default) shifts the labels by one unless
+the input dict says ``"targets_aligned": True``: a Text2Text model shifts
+its targets itself, once, and says so (``models/text2text.py``). The JAX
+package's Text2Text shifts them and its loss shifts them again, so its
+logits at t are scored against y[t + 2] (C22); the language model, whose
+targets come unshifted, keeps the loss's single shift.
 """
 from __future__ import annotations
 
@@ -56,18 +66,38 @@ def _reduce(nll: torch.Tensor, labels: torch.Tensor, lengths: torch.Tensor,
     return total / batch_size
 
 
-def full_softmax_nll(logits: torch.Tensor, labels: torch.Tensor
-                     ) -> torch.Tensor:
-    """(B, T) NLL of ``labels`` under the softmax of fp32 ``logits``
-    (B, T, V): logsumexp, one block of rows at a time, less the gold
-    logit."""
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last axis of fp32 ``logits`` (..., V), one block
+    of rows at a time."""
     V = logits.shape[-1]
     flat = logits.reshape(-1, V)
     rows = max(1, _LSE_BLOCK // V)
     lse = torch.cat([torch.logsumexp(block, dim=-1)
                      for block in flat.split(rows)])
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return lse.reshape(labels.shape) - gold
+    return lse.reshape(logits.shape[:-1])
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+
+
+def full_softmax_nll(logits: torch.Tensor, labels: torch.Tensor
+                     ) -> torch.Tensor:
+    """(B, T) NLL of ``labels`` under the softmax of fp32 ``logits``
+    (B, T, V): the blocked logsumexp less the gold logit."""
+    return _logsumexp(logits) - _gold(logits, labels)
+
+
+def smoothed_nll(logits: torch.Tensor, labels: torch.Tensor,
+                 smoothing: float, vocab_size: int) -> torch.Tensor:
+    """(B, T) cross entropy of the softmax of fp32 ``logits`` against the
+    smoothed one-hot ``onehot (1 - s) + s / V``: ``lse - (1 - s) gold -
+    (s / V) sum(logits)``, as the smoothed weights sum to 1 over V
+    classes (the JAX package's ``-sum(smoothed * log_softmax)``)."""
+    nll = _logsumexp(logits) - (1.0 - smoothing) * _gold(logits, labels)
+    if smoothing:
+        nll = nll - (smoothing / vocab_size) * logits.sum(-1)
+    return nll
 
 
 def log_q(ids: torch.Tensor, vocab_size: int) -> torch.Tensor:
@@ -152,9 +182,10 @@ class BasicSequenceLoss(Loss):
 
     def _targets(self, input_dict):
         """(labels, lengths), shifted by one with ``offset_target_by_one``
-        (the first label and the last position dropped)."""
+        (the first label and the last position dropped) unless the
+        caller aligned them already (``targets_aligned``)."""
         labels, lengths = input_dict["target_tensors"]
-        if self._offset:
+        if self._offset and not input_dict.get("targets_aligned", False):
             return labels[:, 1:], lengths - 1
         return labels, lengths
 
@@ -196,6 +227,29 @@ class BasicSampledSequenceLoss(BasicSequenceLoss):
                                    labels, lengths, sampled, V,
                                    self._avg_time, self._params["batch_size"],
                                    self._do_mask)
+
+
+class CrossEntropyWithSmoothing(BasicSequenceLoss):
+    """Label-smoothed cross entropy with :class:`BasicSequenceLoss`'s
+    shift and reductions."""
+
+    @staticmethod
+    def get_optional_params():
+        return dict(BasicSequenceLoss.get_optional_params(), **{
+            "label_smoothing": float,
+        })
+
+    def __init__(self, params, model, name="cross_entropy_with_smoothing"):
+        super().__init__(params, model, name)
+        self._smoothing = self._params.get("label_smoothing", 0.0)
+
+    def compute_loss(self, input_dict):
+        labels, lengths = self._targets(input_dict)
+        logits = input_dict["decoder_output"]["logits"].float()
+        nll = smoothed_nll(logits[:, :labels.shape[1]], labels,
+                           self._smoothing, self._params["tgt_vocab_size"])
+        return _reduce(nll, labels, lengths, self._avg_time,
+                       self._params["batch_size"], self._do_mask)
 
 
 class PaddedCrossEntropyLossWithSmoothing(Loss):

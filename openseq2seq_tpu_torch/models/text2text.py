@@ -46,11 +46,15 @@ class Text2Text(EncoderDecoderModel):
 
     def compute_loss(self, outputs, batch):
         """The decoder's logits predict y[t+1] from y[<=t]: the loss sees
-        the targets shifted by one."""
+        the targets shifted by one, here and only here. ``targets_aligned``
+        keeps a loss's ``offset_target_by_one`` from shifting them again,
+        as the JAX package's losses do (C22: there logits[t] are scored
+        against y[t + 2])."""
         y, y_len = batch["target_tensors"]
         return self._loss_computator.compute_loss({
             "decoder_output": outputs["decoder_output"],
             "target_tensors": [y[:, 1:], y_len - 1],
+            "targets_aligned": True,
         })
 
     def _decode_batch(self, output_values) -> List[str]:

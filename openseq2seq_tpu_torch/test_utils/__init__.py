@@ -1,2 +1,2 @@
-"""Generators of the toy and LibriSpeech-shaped corpora that the speech
-recipes and the tests read."""
+"""Generators of the toy, LibriSpeech-shaped and WMT-shaped corpora that
+the speech and NMT recipes and the tests read."""

@@ -64,6 +64,18 @@ def _varint(n: int) -> bytes:
             return out + bytes([bits])
 
 
+def _read_varint(data: bytes, i: int):
+    """(value, next offset) of the base-128 varint at ``data[i]``."""
+    result, shift = 0, 0
+    while True:
+        b = data[i]
+        i += 1
+        result |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return result, i
+        shift += 7
+
+
 def _field_varint(num: int, value: int) -> bytes:
     return _varint(num << 3) + _varint(value)
 

@@ -3,8 +3,8 @@
 step, on one NVIDIA GPU.
 
     python3 scripts_torch/profile_eval.py [--train | --infer | --train-nmt |
-        --train-lm | --eval-lm] [--config_file=PATH] [--steps=4]
-        [--repeats=3] [--trace=PATH]
+        --train-lm | --eval-lm | --train-gnmt | --infer-gnmt]
+        [--config_file=PATH] [--steps=4] [--repeats=3] [--trace=PATH]
 
 Builds the model of a port config (default: Jasper-10x5 at full width on
 synthetic speech, ``example_configs_torch/speech2text/
@@ -24,7 +24,13 @@ transformer-big training config,
 ``example_configs_torch/text2text/transformer_big_train_synthetic.py``;
 ``--train-lm`` and ``--eval-lm`` are ``--train`` and the eval step on the
 LSTM language model at full width, ``example_configs_torch/lm/
-lstm_wkt103_synthetic.py`` (tokens are its objects).
+lstm_wkt103_synthetic.py`` (tokens are its objects); ``--train-gnmt``
+and ``--infer-gnmt`` are ``--train`` and ``--infer`` (the beam-10 decode
+of a batch of 32 sentences) on GNMT-like at full width,
+``example_configs_torch/text2text/en_de_gnmt_like_wmt.py``, over 8
+batches of a WMT-shaped corpus written first into a temporary directory
+(``test_utils/fake_wmt.py``: 256 sentence pairs, the recipe's 32K
+vocabulary).
 It prints:
 
 1. wall milliseconds per step without the profiler, for each of
@@ -76,6 +82,12 @@ NMT_TRAIN_CONFIG = os.path.join(REPO, "example_configs_torch", "text2text",
                                 "transformer_big_train_synthetic.py")
 LM_CONFIG = os.path.join(REPO, "example_configs_torch", "lm",
                          "lstm_wkt103_synthetic.py")
+GNMT_CONFIG = os.path.join(REPO, "example_configs_torch", "text2text",
+                           "en_de_gnmt_like_wmt.py")
+# the GNMT profile's corpus: 8 batches of 32 sentence pairs, and the word
+# types that give the recipe's vocabulary, 4 + 3 x 10921 = 32,767 tokens
+GNMT_CORPUS = dict(n_train=256, n_dev=32, n_test=32, n_types=10921,
+                   with_t2t=False)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 # (group, substrings of the kernel name), first match wins
@@ -281,21 +293,32 @@ def parse_args(argv=None) -> argparse.Namespace:
     which.add_argument("--eval-lm", action="store_true",
                        help="profile the LSTM LM's eval step on {}".format(
                            os.path.relpath(LM_CONFIG, REPO)))
+    which.add_argument("--train-gnmt", action="store_true",
+                       help="profile GNMT-like's train step (the train "
+                            "step on {} over a WMT-shaped corpus)".format(
+                                os.path.relpath(GNMT_CONFIG, REPO)))
+    which.add_argument("--infer-gnmt", action="store_true",
+                       help="profile GNMT-like's beam-10 infer step")
     ap.add_argument("--config_file", default=None,
                     help="the port config (default: Jasper-10x5, the "
                          "transformer-big training config with "
                          "--train-nmt, the LSTM LM with --train-lm and "
-                         "--eval-lm)")
+                         "--eval-lm, GNMT-like with --train-gnmt and "
+                         "--infer-gnmt)")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--trace", default=None,
                     help="where to keep the chrome trace (default: a "
                          "temporary file)")
     args = ap.parse_args(argv)
+    args.gnmt = args.train_gnmt or args.infer_gnmt
     if args.config_file is None:
         args.config_file = NMT_TRAIN_CONFIG if args.train_nmt else \
-            LM_CONFIG if args.train_lm or args.eval_lm else CONFIG
-    args.train = args.train or args.train_nmt or args.train_lm
+            LM_CONFIG if args.train_lm or args.eval_lm else \
+            GNMT_CONFIG if args.gnmt else CONFIG
+    args.train = args.train or args.train_nmt or args.train_lm or \
+        args.train_gnmt
+    args.infer = args.infer or args.infer_gnmt
     return args
 
 
@@ -312,6 +335,12 @@ def main(argv=None):
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
+    if args.gnmt:
+        from openseq2seq_tpu_torch.test_utils import fake_wmt
+        # removed when main returns
+        corpus = tempfile.TemporaryDirectory()
+        os.environ["WMT16_DIR"] = fake_wmt.generate(corpus.name,
+                                                    **GNMT_CORPUS)
     config = runpy.run_path(args.config_file)
     mode = "train" if args.train else "infer" if args.infer else "eval"
     params = dict(config["base_params"])

@@ -50,7 +50,15 @@ def _import_all(report: str) -> str:
             "openseq2seq_tpu_torch.ops.features",
             "openseq2seq_tpu_torch.data.speech2text.speech2text",
             "openseq2seq_tpu_torch.test_utils.toy_speech",
-            "openseq2seq_tpu_torch.test_utils.fake_librispeech"} <= \
+            "openseq2seq_tpu_torch.test_utils.fake_librispeech",
+            "openseq2seq_tpu_torch.data.text2text.text2text",
+            "openseq2seq_tpu_torch.data.text2text.tokenizer",
+            "openseq2seq_tpu_torch.data.text2text.wordpiece",
+            "openseq2seq_tpu_torch.data.text2text.t2t",
+            "openseq2seq_tpu_torch.encoders.rnn_encoders",
+            "openseq2seq_tpu_torch.decoders.rnn_decoders",
+            "openseq2seq_tpu_torch.test_utils.toy_nmt",
+            "openseq2seq_tpu_torch.test_utils.fake_wmt"} <= \
         set(modules)
     names = {os.path.basename(c) for c in CONFIGS}
     assert len(CONFIGS) >= 13 and {
@@ -59,7 +67,9 @@ def _import_all(report: str) -> str:
         "conformer_m_synthetic.py", "conformer_tiny_synthetic.py",
         "lstm_wkt103_synthetic.py", "lstm_lm_tiny_synthetic.py",
         "jasper10x5_librispeech.py", "w2lplus_toy.py", "ds2_toy_config.py",
-        "conformer_toy.py"} <= names
+        "conformer_toy.py", "nmt_reversal_toy.py", "nmt_reversal_toy_rnn.py",
+        "transformer_big_wmt.py", "en_de_gnmt_like_wmt.py",
+        "en_de_gnmt_like_tiny.py", "transformer_tiny_wmt.py"} <= names
     code = ("import importlib, runpy, sys\n"
             "for m in {!r}: importlib.import_module(m)\n"
             "for c in {!r}: runpy.run_path(c)\n"
