@@ -71,7 +71,9 @@ Phases, one informative line or a few each:
    ``gru_scan_plain`` and ``lstm_scan_plain`` at the main paths' shapes
    (GRU B=32, T=500, H=1024; LSTM B=32, T=500, H=512; the LSTM language
    model's B=224, T=96, H=1024, seven tiles of 32 rows a step; GNMT-like's
-   encoder, B=32, T=50, H=1024, one tile), at B=8,
+   encoder, B=32, T=50, H=1024, one tile; the Tacotron-2 encoder's LSTM,
+   B=48, T=96, H=256, a full tile of 32 rows and a ragged one of 16; the
+   GST reference encoder's GRU, B=48, T=8, H=128), at B=8,
    T=37, H=128, LSTMs at H=1024 and 1280 and the DS2 toy's GRU (fp32,
    B=10, T=48, H=64; bf16 refused there), forward and reverse, lengths from
    1 to T, with the residual outputs: fp32 (TF32 off) max abs error 1e-5
@@ -81,8 +83,10 @@ Phases, one informative line or a few each:
    ``ops/scan_bounds``'s bounds (reading at most 1), four wrong kernels
    refused (ys zeroed but in row 1; one step without the recurrent
    product for one CTA's units; h carried unrounded; the LSTM's c carried
-   in bf16; and at B=224 a step whose second tile of rows takes the first
-   tile's h), and end to end max abs error 3 bf16 ulps and mean 1e-3
+   in bf16; and past one tile of rows, at B=224 and at the ragged B=48, a
+   step whose second tile of rows takes the first tile's h, and ys zeroed
+   on the second tile's rows alone), and end to end max abs error 3 bf16
+   ulps and mean 1e-3
    (both of max(1, |value|)) as a sanity check; ys zero past each
    length, two calls bit-identical; times of the kernel, the plain
    version and cuDNN's ``torch.nn.GRU``/``torch.nn.LSTM`` (timed only,
@@ -106,9 +110,10 @@ Phases, one informative line or a few each:
    into one step without the recurrent product for one CTA's units, dx
    recomputed from it; every carry rounded to bf16 (refused at every
    width, the LM's G H 4096 among them: the carry's bound sums at the
-   kernel's own depth, ``scan_bounds.sum_depth``); at B=224 the carry into
-   one step of the second tile of rows taken from the first tile's, dx
-   recomputed from it; dx_proj zero past each length, two calls
+   kernel's own depth, ``scan_bounds.sum_depth``); past one tile of rows
+   (B=224, B=48) the carry into one step of the second tile of rows taken
+   from the first tile's, dx recomputed from it, and dx zeroed on the
+   second tile's rows alone; dx_proj zero past each length, two calls
    bit-identical; times of the kernel, the plain version, the dW_h GEMM
    outside it (fp32) and cuDNN's ``torch.nn.GRU``/``torch.nn.LSTM``
    forward plus backward (timed only, never on the path) at the main
@@ -329,9 +334,35 @@ Phases, one informative line or a few each:
    encoder's bidirectional layer and six unidirectional ones), eval with
    beam 10 ("Validation BLEU", 8 forward launches a batch) and infer (64
    lines);
+7y. the tiny fp32 Tacotron config (``example_configs_torch/text2speech/
+   tacotron_tiny_synthetic.py``), dropout and zoneout off, every prenet
+   mask keeping, on the card (its LSTM on the scan kernels, 2 forward
+   launches an eval batch, 2 and 2 a train step) and on the CPU: eval
+   outputs within 1e-4, one Adam step the same loss and weights (rtol
+   1e-4); then Tacotron-2 at full width (``tacotron2_synthetic.py``, the
+   flagship recipe's widths: batch 48, 96 characters x 512 mel frames,
+   "mixed", ``fused_rnn``) through ``run.main --mode=train`` for 10 steps:
+   the loss finite at every step, the mean of the last five below that of
+   the first five, the LSTM forward and backward kernels exactly 2 times
+   each a step, the parameter count the JAX model's, the peak device
+   memory and mel frames per second; ``--mode=eval`` from the checkpoint
+   (2 batches, "Validation loss" with the attention's sharpness, 2 forward
+   launches a batch), and one infer batch of 1,000 free-running frames
+   through the model's eval step (every length at least 1, 2 forward
+   launches), Griffin-Lim on its first example;
+7z. Tacotron-2 with Global Style Tokens at full width
+   (``tacotron_gst_synthetic.py``) through ``run.main --mode=train`` for
+   3 steps: the GRU kernels 1 forward and 1 backward launch a step (the
+   style encoder's GRU over 8 frames), the LSTM kernels 2 and 2;
+7za. the Tacotron toy (``tacotron_toy.py``, the 10 tone wavs of
+   ``test_utils/toy_tts``) through ``run.main --mode=train_eval`` for 400
+   steps to a loss below 12.0 (the JAX package's bar), then eval and
+   infer (a wav a toy sentence) from its checkpoint;
 8. one JSON line for the kernels (the LSTM scans' entries with their
-   times at the LM's shape under ``at_lm_shape`` and at GNMT's under
-   ``at_gnmt_shape``), then ``{"ok": true, "device": ...}`` last.
+   times at the LM's shape under ``at_lm_shape``, at GNMT's under
+   ``at_gnmt_shape`` and at Tacotron-2's under ``at_tacotron_shape``; the
+   GRU scans' at GST's under ``at_gst_shape``), then ``{"ok": true,
+   "device": ...}`` last.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after. Any failed check raises, and the script exits non-zero
@@ -397,8 +428,21 @@ NMT_WMT = os.path.join(REPO, "example_configs_torch", "text2text",
 GNMT_WMT = os.path.join(REPO, "example_configs_torch", "text2text",
                         "en_de_gnmt_like_wmt.py")
 # the recipes' parameter counts at the 32,768 vocabulary
+TACOTRON = os.path.join(REPO, "example_configs_torch", "text2speech",
+                        "tacotron2_synthetic.py")
+TACOTRON_GST = os.path.join(REPO, "example_configs_torch", "text2speech",
+                            "tacotron_gst_synthetic.py")
+TACOTRON_TINY = os.path.join(REPO, "example_configs_torch", "text2speech",
+                             "tacotron_tiny_synthetic.py")
+TACOTRON_TOY = os.path.join(REPO, "example_configs_torch", "text2speech",
+                            "tacotron_toy.py")
 TRANSFORMER_PARAMS = 209915904
 GNMT_PARAMS = 308382720
+# Tacotron-2 and its GST variant at the recipes' width: the JAX models'
+# parameter counts by ``jax.eval_shape`` of their init
+# (``tests/test_torch_tacotron.py::test_full_width_parameter_counts``)
+TACOTRON_PARAMS = 26042529
+GST_PARAMS = 27630465
 # transformer_policy recipes warm up over thousands of steps (transformer-
 # big 8000: lr under 2e-6 for 20 steps; Conformer-M 10,000); the smoke
 # runs cut the warmup so that the loss falls within their 20 steps
@@ -1157,8 +1201,10 @@ SCAN_BF16_MEAN, SCAN_BF16_MAX = 1e-3, 3 * 2.0 ** -7
 # bf16 (``scan_bounds.bwd_faults``)
 # name, cell, B, T, H: the main paths' shapes (DS2-medium's GRU layers,
 # lstm_small's LSTM layers, the LSTM language model's, whose 224 rows are
-# seven tiles of 32 a step: the tiles' hand-off through the CTA's
-# reduction buffer and multicast rooms runs only there), the smallest
+# seven tiles of 32 a step, GNMT-like's encoder, and Tacotron-2's encoder
+# LSTM and GST's GRU, whose 48 rows are a full tile and a ragged one of
+# 16: the tiles' hand-off through the CTA's reduction buffer and
+# multicast rooms runs only past one tile), the smallest
 # shape the kernels take, an LSTM
 # at H = 1024, whose bf16 backward stages each warp's slice of dg in two
 # windows (its slice does not fit the warp's room at once), and one at the
@@ -1172,6 +1218,8 @@ SCAN_CASES = (
     ("lstm_small", "lstm", 32, 500, 512),
     ("lstm-lm", "lstm", 224, 96, 1024),
     ("gnmt", "lstm", 32, 50, 1024),
+    ("tacotron", "lstm", 48, 96, 256),
+    ("gst", "gru", 48, 8, 128),
     ("small gru", "gru", 8, 37, 128),
     ("small lstm", "lstm", 8, 37, 128),
     ("wide lstm", "lstm", 8, 37, 1024),
@@ -1183,9 +1231,10 @@ SCAN_CASES = (
 # the timed cases: name, the layer's input width over H (the speech
 # layers' are bidirectional stacks, the LM's are not); cuDNN's one layer
 # is timed with that input width
-SCAN_TIMED = {"ds2-medium": 2, "lstm_small": 2, "lstm-lm": 1, "gnmt": 1}
+SCAN_TIMED = {"ds2-medium": 2, "lstm_small": 2, "lstm-lm": 1, "gnmt": 1,
+              "tacotron": 2, "gst": 2}
 # the timed cases kept apart from their cell's main entry
-SCAN_OWN_ENTRY = ("lstm-lm", "gnmt")
+SCAN_OWN_ENTRY = ("lstm-lm", "gnmt", "tacotron", "gst")
 # the bf16 kernels walk a step's batch rows in tiles of 32 (kRows in
 # csrc/rnn_scan.cuh and csrc/rnn_scan_bwd.cuh)
 SCAN_TILE_ROWS = 32
@@ -4307,6 +4356,284 @@ def phase_nmt_text(card):
     return fl[:3], sc
 
 
+def _tiny_tacotron_params(**overrides):
+    """The tiny Tacotron config (``tacotron_tiny_synthetic.py``) with its
+    dropout and zoneout off and Adam's epsilon 1e-5 (at its default 1e-8
+    a gradient near epsilon turns its fp32 rounding into a large change
+    of the update)."""
+    import copy
+    params = copy.deepcopy(runpy.run_path(TACOTRON_TINY)["base_params"])
+    params.update(overrides)
+    params["optimizer_params"]["epsilon"] = 1e-5
+    params["encoder_params"].update(cnn_dropout_prob=0.0,
+                                    rnn_dropout_prob=0.0)
+    params["decoder_params"]["zoneout_prob"] = 0.0
+    return params
+
+
+@contextlib.contextmanager
+def _prenet_keeps_all():
+    """Every prenet mask keeps: the card's and the CPU's generators draw
+    different masks, so a comparison of the two takes none."""
+    import torch
+    from openseq2seq_tpu_torch.decoders.tacotron2_decoder import \
+        Tacotron2DecoderModule as module
+    draw = module.keep_mask
+    module.keep_mask = lambda self, shape, generator, device: torch.ones(
+        shape, dtype=torch.bool, device=device)
+    try:
+        yield
+    finally:
+        module.keep_mask = draw
+
+
+def phase_small_tacotron():
+    """7y, first: the tiny fp32 Tacotron config on the card (its
+    bidirectional LSTM of 64 on the LSTM kernels, fp32, forward and
+    backward: 2 launches each a step) and on the CPU (their plain
+    versions), dropout and zoneout off and every prenet mask keeping: the
+    eval outputs within 1e-4, and one Adam step the same loss and weights
+    (rtol 1e-4, atol 1e-6; the biases of the convs that feed a batch norm
+    frozen, their gradient rounding noise)."""
+    import numpy as np
+    import torch
+    from openseq2seq_tpu_torch.models import Text2SpeechTacotron
+    from openseq2seq_tpu_torch.ops import lstm_scan
+    from openseq2seq_tpu_torch.training import trainer
+    out, trained = {}, {}
+    with _prenet_keeps_all():
+        for device in ("cuda", "cpu"):
+            model = Text2SpeechTacotron(_tiny_tacotron_params(), mode="eval",
+                                        device=device)
+            state = trainer.restore_state(model)
+            batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+            lstm_scan.LAUNCHES = lstm_scan.BWD_LAUNCHES = 0
+            out[device] = trainer.to_host(model.eval_step(state, batch))
+            launches = [(lstm_scan.LAUNCHES, lstm_scan.BWD_LAUNCHES)]
+            model = Text2SpeechTacotron(_tiny_tacotron_params(
+                max_steps=1, freeze_variables_regex=r"/(conv|postnet_conv)"
+                r"\d+/bias$"), mode="train", device=device)
+            state = trainer.restore_state(model)
+            lstm_scan.LAUNCHES = lstm_scan.BWD_LAUNCHES = 0
+            state, metrics = model.train_step(
+                state, batch, torch.Generator(device=device))
+            launches.append((lstm_scan.LAUNCHES, lstm_scan.BWD_LAUNCHES))
+            check(launches == ([(2, 0), (2, 2)] if device == "cuda"
+                               else [(0, 0), (0, 0)]),
+                  "tiny Tacotron on {}: LSTM launches {}".format(device,
+                                                                 launches))
+            trained[device] = (float(metrics["loss"]), {
+                n: p.detach().cpu().numpy()
+                for n, p in state.module.named_parameters()})
+    errs = {}
+    for key in ("decoder_spec", "post_net_spec", "stop_token_logits",
+                "alignments"):
+        a, b = (out[d]["outputs"]["decoder_output"][key]
+                for d in ("cuda", "cpu"))
+        errs[key] = float(np.abs(a - b).max())
+    (loss_gpu, w_gpu), (loss_cpu, w_cpu) = trained["cuda"], trained["cpu"]
+    w_err, worst = max((float(np.max(np.abs(w_gpu[n] - w_cpu[n]) /
+                                     (1e-6 + 1e-4 * np.abs(w_cpu[n])))), n)
+                       for n in w_cpu)
+    print("[tacotron] tiny fp32 Tacotron, card vs CPU: eval outputs max abs "
+          "err {}; loss {:.6f} vs {:.6f}; one Adam step: loss {:.6f} vs "
+          "{:.6f}, largest weight difference {:.3f} of the tolerance (rtol "
+          "1e-4, atol 1e-6), in {}".format(
+              ", ".join("{} {:.2e}".format(k, v) for k, v in errs.items()),
+              float(out["cuda"]["loss"]), float(out["cpu"]["loss"]),
+              loss_gpu, loss_cpu, w_err, worst), flush=True)
+    check(max(errs.values()) <= 1e-4 and abs(
+        out["cuda"]["loss"] - out["cpu"]["loss"]) <= 1e-4 * abs(
+            out["cpu"]["loss"]), "tiny Tacotron eval disagrees")
+    check(abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu) and w_err <= 1.0,
+          "tiny Tacotron train step disagrees between card and CPU")
+
+
+def phase_tacotron(path, name, n_params, counters, per_step, card):
+    """Tacotron-2 at full width on synthetic batches (``path``:
+    ``tacotron2_synthetic.py`` or ``tacotron_gst_synthetic.py``) through
+    ``run.main --mode=train`` for its ``train_params``' steps: the loss
+    finite at every step and, over 10 steps, the mean of the last five
+    below that of the first five (GST's 3 steps are too few to read a
+    trend in);
+    ``n_params`` parameters; each step launches the kernels of
+    ``counters`` (a list of (module, forward and backward launches a
+    step)) exactly so often; frames per second and the peak device
+    memory. With ``per_step`` set (Tacotron-2 alone), then
+    ``--mode=eval`` from the checkpoint over its 2 batches ("Validation
+    loss", the attention's sharpness, the forward kernels per_step times
+    a batch) and one infer batch of ``infer_max_steps`` free-running
+    frames from the checkpoint through the model's eval step (every
+    length at least 1, finite frames, the forward kernels per_step
+    times), Griffin-Lim on its first example. Returns the launches by
+    counter module, (forward, backward)."""
+    import numpy as np
+    import torch
+    from openseq2seq_tpu_torch.training import trainer
+    from openseq2seq_tpu_torch.utils.config import _latest_checkpoint
+    total = {k: [0, 0] for k, _ in counters}
+
+    def reset():
+        for k, _ in counters:
+            k.LAUNCHES = k.BWD_LAUNCHES = 0
+
+    def read():
+        for k, _ in counters:
+            total[k][0] += k.LAUNCHES
+            total[k][1] += k.BWD_LAUNCHES
+        return {k.KERNEL: (k.LAUNCHES, k.BWD_LAUNCHES) for k, _ in counters}
+
+    config = runpy.run_path(path)
+    steps = config["train_params"]["max_steps"]
+    p = config["base_params"]
+    T = p["data_layer_params"]["spec_length"]
+    with tempfile.TemporaryDirectory() as logdir:
+        # rates over the steps after the first 2 (the first is cuDNN's
+        # autotuning)
+        cut = _recipe_config(path, logdir, steps, print_loss_steps=1,
+                             save_checkpoint_steps=steps, bench_start=2)
+        argv = ["--config_file=" + cut, "--logdir=" + logdir]
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        got = read()
+        losses = _losses(lines)
+        count = sum(x.numel() for x in result["state"].module.parameters())
+        print("[{}] {} parameters, {} steps of {} x {} characters x {} mel "
+              "frames, {}; losses {}; launches (forward, backward) {}; "
+              "peak device memory {:.2f} GiB; {:.1f} s with the build of "
+              "the model; {:.1f} mel frames/s over steps 3-{} ({})".format(
+                  name, count, result["steps"], p["batch_size_per_gpu"],
+                  p["data_layer_params"]["text_length"], T, p["dtype"],
+                  losses, got, torch.cuda.max_memory_allocated() / 2 ** 30,
+                  wall, result["objects_per_sec"], steps, card), flush=True)
+        check(count == n_params, "{}: {} parameters".format(name, count))
+        check(result["steps"] == steps and len(losses) == steps and
+              all(math.isfinite(x) for x in losses) and
+              (steps < 10 or sum(losses[-5:]) < sum(losses[:5])),
+              "{} losses {}".format(name, losses))
+        for k, n in counters:
+            check(got[k.KERNEL] == (n * steps, n * steps),
+                  "{}: {} launches {} in {} steps".format(
+                      name, k.KERNEL, got[k.KERNEL], steps))
+        del result
+        if not per_step:
+            return total
+
+        reset()
+        metrics, lines = _run_quiet(argv + ["--mode=eval"])
+        got = read()
+        n_batches = config["eval_params"]["data_layer_params"]["num_batches"]
+        val = [x.strip() for x in lines if "Validation loss" in x]
+        print("[{}] eval from the step-{} checkpoint over {} batches: {}; "
+              "Griffin-Lim audio of the first example: {}; launches "
+              "{}".format(name, steps, n_batches, val,
+                          "audio/synthesized" in metrics, got), flush=True)
+        check(bool(val) and "attention sharpness" in val[0] and
+              math.isfinite(metrics["eval_loss"]) and
+              all(v == (per_step * n_batches, 0) for v in got.values()),
+              "{} eval".format(name))
+
+        reset()
+        params = dict(p, **config.get("infer_params", {}))
+        params["data_layer_params"] = dict(
+            p["data_layer_params"], **config["infer_params"].get(
+                "data_layer_params", {}))
+        model = config["base_model"](params, mode="infer", device="cuda")
+        state = trainer.restore_state(model, _latest_checkpoint(logdir))
+        batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = model.eval_step(state, batch)["outputs"]["decoder_output"]
+        spec, lengths = trainer.to_host(out["outputs"])
+        infer_s = time.time() - t0
+        got = read()
+        steps_inf = p["decoder_params"]["infer_max_steps"]
+        t0 = time.time()
+        wav = model.synthesize_wav(spec[0, :int(lengths[0])])
+        gl_s = time.time() - t0
+        print("[{}] infer, one batch of {} from the checkpoint: {} "
+              "free-running frames in {:.2f} s ({:.1f} frames/s of the "
+              "batch), lengths {} to {}; Griffin-Lim of the first example "
+              "({} frames): {} samples in {:.2f} s; launches {} ({})".format(
+                  name, spec.shape[0], steps_inf, infer_s,
+                  spec.shape[0] * steps_inf / infer_s, int(lengths.min()),
+                  int(lengths.max()), int(lengths[0]), len(wav), gl_s, got,
+                  card), flush=True)
+        check(spec.shape == (p["batch_size_per_gpu"], steps_inf,
+                             p["data_layer_params"]["num_audio_features"])
+              and bool(np.isfinite(spec).all()) and lengths.min() >= 1 and
+              bool(np.isfinite(wav).all()),
+              "{} infer: shape {}, lengths {}".format(name, spec.shape,
+                                                      lengths))
+        check(all(v == (per_step, 0) for v in got.values()),
+              "{} infer launches {}".format(name, got))
+    return total
+
+
+def phase_tacotron_toy(card):
+    """7za: the toy recipe (``tacotron_toy.py``: the 10 tone wavs of
+    ``test_utils/toy_tts``, written first) through ``run.main
+    --mode=train_eval`` for the JAX package's 400 steps
+    (``--num_epochs=400``; its own 40 epochs stop near a loss of 110): the
+    last printed loss below the JAX test's bar of 12.0; then
+    ``--mode=eval`` ("Validation loss") and ``--mode=infer`` (a wav a toy
+    sentence, listed in order) from the checkpoint. The toy sets no kernel
+    flag."""
+    import torch
+    from scipy.io import wavfile
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["OS2S_TOY_TTS_DIR"] = os.path.join(tmp, "toy_tts")
+        os.environ["OS2S_TOY_LOGDIR"] = os.path.join(tmp, "logs")
+        argv = ["--config_file=" + TACOTRON_TOY]
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train_eval",
+                                           "--num_epochs=400"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        losses = _losses(lines)
+        val = [x.strip() for x in lines if "Validation loss" in x]
+        print("[toy tts] tacotron_toy --mode=train_eval: {} steps in {:.1f} "
+              "s, losses at the printed steps {}; the last validation {} "
+              "({})".format(result["steps"], wall, losses[::4] + losses[-1:],
+                            val[-1:], card), flush=True)
+        check(result["steps"] == 400 and all(math.isfinite(x)
+                                             for x in losses) and
+              losses[-1] < 12.0, "the Tacotron toy's loss {}".format(
+                  losses[-1:]))
+        metrics, lines = _run_quiet(argv + ["--mode=eval"])
+        out = os.path.join(tmp, "infer", "infer.csv")
+        _run_quiet(argv + ["--mode=infer", "--infer_output_file=" + out])
+        with open(out) as f:
+            rows = [line.split(",") for line in f.read().splitlines()]
+        sizes = [len(wavfile.read(r[1])[1]) for r in rows]
+        print("[toy tts] eval from the checkpoint: {}; infer: {} wavs of {} "
+              "to {} samples".format(
+                  [x.strip() for x in lines if "Validation loss" in x],
+                  len(rows), min(sizes), max(sizes)), flush=True)
+        check(math.isfinite(metrics["eval_loss"]) and
+              [int(r[0]) for r in rows] == list(range(10)) and
+              min(sizes) > 0, "the Tacotron toy's eval and infer")
+
+
+def phase_tts(card):
+    """7y to 7za: the tiny Tacotron card vs CPU, Tacotron-2 and its GST
+    variant at full width, the toy from wav files. Returns the LSTM and
+    GRU scans' (forward, backward) launches."""
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
+    phase_small_tacotron()
+    taco = phase_tacotron(TACOTRON, "tacotron2", TACOTRON_PARAMS,
+                          [(lstm_scan, 2)], 2, card)
+    gst = phase_tacotron(TACOTRON_GST, "tacotron-gst", GST_PARAMS,
+                         [(lstm_scan, 2), (gru_scan, 1)], 0, card)
+    phase_tacotron_toy(card)
+    return ([a + b for a, b in zip(taco[lstm_scan], gst[lstm_scan])],
+            gst[gru_scan])
+
+
 # the scan kernels' instantiations that the main paths run, by their
 # (gates, units per CTA) in the mangled name: DS2-medium's GRU (3, 8),
 # lstm_small's LSTM (4, 4), the tiny configs' (3, 1) and (4, 1)
@@ -4460,6 +4787,10 @@ def main():
         (nmt_fwd, nmt_dq, nmt_dkv), wmt_flash))
     scan_launches["lstm"] = (scan_launches["lstm"][0] + gnmt_scan[0],
                              scan_launches["lstm"][1] + gnmt_scan[1])
+    tts_lstm, tts_gru = phase_tts(card)
+    for cell, (fwd, bwd) in (("lstm", tts_lstm), ("gru", tts_gru)):
+        scan_launches[cell] = (scan_launches[cell][0] + fwd,
+                               scan_launches[cell][1] + bwd)
 
     # 8. result
     fwd_bound = ctc_bound_ms(32, 500, 160, 29, 500, backward=False)
@@ -4527,12 +4858,14 @@ def main():
         "bound_ms": times[cell]["bound_ms"],
         "bound_by": times[cell]["bound_by"],
         "library_ms": times[cell]["library_ms"],
-        **({shape: {k: times[case][k] for k in (
+        **{shape: {k: times[case][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tiles_per_step", "us_per_step")}
-            for shape, case in (("at_lm_shape", "lstm-lm"),
-                                ("at_gnmt_shape", "gnmt"))}
-           if cell == "lstm" else {})}
+            for shape, case in ((("at_lm_shape", "lstm-lm"),
+                                 ("at_gnmt_shape", "gnmt"),
+                                 ("at_tacotron_shape", "tacotron"))
+                                if cell == "lstm" else
+                                (("at_gst_shape", "gst"),))}}
         for cell, way, line, err, times in (
             ("lstm", "fwd", 73, scan_err, scan_times),
             ("gru", "fwd", 64, scan_err, scan_times),

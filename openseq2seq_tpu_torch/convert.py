@@ -25,7 +25,12 @@ such as the TDNN encoder), and returns the ``state_dict`` for
   * the NMT attention decoder's raw leaves (``lstm{i}_wx``, ``lstm{i}_wh``,
     ``lstm{i}_b``, ``att_q``, ``att_v``, ``att_b``, ``out_w``, ``out_b``,
     ``tied_proj``; its ``bahdanau_keys`` and ``luong_keys`` are dense
-    layers, the latter without a bias), the Conformer's explicit leaves
+    layers, the latter without a bias), the Tacotron decoder's
+    (``prenet_w{i}``, ``prenet_b{i}``, its ``lstm{i}_*``, ``att_query``,
+    ``att_v``, ``att_b``, ``loc_conv_kernel`` (31, 1, 32), a raw 3-D leaf
+    and not a conv ``kernel``, ``loc_proj``, ``frame_w``, ``frame_b``,
+    ``stop_w``, ``stop_b``; its ``memory`` is a dense layer), the GST
+    encoder's ``style_tokens``, the Conformer's explicit leaves
     (``u_bias``, ``w_bias`` and the conv
     module's ``ln1_scale`` ... ``pw2_bias``) and the kernels of the
     ``DenseGeneral`` layers under a module named ``attn`` (``q``, ``k``,
@@ -42,12 +47,14 @@ with its inner ``LayerNorm_0`` (``enc/sa_norms_0/LayerNorm_0/scale`` ->
 ``enc.sa_norms_0.weight``), and the Conformer FFN's (``ffn1/LayerNorm_0``
 -> ``ffn1.weight``). The DeepSpeech2 encoder's batch norms
 (``conv1_bn``, named ``*_bn``) are flax's ``BatchNorm`` itself, with no
-inner module, and so are the Conformer block's layer norms (``attn_ln``,
-``final_ln``, named ``*_ln``).
+inner module, and so are the Tacotron-2 encoder's, GST's and postnet's
+(``bn{i}``, ``ref_bn{i}``, ``postnet_bn{i}``) and the Conformer block's
+layer norms (``attn_ln``, ``final_ln``, named ``*_ln``).
 
 :func:`flax_from_state_dict` is the inverse (a module with running
 statistics is a batch norm, whose flax leaves sit under ``BatchNorm_0``
-unless it is named ``*_bn``; the modules of :func:`layer_norm_modules`
+unless it is named ``*_bn`` or ``bn{i}``; the modules of
+:func:`layer_norm_modules`
 hold a folded ``LayerNorm_0``),
 so tests can compare the port's updated weights leaf by leaf with the
 JAX package's. :func:`flax_path` names a port parameter as the JAX
@@ -77,7 +84,12 @@ _CONFORMER = ("u_bias", "w_bias", "ln1_scale", "ln1_bias", "pw1_kernel",
 # ``lstm{i}_b`` match by pattern)
 _RNN_DECODER = ("att_q", "att_v", "att_b", "out_w", "out_b", "tied_proj")
 _RNN_DECODER_CELL = re.compile(r"lstm[0-9]+_(wx|wh|b)")
-_KEPT = _RECURRENT + _CONFORMER + _LM + _RNN_DECODER
+# the Tacotron-2 decoder's raw leaves (``prenet_w{i}``, ``prenet_b{i}``
+# match by pattern; its cells' by ``_RNN_DECODER_CELL``) and GST's tokens
+_TACOTRON = ("att_query", "loc_conv_kernel", "loc_proj", "frame_w",
+             "frame_b", "stop_w", "stop_b", "style_tokens")
+_PRENET = re.compile(r"prenet_[wb][0-9]+")
+_KEPT = _RECURRENT + _CONFORMER + _LM + _RNN_DECODER + _TACOTRON
 # the parent module of flax DenseGeneral layers, whose kernels are kept
 _DENSE_GENERAL_PARENT = "attn"
 _LN_SUFFIX = "_ln"
@@ -94,7 +106,14 @@ def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
 
 def _kept(leaf: str) -> bool:
     """Whether the flax leaf ``leaf`` is kept under its name and layout."""
-    return leaf in _KEPT or bool(_RNN_DECODER_CELL.fullmatch(leaf))
+    return leaf in _KEPT or bool(_RNN_DECODER_CELL.fullmatch(leaf) or
+                                 _PRENET.fullmatch(leaf))
+
+
+# flax BatchNorm modules with no inner ``BatchNorm_0``: the DS2 encoder's
+# ``conv{i}_bn``, the Tacotron encoder's ``bn{i}``, GST's ``ref_bn{i}`` and
+# the postnet's ``postnet_bn{i}``
+_BARE_BN = re.compile(r".*_bn|(ref_|postnet_)?bn[0-9]+")
 
 
 def _module_key(path: Tuple[str, ...]) -> str:
@@ -167,7 +186,7 @@ def flax_path(name: str, norms: set, layer_norms: set = frozenset()
     module, leaf = name.rsplit(".", 1) if "." in name else ("", name)
     parts = tuple(module.split(".")) if module else ()
     if module in norms:
-        inner = () if parts[-1].endswith("_bn") else (_BN_INNER,)
+        inner = () if _BARE_BN.fullmatch(parts[-1]) else (_BN_INNER,)
         return parts + inner + ({"weight": "scale", "bias": "bias",
                                  "running_mean": "mean",
                                  "running_var": "var"}[leaf],)

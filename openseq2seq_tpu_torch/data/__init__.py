@@ -1,3 +1,4 @@
 from .data_layer import DataLayer
 from .synthetic import (SyntheticLMDataLayer, SyntheticSpeechDataLayer,
-                        SyntheticTextDataLayer)
+                        SyntheticTextDataLayer,
+                        SyntheticTTSDataLayer)

@@ -1,6 +1,7 @@
 """Synthetic fixed-shape data layers (the port's copy of
-``SyntheticSpeechDataLayer``, ``SyntheticTextDataLayer`` and
-``SyntheticLMDataLayer`` from ``openseq2seq_tpu/data/synthetic.py``,
+``SyntheticSpeechDataLayer``, ``SyntheticTextDataLayer``,
+``SyntheticLMDataLayer`` and ``SyntheticTTSDataLayer`` from
+``openseq2seq_tpu/data/synthetic.py``,
 unchanged in behaviour: the same seeds give the same batches, so the port
 and the JAX package see the same data).
 """
@@ -186,6 +187,69 @@ class SyntheticLMDataLayer(DataLayer):
         lengths = np.full((B,), T, np.int32)
         batch = {"source_tensors": [np.ascontiguousarray(x), lengths],
                  "target_tensors": [np.ascontiguousarray(y), lengths],
+                 "source_ids": np.arange(B, dtype=np.int32),
+                 "batch_valid": np.int32(B)}
+        for _ in range(p["num_batches"]):
+            yield batch
+
+    def decode_ids(self, ids):
+        return " ".join(str(int(i)) for i in np.asarray(ids).tolist()
+                        if int(i) >= 0)
+
+
+class SyntheticTTSDataLayer(DataLayer):
+    """Random (text, mel spectrogram, stop target) batches with the
+    Text2Speech collate contract (``data/text2speech/text2speech.py``),
+    for Tacotron-2 at full width."""
+
+    @staticmethod
+    def get_required_params():
+        return dict(DataLayer.get_required_params(), **{
+            "src_vocab_size": int,
+            "num_audio_features": int,
+        })
+
+    @staticmethod
+    def get_optional_params():
+        return dict(DataLayer.get_optional_params(), **{
+            "text_length": int,
+            "spec_length": int,
+            "num_batches": int,
+            "output_type": str,
+            "feature_normalize": bool,
+            "sample_freq": int,
+        })
+
+    def __init__(self, params, model, num_workers=1, worker_id=0):
+        super().__init__(params, model, num_workers, worker_id)
+        p = self._params
+        p.setdefault("text_length", 96)
+        p.setdefault("spec_length", 512)
+        p.setdefault("num_batches", 100)
+        p.setdefault("batch_size", 32)
+        p.setdefault("output_type", "mel")
+        p.setdefault("feature_normalize", False)
+        # the Text2Speech model sizes the decoder's output from this
+        p["num_output_features"] = p["num_audio_features"]
+
+    def get_size_in_samples(self) -> int:
+        return self._params["num_batches"] * self._params["batch_size"]
+
+    def iterate_one_epoch(self) -> Iterator[Dict[str, Any]]:
+        p = self._params
+        B, S = p["batch_size"], p["text_length"]
+        T, F = p["spec_length"], p["num_audio_features"]
+        rng = np.random.RandomState(
+            1 if p.get("mode") == "train" else 2)
+        text = rng.randint(1, p["src_vocab_size"],
+                           size=(B, S)).astype(np.int32)
+        text_len = np.full((B,), S, np.int32)
+        spec = rng.randn(B, T, F).astype(np.float32)
+        stop = np.zeros((B, T), np.float32)
+        stop[:, -1] = 1.0
+        spec_len = np.full((B,), T, np.int32)
+        batch = {"source_tensors": [text, text_len],
+                 "target_tensors": [spec, stop, spec_len],
                  "source_ids": np.arange(B, dtype=np.int32),
                  "batch_valid": np.int32(B)}
         for _ in range(p["num_batches"]):

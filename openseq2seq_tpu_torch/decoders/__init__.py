@@ -4,3 +4,4 @@ from .lm_decoders import FakeDecoder
 from .transformer_decoder import TransformerDecoder
 from .rnn_decoders import (BeamSearchRNNDecoderWithAttention,
                            RNNDecoderWithAttention)
+from .tacotron2_decoder import Tacotron2Decoder

@@ -8,3 +8,4 @@ from .rnn_encoders import (BidirectionalRNNEncoderWithEmbedding,
                            GNMTLikeEncoderWithEmbedding,
                            GNMTLikeEncoderWithEmbedding_cuDNN,
                            UnidirectionalRNNEncoderWithEmbedding)
+from .tacotron2_encoder import Tacotron2Encoder

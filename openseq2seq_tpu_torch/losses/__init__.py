@@ -3,3 +3,4 @@ from .ctc_loss import CTCLoss
 from .sequence_loss import (BasicSampledSequenceLoss, BasicSequenceLoss,
                             CrossEntropyWithSmoothing,
                             PaddedCrossEntropyLossWithSmoothing)
+from .text2speech_loss import Text2SpeechLoss

@@ -3,3 +3,4 @@ from .encoder_decoder import EncoderDecoderModel
 from .speech2text import Speech2Text
 from .text2text import Text2Text
 from .lstm_lm import LSTMLM
+from .text2speech import Text2Speech, Text2SpeechTacotron

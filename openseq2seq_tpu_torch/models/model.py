@@ -424,11 +424,18 @@ class Model(abc.ABC):
         model has a loss (an infer-mode model has none)."""
         with torch.no_grad():
             device_batch = to_device_batch(batch, self._device)
-            outputs = state.module(device_batch, train=False)
+            outputs = state.module(device_batch, train=False,
+                                   generator=self.eval_generator())
             result = {"outputs": outputs}
             if "target_tensors" in batch and self.has_loss:
                 result["loss"] = self.compute_loss(outputs, device_batch)
         return result
+
+    def eval_generator(self) -> Optional[torch.Generator]:
+        """The generator of what a forward pass draws outside training
+        (none here: task models whose modules draw, such as the Tacotron
+        prenet's dropout, override it)."""
+        return None
 
     # task hooks, overridden by task models
     def maybe_print_logs(self, metrics: Dict[str, Any], step: int) -> None:

@@ -40,7 +40,9 @@ for one CTA's block of units; the forward's controls (h carried
 unrounded, the LSTM's c carried in bf16), all four in :func:`fwd_faults`;
 and the backward's, :func:`bwd_faults`; at more than one tile of rows a
 step (``TILE_ROWS``), both also refuse a step whose tiles take one
-another's rows (:func:`cross_tile`, :func:`cross_tile_bwd`).
+another's rows (:func:`cross_tile`, :func:`cross_tile_bwd`) and an
+output zeroed on the second tile's rows alone (:func:`zero_rows`), the
+ragged second tile of B 33 to 63 included.
 """
 from __future__ import annotations
 
@@ -395,18 +397,28 @@ def drop_product(cell, t, units, **kw):
 
 # The batch rows a CTA of the bf16 scan kernels walks at once (``kRows`` in
 # csrc/rnn_scan.cuh and csrc/rnn_scan_bwd.cuh): at B > 32 each step runs
-# B / 32 tiles, one after the other, reusing the CTA's reduction buffer and
-# multicast rooms after a cluster barrier, so that a hand-off out of order
-# shows only in rows past the first tile.
+# ceil(B / 32) tiles, one after the other, reusing the CTA's reduction
+# buffer and multicast rooms after a cluster barrier, so that a hand-off out
+# of order shows only in rows past the first tile.
 TILE_ROWS = 32
 
 
 def _tiles(B):
-    """(rows, src): the second tile of rows, and the first, whose state a
-    wrong hand-off between tiles gives it; None at one tile a step."""
-    if B < 2 * TILE_ROWS:
+    """(rows, src): the second tile of rows (ragged where B < 64: the
+    rows past the first tile), and as many rows of the first, whose state
+    a wrong hand-off between tiles gives it; None at one tile a step."""
+    if B <= TILE_ROWS:
         return None
-    return slice(TILE_ROWS, 2 * TILE_ROWS), slice(0, TILE_ROWS)
+    end = min(B, 2 * TILE_ROWS)
+    return slice(TILE_ROWS, end), slice(0, end - TILE_ROWS)
+
+
+def zero_rows(x, rows):
+    """``x`` with the batch rows ``rows`` zeroed: a fault a bound must
+    refuse."""
+    bad = x.clone()
+    bad[rows] = 0
+    return bad
 
 
 def cross_tile(cell, t, rows, src, **kw):
@@ -480,8 +492,11 @@ def fwd_faults(cell, t, units, **kw) -> dict:
       carry);
     - "bf16 c carry" (the LSTM): c carried rounded to bf16, its cs and ys
       against the bounds from its own cs and ys;
-    - "rows from another tile" (B >= 2 ``TILE_ROWS``): :func:`cross_tile`
-      at step t, the second tile of rows from the first's h.
+    - "rows from another tile" (B > ``TILE_ROWS``): :func:`cross_tile`
+      at step t, the second tile of rows (ragged below 64 rows) from the
+      first's h;
+    - "second tile zeroed" (B > ``TILE_ROWS``): ys zeroed on the rows of
+      the second tile alone.
 
     A check must read all of them above 1. Both controls move a step by
     less than a rounding of h or c, so the bounds tell them only because
@@ -502,6 +517,8 @@ def fwd_faults(cell, t, units, **kw) -> dict:
     if tiles:
         out["rows from another tile"] = reading(
             cross_tile(cell, t, *tiles, **kw), *bounds["ys"])
+        out["second tile zeroed"] = reading(zero_rows(ys, tiles[0]),
+                                            *bounds["ys"])
     controls = {"fp32 h carry": (torch.float32, torch.float32)}
     if cell == "lstm":
         controls["bf16 c carry"] = (ys.dtype, torch.bfloat16)
@@ -583,7 +600,7 @@ def cross_tile_bwd(cell, t, rows, src, dx, **kw):
 
 
 def bwd_faults(cell, t, units, dx, **kw) -> dict:
-    """The readings of three wrong backward kernels, each against the
+    """The readings of wrong backward kernels, each against the
     bounds recomputed from its own carries, by name:
 
     - "rows zeroed": dx zeroed on every batch row but row 1 (dx's bound);
@@ -593,9 +610,12 @@ def bwd_faults(cell, t, units, dx, **kw) -> dict:
     - "bf16 carry": every dh carry rounded to bf16, as in a kernel that
       kept its carries in bf16 (the carries at the live steps, where the
       product moves them);
-    - "rows from another tile" (B >= 2 ``TILE_ROWS``):
-      :func:`cross_tile_bwd` at step t, the second tile of rows carrying
-      the first's dh into it (the carry into step t).
+    - "rows from another tile" (B > ``TILE_ROWS``):
+      :func:`cross_tile_bwd` at step t, the second tile of rows (ragged
+      below 64 rows) carrying the first's dh into it (the carry into step
+      t);
+    - "second tile zeroed" (B > ``TILE_ROWS``): dx zeroed on the rows of
+      the second tile alone (dx's bound).
 
     A check must read all of them above 1, at every width, given the
     kernel's own summation depth (``depth``, :func:`sum_depth`), so that
@@ -609,6 +629,8 @@ def bwd_faults(cell, t, units, dx, **kw) -> dict:
     if tiles:
         faults["rows from another tile"] = cross_tile_bwd(cell, t, *tiles,
                                                           dx, **kw)
+        out["second tile zeroed"] = reading(zero_rows(dx, tiles[0]),
+                                            *bounds["dx"])
     for name, (_, carries) in faults.items():
         want, bound = bwd_bounds(cell, **dict(kw, carries=carries))["carry"]
         out[name] = reading(carries[:, t], want[:, t], bound[:, t])

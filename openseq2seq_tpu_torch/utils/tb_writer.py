@@ -1,6 +1,7 @@
 """Minimal TensorBoard event-file writer, dependency-free: the scalar
 writer of ``openseq2seq_tpu/utils/tb_writer.py``, copied for the port
-(its reader, images, histograms and audio are not).
+with its ``plot_to_png`` (its reader, image, histogram and audio events
+are not).
 
 The reference logs train loss / lr / grad norms / eval metrics as TF
 summaries (`open_seq2seq/models/model.py:526-532`,
@@ -148,3 +149,25 @@ def _is_scalar(v) -> bool:
         return True
     except (TypeError, ValueError):
         return False
+
+
+def plot_to_png(matrix, xlabel: str = "", ylabel: str = "") -> tuple:
+    """Render a 2-D array (an attention alignment) to PNG bytes with
+    matplotlib (Agg backend), imported here: a box without matplotlib
+    raises ImportError. Returns (png_bytes, height, width)."""
+    import io as _io
+
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(6, 4), dpi=100)
+    ax.imshow(matrix, aspect="auto", origin="lower",
+              interpolation="nearest")
+    ax.set_xlabel(xlabel)
+    ax.set_ylabel(ylabel)
+    buf = _io.BytesIO()
+    fig.savefig(buf, format="png", bbox_inches="tight")
+    plt.close(fig)
+    png = buf.getvalue()
+    return png, 400, 600

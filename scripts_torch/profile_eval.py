@@ -3,7 +3,8 @@
 step, on one NVIDIA GPU.
 
     python3 scripts_torch/profile_eval.py [--train | --infer | --train-nmt |
-        --train-lm | --eval-lm | --train-gnmt | --infer-gnmt]
+        --train-lm | --eval-lm | --train-gnmt | --infer-gnmt |
+        --train-tacotron | --infer-tacotron]
         [--config_file=PATH] [--steps=4] [--repeats=3] [--trace=PATH]
 
 Builds the model of a port config (default: Jasper-10x5 at full width on
@@ -30,7 +31,11 @@ of a batch of 32 sentences) on GNMT-like at full width,
 ``example_configs_torch/text2text/en_de_gnmt_like_wmt.py``, over 8
 batches of a WMT-shaped corpus written first into a temporary directory
 (``test_utils/fake_wmt.py``: 256 sentence pairs, the recipe's 32K
-vocabulary).
+vocabulary); ``--train-tacotron`` and ``--infer-tacotron`` are ``--train``
+and ``--infer`` (1,000 free-running frames a batch) on Tacotron-2 at full
+width on synthetic batches,
+``example_configs_torch/text2speech/tacotron2_synthetic.py`` (mel frames
+are its objects).
 It prints:
 
 1. wall milliseconds per step without the profiler, for each of
@@ -84,6 +89,8 @@ LM_CONFIG = os.path.join(REPO, "example_configs_torch", "lm",
                          "lstm_wkt103_synthetic.py")
 GNMT_CONFIG = os.path.join(REPO, "example_configs_torch", "text2text",
                            "en_de_gnmt_like_wmt.py")
+TACOTRON_CONFIG = os.path.join(REPO, "example_configs_torch", "text2speech",
+                               "tacotron2_synthetic.py")
 # the GNMT profile's corpus: 8 batches of 32 sentence pairs, and the word
 # types that give the recipe's vocabulary, 4 + 3 x 10921 = 32,767 tokens
 GNMT_CORPUS = dict(n_train=256, n_dev=32, n_test=32, n_types=10921,
@@ -299,12 +306,20 @@ def parse_args(argv=None) -> argparse.Namespace:
                                 os.path.relpath(GNMT_CONFIG, REPO)))
     which.add_argument("--infer-gnmt", action="store_true",
                        help="profile GNMT-like's beam-10 infer step")
+    which.add_argument("--train-tacotron", action="store_true",
+                       help="profile Tacotron-2's train step (the train "
+                            "step on {})".format(
+                                os.path.relpath(TACOTRON_CONFIG, REPO)))
+    which.add_argument("--infer-tacotron", action="store_true",
+                       help="profile Tacotron-2's infer step (1,000 "
+                            "free-running frames)")
     ap.add_argument("--config_file", default=None,
                     help="the port config (default: Jasper-10x5, the "
                          "transformer-big training config with "
                          "--train-nmt, the LSTM LM with --train-lm and "
                          "--eval-lm, GNMT-like with --train-gnmt and "
-                         "--infer-gnmt)")
+                         "--infer-gnmt, Tacotron-2 with --train-tacotron "
+                         "and --infer-tacotron)")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--trace", default=None,
@@ -312,13 +327,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "temporary file)")
     args = ap.parse_args(argv)
     args.gnmt = args.train_gnmt or args.infer_gnmt
+    tacotron = args.train_tacotron or args.infer_tacotron
     if args.config_file is None:
         args.config_file = NMT_TRAIN_CONFIG if args.train_nmt else \
             LM_CONFIG if args.train_lm or args.eval_lm else \
-            GNMT_CONFIG if args.gnmt else CONFIG
+            GNMT_CONFIG if args.gnmt else \
+            TACOTRON_CONFIG if tacotron else CONFIG
     args.train = args.train or args.train_nmt or args.train_lm or \
-        args.train_gnmt
-    args.infer = args.infer or args.infer_gnmt
+        args.train_gnmt or args.train_tacotron
+    args.infer = args.infer or args.infer_gnmt or args.infer_tacotron
     return args
 
 

@@ -58,7 +58,14 @@ def _import_all(report: str) -> str:
             "openseq2seq_tpu_torch.encoders.rnn_encoders",
             "openseq2seq_tpu_torch.decoders.rnn_decoders",
             "openseq2seq_tpu_torch.test_utils.toy_nmt",
-            "openseq2seq_tpu_torch.test_utils.fake_wmt"} <= \
+            "openseq2seq_tpu_torch.test_utils.fake_wmt",
+            "openseq2seq_tpu_torch.test_utils.toy_tts",
+            "openseq2seq_tpu_torch.data.text2speech.text2speech",
+            "openseq2seq_tpu_torch.data.text2speech.speech_utils",
+            "openseq2seq_tpu_torch.encoders.tacotron2_encoder",
+            "openseq2seq_tpu_torch.decoders.tacotron2_decoder",
+            "openseq2seq_tpu_torch.losses.text2speech_loss",
+            "openseq2seq_tpu_torch.models.text2speech"} <= \
         set(modules)
     names = {os.path.basename(c) for c in CONFIGS}
     assert len(CONFIGS) >= 13 and {
@@ -69,7 +76,10 @@ def _import_all(report: str) -> str:
         "jasper10x5_librispeech.py", "w2lplus_toy.py", "ds2_toy_config.py",
         "conformer_toy.py", "nmt_reversal_toy.py", "nmt_reversal_toy_rnn.py",
         "transformer_big_wmt.py", "en_de_gnmt_like_wmt.py",
-        "en_de_gnmt_like_tiny.py", "transformer_tiny_wmt.py"} <= names
+        "en_de_gnmt_like_tiny.py", "transformer_tiny_wmt.py",
+        "tacotron2_synthetic.py", "tacotron_gst_synthetic.py",
+        "tacotron_LJ.py", "tacotron_toy.py",
+        "tacotron_tiny_synthetic.py"} <= names
     code = ("import importlib, runpy, sys\n"
             "for m in {!r}: importlib.import_module(m)\n"
             "for c in {!r}: runpy.run_path(c)\n"
