@@ -121,8 +121,10 @@ Phases, one informative line or a few each:
    backward at H=1280 refused before any launch);
 4g. the rel-pos flash kernel against ``relpos_attention_plain`` on the
    same folded inputs at Conformer-M's shape (B=64, H=4, T=250, Dh=64,
-   D=256), Conformer-L's (H=8, D=512) and a ragged T=37 (Dh=32, D=128),
-   lengths from 1 to T and one 0 (clamped to 1): fp32 (TF32 off) context
+   D=256), Conformer-L's (H=8, D=512), a ragged T=37 (Dh=32, D=128) and
+   the Conformer-Transducer's (B=128 at T=250 and at T=418, the
+   LibriSpeech recipe's 16.7 s cap), lengths from 1 to T and one 0
+   (clamped to 1): fp32 (TF32 off) context
    max abs err 2e-5 and lse 1e-5, bf16 against the plain version on the
    same bf16 inputs (which rounds the weights as the kernel and the TPU
    kernel do, against the running maximum of 128-key blocks) each
@@ -132,10 +134,11 @@ Phases, one informative line or a few each:
    kernel at Conformer-M's and -L's widths; times of the kernel, the
    plain version and ``scaled_dot_product_attention`` on the
    materialised q~, k~ and v with the length mask (timed only, never on
-   the path) at Conformer-M's shape in bf16;
+   the path) at Conformer-M's shape and the transducer's in bf16;
 4h. the Conformer conv module kernel against
    ``conformer_conv_module_plain`` at Conformer-M's shape (B=64, T=250,
-   D=256, k=31), at D=512 and at an odd T=37 with a zero-length row:
+   D=256, k=31), at D=512, at an odd T=37 with a zero-length row and at
+   the transducer's B=128, T=250 and 418:
    fp32 (TF32 off) max abs err 1e-4; bf16 (one fused launch after the
    weights' rounding pre-pass; its tile, shared memory and CTAs an SM
    printed) the kernel's u (written out by the CTA that owns the frame)
@@ -145,8 +148,9 @@ Phases, one informative line or a few each:
    bit-identical with u written out and at every other tile of frames
    that fits (other tile edges); two calls bit-identical; times of the
    kernel and the plain version, and of the module's unfused torch chain
-   for information (no single PyTorch call computes the module); what it
-   does not take it refuses, a tile that does not fit an SM too;
+   for information (no single PyTorch call computes the module), at
+   Conformer-M's shape and the transducer's; what it does not take it
+   refuses, a tile that does not fit an SM too;
 4i. the rel-pos flash backward kernels (dq, then dkv, after the forward
    kernel with its lse) against ``relpos_attention_bwd_plain`` at the
    shapes of 4g: fp32 (TF32 off) dqu, dqp, dk, dv max abs err 1e-4; bf16
@@ -157,8 +161,8 @@ Phases, one informative line or a few each:
    refused; two calls bit-identical; times of each kernel, the plain
    backward and ``scaled_dot_product_attention`` forward plus backward on
    the materialised q~, k~ (timed only, never on the path) at
-   Conformer-M's shape in bf16; what the backward does not take, it
-   refuses;
+   Conformer-M's shape and the transducer's in bf16; what the backward
+   does not take, it refuses;
 4j. the conv module backward kernels against
    ``conformer_conv_module_bwd_plain`` at the shapes of 4h: dx and the ten
    weight gradients, fp32 (TF32 off) within 1e-5 of max(1, |gradient|)
@@ -175,8 +179,8 @@ Phases, one informative line or a few each:
    other tile that fits; two calls bit-identical;
    times of the kernels and the plain version, and of the module's
    unfused torch chain forward plus backward under autograd as the
-   yardstick, at Conformer-M's shape in bf16; what it does not take, it
-   refuses;
+   yardstick, at Conformer-M's shape and the transducer's in bf16; what
+   it does not take, it refuses;
 5. a small fp32 Jasper on the card and on the CPU: eval outputs agree, and
    one ``train_step`` gives the same loss and updated weights (rtol 1e-4);
 6. the eval/infer slice: Jasper-10x5 at full width from
@@ -358,11 +362,37 @@ Phases, one informative line or a few each:
    ``test_utils/toy_tts``) through ``run.main --mode=train_eval`` for 400
    steps to a loss below 12.0 (the JAX package's bar), then eval and
    infer (a wav a toy sentence) from its checkpoint;
+7zb. the tiny fp32 Conformer-Transducer (``conformer_transducer_tiny_
+   synthetic.py``, both kernel flags on), dropout off, on the card and on
+   the CPU: the lattice and fused losses of one batch and every
+   parameter's gradient (card against CPU, fused against lattice), the
+   greedy ids, lengths and emission frames identical, the beam of 4's best
+   ids identical and its n-best scores within rtol 1e-4, one AdamW step's
+   loss and weights;
+7zc. the Conformer-Transducer at full width (``conformer_transducer_
+   synthetic.py``: every key of scripts/bench_transducer.py, B 128 x 1000
+   frames x 80, U 160, the fused loss) through ``run.main --mode=train``
+   for 20 steps with the warmup cut to 20: the loss finite and falling
+   (7n's rule), the rel-pos flash forward, dq and dkv and the conv module
+   forward and backward exactly 16 times each a step, utt/s, the peak
+   device memory beside the 3.1 GiB that the lattice's tanh input alone
+   would hold; from the checkpoint the parameter count (the JAX model's),
+   the fused and the lattice loss of one batch within rel 1e-3, eval
+   (WER, loss) and, through ``conformer_transducer_decode_synthetic.py``,
+   infer batches of 64, greedy and beam 4, each with its utt/s, device
+   kernels, busy time and idle share;
+7zd. the Conformer-Transducer's LibriSpeech recipe on a fake corpus of
+   128 ten-second utterances: 10 training steps (16 launches of each
+   Conformer kernel a step) and eval over the 64 dev utterances;
+7ze. the transducer toy (``conformer_transducer_toy.py``) from the toy
+   wavs through ``run.main --mode=train_eval`` to its end: the last
+   validation's WER below 0.1, eval and infer from its checkpoint;
 8. one JSON line for the kernels (the LSTM scans' entries with their
    times at the LM's shape under ``at_lm_shape``, at GNMT's under
    ``at_gnmt_shape`` and at Tacotron-2's under ``at_tacotron_shape``; the
-   GRU scans' at GST's under ``at_gst_shape``), then ``{"ok": true,
-   "device": ...}`` last.
+   GRU scans' at GST's under ``at_gst_shape``; the rel-pos flash and conv
+   module kernels' at the transducer's B 128, T' 250 and 418 under
+   ``at_transducer_shape``), then ``{"ok": true, "device": ...}`` last.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after. Any failed check raises, and the script exits non-zero
@@ -443,6 +473,21 @@ GNMT_PARAMS = 308382720
 # (``tests/test_torch_tacotron.py::test_full_width_parameter_counts``)
 TACOTRON_PARAMS = 26042529
 GST_PARAMS = 27630465
+# the Conformer-Transducer at bench_transducer.py's width: the JAX model's
+# count by ``jax.eval_shape`` of its init
+# (``tests/test_torch_transducer_model.py::test_full_width_parameter_count``)
+TRANSDUCER_PARAMS = 26796701
+TRANSDUCER = os.path.join(REPO, "example_configs_torch", "speech2text",
+                          "conformer_transducer_synthetic.py")
+TRANSDUCER_DECODE = os.path.join(REPO, "example_configs_torch",
+                                 "speech2text",
+                                 "conformer_transducer_decode_synthetic.py")
+TRANSDUCER_TINY = os.path.join(REPO, "example_configs_torch", "speech2text",
+                               "conformer_transducer_tiny_synthetic.py")
+TRANSDUCER_LIBRI = os.path.join(REPO, "example_configs_torch", "speech2text",
+                                "conformer_transducer_librispeech.py")
+TRANSDUCER_TOY = os.path.join(REPO, "example_configs_torch", "speech2text",
+                              "conformer_transducer_toy.py")
 # transformer_policy recipes warm up over thousands of steps (transformer-
 # big 8000: lr under 2e-6 for 20 steps; Conformer-M 10,000); the smoke
 # runs cut the warmup so that the loss falls within their 20 steps
@@ -1820,12 +1865,45 @@ def phase_scan_bwd(card):
     return worst, times
 
 
+# the Conformer-Transducer's shapes: B 128 (conformer_transducer_synthetic
+# .py's batch, scripts/bench_transducer.py's) at T' 250 (its 10 s
+# utterances) and 418 (the LibriSpeech recipe's 16.7 s cap); held and
+# timed like each kernel's first case, the Conformer-M CTC path's
+TRANSDUCER_SHAPES = ("transducer T'=250", "transducer T'=418")
+
+
+def transducer_shape_times(times, part=None):
+    """The kernels line's ``at_transducer_shape`` of a kernel's timings:
+    for each of the transducer's shapes its time, its plain version's,
+    its bound and the library call's (``part`` "dq" or "dkv": that launch
+    of the rel-pos backward)."""
+    out = {}
+    for name, t in times["at_transducer_shape"].items():
+        bound = t[part + "_bound"] if part else (t["bound_ms"],
+                                                 t["bound_by"])
+        out[name] = {"ms": t[part + "_ms" if part else "ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": bound[0],
+                     "bound_by": bound[1],
+                     "library_ms": t.get("library_ms")}
+    return out
+
+
+def with_transducer_times(timed, main):
+    """The timings of case ``main``, with those of the transducer's
+    shapes under ``at_transducer_shape``."""
+    return dict(timed[main], at_transducer_shape={
+        name: timed[name] for name in TRANSDUCER_SHAPES})
+
+
 # name, B, H, T, Dh, D: Conformer-M's attention (the main path's), then
-# Conformer-L's (bench_conformer.py with BENCH_SCALE=l) and a ragged tile
+# Conformer-L's (bench_conformer.py with BENCH_SCALE=l), a ragged tile and
+# the transducer's shapes
 RELPOS_CASES = (
     ("conformer-m", 64, 4, 250, 64, 256),
     ("conformer-l", 64, 8, 250, 64, 512),
     ("ragged T=37", 3, 4, 37, 32, 128),
+    ("transducer T'=250", 128, 4, 250, 64, 256),
+    ("transducer T'=418", 128, 4, 418, 64, 256),
 )
 RELPOS_FP32_ATOL, RELPOS_LSE_ATOL = 2e-5, 1e-5
 # bf16: each context element within relpos_attention_bound of the plain
@@ -1874,12 +1952,13 @@ def phase_relpos(card):
     ``relpos_attention_bound``, element by element, refusing a planted
     fault; two calls bit-identical. Prints the CTAs an SM holds of each
     bf16 kernel at Conformer-M's and Conformer-L's widths. Returns the
-    worst fp32 error and the timings at Conformer-M's shape."""
+    worst fp32 error and the timings at Conformer-M's shape (and at the
+    transducer's)."""
     import torch
     import torch.nn.functional as F
     from openseq2seq_tpu_torch.ops import flash_relpos as fr
     dev = torch.device("cuda")
-    worst, times = 0.0, None
+    worst, timed = 0.0, {}
     for name, D in (("conformer-m", 256), ("conformer-l", 512)):
         print("[relpos] {} (Dh 64, D {}) bf16 CTAs an SM: forward {}, dq {}, "
               "dkv {}".format(name, D, *(fr.ctas_per_sm(kernel, 64, D)
@@ -1929,7 +2008,8 @@ def phase_relpos(card):
                       .format(name, reading))
                 check(planted > 1.0, "{}: the bound takes a planted fault"
                       .format(name))
-            if i > 0 or dtype == torch.float32:
+            if dtype == torch.float32 or \
+                    (i > 0 and name not in TRANSDUCER_SHAPES):
                 continue
             q_aug = torch.cat([qu.transpose(1, 2), qp], dim=-1)
             k_aug = torch.cat([k.transpose(1, 2),
@@ -1937,13 +2017,14 @@ def phase_relpos(card):
             v_t = v.transpose(1, 2).contiguous()
             mask = (torch.arange(T, device=dev)[None, :] <
                     case[5].clamp(min=1)[:, None])[:, None, None, :]
-            times = {"ms": cuda_ms(lambda: fr.relpos_attention(*args), 50),
-                     "plain_ms": cuda_ms(
-                         lambda: fr.relpos_attention_plain(*args), 10),
-                     "library_ms": cuda_ms(
-                         lambda: F.scaled_dot_product_attention(
-                             q_aug, k_aug, v_t, attn_mask=mask,
-                             scale=scale), 50)}
+            times = timed[name] = {
+                "ms": cuda_ms(lambda: fr.relpos_attention(*args), 50),
+                "plain_ms": cuda_ms(
+                    lambda: fr.relpos_attention_plain(*args), 10),
+                "library_ms": cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q_aug, k_aug, v_t, attn_mask=mask,
+                        scale=scale), 50)}
             times["bound_ms"], times["bound_by"] = relpos_bound_ms(
                 qu, qp, kp, case[5])
             print("[relpos] {} bf16: kernel {:.4f} ms, plain {:.4f} ms, SDPA "
@@ -1970,15 +2051,18 @@ def phase_relpos(card):
                            "launched")
     print("[relpos] wrong dtype, widths, layout and lengths are refused",
           flush=True)
-    return worst, times
+    return worst, with_transducer_times(timed, RELPOS_CASES[0][0])
 
 
 # name, B, T, D, k: Conformer-M's conv module (the main path's), D = 512
-# (Conformer-L's width) and an odd T with a zero-length row
+# (Conformer-L's width), an odd T with a zero-length row and the
+# transducer's shapes
 CONV_CASES = (
     ("conformer-m", 64, 250, 256, 31),
     ("D=512", 64, 250, 512, 31),
     ("odd T=37", 5, 37, 256, 31),
+    ("transducer T'=250", 128, 250, 256, 31),
+    ("transducer T'=418", 128, 418, 256, 31),
 )
 CONV_FP32_ATOL = 1e-4
 # bf16: the kernel's u (written out by the CTA that owns the frame) held
@@ -2025,13 +2109,13 @@ def conv_bound_ms(x, weights):
 def phase_conformer_conv(card):
     """``conformer_conv_fwd`` against ``conformer_conv_module_plain`` on
     the card. Returns the worst fp32 error and the timings at
-    Conformer-M's shape."""
+    Conformer-M's shape (and at the transducer's)."""
     import torch
     from openseq2seq_tpu_torch.encoders.conformer_encoder import _ConvModule
     from openseq2seq_tpu_torch.ops import conformer_conv as cc
     from openseq2seq_tpu_torch.ops import bounds as eb
     dev = torch.device("cuda")
-    worst, times, reading = 0.0, None, 0.0
+    worst, timed, reading = 0.0, {}, 0.0
     for i, (name, B, T, D, k) in enumerate(CONV_CASES):
         x, lengths, weights = conv_case(B, T, D, k, 60 + i, dev)
         for dtype in (torch.float32, torch.bfloat16):
@@ -2086,14 +2170,15 @@ def phase_conformer_conv(card):
                 worst = max(worst, err)
                 check(err <= CONV_FP32_ATOL, "{}: fp32 err {}".format(name,
                                                                      err))
-            if i > 0 or dtype == torch.float32:
+            if dtype == torch.float32 or \
+                    (i > 0 and name not in TRANSDUCER_SHAPES):
                 continue
             module = _ConvModule(D, k, dtype, False,
                                  torch.Generator().manual_seed(0)).to(dev)
             with torch.no_grad():
                 for p, w in zip(module.parameters(), weights):
                     p.copy_(w)
-                times = {"ms": cuda_ms(
+                times = timed[name] = {"ms": cuda_ms(
                     lambda: cc.conformer_conv_module(*args), 50),
                     "plain_ms": cuda_ms(
                         lambda: cc.conformer_conv_module_plain(*args), 10),
@@ -2128,6 +2213,7 @@ def phase_conformer_conv(card):
           "kernel's limits are refused, and a tile of 64 frames at D 512, "
           "k 63 (more shared memory than an SM gives a CTA), before any "
           "launch", flush=True)
+    times = with_transducer_times(timed, CONV_CASES[0][0])
     times["bound_reading"] = reading
     return worst, times
 
@@ -2202,14 +2288,15 @@ def phase_relpos_bwd(card):
     them) within ``relpos_attention_bwd_bound``, element by element, and
     within FLASH_BWD_BF16_FP32_MATH_BOUNDS times it against the plain
     version's fp32 math, refusing a planted fault; two calls
-    bit-identical. Times at Conformer-M's shape in bf16. Returns the worst
-    fp32 errors of dq~ and of dk/dv, and the timings."""
+    bit-identical. Times at Conformer-M's shape (and at the transducer's)
+    in bf16. Returns the worst fp32 errors of dq~ and of dk/dv, and the
+    timings."""
     import torch
     import torch.nn.functional as F
     from openseq2seq_tpu_torch.ops import flash_relpos as fr
     dev = torch.device("cuda")
     worst_dq = worst_dkv = 0.0
-    times = None
+    timed = {}
     for i, (name, B, H, T, Dh, D) in enumerate(RELPOS_CASES):
         case = relpos_case(B, H, T, Dh, D, 70 + i, dev)
         scale = Dh ** -0.5
@@ -2276,7 +2363,8 @@ def phase_relpos_bwd(card):
                       "math".format(name, math_readings))
                 check(planted > 1.0, "{}: the bound takes a planted fault"
                       .format(name))
-            if i > 0 or dtype == torch.float32:
+            if dtype == torch.float32 or \
+                    (i > 0 and name not in TRANSDUCER_SHAPES):
                 continue
             q_aug = torch.cat([qu.transpose(1, 2), qp], dim=-1)
             k_aug = torch.cat([k.transpose(1, 2), kp.expand(B, H, T, D)],
@@ -2291,7 +2379,7 @@ def phase_relpos_bwd(card):
                 F.scaled_dot_product_attention(
                     *leaves, attn_mask=mask, scale=scale).backward(do_t)
             bwd_args = args + (o, lse, dod, scale)
-            times = {
+            times = timed[name] = {
                 "ms": cuda_ms(lambda: fr.relpos_attention_bwd_cuda(
                     *bwd_args), 10),
                 "dq_ms": _relpos_bwd_kernel_ms("dq", *bwd_args, 10),
@@ -2327,7 +2415,8 @@ def phase_relpos_bwd(card):
                            "input launched")
     print("[relpos bwd] wrong dtype, layout and lengths are refused",
           flush=True)
-    return worst_dq, worst_dkv, times
+    return worst_dq, worst_dkv, with_transducer_times(timed,
+                                                      RELPOS_CASES[0][0])
 
 
 # the gradients' largest error, relative to max(1, their largest
@@ -2357,15 +2446,16 @@ def conv_bwd_bound_ms(x, weights):
 
 def phase_conformer_conv_bwd(card):
     """``conformer_conv_bwd`` against ``conformer_conv_module_bwd_plain``
-    on the card, on the same inputs; times at Conformer-M's shape in bf16
-    beside the module's unfused torch chain, forward plus backward under
-    autograd. Returns the worst fp32 absolute error and the timings."""
+    on the card, on the same inputs; times at Conformer-M's shape (and at
+    the transducer's) in bf16 beside the module's unfused torch chain,
+    forward plus backward under autograd. Returns the worst fp32 absolute
+    error and the timings."""
     import torch
     from openseq2seq_tpu_torch.encoders.conformer_encoder import _ConvModule
     from openseq2seq_tpu_torch.ops import conformer_conv as cc
     from openseq2seq_tpu_torch.ops import bounds as eb
     dev = torch.device("cuda")
-    worst, times, reading = 0.0, None, 0.0
+    worst, timed, reading = 0.0, {}, 0.0
     for i, (name, B, T, D, k) in enumerate(CONV_CASES):
         x, lengths, weights = conv_case(B, T, D, k, 80 + i, dev)
         dy = torch.randn(x.shape, device=dev,
@@ -2437,7 +2527,8 @@ def phase_conformer_conv_bwd(card):
                     print("[conv bwd] {} bf16: the intermediates, dx, dw1 "
                           "and dw2 at {} frames a CTA bit-identical".format(
                               name, t), flush=True)
-            if i > 0 or dtype == torch.float32:
+            if dtype == torch.float32 or \
+                    (i > 0 and name not in TRANSDUCER_SHAPES):
                 continue
             module = _ConvModule(D, k, dtype, False,
                                  torch.Generator().manual_seed(0)).to(dev)
@@ -2448,7 +2539,7 @@ def phase_conformer_conv_bwd(card):
 
             def unfused_fwd_bwd():
                 module(xg, lengths).backward(args[-1])
-            times = {"ms": cuda_ms(
+            times = timed[name] = {"ms": cuda_ms(
                 lambda: cc.conformer_conv_module_cuda_bwd(*args), 20),
                 "plain_ms": cuda_ms(
                     lambda: cc.conformer_conv_module_bwd_plain(*args), 10),
@@ -2482,6 +2573,7 @@ def phase_conformer_conv_bwd(card):
     print("[conv bwd] wrong dtype, shape, layout and lengths are refused, "
           "and a tile of 64 frames at D 512, k 63, before any launch",
           flush=True)
+    times = with_transducer_times(timed, CONV_CASES[0][0])
     times["bound_reading"] = reading
     return worst, times
 
@@ -4634,6 +4726,424 @@ def phase_tts(card):
             gst[gru_scan])
 
 
+# the transducer checks' tolerances: card against CPU in fp32, rtol 1e-4
+# on losses and scores (two Conformer blocks, then the lattice's sums, in
+# other orders), and each gradient within 1e-4 of its tensor's largest
+# element plus 1e-4 of itself; the fused loss against the lattice loss on
+# the card in bf16 ("mixed"): the same bf16 joint over another batching
+# of its GEMM rows, rel 1e-3
+TRANSDUCER_RTOL = 1e-4
+TRANSDUCER_FUSED_RTOL = 1e-3
+
+
+def _conformer_counts():
+    from openseq2seq_tpu_torch.ops import conformer_conv, flash_relpos
+    return (flash_relpos.LAUNCHES, flash_relpos.BWD_DQ_LAUNCHES,
+            flash_relpos.BWD_DKV_LAUNCHES, conformer_conv.LAUNCHES,
+            conformer_conv.BWD_LAUNCHES)
+
+
+def _reset_conformer_counts():
+    from openseq2seq_tpu_torch.ops import conformer_conv, flash_relpos
+    flash_relpos.LAUNCHES = flash_relpos.BWD_DQ_LAUNCHES = 0
+    flash_relpos.BWD_DKV_LAUNCHES = 0
+    conformer_conv.LAUNCHES = conformer_conv.BWD_LAUNCHES = 0
+
+
+def _tiny_transducer(device, mode, fused=False, beam=1):
+    """The tiny Conformer-Transducer, dropout off, AdamW's epsilon 1e-4
+    (as ``phase_small_conformer_train``)."""
+    config = runpy.run_path(TRANSDUCER_TINY)
+    p = config["base_params"]
+    params = dict(p, optimizer_params=dict(p["optimizer_params"],
+                                           epsilon=1e-4),
+                  encoder_params=dict(p["encoder_params"],
+                                      dropout_keep_prob=1.0,
+                                      attention_dropout_keep_prob=1.0),
+                  decoder_params=dict(p["decoder_params"],
+                                      dropout_keep_prob=1.0,
+                                      fused_loss=fused, beam_width=beam))
+    return config["base_model"](params, mode=mode, device=device)
+
+
+def _grad_reading(got, want):
+    """The largest |got - want| over TRANSDUCER_RTOL (max|want| + |want|),
+    tensor by tensor."""
+    import numpy as np
+    return max(float(np.max(np.abs(got[n] - w) / (
+        TRANSDUCER_RTOL * (np.abs(w).max() + np.abs(w)) + 1e-30)))
+        for n, w in want.items())
+
+
+def phase_small_transducer():
+    """7zb: the tiny fp32 Conformer-Transducer (both kernel flags on: the
+    rel-pos flash kernels at head dim 32, the conv module's at width 64),
+    dropout off, same seed, on the card and on the CPU: the lattice and
+    fused losses of one batch and every parameter's gradient, card against
+    CPU and fused against lattice; greedy ids and lengths equal; the beam
+    of 4's best ids equal and its n-best scores within TRANSDUCER_RTOL;
+    one AdamW step's loss and weights (rtol 1e-4, atol 1e-5). On the card
+    each forward launches the two Conformer kernels twice (two blocks) and
+    each backward their backward kernels twice; on the CPU nothing."""
+    import numpy as np
+    from openseq2seq_tpu_torch.models.model import to_device_batch
+    from openseq2seq_tpu_torch.training import trainer
+    res = {}
+    for device in ("cuda", "cpu"):
+        before = _conformer_counts()
+        for fused in (False, True):
+            model = _tiny_transducer(device, "train", fused)
+            state = trainer.restore_state(model)
+            batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+            dev_batch = to_device_batch(batch, device)
+            loss = model.compute_loss(state.module(dev_batch, train=True),
+                                      dev_batch)
+            loss.backward()
+            res[device, fused] = (float(loss.detach()), {
+                n: p.grad.detach().cpu().numpy()
+                for n, p in state.module.named_parameters()})
+        for beam in (1, 4):
+            model = _tiny_transducer(device, "eval", beam=beam)
+            state = trainer.restore_state(model)
+            out = trainer.to_host(model.eval_step(state, batch))
+            res[device, "beam", beam] = out["outputs"]["decoder_output"]
+        model = _tiny_transducer(device, "train", True)
+        state = trainer.restore_state(model)
+        state, metrics = model.train_step(state, batch)
+        res[device, "step"] = (float(metrics["loss"]), {
+            n: p.detach().cpu().numpy()
+            for n, p in state.module.named_parameters()})
+        res[device, "launches"] = tuple(
+            a - b for a, b in zip(_conformer_counts(), before))
+    readings = {
+        "card vs CPU, lattice": _grad_reading(res["cuda", False][1],
+                                              res["cpu", False][1]),
+        "card vs CPU, fused": _grad_reading(res["cuda", True][1],
+                                            res["cpu", True][1]),
+        "fused vs lattice, card": _grad_reading(res["cuda", True][1],
+                                                res["cuda", False][1]),
+        "fused vs lattice, CPU": _grad_reading(res["cpu", True][1],
+                                               res["cpu", False][1])}
+    print("[transducer] tiny fp32 Conformer-Transducer, losses card (lattice, "
+          "fused) {:.6f}, {:.6f}, CPU {:.6f}, {:.6f}; gradients' largest "
+          "reading against 1e-4 of each tensor's largest element plus 1e-4 "
+          "of itself: {}".format(
+              res["cuda", False][0], res["cuda", True][0],
+              res["cpu", False][0], res["cpu", True][0],
+              ", ".join("{} {:.3f}".format(k, v)
+                        for k, v in readings.items())), flush=True)
+    loss_vals = [res[d, f][0] for d in ("cuda", "cpu") for f in (False,
+                                                                   True)]
+    check(max(loss_vals) - min(loss_vals) <= TRANSDUCER_RTOL *
+          abs(loss_vals[-1]) and max(readings.values()) <= 1.0,
+          "tiny transducer losses or gradients disagree")
+    g1, c1 = res["cuda", "beam", 1], res["cpu", "beam", 1]
+    g4, c4 = res["cuda", "beam", 4], res["cpu", "beam", 4]
+    same_greedy = all(np.array_equal(a, b) for a, b in
+                      zip(g1["outputs"] + [g1["emit_frames"]],
+                          c1["outputs"] + [c1["emit_frames"]]))
+    same_best = all(np.array_equal(a, b) for a, b in
+                    zip(g4["outputs"], c4["outputs"]))
+    score_err = float(np.max(np.abs(g4["nbest"][2] - c4["nbest"][2]) /
+                             np.maximum(1.0, np.abs(c4["nbest"][2]))))
+    print("[transducer] greedy ids, lengths and emission frames identical "
+          "card vs CPU: {} (lengths {}); beam 4: best ids identical {}, "
+          "n-best scores' largest error {:.3e} of max(1, |score|) (best "
+          "scores {})".format(same_greedy, c1["outputs"][1].tolist(),
+                              same_best, score_err,
+                              np.round(c4["nbest"][2][:, 0], 4).tolist()),
+          flush=True)
+    check(same_greedy and same_best and score_err <= TRANSDUCER_RTOL,
+          "tiny transducer decodes disagree between card and CPU")
+    (loss_gpu, w_gpu), (loss_cpu, w_cpu) = res["cuda", "step"], \
+        res["cpu", "step"]
+    w_err = max(float(np.max(np.abs(w_gpu[n] - w_cpu[n]) /
+                             (1e-5 + 1e-4 * np.abs(w_cpu[n]))))
+                for n in w_cpu)
+    print("[transducer] one AdamW step with the fused loss, card vs CPU: "
+          "loss {:.6f} vs {:.6f}; largest weight difference {:.3f} of the "
+          "tolerance (rtol 1e-4, atol 1e-5); launches (rel-pos flash, its dq "
+          "and dkv, conv module, its backward) on the card {}, on the CPU "
+          "{}".format(loss_gpu, loss_cpu, w_err, res["cuda", "launches"],
+                      res["cpu", "launches"]), flush=True)
+    check(abs(loss_gpu - loss_cpu) <= TRANSDUCER_RTOL * abs(loss_cpu) and
+          w_err <= 1.0, "the tiny transducer's AdamW step disagrees")
+    # forward and backward twice (lattice, fused), two eval forwards, one
+    # train step: two blocks each
+    check(res["cuda", "launches"] == (10, 6, 6, 10, 6) and
+          res["cpu", "launches"] == (0,) * 5,
+          "launches in the tiny transducer: {}".format(
+              res["cuda", "launches"]))
+    return res["cuda", "launches"]
+
+
+def _device_profile(fn):
+    """``fn()`` under the profiler, device activity only: (device kernels,
+    busy ms, span ms) from the first device activity to the last."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0), e["cat"])
+                   for e in events if e.get("cat") in ("kernel",
+                                                       "gpu_memcpy",
+                                                       "gpu_memset"))
+    check(bool(spans), "the trace holds no device activity")
+    busy, end = 0.0, spans[0][0]
+    for s, e, _ in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return (sum(1 for x in spans if x[2] == "kernel"), busy / 1e3,
+            (max(x[1] for x in spans) - spans[0][0]) / 1e3)
+
+
+def phase_transducer(card):
+    """7zc: the Conformer-Transducer at full width
+    (``conformer_transducer_synthetic.py``, bench_transducer.py's keys:
+    B 128 x 1000 frames x 80, U 160, the fused loss) through ``run.main
+    --mode=train`` for 20 steps with the warmup cut to 20: the loss finite
+    at every step and falling (7n's rule), the rel-pos flash forward, dq
+    and dkv and the conv module forward and backward 16 times each a step;
+    peak memory beside what the lattice's tanh input alone would hold
+    unfused; utt/s. From the step-20 checkpoint: the parameter count, the
+    JAX model's; the fused and the lattice loss of one batch on the same
+    weights within TRANSDUCER_FUSED_RTOL; eval over 2 batches (WER, loss,
+    16 forward launches of each kernel a batch); then the decode config
+    (``conformer_transducer_decode_synthetic.py``, B 64) in infer, greedy
+    and beam 4: rows, launches, utt/s of a batch, and its device kernels,
+    busy time and idle share. Returns the five kernels' launches."""
+    import torch
+    from openseq2seq_tpu_torch.training import trainer
+    total = [0] * 5
+    config = runpy.run_path(TRANSDUCER)
+    steps = config["train_params"]["max_steps"]
+    B = config["base_params"]["batch_size_per_gpu"]
+    with tempfile.TemporaryDirectory() as logdir:
+        argv = ["--config_file=" + TRANSDUCER, "--logdir=" + logdir]
+        _reset_conformer_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train", WARMUP_OVERRIDE])
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = _conformer_counts()
+        total = [a + b for a, b in zip(total, launches)]
+        losses = _losses(lines)
+        # the lattice's tanh input alone, (B, T', U+1, J) bf16
+        lattice_h = B * 250 * 161 * 320 * 2
+        print("[transducer] Conformer-Transducer, {} training steps of {} x "
+              "1000 frames, U 160, fused loss, mixed, dropout 0.1 (8-bit "
+              "masks), AdamW, warmup cut to 20 by {}: losses {}; launches "
+              "(rel-pos flash, its dq, its dkv, conv module, its backward) "
+              "{}; {:.1f} s with the build of the model".format(
+                  steps, B, WARMUP_OVERRIDE, losses, launches, wall),
+              flush=True)
+        check(result["steps"] == steps, "trained {} steps".format(
+            result["steps"]))
+        check(len(losses) == steps and all(math.isfinite(x)
+                                           for x in losses),
+              "losses not finite at every step: {}".format(losses))
+        check(sum(losses[-3:]) < sum(losses[:3]),
+              "loss did not fall: {}".format(losses))
+        check(launches == (16 * steps,) * 5,
+              "launches {} in {} steps".format(launches, steps))
+        print("[transducer] train throughput {:.1f} utt/s, {:.1f} ms per "
+              "step over steps 11-{} (batch {}, 10 s utterances, bf16, a "
+              "host read of the loss every step); peak device memory {:.2f} "
+              "GiB, where the lattice's tanh input alone, (B, T', U+1, J) "
+              "bf16, would hold {:.2f} GiB ({})".format(
+                  result["objects_per_sec"] / 1000,
+                  B * 1000 / result["objects_per_sec"] * 1e3, steps, B,
+                  peak / 2 ** 30, lattice_h / 2 ** 30, card), flush=True)
+        check(peak < 80 * 2 ** 30, "peak memory")
+        ckpt = os.path.join(logdir, "checkpoints", str(steps))
+        check(os.path.isdir(ckpt), "no checkpoint at {}".format(ckpt))
+
+        out = {}
+        _reset_conformer_counts()
+        for fused in (True, False):
+            params = dict(config["base_params"], logdir=logdir,
+                          decoder_params=dict(
+                              config["base_params"]["decoder_params"],
+                              fused_loss=fused))
+            model = config["base_model"](params, mode="eval", device="cuda")
+            state = trainer.restore_state(model, ckpt)
+            batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+            out[fused] = float(model.eval_step(state, batch)["loss"])
+            n_params = sum(p.numel() for p in state.module.parameters())
+            del model, state
+        rel = abs(out[True] - out[False]) / abs(out[False])
+        print("[transducer] {} parameters (the JAX model's {}); one batch "
+              "from the step-{} checkpoint: fused loss {:.6f}, lattice loss "
+              "{:.6f}, rel diff {:.3e}".format(
+                  n_params, TRANSDUCER_PARAMS, steps, out[True], out[False],
+                  rel), flush=True)
+        check(n_params == TRANSDUCER_PARAMS, "parameter count")
+        check(rel <= TRANSDUCER_FUSED_RTOL, "fused and lattice losses")
+        total = [a + b for a, b in zip(total, _conformer_counts())]
+        torch.cuda.empty_cache()
+
+        _reset_conformer_counts()
+        metrics, lines = _run_quiet(argv + ["--mode=eval",
+                                            "--data_layer_params/"
+                                            "num_batches=2"])
+        launches = _conformer_counts()
+        total = [a + b for a, b in zip(total, launches)]
+        wer = [x.strip() for x in lines if "Validation WER" in x]
+        print("[transducer] eval from the step-{} checkpoint over 2 batches: "
+              "{}, loss {:.6f}; launches {}".format(
+                  steps, wer, metrics["eval_loss"], launches), flush=True)
+        check(wer and math.isfinite(metrics["eval_loss"]) and
+              launches == (32, 0, 0, 32, 0), "eval from the checkpoint")
+
+        for beam in (1, 4):
+            dec = ["--config_file=" + TRANSDUCER_DECODE,
+                   "--logdir=" + logdir,
+                   "--decoder_params/beam_width={}".format(beam)]
+            csv_path = os.path.join(logdir, "infer_{}.csv".format(beam))
+            _reset_conformer_counts()
+            _run_quiet(dec + ["--mode=infer",
+                              "--infer_output_file=" + csv_path])
+            launches = _conformer_counts()
+            total = [a + b for a, b in zip(total, launches)]
+            rows = _infer_rows(csv_path)
+            check(len(rows) == 128 and launches == (32, 0, 0, 32, 0),
+                  "infer beam {}: {} rows, launches {}".format(
+                      beam, len(rows), launches))
+            _reset_conformer_counts()
+            dconfig = runpy.run_path(TRANSDUCER_DECODE)
+            params = dict(dconfig["base_params"], logdir=logdir,
+                          decoder_params=dict(
+                              dconfig["base_params"]["decoder_params"],
+                              beam_width=beam))
+            model = dconfig["base_model"](params, mode="infer",
+                                          device="cuda")
+            state = trainer.restore_state(model, ckpt)
+            batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+            model.eval_step(state, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = model.eval_step(state, batch)
+            lengths = result["outputs"]["decoder_output"]["outputs"][1]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            kernels, busy, span = _device_profile(
+                lambda: model.eval_step(state, batch))
+            launches = _conformer_counts()
+            total = [a + b for a, b in zip(total, launches)]
+            check(launches == (48, 0, 0, 48, 0), "three infer batches "
+                  "launched {}".format(launches))
+            print("[transducer] infer, {} of a batch of 64 (decode config): "
+                  "{} rows; {:.1f} ms a batch, {:.1f} utt/s; labels a row "
+                  "{:.1f} on average; {} device kernels a batch, busy "
+                  "{:.3f} ms of a {:.3f} ms span, idle share {:.2%} ({})"
+                  .format("greedy" if beam == 1 else "beam 4", len(rows), ms,
+                          64e3 / ms, float(lengths.float().mean()), kernels,
+                          busy, span, 1 - busy / span, card), flush=True)
+            del model, state
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_transducer_librispeech(card):
+    """7zd: the Conformer-Transducer's LibriSpeech recipe
+    (``conformer_transducer_librispeech.py``: batch 128, SpecAugment, the
+    fused loss with FastEmit) on a LibriSpeech-shaped corpus of 128 ten-
+    second utterances that ``test_utils/fake_librispeech`` writes: 10
+    training steps (the first featurizes into the cold cache), the loss
+    finite, 16 launches of each Conformer kernel a step; then eval from the
+    checkpoint over the dev list's 64 utterances (2 batches of 32).
+    Returns the five kernels' launches."""
+    import torch
+    from openseq2seq_tpu_torch.test_utils import fake_librispeech
+    total = [0] * 5
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "librispeech")
+        t0 = time.time()
+        fake_librispeech.generate(data, n_utts=128)
+        os.environ["LIBRISPEECH_DIR"] = data
+        logdir = os.path.join(tmp, "logs")
+        os.makedirs(logdir)
+        steps = 10
+        cut = _recipe_config(TRANSDUCER_LIBRI, logdir, steps,
+                             print_loss_steps=1)
+        argv = ["--config_file=" + cut, "--logdir=" + logdir]
+        _reset_conformer_counts()
+        result, lines = _run_quiet(argv + ["--mode=train"])
+        launches = _conformer_counts()
+        total = [a + b for a, b in zip(total, launches)]
+        losses = _losses(lines)
+        print("[transducer wav] the LibriSpeech recipe on 128 fake "
+              "utterances of 10 s, {} steps of 128: losses {}; launches {}; "
+              "{:.1f} s with the corpus and the model's build ({})".format(
+                  result["steps"], losses, launches, time.time() - t0, card),
+              flush=True)
+        check(result["steps"] == steps and len(losses) == steps and
+              all(math.isfinite(x) for x in losses),
+              "the transducer recipe's losses {}".format(losses))
+        check(launches == (16 * steps,) * 5, "launches {}".format(launches))
+        _reset_conformer_counts()
+        metrics, lines = _run_quiet(argv + ["--mode=eval"])
+        launches = _conformer_counts()
+        total = [a + b for a, b in zip(total, launches)]
+        wer = [x.strip() for x in lines if "Validation WER" in x]
+        print("[transducer wav] eval over the 64 dev utterances: {}, loss "
+              "{:.6f}; launches {}".format(wer, metrics["eval_loss"],
+                                           launches), flush=True)
+        check(wer and math.isfinite(metrics["eval_loss"]) and
+              launches == (32, 0, 0, 32, 0), "the recipe's eval")
+        torch.cuda.synchronize()
+    return total
+
+
+def phase_transducer_toy(card):
+    """7ze: ``conformer_transducer_toy.py`` from the toy wavs through
+    ``run.main --mode=train_eval`` to its end (200 epochs of the 10
+    utterances, one step each, no kernel flag): the last validation's WER
+    below 0.1; eval from its checkpoint below 0.1 too, and infer writes 10
+    rows."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _toy_env(tmp)
+        argv = ["--config_file=" + TRANSDUCER_TOY]
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train_eval"])
+        wer = [float(x.split()[-1]) for x in lines if "Validation WER" in x]
+        losses = _losses(lines)
+        print("[transducer toy] conformer_transducer_toy --mode=train_eval: "
+              "{} steps in {:.1f} s, losses at the printed steps {}; "
+              "validation WERs {} ({})".format(
+                  result["steps"], time.time() - t0, losses, wer, card),
+              flush=True)
+        check(wer and wer[-1] < 0.1, "the transducer toy's WER {}".format(
+            wer))
+        metrics, _ = _run_quiet(argv + ["--mode=eval"])
+        out = os.path.join(tmp, "infer.csv")
+        _run_quiet(argv + ["--mode=infer", "--infer_output_file=" + out])
+        rows = _infer_rows(out)
+        print("[transducer toy] eval from the checkpoint: WER {:.4f}; infer: "
+              "{}".format(metrics["Eval WER"], [r[1] for r in rows]),
+              flush=True)
+        check(metrics["Eval WER"] < 0.1 and len(rows) == 10,
+              "the transducer toy's eval or infer")
+
+
+def phase_transducers(card):
+    """7zb to 7ze. Returns the Conformer kernels' launches (rel-pos flash,
+    its dq, its dkv, conv module, its backward) over them."""
+    runs = (phase_small_transducer(), phase_transducer(card),
+            phase_transducer_librispeech(card))
+    phase_transducer_toy(card)
+    return [sum(x) for x in zip(*runs)]
+
+
 # the scan kernels' instantiations that the main paths run, by their
 # (gates, units per CTA) in the mangled name: DS2-medium's GRU (3, 8),
 # lstm_small's LSTM (4, 4), the tiny configs' (3, 1) and (4, 1)
@@ -4791,6 +5301,7 @@ def main():
     for cell, (fwd, bwd) in (("lstm", tts_lstm), ("gru", tts_gru)):
         scan_launches[cell] = (scan_launches[cell][0] + fwd,
                                scan_launches[cell][1] + bwd)
+    rnnt = phase_transducers(card)
 
     # 8. result
     fwd_bound = ctc_bound_ms(32, 500, 160, 29, 500, backward=False)
@@ -4874,20 +5385,23 @@ def main():
         "name": "flash_relpos_fwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/flash_relpos_fwd.cu",
         "replaces": "openseq2seq_tpu/ops/flash_relpos.py:70",
-        "launches": relpos_launches + conf_train[0],
+        "launches": relpos_launches + conf_train[0] + rnnt[0],
         "max_abs_err": relpos_err,
         "ms": relpos_times["ms"], "plain_ms": relpos_times["plain_ms"],
         "bound_ms": relpos_times["bound_ms"],
         "bound_by": relpos_times["bound_by"],
-        "library_ms": relpos_times["library_ms"]}, {
+        "library_ms": relpos_times["library_ms"],
+        "at_transducer_shape": transducer_shape_times(relpos_times)}, {
         "name": "conformer_conv_fwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/conformer_conv_fwd.cu",
         "replaces": "openseq2seq_tpu/ops/conformer_pallas.py:142",
-        "launches": conv_launches + conf_train[3], "max_abs_err": conv_err,
+        "launches": conv_launches + conf_train[3] + rnnt[3],
+        "max_abs_err": conv_err,
         "bound_reading": conv_times["bound_reading"],
         "ms": conv_times["ms"], "plain_ms": conv_times["plain_ms"],
         "bound_ms": conv_times["bound_ms"],
-        "bound_by": conv_times["bound_by"], "library_ms": None}] + [{
+        "bound_by": conv_times["bound_by"], "library_ms": None,
+        "at_transducer_shape": transducer_shape_times(conv_times)}] + [{
         "name": "flash_relpos_bwd_" + part, "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/flash_relpos_bwd.cu",
         "replaces": "openseq2seq_tpu/ops/flash_relpos.py:" + line,
@@ -4896,18 +5410,21 @@ def main():
         "plain_ms": relpos_bwd_times["plain_ms"],
         "bound_ms": relpos_bwd_times[part + "_bound"][0],
         "bound_by": relpos_bwd_times[part + "_bound"][1],
-        "library_ms": relpos_bwd_times["library_ms"]}
+        "library_ms": relpos_bwd_times["library_ms"],
+        "at_transducer_shape": transducer_shape_times(relpos_bwd_times,
+                                                      part)}
         for part, line, launches, err in (
-            ("dq", "218", conf_train[1], relpos_dq_err),
-            ("dkv", "167", conf_train[2], relpos_dkv_err))] + [{
+            ("dq", "218", conf_train[1] + rnnt[1], relpos_dq_err),
+            ("dkv", "167", conf_train[2] + rnnt[2], relpos_dkv_err))] + [{
         "name": "conformer_conv_bwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/conformer_conv_bwd.cu",
         "replaces": "openseq2seq_tpu/ops/conformer_pallas.py:158",
-        "launches": conf_train[4], "max_abs_err": conv_bwd_err,
+        "launches": conf_train[4] + rnnt[4], "max_abs_err": conv_bwd_err,
         "bound_reading": conv_bwd_times["bound_reading"],
         "ms": conv_bwd_times["ms"], "plain_ms": conv_bwd_times["plain_ms"],
         "bound_ms": conv_bwd_times["bound_ms"],
-        "bound_by": conv_bwd_times["bound_by"], "library_ms": None}]}),
+        "bound_by": conv_bwd_times["bound_by"], "library_ms": None,
+        "at_transducer_shape": transducer_shape_times(conv_bwd_times)}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,10 @@ such as the TDNN encoder), and returns the ``state_dict`` for
   * the NMT attention decoder's raw leaves (``lstm{i}_wx``, ``lstm{i}_wh``,
     ``lstm{i}_b``, ``att_q``, ``att_v``, ``att_b``, ``out_w``, ``out_b``,
     ``tied_proj``; its ``bahdanau_keys`` and ``luong_keys`` are dense
-    layers, the latter without a bias), the Tacotron decoder's
+    layers, the latter without a bias), the transducer decoder's
+    (``pred_embedding``, ``pred_wx{i}``, ``pred_wh{i}``, ``pred_b{i}``,
+    ``joint_enc_w``, ``joint_pred_w``, ``joint_b``, ``joint_out_w``,
+    ``joint_out_b``), the Tacotron decoder's
     (``prenet_w{i}``, ``prenet_b{i}``, its ``lstm{i}_*``, ``att_query``,
     ``att_v``, ``att_b``, ``loc_conv_kernel`` (31, 1, 32), a raw 3-D leaf
     and not a conv ``kernel``, ``loc_proj``, ``frame_w``, ``frame_b``,
@@ -60,8 +63,8 @@ so tests can compare the port's updated weights leaf by leaf with the
 JAX package's. :func:`flax_path` names a port parameter as the JAX
 package does (``enc/net/conv1_1/kernel``), which is what
 ``freeze_variables_regex`` and the regularizer match against.
-:func:`optimizer_state_from_optax` carries a NovoGrad (+ LARC, + clip) or
-Adam (+ clip) optax state into the port's optimizer state.
+:func:`optimizer_state_from_optax` carries a NovoGrad (+ LARC, + clip),
+Adam or AdamW (+ clip) optax state into the port's optimizer state.
 """
 from __future__ import annotations
 
@@ -89,7 +92,13 @@ _RNN_DECODER_CELL = re.compile(r"lstm[0-9]+_(wx|wh|b)")
 _TACOTRON = ("att_query", "loc_conv_kernel", "loc_proj", "frame_w",
              "frame_b", "stop_w", "stop_b", "style_tokens")
 _PRENET = re.compile(r"prenet_[wb][0-9]+")
-_KEPT = _RECURRENT + _CONFORMER + _LM + _RNN_DECODER + _TACOTRON
+# the transducer decoder's raw leaves (its cells' ``pred_wx{i}``,
+# ``pred_wh{i}``, ``pred_b{i}`` match by pattern)
+_TRANSDUCER = ("pred_embedding", "joint_enc_w", "joint_pred_w", "joint_b",
+               "joint_out_w", "joint_out_b")
+_TRANSDUCER_CELL = re.compile(r"pred_(wx|wh|b)[0-9]+")
+_KEPT = _RECURRENT + _CONFORMER + _LM + _RNN_DECODER + _TACOTRON + \
+    _TRANSDUCER
 # the parent module of flax DenseGeneral layers, whose kernels are kept
 _DENSE_GENERAL_PARENT = "attn"
 _LN_SUFFIX = "_ln"
@@ -107,7 +116,8 @@ def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
 def _kept(leaf: str) -> bool:
     """Whether the flax leaf ``leaf`` is kept under its name and layout."""
     return leaf in _KEPT or bool(_RNN_DECODER_CELL.fullmatch(leaf) or
-                                 _PRENET.fullmatch(leaf))
+                                 _PRENET.fullmatch(leaf) or
+                                 _TRANSDUCER_CELL.fullmatch(leaf))
 
 
 # flax BatchNorm modules with no inner ``BatchNorm_0``: the DS2 encoder's
@@ -238,8 +248,9 @@ def _params_list(tree: Dict[str, Any], names: List[str]
 def optimizer_state_from_optax(opt_state: Any, param_names: List[str]
                                ) -> Any:
     """An optax state of the JAX package's NovoGrad chain (optionally
-    behind LARC and global-norm clipping) or Adam chain (optionally behind
-    global-norm clipping) as the port's optimizer state,
+    behind LARC and global-norm clipping) or Adam or AdamW chain
+    (optionally behind global-norm clipping; AdamW's weight decay keeps
+    no state) as the port's optimizer state,
     for parameters named ``param_names`` in the port's order. Moments are
     transposed into the torch layout; the per-tensor ``grads_ema`` become
     one (n,) tensor."""

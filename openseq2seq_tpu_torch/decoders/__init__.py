@@ -5,3 +5,4 @@ from .transformer_decoder import TransformerDecoder
 from .rnn_decoders import (BeamSearchRNNDecoderWithAttention,
                            RNNDecoderWithAttention)
 from .tacotron2_decoder import Tacotron2Decoder
+from .transducer_decoder import TransducerDecoder

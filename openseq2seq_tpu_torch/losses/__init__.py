@@ -4,3 +4,4 @@ from .sequence_loss import (BasicSampledSequenceLoss, BasicSequenceLoss,
                             CrossEntropyWithSmoothing,
                             PaddedCrossEntropyLossWithSmoothing)
 from .text2speech_loss import Text2SpeechLoss
+from .transducer_loss import TransducerLoss

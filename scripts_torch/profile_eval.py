@@ -4,7 +4,8 @@ step, on one NVIDIA GPU.
 
     python3 scripts_torch/profile_eval.py [--train | --infer | --train-nmt |
         --train-lm | --eval-lm | --train-gnmt | --infer-gnmt |
-        --train-tacotron | --infer-tacotron]
+        --train-tacotron | --infer-tacotron | --train-transducer |
+        --infer-transducer] [--beam-width=K]
         [--config_file=PATH] [--steps=4] [--repeats=3] [--trace=PATH]
 
 Builds the model of a port config (default: Jasper-10x5 at full width on
@@ -35,7 +36,13 @@ vocabulary); ``--train-tacotron`` and ``--infer-tacotron`` are ``--train``
 and ``--infer`` (1,000 free-running frames a batch) on Tacotron-2 at full
 width on synthetic batches,
 ``example_configs_torch/text2speech/tacotron2_synthetic.py`` (mel frames
-are its objects).
+are its objects); ``--train-transducer`` is ``--train`` on the
+Conformer-Transducer at full width, ``example_configs_torch/speech2text/
+conformer_transducer_synthetic.py`` (batches of 128 x 1000 frames, the
+fused loss), and ``--infer-transducer`` is ``--infer`` on its decode
+config, ``conformer_transducer_decode_synthetic.py`` (batches of 64,
+greedy; ``--beam-width=4`` for the frame-synchronous beam), both from
+seeded weights.
 It prints:
 
 1. wall milliseconds per step without the profiler, for each of
@@ -91,6 +98,11 @@ GNMT_CONFIG = os.path.join(REPO, "example_configs_torch", "text2text",
                            "en_de_gnmt_like_wmt.py")
 TACOTRON_CONFIG = os.path.join(REPO, "example_configs_torch", "text2speech",
                                "tacotron2_synthetic.py")
+TRANSDUCER_CONFIG = os.path.join(REPO, "example_configs_torch", "speech2text",
+                                 "conformer_transducer_synthetic.py")
+TRANSDUCER_DECODE_CONFIG = os.path.join(
+    REPO, "example_configs_torch", "speech2text",
+    "conformer_transducer_decode_synthetic.py")
 # the GNMT profile's corpus: 8 batches of 32 sentence pairs, and the word
 # types that give the recipe's vocabulary, 4 + 3 x 10921 = 32,767 tokens
 GNMT_CORPUS = dict(n_train=256, n_dev=32, n_test=32, n_types=10921,
@@ -313,13 +325,26 @@ def parse_args(argv=None) -> argparse.Namespace:
     which.add_argument("--infer-tacotron", action="store_true",
                        help="profile Tacotron-2's infer step (1,000 "
                             "free-running frames)")
+    which.add_argument("--train-transducer", action="store_true",
+                       help="profile the Conformer-Transducer's train step "
+                            "(the train step on {})".format(
+                                os.path.relpath(TRANSDUCER_CONFIG, REPO)))
+    which.add_argument("--infer-transducer", action="store_true",
+                       help="profile the Conformer-Transducer's decode of "
+                            "a batch (the infer step on {})".format(
+                                os.path.relpath(TRANSDUCER_DECODE_CONFIG,
+                                                REPO)))
+    ap.add_argument("--beam-width", type=int, default=None,
+                    help="the transducer decode's beam (default: the "
+                         "config's, 1: greedy)")
     ap.add_argument("--config_file", default=None,
                     help="the port config (default: Jasper-10x5, the "
                          "transformer-big training config with "
                          "--train-nmt, the LSTM LM with --train-lm and "
                          "--eval-lm, GNMT-like with --train-gnmt and "
                          "--infer-gnmt, Tacotron-2 with --train-tacotron "
-                         "and --infer-tacotron)")
+                         "and --infer-tacotron, the Conformer-Transducer "
+                         "with --train-transducer and --infer-transducer)")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--trace", default=None,
@@ -332,10 +357,13 @@ def parse_args(argv=None) -> argparse.Namespace:
         args.config_file = NMT_TRAIN_CONFIG if args.train_nmt else \
             LM_CONFIG if args.train_lm or args.eval_lm else \
             GNMT_CONFIG if args.gnmt else \
-            TACOTRON_CONFIG if tacotron else CONFIG
+            TACOTRON_CONFIG if tacotron else \
+            TRANSDUCER_CONFIG if args.train_transducer else \
+            TRANSDUCER_DECODE_CONFIG if args.infer_transducer else CONFIG
     args.train = args.train or args.train_nmt or args.train_lm or \
-        args.train_gnmt or args.train_tacotron
-    args.infer = args.infer or args.infer_gnmt or args.infer_tacotron
+        args.train_gnmt or args.train_tacotron or args.train_transducer
+    args.infer = args.infer or args.infer_gnmt or args.infer_tacotron or \
+        args.infer_transducer
     return args
 
 
@@ -363,6 +391,9 @@ def main(argv=None):
     params = dict(config["base_params"])
     if args.train:
         params.update(config.get("train_params", {}))
+    if args.beam_width is not None:
+        params["decoder_params"] = dict(params["decoder_params"],
+                                        beam_width=args.beam_width)
     model = config["base_model"](params=params, mode=mode, device="cuda")
     module, step = make_step(model, args.train)
 

@@ -23,6 +23,7 @@ from openseq2seq_tpu_torch.convert import state_dict_from_flax
 from openseq2seq_tpu_torch.encoders import ConformerEncoder
 from openseq2seq_tpu_torch.encoders.conformer_encoder import _ConvModule
 from openseq2seq_tpu_torch.ops import conformer_conv as cc
+from test_torch_text_data import one_thread  # noqa: F401
 
 B, D = 3, 128
 NAMES = ("ln1_scale", "ln1_bias", "pw1_kernel", "pw1_bias", "dw_kernel",

@@ -52,6 +52,7 @@ from openseq2seq_tpu_torch.ops import flash_relpos as port_flash_relpos
 from jax_global_state import jax_globals, jax_globals_module  # noqa: F401
 from test_torch_conformer import (FLAGS, TINY, _batch, _jax_params,
                                   _port_params, _randomize)
+from test_torch_text_data import one_thread  # noqa: F401
 
 STEPS = 3
 RTOL, ATOL = 1e-4, 1e-6

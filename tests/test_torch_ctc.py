@@ -16,6 +16,7 @@ from openseq2seq_tpu.ops.ctc import ctc_greedy_decode as jax_greedy_decode
 from openseq2seq_tpu.ops.ctc import ctc_loss as jax_ctc_loss
 from openseq2seq_tpu.ops.ctc_pallas import ctc_loss_pallas
 from openseq2seq_tpu_torch.ops import ctc, ctc_cuda
+from test_torch_text_data import one_thread  # noqa: F401
 
 RTOL = ATOL = 1e-5
 

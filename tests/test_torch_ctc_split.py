@@ -24,6 +24,7 @@ import torch
 from openseq2seq_tpu.ops import ctc_pallas
 from openseq2seq_tpu_torch.ops import ctc, ctc_cuda
 from test_torch_ctc import _case
+from test_torch_text_data import one_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-6
 

@@ -43,6 +43,7 @@ import pytest
 import torch
 
 from openseq2seq_tpu_torch.ops import ctc, ctc_cuda
+from test_torch_text_data import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

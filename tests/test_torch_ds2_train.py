@@ -45,6 +45,7 @@ from jax_global_state import jax_globals, jax_globals_module  # noqa: F401
 from test_torch_ds2 import TINY, _batch, _jax_params, _port_params
 from test_torch_jasper_train import ATOL, RTOL, _assert_state_matches
 from test_torch_tdnn import randomize
+from test_torch_text_data import one_thread  # noqa: F401
 
 STEPS = 3
 FREEZE = r"/conv\d+/bias$"

@@ -10,6 +10,7 @@ from scipy.io import wavfile
 
 from openseq2seq_tpu.ops import features as jax_features
 from openseq2seq_tpu_torch.ops import features
+from test_torch_text_data import one_thread  # noqa: F401
 
 SR = 16000
 

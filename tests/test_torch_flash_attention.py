@@ -25,6 +25,7 @@ from openseq2seq_tpu.parts.transformer.attention import _attend as jax_attend
 from openseq2seq_tpu_torch.ops import flash_attention as fa
 from openseq2seq_tpu_torch.parts.transformer import attention
 from jax_global_state import jax_globals, jax_globals_module  # noqa: F401
+from test_torch_text_data import one_thread  # noqa: F401
 
 NEG_INF = -1e9
 

@@ -24,6 +24,7 @@ from openseq2seq_tpu_torch.convert import state_dict_from_flax
 from openseq2seq_tpu_torch.encoders.conformer_encoder import \
     RelPosSelfAttention
 from openseq2seq_tpu_torch.ops import flash_relpos as fr
+from test_torch_text_data import one_thread  # noqa: F401
 
 B, H, Dh, D = 3, 2, 16, 32
 DTYPES = {"fp32": (jnp.float32, torch.float32),

@@ -18,6 +18,7 @@ import torch
 from jax_global_state import jax_globals, jax_globals_module  # noqa: F401
 from openseq2seq_tpu.ops import dropout_pallas as dp
 from openseq2seq_tpu_torch.ops import fused_dropout as fd
+from test_torch_text_data import one_thread  # noqa: F401
 
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

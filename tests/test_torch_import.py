@@ -13,6 +13,7 @@ import torch
 
 from openseq2seq_tpu_torch import run
 from openseq2seq_tpu_torch.ops import ctc, ctc_cuda
+from test_torch_text_data import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "optax", "pandas", "ml_dtypes")
@@ -65,7 +66,12 @@ def _import_all(report: str) -> str:
             "openseq2seq_tpu_torch.encoders.tacotron2_encoder",
             "openseq2seq_tpu_torch.decoders.tacotron2_decoder",
             "openseq2seq_tpu_torch.losses.text2speech_loss",
-            "openseq2seq_tpu_torch.models.text2speech"} <= \
+            "openseq2seq_tpu_torch.models.text2speech",
+            "openseq2seq_tpu_torch.ops.transducer",
+            "openseq2seq_tpu_torch.ops.arpa_lm",
+            "openseq2seq_tpu_torch.ops.ngram_fusion",
+            "openseq2seq_tpu_torch.losses.transducer_loss",
+            "openseq2seq_tpu_torch.decoders.transducer_decoder"} <= \
         set(modules)
     names = {os.path.basename(c) for c in CONFIGS}
     assert len(CONFIGS) >= 13 and {
@@ -79,7 +85,10 @@ def _import_all(report: str) -> str:
         "en_de_gnmt_like_tiny.py", "transformer_tiny_wmt.py",
         "tacotron2_synthetic.py", "tacotron_gst_synthetic.py",
         "tacotron_LJ.py", "tacotron_toy.py",
-        "tacotron_tiny_synthetic.py"} <= names
+        "tacotron_tiny_synthetic.py", "conformer_transducer_synthetic.py",
+        "conformer_transducer_decode_synthetic.py",
+        "conformer_transducer_librispeech.py", "conformer_transducer_toy.py",
+        "conformer_transducer_tiny_synthetic.py"} <= names
     code = ("import importlib, runpy, sys\n"
             "for m in {!r}: importlib.import_module(m)\n"
             "for c in {!r}: runpy.run_path(c)\n"

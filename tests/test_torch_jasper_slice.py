@@ -30,6 +30,7 @@ from openseq2seq_tpu_torch.training.trainer import to_host
 from openseq2seq_tpu_torch.zoo import jasper_model_params
 from jax_global_state import jax_globals, jax_globals_module  # noqa: F401
 from test_torch_tdnn import randomize
+from test_torch_text_data import one_thread  # noqa: F401
 
 FEATURES, VOCAB, T, L, B = 16, 29, 41, 6, 4
 DATA = {"num_audio_features": FEATURES, "tgt_vocab_size": VOCAB,

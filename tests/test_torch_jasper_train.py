@@ -42,6 +42,7 @@ from openseq2seq_tpu_torch.zoo import jasper_model_params
 from test_torch_jasper_slice import CUT, DATA, _batch
 from jax_global_state import jax_globals, jax_globals_module  # noqa: F401
 from test_torch_tdnn import randomize
+from test_torch_text_data import one_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-6
 STEPS = 3

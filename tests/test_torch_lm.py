@@ -52,6 +52,7 @@ from openseq2seq_tpu_torch.ops import lstm_scan
 from openseq2seq_tpu_torch.training.trainer import to_host
 from jax_global_state import jax_globals, jax_globals_module  # noqa: F401
 from test_torch_tdnn import randomize
+from test_torch_text_data import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(REPO, "example_configs_torch", "lm",

@@ -38,6 +38,7 @@ from openseq2seq_tpu_torch.optimizers import lr_policies
 from openseq2seq_tpu_torch.optimizers.loss_scaler import AutomaticLossScaler
 from openseq2seq_tpu_torch.optimizers.optimizers import (OPTIMIZER_REGISTRY,
                                                         build_optimizer)
+from test_torch_text_data import one_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-7
 STEPS = 5

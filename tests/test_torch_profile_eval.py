@@ -18,6 +18,7 @@ from openseq2seq_tpu.data.synthetic import SyntheticSpeechDataLayer
 from openseq2seq_tpu_torch.models import Speech2Text
 from openseq2seq_tpu_torch.training import trainer
 from openseq2seq_tpu_torch.zoo import jasper_model_params
+from test_torch_text_data import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts_torch"))

@@ -42,6 +42,7 @@ from openseq2seq_tpu_torch.convert import state_dict_from_flax
 from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
 from openseq2seq_tpu_torch.parts.rnns import rnn
 from jax_global_state import jax_globals, jax_globals_module  # noqa: F401
+from test_torch_text_data import one_thread  # noqa: F401
 
 B, T, D, H = 8, 37, 16, 128
 LENGTHS = np.array([37, 1, 19, 30, 5, 37, 12, 26], np.int32)

@@ -35,6 +35,7 @@ from openseq2seq_tpu_torch.ops import bounds as eb
 from openseq2seq_tpu_torch.ops import conformer_conv as cc
 from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan, rnn_scan
 from openseq2seq_tpu_torch.ops import scan_bounds as sb
+from test_torch_text_data import one_thread  # noqa: F401
 
 BF = torch.bfloat16
 

@@ -20,6 +20,7 @@ from openseq2seq_tpu.data.speech2text import \
     Speech2TextDataLayer as JaxSpeech2TextDataLayer
 from openseq2seq_tpu_torch.data.speech2text import Speech2TextDataLayer
 from openseq2seq_tpu_torch.test_utils import fake_librispeech, toy_speech
+from test_torch_text_data import one_thread  # noqa: F401
 
 MASKS = {"n_freq_mask": 2, "n_time_mask": 2, "width_freq_mask": 6,
          "width_time_mask": 6}

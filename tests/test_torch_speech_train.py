@@ -22,6 +22,7 @@ import torch
 from openseq2seq_tpu_torch import run
 from openseq2seq_tpu_torch.ops import gru_scan
 from openseq2seq_tpu_torch.test_utils import toy_speech
+from test_torch_text_data import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(REPO, "example_configs_torch", "speech2text")

@@ -25,6 +25,7 @@ from openseq2seq_tpu_torch.encoders import TDNNEncoder
 from openseq2seq_tpu_torch.encoders.tdnn_encoder import BatchNorm
 from openseq2seq_tpu_torch.parts.dropout import dropout, keep_spec, step_seed
 from openseq2seq_tpu_torch.parts.initializers import resolve_initializer
+from test_torch_text_data import one_thread  # noqa: F401
 
 RTOL = ATOL = 1e-5
 FEATURES = 16

@@ -52,6 +52,7 @@ from openseq2seq_tpu_torch.ops import flash_attention as fa
 from openseq2seq_tpu_torch.ops import fused_dropout as fd
 from openseq2seq_tpu_torch.parts.transformer import attention, common, ffn
 from test_torch_tdnn import randomize
+from test_torch_text_data import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_CONFIG = os.path.join(REPO, "example_configs_torch", "text2text",

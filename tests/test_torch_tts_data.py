@@ -28,6 +28,7 @@ from openseq2seq_tpu_torch.data import SyntheticTTSDataLayer
 from openseq2seq_tpu_torch.data.text2speech import Text2SpeechDataLayer
 from openseq2seq_tpu_torch.data.text2speech import speech_utils
 from openseq2seq_tpu_torch.test_utils import toy_tts
+from test_torch_text_data import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
