@@ -170,8 +170,11 @@ Phases, one informative line or a few each:
    their tiles, shared memory, CTAs an SM and the workspace printed) each
    of the kernels' fp32 intermediates (written out where asked for) held
    from the ones before it, dx and the ten weight gradients from them,
-   within ``conformer_conv_module_bwd_bounds`` (db1 and dwd at the
-   kernels' summation depth; reading at most 1), the planted faults of
+   within ``conformer_conv_module_bwd_bounds`` (db1, dwd, dw1 and dw2 at
+   the kernels' summation depth: dw1 and dw2 at a split's rows of
+   ``dw_splits`` and the splits' partials, so that one CTA's partial
+   left out of dw1 reads well above 1 at every shape; reading at most
+   1), the planted faults of
    ``bwd_faults`` (dx zeroed but in row 1; a CTA's partial left out of
    dw1 and of dwd; db1 from bf16 da) refused, the gradients bit-identical
    with the intermediates written out, the second launch's a the
@@ -387,6 +390,47 @@ Phases, one informative line or a few each:
 7ze. the transducer toy (``conformer_transducer_toy.py``) from the toy
    wavs through ``run.main --mode=train_eval`` to its end: the last
    validation's WER below 0.1, eval and infer from its checkpoint;
+7zf. the WikiText-103 LSTM LM from text files (``example_configs_torch/
+   lm/lstm_wkt103.py``, every key of the JAX recipe, ``fused_rnn``) on a
+   corpus of WikiText-103's vocabulary written first
+   (``test_utils/fake_wikitext``: 267,734 word types, ~3.3M training
+   tokens; its aclImdb- and SST-2-shaped sets beside it), ``Corpus``'s
+   build and cached times, V 267,736: ``run.main --mode=train`` for 20
+   steps of 224 x 96 tokens (the loss finite at every step and falling,
+   the LSTM kernels 3 forward and 3 backward launches a step, tokens per
+   second, the peak device memory); ``--mode=eval`` from the checkpoint
+   (3 forward launches a batch, a perplexity), one batch's loss against
+   the plain fp64 NLL of its logits (rtol 1e-5); ``generate`` of 20 words
+   from the checkpoint (B 1: the scan, no launch);
+7zg. Transformer-XL at full width (``txl_wkt103.py``, every key of the
+   JAX recipe: 16 layers, d 410, 10 heads, d_inner 2100, 64 x 192
+   tokens, "mixed") on the same corpus: its parameter count the JAX
+   model's (151,119,016, ``tests/test_torch_transformer_xl.py`` holds it
+   with ``jax.eval_shape``); ``run.main --mode=train`` for 14 steps with
+   the warmup cut to 1 step (the loss finite and falling, tokens per
+   second, the peak device memory, the tied softmax's fp32 product timed
+   beside a bf16 one); ``--mode=eval`` from the checkpoint (a perplexity,
+   the peak device memory); two consecutive segments scored with
+   ``mems`` against the 384-token context (the NLL of the second
+   segment's tokens within rel 1e-2, bf16); ``NeuralRescorer`` over
+   n-best lists with both LMs from their checkpoints (the LSTM LM's
+   batch of 16 hypotheses on the LSTM kernels, 3 forward launches);
+7zh. the IMDB transfer recipe (``example_configs_torch/transfer/
+   imdb_wkt103.py``, fp32, batch 16, at most 256 words) from 7zf's
+   checkpoint through ``load_model`` (the LM's embedding and LSTM
+   tensors copied and equal to the checkpoint's, its softmax left out,
+   the classifier drawn from the seed) on the generated review tree:
+   ``run.main --mode=train_eval`` for 8 steps, "Validation accuracy",
+   no LSTM kernel launch (no ``fused_rnn``: the scan, as in the JAX
+   recipe);
+7zi. the LM toy (``lstm_toy.py``, the cycle corpus of tests/test_lm.py)
+   through ``run.main --mode=train_eval`` to its end: "Validation
+   perplexity" below 2.0 (the LM family's toy run); then each new LM
+   cell (SLSTM, FLSTM with ``num_proj``, LayerNormLSTM, GLSTM on the
+   fp32 LSTM kernels at 128 units a group) and a tiny Transformer-XL
+   with ``mems``, fp32, on the card against the CPU with the same
+   weights: outputs, states and every gradient within rtol 1e-4, atol
+   1e-5;
 8. one JSON line for the kernels (the LSTM scans' entries with their
    times at the LM's shape under ``at_lm_shape``, at GNMT's under
    ``at_gnmt_shape`` and at Tacotron-2's under ``at_tacotron_shape``; the
@@ -2424,8 +2468,8 @@ def phase_relpos_bwd(card):
 # bf16: each of the kernels' fp32 intermediates held from the ones before
 # it, dx from their dh0 and the ten weight gradients from their
 # intermediates, element by element within
-# ``conformer_conv_module_bwd_bounds`` (db1 and dwd at the kernels'
-# summation depth, ``sum_depth``); the reading is the largest |kernel -
+# ``conformer_conv_module_bwd_bounds`` (db1, dwd, dw1 and dw2 at the
+# kernels' summation depth, ``sum_depth``); the reading is the largest |kernel -
 # fp64 recompute| / bound, at most 1, and each of ``bwd_faults`` must read
 # above 1
 CONV_BWD_FP32_TOL = 1e-5
@@ -5147,6 +5191,482 @@ def phase_transducers(card):
 # the scan kernels' instantiations that the main paths run, by their
 # (gates, units per CTA) in the mangled name: DS2-medium's GRU (3, 8),
 # lstm_small's LSTM (4, 4), the tiny configs' (3, 1) and (4, 1)
+LM_WKT103 = os.path.join(REPO, "example_configs_torch", "lm",
+                         "lstm_wkt103.py")
+TXL_WKT103 = os.path.join(REPO, "example_configs_torch", "lm",
+                          "txl_wkt103.py")
+IMDB_WKT103 = os.path.join(REPO, "example_configs_torch", "transfer",
+                           "imdb_wkt103.py")
+LM_TOY = os.path.join(REPO, "example_configs_torch", "lm", "lstm_toy.py")
+# WikiText-103's 267,735 types with <unk>, plus <eos>
+WKT103_V = 267736
+# the JAX model's count (tests/test_torch_transformer_xl.py)
+TXL_PARAMS = 151119016
+
+
+def _lstm_counts():
+    from openseq2seq_tpu_torch.ops import lstm_scan
+    return lstm_scan.LAUNCHES, lstm_scan.BWD_LAUNCHES
+
+
+def _reset_lstm_counts():
+    from openseq2seq_tpu_torch.ops import lstm_scan
+    lstm_scan.LAUNCHES = lstm_scan.BWD_LAUNCHES = 0
+
+
+def _peak_gib():
+    import torch
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_wikitext_lm(card, corpus, logdir):
+    """7zf: the WikiText-103 LSTM LM from text files. Returns the LSTM
+    forward and backward launches of its train, eval and generate runs."""
+    import torch
+    from openseq2seq_tpu_torch.data.lm import Corpus
+    from openseq2seq_tpu_torch.models.model import to_device_batch
+    from openseq2seq_tpu_torch.training import trainer
+    wkt = corpus["wikitext"]
+    processed = os.path.join(wkt, "processed")
+    t0 = time.time()
+    corp = Corpus(wkt, processed)
+    tokens = {s: len(corp.ids(s)) for s in ("train", "valid", "test")}
+    built = time.time() - t0
+    t0 = time.time()
+    Corpus(None, processed).ids("train")
+    cached = time.time() - t0
+    print("[wkt lm] Corpus: V {}, tokens {}, built (vocabulary, ids, "
+          "vocab.txt) in {:.2f} s, from its cache in {:.3f} s".format(
+              corp.vocab_size, tokens, built, cached), flush=True)
+    check(corp.vocab_size == WKT103_V, "V {}".format(corp.vocab_size))
+    check(os.path.exists(os.path.join(processed, "vocab.txt")),
+          "no vocab.txt")
+
+    steps = 20
+    cut = _recipe_config(LM_WKT103, logdir, steps, print_loss_steps=1,
+                         save_checkpoint_steps=steps)
+    argv = ["--config_file=" + cut, "--logdir=" + logdir]
+    total = [0, 0]
+    _reset_lstm_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    result, lines = _run_quiet(argv + ["--mode=train"])
+    wall = time.time() - t0
+    launches = _lstm_counts()
+    total = [a + b for a, b in zip(total, launches)]
+    losses = _losses(lines)
+    print("[wkt lm] lstm_wkt103.py train, {} steps of 224 x 96 tokens from "
+          "text, mixed, 8192 sampled candidates, dropout on: losses {}; "
+          "launches lstm_scan_fwd {}, lstm_scan_bwd {}; {:.1f} s with the "
+          "build of the model; {:.0f} tokens/s over steps 11-{}; peak "
+          "device memory {:.2f} GiB ({})".format(
+              steps, losses, *launches, wall, result["objects_per_sec"],
+              steps, _peak_gib(), card), flush=True)
+    check(result["steps"] == steps and len(losses) == steps and
+          all(math.isfinite(x) for x in losses), "losses {}".format(losses))
+    check(sum(losses[-3:]) < sum(losses[:3]),
+          "loss did not fall: {}".format(losses))
+    check(launches == (3 * steps, 3 * steps),
+          "launches {} in {} steps".format(launches, steps))
+
+    config = runpy.run_path(cut)
+    model = config["base_model"](dict(config["base_params"], logdir=logdir),
+                                 mode="eval", device="cuda")
+    batches = list(model.get_data_layer().iterate_one_epoch())
+    ckpt = os.path.join(logdir, "checkpoints", str(steps))
+    state = trainer.restore_state(model, ckpt)
+    print("[wkt lm] {} parameters at V {}".format(
+        sum(p.numel() for p in state.module.parameters()),
+        corp.vocab_size), flush=True)
+    _reset_lstm_counts()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, _ = _run_quiet(argv + ["--mode=eval"])
+    launches = _lstm_counts()
+    total = [a + b for a, b in zip(total, launches)]
+    print("[wkt lm] eval from the step-{} checkpoint over the valid split "
+          "({} batches): loss {:.6f}, perplexity {:.2f}; launches {}; peak "
+          "device memory {:.2f} GiB ({})".format(
+              steps, len(batches), metrics["eval_loss"],
+              metrics["Eval perplexity"], launches, _peak_gib(), card),
+          flush=True)
+    check(math.isfinite(metrics["eval_loss"]) and
+          launches == (3 * len(batches), 0), "eval from the checkpoint")
+
+    _reset_lstm_counts()
+    loss = float(model.eval_step(state, batches[0])["loss"])
+    device_batch = to_device_batch(batches[0], "cuda")
+    with torch.no_grad():
+        logits = state.module(device_batch, train=False)[
+            "decoder_output"]["logits"]
+        plain = _plain_lm_nll(logits, device_batch["target_tensors"][0])
+    del logits
+    rel = abs(loss - plain) / abs(plain)
+    total = [a + b for a, b in zip(total, _lstm_counts())]
+    print("[wkt lm] a valid batch's loss {:.6f}, the plain fp64 NLL of its "
+          "logits {:.6f}, rel err {:.3e}".format(loss, plain, rel),
+          flush=True)
+    check(rel <= RTOL, "batch loss disagrees with the plain NLL")
+
+    seed = [corp.idx2word[int(i)] for i in batches[0]["source_tensors"][0]
+            [0, :3]]
+    _reset_lstm_counts()
+    t0 = time.time()
+    text = model.generate(state, seed_tokens=seed, num_tokens=20)
+    gen_s = time.time() - t0
+    launches = _lstm_counts()
+    words = text.split()
+    print("[wkt lm] generate from the checkpoint, greedy, prompt {}: {} "
+          "words in {:.2f} s (B 1, the scan: launches {}): {}".format(
+              seed, len(words) - len(seed), gen_s, launches,
+              " ".join(words[len(seed):])), flush=True)
+    check(len(words) == len(seed) + 20 and words[:len(seed)] == seed and
+          all(w in corp.word2idx for w in words) and launches == (0, 0),
+          "generate")
+    del state, model
+    torch.cuda.empty_cache()
+    return total
+
+
+def _nbest(corp, seed):
+    """Four n-best lists of four hypotheses: a line of the test split and
+    three of its shuffles, acoustic scores drawn from ``seed``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    ids = corp.ids("test")
+    lists = []
+    for u in range(4):
+        words = [corp.idx2word[int(i)] for i in ids[50 * u:50 * u + 10]
+                 if corp.idx2word[int(i)] != "<eos>"]
+        hyps = [" ".join(words)] + [" ".join(rng.permutation(words))
+                                    for _ in range(3)]
+        lists.append([(float(rng.randn()), h) for h in hyps])
+    return lists
+
+
+def _rescore(name, model, ckpt, nbest, launch_counts):
+    from openseq2seq_tpu_torch.apps import NeuralRescorer
+    import numpy as np
+    rescorer = NeuralRescorer(model, ckpt)
+    flat = [t for hyps in nbest for _, t in hyps]
+    _reset_lstm_counts()
+    t0 = time.time()
+    scores = rescorer.lm_scores(flat)
+    took = time.time() - t0
+    best = rescorer.rescore(nbest, lm_weight=0.5)
+    launches = _lstm_counts()
+    want = [max(hyps, key=lambda h: h[0] + 0.5 * scores[
+        flat.index(h[1])])[1] for hyps in nbest]
+    print("[txl] NeuralRescorer with the {} from its checkpoint: {} "
+          "hypotheses scored in {:.3f} s, LM log-probs {}; choices {} of 4 "
+          "the unshuffled line; LSTM launches (scoring, then rescoring) "
+          "{}".format(
+              name, len(flat), took, np.round(scores, 2).tolist(),
+              sum(b == hyps[0][1] for b, hyps in zip(best, nbest)),
+              launches), flush=True)
+    check(bool(np.all(np.isfinite(scores)) and np.all(scores < 0)) and
+          best == want and launches == launch_counts,
+          "{} rescoring".format(name))
+    return launches
+
+
+def phase_txl(card, corpus, logdir, lm_ckpt):
+    """7zg: Transformer-XL at full width; the rescorer with both LMs.
+    Returns the LSTM forward launches of the rescorer's LSTM batch."""
+    import torch
+    import torch.nn.functional as F
+    from openseq2seq_tpu_torch.data.lm import Corpus
+    from openseq2seq_tpu_torch.losses.sequence_loss import full_softmax_nll
+    from openseq2seq_tpu_torch.models.model import to_device_batch
+    from openseq2seq_tpu_torch.training import trainer
+    steps = 14
+    cut = _recipe_config(TXL_WKT103, logdir, steps, print_loss_steps=1,
+                         save_checkpoint_steps=steps, bench_start=4)
+    argv = ["--config_file=" + cut, "--logdir=" + logdir]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    result, lines = _run_quiet(argv + ["--mode=train",
+                                       "--lr_policy_params/warmup_steps=1"])
+    wall = time.time() - t0
+    losses = _losses(lines)
+    print("[txl] txl_wkt103.py train, {} steps of 64 x 192 tokens, mixed, "
+          "Adam 2.5e-4 (warmup cut to 1 step), dropout 0.1: losses {}; "
+          "{:.1f} s with the build of the model; {:.0f} tokens/s over "
+          "steps 5-{}; peak device memory {:.2f} GiB ({})".format(
+              steps, losses, wall, result["objects_per_sec"], steps,
+              _peak_gib(), card), flush=True)
+    check(result["steps"] == steps and len(losses) == steps and
+          all(math.isfinite(x) for x in losses), "losses {}".format(losses))
+    check(sum(losses[-3:]) < sum(losses[:3]),
+          "loss did not fall: {}".format(losses))
+
+    torch.cuda.reset_peak_memory_stats()
+    metrics, _ = _run_quiet(argv + ["--mode=eval"])
+    print("[txl] eval from the step-{} checkpoint: loss {:.6f}, perplexity "
+          "{:.2f}; peak device memory {:.2f} GiB ({})".format(
+              steps, metrics["eval_loss"], metrics["Eval perplexity"],
+              _peak_gib(), card), flush=True)
+    check(math.isfinite(metrics["eval_loss"]), "TXL eval loss")
+
+    config = runpy.run_path(cut)
+    model = config["base_model"](dict(config["base_params"], logdir=logdir),
+                                 mode="eval", device="cuda")
+    ckpt = os.path.join(logdir, "checkpoints", str(steps))
+    state = trainer.restore_state(model, ckpt)
+    n_params = sum(p.numel() for p in state.module.parameters())
+    print("[txl] {} parameters (the JAX model's: {})".format(
+        n_params, TXL_PARAMS), flush=True)
+    check(n_params == TXL_PARAMS, "TXL parameter count")
+
+    net = state.module.enc.net
+    D = net.out_features
+    h = torch.randn((64 * 192, D), device="cuda").bfloat16()
+    table = net.embedding.detach().bfloat16()
+    bias = net.softmax_bias.detach()
+    fp32_ms = cuda_ms(lambda: F.linear(h.float(), table.float(), bias), 5)
+    bf16_ms = cuda_ms(lambda: torch.mm(h, table.t()), 5)
+    print("[txl] the tied softmax's product at 64 x 192 tokens, V {}: the "
+          "port's F.linear of the bf16-rounded operands in fp32 (TF32 off; "
+          "the JAX product's values, fp32 sums and output) {:.3f} ms; a "
+          "bf16 cuBLAS product with bf16 output, for comparison, {:.3f} ms "
+          "(CUDA events; {})".format(table.shape[0], fp32_ms, bf16_ms, card),
+          flush=True)
+    del h
+
+    batches = list(model.get_data_layer().iterate_one_epoch())
+    x1, x2 = (to_device_batch(b, "cuda") for b in batches[:2])
+    rows = 8
+    net.mem_len = 192
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with torch.no_grad():
+        out1 = net(x1["source_tensors"][0], x1["source_tensors"][1])
+        mems, mems_valid = out1["mems"], out1["mems_valid"]
+        del out1
+        out2 = net(x2["source_tensors"][0], x2["source_tensors"][1],
+                   mems=mems, mems_valid=mems_valid)
+        seg = full_softmax_nll(out2["logits"], x2["target_tensors"][0])
+        del out2
+        torch.cuda.synchronize()
+        seg_s = time.time() - t0
+        net.mem_len = 0
+        both = torch.cat([x1["source_tensors"][0][:rows],
+                          x2["source_tensors"][0][:rows]], 1)
+        full = net(both, torch.full((rows,), both.shape[1], device="cuda"))
+        ctx = full_softmax_nll(full["logits"][:, 192:],
+                               x2["target_tensors"][0][:rows])
+        del full
+    seg_nll, ctx_nll = float(seg[:rows].mean()), float(ctx.mean())
+    rel = abs(seg_nll - ctx_nll) / abs(ctx_nll)
+    print("[txl] two consecutive segments of 64 x 192 scored with mems "
+          "(mem_len 192) in {:.3f} s: the second segment's mean NLL {:.4f} "
+          "over its first {} rows, against {:.4f} from the 384-token "
+          "context (rel {:.2e}, bf16); over all 64 rows {:.4f}".format(
+              seg_s, seg_nll, rows, ctx_nll, rel, float(seg.mean())),
+          flush=True)
+    check(rel <= 1e-2, "segment memory disagrees with the full context")
+    del state, model, net, mems
+    torch.cuda.empty_cache()
+
+    corp = Corpus(None, os.path.join(corpus["wikitext"], "processed"))
+    nbest = _nbest(corp, 7)
+    txl_model = config["base_model"](dict(config["base_params"]),
+                                     mode="eval", device="cuda")
+    _rescore("Transformer-XL", txl_model, ckpt, nbest, (0, 0))
+    del txl_model
+    lm_config = runpy.run_path(LM_WKT103)
+    lm_model = lm_config["base_model"](dict(lm_config["base_params"]),
+                                       mode="eval", device="cuda")
+    launches = _rescore("LSTM LM", lm_model, lm_ckpt, nbest, (6, 0))
+    del lm_model
+    torch.cuda.empty_cache()
+    return launches[0]
+
+
+def phase_imdb_transfer(card, corpus, lm_logdir, logdir):
+    """7zh: the IMDB transfer recipe from 7zf's checkpoint."""
+    import torch
+    from openseq2seq_tpu_torch.training import trainer
+    steps = 8
+    cut = _recipe_config(IMDB_WKT103, logdir, steps, print_loss_steps=1,
+                         eval_steps=steps, save_checkpoint_steps=steps,
+                         load_model=lm_logdir)
+    config = runpy.run_path(cut)
+    model = config["base_model"](dict(config["base_params"],
+                                      **config["train_params"]),
+                                 mode="train", device="cuda")
+    state = trainer.restore_state(model)
+    saved = torch.load(os.path.join(lm_logdir, "checkpoints", "20",
+                                    "model.pt"), map_location="cuda",
+                       weights_only=True)["module"]
+    restored = dict(state.module.named_parameters())
+    copied = [n for n in restored if n in saved]
+    same = all(torch.equal(restored[n], saved[n]) for n in copied)
+    head = sorted(n for n in restored if n not in saved)
+    del state, model, saved
+    print("[imdb] {} parameters; load_model from the LM: {} tensors "
+          "copied, equal to the checkpoint's: {}; drawn from the seed: {}"
+          .format(sum(p.numel() for p in restored.values()), len(copied),
+                  same, head), flush=True)
+    check(len(copied) == 10 and same and all(".classifier." in n
+                                             for n in head),
+          "partial restore")
+    argv = ["--config_file=" + cut, "--logdir=" + logdir]
+    _reset_lstm_counts()
+    t0 = time.time()
+    result, lines = _run_quiet(argv + ["--mode=train_eval"])
+    wall = time.time() - t0
+    launches = _lstm_counts()
+    losses = _losses(lines)
+    acc = [x.strip() for x in lines if "Validation accuracy" in x]
+    restore = [x.strip() for x in lines if "Partial restore" in x]
+    print("[imdb] imdb_wkt103.py train_eval, {} steps of 16 reviews, fp32: "
+          "{}; losses {}; {}; {:.1f} s; LSTM launches {} ({})".format(
+              steps, restore, losses, acc, wall, launches, card), flush=True)
+    check(result["steps"] == steps and acc and
+          all(math.isfinite(x) for x in losses) and launches == (0, 0),
+          "IMDB transfer")
+
+
+def _card_vs_cpu(name, build, x, lengths, extra=None):
+    """A module built twice from one seed, on the card and on the CPU, the
+    same inputs: outputs, states and every gradient of sum(out ct +
+    state ct) within rtol 1e-4, atol 1e-5. Returns the largest reading
+    of |card - CPU| / (1e-5 + 1e-4 |CPU|)."""
+    import torch
+    got = {}
+    for dev in ("cuda", "cpu"):
+        module = build().to(dev)
+        args = [t.to(dev) for t in x] + [lengths.to(dev)]
+        out = module(*args, **(extra(dev) if extra else {}))
+        out, st = (out["logits"], out["mems"]) if isinstance(out, dict) \
+            else out
+        flat = [out] + [s for s in (st if isinstance(st, (list, tuple))
+                                    else [st])]
+        flat = [t for f in flat for t in (f if isinstance(f, (list, tuple))
+                                          else [f])]
+        gen = torch.Generator().manual_seed(1)
+        loss = sum((t.float() * torch.randn(t.shape, generator=gen)
+                    .to(dev)).sum() for t in flat if t.requires_grad)
+        loss.backward()
+        got[dev] = [t.detach().cpu() for t in flat] + \
+            [p.grad.cpu() for p in module.parameters()]
+        n_grads = len(got[dev]) - len(flat)
+    reading = max(float(((a - b).abs() / (1e-5 + 1e-4 * b.abs())).max())
+                  for a, b in zip(got["cuda"], got["cpu"]))
+    print("[lm cells] {} fp32 card vs CPU: {} outputs and states, {} "
+          "gradients, largest difference {:.3f} of the tolerance".format(
+              name, len(got["cpu"]) - n_grads, n_grads, reading),
+          flush=True)
+    check(reading <= 1.0, "{}: card and CPU disagree".format(name))
+    return reading
+
+
+def phase_small_lm_cells():
+    """7zi's second half: the new cells and a tiny Transformer-XL, fp32,
+    card vs CPU."""
+    import torch
+    from openseq2seq_tpu_torch.encoders.transformer_xl_encoder import \
+        TransformerXLNet
+    from openseq2seq_tpu_torch.parts.rnns import rnn
+    gen = torch.Generator().manual_seed(3)
+    B, T, D = 8, 12, 16
+    x = torch.randn((B, T, D), generator=gen)
+    xg = torch.randn((B, T, 256), generator=gen)
+    lengths = torch.tensor([12, 9, 1, 5, 12, 7, 3, 10])
+
+    def seeded(cls, *a, **kw):
+        return lambda: cls(*a, **kw, generator=torch.Generator()
+                           .manual_seed(0))
+    _card_vs_cpu("SLSTM", seeded(rnn.SLSTM, D, 24), [x], lengths)
+    _card_vs_cpu("FLSTM (num_proj 10)", seeded(rnn.FLSTM, D, 24, 8, 10),
+                 [x], lengths)
+    _card_vs_cpu("LayerNormLSTM", seeded(rnn.LayerNormLSTM, D, 24), [x],
+                 lengths)
+    _reset_lstm_counts()
+    _card_vs_cpu("GLSTM (2 groups of 128, fused)",
+                 seeded(rnn.GLSTM, 256, 256, num_groups=2, fused=True),
+                 [xg], lengths)
+    launches = _lstm_counts()
+    check(launches == (2, 2), "GLSTM launches {}".format(launches))
+    ids = torch.randint(0, 29, (B, T), generator=gen)
+    mems = [torch.randn((B, 6, 32), generator=gen) for _ in range(2)]
+    _card_vs_cpu("Transformer-XL (2 layers of 32, mems of 6)",
+                 lambda: TransformerXLNet(29, 2, 32, 4, 64, 0.0, 0.0, 6,
+                                          torch.float32, 32,
+                                          torch.Generator().manual_seed(0)),
+                 [ids], torch.full((B,), T),
+                 extra=lambda dev: {"mems": [m.to(dev) for m in mems]})
+
+
+def phase_lm_toy(card):
+    """7zi: the LM toy to a perplexity below 2.0."""
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["OS2S_TOY_LM_DIR"] = os.path.join(tmp, "data")
+        os.environ["OS2S_TOY_LOGDIR"] = os.path.join(tmp, "logs")
+        try:
+            t0 = time.time()
+            result, lines = _run_quiet(["--config_file=" + LM_TOY,
+                                        "--mode=train_eval"])
+            wall = time.time() - t0
+            metrics, _ = _run_quiet(["--config_file=" + LM_TOY,
+                                     "--mode=eval"])
+        finally:
+            del os.environ["OS2S_TOY_LM_DIR"], os.environ["OS2S_TOY_LOGDIR"]
+    ppl = [x.strip() for x in lines if "Validation perplexity" in x]
+    print("[lm toy] lstm_toy.py --mode=train_eval: {} steps in {:.1f} s, "
+          "losses at the printed steps {}; {}; eval from its checkpoint: "
+          "perplexity {:.4f} ({})".format(
+              result["steps"], wall, _losses(lines), ppl,
+              metrics["Eval perplexity"], card), flush=True)
+    check(metrics["Eval perplexity"] < 2.0, "the LM toy's perplexity")
+
+
+def phase_lm_family(card):
+    """7zf to 7zi on one WikiText-shaped corpus. Returns the LSTM forward
+    and backward launches of the main paths."""
+    import torch
+    from openseq2seq_tpu_torch.test_utils import fake_wikitext
+    env = ("WIKITEXT103_DIR", "IMDB_DIR", "SST_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        corpus = fake_wikitext.generate(os.path.join(tmp, "data"), seed=0)
+        print("[wkt lm] fake_wikitext (seed 0): WikiText-103's 267,734 "
+              "word types, aclImdb and SST-2 sets, written in {:.2f} s"
+              .format(time.time() - t0), flush=True)
+        os.environ.update(dict(zip(env, (corpus["wikitext"],
+                                         corpus["imdb"], corpus["sst"]))))
+        try:
+            lm_logdir = os.path.join(tmp, "lm")
+            os.makedirs(lm_logdir)
+            t0 = time.time()
+            fwd, bwd = phase_wikitext_lm(card, corpus, lm_logdir)
+            print("[wkt lm] phase 7zf in {:.1f} s".format(time.time() - t0),
+                  flush=True)
+            t0 = time.time()
+            txl_logdir = os.path.join(tmp, "txl")
+            os.makedirs(txl_logdir)
+            fwd += phase_txl(card, corpus, txl_logdir,
+                             os.path.join(lm_logdir, "checkpoints", "20"))
+            print("[txl] phase 7zg in {:.1f} s".format(time.time() - t0),
+                  flush=True)
+            t0 = time.time()
+            imdb_logdir = os.path.join(tmp, "imdb")
+            os.makedirs(imdb_logdir)
+            phase_imdb_transfer(card, corpus, lm_logdir, imdb_logdir)
+            print("[imdb] phase 7zh in {:.1f} s".format(time.time() - t0),
+                  flush=True)
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+    t0 = time.time()
+    phase_lm_toy(card)
+    phase_small_lm_cells()
+    print("[lm toy] phase 7zi in {:.1f} s".format(time.time() - t0),
+          flush=True)
+    torch.cuda.synchronize()
+    return fwd, bwd
+
+
 SCAN_MAIN_INSTANCES = ("Li3ELi8E", "Li4ELi4E", "Li3ELi1E", "Li4ELi1E")
 
 
@@ -5302,6 +5822,9 @@ def main():
         scan_launches[cell] = (scan_launches[cell][0] + fwd,
                                scan_launches[cell][1] + bwd)
     rnnt = phase_transducers(card)
+    lm_fwd, lm_bwd = phase_lm_family(card)
+    scan_launches["lstm"] = (scan_launches["lstm"][0] + lm_fwd,
+                             scan_launches["lstm"][1] + lm_bwd)
 
     # 8. result
     fwd_bound = ctc_bound_ms(32, 500, 160, 29, 500, backward=False)

@@ -1,0 +1,2 @@
+"""Applications built on the port's models."""
+from .lm_rescorer import NeuralRescorer

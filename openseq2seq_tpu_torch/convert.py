@@ -37,7 +37,11 @@ such as the TDNN encoder), and returns the ``state_dict`` for
     (``u_bias``, ``w_bias`` and the conv
     module's ``ln1_scale`` ... ``pw2_bias``) and the kernels of the
     ``DenseGeneral`` layers under a module named ``attn`` (``q``, ``k``,
-    ``v``, ``r`` (D, H, Dh) and ``out`` (H, Dh, D))
+    ``v``, ``r`` (D, H, Dh) and ``out`` (H, Dh, D)), as are
+    Transformer-XL's under ``layer{i}_attn``, and the LM cells' raw
+    leaves (the factorized LSTM's ``first_gemm_h``, ``second_gemm``,
+    ``second_gemm_bias``, ``projection``; the layer-norm LSTM's
+    ``ln_scale``, ``ln_bias`` (4, H))
                                -> kept as they are, under the same names
 
 These rules go by module and leaf name, never by a kernel's rank: a
@@ -52,7 +56,8 @@ with its inner ``LayerNorm_0`` (``enc/sa_norms_0/LayerNorm_0/scale`` ->
 (``conv1_bn``, named ``*_bn``) are flax's ``BatchNorm`` itself, with no
 inner module, and so are the Tacotron-2 encoder's, GST's and postnet's
 (``bn{i}``, ``ref_bn{i}``, ``postnet_bn{i}``) and the Conformer block's
-layer norms (``attn_ln``, ``final_ln``, named ``*_ln``).
+layer norms (``attn_ln``, ``final_ln``, named ``*_ln``) and
+Transformer-XL's (``layer{i}_ln1``, ``layer{i}_ln2``).
 
 :func:`flax_from_state_dict` is the inverse (a module with running
 statistics is a batch norm, whose flax leaves sit under ``BatchNorm_0``
@@ -97,11 +102,18 @@ _PRENET = re.compile(r"prenet_[wb][0-9]+")
 _TRANSDUCER = ("pred_embedding", "joint_enc_w", "joint_pred_w", "joint_b",
                "joint_out_w", "joint_out_b")
 _TRANSDUCER_CELL = re.compile(r"pred_(wx|wh|b)[0-9]+")
+# the LM cells' raw leaves: the factorized LSTM's and the layer-norm
+# LSTM's (its ``recurrent_kernel`` is among ``_RECURRENT``)
+_LM_CELLS = ("first_gemm_h", "second_gemm", "second_gemm_bias", "projection",
+             "ln_scale", "ln_bias")
 _KEPT = _RECURRENT + _CONFORMER + _LM + _RNN_DECODER + _TACOTRON + \
-    _TRANSDUCER
-# the parent module of flax DenseGeneral layers, whose kernels are kept
-_DENSE_GENERAL_PARENT = "attn"
-_LN_SUFFIX = "_ln"
+    _TRANSDUCER + _LM_CELLS
+# the parent module of flax DenseGeneral layers, whose kernels are kept:
+# the Conformer block's ``attn``, Transformer-XL's ``layer{i}_attn``
+_DENSE_GENERAL_PARENT = re.compile(r"(layer[0-9]+_)?attn")
+# bare flax LayerNorm modules: the Conformer's ``attn_ln``, ``final_ln``,
+# Transformer-XL's ``layer{i}_ln1``, ``layer{i}_ln2``
+_BARE_LN = re.compile(r".*_ln[0-9]*")
 
 
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
@@ -135,7 +147,7 @@ def _param_to_torch(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
     value = np.array(value, dtype=np.float32)
     module, leaf = _module_key(path[:-1]), path[-1]
     if _kept(leaf) or (leaf == "kernel" and len(path) >= 3 and
-                         path[-3] == _DENSE_GENERAL_PARENT):
+                         _DENSE_GENERAL_PARENT.fullmatch(path[-3])):
         name = leaf
     elif leaf == "kernel" and value.ndim == 4:
         name, value = "weight", value.transpose(3, 2, 0, 1)
@@ -202,7 +214,7 @@ def flax_path(name: str, norms: set, layer_norms: set = frozenset()
                                  "running_var": "var"}[leaf],)
     if module in layer_norms and leaf in ("weight", "bias"):
         return parts + (_LN_INNER, {"weight": "scale", "bias": "bias"}[leaf])
-    if parts and parts[-1].endswith(_LN_SUFFIX):
+    if parts and _BARE_LN.fullmatch(parts[-1]):
         return parts + ({"weight": "scale", "bias": "bias"}[leaf],)
     if _kept(leaf) or leaf == "kernel":
         return parts + (leaf,)

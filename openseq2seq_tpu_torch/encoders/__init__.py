@@ -9,3 +9,4 @@ from .rnn_encoders import (BidirectionalRNNEncoderWithEmbedding,
                            GNMTLikeEncoderWithEmbedding_cuDNN,
                            UnidirectionalRNNEncoderWithEmbedding)
 from .tacotron2_encoder import Tacotron2Encoder
+from .transformer_xl_encoder import TransformerXLEncoder

@@ -1,5 +1,6 @@
 from .loss import Loss
 from .ctc_loss import CTCLoss
+from .cross_entropy_loss import CrossEntropyLoss
 from .sequence_loss import (BasicSampledSequenceLoss, BasicSequenceLoss,
                             CrossEntropyWithSmoothing,
                             PaddedCrossEntropyLossWithSmoothing)

@@ -81,11 +81,41 @@ def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
 
 
+class _FullSoftmaxNLL(torch.autograd.Function):
+    """The blocked NLL with a blocked backward: the gradient of the logits,
+    ``g (softmax(logits) - onehot(labels))``, written one block of rows at
+    a time into one tensor the logits' size, so that a step holds the
+    logits and their gradient and nothing else that size (autograd's own
+    backward of the blocks and the gather holds three more)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        lse = _logsumexp(logits)
+        ctx.save_for_backward(logits, labels, lse)
+        return lse - _gold(logits, labels)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        V = logits.shape[-1]
+        flat, lse, g = logits.reshape(-1, V), lse.reshape(-1), \
+            g.reshape(-1).float()
+        grad = torch.empty_like(flat)
+        rows = max(1, _LSE_BLOCK // V)
+        for i in range(0, flat.shape[0], rows):
+            block = slice(i, i + rows)
+            torch.exp(flat[block] - lse[block, None], out=grad[block])
+            grad[block] *= g[block, None]
+        lab = labels.reshape(-1).long()
+        grad[torch.arange(grad.shape[0], device=grad.device), lab] -= g
+        return grad.reshape(logits.shape), None
+
+
 def full_softmax_nll(logits: torch.Tensor, labels: torch.Tensor
                      ) -> torch.Tensor:
     """(B, T) NLL of ``labels`` under the softmax of fp32 ``logits``
     (B, T, V): the blocked logsumexp less the gold logit."""
-    return _logsumexp(logits) - _gold(logits, labels)
+    return _FullSoftmaxNLL.apply(logits, labels)
 
 
 def smoothed_nll(logits: torch.Tensor, labels: torch.Tensor,

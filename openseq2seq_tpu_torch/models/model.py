@@ -106,6 +106,10 @@ class Model(abc.ABC):
             # B3 (ops/gru_scan.py, ops/lstm_scan.py) where their shape is
             # supported; read by the encoders that build such layers
             "fused_rnn": bool,
+            # the pretrained LM's vocabulary, as the transfer recipes name
+            # it beside their data layer's own ``lm_vocab_file``
+            # (``data/lm``), which reads it
+            "lm_vocab_file": str,
             # TPU knobs of the JAX package, no-ops here: RNG
             # implementation of dropout, activation rematerialization
             "prng_impl": str,

@@ -491,8 +491,8 @@ def conformer_conv_module_bwd_bounds(x, lengths, inter, ln1_scale, ln1_bias,
     and of its outputs (dx, held from its dh0, and the ten weight
     gradients from its intermediates): ``{name: (want, bound)}``, fp64,
     the gradients named as in ``GRADS``. ``depth`` (``sum_depth``) gives
-    the most additions a term of db1 or dwd passes through in the
-    kernels' fixed order of summation; without it those sums are held
+    the most additions a term of db1, dwd, dw1 or dw2 passes through in
+    the kernels' fixed order of summation; without it those sums are held
     for any order (B T terms)."""
     ln1s, ln1b, w1, b1, wd, bd, ln2s, ln2b, w2, b2 = (w.double() for w in (
         ln1_scale, ln1_bias, pw1_kernel, pw1_bias, dw_kernel, dw_bias,
@@ -545,8 +545,8 @@ def conformer_conv_module_bwd_bounds(x, lengths, inter, ln1_scale, ln1_bias,
     def rows_product(lhs, rhs):
         prod = torch.einsum("btd,bte->de", lhs, rhs)
         return prod, _sum(prod, torch.einsum("btd,bte->de", lhs.abs(),
-                                             rhs.abs()), N)
-    depth = depth or {"db1": N, "dwd": N}
+                                             rhs.abs()), depth["dw"])
+    depth = depth or {"db1": N, "dwd": N, "dw": N}
     out["dw1"] = rows_product(_rnd(h0_k), _rnd(da_k))
     out["db1"] = (da_k.sum(dim=(0, 1)),
                   _sum(da_k.sum(dim=(0, 1)), da_k.abs().sum(dim=(0, 1)),
@@ -591,16 +591,30 @@ def dw_splits(N: int) -> tuple:
     return -(-N // rows), rows
 
 
-def sum_depth(B: int, T: int, tile: int) -> dict:
-    """The most additions a term of db1 or dwd passes through in the
-    backward kernels' order, for their second launch's ``tile`` frames a
-    CTA: a thread's rows (tile / 8 for db1, the tile for dwd), the eight
-    thread groups (db1), then the B ceil(T / tile) partials, summed in
-    blocks of ceil(sqrt) of them (``reduce_all_kernel``)."""
-    parts = B * -(-T // tile)
+def _tail(parts: int) -> int:
+    """The additions of ``reduce_all_kernel`` over ``parts`` partials,
+    summed in blocks of ceil(sqrt(parts)): within a block, then the
+    blocks."""
     blk = math.isqrt(parts - 1) + 1
-    tail = blk + -(-parts // blk)
-    return {"db1": tile // 8 + 8 + tail, "dwd": tile + tail}
+    return blk + -(-parts // blk)
+
+
+def sum_depth(B: int, T: int, tile: int) -> dict:
+    """The most additions a term of db1, dwd, dw1 or dw2 passes through in
+    the backward kernels' order, for their second launch's ``tile``
+    frames a CTA: for db1 and dwd a thread's rows (tile / 8 for db1, the
+    tile for dwd), the eight thread groups (db1), then the B ceil(T /
+    tile) partials; for dw1 and dw2 (``"dw"``) a split's rows of
+    :func:`dw_splits`, which ``weight_grads_kernel`` takes 16 at a time
+    by mma.sync m16n8k16 (a term's own k16 step counted as 32 additions,
+    each later one as 17, as ``scan_bounds.sum_depth`` counts the
+    tensor core's truncating adder), then the splits' partials. Each sum
+    of partials is ``reduce_all_kernel``'s, in blocks of ceil(sqrt) of
+    them."""
+    splits, rows = dw_splits(B * T)
+    tail = _tail(B * -(-T // tile))
+    return {"db1": tile // 8 + 8 + tail, "dwd": tile + tail,
+            "dw": 32 + 17 * (rows // 16 - 1) + _tail(splits)}
 
 
 def fwd_faults(bounds, u, y, weights, tile, eps: float = EPS) -> dict:

@@ -5,8 +5,9 @@ step, on one NVIDIA GPU.
     python3 scripts_torch/profile_eval.py [--train | --infer | --train-nmt |
         --train-lm | --eval-lm | --train-gnmt | --infer-gnmt |
         --train-tacotron | --infer-tacotron | --train-transducer |
-        --infer-transducer] [--beam-width=K]
-        [--config_file=PATH] [--steps=4] [--repeats=3] [--trace=PATH]
+        --infer-transducer | --train-lm-wkt | --train-txl | --eval-txl]
+        [--beam-width=K] [--config_file=PATH] [--steps=4] [--repeats=3]
+        [--batches=N] [--trace=PATH]
 
 Builds the model of a port config (default: Jasper-10x5 at full width on
 synthetic speech, ``example_configs_torch/speech2text/
@@ -42,7 +43,14 @@ conformer_transducer_synthetic.py`` (batches of 128 x 1000 frames, the
 fused loss), and ``--infer-transducer`` is ``--infer`` on its decode
 config, ``conformer_transducer_decode_synthetic.py`` (batches of 64,
 greedy; ``--beam-width=4`` for the frame-synchronous beam), both from
-seeded weights.
+seeded weights. ``--train-lm-wkt`` is ``--train`` on the WikiText-103 LSTM
+LM read from text files (``example_configs_torch/lm/lstm_wkt103.py``),
+``--train-txl`` and ``--eval-txl`` the train and eval steps of
+Transformer-XL at full width (``txl_wkt103.py``), each on a
+WikiText-103-shaped corpus written first into a temporary directory
+(``test_utils/fake_wikitext.py``: the recipes' 267,736 words, 200,000
+training tokens beside one of each word); ``--batches`` keeps the first N
+batches of the epoch.
 It prints:
 
 1. wall milliseconds per step without the profiler, for each of
@@ -107,6 +115,14 @@ TRANSDUCER_DECODE_CONFIG = os.path.join(
 # types that give the recipe's vocabulary, 4 + 3 x 10921 = 32,767 tokens
 GNMT_CORPUS = dict(n_train=256, n_dev=32, n_test=32, n_types=10921,
                    with_t2t=False)
+LM_WKT_CONFIG = os.path.join(REPO, "example_configs_torch", "lm",
+                             "lstm_wkt103.py")
+TXL_CONFIG = os.path.join(REPO, "example_configs_torch", "lm",
+                          "txl_wkt103.py")
+# the WikiText profiles' corpus: every word of the vocabulary once, and
+# enough Zipf tokens beside them for a few batches
+WKT_CORPUS = dict(n_train_tokens=200_000, n_eval_tokens=60_000,
+                  n_reviews=1, n_sentences=1)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 # (group, substrings of the kernel name), first match wins
@@ -189,6 +205,8 @@ def count_flops(module, run, train: bool = False) -> int:
     from openseq2seq_tpu_torch.encoders.ds2_encoder import SameConv2d
     from openseq2seq_tpu_torch.encoders.lm_encoders import LMNet
     from openseq2seq_tpu_torch.encoders.tdnn_encoder import SameConv1d
+    from openseq2seq_tpu_torch.encoders.transformer_xl_encoder import \
+        TransformerXLNet
     from openseq2seq_tpu_torch.parts.transformer.common import \
         Dense as TransformerDense
     total = [0]
@@ -209,6 +227,8 @@ def count_flops(module, run, train: bool = False) -> int:
         total[0] += passes(inp) * 2 * out.numel() * mod.n_in
 
     def lm_head_hook(mod, inp, out):
+        if "logits" not in out and "num_sampled" not in out:
+            return                  # a classifier, counted as dense layers
         h = out["outputs"]
         width = h.shape[0] * h.shape[1] * h.shape[2]
         n = out["logits"].shape[-1] if "logits" in out \
@@ -224,7 +244,8 @@ def count_flops(module, run, train: bool = False) -> int:
     handles += [m.register_forward_hook(dense_general_hook)
                 for m in module.modules() if isinstance(m, DenseGeneral)]
     handles += [m.register_forward_hook(lm_head_hook)
-                for m in module.modules() if isinstance(m, LMNet)]
+                for m in module.modules()
+                if isinstance(m, (LMNet, TransformerXLNet))]
     run()
     for h in handles:
         h.remove()
@@ -329,6 +350,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                        help="profile the Conformer-Transducer's train step "
                             "(the train step on {})".format(
                                 os.path.relpath(TRANSDUCER_CONFIG, REPO)))
+    which.add_argument("--train-lm-wkt", action="store_true",
+                       help="the WikiText-103 LSTM LM's train step from "
+                            "text files")
+    which.add_argument("--train-txl", action="store_true",
+                       help="Transformer-XL's train step at full width")
+    which.add_argument("--eval-txl", action="store_true",
+                       help="Transformer-XL's eval step at full width")
     which.add_argument("--infer-transducer", action="store_true",
                        help="profile the Conformer-Transducer's decode of "
                             "a batch (the infer step on {})".format(
@@ -346,6 +374,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "and --infer-tacotron, the Conformer-Transducer "
                          "with --train-transducer and --infer-transducer)")
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--batches", type=int, default=None,
+                    help="keep the first N batches of the epoch")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--trace", default=None,
                     help="where to keep the chrome trace (default: a "
@@ -353,15 +383,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     args.gnmt = args.train_gnmt or args.infer_gnmt
     tacotron = args.train_tacotron or args.infer_tacotron
+    args.wikitext = args.train_lm_wkt or args.train_txl or args.eval_txl
     if args.config_file is None:
         args.config_file = NMT_TRAIN_CONFIG if args.train_nmt else \
             LM_CONFIG if args.train_lm or args.eval_lm else \
             GNMT_CONFIG if args.gnmt else \
             TACOTRON_CONFIG if tacotron else \
             TRANSDUCER_CONFIG if args.train_transducer else \
-            TRANSDUCER_DECODE_CONFIG if args.infer_transducer else CONFIG
+            TRANSDUCER_DECODE_CONFIG if args.infer_transducer else \
+            LM_WKT_CONFIG if args.train_lm_wkt else \
+            TXL_CONFIG if args.train_txl or args.eval_txl else CONFIG
     args.train = args.train or args.train_nmt or args.train_lm or \
-        args.train_gnmt or args.train_tacotron or args.train_transducer
+        args.train_gnmt or args.train_tacotron or args.train_transducer or \
+        args.train_lm_wkt or args.train_txl
     args.infer = args.infer or args.infer_gnmt or args.infer_tacotron or \
         args.infer_transducer
     return args
@@ -386,6 +420,11 @@ def main(argv=None):
         corpus = tempfile.TemporaryDirectory()
         os.environ["WMT16_DIR"] = fake_wmt.generate(corpus.name,
                                                     **GNMT_CORPUS)
+    if args.wikitext:
+        from openseq2seq_tpu_torch.test_utils import fake_wikitext
+        corpus = tempfile.TemporaryDirectory()
+        os.environ["WIKITEXT103_DIR"] = fake_wikitext.generate(
+            corpus.name, **WKT_CORPUS)["wikitext"]
     config = runpy.run_path(args.config_file)
     mode = "train" if args.train else "infer" if args.infer else "eval"
     params = dict(config["base_params"])
@@ -398,6 +437,8 @@ def main(argv=None):
     module, step = make_step(model, args.train)
 
     batches = list(model.get_data_layer().iterate_one_epoch())
+    if args.batches:
+        batches = batches[:args.batches]
     utts = sum(len(b["source_ids"]) for b in batches)
     objects = sum(model.get_num_objects_per_step(b) for b in batches)
     # the warm-up steps count the FLOP

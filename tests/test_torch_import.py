@@ -71,8 +71,12 @@ def _import_all(report: str) -> str:
             "openseq2seq_tpu_torch.ops.arpa_lm",
             "openseq2seq_tpu_torch.ops.ngram_fusion",
             "openseq2seq_tpu_torch.losses.transducer_loss",
-            "openseq2seq_tpu_torch.decoders.transducer_decoder"} <= \
-        set(modules)
+            "openseq2seq_tpu_torch.decoders.transducer_decoder",
+            "openseq2seq_tpu_torch.data.lm.lmdata",
+            "openseq2seq_tpu_torch.test_utils.fake_wikitext",
+            "openseq2seq_tpu_torch.losses.cross_entropy_loss",
+            "openseq2seq_tpu_torch.encoders.transformer_xl_encoder",
+            "openseq2seq_tpu_torch.apps.lm_rescorer"} <= set(modules)
     names = {os.path.basename(c) for c in CONFIGS}
     assert len(CONFIGS) >= 13 and {
         "transformer_big_train_synthetic.py", "ds2_medium_synthetic.py",
@@ -88,7 +92,11 @@ def _import_all(report: str) -> str:
         "tacotron_tiny_synthetic.py", "conformer_transducer_synthetic.py",
         "conformer_transducer_decode_synthetic.py",
         "conformer_transducer_librispeech.py", "conformer_transducer_toy.py",
-        "conformer_transducer_tiny_synthetic.py"} <= names
+        "conformer_transducer_tiny_synthetic.py", "lstm_wkt103.py",
+        "lstm_wkt2.py", "lstm_test_small.py", "lstm_test_small_mixed.py",
+        "lstm_toy.py", "txl_wkt103.py", "txl_tiny.py", "imdb_wkt103.py",
+        "imdb_wkt2.py", "imdb_from_scratch.py", "sst_wkt2.py",
+        "sst_wkt2_small.py", "imdb_tiny.py"} <= names
     code = ("import importlib, runpy, sys\n"
             "for m in {!r}: importlib.import_module(m)\n"
             "for c in {!r}: runpy.run_path(c)\n"

@@ -339,18 +339,21 @@ def _flatten(tree, prefix=""):
 
 
 def test_refused_options():
-    """The cells and modes this slice does not bring are refused by name;
-    ``generate`` needs data/lm."""
-    for core_cell in ("slstm", "flstm", "layernorm_lstm"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            LMEncoder(dict(_enc_params("lstm"), core_cell=core_cell), None,
-                      mode="eval").make_module(
-                0, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="lm_mode"):
-        LMEncoder(dict(_enc_params("lstm"), lm_mode=False), None)
+    """What the port refuses: skip connections (the JAX package ignores
+    them), ``fc_use_bias`` False and ``core_cell_params`` with no effect
+    (both ignored there too), and ``generate`` without a WikiText-style
+    vocabulary (the synthetic data layer has none)."""
+    with pytest.raises(NotImplementedError, match="skip_connections"):
+        LMEncoder(dict(_enc_params("lstm"),
+                       encoder_use_skip_connections=True), None)
+    with pytest.raises(ValueError, match="fc_use_bias"):
+        LMEncoder(dict(_enc_params("lstm"), fc_use_bias=False), None)
+    with pytest.raises(ValueError, match="no effect"):
+        LMEncoder(dict(_enc_params("lstm"), core_cell_params={
+            "num_units": 8, "forget_bias": 0.5}), None)
     with pytest.raises(ValueError, match="Unknown config parameter"):
-        LMEncoder(dict(_enc_params("lstm"), fc_dim=8), None)
+        LMEncoder(dict(_enc_params("lstm"), sampling_prob=0.5), None)
     model = runpy.run_path(TINY)["base_model"](_port_params(), mode="eval",
                                                device="cpu")
-    with pytest.raises(NotImplementedError, match="data/lm"):
+    with pytest.raises(ValueError, match="Corpus"):
         model.generate(None)

@@ -345,3 +345,31 @@ def test_conformer_flop_count():
     assert got > 0 and attn < got
     assert got == counts["aten.convolution"] + counts["aten.addmm"] + \
         counts["aten.mm"] - 2 * conv_module, counts
+
+
+def test_txl_flop_count_and_arguments():
+    """``--train-txl``/``--eval-txl`` pick the Transformer-XL recipe; the
+    tiny twin's eval step through the script's own step: its dense and
+    DenseGeneral layers and the tied logits (2 D V a token) equal
+    FlopCounterMode's ``addmm``/``mm`` count (the attention's score and
+    context products, ``bmm``, are left out, as for the Conformer)."""
+    import runpy
+    args = profile_eval.parse_args(["--train-txl"])
+    assert args.train and args.wikitext and \
+        args.config_file == profile_eval.TXL_CONFIG
+    args = profile_eval.parse_args(["--eval-txl"])
+    assert not args.train and args.config_file == profile_eval.TXL_CONFIG
+    assert profile_eval.parse_args(["--train-lm-wkt"]).config_file == \
+        profile_eval.LM_WKT_CONFIG
+    cfg = runpy.run_path(os.path.join(REPO, "example_configs_torch", "lm",
+                                      "txl_tiny.py"))
+    model = cfg["base_model"](cfg["base_params"], mode="eval", device="cpu")
+    module, step = profile_eval.make_step(model, train=False)
+    batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+    got = profile_eval.count_flops(module, lambda: step(batch))
+    with FlopCounterMode(display=False) as counter:
+        step(batch)
+    counts = {str(op): n for op, n in
+              counter.get_flop_counts()["Global"].items()}
+    assert got > 0 and got == counts["aten.addmm"] + counts["aten.mm"], \
+        (got, counts)

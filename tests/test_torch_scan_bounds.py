@@ -299,3 +299,39 @@ def test_conv_bounds_refuse_tiled_faults(fault):
                                                      *weights, dy)
         faults = cc.bwd_faults(bounds, lengths, inter, grads, weights[4], 16)
     assert faults[fault] > 1.0, faults
+
+
+def test_conv_dw_bound_follows_the_splits():
+    """dw1 and dw2 are held at the backward kernels' own summation depth
+    (``sum_depth``'s ``"dw"``: a split's rows by mma.sync, then the
+    splits' partials), far below the B T of an any-order sum once the
+    rows take several splits, so that "dw1 partial left out" (one CTA's
+    partial of one split) reads well above 1 where the any-order bound
+    let it shrink toward 1; the plain version stays within the bound.
+    At Conformer-M's shape (B 64, T' 250) the depth is a 14th of B T, at
+    the transducer's (B 128, T' 250 and 418) a 28th."""
+    B, T, D, k = 16, 512, 128, 7
+    N = B * T
+    splits, rows = cc.dw_splits(N)
+    assert (splits, rows) == (8, 1024)
+    depth = cc.sum_depth(B, T, 64)
+    assert depth["dw"] == 32 + 17 * (rows // 16 - 1) + 3 + 3
+    for Bp, Tp, ratio in ((64, 250, 14), (128, 250, 28), (128, 418, 28)):
+        assert Bp * Tp >= ratio * cc.sum_depth(Bp, Tp, 64)["dw"]
+    x, lengths, weights, dy = _conv_case(B, T, D, k, 17)
+    grads, inter = cc.conformer_conv_module_bwd_plain(
+        x, lengths, *weights, dy, intermediates=True)
+    any_order = cc.conformer_conv_module_bwd_bounds(x, lengths, inter,
+                                                    *weights, dy)
+    at_depth = cc.conformer_conv_module_bwd_bounds(x, lengths, inter,
+                                                   *weights, dy, depth=depth)
+    outputs = dict(inter, **dict(zip(cc.GRADS, grads)))
+    for name in ("dw1", "dw2"):
+        assert eb.reading(outputs[name], *at_depth[name]) <= 1.0
+        assert float(at_depth[name][1].max()) * 7 < \
+            float(any_order[name][1].max())
+    loose = cc.bwd_faults(any_order, lengths, inter, grads, weights[4], 64)
+    tight = cc.bwd_faults(at_depth, lengths, inter, grads, weights[4], 64)
+    fault = "dw1 partial left out"
+    assert tight[fault] > 7 * loose[fault] and tight[fault] > 10, \
+        (loose, tight)
