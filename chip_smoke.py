@@ -2,7 +2,17 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU and check
 them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--group=NAME]
+
+With no argument it runs every phase below and ends with the kernels
+line and the contract line. ``--group`` runs the environment, the build
+and one group of phases, then a line of that group's kernel launches and
+seconds, and the contract line: ``kernels`` (3 to 4j), ``speech`` (5 to
+7, 7r, 7s), ``nmt`` (7a to 7e, 7u to 7x), ``rnn`` (7f to 7k, the DS2
+toy), ``conformer`` (7l to 7n, the Conformer toy), ``lm`` (7o to 7q, 7zf
+to 7zi), ``tts`` (7y to 7za), ``transducer`` (7zb to 7ze) and ``image``
+(7zj to 7zo). Each phase's seconds are printed on a line of their own
+(``[time] phase ...``), then each group's and the total.
 
 Phases, one informative line or a few each:
 
@@ -431,6 +441,33 @@ Phases, one informative line or a few each:
    with ``mems``, fp32, on the card against the CPU with the same
    weights: outputs, states and every gradient within rtol 1e-4, atol
    1e-5;
+7zj. the tiny ResNet v2 and a tiny CNN (conv, batch norm, SAME max and
+   average pools, dense), fp32, from one seed on the card and on the CPU:
+   three NovoGrad steps (losses, weights, running statistics) and the
+   eval logits within rtol 1e-4, atol 1e-5;
+7zk. ResNet-50 v2 at ``scripts/bench_resnet.py``'s width
+   (``example_configs_torch/image2label/resnet50_v2_synthetic.py``: 224 x
+   224, batch 128, "mixed", NovoGrad, 1,000 classes) through ``run.main
+   --mode=train`` for 20 steps with the warm-up cut to 10: the loss
+   finite and falling on the repeated batch, 25,549,352 parameters (the
+   JAX model's), images/s, the peak device memory, the memorised batch's
+   top-1; ``--mode=eval`` and ``--mode=infer`` (128 csv rows) from its
+   checkpoint;
+7zl. AlexNet (``alexnet_owt_synthetic.py``: 227 x 227, batch 256) for 12
+   steps: the loss finite, images/s, the peak device memory;
+7zm. the CIFAR toy: ``cifar10_nv.py``'s network on a fake CIFAR-10 set
+   (``test_utils/fake_cifar``, ten stripe classes) for 5 epochs at lr 0.003
+   (the recipe's 0.05 diverges on it, in the JAX package too), then
+   eval: top-1 above 0.9;
+7zn. ``jasper_speech_commands.py`` and ``resnet_commands.py`` at full
+   width on labelled tone clips (``test_utils/fake_speech_commands``, 8
+   labels): 4 and 6 steps, the losses finite, then eval;
+7zo. where Pillow is installed, ``resnet50_v2_imagenet.py`` on a fake
+   ImageNet JPEG tree (``test_utils/fake_imagenet``) for one step and
+   eval, and the TFRecord layer's eval batch equal to the JPEG layer's on
+   the same images; without Pillow a line says so (the layers are then
+   held on the CPU only); no image phase launches a kernel: the JAX
+   image family reaches no ``pallas_call``;
 8. one JSON line for the kernels (the LSTM scans' entries with their
    times at the LM's shape under ``at_lm_shape``, at GNMT's under
    ``at_gnmt_shape`` and at Tacotron-2's under ``at_tacotron_shape``; the
@@ -5723,13 +5760,598 @@ def print_ptxas(name, log):
                                       for e in entries)), flush=True)
 
 
-def main():
+def print_kernels_line(k, launches):
+    """8. one JSON line for the kernels: each one's launches over the
+    whole run, its readings and times."""
+    fwd_bound = ctc_bound_ms(32, 500, 160, 29, 500, backward=False)
+    bwd_bound = ctc_bound_ms(32, 500, 160, 29, 501, backward=True)
+    flash = k["flash_times"]["encoder"]
+    flash_bwd = k["flash_bwd_times"]["encoder"]
+    print(json.dumps({"kernels": [{
+        "name": "ctc_alpha_fwd", "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu",
+        "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:65",
+        "launches": launches["ctc_alpha_fwd"],
+        "max_abs_err": k["fwd_err"],
+        "ms": k["fwd_ms"], "plain_ms": k["fwd_plain_ms"],
+        "bound_ms": fwd_bound[0],
+        "bound_by": fwd_bound[1], "library_ms": k["ctc_lib_fwd_ms"]}, {
+        "name": "ctc_beta_bwd", "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/ctc_beta_bwd.cu",
+        "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:140",
+        "launches": launches["ctc_beta_bwd"],
+        "max_abs_err": k["bwd_err"],
+        "ms": k["bwd_ms"], "plain_ms": k["bwd_plain_ms"],
+        "bound_ms": bwd_bound[0],
+        "bound_by": bwd_bound[1], "library_ms": k["ctc_lib_fwd_bwd_ms"]}, {
+        "name": "flash_attn_fwd", "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/flash_attn_fwd.cu",
+        "symbol": "flash_attn_fwd_mma_kernel (bf16, timed here; fp32: "
+                  "flash_attn_fwd_kernel)",
+        "replaces": "openseq2seq_tpu/parts/transformer/attention.py:120",
+        "launches": launches["flash_attn_fwd"],
+        "max_abs_err": k["flash_err"],
+        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"]}] + [{
+        "name": "flash_attn_bwd_" + part, "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/flash_attn_bwd.cu",
+        "symbol": "flash_attn_bwd_{0}_mma_kernel (bf16, timed here; fp32: "
+                  "flash_attn_bwd_{0}_kernel)".format(part),
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
+                    + line + " (via openseq2seq_tpu/parts/transformer/"
+                    "attention.py:120)",
+        "launches": count, "max_abs_err": err,
+        "ms": flash_bwd[part + "_ms"], "plain_ms": flash_bwd["plain_ms"],
+        "bound_ms": flash_bwd[part + "_bound"][0],
+        "bound_by": flash_bwd[part + "_bound"][1],
+        "library_ms": flash_bwd["library_ms"]}
+        for part, line, count, err in (
+            ("dq", "1146", launches["flash_attn_bwd_dq"], k["dq_err"]),
+            ("dkv", "796", launches["flash_attn_bwd_dkv"],
+             k["dkv_err"]))] + [{
+        "name": "dropout_mask", "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/dropout_mask.cu",
+        "replaces": "openseq2seq_tpu/ops/dropout_pallas.py:92",
+        "launches": launches["dropout_mask"],
+        "max_abs_err": k["drop"]["max_abs_err"],
+        "ms": k["drop"]["ms"], "plain_ms": k["drop"]["plain_ms"],
+        "bound_ms": k["drop"]["bound"][0],
+        "bound_by": k["drop"]["bound"][1],
+        "library_ms": None}] + [{
+        "name": "{}_scan_{}".format(cell, way), "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/{}_scan_{}.cu".format(cell,
+                                                                    way),
+        "replaces": "openseq2seq_tpu/ops/{}_pallas.py:{}".format(cell, line),
+        "symbol": "rnn_scan::scan_{0}_mma_kernel (bf16, timed here; fp32: "
+                  "rnn_scan::scan_{0}_kernel)".format(way),
+        "launches": launches["{}_scan_{}".format(cell, way)],
+        "bound_reading": times[cell]["bound_reading"],
+        "max_abs_err": err[cell], "ms": times[cell]["ms"],
+        "plain_ms": times[cell]["plain_ms"],
+        "bound_ms": times[cell]["bound_ms"],
+        "bound_by": times[cell]["bound_by"],
+        "library_ms": times[cell]["library_ms"],
+        **{shape: {k: times[case][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "tiles_per_step", "us_per_step")}
+            for shape, case in ((("at_lm_shape", "lstm-lm"),
+                                 ("at_gnmt_shape", "gnmt"),
+                                 ("at_tacotron_shape", "tacotron"))
+                                if cell == "lstm" else
+                                (("at_gst_shape", "gst"),))}}
+        for cell, way, line, err, times in (
+            ("lstm", "fwd", 73, k["scan_err"], k["scan_times"]),
+            ("gru", "fwd", 64, k["scan_err"], k["scan_times"]),
+            ("lstm", "bwd", 173, k["scan_bwd_err"], k["scan_bwd_times"]),
+            ("gru", "bwd", 150, k["scan_bwd_err"],
+             k["scan_bwd_times"]))] + [{
+        "name": "flash_relpos_fwd", "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/flash_relpos_fwd.cu",
+        "replaces": "openseq2seq_tpu/ops/flash_relpos.py:70",
+        "launches": launches["flash_relpos_fwd"],
+        "max_abs_err": k["relpos_err"],
+        "ms": k["relpos_times"]["ms"],
+        "plain_ms": k["relpos_times"]["plain_ms"],
+        "bound_ms": k["relpos_times"]["bound_ms"],
+        "bound_by": k["relpos_times"]["bound_by"],
+        "library_ms": k["relpos_times"]["library_ms"],
+        "at_transducer_shape": transducer_shape_times(k["relpos_times"])}, {
+        "name": "conformer_conv_fwd", "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/conformer_conv_fwd.cu",
+        "replaces": "openseq2seq_tpu/ops/conformer_pallas.py:142",
+        "launches": launches["conformer_conv_fwd"],
+        "max_abs_err": k["conv_err"],
+        "bound_reading": k["conv_times"]["bound_reading"],
+        "ms": k["conv_times"]["ms"], "plain_ms": k["conv_times"]["plain_ms"],
+        "bound_ms": k["conv_times"]["bound_ms"],
+        "bound_by": k["conv_times"]["bound_by"], "library_ms": None,
+        "at_transducer_shape": transducer_shape_times(k["conv_times"])}] + [{
+        "name": "flash_relpos_bwd_" + part, "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/flash_relpos_bwd.cu",
+        "replaces": "openseq2seq_tpu/ops/flash_relpos.py:" + line,
+        "launches": count, "max_abs_err": err,
+        "ms": k["relpos_bwd_times"][part + "_ms"],
+        "plain_ms": k["relpos_bwd_times"]["plain_ms"],
+        "bound_ms": k["relpos_bwd_times"][part + "_bound"][0],
+        "bound_by": k["relpos_bwd_times"][part + "_bound"][1],
+        "library_ms": k["relpos_bwd_times"]["library_ms"],
+        "at_transducer_shape": transducer_shape_times(
+            k["relpos_bwd_times"], part)}
+        for part, line, count, err in (
+            ("dq", "218", launches["flash_relpos_bwd_dq"],
+             k["relpos_dq_err"]),
+            ("dkv", "167", launches["flash_relpos_bwd_dkv"],
+             k["relpos_dkv_err"]))] + [{
+        "name": "conformer_conv_bwd", "route": "cuda",
+        "source": "openseq2seq_tpu_torch/csrc/conformer_conv_bwd.cu",
+        "replaces": "openseq2seq_tpu/ops/conformer_pallas.py:158",
+        "launches": launches["conformer_conv_bwd"],
+        "max_abs_err": k["conv_bwd_err"],
+        "bound_reading": k["conv_bwd_times"]["bound_reading"],
+        "ms": k["conv_bwd_times"]["ms"],
+        "plain_ms": k["conv_bwd_times"]["plain_ms"],
+        "bound_ms": k["conv_bwd_times"]["bound_ms"],
+        "bound_by": k["conv_bwd_times"]["bound_by"], "library_ms": None,
+        "at_transducer_shape": transducer_shape_times(k["conv_bwd_times"])}]}),
+        flush=True)
+
+
+IMAGE_DIR = os.path.join(REPO, "example_configs_torch", "image2label")
+RESNET_TINY = os.path.join(IMAGE_DIR, "resnet_tiny_synthetic.py")
+RESNET50 = os.path.join(IMAGE_DIR, "resnet50_v2_synthetic.py")
+ALEXNET = os.path.join(IMAGE_DIR, "alexnet_owt_synthetic.py")
+CIFAR_NV = os.path.join(IMAGE_DIR, "cifar10_nv.py")
+RESNET_IMAGENET = os.path.join(IMAGE_DIR, "resnet50_v2_imagenet.py")
+RESNET_COMMANDS = os.path.join(IMAGE_DIR, "resnet_commands.py")
+JASPER_COMMANDS = os.path.join(REPO, "example_configs_torch", "speech2text",
+                               "jasper_speech_commands.py")
+# ResNet-50 v2 with its 1,000-way layer: the JAX model's count
+# (tests/test_torch_resnet.py holds it with jax.eval_shape)
+RESNET50_PARAMS = 25549352
+RESNET50_STEPS = 20
+# the CIFAR toy's epochs of 1,280 fake images (40 steps each) and its lr:
+# the recipe's 0.05 diverges on the fake set, in the JAX package too,
+# and loses its loss to spikes at 0.01 in both, on the CPU
+CIFAR_TOY_EPOCHS, CIFAR_TOY_LR = 5, 0.003
+CIFAR_TOY_TOP1 = 0.9
+
+
+def _tiny_image_params(encoder):
+    """The tiny ResNet config, or its CNN twin (conv, batch norm, pools,
+    dense; no dropout so that card and CPU draw nothing)."""
+    params = dict(runpy.run_path(RESNET_TINY)["base_params"])
+    if encoder == "cnn":
+        from openseq2seq_tpu_torch.encoders import CNNEncoder
+        params.update(encoder=CNNEncoder, encoder_params={
+            "cnn_layers": [
+                {"type": "conv2d", "filters": 8, "kernel_size": 3,
+                 "strides": 2, "activation": "relu"},
+                {"type": "batch_norm"},
+                {"type": "max_pool", "pool_size": 3, "strides": 2,
+                 "padding": "SAME"},
+                {"type": "avg_pool", "pool_size": 2, "padding": "SAME"}],
+            "fc_layers": [{"type": "dense", "units": 16,
+                           "activation": "relu"}]})
+    return params
+
+
+def phase_small_image():
+    """7zj: the tiny ResNet v2 and the tiny CNN, fp32, from one seed on the
+    card and on the CPU: three NovoGrad steps (losses, weights and the
+    running statistics) and the eval logits after them within rtol 1e-4,
+    atol 1e-5 (fp32 sums in another order, TF32 off)."""
+    import numpy as np
     import torch
+    from openseq2seq_tpu_torch.models import Image2Label
+    from openseq2seq_tpu_torch.models.model import to_device_batch
+    from openseq2seq_tpu_torch.training import trainer
+    for encoder in ("resnet", "cnn"):
+        got = {}
+        for device in ("cuda", "cpu"):
+            model = Image2Label(_tiny_image_params(encoder), mode="train",
+                                device=device)
+            state = trainer.restore_state(model)
+            batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+            losses = []
+            for _ in range(3):
+                state, metrics = model.train_step(state, batch)
+                losses.append(float(metrics["loss"]))
+            with torch.no_grad():
+                logits = state.module(to_device_batch(batch, device),
+                                      train=False)
+            got[device] = (losses, {
+                n: t.detach().float().cpu().numpy()
+                for n, t in state.module.state_dict().items()
+                if t.is_floating_point()},
+                logits["decoder_output"]["logits"].float().cpu().numpy())
+        (l_gpu, w_gpu, y_gpu), (l_cpu, w_cpu, y_cpu) = got["cuda"], \
+            got["cpu"]
+
+        def reading(a, b):
+            return float(np.max(np.abs(a - b) / (1e-5 + 1e-4 * np.abs(b))))
+        w_err = max(reading(w_gpu[n], w_cpu[n]) for n in w_cpu)
+        y_err = reading(y_gpu, y_cpu)
+        l_err = reading(np.array(l_gpu), np.array(l_cpu))
+        print("[image] tiny fp32 {}, three NovoGrad steps, card vs CPU: "
+              "losses {} vs {}; largest difference of the weights and "
+              "statistics {:.3f}, the eval logits {:.3f}, the losses {:.3f} "
+              "of the tolerance".format(encoder, ["{:.6f}".format(x)
+                                                  for x in l_gpu],
+                                        ["{:.6f}".format(x) for x in l_cpu],
+                                        w_err, y_err, l_err), flush=True)
+        check(max(w_err, y_err, l_err) <= 1.0,
+              "tiny {}: card and CPU disagree".format(encoder))
+        check(l_gpu[-1] < l_gpu[0], "tiny {}: loss did not fall {}".format(
+            encoder, l_gpu))
+
+
+def phase_resnet50(card):
+    """7zk: ResNet-50 v2 at ``scripts/bench_resnet.py``'s width
+    (``resnet50_v2_synthetic.py``: 224 x 224, batch 128, "mixed",
+    NovoGrad, 1,000 classes) through ``run.main --mode=train`` for
+    RESNET50_STEPS steps with the warm-up cut to 10 steps (5,000 in the
+    recipe, where 20 steps would move the weights by almost nothing): the
+    loss finite and falling on the repeated batch, the parameter count the
+    JAX model's, images/s, the peak device memory, the memorised batch's
+    top-1; then ``--mode=eval`` and ``--mode=infer`` from its
+    checkpoint."""
+    import numpy as np
+    import torch
+    from openseq2seq_tpu_torch.data.synthetic import SyntheticImageDataLayer
+    from openseq2seq_tpu_torch.models.model import to_device_batch
+    with tempfile.TemporaryDirectory() as logdir:
+        argv = ["--config_file=" + RESNET50, "--logdir=" + logdir]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        result, lines = _run_quiet(argv + [
+            "--mode=train", "--max_steps={}".format(RESNET50_STEPS),
+            "--lr_policy_params/warmup_steps=10"])
+        wall = time.time() - t0
+        peak = _peak_gib()
+        losses = _losses(lines)
+        module = result["state"].module
+        n_params = sum(p.numel() for p in module.parameters())
+        params = runpy.run_path(RESNET50)["base_params"]
+        batch = next(iter(SyntheticImageDataLayer(
+            dict(params["data_layer_params"], mode="train",
+                 batch_size=params["batch_size_per_gpu"]),
+            None).iterate_one_epoch()))
+        # with the batch's statistics: 20 steps at momentum 0.997 leave
+        # the running ones near their start
+        with torch.no_grad():
+            logits = module(to_device_batch(batch, "cuda"), train=True)[
+                "decoder_output"]["logits"]
+        top1 = float(np.mean(logits.float().argmax(-1).cpu().numpy() ==
+                             batch["target_tensors"][0]))
+        print("[resnet50] resnet50_v2_synthetic.py train, {} steps of 128 x "
+              "224 x 224 images, mixed: losses at the printed steps {}; {} "
+              "parameters (the JAX model's: {}); {:.1f} images/s over steps "
+              "11-{}; peak device memory {:.2f} GiB; top-1 of the memorised "
+              "batch (batch statistics) {:.4f}; {:.1f} s with the build ({})".format(
+                  result["steps"], losses, n_params, RESNET50_PARAMS,
+                  result["objects_per_sec"], result["steps"], peak, top1,
+                  wall, card), flush=True)
+        check(result["steps"] == RESNET50_STEPS, "trained {} steps".format(
+            result["steps"]))
+        check(len(losses) >= 2 and all(math.isfinite(x) for x in losses),
+              "losses not finite: {}".format(losses))
+        check(losses[-1] < losses[0], "loss did not fall: {}".format(losses))
+        check(n_params == RESNET50_PARAMS, "{} parameters".format(n_params))
+        del module, result
+        metrics, _ = _run_quiet(argv + ["--mode=eval"])
+        out = os.path.join(logdir, "infer.csv")
+        _run_quiet(argv + ["--mode=infer", "--infer_output_file=" + out])
+        with open(out, newline="") as f:
+            rows = list(csv.reader(f))
+        print("[resnet50] eval from the step-{} checkpoint: loss {:.4f}, "
+              "top-1 {:.4f}, top-5 {:.4f}; infer: {} rows of "
+              "sample_id,predicted_label".format(
+                  RESNET50_STEPS, metrics["eval_loss"], metrics["Eval top-1"],
+                  metrics["Eval top-5"], len(rows) - 1), flush=True)
+        check(math.isfinite(metrics["eval_loss"]), "eval loss")
+        check(rows[0] == ["sample_id", "predicted_label"] and
+              len(rows) == 1 + 128 and
+              all(0 <= int(r[1]) < 1000 for r in rows[1:]), "infer csv")
+        torch.cuda.synchronize()
+
+
+def phase_alexnet(card):
+    """7zl: AlexNet (one weird trick) at ``alexnet_owt.py``'s width on
+    synthetic 227 x 227 batches of 256, 12 steps: the loss finite,
+    images/s over steps 11-12, the peak device memory."""
+    import torch
+    with tempfile.TemporaryDirectory() as logdir:
+        torch.cuda.reset_peak_memory_stats()
+        result, lines = _run_quiet(["--config_file=" + ALEXNET,
+                                    "--logdir=" + logdir, "--mode=train",
+                                    "--max_steps=12"])
+        losses = _losses(lines)
+        n_params = sum(p.numel() for p in result["state"].module.parameters())
+        print("[alexnet] alexnet_owt_synthetic.py train, 12 steps of 256 x "
+              "227 x 227 images, mixed: losses at the printed steps {}; {} "
+              "parameters; {:.1f} images/s over steps 11-12; peak device "
+              "memory {:.2f} GiB ({})".format(
+                  losses, n_params, result["objects_per_sec"], _peak_gib(),
+                  card), flush=True)
+        check(result["steps"] == 12 and losses and
+              all(math.isfinite(x) for x in losses), "AlexNet training")
+
+
+def phase_cifar_toy(card):
+    """7zm: the CIFAR toy: ``cifar10_nv.py``'s network on a fake CIFAR-10
+    set (``test_utils/fake_cifar``: 1,280 training and 256 test images of
+    ten stripe classes) for CIFAR_TOY_EPOCHS epochs at lr CIFAR_TOY_LR,
+    then ``--mode=eval``: top-1 above 0.9, the JAX test's criterion."""
+    from openseq2seq_tpu_torch.test_utils import fake_cifar
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["CIFAR10_DIR"] = fake_cifar.generate(
+            os.path.join(tmp, "cifar"))
+        argv = ["--config_file=" + CIFAR_NV,
+                "--logdir=" + os.path.join(tmp, "logs")]
+        t0 = time.time()
+        result, lines = _run_quiet(argv + [
+            "--mode=train", "--num_epochs={}".format(CIFAR_TOY_EPOCHS),
+            "--optimizer_params/learning_rate={}".format(CIFAR_TOY_LR)])
+        losses = _losses(lines)
+        metrics, _ = _run_quiet(argv + ["--mode=eval"])
+        print("[cifar toy] cifar10_nv.py on fake_cifar, {} steps at lr {} "
+              "in {:.1f} s: losses {}; eval top-1 {:.4f}, top-5 {:.4f} "
+              "(above {} required)".format(
+                  result["steps"], CIFAR_TOY_LR, time.time() - t0, losses,
+                  metrics["Eval top-1"], metrics["Eval top-5"],
+                  CIFAR_TOY_TOP1), flush=True)
+        check(metrics["Eval top-1"] > CIFAR_TOY_TOP1, "CIFAR toy top-1")
+        del os.environ["CIFAR10_DIR"]
+
+
+def phase_speech_commands(card):
+    """7zn: ``jasper_speech_commands.py`` (TDNN, flattened into the
+    ``FullyConnectedDecoder``) and ``resnet_commands.py`` (ResNet-50 on
+    128 x 128 log-mel images) at full width on labelled tone clips
+    (``test_utils/fake_speech_commands``: 8 labels, 64 training and 32
+    test clips): a few steps each (4 and 6), the losses finite, then
+    ``--mode=eval`` from the checkpoint."""
+    from openseq2seq_tpu_torch.test_utils import fake_speech_commands
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["SPEECH_COMMANDS_DIR"] = fake_speech_commands.generate(
+            os.path.join(tmp, "sc"), num_labels=8)
+        os.environ["SC_NUM_LABELS"] = "8"
+        for path, epochs, steps in ((JASPER_COMMANDS, 4, 4),
+                                    (RESNET_COMMANDS, 3, 6)):
+            argv = ["--config_file=" + path,
+                    "--logdir=" + os.path.join(tmp, os.path.basename(path))]
+            t0 = time.time()
+            result, lines = _run_quiet(argv + [
+                "--mode=train", "--num_epochs={}".format(epochs),
+                "--print_loss_steps=1"])
+            losses = _losses(lines)
+            metrics, _ = _run_quiet(argv + ["--mode=eval"])
+            print("[speech commands] {}: {} steps in {:.1f} s, losses {}; "
+                  "eval over 32 clips: top-1 {:.4f}, loss {:.4f}".format(
+                      os.path.basename(path), result["steps"],
+                      time.time() - t0, losses, metrics["Eval top-1"],
+                      metrics["eval_loss"]), flush=True)
+            check(result["steps"] == steps and len(losses) == steps and
+                  all(math.isfinite(x) for x in losses) and
+                  math.isfinite(metrics["eval_loss"]),
+                  "speech commands: {}".format(path))
+        del os.environ["SPEECH_COMMANDS_DIR"], os.environ["SC_NUM_LABELS"]
+
+
+def phase_imagenet_layers(card):
+    """7zo: the ImageNet data layers from files, where Pillow is present:
+    ``resnet50_v2_imagenet.py`` on a fake class-per-directory JPEG tree
+    (``test_utils/fake_imagenet``: 4 classes, 3 images each a split) for
+    one step and eval, and ``ImagenetTFRecordDataLayer`` on the same
+    images as a TFRecord shard: its eval batch equal to the JPEG layer's.
+    Returns whether Pillow was there."""
+    import importlib.util
+    import numpy as np
+    if importlib.util.find_spec("PIL") is None:
+        print("[imagenet] Pillow is not installed here: the JPEG and "
+              "TFRecord ImageNet layers are held on the CPU only "
+              "(tests/test_torch_image_data.py)", flush=True)
+        return False
+    from openseq2seq_tpu_torch.data.image2label import (
+        ImagenetDataLayer, ImagenetTFRecordDataLayer)
+    from openseq2seq_tpu_torch.test_utils import fake_imagenet
+    with tempfile.TemporaryDirectory() as tmp:
+        data = fake_imagenet.generate(os.path.join(tmp, "imagenet"))
+        os.environ["IMAGENET_DIR"] = data
+        argv = ["--config_file=" + RESNET_IMAGENET,
+                "--logdir=" + os.path.join(tmp, "logs")]
+        result, lines = _run_quiet(argv + ["--mode=train", "--num_epochs=1",
+                                           "--print_loss_steps=1"])
+        metrics, _ = _run_quiet(argv + ["--mode=eval"])
+        del os.environ["IMAGENET_DIR"]
+        params = {"mode": "eval", "data_dir": data, "batch_size": 8,
+                  "image_size": 224}
+        batches = [next(iter(cls(dict(params), None).iterate_one_epoch()))
+                   for cls in (ImagenetDataLayer, ImagenetTFRecordDataLayer)]
+        same = all(np.array_equal(batches[0][k][0], batches[1][k][0])
+                   for k in ("source_tensors", "target_tensors"))
+        print("[imagenet] resnet50_v2_imagenet.py on a fake JPEG tree: {} "
+              "step, losses {}; eval top-1 {:.4f}, loss {:.4f}; the TFRecord "
+              "layer's eval batch equal to the JPEG layer's: {}".format(
+                  result["steps"], _losses(lines), metrics["Eval top-1"],
+                  metrics["eval_loss"], same), flush=True)
+        check(result["steps"] == 1 and len(_losses(lines)) == 1 and
+              math.isfinite(metrics["eval_loss"]) and same,
+              "ImageNet layers from files")
+    return True
+
+
+def phase_image_family(card):
+    """7zj to 7zo."""
+    timed(phase_small_image)
+    for phase in (phase_resnet50, phase_alexnet, phase_cifar_toy,
+                  phase_speech_commands, phase_imagenet_layers):
+        timed(phase, card)
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its seconds printed on a line of their own."""
+    t0 = time.time()
+    result = phase(*args)
+    print("[time] phase {}: {:.1f} s".format(phase.__name__,
+                                             time.time() - t0), flush=True)
+    return result
+
+
+GROUPS = ("kernels", "speech", "nmt", "rnn", "conformer", "lm", "tts",
+          "transducer", "image")
+
+
+def group_kernels(card):
+    """Phases 3 to 4j: every kernel against its plain version, and the
+    library calls; returns what the kernels line reports of each."""
+    k = {}
+    k["fwd_err"], (k["fwd_ms"], k["fwd_plain_ms"]) = timed(phase_kernel,
+                                                            card)
+    k["bwd_err"], (k["bwd_ms"], k["bwd_plain_ms"], _, _) = \
+        timed(phase_backward, card)
+    k["ctc_lib_fwd_ms"], k["ctc_lib_fwd_bwd_ms"] = timed(phase_ctc_library,
+                                                         card)
+    k["flash_err"], k["flash_times"] = timed(phase_flash, card)
+    k["dq_err"], k["dkv_err"], k["flash_bwd_times"] = timed(
+        phase_flash_bwd, card)
+    k["drop"] = timed(phase_dropout, card)
+    k["scan_err"], k["scan_times"] = timed(phase_scan, card)
+    k["scan_bwd_err"], k["scan_bwd_times"] = timed(phase_scan_bwd, card)
+    k["relpos_err"], k["relpos_times"] = timed(phase_relpos, card)
+    k["conv_err"], k["conv_times"] = timed(phase_conformer_conv, card)
+    (k["relpos_dq_err"], k["relpos_dkv_err"],
+     k["relpos_bwd_times"]) = timed(phase_relpos_bwd, card)
+    k["conv_bwd_err"], k["conv_bwd_times"] = timed(
+        phase_conformer_conv_bwd, card)
+    return k
+
+
+def group_speech(card, launches):
+    """Phases 5 to 7 and 7r, 7s: Jasper-10x5 eval, infer and training on
+    synthetic batches, then from wav files, and the w2lplus toy."""
+    config = runpy.run_path(CONFIG)
+    timed(phase_small_reference, config)
+    launches["ctc_alpha_fwd"] += timed(phase_slice, config, card)
+    train_fwd, train_bwd, synthetic_utt_s = timed(phase_train, card)
+    wav_fwd, wav_bwd = timed(phase_librispeech, card, synthetic_utt_s)
+    launches["ctc_alpha_fwd"] += train_fwd + wav_fwd
+    launches["ctc_beta_bwd"] += train_bwd + wav_bwd
+    timed(phase_w2lplus_toy, card)
+
+
+def group_nmt(card, launches):
+    """Phases 7a to 7e and 7u to 7x: transformer-big eval, infer and
+    training, the reversal toys and the WMT-shaped recipes from text."""
+    timed(phase_small_transformer)
+    launches["flash_attn_fwd"] += timed(phase_transformer, card)
+    timed(phase_small_transformer_train)
+    fwd, dq, dkv, drop = timed(phase_transformer_train, card)
+    wmt_flash, gnmt_scan = timed(phase_nmt_text, card)
+    launches["flash_attn_fwd"] += fwd + wmt_flash[0]
+    launches["flash_attn_bwd_dq"] += dq + wmt_flash[1]
+    launches["flash_attn_bwd_dkv"] += dkv + wmt_flash[2]
+    launches["dropout_mask"] += drop
+    launches["lstm_scan_fwd"] += gnmt_scan[0]
+    launches["lstm_scan_bwd"] += gnmt_scan[1]
+
+
+def group_rnn(card, launches):
+    """Phases 7f to 7k and the DS2 toy (7t): DeepSpeech2-medium and
+    lstm_small eval, infer and training."""
+    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
+    timed(phase_small_ds2)
+    gru, ds2_ctc = timed(phase_rnn_model, DS2_MEDIUM, "ds2", gru_scan, 6,
+                         card)
+    lstm, lstm_ctc = timed(phase_rnn_model, LSTM_SMALL, "lstm_small",
+                           lstm_scan, 8, card)
+    timed(phase_small_ds2_train)
+    ds2 = timed(phase_rnn_train, DS2_MEDIUM, "ds2 train", gru_scan, 6, card)
+    small = timed(phase_rnn_train, LSTM_SMALL, "lstm_small train",
+                  lstm_scan, 8, card)
+    toy = timed(phase_toy, DS2_TOY, "ds2_toy_config", gru_scan, 2, card)
+    launches["gru_scan_fwd"] += gru + ds2[0] + toy[0]
+    launches["gru_scan_bwd"] += ds2[1] + toy[1]
+    launches["lstm_scan_fwd"] += lstm + small[0]
+    launches["lstm_scan_bwd"] += small[1]
+    launches["ctc_alpha_fwd"] += ds2_ctc + lstm_ctc + ds2[2] + small[2]
+    launches["ctc_beta_bwd"] += ds2[3] + small[3]
+
+
+def group_conformer(card, launches):
+    """Phases 7l to 7n and the Conformer toy (7t): Conformer-M eval,
+    infer and training."""
+    timed(phase_small_conformer)
+    relpos, conv = timed(phase_conformer, card)
+    timed(phase_small_conformer_train)
+    c = timed(phase_conformer_train, card)
+    timed(phase_toy, CONFORMER_TOY, "conformer_toy", None, 0, card)
+    launches["flash_relpos_fwd"] += relpos + c[0]
+    launches["flash_relpos_bwd_dq"] += c[1]
+    launches["flash_relpos_bwd_dkv"] += c[2]
+    launches["conformer_conv_fwd"] += conv + c[3]
+    launches["conformer_conv_bwd"] += c[4]
+    launches["ctc_alpha_fwd"] += c[5]
+    launches["ctc_beta_bwd"] += c[6]
+
+
+def group_lm(card, launches):
+    """Phases 7o to 7q and 7zf to 7zi: the LSTM LM on synthetic tracks,
+    then the language-model family from text."""
+    timed(phase_small_lm)
+    lm = timed(phase_lm, card)
+    lm_train = timed(phase_lm_train, card)
+    lm_fwd, lm_bwd = timed(phase_lm_family, card)
+    launches["lstm_scan_fwd"] += lm + lm_train[0] + lm_fwd
+    launches["lstm_scan_bwd"] += lm_train[1] + lm_bwd
+
+
+def group_tts(card, launches):
+    """Phases 7y to 7za: Tacotron-2, its GST variant and the TTS toy."""
+    (lstm_fwd, lstm_bwd), (gru_fwd, gru_bwd) = timed(phase_tts, card)
+    launches["lstm_scan_fwd"] += lstm_fwd
+    launches["lstm_scan_bwd"] += lstm_bwd
+    launches["gru_scan_fwd"] += gru_fwd
+    launches["gru_scan_bwd"] += gru_bwd
+
+
+def group_transducer(card, launches):
+    """Phases 7zb to 7ze: the Conformer-Transducer."""
+    r = timed(phase_transducers, card)
+    for i, name in enumerate(("flash_relpos_fwd", "flash_relpos_bwd_dq",
+                              "flash_relpos_bwd_dkv", "conformer_conv_fwd",
+                              "conformer_conv_bwd")):
+        launches[name] += r[i]
+
+
+def group_image(card, launches):
+    """Phases 7zj to 7zo: image classification and speech commands (no
+    kernel: the JAX family reaches no ``pallas_call``)."""
+    timed(phase_image_family, card)
+
+
+KERNEL_NAMES = ("ctc_alpha_fwd", "ctc_beta_bwd", "flash_attn_fwd",
+                "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "dropout_mask",
+                "lstm_scan_fwd", "gru_scan_fwd", "lstm_scan_bwd",
+                "gru_scan_bwd", "flash_relpos_fwd", "conformer_conv_fwd",
+                "flash_relpos_bwd_dq", "flash_relpos_bwd_dkv",
+                "conformer_conv_bwd")
+
+
+def main():
+    import argparse
+    import torch
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--group", choices=GROUPS, default=None,
+                        help="run one phase group (default: all of them)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
                          "a GPU only")
     sys.path.insert(0, REPO)
     from openseq2seq_tpu_torch.kernels import build
+    t_start = time.time()
 
     # 1. environment
     card = subprocess.run(
@@ -5760,195 +6382,31 @@ def main():
     check_relpos_spills([lib.with_suffix(".log").read_text()
                          for name, lib in zip(names, libs)
                          if name.startswith("flash_relpos")])
+    seconds = {"build": time.time() - t0}
 
-    # 3-4. kernels against their plain versions, and the library calls
-    fwd_err, (fwd_ms, fwd_plain_ms) = phase_kernel(card)
-    bwd_err, (bwd_ms, bwd_plain_ms, _, _) = phase_backward(card)
-    ctc_lib_fwd_ms, ctc_lib_fwd_bwd_ms = phase_ctc_library(card)
-    flash_err, flash_times = phase_flash(card)
-    dq_err, dkv_err, flash_bwd_times = phase_flash_bwd(card)
-    drop = phase_dropout(card)
-    scan_err, scan_times = phase_scan(card)
-    scan_bwd_err, scan_bwd_times = phase_scan_bwd(card)
-    relpos_err, relpos_times = phase_relpos(card)
-    conv_err, conv_times = phase_conformer_conv(card)
-    relpos_dq_err, relpos_dkv_err, relpos_bwd_times = phase_relpos_bwd(card)
-    conv_bwd_err, conv_bwd_times = phase_conformer_conv_bwd(card)
-
-    # 5-7. the paths, each with its launch counts set to 0 just before
-    config = runpy.run_path(CONFIG)
-    phase_small_reference(config)
-    eval_launches = phase_slice(config, card)
-    train_fwd, train_bwd, synthetic_utt_s = phase_train(card)
-    phase_small_transformer()
-    flash_launches = phase_transformer(card)
-    phase_small_transformer_train()
-    nmt_fwd, nmt_dq, nmt_dkv, nmt_drop = phase_transformer_train(card)
-    phase_small_ds2()
-    from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
-    gru_launches, ds2_ctc = phase_rnn_model(DS2_MEDIUM, "ds2", gru_scan, 6,
-                                            card)
-    lstm_launches, lstm_ctc = phase_rnn_model(LSTM_SMALL, "lstm_small",
-                                              lstm_scan, 8, card)
-    phase_small_ds2_train()
-    ds2_train = phase_rnn_train(DS2_MEDIUM, "ds2 train", gru_scan, 6, card)
-    lstm_train = phase_rnn_train(LSTM_SMALL, "lstm_small train", lstm_scan,
-                                 8, card)
-    scan_launches = {"gru": (gru_launches + ds2_train[0], ds2_train[1]),
-                     "lstm": (lstm_launches + lstm_train[0], lstm_train[1])}
-    phase_small_conformer()
-    relpos_launches, conv_launches = phase_conformer(card)
-    phase_small_conformer_train()
-    conf_train = phase_conformer_train(card)
-    phase_small_lm()
-    lm_launches = phase_lm(card)
-    lm_train = phase_lm_train(card)
-    scan_launches["lstm"] = (scan_launches["lstm"][0] + lm_launches +
-                             lm_train[0], scan_launches["lstm"][1] +
-                             lm_train[1])
-    wav_fwd, wav_bwd = phase_librispeech(card, synthetic_utt_s)
-    phase_w2lplus_toy(card)
-    ds2_toy = phase_toy(DS2_TOY, "ds2_toy_config", gru_scan, 2, card)
-    phase_toy(CONFORMER_TOY, "conformer_toy", None, 0, card)
-    scan_launches["gru"] = (scan_launches["gru"][0] + ds2_toy[0],
-                            scan_launches["gru"][1] + ds2_toy[1])
-    wmt_flash, gnmt_scan = phase_nmt_text(card)
-    nmt_fwd, nmt_dq, nmt_dkv = (a + b for a, b in zip(
-        (nmt_fwd, nmt_dq, nmt_dkv), wmt_flash))
-    scan_launches["lstm"] = (scan_launches["lstm"][0] + gnmt_scan[0],
-                             scan_launches["lstm"][1] + gnmt_scan[1])
-    tts_lstm, tts_gru = phase_tts(card)
-    for cell, (fwd, bwd) in (("lstm", tts_lstm), ("gru", tts_gru)):
-        scan_launches[cell] = (scan_launches[cell][0] + fwd,
-                               scan_launches[cell][1] + bwd)
-    rnnt = phase_transducers(card)
-    lm_fwd, lm_bwd = phase_lm_family(card)
-    scan_launches["lstm"] = (scan_launches["lstm"][0] + lm_fwd,
-                             scan_launches["lstm"][1] + lm_bwd)
-
-    # 8. result
-    fwd_bound = ctc_bound_ms(32, 500, 160, 29, 500, backward=False)
-    bwd_bound = ctc_bound_ms(32, 500, 160, 29, 501, backward=True)
-    flash = flash_times["encoder"]
-    flash_bwd = flash_bwd_times["encoder"]
-    print(json.dumps({"kernels": [{
-        "name": "ctc_alpha_fwd", "route": "cuda",
-        "source": "openseq2seq_tpu_torch/csrc/ctc_alpha_fwd.cu",
-        "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:65",
-        "launches": eval_launches + train_fwd + ds2_ctc + lstm_ctc +
-        ds2_train[2] + lstm_train[2] + conf_train[5] + wav_fwd,
-        "max_abs_err": fwd_err,
-        "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound[0],
-        "bound_by": fwd_bound[1], "library_ms": ctc_lib_fwd_ms}, {
-        "name": "ctc_beta_bwd", "route": "cuda",
-        "source": "openseq2seq_tpu_torch/csrc/ctc_beta_bwd.cu",
-        "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:140",
-        "launches": train_bwd + ds2_train[3] + lstm_train[3] +
-        conf_train[6] + wav_bwd,
-        "max_abs_err": bwd_err,
-        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0],
-        "bound_by": bwd_bound[1], "library_ms": ctc_lib_fwd_bwd_ms}, {
-        "name": "flash_attn_fwd", "route": "cuda",
-        "source": "openseq2seq_tpu_torch/csrc/flash_attn_fwd.cu",
-        "symbol": "flash_attn_fwd_mma_kernel (bf16, timed here; fp32: "
-                  "flash_attn_fwd_kernel)",
-        "replaces": "openseq2seq_tpu/parts/transformer/attention.py:120",
-        "launches": flash_launches + nmt_fwd, "max_abs_err": flash_err,
-        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
-        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
-        "library_ms": flash["library_ms"]}] + [{
-        "name": "flash_attn_bwd_" + part, "route": "cuda",
-        "source": "openseq2seq_tpu_torch/csrc/flash_attn_bwd.cu",
-        "symbol": "flash_attn_bwd_{0}_mma_kernel (bf16, timed here; fp32: "
-                  "flash_attn_bwd_{0}_kernel)".format(part),
-        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
-                    + line + " (via openseq2seq_tpu/parts/transformer/"
-                    "attention.py:120)",
-        "launches": launches, "max_abs_err": err,
-        "ms": flash_bwd[part + "_ms"], "plain_ms": flash_bwd["plain_ms"],
-        "bound_ms": flash_bwd[part + "_bound"][0],
-        "bound_by": flash_bwd[part + "_bound"][1],
-        "library_ms": flash_bwd["library_ms"]}
-        for part, line, launches, err in (
-            ("dq", "1146", nmt_dq, dq_err),
-            ("dkv", "796", nmt_dkv, dkv_err))] + [{
-        "name": "dropout_mask", "route": "cuda",
-        "source": "openseq2seq_tpu_torch/csrc/dropout_mask.cu",
-        "replaces": "openseq2seq_tpu/ops/dropout_pallas.py:92",
-        "launches": nmt_drop, "max_abs_err": drop["max_abs_err"],
-        "ms": drop["ms"], "plain_ms": drop["plain_ms"],
-        "bound_ms": drop["bound"][0], "bound_by": drop["bound"][1],
-        "library_ms": None}] + [{
-        "name": "{}_scan_{}".format(cell, way), "route": "cuda",
-        "source": "openseq2seq_tpu_torch/csrc/{}_scan_{}.cu".format(cell,
-                                                                    way),
-        "replaces": "openseq2seq_tpu/ops/{}_pallas.py:{}".format(cell, line),
-        "symbol": "rnn_scan::scan_{0}_mma_kernel (bf16, timed here; fp32: "
-                  "rnn_scan::scan_{0}_kernel)".format(way),
-        "launches": scan_launches[cell][way == "bwd"],
-        "bound_reading": times[cell]["bound_reading"],
-        "max_abs_err": err[cell], "ms": times[cell]["ms"],
-        "plain_ms": times[cell]["plain_ms"],
-        "bound_ms": times[cell]["bound_ms"],
-        "bound_by": times[cell]["bound_by"],
-        "library_ms": times[cell]["library_ms"],
-        **{shape: {k: times[case][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "tiles_per_step", "us_per_step")}
-            for shape, case in ((("at_lm_shape", "lstm-lm"),
-                                 ("at_gnmt_shape", "gnmt"),
-                                 ("at_tacotron_shape", "tacotron"))
-                                if cell == "lstm" else
-                                (("at_gst_shape", "gst"),))}}
-        for cell, way, line, err, times in (
-            ("lstm", "fwd", 73, scan_err, scan_times),
-            ("gru", "fwd", 64, scan_err, scan_times),
-            ("lstm", "bwd", 173, scan_bwd_err, scan_bwd_times),
-            ("gru", "bwd", 150, scan_bwd_err, scan_bwd_times))] + [{
-        "name": "flash_relpos_fwd", "route": "cuda",
-        "source": "openseq2seq_tpu_torch/csrc/flash_relpos_fwd.cu",
-        "replaces": "openseq2seq_tpu/ops/flash_relpos.py:70",
-        "launches": relpos_launches + conf_train[0] + rnnt[0],
-        "max_abs_err": relpos_err,
-        "ms": relpos_times["ms"], "plain_ms": relpos_times["plain_ms"],
-        "bound_ms": relpos_times["bound_ms"],
-        "bound_by": relpos_times["bound_by"],
-        "library_ms": relpos_times["library_ms"],
-        "at_transducer_shape": transducer_shape_times(relpos_times)}, {
-        "name": "conformer_conv_fwd", "route": "cuda",
-        "source": "openseq2seq_tpu_torch/csrc/conformer_conv_fwd.cu",
-        "replaces": "openseq2seq_tpu/ops/conformer_pallas.py:142",
-        "launches": conv_launches + conf_train[3] + rnnt[3],
-        "max_abs_err": conv_err,
-        "bound_reading": conv_times["bound_reading"],
-        "ms": conv_times["ms"], "plain_ms": conv_times["plain_ms"],
-        "bound_ms": conv_times["bound_ms"],
-        "bound_by": conv_times["bound_by"], "library_ms": None,
-        "at_transducer_shape": transducer_shape_times(conv_times)}] + [{
-        "name": "flash_relpos_bwd_" + part, "route": "cuda",
-        "source": "openseq2seq_tpu_torch/csrc/flash_relpos_bwd.cu",
-        "replaces": "openseq2seq_tpu/ops/flash_relpos.py:" + line,
-        "launches": launches, "max_abs_err": err,
-        "ms": relpos_bwd_times[part + "_ms"],
-        "plain_ms": relpos_bwd_times["plain_ms"],
-        "bound_ms": relpos_bwd_times[part + "_bound"][0],
-        "bound_by": relpos_bwd_times[part + "_bound"][1],
-        "library_ms": relpos_bwd_times["library_ms"],
-        "at_transducer_shape": transducer_shape_times(relpos_bwd_times,
-                                                      part)}
-        for part, line, launches, err in (
-            ("dq", "218", conf_train[1] + rnnt[1], relpos_dq_err),
-            ("dkv", "167", conf_train[2] + rnnt[2], relpos_dkv_err))] + [{
-        "name": "conformer_conv_bwd", "route": "cuda",
-        "source": "openseq2seq_tpu_torch/csrc/conformer_conv_bwd.cu",
-        "replaces": "openseq2seq_tpu/ops/conformer_pallas.py:158",
-        "launches": conf_train[4] + rnnt[4], "max_abs_err": conv_bwd_err,
-        "bound_reading": conv_bwd_times["bound_reading"],
-        "ms": conv_bwd_times["ms"], "plain_ms": conv_bwd_times["plain_ms"],
-        "bound_ms": conv_bwd_times["bound_ms"],
-        "bound_by": conv_bwd_times["bound_by"], "library_ms": None,
-        "at_transducer_shape": transducer_shape_times(conv_bwd_times)}]}),
-        flush=True)
+    # 3-7. the groups; each path with its launch counts set to 0 just
+    # before it and read just after
+    groups = GROUPS if args.group is None else (args.group,)
+    launches = {name: 0 for name in KERNEL_NAMES}
+    k = None
+    for group in groups:
+        t0 = time.time()
+        if group == "kernels":
+            k = group_kernels(card)
+        else:
+            globals()["group_" + group](card, launches)
+        seconds[group] = time.time() - t0
+        print("[time] group {}: {:.1f} s".format(group, seconds[group]),
+              flush=True)
+    seconds["total"] = time.time() - t_start
+    print("[time] {} in {:.1f} s (build {:.1f} s)".format(
+        "every group" if args.group is None else "group " + args.group,
+        seconds["total"], seconds["build"]), flush=True)
+    if args.group is not None:
+        print(json.dumps({"group": args.group, "launches": launches,
+                          "seconds": seconds}), flush=True)
+    else:
+        print_kernels_line(k, launches)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

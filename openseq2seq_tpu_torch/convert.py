@@ -47,6 +47,13 @@ such as the TDNN encoder), and returns the ``state_dict`` for
 These rules go by module and leaf name, never by a kernel's rank: a
 ``DenseGeneral`` kernel is 3-D like a conv kernel, and the layouts differ.
 
+The image models need no rule of their own: the ResNet's convs
+(``init_conv``, ``block{i}_{j}/proj``, ``conv1`` to ``conv3``, no bias),
+the CNN encoder's ``conv2d_{i}`` and ``dense_{i}`` and the classification
+decoder's ``fully_connected`` are conv and dense kernels (flax (kh, kw,
+in, out) -> torch (out, in, kh, kw); (in, out) -> (out, in)), and their
+batch norms are bare flax ``BatchNorm`` modules (below).
+
 The flax ``_Norm`` wrapper's inner ``BatchNorm_0`` folds into the torch
 norm module, so ``enc/net/norm1_1/BatchNorm_0/scale`` becomes
 ``enc.net.norm1_1.weight``; so does the transformer's ``TransformerNorm``
@@ -55,7 +62,9 @@ with its inner ``LayerNorm_0`` (``enc/sa_norms_0/LayerNorm_0/scale`` ->
 -> ``ffn1.weight``). The DeepSpeech2 encoder's batch norms
 (``conv1_bn``, named ``*_bn``) are flax's ``BatchNorm`` itself, with no
 inner module, and so are the Tacotron-2 encoder's, GST's and postnet's
-(``bn{i}``, ``ref_bn{i}``, ``postnet_bn{i}``) and the Conformer block's
+(``bn{i}``, ``ref_bn{i}``, ``postnet_bn{i}``), the ResNet's (``init_bn``,
+``preact_bn``, ``proj_bn``, ``bn{i}``, ``final_bn``), the CNN encoder's
+(``batch_norm_{i}``) and the Conformer block's
 layer norms (``attn_ln``, ``final_ln``, named ``*_ln``) and
 Transformer-XL's (``layer{i}_ln1``, ``layer{i}_ln2``).
 
@@ -133,9 +142,12 @@ def _kept(leaf: str) -> bool:
 
 
 # flax BatchNorm modules with no inner ``BatchNorm_0``: the DS2 encoder's
-# ``conv{i}_bn``, the Tacotron encoder's ``bn{i}``, GST's ``ref_bn{i}`` and
-# the postnet's ``postnet_bn{i}``
-_BARE_BN = re.compile(r".*_bn|(ref_|postnet_)?bn[0-9]+")
+# ``conv{i}_bn``, the Tacotron encoder's ``bn{i}``, GST's ``ref_bn{i}``, the
+# postnet's ``postnet_bn{i}``, the ResNet's ``init_bn``, ``preact_bn``,
+# ``proj_bn``, ``bn{i}``, ``final_bn`` and the CNN encoder's
+# ``batch_norm_{i}`` (``bn_{i}``)
+_BARE_BN = re.compile(
+    r".*_bn|(ref_|postnet_)?bn[0-9]+|(batch_norm|bn)_[0-9]+")
 
 
 def _module_key(path: Tuple[str, ...]) -> str:

@@ -1,4 +1,5 @@
 from .data_layer import DataLayer
-from .synthetic import (SyntheticLMDataLayer, SyntheticSpeechDataLayer,
+from .synthetic import (SyntheticImageDataLayer, SyntheticLMDataLayer,
+                        SyntheticSpeechDataLayer,
                         SyntheticTextDataLayer,
                         SyntheticTTSDataLayer)

@@ -1,6 +1,7 @@
 """Synthetic fixed-shape data layers (the port's copy of
 ``SyntheticSpeechDataLayer``, ``SyntheticTextDataLayer``,
-``SyntheticLMDataLayer`` and ``SyntheticTTSDataLayer`` from
+``SyntheticLMDataLayer``, ``SyntheticTTSDataLayer`` and
+``SyntheticImageDataLayer`` from
 ``openseq2seq_tpu/data/synthetic.py``,
 unchanged in behaviour: the same seeds give the same batches, so the port
 and the JAX package see the same data).
@@ -258,3 +259,45 @@ class SyntheticTTSDataLayer(DataLayer):
     def decode_ids(self, ids):
         return " ".join(str(int(i)) for i in np.asarray(ids).tolist()
                         if int(i) >= 0)
+
+
+class SyntheticImageDataLayer(DataLayer):
+    """Random (image, label) batches with constant shapes, (B, S, S, 3)
+    fp32 images and (B,) labels, for the image models at full width."""
+
+    @staticmethod
+    def get_required_params():
+        return dict(DataLayer.get_required_params(), **{
+            "num_classes": int,
+        })
+
+    @staticmethod
+    def get_optional_params():
+        return dict(DataLayer.get_optional_params(), **{
+            "image_size": int,
+            "num_batches": int,
+        })
+
+    def __init__(self, params, model, num_workers=1, worker_id=0):
+        super().__init__(params, model, num_workers, worker_id)
+        p = self._params
+        p.setdefault("image_size", 224)
+        p.setdefault("num_batches", 100)
+        p.setdefault("batch_size", 32)
+
+    def get_size_in_samples(self) -> int:
+        return self._params["num_batches"] * self._params["batch_size"]
+
+    def iterate_one_epoch(self) -> Iterator[Dict[str, Any]]:
+        p = self._params
+        B, S, C = p["batch_size"], p["image_size"], p["num_classes"]
+        rng = np.random.RandomState(
+            1 if self._params.get("mode") == "train" else 2)
+        x = rng.randn(B, S, S, 3).astype(np.float32)
+        y = rng.randint(0, C, size=(B,)).astype(np.int32)
+        batch = {"source_tensors": [x],
+                 "target_tensors": [y],
+                 "source_ids": np.arange(B, dtype=np.int32),
+                 "batch_valid": np.int32(B)}
+        for _ in range(p["num_batches"]):
+            yield batch

@@ -1,5 +1,6 @@
 from .decoder import Decoder
-from .fc_decoders import FullyConnectedTimeDecoder, FullyConnectedCTCDecoder
+from .fc_decoders import (FullyConnectedCTCDecoder, FullyConnectedDecoder,
+                          FullyConnectedSCDecoder, FullyConnectedTimeDecoder)
 from .lm_decoders import FakeDecoder
 from .transformer_decoder import TransformerDecoder
 from .rnn_decoders import (BeamSearchRNNDecoderWithAttention,

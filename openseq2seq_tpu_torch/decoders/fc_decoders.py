@@ -1,6 +1,10 @@
-"""Fully-connected time decoders (port of
+"""Fully-connected decoders (port of
 ``openseq2seq_tpu/decoders/fc_decoders.py``).
 
+  * :class:`FullyConnectedDecoder` — one dense layer for classification
+    over the flattened encoder outputs; :class:`FullyConnectedSCDecoder`,
+    the speech-commands variant, first averages a (B, T, C) output over
+    its valid frames;
   * :class:`FullyConnectedTimeDecoder` — per-frame dense projection to
     vocabulary logits, batch-major (B, T, V).
   * :class:`FullyConnectedCTCDecoder` — adds greedy CTC decoding outside
@@ -18,15 +22,16 @@ from typing import Any, Dict
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from .decoder import Decoder
 from ..ops.ctc import ctc_greedy_decode
 from ..parts.initializers import resolve_initializer
+from ..parts.transformer.common import dense
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: y = x W + b in ``dtype``, W stored (out, in);
+    """flax ``nn.Dense``: y = x W + b in ``dtype``, rounded as flax
+    rounds it (``parts/transformer/common.dense``), W stored (out, in);
     no b with ``use_bias`` False."""
 
     def __init__(self, in_features: int, out_features: int,
@@ -40,9 +45,9 @@ class Dense(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        None if self.bias is None
-                        else self.bias.to(self.dtype))
+        return dense(x.to(self.dtype), self.weight.to(self.dtype),
+                     None if self.bias is None
+                     else self.bias.to(self.dtype))
 
 
 class FCTimeDecoderModule(nn.Module):
@@ -116,3 +121,76 @@ class FullyConnectedCTCDecoder(FullyConnectedTimeDecoder):
                     generator: torch.Generator) -> FCTimeDecoderModule:
         return FCTimeDecoderModule(self._dense(in_features, generator),
                                    greedy_ctc=True)
+
+
+class FCDecoderModule(nn.Module):
+    """One dense layer, ``fully_connected``, over the encoder's outputs
+    flattened past the batch axis; with ``masked_mean`` a (B, T, C) output
+    with ``src_length`` is first averaged over its valid frames. Logits in
+    the compute dtype (``fp32_logits`` False, as ``FullyConnectedDecoder``)
+    or fp32, and their argmax as ``outputs``."""
+
+    def __init__(self, fully_connected: Dense, masked_mean: bool,
+                 fp32_logits: bool):
+        super().__init__()
+        self.fully_connected = fully_connected
+        self.masked_mean, self.fp32_logits = masked_mean, fp32_logits
+
+    def forward(self, input_dict: Dict[str, Any], train: bool,
+                generator: torch.Generator = None):
+        """``generator`` is unused: the layer has no dropout."""
+        x = input_dict["encoder_output"]["outputs"]
+        lengths = input_dict["encoder_output"].get("src_length")
+        if self.masked_mean and x.dim() == 3 and lengths is not None:
+            mask = (torch.arange(x.shape[1], device=x.device)[None, :] <
+                    lengths[:, None]).to(x.dtype)
+            x = (x * mask[:, :, None]).sum(1) / \
+                mask.sum(1).clamp_min(1.0)[:, None]
+        elif x.dim() > 2:
+            x = x.reshape(x.shape[0], -1)
+        logits = self.fully_connected(x)
+        if self.fp32_logits:
+            logits = logits.float()
+        return {"logits": logits, "outputs": [logits.argmax(-1)]}
+
+
+class FullyConnectedDecoder(Decoder):
+    """One dense layer for classification
+    (``openseq2seq_tpu/decoders/fc_decoders.py:31-57``): the encoder's
+    outputs flattened to (B, -1), logits in the compute dtype."""
+
+    masked_mean, fp32_logits = False, False
+
+    @staticmethod
+    def get_required_params():
+        return dict(Decoder.get_required_params(), **{
+            "output_dim": int,
+        })
+
+    def input_width(self, out_shape, has_lengths: bool) -> int:
+        """The dense layer's input width for encoder outputs of
+        ``out_shape`` an example (the batch axis left out)."""
+        if self.masked_mean and len(out_shape) == 2 and has_lengths:
+            return int(out_shape[-1])
+        width = 1
+        for n in out_shape:
+            width *= int(n)
+        return width
+
+    def make_module(self, in_features: int,
+                    generator: torch.Generator) -> FCDecoderModule:
+        dtype = torch.float32 if self._model is None \
+            else self._model.mp_policy.compute_dtype
+        kinit = resolve_initializer(self._params.get("initializer"),
+                                    self._params.get("initializer_params"))
+        return FCDecoderModule(
+            Dense(in_features, self._params["output_dim"], dtype, kinit,
+                  generator), self.masked_mean, self.fp32_logits)
+
+
+class FullyConnectedSCDecoder(FullyConnectedDecoder):
+    """Speech-commands decoder (``fc_decoders.py:211-249``): a (B, T, C)
+    output with lengths is averaged over its valid frames, any other is
+    flattened; fp32 logits."""
+
+    masked_mean, fp32_logits = True, True

@@ -1,6 +1,8 @@
 from .encoder import Encoder
+from .cnn_encoder import CNNEncoder
 from .ds2_encoder import DeepSpeech2Encoder
 from .lm_encoders import LMEncoder
+from .resnet_encoder import ResNetEncoder
 from .tdnn_encoder import TDNNEncoder
 from .transformer_encoder import TransformerEncoder
 from .conformer_encoder import ConformerEncoder

@@ -56,29 +56,38 @@ from ..parts.rnns.rnn import GRU, LSTM, make_rnn
 class SameConv2d(nn.Module):
     """flax ``nn.Conv`` with SAME padding over (B, T, F, C), computing in
     ``dtype`` from the stored params; the weight is stored (out, in, kt,
-    kf), as torch's conv2d keeps it."""
+    kf), as torch's conv2d keeps it. With ``use_bias`` (flax's default)
+    the bias is added after the conv as flax rounds it (C26: under bf16
+    the conv's output rounded, then the sum; fp32 keeps the fused form).
+    ``padding`` "VALID" pads nothing."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel, stride,
                  dtype: torch.dtype, kernel_init,
-                 generator: torch.Generator):
+                 generator: torch.Generator, use_bias: bool = True,
+                 padding: str = "SAME"):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, *kernel))
-        self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
         kernel_init(self.weight, generator)
         self.kernel, self.stride = tuple(kernel), tuple(stride)
+        self.padding = padding
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (kt, kf), (st, sf) = self.kernel, self.stride
-        t_lo, t_hi = same_padding(x.shape[1], kt, st, 1)
-        f_lo, f_hi = same_padding(x.shape[2], kf, sf, 1)
-        x = F.pad(x.to(self.dtype), (0, 0, f_lo, f_hi, t_lo, t_hi))
+        x = x.to(self.dtype)
+        if self.padding == "SAME":
+            t_lo, t_hi = same_padding(x.shape[1], kt, st, 1)
+            f_lo, f_hi = same_padding(x.shape[2], kf, sf, 1)
+            x = F.pad(x, (0, 0, f_lo, f_hi, t_lo, t_hi))
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        fused = self.dtype == torch.float32
         # (B, T, F, C) contiguous is (B, C, T, F) in channels-last order
         y = F.conv2d(x.permute(0, 3, 1, 2),
                      self.weight.to(dtype=self.dtype,
                                     memory_format=torch.channels_last),
-                     self.bias.to(self.dtype), self.stride)
-        return y.permute(0, 2, 3, 1)
+                     b if fused else None, self.stride).permute(0, 2, 3, 1)
+        return y if fused or b is None else y + b
 
 
 class DS2Net(nn.Module):

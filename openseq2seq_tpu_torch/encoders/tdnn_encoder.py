@@ -90,7 +90,9 @@ class SameConv1d(nn.Module):
     """Conv1d with XLA's SAME padding and a bias (flax ``nn.Conv``'s
     default), computing in ``dtype`` from the stored params; (B, T, C) in
     and out. The weight is stored (out, in, k), as torch's conv1d keeps
-    it."""
+    it. The bias is added after the conv as flax rounds it (C26: under
+    bf16 the conv's output rounded, then the sum; fp32 keeps the fused
+    form)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int,
                  dilation: int, dtype: torch.dtype, kernel_init,
@@ -107,13 +109,15 @@ class SameConv1d(nn.Module):
                               self.dilation)
         if lo != hi:
             x, lo = F.pad(x, (0, 0, lo, hi)), 0
+        b = self.bias.to(self.dtype)
+        fused = self.dtype == torch.float32
         # (B, T, C) contiguous is (B, C, 1, T) in channels-last order
         y = F.conv2d(x.to(self.dtype).permute(0, 2, 1).unsqueeze(2),
                      self.weight.unsqueeze(2).to(
                          dtype=self.dtype, memory_format=torch.channels_last),
-                     self.bias.to(self.dtype), (1, self.stride), (0, lo),
-                     (1, self.dilation))
-        return y.squeeze(2).permute(0, 2, 1)
+                     b if fused else None, (1, self.stride), (0, lo),
+                     (1, self.dilation)).squeeze(2).permute(0, 2, 1)
+        return y if fused else y + b
 
 
 class BatchNorm(nn.BatchNorm1d):

@@ -55,17 +55,6 @@ from ..parts.transformer.common import Dense, rel_pos_embedding
 NEG_INF = -1e9
 
 
-class _Dense(Dense):
-    """flax ``nn.Dense`` in the compute type as XLA rounds it: the product
-    rounded, then the bias added and rounded again (a fused bias
-    epilogue rounds once, and differs in a quarter of the bf16
-    outputs)."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w, b = self._params()
-        return F.linear(x.to(self.dtype), w) + b
-
-
 class RelMultiHeadAttention(nn.Module):
     """Relative multi-head attention with optional segment memory
     (``transformer_xl_encoder.py:63-130``)."""
@@ -135,9 +124,9 @@ class TransformerXLNet(nn.Module):
                 generator))
             self.add_module("layer{}_ln1".format(i), LayerNorm(D, dtype))
             self.add_module("layer{}_ff1".format(i),
-                            _Dense(D, filter_size, dtype, generator))
+                            Dense(D, filter_size, dtype, generator))
             self.add_module("layer{}_ff2".format(i),
-                            _Dense(filter_size, D, dtype, generator))
+                            Dense(filter_size, D, dtype, generator))
             self.add_module("layer{}_ln2".format(i), LayerNorm(D, dtype))
         self.softmax_bias = nn.Parameter(torch.zeros(vocab_size))
         self.num_layers, self.mem_len, self.dtype = num_layers, mem_len, \

@@ -1,5 +1,6 @@
 from .model import Model, TrainState
 from .encoder_decoder import EncoderDecoderModel
+from .image2label import Image2Label
 from .speech2text import Speech2Text
 from .text2text import Text2Text
 from .lstm_lm import LSTMLM

@@ -23,7 +23,8 @@
 Dense layers are :class:`Dense`, flax's ``DenseGeneral`` over the last
 axis: fp32 parameters, computed in the layer's dtype, lecun-normal
 kernels and zero biases, parameters named ``weight`` (out, in) and
-``bias``.
+``bias``. :func:`dense` rounds as flax does (C26): in bf16 the product
+is rounded, then the bias added and rounded again.
 """
 from __future__ import annotations
 
@@ -85,8 +86,23 @@ def get_decoder_self_attention_bias(length: int, device=None
     return (mask * NEG_INF)[None, None]
 
 
+def dense(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x w^T + b`` in the type of ``w`` as flax's ``nn.Dense`` computes
+    it: under bf16 the product rounded to bf16, then the bias added and
+    rounded again (a bias fused into the product's epilogue rounds once,
+    and differs in about a quarter of the bf16 outputs). In fp32 the two
+    forms differ only by fp32 rounding, and the fused one is kept."""
+    if b is None:
+        return F.linear(x, w)
+    if w.dtype == torch.float32:
+        return F.linear(x, w, b)
+    return F.linear(x, w) + b
+
+
 class Dense(nn.Module):
-    """y = x W^T + b over the last axis, in ``dtype``; W stored (out, in).
+    """y = x W^T + b over the last axis, in ``dtype`` (:func:`dense`); W
+    stored (out, in).
 
     Without autograd the parameters' cast to ``dtype`` is kept until they
     change, so that a decode loop casts them once, not once per step (XLA
@@ -113,7 +129,7 @@ class Dense(nn.Module):
         return self._cast[1:]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), *self._params())
+        return dense(x.to(self.dtype), *self._params())
 
 
 def embed_ids(table: torch.Tensor, ids: torch.Tensor, hidden_size: int,

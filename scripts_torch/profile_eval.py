@@ -5,7 +5,8 @@ step, on one NVIDIA GPU.
     python3 scripts_torch/profile_eval.py [--train | --infer | --train-nmt |
         --train-lm | --eval-lm | --train-gnmt | --infer-gnmt |
         --train-tacotron | --infer-tacotron | --train-transducer |
-        --infer-transducer | --train-lm-wkt | --train-txl | --eval-txl]
+        --infer-transducer | --train-lm-wkt | --train-txl | --eval-txl |
+        --train-resnet | --eval-resnet]
         [--beam-width=K] [--config_file=PATH] [--steps=4] [--repeats=3]
         [--batches=N] [--trace=PATH]
 
@@ -49,8 +50,12 @@ LM read from text files (``example_configs_torch/lm/lstm_wkt103.py``),
 Transformer-XL at full width (``txl_wkt103.py``), each on a
 WikiText-103-shaped corpus written first into a temporary directory
 (``test_utils/fake_wikitext.py``: the recipes' 267,736 words, 200,000
-training tokens beside one of each word); ``--batches`` keeps the first N
-batches of the epoch.
+training tokens beside one of each word); ``--train-resnet`` and
+``--eval-resnet`` the train and eval steps of ResNet-50 v2 at
+``scripts/bench_resnet.py``'s width (``example_configs_torch/
+image2label/resnet50_v2_synthetic.py``: batches of 128 x 224 x 224
+images, "mixed", NovoGrad; images are its objects); ``--batches`` keeps
+the first N batches of the epoch.
 It prints:
 
 1. wall milliseconds per step without the profiler, for each of
@@ -117,6 +122,8 @@ GNMT_CORPUS = dict(n_train=256, n_dev=32, n_test=32, n_types=10921,
                    with_t2t=False)
 LM_WKT_CONFIG = os.path.join(REPO, "example_configs_torch", "lm",
                              "lstm_wkt103.py")
+RESNET_CONFIG = os.path.join(REPO, "example_configs_torch", "image2label",
+                             "resnet50_v2_synthetic.py")
 TXL_CONFIG = os.path.join(REPO, "example_configs_torch", "lm",
                           "txl_wkt103.py")
 # the WikiText profiles' corpus: every word of the vocabulary once, and
@@ -161,6 +168,8 @@ GROUPS = (
     ("dropout RNG", ("distribution", "philox")),
     ("reductions", ("reduce_kernel",)),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    # the image models' SAME pools (after their padding) and global pool
+    ("pools", ("max_pool", "avg_pool", "MaxPool", "AvgPool")),
     ("sorts and top-k (beam search)", ("sort", "Sort", "topk", "TopK")),
     # the sampled softmax's rows of its weight, w[labels] and w[sampled]
     # (aten::index: index_elementwise_kernel or vectorized_gather_kernel)
@@ -357,6 +366,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                        help="Transformer-XL's train step at full width")
     which.add_argument("--eval-txl", action="store_true",
                        help="Transformer-XL's eval step at full width")
+    which.add_argument("--train-resnet", action="store_true",
+                       help="ResNet-50 v2's train step at full width")
+    which.add_argument("--eval-resnet", action="store_true",
+                       help="ResNet-50 v2's eval step at full width")
     which.add_argument("--infer-transducer", action="store_true",
                        help="profile the Conformer-Transducer's decode of "
                             "a batch (the infer step on {})".format(
@@ -392,10 +405,12 @@ def parse_args(argv=None) -> argparse.Namespace:
             TRANSDUCER_CONFIG if args.train_transducer else \
             TRANSDUCER_DECODE_CONFIG if args.infer_transducer else \
             LM_WKT_CONFIG if args.train_lm_wkt else \
-            TXL_CONFIG if args.train_txl or args.eval_txl else CONFIG
+            TXL_CONFIG if args.train_txl or args.eval_txl else \
+            RESNET_CONFIG if args.train_resnet or args.eval_resnet else \
+            CONFIG
     args.train = args.train or args.train_nmt or args.train_lm or \
         args.train_gnmt or args.train_tacotron or args.train_transducer or \
-        args.train_lm_wkt or args.train_txl
+        args.train_lm_wkt or args.train_txl or args.train_resnet
     args.infer = args.infer or args.infer_gnmt or args.infer_tacotron or \
         args.infer_transducer
     return args
