@@ -8,11 +8,12 @@ With no argument it runs every phase below and ends with the kernels
 line and the contract line. ``--group`` runs the environment, the build
 and one group of phases, then a line of that group's kernel launches and
 seconds, and the contract line: ``kernels`` (3 to 4j), ``speech`` (5 to
-7, 7r, 7s), ``nmt`` (7a to 7e, 7u to 7x), ``rnn`` (7f to 7k, the DS2
-toy), ``conformer`` (7l to 7n, the Conformer toy), ``lm`` (7o to 7q, 7zf
-to 7zi), ``tts`` (7y to 7za), ``transducer`` (7zb to 7ze) and ``image``
-(7zj to 7zo). Each phase's seconds are printed on a line of their own
-(``[time] phase ...``), then each group's and the total.
+7, 7r, 7s), ``nmt`` (7a to 7e, 7u to 7x, 7zu to 7zx), ``rnn`` (7f to 7k,
+the DS2 toy), ``conformer`` (7l to 7n, the Conformer toy), ``lm`` (7o to
+7q, 7zf to 7zi), ``tts`` (7y to 7za, 7zp to 7zt), ``transducer`` (7zb to
+7ze) and ``image`` (7zj to 7zo). Each phase's seconds are printed on a
+line of their own (``[time] phase ...``), then each group's and the
+total.
 
 Phases, one informative line or a few each:
 
@@ -317,23 +318,26 @@ Phases, one informative line or a few each:
    batch) and ``--mode=infer`` (the CSV names each wav of the test list
    once, in order); rates with the card's name and power
    limit;
-7s. the w2lplus toy recipe (``w2lplus_toy.py``, 150 epochs of the 10 toy
-   wavs) through ``run.main --mode=train_eval`` to its end: its last
-   validation must read WER 0.0000; eval and infer from its checkpoint
-   (the infer CSV's transcripts the toy sentences);
+7s. the w2lplus toy recipe (``w2lplus_toy.py``, the 10 toy wavs) through
+   ``run.main --mode=train_eval`` for 75 of its 150 epochs (cut for the
+   script's clock): its last validation must read WER 0.0000; eval and
+   infer from its checkpoint (the infer CSV's transcripts the toy
+   sentences);
 7t. the DeepSpeech2 toy (``ds2_toy_config.py``: its GRU fp32 at B 10,
    H 64 on the scan kernels, 2 forward and 2 backward launches a step)
    and the Conformer toy (``conformer_toy.py``, no kernel flag) from the
    toy wavs, each cut to 20 steps: the loss finite and falling, then eval
    and infer from the checkpoint;
 7u. the transformer reversal toy (``example_configs_torch/text2text/
-   nmt_reversal_toy.py``, 100 epochs of 512 digit sequences) through
-   ``run.main --mode=train_eval`` to its end: its last "Validation BLEU"
-   above 80 (NMT's toy run); eval and infer from its checkpoint (32
-   lines);
+   nmt_reversal_toy.py``, 512 digit sequences) through ``run.main
+   --mode=train_eval`` for 400 steps (its 100 epochs, 1,600 steps, cut
+   for the script's clock; its BLEU passes 90 by step 400): its
+   last "Validation BLEU" above 80 (NMT's toy run); eval and infer from
+   its checkpoint (32 lines);
 7v. the RNN reversal toy (``nmt_reversal_toy_rnn.py``: a bidirectional
-   LSTM encoder, a Bahdanau attention LSTM decoder, beam 4) the same way,
-   its BLEU above 80 too;
+   LSTM encoder, a Bahdanau attention LSTM decoder, beam 4) the same way
+   for 400 steps (its 1,920 cut; BLEU 100.0 by step 400), its BLEU above
+   80 too;
 7w. transformer-big from text (``transformer_big_wmt.py``, every key of
    the JAX recipe, flash attention on) on a WMT-shaped corpus written
    first (``test_utils/fake_wmt``: 60,000 pairs, the recipe's 32K
@@ -372,8 +376,10 @@ Phases, one informative line or a few each:
    3 steps: the GRU kernels 1 forward and 1 backward launch a step (the
    style encoder's GRU over 8 frames), the LSTM kernels 2 and 2;
 7za. the Tacotron toy (``tacotron_toy.py``, the 10 tone wavs of
-   ``test_utils/toy_tts``) through ``run.main --mode=train_eval`` for 400
-   steps to a loss below 12.0 (the JAX package's bar), then eval and
+   ``test_utils/toy_tts``) through ``run.main --mode=train_eval`` for 250
+   steps (the JAX test's 400 cut for the script's clock; the loss passes
+   the bar near step 190) to a loss below 12.0 (the JAX package's bar),
+   then eval and
    infer (a wav a toy sentence) from its checkpoint;
 7zb. the tiny fp32 Conformer-Transducer (``conformer_transducer_tiny_
    synthetic.py``, both kernel flags on), dropout off, on the card and on
@@ -468,6 +474,40 @@ Phases, one informative line or a few each:
    the same images; without Pillow a line says so (the layers are then
    held on the CPU only); no image phase launches a kernel: the JAX
    image family reaches no ``pallas_call``;
+7zp. the causal-convolution families (Centaur, WaveNet, ConvS2S), whose
+   paths reach no ``pallas_call`` and launch no kernel (each checked):
+   the tiny Centaur (windowed infer forced) and tiny WaveNet, fp32, card
+   against CPU from one seed: eval outputs, the infer decode and two
+   training steps within rtol 1e-4, atol 1e-5;
+7zq. Centaur at ``centaur_float.py``'s width
+   (``centaur_synthetic.py``: 32 x 96 characters x 512 frames of 80 mel
+   bins, fp32, NovoGrad): 20 training steps (the JAX model's parameter
+   count, the loss falling), eval, an infer batch of 200 frames (100
+   re-runs of the stack), and again at ``window_size`` 1, whose
+   alignments must be one-hot;
+7zr. ``wavenet_LJ.py`` at full width (4 x 10 gated layers of 64 filters,
+   256 channels, 16,384-sample chunks, "mixed") on a ``fake_ljspeech``
+   tree of 64 clips: 20 training steps, eval, infer (a wav a clip); then
+   ``wavenet_generate`` of 4,096 samples at B 2, fp32, conditioned on
+   mel frames, sampled (more than 8 distinct ids), its logits against
+   the parallel net's on the generated audio within atol 2e-4, rtol 1e-3
+   (the JAX test's), samples/s;
+7zs. the Centaur toy: ``centaur_float.py``'s network on the same tree for
+   25 steps, the loss falling, eval, infer (a wav a text);
+7zt. the WaveNet toy (``wavenet_toy.py``) to a loss below 3.0 in 200
+   steps (the JAX test's bar), eval, infer;
+7zu. the tiny ConvS2S, fp32, card against CPU: eval logits, beam-3 ids,
+   two Momentum steps;
+7zv. ``en_de_convs2s_wmt.py`` at full width (15 + 15 GLU blocks of 512 to
+   2,048 channels, V 32,768, batch 64, "mixed", 8-bit masks) on the
+   WMT-shaped corpus: 20 training steps at lr 0.05 (the recipe's 0.5 with
+   momentum 0.99 swings the loss over 20 steps; the JAX model's parameter
+   count), the beam-5 eval of one dev batch of 16, infer over 16 test
+   sentences;
+7zw. the ConvS2S reversal toy, 400 of its 1,920 steps (BLEU 100.0 by
+   step 400), to "Validation BLEU" above 70 (the JAX test's bar);
+7zx. the CR and RC toys (ConvS2S encoder and RNN decoder, and the other
+   way round) for 20 steps each, then eval;
 8. one JSON line for the kernels (the LSTM scans' entries with their
    times at the LM's shape under ``at_lm_shape``, at GNMT's under
    ``at_gnmt_shape`` and at Tacotron-2's under ``at_tacotron_shape``; the
@@ -483,6 +523,7 @@ one.
 from __future__ import annotations
 
 import contextlib
+import copy
 import csv
 import io
 import json
@@ -558,6 +599,12 @@ GST_PARAMS = 27630465
 # count by ``jax.eval_shape`` of its init
 # (``tests/test_torch_transducer_model.py::test_full_width_parameter_count``)
 TRANSDUCER_PARAMS = 26796701
+# the causal-convolution families at their recipes' width: the JAX models'
+# counts by ``jax.eval_shape`` of their init
+# (``tests/test_torch_{convs2s,centaur,wavenet}.py``)
+CONVS2S_PARAMS = 208802816
+WAVENET_PARAMS = 1805696
+CENTAUR_PARAMS = 9932194
 TRANSDUCER = os.path.join(REPO, "example_configs_torch", "speech2text",
                           "conformer_transducer_synthetic.py")
 TRANSDUCER_DECODE = os.path.join(REPO, "example_configs_torch",
@@ -4242,24 +4289,27 @@ def _toy_env(tmp):
 
 
 def phase_w2lplus_toy(card):
-    """The w2lplus toy recipe (``w2lplus_toy.py``: 150 epochs of the 10
-    toy utterances, featurized from their wavs every epoch) through
-    ``run.main --mode=train_eval`` to its end: its last validation must
-    read WER 0.0000; then eval and infer from its checkpoint, the infer
+    """The w2lplus toy recipe (``w2lplus_toy.py``: the 10 toy utterances,
+    featurized from their wavs every epoch) through ``run.main
+    --mode=train_eval`` for 75 of its 150 epochs (``--num_epochs=75``, cut
+    for the script's clock: its first validation, at step 75, reads WER
+    0.0000 already): its last validation must read WER 0.0000;
+    then eval and infer from its checkpoint, the infer
     CSV's transcripts the toy sentences, in order."""
     from openseq2seq_tpu_torch.test_utils import toy_speech
     with tempfile.TemporaryDirectory() as tmp:
         _toy_env(tmp)
         argv = ["--config_file=" + W2L_TOY]
         t0 = time.time()
-        result, lines = _run_quiet(argv + ["--mode=train_eval"])
+        result, lines = _run_quiet(argv + ["--mode=train_eval",
+                                           "--num_epochs=75"])
         wer = [x.strip() for x in lines if "Validation WER" in x]
         losses = _losses(lines)
         print("[toy] w2lplus_toy --mode=train_eval: {} steps in {:.1f} s, "
               "losses at the printed steps {}; validations {} ({})".format(
                   result["steps"], time.time() - t0, losses, wer, card),
               flush=True)
-        check(result["steps"] == 150 and wer and
+        check(result["steps"] == 75 and wer and
               wer[-1].endswith("Validation WER: 0.0000"),
               "the w2lplus toy did not reach WER 0")
         metrics, _ = _run_quiet(argv + ["--mode=eval"])
@@ -4335,18 +4385,22 @@ def _toy_nmt_env(tmp):
     os.environ["OS2S_TOY_NMT_LOGDIR"] = os.path.join(tmp, "logs")
 
 
-def phase_nmt_toy(path, name, bar, card):
+def phase_nmt_toy(path, name, bar, card, steps):
     """A reversal toy recipe (``nmt_reversal_toy.py``: the transformer;
-    ``nmt_reversal_toy_rnn.py``: the RNN pair) through ``run.main
-    --mode=train_eval`` to its end: the losses finite and falling, its
-    last "Validation BLEU" above ``bar`` where one is given (else
-    printed); then eval and infer from its checkpoint, one line for each
-    of the 32 eval sentences. Neither recipe sets a kernel flag. Returns
-    the last validation BLEU."""
+    ``nmt_reversal_toy_rnn.py``: the RNN pair;
+    ``nmt_reversal_toy_convs2s.py``) through ``run.main
+    --mode=train_eval``, cut to ``steps`` (their BLEU passes 80 within 400
+    steps of the recipes' 1,600 to 1,920; cut for the script's clock, PR
+    22): the losses finite and falling, its last "Validation
+    BLEU" above ``bar`` where one is given (else printed); then eval and
+    infer from its checkpoint, one line for each of the 32 eval
+    sentences. No recipe sets a kernel flag. Returns the last validation
+    BLEU."""
     import torch
     with tempfile.TemporaryDirectory() as tmp:
         _toy_nmt_env(tmp)
-        argv = ["--config_file=" + path]
+        argv = ["--config_file=" + _recipe_config(
+            path, tmp, steps, save_checkpoint_steps=steps)]
         t0 = time.time()
         result, lines = _run_quiet(argv + ["--mode=train_eval"])
         torch.cuda.synchronize()
@@ -4493,9 +4547,10 @@ def wmt_corpus(root):
 
 
 def phase_nmt_text(card):
-    """7u to 7x: the reversal toys, then transformer-big and GNMT-like at
-    full width from text files. Returns the flash attention's (forward,
-    dq, dkv) launches and the LSTM scan's (forward, backward)."""
+    """7u to 7x and 7zu to 7zx: the reversal toys, then transformer-big,
+    GNMT-like and ConvS2S at full width from text files. Returns the
+    flash attention's (forward, dq, dkv) launches and the LSTM scan's
+    (forward, backward)."""
     from openseq2seq_tpu_torch.ops import flash_attention as fa
     from openseq2seq_tpu_torch.ops import fused_dropout as fd
     from openseq2seq_tpu_torch.ops import lstm_scan
@@ -4512,8 +4567,14 @@ def phase_nmt_text(card):
             lstm_scan.LAUNCHES = lstm_scan.BWD_LAUNCHES = 0
         return (lstm_scan.LAUNCHES, lstm_scan.BWD_LAUNCHES)
 
-    phase_nmt_toy(NMT_TOY, "nmt_reversal_toy", 80.0, card)
-    phase_nmt_toy(NMT_TOY_RNN, "nmt_reversal_toy_rnn", 80.0, card)
+    phase_nmt_toy(NMT_TOY, "nmt_reversal_toy", 80.0, card, 400)
+    phase_nmt_toy(NMT_TOY_RNN, "nmt_reversal_toy_rnn", 80.0, card, 400)
+    # 7zu to 7zx: ConvS2S (no kernel on its path)
+    timed(phase_small_convs2s)
+    with _launches_none("the ConvS2S toy"):
+        timed(phase_nmt_toy, NMT_TOY_CONVS2S, "nmt_reversal_toy_convs2s",
+              70.0, card, 400)
+    timed(phase_mixed_toys, card)
     with tempfile.TemporaryDirectory() as tmp:
         wmt_dir = wmt_corpus(tmp)
         # Adam at the recipe's lr 2.0 (x d^-0.5) with the warmup cut to 200
@@ -4526,6 +4587,16 @@ def phase_nmt_text(card):
                                          "d_model": 1024})
         sc = phase_wmt(GNMT_WMT, "GNMT-like", wmt_dir, scan, (8, 8), (8, 0),
                        GNMT_PARAMS, card, infer_per_batch=(8, 0))
+        # 7zv: ConvS2S at full width, its beam-5 eval over one dev batch
+        # of 16; Momentum at lr 0.05 (the recipe's 0.5 with momentum 0.99
+        # swings the loss up and down over the first 20 steps)
+        with _launches_none("ConvS2S"):
+            timed(phase_wmt, CONVS2S_WMT, "ConvS2S",
+                  convs2s_corpus(wmt_dir, tmp), lambda zero=None: (), (),
+                  (), CONVS2S_PARAMS, card, infer_per_batch=(),
+                  eval_batch_size_per_gpu=16,
+                  optimizer_params={"learning_rate": 0.05,
+                                    "momentum": 0.99})
     return fl[:3], sc
 
 
@@ -4750,9 +4821,12 @@ def phase_tacotron(path, name, n_params, counters, per_step, card):
 def phase_tacotron_toy(card):
     """7za: the toy recipe (``tacotron_toy.py``: the 10 tone wavs of
     ``test_utils/toy_tts``, written first) through ``run.main
-    --mode=train_eval`` for the JAX package's 400 steps
-    (``--num_epochs=400``; its own 40 epochs stop near a loss of 110): the
-    last printed loss below the JAX test's bar of 12.0; then
+    --mode=train_eval`` for 250 steps (``--num_epochs=250``; its own 40
+    epochs stop near a loss of 110; the JAX test trains 400, and the loss
+    passes 12.0 near step 190: cut from 400 for the script's clock, PR
+    22), validating at steps 125 and 250 (``--eval_steps=125``; the
+    recipe's 20): the last printed loss below the JAX test's bar of 12.0;
+    then
     ``--mode=eval`` ("Validation loss") and ``--mode=infer`` (a wav a toy
     sentence, listed in order) from the checkpoint. The toy sets no kernel
     flag."""
@@ -4764,7 +4838,8 @@ def phase_tacotron_toy(card):
         argv = ["--config_file=" + TACOTRON_TOY]
         t0 = time.time()
         result, lines = _run_quiet(argv + ["--mode=train_eval",
-                                           "--num_epochs=400"])
+                                           "--num_epochs=250",
+                                           "--eval_steps=125"])
         torch.cuda.synchronize()
         wall = time.time() - t0
         losses = _losses(lines)
@@ -4773,7 +4848,7 @@ def phase_tacotron_toy(card):
               "s, losses at the printed steps {}; the last validation {} "
               "({})".format(result["steps"], wall, losses[::4] + losses[-1:],
                             val[-1:], card), flush=True)
-        check(result["steps"] == 400 and all(math.isfinite(x)
+        check(result["steps"] == 250 and all(math.isfinite(x)
                                              for x in losses) and
               losses[-1] < 12.0, "the Tacotron toy's loss {}".format(
                   losses[-1:]))
@@ -4794,8 +4869,9 @@ def phase_tacotron_toy(card):
 
 def phase_tts(card):
     """7y to 7za: the tiny Tacotron card vs CPU, Tacotron-2 and its GST
-    variant at full width, the toy from wav files. Returns the LSTM and
-    GRU scans' (forward, backward) launches."""
+    variant at full width, the toy from wav files; then Centaur and
+    WaveNet (7zp to 7zt). Returns the LSTM and GRU scans' (forward,
+    backward) launches."""
     from openseq2seq_tpu_torch.ops import gru_scan, lstm_scan
     phase_small_tacotron()
     taco = phase_tacotron(TACOTRON, "tacotron2", TACOTRON_PARAMS,
@@ -4803,6 +4879,7 @@ def phase_tts(card):
     gst = phase_tacotron(TACOTRON_GST, "tacotron-gst", GST_PARAMS,
                          [(lstm_scan, 2), (gru_scan, 1)], 0, card)
     phase_tacotron_toy(card)
+    timed(phase_causal_tts, card)
     return ([a + b for a, b in zip(taco[lstm_scan], gst[lstm_scan])],
             gst[gru_scan])
 
@@ -6190,10 +6267,554 @@ def phase_image_family(card):
         timed(phase, card)
 
 
-def timed(phase, *args):
-    """``phase(*args)``, its seconds printed on a line of their own."""
+# ---------------------------------------------------------------------------
+# 7zp to 7zx: the causal-convolution families (Centaur, WaveNet, ConvS2S);
+# no TPU kernel is on their paths, so each is checked to launch none
+# ---------------------------------------------------------------------------
+def _tts(name):
+    return os.path.join(REPO, "example_configs_torch", "text2speech", name)
+
+
+def _t2t(name):
+    return os.path.join(REPO, "example_configs_torch", "text2text", name)
+
+
+CENTAUR_TINY = _tts("centaur_tiny_synthetic.py")
+CENTAUR_SYNTHETIC = _tts("centaur_synthetic.py")
+CENTAUR_FLOAT = _tts("centaur_float.py")
+WAVENET_TOY = _tts("wavenet_toy.py")
+WAVENET_LJ = _tts("wavenet_LJ.py")
+CONVS2S_TINY = _t2t("convs2s_tiny_wmt.py")
+CONVS2S_WMT = _t2t("en_de_convs2s_wmt.py")
+NMT_TOY_CONVS2S = _t2t("nmt_reversal_toy_convs2s.py")
+NMT_TOY_CR = _t2t("nmt_reversal_toy_cr.py")
+NMT_TOY_RC = _t2t("nmt_reversal_toy_rc.py")
+# the fast WaveNet generation against the parallel net on its own audio:
+# the JAX test's tolerance (``tests/test_wavenet.py``)
+WAVENET_ATOL, WAVENET_RTOL = 2e-4, 1e-3
+# card against CPU in fp32 (TF32 off): the same sums in other orders
+CARD_CPU_RTOL, CARD_CPU_ATOL = 1e-4, 1e-5
+
+
+def _all_launches():
+    """Every kernel wrapper's launch counts, summed."""
+    from openseq2seq_tpu_torch.ops import (conformer_conv, ctc_cuda,
+                                           flash_attention, flash_relpos,
+                                           fused_dropout, gru_scan,
+                                           lstm_scan)
+    return sum(getattr(m, a) for m in (conformer_conv, ctc_cuda,
+                                       flash_attention, flash_relpos,
+                                       fused_dropout, gru_scan, lstm_scan)
+               for a in dir(m) if a.endswith("LAUNCHES"))
+
+
+@contextlib.contextmanager
+def _launches_none(what):
+    """The path inside launches no kernel (none of the JAX package's
+    kernels is on it)."""
+    before = _all_launches()
+    yield
+    check(_all_launches() == before, "{} launched a kernel".format(what))
+
+
+def _close(a, b, rtol=CARD_CPU_RTOL, atol=CARD_CPU_ATOL):
+    """The largest |a - b| / (atol + rtol |b|): at most 1 passes."""
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / (atol + rtol * np.abs(b))))
+
+
+def _weights(state):
+    return {n: p.detach().float().cpu().numpy()
+            for n, p in state.module.named_parameters()}
+
+
+def _model_card_vs_cpu(name, model_cls, params, eval_keys, train_steps=1,
+                       infer=None):
+    """``params`` built on the card and on the CPU from one seed: the eval
+    outputs under ``eval_keys`` of the decoder output, ``train_steps``
+    steps' losses and weights, and ``infer(model, state)``'s arrays, each
+    within rtol 1e-4, atol 1e-5 (at most 1.0 of that tolerance)."""
+    import torch
+    from openseq2seq_tpu_torch.training import trainer
+    got = {}
+    for device in ("cuda", "cpu"):
+        model = model_cls(copy.deepcopy(params), mode="eval", device=device)
+        state = trainer.restore_state(model)
+        batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+        out = trainer.to_host(model.eval_step(state, batch))
+        dec = out["outputs"]["decoder_output"]
+        got[device] = {k: dec[k] for k in eval_keys}
+        got[device]["loss"] = out["loss"]
+        train = copy.deepcopy(params)
+        train.pop("num_epochs", None)
+        train["max_steps"] = train_steps
+        model = model_cls(train, mode="train", device=device)
+        state = trainer.restore_state(model)
+        batches = model.get_data_layer().iterate_one_epoch()
+        gen = torch.Generator(device=device).manual_seed(0)
+        losses = []
+        for _ in range(train_steps):
+            state, metrics = model.train_step(state, next(batches), gen)
+            losses.append(float(metrics["loss"]))
+        got[device]["train loss"] = losses
+        got[device]["weights"] = _weights(state)
+        if infer is not None:
+            model = model_cls(copy.deepcopy(params), mode="infer",
+                              device=device)
+            got[device].update(infer(model, trainer.restore_state(model)))
+    readings, worst = {}, None
+    for key, want in got["cpu"].items():
+        mine = got["cuda"][key]
+        if key == "weights":
+            readings[key], worst = max((_close(mine[n], want[n]), n)
+                                       for n in want)
+        else:
+            readings[key] = _close(mine, want)
+    print("[causal] {}, card vs CPU (fp32): {} (of the tolerance, rtol "
+          "1e-4, atol 1e-5; the weights' largest in {}); train losses {} vs "
+          "{}".format(name, ", ".join("{} {:.3f}".format(k, v)
+                                      for k, v in readings.items()),
+                      worst, got["cuda"]["train loss"],
+                      got["cpu"]["train loss"]), flush=True)
+    check(max(readings.values()) <= 1.0,
+          "{}: card and CPU disagree {}".format(name, readings))
+
+
+def _no_dropout_centaur(path):
+    """The config at ``path`` with its dropout off and the biases of the
+    convs that feed a batch norm frozen: the norm removes them, so their
+    gradient is rounding noise, which NovoGrad's normalisation would make
+    a full-size update on either device."""
+    params = copy.deepcopy(runpy.run_path(path)["base_params"])
+    params["freeze_variables_regex"] = r"/conv\d+/bias$"
+    params["encoder_params"]["cnn_dropout_prob"] = 0.0
+    params["decoder_params"].update(cnn_dropout_prob=0.0,
+                                    attention_dropout=0.0,
+                                    layer_postprocess_dropout=0.0)
+    return params
+
+
+@contextlib.contextmanager
+def _centaur_prenet_keeps_all():
+    """Every Centaur prenet mask keeps: the card's and the CPU's
+    generators draw different masks."""
+    import torch
+    from openseq2seq_tpu_torch.decoders.centaur_decoder import \
+        CentaurDecoderModule as module
+    draw = module.keep_mask
+    module.keep_mask = lambda self, shape, generator, device: torch.ones(
+        shape, dtype=torch.bool, device=device)
+    try:
+        yield
+    finally:
+        module.keep_mask = draw
+
+
+def _centaur_infer(model, state):
+    batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+    batch.pop("target_tensors", None)
+    from openseq2seq_tpu_torch.training import trainer
+    dec = trainer.to_host(model.eval_step(state, batch))["outputs"][
+        "decoder_output"]
+    return {"infer frames": dec["decoder_spec"],
+            "infer alignments": dec["alignments"],
+            "infer lengths": dec["lengths"].astype("float64")}
+
+
+def phase_small_causal():
+    """7zp: the tiny Centaur (``centaur_tiny_synthetic.py``, dropout off,
+    every prenet mask keeping; its windowed infer forced on layer 1) and
+    the tiny WaveNet (``wavenet_tiny.py`` in fp32 on the toy's tones) on
+    the card and on the CPU from one seed: eval outputs, the infer
+    decode, two training steps, each within rtol 1e-4, atol 1e-5; none
+    launches a kernel."""
+    from openseq2seq_tpu_torch.models import (Text2SpeechCentaur,
+                                              Text2SpeechWavenet)
+    with _centaur_prenet_keeps_all(), _launches_none("tiny Centaur"):
+        _model_card_vs_cpu("tiny Centaur", Text2SpeechCentaur,
+                           _no_dropout_centaur(CENTAUR_TINY),
+                           ("decoder_spec", "stop_token_logits",
+                            "alignments"), train_steps=2,
+                           infer=_centaur_infer)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["OS2S_TOY_WAVENET_DIR"] = os.path.join(tmp, "tones")
+        params = copy.deepcopy(runpy.run_path(_tts("wavenet_tiny.py"))[
+            "base_params"])
+        params["dtype"] = "float32"
+        with _launches_none("tiny WaveNet"):
+            _model_card_vs_cpu("tiny WaveNet", Text2SpeechWavenet, params,
+                               ("logits",), train_steps=2)
+
+
+def phase_centaur(card):
+    """7zq: Centaur at ``centaur_float.py``'s width on synthetic batches
+    (``centaur_synthetic.py``: 32 x 96 characters x 512 frames of 80 mel
+    bins, fp32, NovoGrad) through ``run.main --mode=train`` for 20 steps:
+    the parameter count (the JAX model's), the loss finite at every step
+    and the mean of the last five below that of the first five, frames/s,
+    the peak device memory; ``--mode=eval`` from the checkpoint over 2
+    batches ("Validation loss"); one infer batch of 200 frames (100 groups
+    of 2, each a re-run of the stack) from the checkpoint, then again at
+    ``window_size`` 1, whose alignments (the last block's, forced, one
+    head) must be one-hot. No kernel launches."""
+    import numpy as np
+    import torch
+    from openseq2seq_tpu_torch.training import trainer
+    from openseq2seq_tpu_torch.utils.config import _latest_checkpoint
+    steps = 20
+    with tempfile.TemporaryDirectory() as logdir, \
+            _launches_none("Centaur"):
+        data = runpy.run_path(CENTAUR_SYNTHETIC)["base_params"][
+            "data_layer_params"]
+        cut = _recipe_config(CENTAUR_SYNTHETIC, logdir, steps,
+                             data_layer_params=dict(data, num_batches=2),
+                             print_loss_steps=1, save_checkpoint_steps=steps,
+                             bench_start=2)
+        argv = ["--config_file=" + cut, "--logdir=" + logdir]
+        config = runpy.run_path(cut)
+        p = config["base_params"]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        losses = _losses(lines)
+        count = sum(x.numel() for x in result["state"].module.parameters())
+        print("[centaur] {} parameters, {} steps of 32 x 96 characters x "
+              "512 mel frames, fp32; losses {}; peak device memory {:.2f} "
+              "GiB; {:.1f} s with the build of the model; {:.1f} mel "
+              "frames/s over steps 3-{} ({})".format(
+                  count, result["steps"], losses,
+                  torch.cuda.max_memory_allocated() / 2 ** 30, wall,
+                  result["objects_per_sec"], steps, card), flush=True)
+        check(count == CENTAUR_PARAMS, "Centaur: {} parameters".format(count))
+        check(result["steps"] == steps and len(losses) == steps and
+              all(math.isfinite(x) for x in losses) and
+              sum(losses[-5:]) < sum(losses[:5]),
+              "Centaur losses {}".format(losses))
+        del result
+        metrics, lines = _run_quiet(argv + ["--mode=eval"])
+        val = [x.strip() for x in lines if "Validation loss" in x]
+        print("[centaur] eval from the step-{} checkpoint over 2 batches: "
+              "{}".format(steps, val), flush=True)
+        check(bool(val) and math.isfinite(metrics["eval_loss"]),
+              "Centaur eval")
+        for window in (None, 1):
+            params = copy.deepcopy(p)
+            if window:
+                params["decoder_params"]["window_size"] = window
+            model = config["base_model"](params, mode="infer",
+                                         device="cuda")
+            state = trainer.restore_state(model, _latest_checkpoint(logdir))
+            batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+            torch.cuda.synchronize()
+            t0 = time.time()
+            dec = trainer.to_host(model.eval_step(state, batch))[
+                "outputs"]["decoder_output"]
+            secs = time.time() - t0
+            spec, lengths, align = dec["decoder_spec"], dec["lengths"], \
+                dec["alignments"]
+            sharp = float(align.max(-1).min())
+            print("[centaur] infer, one batch of {} at window_size {}: {} "
+                  "frames in {:.2f} s ({:.1f} frames/s of the batch), "
+                  "lengths {} to {}, the least of the steps' largest "
+                  "alignment weights {:.4f} ({})".format(
+                      spec.shape[0], params["decoder_params"]["window_size"],
+                      spec.shape[1], secs, spec.shape[0] * spec.shape[1] /
+                      secs, int(lengths.min()), int(lengths.max()), sharp,
+                      card), flush=True)
+            check(spec.shape == (32, 200, 80) and
+                  bool(np.isfinite(spec).all()) and lengths.min() >= 1,
+                  "Centaur infer: shape {}, lengths {}".format(spec.shape,
+                                                               lengths))
+            check(window != 1 or sharp > 0.999,
+                  "Centaur's alignments at window 1 are not one-hot")
+
+
+def _wavenet_fp32(net):
+    """A copy of ``net`` computing in fp32 (the same weights)."""
+    import torch
+    net = copy.deepcopy(net).float()
+    for m in net.modules():
+        if hasattr(m, "dtype"):
+            m.dtype = torch.float32
+    return net
+
+
+def phase_wavenet(card, lj_dir):
+    """7zr: ``wavenet_LJ.py`` at full width (4 x 10 gated layers of 64
+    filters, 256 channels, 16,384-sample chunks of 22,050 Hz audio, batch
+    2, "mixed") on a ``fake_ljspeech`` tree through ``run.main
+    --mode=train`` for 20 steps: the parameter count (the JAX model's),
+    the loss finite and falling (the mean of the last five below that of
+    the first five), samples/s; ``--mode=eval`` over the recipe's 16 eval
+    clips ("Validation loss"); ``--mode=infer`` over the test split (a
+    teacher-forced wav a clip); then ``wavenet_generate`` from the
+    checkpoint, fp32, 4,096 samples at B 2 conditioned on an eval batch's
+    mel frames, sampled at
+    temperature 1 from a seeded generator (argmax settles on one id after
+    20 steps, and the taps would then all read alike): its logits
+    against the parallel net's (fp32) on the generated audio within atol
+    2e-4, rtol 1e-3 (the JAX test's), the net's labels equal to the ids,
+    samples per second. No kernel launches."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+    from openseq2seq_tpu_torch.encoders.wavenet_encoder import \
+        wavenet_generate
+    from openseq2seq_tpu_torch.training import trainer
+    from openseq2seq_tpu_torch.utils.config import _latest_checkpoint
+    os.environ["LJSPEECH_DIR"] = lj_dir
+    steps = 20
+    with tempfile.TemporaryDirectory() as logdir, \
+            _launches_none("WaveNet"):
+        cut = _recipe_config(WAVENET_LJ, logdir, steps, print_loss_steps=1,
+                             save_checkpoint_steps=steps, bench_start=2)
+        # infer over the test split's 6 clips (the recipe names every clip
+        # of metadata.csv)
+        with open(cut, "a") as f:
+            f.write("infer_params = {{'data_layer_params': dict(base_params["
+                    "'data_layer_params'], dataset_files=[{!r}])}}\n".format(
+                        os.path.join(lj_dir, "test.csv")))
+        argv = ["--config_file=" + cut, "--logdir=" + logdir]
+        config = runpy.run_path(cut)
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        losses = _losses(lines)
+        count = sum(x.numel() for x in result["state"].module.parameters())
+        print("[wavenet] {} parameters, {} steps of 2 x 16,384 samples, "
+              "mixed; losses {}; {:.1f} s with the build of the model; "
+              "{:.1f} samples/s over steps 3-{} ({})".format(
+                  count, result["steps"], losses, wall,
+                  result["objects_per_sec"], steps, card), flush=True)
+        check(count == WAVENET_PARAMS, "WaveNet: {} parameters".format(count))
+        check(result["steps"] == steps and len(losses) == steps and
+              all(math.isfinite(x) for x in losses) and
+              sum(losses[-5:]) < sum(losses[:5]),
+              "WaveNet losses {}".format(losses))
+        del result
+        metrics, lines = _run_quiet(argv + ["--mode=eval"])
+        val = [x.strip() for x in lines if "Validation loss" in x]
+        out = os.path.join(logdir, "infer", "infer.csv")
+        t0 = time.time()
+        _run_quiet(argv + ["--mode=infer", "--infer_output_file=" + out])
+        infer_s = time.time() - t0
+        with open(out) as f:
+            rows = [line.split(",") for line in f.read().splitlines()]
+        sizes = [len(wavfile.read(r[1])[1]) for r in rows]
+        print("[wavenet] eval from the checkpoint: {}; infer: {} wavs of {} "
+              "to {} samples in {:.1f} s".format(val, len(rows), min(sizes),
+                                                 max(sizes), infer_s),
+              flush=True)
+        check(bool(val) and math.isfinite(metrics["eval_loss"]) and
+              len(rows) == 6 and min(sizes) > 0, "WaveNet eval and infer")
+
+        model = config["base_model"](config["base_params"], mode="eval",
+                                     device="cuda")
+        state = trainer.restore_state(model, _latest_checkpoint(logdir))
+        batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+        n = 4096
+        mel = torch.from_numpy(batch["source_tensors"][2][:, :n // 256 + 1]) \
+            .cuda()
+        net = state.module.enc.net
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ids, audio, logits = wavenet_generate(
+            net, n, conditioning=mel, temperature=1.0,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        gen_s = time.time() - t0
+        with torch.no_grad():
+            par = _wavenet_fp32(net)(audio, torch.full((2,), n).cuda(), mel,
+                                     False)
+        reading = _close(logits.cpu(), par["logits"].cpu(), WAVENET_RTOL,
+                         WAVENET_ATOL)
+        same = bool(torch.equal(par["labels"], ids))
+        print("[wavenet] wavenet_generate, fp32, sampled at temperature 1 "
+              "from a seeded generator, B 2 x {} samples conditioned on {} "
+              "mel frames: {:.1f} s, {:.1f} samples/s a "
+              "stream ({:.1f} in all); its logits against the parallel "
+              "net's on the generated audio {:.3f} of the tolerance (atol "
+              "2e-4, rtol 1e-3), labels equal to the ids: {}; {} distinct "
+              "ids ({})".format(n, mel.shape[1], gen_s, n / gen_s,
+                                2 * n / gen_s, reading, same,
+                                len(torch.unique(ids)), card), flush=True)
+        check(reading <= 1.0 and same and len(torch.unique(ids)) > 8 and
+              bool(torch.isfinite(audio).all()),
+              "WaveNet's fast generation disagrees with the parallel net")
+
+
+def phase_centaur_toy(card, lj_dir):
+    """7zs: ``centaur_float.py``'s network (batch 32, both mel and
+    magnitude features, the decoder sized from the 80 mel bins) on the
+    ``fake_ljspeech`` tree through ``run.main --mode=train_eval`` for 25
+    steps: the loss finite and falling (the mean of the last five below
+    that of the first five; the JAX package sets no bar for it); eval over
+    the test split; infer over the test split (a wav a text of at least
+    one frame). No kernel launches."""
+    import torch
+    from scipy.io import wavfile
+    os.environ["LJSPEECH_DIR"] = lj_dir
+    steps = 25
+    with tempfile.TemporaryDirectory() as logdir, \
+            _launches_none("the Centaur toy"):
+        cut = os.path.join(logdir, "centaur_toy.py")
+        with open(cut, "w") as f:
+            f.write("import runpy\n_c = runpy.run_path({!r})\n"
+                    "base_model = _c['base_model']\n"
+                    "base_params = dict(_c['base_params'], max_steps={}, "
+                    "print_loss_steps=1, eval_steps={}, "
+                    "save_checkpoint_steps={})\n"
+                    "eval_params = _c['eval_params']\n"
+                    "infer_params = _c['eval_params']\n".format(
+                        CENTAUR_FLOAT, steps, steps, steps))
+        argv = ["--config_file=" + cut, "--logdir=" + logdir]
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train_eval"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        losses = _losses(lines)
+        val = [x.strip() for x in lines if "Validation loss" in x]
+        print("[toy centaur] centaur_float.py on the fake LJSpeech tree: {} "
+              "steps in {:.1f} s, losses {}; {} ({})".format(
+                  result["steps"], wall, losses[::5] + losses[-1:], val,
+                  card), flush=True)
+        check(result["steps"] == steps and len(losses) == steps and
+              all(math.isfinite(x) for x in losses) and
+              sum(losses[-5:]) < sum(losses[:5]) and bool(val),
+              "the Centaur toy's losses {}".format(losses))
+        out = os.path.join(logdir, "infer", "infer.csv")
+        _run_quiet(argv + ["--mode=infer", "--infer_output_file=" + out])
+        with open(out) as f:
+            rows = [line.split(",") for line in f.read().splitlines()]
+        sizes = [len(wavfile.read(r[1])[1]) for r in rows]
+        print("[toy centaur] infer over the test split: {} wavs of {} to {} "
+              "samples".format(len(rows), min(sizes), max(sizes)),
+              flush=True)
+        check(len(rows) == 6 and min(sizes) > 0, "the Centaur toy's infer")
+
+
+def phase_wavenet_toy(card):
+    """7zt: the WaveNet toy (``wavenet_toy.py``: the JAX test's network
+    and four tones) through ``run.main --mode=train_eval`` to its end (200
+    steps): the last loss below 3.0, the JAX test's bar; eval and infer
+    (a wav a tone) from the checkpoint. No kernel launches."""
+    import torch
+    with tempfile.TemporaryDirectory() as tmp, \
+            _launches_none("the WaveNet toy"):
+        os.environ["OS2S_TOY_WAVENET_DIR"] = os.path.join(tmp, "tones")
+        os.environ["OS2S_TOY_LOGDIR"] = os.path.join(tmp, "logs")
+        argv = ["--config_file=" + WAVENET_TOY]
+        t0 = time.time()
+        result, lines = _run_quiet(argv + ["--mode=train_eval"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        loss = float(result["last_metrics"]["loss"])
+        val = [x.strip() for x in lines if "Validation loss" in x]
+        print("[toy wavenet] wavenet_toy --mode=train_eval: {} steps in "
+              "{:.1f} s, losses at the printed steps {}, the last {:.4f}; "
+              "{} ({})".format(result["steps"], wall, _losses(lines), loss,
+                               val, card), flush=True)
+        check(result["steps"] == 200 and loss < 3.0,
+              "the WaveNet toy's loss {}".format(loss))
+        metrics, _ = _run_quiet(argv + ["--mode=eval"])
+        out = os.path.join(tmp, "infer", "infer.csv")
+        _run_quiet(argv + ["--mode=infer", "--infer_output_file=" + out])
+        with open(out) as f:
+            rows = f.read().splitlines()
+        check(math.isfinite(metrics["eval_loss"]) and len(rows) == 4,
+              "the WaveNet toy's eval and infer")
+
+
+def phase_causal_tts(card):
+    """7zp to 7zt: Centaur and WaveNet."""
+    from openseq2seq_tpu_torch.test_utils import fake_ljspeech
+    timed(phase_small_causal)
+    timed(phase_centaur, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        lj_dir = fake_ljspeech.generate(os.path.join(tmp, "lj"), n_clips=64)
+        print("[causal] fake_ljspeech: 64 clips of 1 to 3 s at 22,050 Hz in "
+              "{:.1f} s".format(time.time() - t0), flush=True)
+        timed(phase_wavenet, card, lj_dir)
+        timed(phase_centaur_toy, card, lj_dir)
+    timed(phase_wavenet_toy, card)
+
+
+def phase_small_convs2s():
+    """7zu: the tiny ConvS2S (``convs2s_tiny_wmt.py``, dropout off) on the
+    card and on the CPU from one seed: the eval logits and beam-3 ids,
+    two Momentum steps, within rtol 1e-4, atol 1e-5; no kernel
+    launches."""
+    from openseq2seq_tpu_torch.models import Text2Text
+    with tempfile.TemporaryDirectory() as tmp, \
+            _launches_none("tiny ConvS2S"):
+        os.environ["OS2S_FAKE_WMT_TINY_DIR"] = os.path.join(tmp, "wmt")
+        params = copy.deepcopy(runpy.run_path(CONVS2S_TINY)["base_params"])
+        for part in ("encoder_params", "decoder_params"):
+            for key in list(params[part]):
+                if key.endswith("keep_prob"):
+                    params[part][key] = 1.0
+
+        def beams(model, state):
+            from openseq2seq_tpu_torch.training import trainer
+            batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+            out = trainer.to_host(model.eval_step(state, batch))
+            return {"beam ids": out["outputs"]["decoder_output"]["outputs"][
+                0].astype("float64")}
+
+        _model_card_vs_cpu("tiny ConvS2S", Text2Text, params, ("logits",),
+                           train_steps=2, infer=beams)
+
+
+def phase_mixed_toys(card):
+    """7zx: the CR and RC toys (a ConvS2S encoder under an RNN decoder, an
+    RNN encoder under a ConvS2S decoder) for 20 steps each, then eval: the
+    losses finite, "Validation BLEU" printed; no kernel launches."""
+    for path in (NMT_TOY_CR, NMT_TOY_RC):
+        name = os.path.basename(path)
+        with tempfile.TemporaryDirectory() as tmp, _launches_none(name):
+            _toy_nmt_env(tmp)
+            cut = _recipe_config(path, tmp, 20, print_loss_steps=5,
+                                 eval_steps=20, save_checkpoint_steps=20)
+            result, lines = _run_quiet(["--config_file=" + cut,
+                                        "--logdir=" + tmp,
+                                        "--mode=train_eval"])
+            losses = _losses(lines)
+            bleu = _bleu_lines(lines)
+            print("[toy nmt] {}: {} steps, losses {}, validation BLEU {} "
+                  "({})".format(name, result["steps"], losses, bleu, card),
+                  flush=True)
+            check(result["steps"] == 20 and len(losses) == 4 and
+                  all(math.isfinite(x) for x in losses) and bool(bleu),
+                  "{} losses {}".format(name, losses))
+
+
+def convs2s_corpus(wmt_dir, root):
+    """``wmt_dir``'s corpus with its dev and test splits cut to 16
+    sentences: one eval batch, and an infer batch of 16 at beam 5."""
+    out = os.path.join(root, "wmt_dev16")
+    os.makedirs(out)
+    for name in os.listdir(wmt_dir):
+        src = os.path.join(wmt_dir, name)
+        if name.startswith(("wmt13-en-de", "wmt14-en-de")):
+            with open(src) as f:
+                lines = f.read().splitlines()[:16]
+            with open(os.path.join(out, name), "w") as f:
+                f.write("\n".join(lines) + "\n")
+        else:
+            os.symlink(src, os.path.join(out, name))
+    return out
+
+
+def timed(phase, *args, **kwargs):
+    """``phase(*args, **kwargs)``, its seconds printed on a line of their
+    own."""
     t0 = time.time()
-    result = phase(*args)
+    result = phase(*args, **kwargs)
     print("[time] phase {}: {:.1f} s".format(phase.__name__,
                                              time.time() - t0), flush=True)
     return result
@@ -6242,8 +6863,9 @@ def group_speech(card, launches):
 
 
 def group_nmt(card, launches):
-    """Phases 7a to 7e and 7u to 7x: transformer-big eval, infer and
-    training, the reversal toys and the WMT-shaped recipes from text."""
+    """Phases 7a to 7e, 7u to 7x and 7zu to 7zx: transformer-big eval,
+    infer and training, the reversal toys and the WMT-shaped recipes from
+    text, ConvS2S among them."""
     timed(phase_small_transformer)
     launches["flash_attn_fwd"] += timed(phase_transformer, card)
     timed(phase_small_transformer_train)
@@ -6308,7 +6930,8 @@ def group_lm(card, launches):
 
 
 def group_tts(card, launches):
-    """Phases 7y to 7za: Tacotron-2, its GST variant and the TTS toy."""
+    """Phases 7y to 7za and 7zp to 7zt: Tacotron-2, its GST variant and
+    the TTS toy; Centaur and WaveNet."""
     (lstm_fwd, lstm_bwd), (gru_fwd, gru_bwd) = timed(phase_tts, card)
     launches["lstm_scan_fwd"] += lstm_fwd
     launches["lstm_scan_bwd"] += lstm_bwd

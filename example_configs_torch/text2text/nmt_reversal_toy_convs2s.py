@@ -1,0 +1,115 @@
+"""Toy ConvS2S NMT on the synthetic reversal task, for the PyTorch port:
+the twin of ``example_configs/text2text/nmt_reversal_toy_convs2s.py``,
+key for key (a ConvS2S encoder and decoder of two GLU conv blocks of 48
+channels, width 3, fp32, beam 4, Adam 1e-3, ``max_grad_norm`` 0.5, 120
+epochs of the port's ``test_utils/toy_nmt.py`` corpus). The JAX test's
+bar for this family is "Validation BLEU" above 70
+(``tests/test_convs2s.py``).
+
+Generates the toy corpus on first use under ``os2s_toy_nmt`` in the
+temporary directory (or ``OS2S_TOY_NMT_DIR``) and logs under
+``OS2S_TOY_NMT_LOGDIR``.
+
+Run:
+  python -m openseq2seq_tpu_torch.run --mode=train_eval --device=cpu \
+      --config_file=example_configs_torch/text2text/nmt_reversal_toy_convs2s.py
+"""
+import os
+import tempfile
+
+from openseq2seq_tpu_torch.data.text2text import ParallelTextDataLayer
+from openseq2seq_tpu_torch.decoders import ConvS2SDecoder
+from openseq2seq_tpu_torch.encoders import ConvS2SEncoder
+from openseq2seq_tpu_torch.losses import BasicSequenceLoss
+from openseq2seq_tpu_torch.models import Text2Text
+from openseq2seq_tpu_torch.test_utils import toy_nmt
+
+_DATA_DIR = os.environ.get("OS2S_TOY_NMT_DIR", os.path.join(
+    tempfile.gettempdir(), "os2s_toy_nmt"))
+if not os.path.exists(os.path.join(_DATA_DIR, "train.src")):
+    toy_nmt.generate(_DATA_DIR)
+_DATA = {"train_src": os.path.join(_DATA_DIR, "train.src"),
+         "train_tgt": os.path.join(_DATA_DIR, "train.tgt"),
+         "eval_src": os.path.join(_DATA_DIR, "eval.src"),
+         "eval_tgt": os.path.join(_DATA_DIR, "eval.tgt"),
+         "vocab": os.path.join(_DATA_DIR, "vocab.txt")}
+
+_VOCAB = 16  # toy reversal alphabet + specials
+_CONV = [[48, 3]] * 2   # [channels, kernel_width] x layers
+
+base_model = Text2Text
+base_params = {
+    "random_seed": 0,
+    "num_epochs": 120,
+    "logdir": os.environ.get("OS2S_TOY_NMT_LOGDIR", os.path.join(
+        tempfile.gettempdir(), "os2s_torch_toy_nmt_cc_logs")),
+    "batch_size_per_gpu": 32,
+    "print_loss_steps": 100,
+    "eval_steps": 400,
+    "save_checkpoint_steps": 400,
+    "num_checkpoints": 2,
+
+    "optimizer": "Adam",
+    "optimizer_params": {"learning_rate": 1e-3},
+    "max_grad_norm": 0.5,
+    "dtype": "float32",
+
+    "encoder": ConvS2SEncoder,
+    "encoder_params": {
+        "src_emb_size": 48,
+        "src_vocab_size": _VOCAB,
+        "pad_embeddings_2_eight": False,
+        "conv_nchannels_kwidth": _CONV,
+        "embedding_dropout_keep_prob": 0.9,
+        "hidden_dropout_keep_prob": 0.9,
+        "max_input_length": 64,
+    },
+    "decoder": ConvS2SDecoder,
+    "decoder_params": {
+        "tgt_emb_size": 48,
+        "tgt_vocab_size": _VOCAB,
+        "out_emb_size": 48,
+        "shared_embed": True,
+        "conv_nchannels_kwidth": _CONV,
+        "embedding_dropout_keep_prob": 0.9,
+        "hidden_dropout_keep_prob": 0.9,
+        "out_dropout_keep_prob": 0.9,
+        "beam_size": 4,
+        "alpha": 0.6,
+        "extra_decode_length": 4,
+        "EOS_ID": 1,
+        "GO_SYMBOL": 2,
+        "batch_size": 32,
+        "max_input_length": 64,
+    },
+    "loss": BasicSequenceLoss,
+    "loss_params": {"offset_target_by_one": True,
+                    "average_across_timestep": True},
+    "data_layer": ParallelTextDataLayer,
+    "data_layer_params": {
+        "source_file": _DATA["train_src"],
+        "target_file": _DATA["train_tgt"],
+        "src_vocab_file": _DATA["vocab"],
+        "tgt_vocab_file": _DATA["vocab"],
+        "max_length": 16,
+        "shuffle": True,
+        "repeat": True,
+        "special_tokens_already_in_vocab": False,
+        "pad_lengths_to_eight": False,
+    },
+}
+eval_params = {
+    "data_layer_params": {
+        "source_file": _DATA["eval_src"],
+        "target_file": _DATA["eval_tgt"],
+        "shuffle": False,
+    },
+}
+infer_params = {
+    "data_layer_params": {
+        "source_file": _DATA["eval_src"],
+        "target_file": _DATA["eval_tgt"],
+        "shuffle": False,
+        "use_targets": False,
+    },
+}

@@ -41,8 +41,20 @@ such as the TDNN encoder), and returns the ``state_dict`` for
     Transformer-XL's under ``layer{i}_attn``, and the LM cells' raw
     leaves (the factorized LSTM's ``first_gemm_h``, ``second_gemm``,
     ``second_gemm_bias``, ``projection``; the layer-norm LSTM's
-    ``ln_scale``, ``ln_bias`` (4, H))
+    ``ln_scale``, ``ln_bias`` (4, H)), and ConvS2S's learned positions
+    ``pos_embedding`` (max length, E)
                                -> kept as they are, under the same names
+
+The causal-convolution families need no other rule: Centaur's encoder
+(``embedding``, ``conv{i}``, ``bn{i}``, ``proj``) and decoder
+(``prenet{i}``, ``pre_proj``, ``conv{i}``, ``bn{i}``, ``att_q{i}``,
+``att_kv{i}``, ``att_o{i}``, ``frame``, ``stop``), WaveNet's net
+(``net/entry``, ``net/b{b}_l{l}_dilated``, ``_cond``, ``_res``,
+``_skip``, ``net/post1``, ``net/post2``: conv kernels (k, in, out)) and
+ConvS2S's encoder and decoder (``embedding``, ``conv{i}``,
+``conv{i}_res_proj``, ``emb_proj``, ``att_q{i}``, ``att_out{i}``,
+``pre_out``, ``out``) are embeddings, conv and dense kernels and bare
+batch norms.
 
 These rules go by module and leaf name, never by a kernel's rank: a
 ``DenseGeneral`` kernel is 3-D like a conv kernel, and the layouts differ.
@@ -94,6 +106,8 @@ _STATS = {"mean": "running_mean", "var": "running_var"}
 # kept under their flax names and in the flax layout
 _RECURRENT = ("recurrent_kernel", "recurrent_bias")
 _LM = ("softmax_bias",)
+# ConvS2S's learned positions (encoder and decoder), (max length, E)
+_CONVS2S = ("pos_embedding",)
 _CONFORMER = ("u_bias", "w_bias", "ln1_scale", "ln1_bias", "pw1_kernel",
               "pw1_bias", "dw_kernel", "dw_bias", "ln2_scale", "ln2_bias",
               "pw2_kernel", "pw2_bias")
@@ -116,7 +130,7 @@ _TRANSDUCER_CELL = re.compile(r"pred_(wx|wh|b)[0-9]+")
 _LM_CELLS = ("first_gemm_h", "second_gemm", "second_gemm_bias", "projection",
              "ln_scale", "ln_bias")
 _KEPT = _RECURRENT + _CONFORMER + _LM + _RNN_DECODER + _TACOTRON + \
-    _TRANSDUCER + _LM_CELLS
+    _TRANSDUCER + _LM_CELLS + _CONVS2S
 # the parent module of flax DenseGeneral layers, whose kernels are kept:
 # the Conformer block's ``attn``, Transformer-XL's ``layer{i}_attn``
 _DENSE_GENERAL_PARENT = re.compile(r"(layer[0-9]+_)?attn")

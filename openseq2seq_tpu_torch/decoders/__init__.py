@@ -7,3 +7,5 @@ from .rnn_decoders import (BeamSearchRNNDecoderWithAttention,
                            RNNDecoderWithAttention)
 from .tacotron2_decoder import Tacotron2Decoder
 from .transducer_decoder import TransducerDecoder
+from .centaur_decoder import CentaurDecoder
+from .convs2s_decoder import ConvS2SDecoder

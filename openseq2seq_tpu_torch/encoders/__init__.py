@@ -12,3 +12,6 @@ from .rnn_encoders import (BidirectionalRNNEncoderWithEmbedding,
                            UnidirectionalRNNEncoderWithEmbedding)
 from .tacotron2_encoder import Tacotron2Encoder
 from .transformer_xl_encoder import TransformerXLEncoder
+from .centaur_encoder import CentaurEncoder
+from .convs2s_encoder import ConvS2SEncoder
+from .wavenet_encoder import WavenetEncoder

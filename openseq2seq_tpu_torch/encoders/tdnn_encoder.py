@@ -25,8 +25,10 @@ In training, dropout (``parts/dropout.py``, honouring the model's
 Bernoulli per block per step, the block's output is then its residual
 sum alone) draw from the ``torch.Generator`` passed to ``forward``.
 
-Only ``type: conv1d``, ``padding: SAME`` and ``normalization:
-batch_norm`` are ported; the other options raise. The module takes and
+Only ``type: conv1d`` with ``padding: SAME``, ``type: tcn`` (the causal
+conv, :class:`CausalConv1d`, whatever its ``padding``, as in the JAX
+package) and ``normalization: batch_norm`` are ported; the other options
+raise. The module takes and
 returns (B, T, C), as the JAX package does, and keeps that layout
 inside: each conv runs as a 2-D conv over a (B, C, 1, T) channels-last
 view of it, so cuDNN takes its NHWC implicit-GEMM kernels. In NCW
@@ -88,29 +90,32 @@ def same_padding(length: int, kernel: int, stride: int,
 
 class SameConv1d(nn.Module):
     """Conv1d with XLA's SAME padding and a bias (flax ``nn.Conv``'s
-    default), computing in ``dtype`` from the stored params; (B, T, C) in
-    and out. The weight is stored (out, in, k), as torch's conv1d keeps
-    it. The bias is added after the conv as flax rounds it (C26: under
-    bf16 the conv's output rounded, then the sum; fp32 keeps the fused
-    form)."""
+    default; none with ``use_bias`` False), computing in ``dtype`` from
+    the stored params; (B, T, C) in and out. The weight is stored (out,
+    in, k), as torch's conv1d keeps it. The bias is added after the conv
+    as flax rounds it (C26: under bf16 the conv's output rounded, then the
+    sum; fp32 keeps the fused form)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int,
                  dilation: int, dtype: torch.dtype, kernel_init,
-                 generator: torch.Generator):
+                 generator: torch.Generator, use_bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel))
-        self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
         kernel_init(self.weight, generator)
         self.kernel, self.stride, self.dilation = kernel, stride, dilation
         self.dtype = dtype
 
+    def padding(self, length: int) -> Tuple[int, int]:
+        """(low, high) zeros around ``length`` frames."""
+        return same_padding(length, self.kernel, self.stride, self.dilation)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        lo, hi = same_padding(x.shape[1], self.kernel, self.stride,
-                              self.dilation)
+        lo, hi = self.padding(x.shape[1])
         if lo != hi:
             x, lo = F.pad(x, (0, 0, lo, hi)), 0
-        b = self.bias.to(self.dtype)
-        fused = self.dtype == torch.float32
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        fused = self.dtype == torch.float32 or b is None
         # (B, T, C) contiguous is (B, C, 1, T) in channels-last order
         y = F.conv2d(x.to(self.dtype).permute(0, 2, 1).unsqueeze(2),
                      self.weight.unsqueeze(2).to(
@@ -118,6 +123,17 @@ class SameConv1d(nn.Module):
                      b if fused else None, (1, self.stride), (0, lo),
                      (1, self.dilation)).squeeze(2).permute(0, 2, 1)
         return y if fused else y + b
+
+
+class CausalConv1d(SameConv1d):
+    """flax ``nn.Conv(padding="CAUSAL")`` (and the reference's
+    ``parts/cnns/tcn.py``): ``(k - 1) * d`` zeros on the left, none on the
+    right, then the strided, dilated VALID conv, so output t sees inputs
+    up to t only; ceil(T / stride) frames out. Otherwise
+    :class:`SameConv1d`, the bf16 rounding of the bias included."""
+
+    def padding(self, length: int) -> Tuple[int, int]:
+        return (self.kernel - 1) * self.dilation, 0
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -175,16 +191,18 @@ class TDNNNet(nn.Module):
         # the weight of the new batch
         bn = lambda c: BatchNorm(  # noqa: E731
             c, 1.0 - bn_momentum, bn_epsilon, dtype)
-        conv = lambda i, o, k, s, d: SameConv1d(  # noqa: E731
+        conv = lambda i, o, k, s, d, cls=SameConv1d: cls(  # noqa: E731
             i, o, k, s, d, dtype, kernel_init, generator)
         ch_in = in_features
         residual_channels = []    # widths of saved block inputs (dense)
         for li, spec in enumerate(convnet_layers, start=1):
-            if spec["type"] != "conv1d" or \
-                    spec.get("padding", "SAME") != "SAME":
+            causal = spec["type"] == "tcn"
+            if not causal and (spec["type"] != "conv1d" or
+                               spec.get("padding", "SAME") != "SAME"):
                 raise NotImplementedError(
-                    "only conv1d with SAME padding is ported; got type={} "
-                    "padding={}".format(spec["type"], spec.get("padding")))
+                    "only conv1d with SAME padding and tcn are ported; got "
+                    "type={} padding={}".format(spec["type"],
+                                                spec.get("padding")))
             ch = spec["num_channels"]
             k, s = spec["kernel_size"][0], spec["stride"][0]
             d = spec.get("dilation", [1])[0]
@@ -198,8 +216,9 @@ class TDNNNet(nn.Module):
                 else:
                     sources = [ch_in]
             for r in range(1, spec.get("repeat", 1) + 1):
-                self.add_module("conv{}_{}".format(li, r),
-                                conv(ch_in, ch, k, s, d))
+                self.add_module("conv{}_{}".format(li, r), conv(
+                    ch_in, ch, k, s, d,
+                    CausalConv1d if causal else SameConv1d))
                 self.add_module("norm{}_{}".format(li, r), bn(ch))
                 ch_in = ch
             for si, src_ch in enumerate(sources):

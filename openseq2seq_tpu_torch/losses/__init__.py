@@ -6,3 +6,4 @@ from .sequence_loss import (BasicSampledSequenceLoss, BasicSequenceLoss,
                             PaddedCrossEntropyLossWithSmoothing)
 from .text2speech_loss import Text2SpeechLoss
 from .transducer_loss import TransducerLoss
+from .wavenet_loss import WavenetLoss

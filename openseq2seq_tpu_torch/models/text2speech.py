@@ -9,8 +9,12 @@ wav per example beside the output file, which lists them.
 
 The prenet's dropout stays on outside training: eval and infer draw its
 masks from a generator seeded with ``random_seed`` for each batch, as the
-JAX model passes every eval batch the same fixed key. Centaur and WaveNet
-(``Text2SpeechCentaur``, ``Text2SpeechWavenet``) are not ported yet.
+JAX model passes every eval batch the same fixed key.
+``Text2SpeechCentaur`` rides the same evaluate and infer.
+``Text2SpeechWavenet`` is the vocoder's: the loss alone in eval
+("Validation loss"), the teacher-forced reconstruction in infer (one
+``wavenet_<id>.wav`` an example beside the output file), and
+:meth:`Text2SpeechWavenet.generate`, the fast autoregressive synthesis.
 """
 from __future__ import annotations
 
@@ -176,3 +180,86 @@ class Text2Speech(EncoderDecoderModel):
 
 class Text2SpeechTacotron(Text2Speech):
     """The named subclass of the configs."""
+
+
+class Text2SpeechCentaur(Text2Speech):
+    """The named subclass of the configs: Centaur's alignments ride the
+    same ``alignments`` output that evaluate plots."""
+
+
+class Text2SpeechWavenet(Text2Speech):
+    """The WaveNet vocoder: the encoder emits the logits, a
+    ``FakeDecoder`` passes them through."""
+
+    def _create_decoder(self):
+        self._params.setdefault("decoder_params", {})
+        return super(Text2Speech, self)._create_decoder()
+
+    def build_module(self, example_batch: Dict[str, Any],
+                     generator: torch.Generator) -> ForwardPass:
+        """The encoder takes the conditioning's width (None without)."""
+        src = example_batch["source_tensors"]
+        enc = self._encoder.make_module(
+            src[2].shape[-1] if len(src) > 2 else None, generator)
+        dec = self._decoder.make_module(enc.out_features, generator)
+        return ForwardPass(enc, dec)
+
+    def generate(self, state, conditioning=None, n_samples: int = 16000,
+                 temperature: float = 0.0,
+                 generator: torch.Generator = None) -> np.ndarray:
+        """Autoregressive synthesis (``encoders/wavenet_encoder.
+        wavenet_generate``); ``conditioning`` (B, T_mel, F) mel features.
+        Returns the (B, n_samples) waveform."""
+        from ..encoders.wavenet_encoder import wavenet_generate
+        if conditioning is not None:
+            conditioning = torch.as_tensor(np.asarray(conditioning),
+                                           device=self.device)
+        _, audio, _ = wavenet_generate(
+            state.module.enc.net, n_samples, conditioning=conditioning,
+            temperature=temperature, generator=generator)
+        return audio.cpu().numpy()
+
+    def compute_loss(self, outputs, batch):
+        return self._loss_computator.compute_loss({
+            "decoder_output": outputs["decoder_output"],
+            "target_tensors": batch.get("target_tensors")})
+
+    def evaluate(self, input_values, output_values):
+        valid = int(input_values.get(
+            "batch_valid", input_values["source_tensors"][0].shape[0]))
+        return (float(output_values.get("loss", 0.0)) * valid, valid)
+
+    def finalize_evaluation(self, results_per_batch, training_step=None):
+        total = sum(r[0] for r in results_per_batch)
+        count = sum(r[1] for r in results_per_batch)
+        eval_loss = total / max(count, 1)
+        deco_print("Validation loss: {:.4f}".format(eval_loss), offset=4)
+        return {"eval_loss": eval_loss}
+
+    def infer(self, input_values, output_values):
+        audio = np.asarray(
+            output_values["outputs"]["decoder_output"]["outputs"][1])
+        valid = int(input_values.get("batch_valid", audio.shape[0]))
+        ids = np.asarray(input_values["source_ids"])[:valid]
+        return [(int(ids[i]), audio[i]) for i in range(valid)]
+
+    def finalize_inference(self, results_per_batch, output_file):
+        """One int16 wav an example, ``wavenet_<id>.wav`` beside
+        ``output_file``, which lists ``<id>,<wav path>``."""
+        from scipy.io import wavfile
+        out_dir = os.path.dirname(os.path.abspath(output_file)) or "."
+        os.makedirs(out_dir, exist_ok=True)
+        sr = self.get_data_layer().params.get("sample_freq", 22050)
+        rows = [item for batch in results_per_batch for item in batch]
+        with open(output_file, "w") as f:
+            for idx, wav in rows:
+                path = os.path.join(out_dir, "wavenet_{}.wav".format(idx))
+                peak = float(np.max(np.abs(wav))) or 1.0
+                wavfile.write(path, sr,
+                              (wav / peak * 0.9 * 32767).astype(np.int16))
+                f.write("{},{}\n".format(idx, path))
+        deco_print("Synthesized {} wavs".format(len(rows)))
+
+    def get_num_objects_per_step(self, batch):
+        """Audio samples."""
+        return int(np.sum(np.asarray(batch["source_tensors"][1])))

@@ -45,8 +45,8 @@ names, weights and numbers:
     DropConnect mask on W_h a call, drawn from the generator passed in.
 
 The last three run the scan: no kernel computes them, in the JAX package
-or here. The speech-synthesis recipes' ``TemporalConvolutionalLayer`` is
-not ported yet and raises.
+or here. :class:`TemporalConvolutionalLayer` is the causal conv of
+``encoders/tdnn_encoder.CausalConv1d`` under the flax layer's name.
 """
 from __future__ import annotations
 
@@ -428,8 +428,20 @@ class LayerNormLSTM(nn.Module):
 
 
 class TemporalConvolutionalLayer(nn.Module):
+    """The causal (left-padded) 1-D convolution of the reference's
+    ``parts/cnns/tcn.py``: ``(k - 1) * d`` zeros on the left, then the
+    VALID conv (module ``conv``, a :class:`CausalConv1d`); (B, T, C) in,
+    (B, ceil(T / strides), filters) out."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("TemporalConvolutionalLayer is not ported "
-                                  "yet: it comes with the WaveNet slice "
-                                  "(ROADMAP.md)")
+    def __init__(self, in_features: int, filters: int, kernel_size: int,
+                 strides: int = 1, dilation: int = 1, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator = None):
+        super().__init__()
+        from ...encoders.tdnn_encoder import CausalConv1d
+        self.conv = CausalConv1d(in_features, filters, kernel_size, strides,
+                                 dilation, dtype, resolve_initializer(None),
+                                 generator, use_bias=use_bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)

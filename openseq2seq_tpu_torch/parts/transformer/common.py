@@ -86,6 +86,14 @@ def get_decoder_self_attention_bias(length: int, device=None
     return (mask * NEG_INF)[None, None]
 
 
+def weak_scalar(value: float, dtype: torch.dtype) -> float:
+    """A Python number as JAX applies it to an array of ``dtype`` (a weak
+    type: rounded to the array's type first), e.g. sqrt(0.5) times a bf16
+    array is 0.70703125 times it; returned as a float that torch applies
+    exactly."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
 def dense(x: torch.Tensor, w: torch.Tensor,
           b: Optional[torch.Tensor]) -> torch.Tensor:
     """``x w^T + b`` in the type of ``w`` as flax's ``nn.Dense`` computes

@@ -76,7 +76,15 @@ def _import_all(report: str) -> str:
             "openseq2seq_tpu_torch.test_utils.fake_wikitext",
             "openseq2seq_tpu_torch.losses.cross_entropy_loss",
             "openseq2seq_tpu_torch.encoders.transformer_xl_encoder",
-            "openseq2seq_tpu_torch.apps.lm_rescorer"} <= set(modules)
+            "openseq2seq_tpu_torch.apps.lm_rescorer",
+            "openseq2seq_tpu_torch.encoders.centaur_encoder",
+            "openseq2seq_tpu_torch.decoders.centaur_decoder",
+            "openseq2seq_tpu_torch.encoders.wavenet_encoder",
+            "openseq2seq_tpu_torch.losses.wavenet_loss",
+            "openseq2seq_tpu_torch.data.text2speech.text2speech_wavenet",
+            "openseq2seq_tpu_torch.encoders.convs2s_encoder",
+            "openseq2seq_tpu_torch.decoders.convs2s_decoder",
+            "openseq2seq_tpu_torch.test_utils.fake_ljspeech"} <= set(modules)
     names = {os.path.basename(c) for c in CONFIGS}
     assert len(CONFIGS) >= 13 and {
         "transformer_big_train_synthetic.py", "ds2_medium_synthetic.py",
@@ -96,7 +104,12 @@ def _import_all(report: str) -> str:
         "lstm_wkt2.py", "lstm_test_small.py", "lstm_test_small_mixed.py",
         "lstm_toy.py", "txl_wkt103.py", "txl_tiny.py", "imdb_wkt103.py",
         "imdb_wkt2.py", "imdb_from_scratch.py", "sst_wkt2.py",
-        "sst_wkt2_small.py", "imdb_tiny.py"} <= names
+        "sst_wkt2_small.py", "imdb_tiny.py", "centaur_float.py",
+        "centaur_synthetic.py", "centaur_tiny_synthetic.py",
+        "wavenet_LJ.py", "wavenet_float.py", "wavenet_toy.py",
+        "wavenet_tiny.py", "en_de_convs2s_wmt.py",
+        "nmt_reversal_toy_convs2s.py", "nmt_reversal_toy_cr.py",
+        "nmt_reversal_toy_rc.py", "convs2s_tiny_wmt.py"} <= names
     code = ("import importlib, runpy, sys\n"
             "for m in {!r}: importlib.import_module(m)\n"
             "for c in {!r}: runpy.run_path(c)\n"

@@ -240,10 +240,12 @@ def test_make_rnn_maps_the_recipes_types():
     with pytest.raises(ValueError, match="rnn type"):
         rnn.make_rnn("rnn_tanh", D, H, True, torch.float32)
     # the LM cells are built (their numbers are held in
-    # test_torch_lm_cells.py); the speech-synthesis TCN is not ported
+    # test_torch_lm_cells.py); the causal TCN is held against flax's
+    # CAUSAL conv in test_torch_centaur.py
     assert isinstance(rnn.GLSTM(D, 2 * H, num_groups=2).group2, rnn.LSTM)
     for cell in (rnn.SLSTM(D, H), rnn.FLSTM(D, H, 4),
                  rnn.LayerNormLSTM(D, H)):
         assert sum(p.numel() for p in cell.parameters()) > 0
-    with pytest.raises(NotImplementedError, match="not ported"):
-        rnn.TemporalConvolutionalLayer(H)
+    tcn = rnn.TemporalConvolutionalLayer(D, H, 3, dilation=2)
+    assert tcn.conv.weight.shape == (H, D, 3)
+    assert tcn(torch.zeros(2, 7, D)).shape == (2, 7, H)
