@@ -5,15 +5,21 @@ them.
     python3 chip_smoke.py [--group=NAME]
 
 With no argument it runs every phase below and ends with the kernels
-line and the contract line. ``--group`` runs the environment, the build
+line and the contract line: the kernel group first, alone on the card so
+that its times are clean, then each other group in a process of its own
+(``--group=NAME``), up to three at a time as their budgets of device
+memory allow (``GROUP_GIB``), its output relayed when it ends and its
+launches added up; the first group to fail stops the others. Their
+rates and idle shares are thus read beside two other groups: a rate to
+keep comes from a ``--group`` run, which has the card to itself. ``--group`` runs the environment, the build
 and one group of phases, then a line of that group's kernel launches and
 seconds, and the contract line: ``kernels`` (3 to 4j), ``speech`` (5 to
 7, 7r, 7s), ``nmt`` (7a to 7e, 7u to 7x, 7zu to 7zx), ``rnn`` (7f to 7k,
 the DS2 toy), ``conformer`` (7l to 7n, the Conformer toy), ``lm`` (7o to
 7q, 7zf to 7zi), ``tts`` (7y to 7za, 7zp to 7zt), ``transducer`` (7zb to
-7ze) and ``image`` (7zj to 7zo). Each phase's seconds are printed on a
-line of their own (``[time] phase ...``), then each group's and the
-total.
+7ze), ``image`` (7zj to 7zo) and ``las`` (7zy to 7zzc). Each phase's
+seconds are printed on a line of their own (``[time] phase ...``), then
+each group's and the total.
 
 Phases, one informative line or a few each:
 
@@ -32,11 +38,13 @@ Phases, one informative line or a few each:
    summary);
 3. the forward kernel against its plain PyTorch version, both fp32 on the
    card, at the Jasper eval shape (B=32, T=500, L=160, V=29), at
-   Conformer-M's (B=64, T=250), at L=600 (two states a thread), at T=37
+   Conformer-M's (B=64, T=250), at JCA's (B=64, T=401, L=241, V=30), at
+   L=600 (two states a thread), at T=37
    and at lengths that end on either side of the kernels' chunk edges
    (``ctc_chunk_case``): max relative error 1e-5 on the NLL of feasible
    rows, exact zeros on infeasible ones; the kernels' resources
-   (``ctc_resources``) at L=160 and 600; times from CUDA events; wrong
+   (``ctc_resources``) at L=160, 600 and JCA's 241; times from CUDA
+   events (at the Jasper and JCA shapes); wrong
    inputs refused, and L=3000, whose CTA does not fit an SM, refused with
    ValueError and nothing counted;
 4. the backward's two launches (after the forward with its alpha
@@ -46,14 +54,14 @@ Phases, one informative line or a few each:
    past each length, the posteriors of a live frame summing to 1 within
    1e-4, the first launch's posteriors within 1e-5 of ``ctc_posteriors``
    on the kernel forward's own NLL and lattice, element by element, two
-   calls bit-identical; at the Jasper and Conformer-M shapes and the chunk
-   case the planted faults of ``ctc_cuda.planted_faults`` (frame t+1's
+   calls bit-identical; at the Jasper, Conformer-M and JCA shapes and the
+   chunk case the planted faults of ``ctc_cuda.planted_faults`` (frame t+1's
    emission at a chunk edge; a lattice frame read from its neighbour; a
    repeated symbol's state left out of the scatter; d log-probs zeroed but
    on row 1), each of whose largest reading must pass 1 and is printed;
    times of kernel fwd+bwd against plain fwd+bwd; ``F.ctc_loss`` timed at
-   the Jasper and Conformer-M shapes, forward and forward plus backward,
-   as their library yardstick;
+   the Jasper, Conformer-M and JCA shapes, forward and forward plus
+   backward, as their library yardstick;
 4b. the flash kernel against ``flash_attention_plain`` at the
    transformer-big eval shapes (encoder B=64, H=16, T=64, D=64 with key
    padding; decoder causal T=63; cross Tq=63, Tk=64), causal at T=113,
@@ -84,6 +92,7 @@ Phases, one informative line or a few each:
    model's B=224, T=96, H=1024, seven tiles of 32 rows a step; GNMT-like's
    encoder, B=32, T=50, H=1024, one tile; the Tacotron-2 encoder's LSTM,
    B=48, T=96, H=256, a full tile of 32 rows and a ragged one of 16; the
+   LAS listener's BiLSTMs, B=64, H=512, T=400 and 200, two tiles; the
    GST reference encoder's GRU, B=48, T=8, H=128), at B=8,
    T=37, H=128, LSTMs at H=1024 and 1280 and the DS2 toy's GRU (fp32,
    B=10, T=48, H=64; bf16 refused there), forward and reverse, lengths from
@@ -307,13 +316,14 @@ Phases, one informative line or a few each:
    cache) from wav files: a LibriSpeech-shaped corpus of 256 utterances
    of 10 s (``test_utils/fake_librispeech``, 8 batches of 32; the first
    64 its dev and test lists); the data layer's featurization rates alone
-   (cold and warm cache on its thread pool, cold on a pool of worker
-   processes); ``run.main --mode=train`` for 20 steps (the first epoch
-   fills the cache, the later ones read it): the loss finite and falling,
+   over the first 128 (cold and warm cache on its thread pool, cold on a
+   pool of worker processes); ``run.main --mode=train`` for 20 steps (the
+   first epoch fills the cache, the later ones read it): the loss finite
+   and falling,
    the CTC forward and backward once a step, the train rate in utt/s
-   against the synthetic config's in phase 7; 10 more steps with
+   against the synthetic config's in phase 7; 6 more steps with
    ``--continue_learning`` under the profiler, the card's idle share over
-   the last 6 (past the new process's cuDNN autotuning); ``--mode=eval``
+   the last 4 (past the new process's cuDNN autotuning); ``--mode=eval``
    ("Validation WER" over the 64 dev utterances, the CTC forward once a
    batch) and ``--mode=infer`` (the CSV names each wav of the test list
    once, in order); rates with the card's name and power
@@ -376,7 +386,7 @@ Phases, one informative line or a few each:
    3 steps: the GRU kernels 1 forward and 1 backward launch a step (the
    style encoder's GRU over 8 frames), the LSTM kernels 2 and 2;
 7za. the Tacotron toy (``tacotron_toy.py``, the 10 tone wavs of
-   ``test_utils/toy_tts``) through ``run.main --mode=train_eval`` for 250
+   ``test_utils/toy_tts``) through ``run.main --mode=train_eval`` for 225
    steps (the JAX test's 400 cut for the script's clock; the loss passes
    the bar near step 190) to a loss below 12.0 (the JAX package's bar),
    then eval and
@@ -508,11 +518,37 @@ Phases, one informative line or a few each:
    step 400), to "Validation BLEU" above 70 (the JAX test's bar);
 7zx. the CR and RC toys (ConvS2S encoder and RNN decoder, and the other
    way round) for 20 steps each, then eval;
+7zy. the tiny LAS (``las_tiny.py`` at H 64, fp32: the listener's LSTM on
+   B3's fp32 path) and the tiny JCA (``jca_tiny.py``: its CTC half on B1a
+   and B1b), dropout off, card against CPU from one seed: eval logits
+   (and LAS's alignments), two Adam steps, the beam decode's ids, within
+   rtol 1e-4, atol 1e-5, and their launches;
+7zz. ``ctc_cuda.check_fits`` at JCA's shape (L 240 and 241, V 30), then
+   ``las_large_librispeech.py`` at full width ("mixed", the listener's
+   three BiLSTMs on B3) on a LibriSpeech-shaped corpus of 256 utterances
+   of 16.0 s with 240-character transcripts: 20 training steps of 64
+   (B3 6 forward and 6 backward launches a step), the last 3 traced (the
+   idle share), utt/s and the peak memory; eval over the
+   64 dev utterances ("Validation WER", B3 6) and a beam-4 infer batch
+   of the 64 test utterances (a CSV row a wav, B3 6);
+7zza. ``jca_large_8gpus.py`` at full width (fp32) the same way: B1a 1 and
+   B1b 1 launch a step, B1a 1 an eval batch;
+7zzb. the LAS toy (``las_toy.py``, 150 epochs of the 10 toy utterances)
+   to a last training loss below 0.5 (``tests/test_las_jca.py``'s bar),
+   in a process of its own beside 7zz's evals and 7zzc;
+7zzc. Jasper-10x5 in infer (``jasper10x5_beam_librispeech.py``: the
+   on-device prefix beam 16 fused with a character 3-gram) at B 32, T'
+   500: its top beam's ids equal the CPU beam's on the same logits; then
+   ``infer_logits_to_pickle`` and ``scripts_torch/decode.py`` with the
+   native decoder and a word 2-gram from ``scripts_torch/build_lm.py``;
 8. one JSON line for the kernels (the LSTM scans' entries with their
    times at the LM's shape under ``at_lm_shape``, at GNMT's under
-   ``at_gnmt_shape`` and at Tacotron-2's under ``at_tacotron_shape``; the
-   GRU scans' at GST's under ``at_gst_shape``; the rel-pos flash and conv
-   module kernels' at the transducer's B 128, T' 250 and 418 under
+   ``at_gnmt_shape``, at Tacotron-2's under ``at_tacotron_shape`` and at
+   the LAS listener's (B 64, H 512, T 400 and 200) under
+   ``at_las_shape`` and ``at_las_pyramid_shape``; the GRU scans' at
+   GST's under ``at_gst_shape``; the CTC kernels' at JCA's B 64, T' 401,
+   L 241, V 30 under ``at_jca_shape``; the rel-pos flash and conv module
+   kernels' at the transducer's B 128, T' 250 and 418 under
    ``at_transducer_shape``), then ``{"ok": true, "device": ...}`` last.
 
 Each path is driven with the launch counts set to 0 just before it and
@@ -532,9 +568,11 @@ import os
 import re
 import runpy
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -701,17 +739,24 @@ def ctc_chunk_case(device, seed=41):
             for a in (logits, logit_lens, labels, label_lens)]
 
 
-# name, (B, T, L) or None for ctc_chunk_case: the CTC kernels' checks
+# name, (B, T, L[, V]) or None for ctc_chunk_case: the CTC kernels'
+# checks (V 29 where it is left out); "jca" is JCA's CTC half at its
+# recipe's shape: B 64, T' 401 after two stride-2 convs of 16 s, the 241
+# columns of 240-character targets without <S>, V 30 (blank 29)
 CTC_CASES = (("jasper", (32, 500, 160)), ("conformer-m", (64, 250, 160)),
              ("L=600", (8, 1400, 600)), ("T=37", (8, 37, 12)),
-             ("chunk edges", None))
+             ("chunk edges", None), ("jca", (64, 401, 241, 30)))
+# the cases whose kernel times (and F.ctc_loss's) are kept: the kernels
+# line's own and its ``at_jca_shape``
+CTC_TIMED = ("jasper", "jca")
+CTC_JCA = {}
 
 
 def ctc_check_case(name, shape, seed, dev):
     if shape is None:
         return ctc_chunk_case(dev, seed)
-    B, T, L = shape
-    return ctc_case(B, T, L, 29, seed, dev)
+    B, T, L = shape[:3]
+    return ctc_case(B, T, L, shape[3] if len(shape) > 3 else 29, seed, dev)
 
 
 def phase_kernel(card):
@@ -720,9 +765,9 @@ def phase_kernel(card):
     dev = torch.device("cuda")
     worst_abs = 0.0
     timing = None
-    for L in (160, 600):
-        print("[kernel] resources at L={}, V=29: {}".format(
-            L, ctc_cuda.ctc_resources(L, 29)), flush=True)
+    for L, V in ((160, 29), (600, 29), (241, 30)):
+        print("[kernel] resources at L={}, V={}: {}".format(
+            L, V, ctc_cuda.ctc_resources(L, V)), flush=True)
     for name, shape in CTC_CASES:
         case = ctc_check_case(name, shape, shape[1] if shape else 41, dev)
         B, T, _ = case[0].shape
@@ -748,14 +793,18 @@ def phase_kernel(card):
                   float(want[feasible].mean())), flush=True)
         check(rel_err <= RTOL, "{}: rel err {} > {}".format(
             name, rel_err, RTOL))
-        if name == "jasper":
+        if name in CTC_TIMED:
             lp = ctc.log_probs(case[0]).contiguous()
-            args = (lp, case[1], case[2], case[3], 28)
-            timing = (cuda_ms(lambda: ctc_cuda.ctc_nll_cuda(*args), 50),
-                      cuda_ms(lambda: ctc_cuda.ctc_nll_plain(*args), 10))
-            print("[kernel] eval shape: kernel {:.4f} ms, plain {:.4f} ms "
-                  "(CUDA events, back to back; {})".format(*timing, card),
-                  flush=True)
+            args = (lp, case[1], case[2], case[3], case[0].shape[2] - 1)
+            times = (cuda_ms(lambda: ctc_cuda.ctc_nll_cuda(*args), 50),
+                     cuda_ms(lambda: ctc_cuda.ctc_nll_plain(*args), 10))
+            print("[kernel] {} eval shape: kernel {:.4f} ms, plain {:.4f} "
+                  "ms (CUDA events, back to back; {})".format(
+                      name, *times, card), flush=True)
+            if name == "jasper":
+                timing = times
+            else:
+                CTC_JCA["fwd_ms"], CTC_JCA["fwd_plain_ms"] = times
     # what the kernel does not take, it refuses
     lp = ctc.log_probs(ctc_case(4, 9, 3, 29, 0, dev)[0])
     n = torch.full((4,), 9, dtype=torch.int32, device=dev)
@@ -806,7 +855,7 @@ def phase_backward(card):
         B, T, _ = logits.shape
         L = labels.shape[1]
         lp = ctc.log_probs(logits).contiguous()
-        args = (lp, lens, labels, label_lens, 28)
+        args = (lp, lens, labels, label_lens, logits.shape[2] - 1)
 
         def kernels():
             nll, lattice = ctc_cuda.alpha_fwd(*args, True)
@@ -840,7 +889,7 @@ def phase_backward(card):
         check(reads["post"] <= 1, "{}: posteriors abs err".format(name))
         check(bool(torch.equal(got, again)), "{}: two calls differ".format(
             name))
-        if name in ("jasper", "conformer-m", "chunk edges"):
+        if name in ("jasper", "conformer-m", "chunk edges", "jca"):
             faults = ctc_cuda.planted_faults(*args, plain)
             worst = {k: max(ctc_cuda.readings(f, plain, lens, labels,
                                               label_lens).values())
@@ -851,17 +900,21 @@ def phase_backward(card):
             check(len(worst) == 4, "{}: faults missing".format(name))
             check(all(v > 1 for v in worst.values()),
                   "{}: a planted fault passed: {}".format(name, worst))
-        if name == "jasper":
+        if name in CTC_TIMED:
             nll, lattice = ctc_cuda.alpha_fwd(*args, True)
-            timing = (cuda_ms(kernels, 50),
-                      cuda_ms(lambda: ctc.ctc_nll_grad(*args), 5),
-                      cuda_ms(lambda: ctc_cuda.beta_bwd(*args, nll, lattice),
-                              50),
-                      cuda_ms(lambda: ctc_cuda.alpha_fwd(*args, True), 50))
-            print("[backward] train shape: kernels fwd+bwd {:.4f} ms, plain "
-                  "fwd+bwd {:.4f} ms; backward kernels alone {:.4f} ms, "
-                  "forward with lattice {:.4f} ms (CUDA events, back to "
-                  "back; {})".format(*timing, card), flush=True)
+            times = (cuda_ms(kernels, 50),
+                     cuda_ms(lambda: ctc.ctc_nll_grad(*args), 5),
+                     cuda_ms(lambda: ctc_cuda.beta_bwd(*args, nll, lattice),
+                             50),
+                     cuda_ms(lambda: ctc_cuda.alpha_fwd(*args, True), 50))
+            print("[backward] {} train shape: kernels fwd+bwd {:.4f} ms, "
+                  "plain fwd+bwd {:.4f} ms; backward kernels alone {:.4f} "
+                  "ms, forward with lattice {:.4f} ms (CUDA events, back to "
+                  "back; {})".format(name, *times, card), flush=True)
+            if name == "jasper":
+                timing = times
+            else:
+                CTC_JCA["bwd_ms"], CTC_JCA["bwd_plain_ms"] = times[:2]
     return worst_abs, timing
 
 
@@ -1385,7 +1438,9 @@ SCAN_BF16_MEAN, SCAN_BF16_MAX = 1e-3, 3 * 2.0 ** -7
 # refused before any launch (their fp32 copy of W_h passes a CTA's shared
 # memory; the bf16 kernels keep W_h in registers), and the DS2 toy's GRU
 # (fp32, B 10, about 48 frames after its stride-2 conv, H 64: 64 CTAs of
-# one unit, a width the bf16 kernels refuse)
+# one unit, a width the bf16 kernels refuse), and the LAS listener's
+# BiLSTMs at B 64, H 512 (two tiles of 32 rows): T 400, then 200 after
+# the pyramid's second pooling
 SCAN_CASES = (
     ("ds2-medium", "gru", 32, 500, 1024),
     ("lstm_small", "lstm", 32, 500, 512),
@@ -1398,6 +1453,8 @@ SCAN_CASES = (
     ("wide lstm", "lstm", 8, 37, 1024),
     ("widest lstm", "lstm", 8, 37, 1280),
     ("ds2-toy", "gru", 10, 48, 64),
+    ("las-400", "lstm", 64, 400, 512),
+    ("las-200", "lstm", 64, 200, 512),
 )
 
 
@@ -1405,9 +1462,11 @@ SCAN_CASES = (
 # layers' are bidirectional stacks, the LM's are not); cuDNN's one layer
 # is timed with that input width
 SCAN_TIMED = {"ds2-medium": 2, "lstm_small": 2, "lstm-lm": 1, "gnmt": 1,
+              "las-400": 1.5, "las-200": 4,
               "tacotron": 2, "gst": 2}
 # the timed cases kept apart from their cell's main entry
-SCAN_OWN_ENTRY = ("lstm-lm", "gnmt", "tacotron", "gst")
+SCAN_OWN_ENTRY = ("lstm-lm", "gnmt", "tacotron", "gst", "las-400",
+                  "las-200")
 # the bf16 kernels walk a step's batch rows in tiles of 32 (kRows in
 # csrc/rnn_scan.cuh and csrc/rnn_scan_bwd.cuh)
 SCAN_TILE_ROWS = 32
@@ -1655,7 +1714,7 @@ def phase_scan(card):
                                       max(e[0] for e in errs))
         if name not in SCAN_TIMED:
             continue
-        width = SCAN_TIMED[name] * H
+        width = int(SCAN_TIMED[name] * H)
         full = scan_case(cell, B, T, H, 30 + i, dev, full=True)
         mod = (torch.nn.GRU if cell == "gru" else torch.nn.LSTM)(
             width, H, batch_first=True).to(dev, torch.bfloat16)
@@ -1929,7 +1988,7 @@ def phase_scan_bwd(card):
                     worst[cell] = max(worst[cell], max(e[0] for e in errs))
         if name not in SCAN_TIMED:
             continue
-        width = SCAN_TIMED[name] * H
+        width = int(SCAN_TIMED[name] * H)
         full = with_cotangents(scan_case(cell, B, T, H, 70 + i, dev,
                                          full=True), 80 + i)
         G = 4 if cell == "lstm" else 3
@@ -3940,38 +3999,42 @@ def phase_lm_train(card):
 
 def phase_ctc_library(card):
     """``F.ctc_loss`` at the CTC train shapes (Jasper's B=32, T=500 and
-    Conformer-M's B=64, T=250; L=160, V=29), forward and forward plus
-    backward: the CTC kernels' library yardstick, never on the path.
-    Returns the Jasper shape's times."""
+    Conformer-M's B=64, T=250, L=160, V=29; JCA's B=64, T=401, L=241,
+    V=30), forward and forward plus backward: the CTC kernels' library
+    yardstick, never on the path. Returns the Jasper shape's times (JCA's
+    go to ``CTC_JCA``)."""
     import torch
     import torch.nn.functional as F
     from openseq2seq_tpu_torch.ops import ctc
     dev = torch.device("cuda")
     out = None
-    for B, T in ((32, 500), (64, 250)):
+    for B, T, L, V in ((32, 500, 160, 29), (64, 250, 160, 29),
+                       (64, 401, 241, 30)):
         # the inputs of the kernels' timings: phase_kernel's eval case and
         # phase_backward's train case
         cases = []
         for seed in (T, T + 1):
-            logits, lens, labels, label_lens = ctc_case(B, T, 160, 29, seed,
+            logits, lens, labels, label_lens = ctc_case(B, T, L, V, seed,
                                                         dev)
             lp = ctc.log_probs(logits).transpose(0, 1).detach()  # (T, B, V)
             cases.append((lp, labels, lens, label_lens))
         lp_grad = cases[1][0].clone().requires_grad_()
 
         def fwd():
-            return F.ctc_loss(*cases[0], blank=28, reduction="none",
+            return F.ctc_loss(*cases[0], blank=V - 1, reduction="none",
                               zero_infinity=True)
 
         def fwd_bwd():
-            F.ctc_loss(lp_grad, *cases[1][1:], blank=28, reduction="sum",
+            F.ctc_loss(lp_grad, *cases[1][1:], blank=V - 1, reduction="sum",
                        zero_infinity=True).backward()
 
         times = (cuda_ms(fwd, 50), cuda_ms(fwd_bwd, 50))
-        print("[ctc] F.ctc_loss at B={} T={} L=160 V=29: forward {:.4f} ms, "
+        print("[ctc] F.ctc_loss at B={} T={} L={} V={}: forward {:.4f} ms, "
               "forward+backward {:.4f} ms (CUDA events, back to back; {})"
-              .format(B, T, *times, card), flush=True)
+              .format(B, T, L, V, *times, card), flush=True)
         out = out or times
+        if V == 30:
+            CTC_JCA["lib_fwd_ms"], CTC_JCA["lib_fwd_bwd_ms"] = times
     return out
 
 
@@ -4167,13 +4230,13 @@ def phase_librispeech(card, synthetic_utt_s):
     corpus of 256 ten-second utterances (8 batches of 32) written by
     ``test_utils/fake_librispeech``, with a copy of its dev list as the
     test list that infer reads. The data layer's featurization rates
-    alone; 20 training steps through ``run.main --mode=train`` (the
+    alone, over the first 128 utterances; 20 training steps through ``run.main --mode=train`` (the
     first epoch featurizes into the cold feature cache, the later ones
     read it warm): the loss finite and falling, one CTC forward and
     backward launch a step, the train rate in utt/s over steps 11-20
     against the synthetic config's (``phase_train``, same process);
-    10 more steps with ``--continue_learning`` under the profiler, the
-    card's idle share over the last 6; eval from the checkpoint
+    6 more steps with ``--continue_learning`` under the profiler, the
+    card's idle share over the last 4; eval from the checkpoint
     ("Validation WER" over the 64 dev utterances, one CTC forward a
     batch); infer, whose CSV names each wav of the test list once.
     Returns the CTC forward and backward launches over these paths."""
@@ -4192,9 +4255,17 @@ def phase_librispeech(card, synthetic_utt_s):
               "written in {:.1f} s".format(time.time() - t0), flush=True)
         os.environ["LIBRISPEECH_DIR"] = data
         config = runpy.run_path(LIBRI_CONFIG)
+        # the rates over the first 128 utterances of the train list (the
+        # whole list's three passes took 28 s of the script's clock)
+        rate_list = os.path.join(data, "rate-128.csv")
+        with open(os.path.join(data, "librivox-train-clean-100.csv")) as f:
+            head = f.read().splitlines()[:129]
+        with open(rate_list, "w") as f:
+            f.write("\n".join(head) + "\n")
         params = dict(config["base_params"]["data_layer_params"],
                       **config["train_params"]["data_layer_params"],
-                      mode="train", batch_size=32)
+                      mode="train", batch_size=32,
+                      dataset_files=[rate_list])
         rates = featurization_rates(params, os.path.join(tmp, "rate_cache"),
                                     card)
 
@@ -4235,23 +4306,23 @@ def phase_librispeech(card, synthetic_utt_s):
                   rates["cold, processes"], os.cpu_count(), card),
               flush=True)
 
-        more = _recipe_config(LIBRI_CONFIG, logdir, steps + 10,
+        more = _recipe_config(LIBRI_CONFIG, logdir, steps + 6,
                               print_loss_steps=5)
         ctc_cuda.LAUNCHES = ctc_cuda.BWD_LAUNCHES = 0
         share, busy, span, window, lines = device_idle_share(
             ["--config_file=" + more, argv[1], "--mode=train",
-             "--continue_learning"], skip=4)
+             "--continue_learning"], skip=2)
         launches = (ctc_cuda.LAUNCHES, ctc_cuda.BWD_LAUNCHES)
         fwd, bwd = fwd + launches[0], bwd + launches[1]
         started = [x for x in lines if "Starting training from step" in x]
-        print("[wav] --continue_learning from step {}, 10 steps under the "
+        print("[wav] --continue_learning from step {}, 6 steps under the "
               "profiler: over the last {} (warm cache) the card busy "
               "{:.3f} ms of a {:.3f} ms span, idle share {:.2%}; CTC "
               "launches fwd {}, bwd {} ({})".format(
                   steps, window, busy, span, share, *launches, card),
               flush=True)
         check(started and started[0].endswith("step {}".format(steps)) and
-              launches == (10, 10), "resumed run")
+              launches == (6, 6), "resumed run")
 
         ctc_cuda.LAUNCHES = ctc_cuda.BWD_LAUNCHES = 0
         metrics, lines = _run_quiet(argv + ["--mode=eval"])
@@ -4260,7 +4331,7 @@ def phase_librispeech(card, synthetic_utt_s):
         wer = [x for x in lines if "Validation WER" in x]
         print("[wav] eval from the step-{} checkpoint over the 64 dev "
               "utterances: {}, loss {:.6f}; CTC launches fwd {}, bwd {}"
-              .format(steps + 10, wer[-1].strip() if wer else None,
+              .format(steps + 6, wer[-1].strip() if wer else None,
                       metrics["eval_loss"], *launches), flush=True)
         check(wer and math.isfinite(metrics["eval_loss"]) and
               launches == (2, 0), "eval from the trained checkpoint")
@@ -4821,11 +4892,12 @@ def phase_tacotron(path, name, n_params, counters, per_step, card):
 def phase_tacotron_toy(card):
     """7za: the toy recipe (``tacotron_toy.py``: the 10 tone wavs of
     ``test_utils/toy_tts``, written first) through ``run.main
-    --mode=train_eval`` for 250 steps (``--num_epochs=250``; its own 40
+    --mode=train_eval`` for 225 steps (``--num_epochs=225``; its own 40
     epochs stop near a loss of 110; the JAX test trains 400, and the loss
-    passes 12.0 near step 190: cut from 400 for the script's clock, PR
-    22), validating at steps 125 and 250 (``--eval_steps=125``; the
-    recipe's 20): the last printed loss below the JAX test's bar of 12.0;
+    passes 12.0 near step 190 (11.2 at 210, 10.2 at 250): cut from 400
+    for the script's clock, first to 250 steps, then to 225), validating
+    at its last step (``--eval_steps=225``; the recipe's 20): the last
+    printed loss below the JAX test's bar of 12.0;
     then
     ``--mode=eval`` ("Validation loss") and ``--mode=infer`` (a wav a toy
     sentence, listed in order) from the checkpoint. The toy sets no kernel
@@ -4838,8 +4910,8 @@ def phase_tacotron_toy(card):
         argv = ["--config_file=" + TACOTRON_TOY]
         t0 = time.time()
         result, lines = _run_quiet(argv + ["--mode=train_eval",
-                                           "--num_epochs=250",
-                                           "--eval_steps=125"])
+                                           "--num_epochs=225",
+                                           "--eval_steps=225"])
         torch.cuda.synchronize()
         wall = time.time() - t0
         losses = _losses(lines)
@@ -4848,7 +4920,7 @@ def phase_tacotron_toy(card):
               "s, losses at the printed steps {}; the last validation {} "
               "({})".format(result["steps"], wall, losses[::4] + losses[-1:],
                             val[-1:], card), flush=True)
-        check(result["steps"] == 250 and all(math.isfinite(x)
+        check(result["steps"] == 225 and all(math.isfinite(x)
                                              for x in losses) and
               losses[-1] < 12.0, "the Tacotron toy's loss {}".format(
                   losses[-1:]))
@@ -5043,6 +5115,12 @@ def _device_profile(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return _device_activity(prof)
+
+
+def _device_activity(prof):
+    """(device kernels, busy ms, span ms) of a finished profiler's trace,
+    from its first device activity to its last."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -5842,6 +5920,10 @@ def print_kernels_line(k, launches):
     whole run, its readings and times."""
     fwd_bound = ctc_bound_ms(32, 500, 160, 29, 500, backward=False)
     bwd_bound = ctc_bound_ms(32, 500, 160, 29, 501, backward=True)
+    # the at_jca_shape entries time phase_kernel's and phase_backward's
+    # jca cases: ctc_case seeded with T and T + 1
+    jca_fwd_bound = ctc_bound_ms(64, 401, 241, 30, 401, backward=False)
+    jca_bwd_bound = ctc_bound_ms(64, 401, 241, 30, 402, backward=True)
     flash = k["flash_times"]["encoder"]
     flash_bwd = k["flash_bwd_times"]["encoder"]
     print(json.dumps({"kernels": [{
@@ -5852,7 +5934,11 @@ def print_kernels_line(k, launches):
         "max_abs_err": k["fwd_err"],
         "ms": k["fwd_ms"], "plain_ms": k["fwd_plain_ms"],
         "bound_ms": fwd_bound[0],
-        "bound_by": fwd_bound[1], "library_ms": k["ctc_lib_fwd_ms"]}, {
+        "bound_by": fwd_bound[1], "library_ms": k["ctc_lib_fwd_ms"],
+        "at_jca_shape": {
+            "ms": CTC_JCA["fwd_ms"], "plain_ms": CTC_JCA["fwd_plain_ms"],
+            "bound_ms": jca_fwd_bound[0], "bound_by": jca_fwd_bound[1],
+            "library_ms": CTC_JCA["lib_fwd_ms"]}}, {
         "name": "ctc_beta_bwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/ctc_beta_bwd.cu",
         "replaces": "openseq2seq_tpu/ops/ctc_pallas.py:140",
@@ -5860,7 +5946,11 @@ def print_kernels_line(k, launches):
         "max_abs_err": k["bwd_err"],
         "ms": k["bwd_ms"], "plain_ms": k["bwd_plain_ms"],
         "bound_ms": bwd_bound[0],
-        "bound_by": bwd_bound[1], "library_ms": k["ctc_lib_fwd_bwd_ms"]}, {
+        "bound_by": bwd_bound[1], "library_ms": k["ctc_lib_fwd_bwd_ms"],
+        "at_jca_shape": {
+            "ms": CTC_JCA["bwd_ms"], "plain_ms": CTC_JCA["bwd_plain_ms"],
+            "bound_ms": jca_bwd_bound[0], "bound_by": jca_bwd_bound[1],
+            "library_ms": CTC_JCA["lib_fwd_bwd_ms"]}}, {
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/flash_attn_fwd.cu",
         "symbol": "flash_attn_fwd_mma_kernel (bf16, timed here; fp32: "
@@ -5914,7 +6004,9 @@ def print_kernels_line(k, launches):
             "tiles_per_step", "us_per_step")}
             for shape, case in ((("at_lm_shape", "lstm-lm"),
                                  ("at_gnmt_shape", "gnmt"),
-                                 ("at_tacotron_shape", "tacotron"))
+                                 ("at_tacotron_shape", "tacotron"),
+                                 ("at_las_shape", "las-400"),
+                                 ("at_las_pyramid_shape", "las-200"))
                                 if cell == "lstm" else
                                 (("at_gst_shape", "gst"),))}}
         for cell, way, line, err, times in (
@@ -6810,18 +6902,500 @@ def convs2s_corpus(wmt_dir, root):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 7zy to 7zzc: LAS and JCA speech recognition and the CTC beam decoders;
+# their kernels are B3 (the LAS listener's LSTMs under ``fused_rnn``) and
+# B1a/B1b (JCA's CTC half)
+# ---------------------------------------------------------------------------
+def _s2t(name):
+    return os.path.join(REPO, "example_configs_torch", "speech2text", name)
+
+
+LAS_TINY = _s2t("las_tiny.py")
+JCA_TINY = _s2t("jca_tiny.py")
+LAS_TOY = _s2t("las_toy.py")
+LAS_LIBRI = _s2t("las_large_librispeech.py")
+JCA_LIBRI = _s2t("jca_large_8gpus.py")
+JASPER_BEAM = _s2t("jasper10x5_beam_librispeech.py")
+# the biases of the convs that feed a batch norm: rounding noise in the
+# gradient, frozen where the card is held against the CPU
+CONV_BIAS = r"/(conv|res)\d+_\d+/bias$"
+
+
+def _scan_ctc_counts():
+    from openseq2seq_tpu_torch.ops import ctc_cuda, lstm_scan
+    return (lstm_scan.LAUNCHES, lstm_scan.BWD_LAUNCHES, ctc_cuda.LAUNCHES,
+            ctc_cuda.BWD_LAUNCHES)
+
+
+def _reset_scan_ctc_counts():
+    from openseq2seq_tpu_torch.ops import ctc_cuda, lstm_scan
+    lstm_scan.LAUNCHES = lstm_scan.BWD_LAUNCHES = 0
+    ctc_cuda.LAUNCHES = ctc_cuda.BWD_LAUNCHES = 0
+
+
+def _tiny_params(path, **decoder):
+    """A tiny recipe's params, dropout off, the pre-norm conv biases
+    frozen, Adam's epsilon 1e-4 (its default 1e-8 turns a gradient's
+    rounding difference near zero into a full-size step on one device
+    and not the other), batches of 5 (two an epoch of the toy's 10), the
+    decoder's params updated with ``decoder``."""
+    params = copy.deepcopy(runpy.run_path(path)["base_params"])
+    params["freeze_variables_regex"] = CONV_BIAS
+    params["optimizer_params"] = dict(params["optimizer_params"],
+                                      epsilon=1e-4)
+    params["batch_size_per_gpu"] = 5
+    if "attn_decoder_params" in params["decoder_params"]:
+        params["decoder_params"]["attn_decoder_params"][
+            "dropout_keep_prob"] = 1.0
+    else:
+        params["decoder_params"]["dropout_keep_prob"] = 1.0
+    params["decoder_params"].update(decoder)
+    return params
+
+
+def _decoded(model, state):
+    """The infer decode of the first batch: ids and lengths, as floats."""
+    from openseq2seq_tpu_torch.training import trainer
+    batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+    batch.pop("target_tensors", None)
+    ids, lengths = trainer.to_host(model.eval_step(state, batch))[
+        "outputs"]["decoder_output"]["outputs"]
+    return {"infer ids": ids.astype("float64"),
+            "infer lengths": lengths.astype("float64")}
+
+
+def phase_small_las():
+    """7zy: the tiny LAS (``las_tiny.py`` at H 64 in fp32, where kernel
+    B3's fp32 path takes the listener's LSTM on the card) and the tiny JCA
+    (``jca_tiny.py``: its CTC half on B1a and B1b on the card) on the card
+    and on the CPU from one seed: eval logits (and LAS's alignments), two
+    training steps' losses and weights, the beam decode's ids, each within
+    rtol 1e-4, atol 1e-5; B3 and the CTC kernels launch on the card."""
+    from openseq2seq_tpu_torch.models import Speech2Text
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["OS2S_TOY_DATA_DIR"] = os.path.join(tmp, "toy_speech")
+        las = _tiny_params(LAS_TINY)
+        las["encoder_params"]["recurrent_layers"] = [
+            {"type": "lstm", "num_units": 64, "pool": 2}]
+        _reset_scan_ctc_counts()
+        _model_card_vs_cpu("tiny LAS (B3 fp32 at H 64)", Speech2Text, las,
+                           ("logits", "alignments"), train_steps=2,
+                           infer=_decoded)
+        las_counts = _scan_ctc_counts()
+        _reset_scan_ctc_counts()
+        _model_card_vs_cpu("tiny JCA", Speech2Text, _tiny_params(JCA_TINY),
+                           ("logits",), train_steps=2, infer=_decoded)
+        jca_counts = _scan_ctc_counts()
+    print("[las] launches on the card (B3 fwd, B3 bwd, B1a, B1b): tiny LAS "
+          "{}, tiny JCA {}".format(las_counts, jca_counts), flush=True)
+    # eval 2 (fw, bw), two steps 2 + 2 each way, infer 2
+    check(las_counts == (8, 4, 0, 0) and jca_counts[2:] == (3, 2),
+          "tiny LAS / JCA launches {} {}".format(las_counts, jca_counts))
+
+
+def _las_corpus(root):
+    """256 utterances of 16.0 s (under the recipes' ``max_duration`` of
+    16.7) with 240-character transcripts (about LibriSpeech's 15
+    characters a second), the dev list (the first 64) copied as the test
+    list, and one symbol that no transcript holds appended to the 28
+    characters of ``vocab.txt``: the reference's speech layer keeps id 28
+    for the CTC blank and gives <S> and </S> the ids 29 and 30, which the
+    recipes' ``GO_SYMBOL`` and ``END_SYMBOL`` name; the port's layer, the
+    JAX package's copy, gives them the next two ids after the vocabulary's,
+    so the extra symbol puts them where the recipes expect them."""
+    from openseq2seq_tpu_torch.test_utils import fake_librispeech
+    data = os.path.join(root, "librispeech")
+    t0 = time.time()
+    fake_librispeech.generate(data, n_utts=256, duration=16.0,
+                              transcript_chars=240)
+    shutil.copy(os.path.join(data, "librivox-dev-clean.csv"),
+                os.path.join(data, "librivox-test-clean.csv"))
+    with open(os.path.join(data, "vocab.txt"), "a") as f:
+        f.write("_\n")
+    print("[las] a LibriSpeech-shaped corpus of 256 utterances of 16.0 s "
+          "(240-character transcripts, 29 symbols) written in {:.1f} s"
+          .format(time.time() - t0), flush=True)
+    return data
+
+
+def _cached_recipe(path, logdir, steps, cache, **base):
+    """``_recipe_config`` with the train list's features cached (the first
+    epoch featurizes into ``cache``, the later ones read it: LAS and JCA
+    share one cache, their features being the same) and infer reading the
+    test list (the recipes, as the JAX package's, set no infer list, so
+    infer would read the train lists)."""
+    dlp = dict(runpy.run_path(path)["base_params"]["data_layer_params"],
+               cache_features=True, cache_format=cache)
+    cut = _recipe_config(path, logdir, steps, data_layer_params=dlp, **base)
+    with open(cut, "a") as f:
+        f.write("infer_params = {{'data_layer_params': {{'dataset_files': "
+                "[{!r}], 'cache_features': False}}}}\n".format(os.path.join(
+                    os.environ["LIBRISPEECH_DIR"],
+                    "librivox-test-clean.csv")))
+    return cut
+
+
+@contextlib.contextmanager
+def _traced_last_steps(steps, window):
+    """Inside, a training run of ``steps`` steps (``Model.train_step``
+    wrapped, a synchronize after each) traces the device activity of its
+    last ``window`` steps alone, the profiler on for those steps only;
+    yields a dict whose "trace" then holds (busy ms, span ms) over them,
+    from the window's first device activity to its last, and whose
+    "ends" the host clock at the end of each step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from openseq2seq_tpu_torch.models.model import Model
+    out = {"trace": [], "ends": []}
+    prof = []
+    orig = Model.train_step
+
+    def stepped(self, *args, **kwargs):
+        result = orig(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        out["ends"].append(time.perf_counter())
+        done = len(out["ends"])
+        if done == steps - window:
+            prof.append(profile(activities=[ProfilerActivity.CUDA]))
+            prof[0].__enter__()
+        elif done == steps:
+            prof[0].__exit__(None, None, None)
+            out["trace"].append(_device_activity(prof[0])[1:])
+        return result
+
+    Model.train_step = stepped
+    try:
+        yield out
+    finally:
+        Model.train_step = orig
+        if prof and len(out["ends"]) < steps:
+            prof[0].__exit__(None, None, None)
+
+
+def _train_full_width(name, path, tmp, per_step, card):
+    """``path`` at full width through ``run.main --mode=train``: 20
+    training steps of 64 utterances (``per_step``: B3 fwd, B3 bwd, B1a,
+    B1b launches a step), the last 3 traced (the card's idle share; the
+    steps' host reads of the loss, one a step as the config prints it,
+    and a synchronize a step while the profiler is on); the loss finite
+    and falling, utt/s, the peak memory. Returns its argv (for eval and
+    infer from its checkpoint) and the launches."""
+    import torch
+    logdir = os.path.join(tmp, name + "_logs")
+    os.makedirs(logdir)
+    steps, window = 20, 3
+    cut = _cached_recipe(path, logdir, steps,
+                         os.path.join(tmp, "feature_cache"),
+                         print_loss_steps=1, bench_start=6)
+    argv = ["--config_file=" + cut, "--logdir=" + logdir]
+    _reset_scan_ctc_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _traced_last_steps(steps, window) as traced:
+        result, lines = _run_quiet(argv + ["--mode=train"])
+    wall = time.perf_counter() - t0
+    got = _scan_ctc_counts()
+    losses = _losses(lines)
+    frames = 1 + 16 * 16000 // 160
+    ends = traced["ends"]
+    print("[las] {} at full width, {} steps of 64 utterances: losses {}; "
+          "{:.2f} utt/s over steps 7-{} (warm feature cache; the last {} "
+          "traced); {:.1f} s in all, to the end of step 1 {:.1f} s (the "
+          "build, the cold featurization, cuDNN's autotuning), steps 2-6 "
+          "{:.1f} s; peak {:.2f} GiB; launches (B3 fwd, B3 bwd, B1a, B1b) "
+          "{} ({})".format(name, result["steps"], losses,
+                           result["objects_per_sec"] / frames, steps,
+                           window, wall, ends[0] - t0, ends[5] - ends[0],
+                           _peak_gib(), got, card), flush=True)
+    check(result["steps"] == steps and len(losses) == steps and
+          all(math.isfinite(x) for x in losses) and
+          sum(losses[-3:]) < sum(losses[:3]),
+          "{} losses {}".format(name, losses))
+    check(got == tuple(steps * n for n in per_step),
+          "{}: launches {} in {} steps, want {} a step".format(
+              name, got, steps, per_step))
+    check(len(traced["trace"]) == 1, "{}: the window was not traced"
+          .format(name))
+    busy, span = traced["trace"][0]
+    print("[las] {}: steps {}-{} traced: the card busy {:.3f} ms of a "
+          "{:.3f} ms span, idle share {:.2%} ({})".format(
+              name, steps - window + 1, steps, busy, span, 1 - busy / span,
+              card), flush=True)
+    return argv, list(got)
+
+
+def _eval_infer_full_width(name, argv, data, tmp, per_step):
+    """Eval from the checkpoint of ``argv`` over the 64 dev utterances
+    ("Validation WER", one batch), and a beam-4 infer batch of the 64
+    test utterances, whose CSV names each of their wavs once. Returns the
+    launches."""
+    total = [0, 0, 0, 0]
+    _reset_scan_ctc_counts()
+    t0 = time.time()
+    metrics, lines = _run_quiet(argv + ["--mode=eval"])
+    got = _scan_ctc_counts()
+    total = [a + b for a, b in zip(total, got)]
+    wer = [x.strip() for x in lines if "Validation WER" in x]
+    print("[las] {}: eval over the 64 dev utterances in {:.1f} s (one "
+          "batch: the teacher-forced loss and the beam-4 decode): {}, loss "
+          "{:.4f}; launches {}".format(name, time.time() - t0, wer,
+                                       metrics["eval_loss"], got),
+          flush=True)
+    want = (per_step[0], 0, 1 if per_step[2] else 0, 0)
+    check(bool(wer) and math.isfinite(metrics["eval_loss"]) and got == want,
+          "{} eval: launches {}, want {}".format(name, got, want))
+
+    out = os.path.join(tmp, name + "_infer.csv")
+    _reset_scan_ctc_counts()
+    t0 = time.time()
+    _run_quiet(argv + ["--mode=infer", "--infer_output_file=" + out])
+    got = _scan_ctc_counts()
+    total = [a + b for a, b in zip(total, got)]
+    rows = _infer_rows(out)
+    with open(os.path.join(data, "librivox-test-clean.csv")) as f:
+        wavs = [r["wav_filename"] for r in csv.DictReader(f)]
+    print("[las] {}: beam-4 infer of the 64 test utterances in {:.1f} s: "
+          "{} rows, each wav once in order: {}; the first {!r}; launches {}"
+          .format(name, time.time() - t0, len(rows),
+                  [r[0] for r in rows] == wavs, rows[0][1][:60], got),
+          flush=True)
+    check([r[0] for r in rows] == wavs and got == (per_step[0], 0, 0, 0),
+          "{} infer: rows or launches {}".format(name, got))
+    return total
+
+
+def phase_las_jca(card, start_toy):
+    """7zz, 7zza: ``las_large_librispeech.py`` (the LAS recipe, "mixed",
+    ``fused_rnn``: the listener's three BiLSTMs on B3, two tiles of 32
+    rows at H 512, T 400 and 200: 6 forward launches a batch and 6
+    backward a step) and ``jca_large_8gpus.py`` (fp32, 16 convs up to 768
+    channels, then CTC on B1a and B1b at B 64, T' 401, L 241, V 30: one
+    B1a and one B1b launch a step, one B1a an eval batch) at batches of
+    64 from wav files. ``ctc_cuda.check_fits`` at JCA's shape first. Both
+    train, then ``start_toy()`` starts the LAS toy's process (7zzb), which
+    trains on its own while both models evaluate and infer. Returns the
+    launches and the toy's process."""
+    import torch
+    from openseq2seq_tpu_torch.ops import ctc_cuda
+    dev = torch.device("cuda")
+    for L in (240, 241):
+        ctc_cuda.check_fits(L, 30, dev, backward=False)
+        ctc_cuda.check_fits(L, 30, dev, backward=True)
+        print("[las] ctc_cuda.check_fits({}, 30): fits, forward and "
+              "backward; resources {}".format(L, ctc_cuda.ctc_resources(
+                  L, 30)), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _las_corpus(tmp)
+        os.environ["LIBRISPEECH_DIR"] = data
+        models = (("LAS", LAS_LIBRI, (6, 6, 0, 0)),
+                  ("JCA", JCA_LIBRI, (0, 0, 1, 1)))
+        trained = [_train_full_width(name, path, tmp, per_step, card)
+                   for name, path, per_step in models]
+        toy = start_toy()
+        total = [0, 0, 0, 0]
+        for (name, _, per_step), (argv, got) in zip(models, trained):
+            got = [a + b for a, b in zip(got, _eval_infer_full_width(
+                name, argv, data, tmp, per_step))]
+            total = [a + b for a, b in zip(total, got)]
+    return total, toy
+
+
+def start_las_toy(tmp):
+    """The LAS toy (``las_toy.py``) through ``run.main --mode=train`` in a
+    process of its own, its toy wavs and logs under ``tmp``; returns the
+    process, its output piped."""
+    env = dict(os.environ, PYTHONPATH=REPO,
+               OS2S_TOY_DATA_DIR=os.path.join(tmp, "toy_speech"),
+               OS2S_TOY_LOGDIR=os.path.join(tmp, "logs"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "openseq2seq_tpu_torch.run",
+         "--config_file=" + LAS_TOY, "--print_loss_steps=1", "--mode=train"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def phase_las_toy(card, proc, started):
+    """7zzb: ``las_toy.py`` (the oracle's ``_las_config`` at 150 epochs
+    of the 10 toy utterances; like the oracle's config it saves no
+    checkpoint), run by ``proc`` (started at ``started`` on the host's
+    clock, beside 7zz's evals and 7zzc): its last loss below 0.5, the bar
+    of ``tests/test_las_jca.py::test_las_toy_convergence``."""
+    out, _ = proc.communicate(timeout=600)
+    losses = _losses(out.splitlines())
+    print("[las] las_toy (its own process, beside the evals and 7zzc): rc "
+          "{}, {} steps, {:.1f} s from its start; losses at steps 1, 50, "
+          "100, 120, 140 and the last five: {} ({})".format(
+              proc.returncode, len(losses), time.time() - started,
+              [losses[i] for i in (0, 49, 99, 119, 139)
+               if i < len(losses)] + losses[-5:], card), flush=True)
+    check(proc.returncode == 0 and len(losses) == 150 and losses[-1] < 0.5,
+          "the LAS toy: rc {}, last loss {}; {}".format(
+              proc.returncode, losses[-1:], out[-2000:]))
+
+
+def phase_ctc_beam(card, native_build):
+    """7zzc: Jasper-10x5 (``jasper10x5_beam_librispeech.py``: "mixed",
+    the on-device prefix beam 16 with the character 3-gram LM fused at
+    alpha 0.5) from seeded weights in infer on 32 utterances of 10 s (B
+    32, T' 504, the 1,001 frames padded to 1,008 and halved): its top
+    beam's ids and lengths equal those of the CPU's beam on the same
+    logits, scores within 1e-3; the beam's seconds on the card. Then the
+    same model's ``infer_logits_to_pickle`` (its infer hooks), and
+    ``scripts_torch/decode.py`` on the pickle with the native decoder
+    (``native/ctc_decoder``, built here by its Makefile) and a word
+    2-gram ARPA that ``scripts_torch/build_lm.py`` writes from the
+    corpus's transcripts: a WER line and a CSV row a wav. ``native_build``
+    is the future of the decoder's build."""
+    import torch
+    from openseq2seq_tpu_torch.models import Speech2Text
+    from openseq2seq_tpu_torch.ops import ctc_beam_device, ctc_beam_native
+    from openseq2seq_tpu_torch.ops.ngram_fusion import build_label_lm
+    from openseq2seq_tpu_torch.test_utils import fake_librispeech
+    from openseq2seq_tpu_torch.training import trainer
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "librispeech")
+        fake_librispeech.generate(data, n_utts=32, duration=10.0)
+        shutil.copy(os.path.join(data, "librivox-dev-clean.csv"),
+                    os.path.join(data, "librivox-test-clean.csv"))
+        with open(os.path.join(data, "librivox-test-clean.csv")) as f:
+            texts = [r["transcript"] for r in csv.DictReader(f)]
+        os.environ["LIBRISPEECH_DIR"] = data
+        os.environ["CHAR_LM"] = build_label_lm(
+            texts, os.path.join(tmp, "char.arpa"), order=3)
+        cfg = runpy.run_path(JASPER_BEAM)
+        params = copy.deepcopy(cfg["base_params"])
+        from openseq2seq_tpu_torch.utils.params import nested_update
+        nested_update(params, copy.deepcopy(cfg["infer_params"]))
+        params["decoder_params"].update(use_language_model=True,
+                                        infer_logits_to_pickle=True)
+        model = Speech2Text(params, mode="infer", device="cuda")
+        state = trainer.restore_state(model)
+        batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+        _reset_scan_ctc_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = model.eval_step(state, batch)["outputs"]["decoder_output"]
+        torch.cuda.synchronize()
+        step_s = time.time() - t0
+        logits, lengths = out["logits"], out["src_length"]
+        dec = state.module.dec
+        fusion = dec.fusion._replace(table=dec.fusion_table)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ctc_beam_device.ctc_beam_search_device(logits, lengths, 16,
+                                               fusion=fusion)
+        torch.cuda.synchronize()
+        beam_s = time.time() - t0
+        t0 = time.time()
+        cpu = ctc_beam_device.ctc_beam_search_device(
+            logits.cpu(), lengths.cpu(), 16,
+            fusion=fusion._replace(table=fusion.table.cpu()))
+        cpu_s = time.time() - t0
+        ids, lens = out["outputs"]
+        same = bool(torch.equal(ids.cpu(), cpu[0][:, 0]) and
+                    torch.equal(lens.cpu(), cpu[1][:, 0]))
+        err = float((out["beam_scores"].cpu() - cpu[2]).abs().max())
+        print("[beam] Jasper-10x5 infer, B {} x T' {}, on-device beam 16 "
+              "with the character 3-gram fused: the step {:.3f} s, the "
+              "beam alone {:.3f} s on the card, {:.3f} s on the CPU (the "
+              "same logits); top beams' ids and lengths equal: {}; beam "
+              "scores max abs diff {:.3e}; the first {!r}; launches {} "
+              "({})".format(logits.shape[0], logits.shape[1], step_s,
+                            beam_s, cpu_s, same, err,
+                            model.get_data_layer().decode_ids(
+                                ids[0, :int(lens[0])].cpu()),
+                            _scan_ctc_counts(), card), flush=True)
+        check(logits.shape[0] == 32 and 500 <= logits.shape[1] <= 504 and
+              same and err <= 1e-3, "the card's beam differs from the CPU's")
+
+        pkl = os.path.join(tmp, "logits.pkl")
+        model.finalize_inference([model.infer(batch, trainer.to_host(
+            {"outputs": {"decoder_output": out}}))], pkl)
+        import pickle
+        with open(pkl, "rb") as f:
+            dumped = pickle.load(f)
+        corpus = os.path.join(tmp, "corpus.txt")
+        with open(corpus, "w") as f:
+            f.write("\n".join(texts) + "\n")
+        arpa = os.path.join(tmp, "lm.arpa")
+        scripts = os.path.join(REPO, "scripts_torch")
+        built = subprocess.run(
+            [sys.executable, os.path.join(scripts, "build_lm.py"),
+             "--corpus", corpus, "--out", arpa, "--order", "2"],
+            capture_output=True, text=True)
+        check(built.returncode == 0, "build_lm.py: " + built.stderr[-500:])
+        check(native_build.result() and ctc_beam_native.available(),
+              "the native decoder did not build")
+        result = os.path.join(tmp, "decoded.csv")
+        t0 = time.time()
+        decoded = subprocess.run(
+            [sys.executable, os.path.join(scripts, "decode.py"),
+             "--logits", pkl, "--labels",
+             os.path.join(data, "librivox-test-clean.csv"), "--vocab",
+             os.path.join(data, "vocab.txt"), "--lm", arpa,
+             "--beam_width", "64", "--infer_output_file", result],
+            capture_output=True, text=True)
+        rows = _infer_rows(result) if os.path.exists(result) else []
+        print("[beam] infer_logits_to_pickle: {} wavs, logits {}; "
+              "build_lm.py: {}; decode.py (native decoder, beam 64) in "
+              "{:.1f} s: {}; {} CSV rows".format(
+                  len(dumped), next(iter(dumped.values())).shape,
+                  built.stdout.strip(), time.time() - t0,
+                  decoded.stdout.strip().splitlines()[-1:], len(rows)),
+              flush=True)
+        check(decoded.returncode == 0 and len(rows) == 32 and
+              len(dumped) == 32, "decode.py: " + decoded.stderr[-500:])
+
+
+def group_las(card, launches):
+    """Phases 7zy to 7zzc: LAS and JCA, the LAS toy, the CTC beams. The
+    native CTC decoder (``native/ctc_decoder``, a C++ build of about 15 s)
+    builds on the host meanwhile, for 7zzc; the LAS toy trains in a
+    process of its own while LAS and JCA evaluate and infer and 7zzc
+    runs (the card's and the host's time shared)."""
+    from openseq2seq_tpu_torch.ops import ctc_beam_native
+    toy = []
+
+    def start_toy():
+        toy.append((start_las_toy(tmp), time.time()))
+        return toy[0][0]
+    with ThreadPoolExecutor(1) as pool, \
+            tempfile.TemporaryDirectory() as tmp:
+        native = pool.submit(ctc_beam_native.build)
+        try:
+            timed(phase_small_las)
+            got, _ = timed(phase_las_jca, card, start_toy)
+            timed(phase_ctc_beam, card, native)
+            timed(phase_las_toy, card, *toy[0])
+        finally:
+            for proc, _ in toy:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    for name, n in zip(("lstm_scan_fwd", "lstm_scan_bwd", "ctc_alpha_fwd",
+                        "ctc_beta_bwd"), got):
+        launches[name] += n
+
+
 def timed(phase, *args, **kwargs):
     """``phase(*args, **kwargs)``, its seconds printed on a line of their
     own."""
+    import gc
+    import torch
     t0 = time.time()
     result = phase(*args, **kwargs)
     print("[time] phase {}: {:.1f} s".format(phase.__name__,
                                              time.time() - t0), flush=True)
+    # what the phase held goes back to the card, for the groups that run
+    # beside this one
+    gc.collect()
+    torch.cuda.empty_cache()
     return result
 
 
 GROUPS = ("kernels", "speech", "nmt", "rnn", "conformer", "lm", "tts",
-          "transducer", "image")
+          "transducer", "image", "las")
 
 
 def group_kernels(card):
@@ -6954,6 +7528,97 @@ def group_image(card, launches):
     timed(phase_image_family, card)
 
 
+# the groups that run in processes of their own, at most LANES at a time,
+# each started in this order as soon as a lane is free and its memory
+# budget fits beside the running groups' within MEMORY_GIB of the card's
+# 79 GiB. A budget is the group's largest peak of allocated device memory
+# on an H100 (its phases' own "peak" lines: lm 33.8 GiB, nmt 15.1,
+# transducer 12.5, las 11.4, image 10.4, tts 9.4) and about a third more
+# for the caching allocator's free blocks; the groups that print no peak
+# (speech, rnn, conformer) get 18 to 20. Three groups at once ran lm,
+# nmt and the transducer out of memory (79.15 GiB in use).
+LANE_ORDER = ("lm", "las", "speech", "tts", "nmt", "transducer", "image",
+              "rnn", "conformer")
+GROUP_GIB = {"lm": 44, "nmt": 24, "speech": 20, "transducer": 18,
+             "las": 18, "rnn": 18, "conformer": 18, "tts": 14, "image": 14}
+MEMORY_GIB = 76
+LANES = 3
+
+
+def _stop(proc):
+    """Kill ``proc``'s process group (the group's process and whatever it
+    started), if any of it is left."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+
+
+def group_processes(groups, launches):
+    """Run ``chip_smoke.py --group=NAME`` for each of ``groups``, each in a
+    process group of its own, as ``LANES`` and ``MEMORY_GIB`` allow;
+    relay each one's output when it ends (less its environment and build
+    lines, which repeat the parent's), add its launch counts to
+    ``launches`` and return each group's seconds. The first group to fail
+    stops the others, and the run fails with it. The output goes to
+    files, not pipes: a process that a group left behind could hold a
+    pipe open past the group's end."""
+    env = dict(os.environ)
+    env.setdefault("OMP_NUM_THREADS",
+                   str(max(1, (os.cpu_count() or LANES) // LANES)))
+    pending, running, failed, seconds = list(groups), {}, [], {}
+
+    def start(group):
+        out = tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--group=" + group],
+            cwd=REPO, env=env, stdout=out, text=True, start_new_session=True)
+        running[group] = (proc, out, time.time())
+        print("[lanes] {} started beside {} ({} of {} GiB budgeted)".format(
+            group, sorted(g for g in running if g != group),
+            sum(GROUP_GIB[g] for g in running), MEMORY_GIB), flush=True)
+
+    def finish(group):
+        proc, out, t0 = running.pop(group)
+        _stop(proc)
+        seconds[group] = time.time() - t0
+        out.seek(0)
+        lines = out.read().splitlines()
+        out.close()
+        for line in lines:
+            if not line.startswith(("[env] ", "[build] ")):
+                print(line)
+        print("[time] group {} (its own process): {:.1f} s, rc {}".format(
+            group, seconds[group], proc.returncode), flush=True)
+        result = [json.loads(line) for line in lines
+                  if line.startswith('{"group": ')]
+        if proc.returncode != 0 or len(result) != 1:
+            failed.append(group)
+            return
+        for name, n in result[0]["launches"].items():
+            launches[name] += n
+
+    try:
+        while (pending or running) and not failed:
+            for group in list(pending):
+                gib = sum(GROUP_GIB[g] for g in running) + GROUP_GIB[group]
+                if len(running) < LANES and gib <= MEMORY_GIB:
+                    pending.remove(group)
+                    start(group)
+            time.sleep(0.5)
+            for group in [g for g, (proc, _, _) in running.items()
+                          if proc.poll() is not None]:
+                finish(group)
+    finally:
+        for group, (proc, _, _) in list(running.items()):
+            _stop(proc)
+            proc.wait()
+            finish(group)
+    check(not failed and not pending, "every group ran to its end (not: "
+          "{})".format(", ".join(failed + pending)))
+    return seconds
+
+
 KERNEL_NAMES = ("ctc_alpha_fwd", "ctc_beta_bwd", "flash_attn_fwd",
                 "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "dropout_mask",
                 "lstm_scan_fwd", "gru_scan_fwd", "lstm_scan_bwd",
@@ -7008,19 +7673,23 @@ def main():
     seconds = {"build": time.time() - t0}
 
     # 3-7. the groups; each path with its launch counts set to 0 just
-    # before it and read just after
-    groups = GROUPS if args.group is None else (args.group,)
+    # before it and read just after. With no --group, the kernel group
+    # runs first and alone on the card, so that its times are clean; the
+    # others then run in processes of their own, LANES at a time.
     launches = {name: 0 for name in KERNEL_NAMES}
     k = None
-    for group in groups:
-        t0 = time.time()
-        if group == "kernels":
-            k = group_kernels(card)
-        else:
-            globals()["group_" + group](card, launches)
-        seconds[group] = time.time() - t0
-        print("[time] group {}: {:.1f} s".format(group, seconds[group]),
-              flush=True)
+    first = "kernels" if args.group is None else args.group
+    t0 = time.time()
+    if first == "kernels":
+        k = group_kernels(card)
+    else:
+        globals()["group_" + first](card, launches)
+    seconds[first] = time.time() - t0
+    print("[time] group {}: {:.1f} s".format(first, seconds[first]),
+          flush=True)
+    if args.group is None:
+        torch.cuda.empty_cache()
+        seconds.update(group_processes(LANE_ORDER, launches))
     seconds["total"] = time.time() - t_start
     print("[time] {} in {:.1f} s (build {:.1f} s)".format(
         "every group" if args.group is None else "group " + args.group,

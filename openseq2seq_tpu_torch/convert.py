@@ -42,7 +42,14 @@ such as the TDNN encoder), and returns the ``state_dict`` for
     leaves (the factorized LSTM's ``first_gemm_h``, ``second_gemm``,
     ``second_gemm_bias``, ``projection``; the layer-norm LSTM's
     ``ln_scale``, ``ln_bias`` (4, H)), and ConvS2S's learned positions
-    ``pos_embedding`` (max length, E)
+    ``pos_embedding`` (max length, E), and the LAS speller's
+    (``TargetEmbeddingMatrix``, ``EncoderPositionEmbeddingMatrix``,
+    ``DecoderPositionEmbeddingMatrix``, each head's ``att{i}_q``,
+    ``att{i}_v``, ``att{i}_b``, ``att{i}_out_w``, ``att{i}_out_b``,
+    ``att{i}_loc_conv`` (101, 1, 10), a raw 3-D leaf and not a conv
+    ``kernel``, and ``att{i}_loc_proj``; the cells' ``rnn{i}_wx``,
+    ``rnn{i}_wh``, ``rnn{i}_b``; ``fully_connected_w``,
+    ``fully_connected_b``; its ``att{i}_keys`` are dense layers)
                                -> kept as they are, under the same names
 
 The causal-convolution families need no other rule: Centaur's encoder
@@ -129,11 +136,20 @@ _TRANSDUCER_CELL = re.compile(r"pred_(wx|wh|b)[0-9]+")
 # LSTM's (its ``recurrent_kernel`` is among ``_RECURRENT``)
 _LM_CELLS = ("first_gemm_h", "second_gemm", "second_gemm_bias", "projection",
              "ln_scale", "ln_bias")
+# the LAS speller's raw leaves (its heads' and cells' match by pattern)
+_LAS = ("TargetEmbeddingMatrix", "EncoderPositionEmbeddingMatrix",
+        "DecoderPositionEmbeddingMatrix", "fully_connected_w",
+        "fully_connected_b")
+_LAS_LEAF = re.compile(
+    r"att[0-9]+_(q|v|b|out_w|out_b|loc_conv|loc_proj)|rnn[0-9]+_(wx|wh|b)")
 _KEPT = _RECURRENT + _CONFORMER + _LM + _RNN_DECODER + _TACOTRON + \
-    _TRANSDUCER + _LM_CELLS + _CONVS2S
+    _TRANSDUCER + _LM_CELLS + _CONVS2S + _LAS
 # the parent module of flax DenseGeneral layers, whose kernels are kept:
-# the Conformer block's ``attn``, Transformer-XL's ``layer{i}_attn``
+# the Conformer block's ``attn``, Transformer-XL's ``layer{i}_attn``, and
+# the layers' names (the joint CTC-attention decoder's ``attn`` head holds
+# dense layers)
 _DENSE_GENERAL_PARENT = re.compile(r"(layer[0-9]+_)?attn")
+_DENSE_GENERAL = ("q", "k", "v", "r", "out")
 # bare flax LayerNorm modules: the Conformer's ``attn_ln``, ``final_ln``,
 # Transformer-XL's ``layer{i}_ln1``, ``layer{i}_ln2``
 _BARE_LN = re.compile(r".*_ln[0-9]*")
@@ -152,7 +168,8 @@ def _kept(leaf: str) -> bool:
     """Whether the flax leaf ``leaf`` is kept under its name and layout."""
     return leaf in _KEPT or bool(_RNN_DECODER_CELL.fullmatch(leaf) or
                                  _PRENET.fullmatch(leaf) or
-                                 _TRANSDUCER_CELL.fullmatch(leaf))
+                                 _TRANSDUCER_CELL.fullmatch(leaf) or
+                                 _LAS_LEAF.fullmatch(leaf))
 
 
 # flax BatchNorm modules with no inner ``BatchNorm_0``: the DS2 encoder's
@@ -173,6 +190,7 @@ def _param_to_torch(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
     value = np.array(value, dtype=np.float32)
     module, leaf = _module_key(path[:-1]), path[-1]
     if _kept(leaf) or (leaf == "kernel" and len(path) >= 3 and
+                         path[-2] in _DENSE_GENERAL and
                          _DENSE_GENERAL_PARENT.fullmatch(path[-3])):
         name = leaf
     elif leaf == "kernel" and value.ndim == 4:

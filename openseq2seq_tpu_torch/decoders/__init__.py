@@ -9,3 +9,5 @@ from .tacotron2_decoder import Tacotron2Decoder
 from .transducer_decoder import TransducerDecoder
 from .centaur_decoder import CentaurDecoder
 from .convs2s_decoder import ConvS2SDecoder
+from .las_decoder import ListenAttendSpellDecoder
+from .jca_decoder import JointCTCAttentionDecoder

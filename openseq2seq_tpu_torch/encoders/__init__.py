@@ -15,3 +15,4 @@ from .transformer_xl_encoder import TransformerXLEncoder
 from .centaur_encoder import CentaurEncoder
 from .convs2s_encoder import ConvS2SEncoder
 from .wavenet_encoder import WavenetEncoder
+from .las_encoder import ListenAttendSpellEncoder

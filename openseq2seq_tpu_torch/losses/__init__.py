@@ -7,3 +7,4 @@ from .sequence_loss import (BasicSampledSequenceLoss, BasicSequenceLoss,
 from .text2speech_loss import Text2SpeechLoss
 from .transducer_loss import TransducerLoss
 from .wavenet_loss import WavenetLoss
+from .jca_loss import MultiTaskCTCEntropyLoss

@@ -110,6 +110,9 @@ class Model(abc.ABC):
             # it beside their data layer's own ``lm_vocab_file``
             # (``data/lm``), which reads it
             "lm_vocab_file": str,
+            # accepted and ignored, as in the JAX package (one process a
+            # card here)
+            "use_horovod": bool,
             # TPU knobs of the JAX package, no-ops here: RNG
             # implementation of dropout, activation rematerialization
             "prng_impl": str,

@@ -4,11 +4,18 @@ frame counts (port of ``openseq2seq_tpu/models/speech2text.py``).
 Infer writes one CSV row per utterance in the data layer's order: with
 the wav data layer (``data/speech2text``) each row names its wav, as in
 the JAX package, and with the synthetic layer, which has no files, its
-index. Pickling logits for a language-model decode is not ported yet.
+index. With the decoder's ``infer_logits_to_pickle`` it instead pickles
+``{wav: logits[:length]}``, (T, V) fp32 numpy arrays, which the host
+beam search with a language model reads (``scripts_torch/decode.py``).
+
+The loss's ``tgt_vocab_size`` and ``batch_size`` are filled in from the
+data layer where the loss class accepts them and the config leaves them
+out (the joint CTC-attention loss requires both).
 """
 from __future__ import annotations
 
 import csv
+import pickle
 from typing import Any, Dict, List
 
 import numpy as np
@@ -27,6 +34,19 @@ class Speech2Text(EncoderDecoderModel):
         self._params["decoder_params"]["tgt_vocab_size"] = \
             self.get_data_layer().params["tgt_vocab_size"]
         return super()._create_decoder()
+
+    def _create_loss(self):
+        loss_cls = self._params.get("loss")
+        if loss_cls is not None:
+            accepts = {**loss_cls.get_required_params(),
+                       **loss_cls.get_optional_params()}
+            self._params.setdefault("loss_params", {})
+            dl_params = self.get_data_layer().params
+            for key in ("tgt_vocab_size", "batch_size"):
+                if key in accepts:
+                    self._params["loss_params"].setdefault(key,
+                                                           dl_params[key])
+        return super()._create_loss()
 
     def _decode_batch(self, output_values) -> List[str]:
         """Decoded ids (B, T) and lengths -> list of transcripts."""
@@ -62,10 +82,21 @@ class Speech2Text(EncoderDecoderModel):
         deco_print("Validation WER: {:.4f}".format(wer), offset=4)
         return {"Eval WER": wer, "eval_loss": eval_loss}
 
+    @property
+    def _dump_logits(self) -> bool:
+        return bool(self._params.get("decoder_params", {})
+                    .get("infer_logits_to_pickle", False))
+
     def infer(self, input_values, output_values):
         valid = int(input_values.get(
             "batch_valid", input_values["source_tensors"][0].shape[0]))
         ids = np.asarray(input_values["source_ids"])[:valid]
+        if self._dump_logits:
+            dec = output_values["outputs"]["decoder_output"]
+            logits = np.asarray(dec["logits"])
+            lengths = np.asarray(dec["src_length"])
+            return [(int(ids[i]), logits[i, :int(lengths[i])])
+                    for i in range(valid)]
         decoded = self._decode_batch(
             output_values["outputs"]["decoder_output"]["outputs"])[:valid]
         return list(zip(ids.tolist(), decoded))
@@ -74,6 +105,13 @@ class Speech2Text(EncoderDecoderModel):
         rows = [item for batch in results_per_batch for item in batch]
         rows.sort(key=lambda kv: kv[0])
         files = getattr(self.get_data_layer(), "all_files", ())
+        if self._dump_logits:
+            dumped = {(files[idx][0] if idx < len(files) else str(idx)):
+                      logits for idx, logits in rows}
+            with open(output_file, "wb") as f:
+                pickle.dump(dumped, f)
+            deco_print("Logits pickled to {}".format(output_file))
+            return
         with open(output_file, "w", newline="") as f:
             writer = csv.writer(f)
             writer.writerow(["wav_filename", "predicted_transcript"])

@@ -42,19 +42,23 @@ def _extended(labels: torch.Tensor, label_lengths: torch.Tensor,
     """The blank-interleaved extended label sequence of each row: ids
     ``ext`` (B, S = 2L+1), the skip flags (a label differing from the one
     two states back), the states each row can reach (s < 2 len + 1), and
-    whether the row has a label."""
+    whether the row has a label. A state past the row's length takes the
+    blank's id, so that padding labels outside the vocabulary (the joint
+    CTC-attention loss passes its end symbol there) are never read, as
+    the JAX package's clamped gathers never use them."""
     B, L = labels.shape
     S = 2 * L + 1
     dev = labels.device
     s_idx = torch.arange(S, device=dev)
     is_label = (s_idx % 2) == 1
     label_idx = torch.clamp((s_idx - 1) // 2, 0, L - 1)
-    ext = torch.where(is_label[None, :], labels[:, label_idx], blank_id)
+    ext_len = 2 * label_lengths + 1
+    valid_s = s_idx[None, :] < ext_len[:, None]
+    ext = torch.where(is_label[None, :] & valid_s, labels[:, label_idx],
+                      blank_id)
     ext_m2 = torch.cat([torch.full((B, 2), blank_id, dtype=ext.dtype,
                                    device=dev), ext[:, :-2]], dim=1)
     can_skip = is_label[None, :] & (ext != ext_m2) & (s_idx >= 2)[None, :]
-    ext_len = 2 * label_lengths + 1
-    valid_s = s_idx[None, :] < ext_len[:, None]
     return ext, can_skip, valid_s, ext_len, label_lengths > 0
 
 

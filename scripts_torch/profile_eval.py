@@ -6,7 +6,8 @@ step, on one NVIDIA GPU.
         --train-lm | --eval-lm | --train-gnmt | --infer-gnmt |
         --train-tacotron | --infer-tacotron | --train-transducer |
         --infer-transducer | --train-lm-wkt | --train-txl | --eval-txl |
-        --train-resnet | --eval-resnet]
+        --train-resnet | --eval-resnet | --train-las | --infer-las |
+        --train-jca]
         [--beam-width=K] [--config_file=PATH] [--steps=4] [--repeats=3]
         [--batches=N] [--trace=PATH]
 
@@ -54,8 +55,17 @@ training tokens beside one of each word); ``--train-resnet`` and
 ``--eval-resnet`` the train and eval steps of ResNet-50 v2 at
 ``scripts/bench_resnet.py``'s width (``example_configs_torch/
 image2label/resnet50_v2_synthetic.py``: batches of 128 x 224 x 224
-images, "mixed", NovoGrad; images are its objects); ``--batches`` keeps
-the first N batches of the epoch.
+images, "mixed", NovoGrad; images are its objects); ``--train-las`` and
+``--infer-las`` the train step and the beam-4 infer step of LAS at full
+width (``example_configs_torch/speech2text/las_large_librispeech.py``:
+"mixed", the listener's LSTMs on kernel B3) and ``--train-jca`` the train
+step of joint CTC-attention (``jca_large_8gpus.py``, fp32, its CTC half
+on B1a and B1b), each over 2 batches of 64 utterances of 16.0 s with
+240-character transcripts written first into a temporary directory
+(``test_utils/fake_librispeech.py``, one unused symbol added to its
+vocabulary so that <S> and </S> take the recipes' ids 29 and 30; audio
+frames are the objects); ``--batches`` keeps the first N batches of the
+epoch.
 It prints:
 
 1. wall milliseconds per step without the profiler, for each of
@@ -126,6 +136,12 @@ RESNET_CONFIG = os.path.join(REPO, "example_configs_torch", "image2label",
                              "resnet50_v2_synthetic.py")
 TXL_CONFIG = os.path.join(REPO, "example_configs_torch", "lm",
                           "txl_wkt103.py")
+LAS_CONFIG = os.path.join(REPO, "example_configs_torch", "speech2text",
+                          "las_large_librispeech.py")
+JCA_CONFIG = os.path.join(REPO, "example_configs_torch", "speech2text",
+                          "jca_large_8gpus.py")
+# the LAS and JCA profiles' corpus: 2 batches of 64 utterances of 16.0 s
+LAS_CORPUS = dict(n_utts=128, duration=16.0, transcript_chars=240)
 # the WikiText profiles' corpus: every word of the vocabulary once, and
 # enough Zipf tokens beside them for a few batches
 WKT_CORPUS = dict(n_train_tokens=200_000, n_eval_tokens=60_000,
@@ -370,6 +386,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                        help="ResNet-50 v2's train step at full width")
     which.add_argument("--eval-resnet", action="store_true",
                        help="ResNet-50 v2's eval step at full width")
+    which.add_argument("--train-las", action="store_true",
+                       help="LAS's train step at full width")
+    which.add_argument("--infer-las", action="store_true",
+                       help="LAS's beam-4 infer step at full width")
+    which.add_argument("--train-jca", action="store_true",
+                       help="joint CTC-attention's train step at full "
+                            "width")
     which.add_argument("--infer-transducer", action="store_true",
                        help="profile the Conformer-Transducer's decode of "
                             "a batch (the infer step on {})".format(
@@ -397,6 +420,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     args.gnmt = args.train_gnmt or args.infer_gnmt
     tacotron = args.train_tacotron or args.infer_tacotron
     args.wikitext = args.train_lm_wkt or args.train_txl or args.eval_txl
+    args.librispeech = args.train_las or args.infer_las or args.train_jca
     if args.config_file is None:
         args.config_file = NMT_TRAIN_CONFIG if args.train_nmt else \
             LM_CONFIG if args.train_lm or args.eval_lm else \
@@ -407,12 +431,15 @@ def parse_args(argv=None) -> argparse.Namespace:
             LM_WKT_CONFIG if args.train_lm_wkt else \
             TXL_CONFIG if args.train_txl or args.eval_txl else \
             RESNET_CONFIG if args.train_resnet or args.eval_resnet else \
+            LAS_CONFIG if args.train_las or args.infer_las else \
+            JCA_CONFIG if args.train_jca else \
             CONFIG
     args.train = args.train or args.train_nmt or args.train_lm or \
         args.train_gnmt or args.train_tacotron or args.train_transducer or \
-        args.train_lm_wkt or args.train_txl or args.train_resnet
+        args.train_lm_wkt or args.train_txl or args.train_resnet or \
+        args.train_las or args.train_jca
     args.infer = args.infer or args.infer_gnmt or args.infer_tacotron or \
-        args.infer_transducer
+        args.infer_transducer or args.infer_las
     return args
 
 
@@ -440,6 +467,13 @@ def main(argv=None):
         corpus = tempfile.TemporaryDirectory()
         os.environ["WIKITEXT103_DIR"] = fake_wikitext.generate(
             corpus.name, **WKT_CORPUS)["wikitext"]
+    if args.librispeech:
+        from openseq2seq_tpu_torch.test_utils import fake_librispeech
+        corpus = tempfile.TemporaryDirectory()
+        data = fake_librispeech.generate(corpus.name, **LAS_CORPUS)[0]
+        with open(os.path.join(data, "vocab.txt"), "a") as f:
+            f.write("_\n")
+        os.environ["LIBRISPEECH_DIR"] = data
     config = runpy.run_path(args.config_file)
     mode = "train" if args.train else "infer" if args.infer else "eval"
     params = dict(config["base_params"])

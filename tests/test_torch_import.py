@@ -84,7 +84,15 @@ def _import_all(report: str) -> str:
             "openseq2seq_tpu_torch.data.text2speech.text2speech_wavenet",
             "openseq2seq_tpu_torch.encoders.convs2s_encoder",
             "openseq2seq_tpu_torch.decoders.convs2s_decoder",
-            "openseq2seq_tpu_torch.test_utils.fake_ljspeech"} <= set(modules)
+            "openseq2seq_tpu_torch.test_utils.fake_ljspeech",
+            "openseq2seq_tpu_torch.test_utils.test_speech_configs",
+            "openseq2seq_tpu_torch.encoders.las_encoder",
+            "openseq2seq_tpu_torch.decoders.las_decoder",
+            "openseq2seq_tpu_torch.decoders.jca_decoder",
+            "openseq2seq_tpu_torch.losses.jca_loss",
+            "openseq2seq_tpu_torch.ops.ctc_beam",
+            "openseq2seq_tpu_torch.ops.ctc_beam_native",
+            "openseq2seq_tpu_torch.ops.ctc_beam_device"} <= set(modules)
     names = {os.path.basename(c) for c in CONFIGS}
     assert len(CONFIGS) >= 13 and {
         "transformer_big_train_synthetic.py", "ds2_medium_synthetic.py",
@@ -109,7 +117,10 @@ def _import_all(report: str) -> str:
         "wavenet_LJ.py", "wavenet_float.py", "wavenet_toy.py",
         "wavenet_tiny.py", "en_de_convs2s_wmt.py",
         "nmt_reversal_toy_convs2s.py", "nmt_reversal_toy_cr.py",
-        "nmt_reversal_toy_rc.py", "convs2s_tiny_wmt.py"} <= names
+        "nmt_reversal_toy_rc.py", "convs2s_tiny_wmt.py",
+        "las_large_8gpus.py", "las_large_librispeech.py",
+        "jca_large_8gpus.py", "las_toy.py", "las_tiny.py", "jca_tiny.py",
+        "jasper10x5_beam_librispeech.py"} <= names
     code = ("import importlib, runpy, sys\n"
             "for m in {!r}: importlib.import_module(m)\n"
             "for c in {!r}: runpy.run_path(c)\n"
@@ -130,6 +141,39 @@ def test_port_imports_nothing_of_the_jax_package():
     assert _import_all("sorted(m for m in sys.modules if m == "
                        "'openseq2seq_tpu' or m.startswith("
                        "'openseq2seq_tpu.'))") == "[]"
+
+
+def _imported_modules(path):
+    """The absolute module names that the file at ``path`` imports,
+    anywhere in it (inside functions too)."""
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_file_of_the_port_imports_jax():
+    """Every source of the port's package, ``scripts_torch/``,
+    ``example_configs_torch/`` and ``chip_smoke.py``, read with ``ast``
+    (the imports inside functions, which an import of the module does not
+    run, included): none names jax, flax, optax, pandas, ml_dtypes or the
+    JAX package."""
+    paths = [os.path.join(REPO, "chip_smoke.py")] + CONFIGS + sorted(
+        glob.glob(os.path.join(REPO, "scripts_torch", "*.py")))
+    for root, _, files in os.walk(os.path.join(REPO,
+                                               "openseq2seq_tpu_torch")):
+        paths += [os.path.join(root, n) for n in sorted(files)
+                  if n.endswith(".py")]
+    assert {"decode.py", "build_lm.py"} <= {os.path.basename(p)
+                                            for p in paths}
+    bad = [(os.path.relpath(p, REPO), m) for p in paths
+           for m in _imported_modules(p)
+           if m.split(".")[0] in FORBIDDEN + ("openseq2seq_tpu",)]
+    assert not bad, bad
 
 
 def test_run_main_without_cuda_needs_device_cpu(tmp_path):
