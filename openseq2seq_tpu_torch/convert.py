@@ -75,7 +75,9 @@ batch norms are bare flax ``BatchNorm`` modules (below).
 
 The flax ``_Norm`` wrapper's inner ``BatchNorm_0`` folds into the torch
 norm module, so ``enc/net/norm1_1/BatchNorm_0/scale`` becomes
-``enc.net.norm1_1.weight``; so does the transformer's ``TransformerNorm``
+``enc.net.norm1_1.weight``; so does its inner ``LayerNorm_0`` (the TDNN's
+``layer_norm``; ``instance_norm`` and None hold no parameters), and the
+transformer's ``TransformerNorm``
 with its inner ``LayerNorm_0`` (``enc/sa_norms_0/LayerNorm_0/scale`` ->
 ``enc.sa_norms_0.weight``), and the Conformer FFN's (``ffn1/LayerNorm_0``
 -> ``ffn1.weight``). The DeepSpeech2 encoder's batch norms
@@ -85,7 +87,12 @@ inner module, and so are the Tacotron-2 encoder's, GST's and postnet's
 ``preact_bn``, ``proj_bn``, ``bn{i}``, ``final_bn``), the CNN encoder's
 (``batch_norm_{i}``) and the Conformer block's
 layer norms (``attn_ln``, ``final_ln``, named ``*_ln``) and
-Transformer-XL's (``layer{i}_ln1``, ``layer{i}_ln2``).
+Transformer-XL's (``layer{i}_ln1``, ``layer{i}_ln2``), and the GatedConv
+tutorial encoder's ``LayerNorm_{i}`` directly under its ``net`` (beside
+its ``front`` and ``conv{i}`` convs), which keep their flax names.
+A separable TDNN block's depthwise kernel ``conv{l}_{r}_dw`` (k, 1, C)
+becomes a grouped conv's weight (C, 1, k) by the conv rule; its
+pointwise ``conv{l}_{r}_pw`` is a 1x1 conv.
 
 :func:`flax_from_state_dict` is the inverse (a module with running
 statistics is a batch norm, whose flax leaves sit under ``BatchNorm_0``
@@ -151,8 +158,9 @@ _KEPT = _RECURRENT + _CONFORMER + _LM + _RNN_DECODER + _TACOTRON + \
 _DENSE_GENERAL_PARENT = re.compile(r"(layer[0-9]+_)?attn")
 _DENSE_GENERAL = ("q", "k", "v", "r", "out")
 # bare flax LayerNorm modules: the Conformer's ``attn_ln``, ``final_ln``,
-# Transformer-XL's ``layer{i}_ln1``, ``layer{i}_ln2``
-_BARE_LN = re.compile(r".*_ln[0-9]*")
+# Transformer-XL's ``layer{i}_ln1``, ``layer{i}_ln2``, the GatedConv net's
+# ``LayerNorm_{i}``
+_BARE_LN = re.compile(r".*_ln[0-9]*|LayerNorm_[0-9]+")
 
 
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
@@ -182,7 +190,12 @@ _BARE_BN = re.compile(
 
 
 def _module_key(path: Tuple[str, ...]) -> str:
-    return ".".join(p for p in path if p not in (_BN_INNER, _LN_INNER))
+    # a layer norm directly under ``net`` is the GatedConv net's own bare
+    # ``LayerNorm_{i}``, a module of the port too; elsewhere an inner
+    # ``LayerNorm_0`` or ``BatchNorm_0`` folds into its wrapper
+    return ".".join(p for i, p in enumerate(path)
+                    if p not in (_BN_INNER, _LN_INNER) or
+                    (p == _LN_INNER and i > 0 and path[i - 1] == "net"))
 
 
 def _param_to_torch(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:

@@ -24,9 +24,14 @@ Where the JAX package's copy differs in means, not in results:
     the batch being collated, so a consumer that stops early (the
     trainer's example batch) does not featurize the rest of the epoch.
 
-Interactive inference (``interactive``, ``create_interactive_batch``)
-and featurizing on the device (``featurize_on_device``) are not ported
-yet and raise NotImplementedError. ``max_batch_pad_time`` and
+With ``featurize_on_device`` the layer ships padded raw audio, (B, N)
+fp32 samples with N a multiple of ``hop * pad_to`` and the samples'
+lengths, and the model's forward featurizes them
+(``ops/features_device.py``); as in the JAX package it then takes only
+``input_type: logfbank`` and no host augmentation. In interactive
+inference (``interactive``) the layer reads no CSV and
+``create_interactive_batch`` makes a batch of one from a wav path or a
+(signal, sample rate) pair. ``max_batch_pad_time`` and
 ``sort_by_duration``, which the JAX package's layer declares and never
 reads, are not in the schema, so a config that sets them is refused.
 """
@@ -44,8 +49,8 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 import numpy as np
 
 from ..data_layer import DataLayer
-from ...ops.features import (_spec_augment, get_speech_features_from_file,
-                             mel_filterbank)
+from ...ops.features import (_spec_augment, get_speech_features,
+                             get_speech_features_from_file, mel_filterbank)
 
 
 def load_pre_existing_vocabulary(path: str, min_idx: int = 0,
@@ -247,12 +252,6 @@ class Speech2TextDataLayer(DataLayer):
     def __init__(self, params, model, num_workers=1, worker_id=0):
         super().__init__(params, model, num_workers, worker_id)
         p = self._params
-        if p.get("featurize_on_device", False):
-            raise NotImplementedError("featurize_on_device is not ported "
-                                      "yet")
-        if p.get("interactive", False):
-            raise NotImplementedError("interactive inference is not ported "
-                                      "yet")
         p.setdefault("autoregressive", False)
         p.setdefault("bpe", False)
         self.autoregressive = p["autoregressive"]
@@ -282,8 +281,19 @@ class Speech2TextDataLayer(DataLayer):
             p["idx2char"] = {i: w for w, i in p["char2idx"].items()}
         self.target_pad_value = 0
 
+        if p.get("featurize_on_device", False):
+            # raw-audio batches; host augmentation and the feature cache
+            # do not apply to them
+            if p["input_type"] != "logfbank":
+                raise ValueError("featurize_on_device supports "
+                                 "input_type='logfbank' only")
+            if p.get("augmentation"):
+                raise ValueError("featurize_on_device does not support "
+                                 "host-side augmentation")
+
         if p["mode"] == "eval" and not p.get("augmentation") and \
-                not p.get("dither", 0):
+                not p.get("dither", 0) and \
+                not p.get("featurize_on_device", False):
             # in-training evaluation re-featurizes the whole eval set
             # every interval; deterministic eval features are cached by
             # default (reference grew ``cache_features`` for exactly
@@ -319,6 +329,11 @@ class Speech2TextDataLayer(DataLayer):
             raise ValueError("syn_enable=True requires a non-empty "
                              "'syn_subdirs' list of synthetic-wav "
                              "subdirectories")
+
+        if p.get("interactive", False):
+            self.all_files = []
+            self._files = []
+            return
 
         columns = ["wav_filename"] if p["mode"] == "infer" else \
             ["wav_filename", "transcript"]
@@ -358,6 +373,22 @@ class Speech2TextDataLayer(DataLayer):
         return _featurize_path(self.params, wav_path,
                                rng if rng is not None else self._rng)
 
+    def _load_audio(self, wav_path: str):
+        """The raw-audio path of ``featurize_on_device``: the float
+        signal (N,) of a wav and its duration in seconds."""
+        from scipy.io import wavfile
+        sample_freq, signal = wavfile.read(wav_path)
+        want = self.params.get("sample_freq", sample_freq)
+        if sample_freq != want:
+            raise ValueError(
+                "The sampling frequency set in params {} does not match "
+                "the frequency {} read from file {}".format(
+                    want, sample_freq, wav_path))
+        if signal.ndim > 1:
+            signal = signal.mean(axis=1)
+        signal = np.asarray(signal, np.float32)
+        return signal, len(signal) / float(sample_freq)
+
     def _encode_transcript(self, text: str) -> np.ndarray:
         if self.sp is not None:
             ids = self.sp.EncodeAsIds(text)
@@ -380,6 +411,7 @@ class Speech2TextDataLayer(DataLayer):
         window = 4 * workers
         randomized = (bool(p.get("augmentation")) or p.get("dither", 0) > 0
                       or p.get("syn_enable", False))
+        on_device = p.get("featurize_on_device", False)
         self._epoch_counter += 1
 
         # augmentation draws come from a per-example RNG seeded by
@@ -410,7 +442,7 @@ class Speech2TextDataLayer(DataLayer):
             if examples:
                 yield self._collate(examples, pad_batch_to=batch_size)
 
-        if p.get("use_process_pool", False):
+        if p.get("use_process_pool", False) and not on_device:
             yield from handle(self._process_results(order, randomized,
                                                     workers, window))
             return
@@ -428,7 +460,10 @@ class Speech2TextDataLayer(DataLayer):
                 row[0], self.example_rng(global_idx) if randomized
                 else None)
             try:
-                features, duration = self._featurize(wav, rng=rng)
+                if on_device:
+                    features, duration = self._load_audio(wav)
+                else:
+                    features, duration = self._featurize(wav, rng=rng)
             except (OSError, ValueError) as e:
                 return ("error", global_idx, e)
             return ("ok", global_idx, features, duration, row)
@@ -492,16 +527,26 @@ class Speech2TextDataLayer(DataLayer):
         B = len(examples)
         ids = np.zeros((B,), dtype=np.int32)
         x_len = np.zeros((B,), dtype=np.int32)
-        T = self.pad_to_multiple(
-            max(e["x"].shape[0] for e in examples), pad_to)
-        F = examples[0]["x"].shape[1]
-        x = np.zeros((B, T, F), dtype=np.float32)
+        if examples[0]["x"].ndim == 1:
+            # raw audio (featurize_on_device): the sample axis padded to a
+            # multiple of hop * pad_to, so the frame count on the device
+            # is a multiple of pad_to
+            hop = int(p.get("window_stride", 10e-3) *
+                      p.get("sample_freq", 16000))
+            T = self.pad_to_multiple(
+                max(e["x"].shape[0] for e in examples), hop * pad_to)
+            x = np.zeros((B, T), dtype=np.float32)
+        else:
+            T = self.pad_to_multiple(
+                max(e["x"].shape[0] for e in examples), pad_to)
+            x = np.zeros((B, T, examples[0]["x"].shape[1]),
+                         dtype=np.float32)
         for i, e in enumerate(examples):
             t = e["x"].shape[0]
             x[i, :t] = e["x"]
             x_len[i] = t
             ids[i] = e["idx"]
-        if p.get("features_dtype", "float32") == "bfloat16":
+        if p.get("features_dtype", "float32") == "bfloat16" and x.ndim == 3:
             # half the bytes of the copy to the card; the encoder casts
             # its input to the compute dtype anyway. Imported here: the
             # featurizer processes import this module and need no torch
@@ -524,7 +569,39 @@ class Speech2TextDataLayer(DataLayer):
         return batch
 
     def create_interactive_batch(self, model_in):
-        raise NotImplementedError("interactive inference is not ported yet")
+        """A batch of one from a wav path or a raw (signal, sample rate)
+        pair (the streaming ASR contract, reference
+        `speech2text.py:326-380`): its features, or with
+        ``featurize_on_device`` its padded samples."""
+        pad_to = max(self.params["pad_to"], 1)
+        if self.params.get("featurize_on_device", False):
+            if isinstance(model_in, str):
+                signal, _ = self._load_audio(model_in)
+            else:
+                signal = np.asarray(model_in[0], np.float32)
+            hop = int(self.params.get("window_stride", 10e-3) *
+                      self.params.get("sample_freq", 16000))
+            n = self.pad_to_multiple(len(signal), hop * pad_to)
+            x = np.zeros((1, n), dtype=np.float32)
+            x[0, :len(signal)] = signal
+            length = len(signal)
+        else:
+            if isinstance(model_in, str):
+                features, _ = self._featurize(model_in)
+            else:
+                signal, sample_freq = model_in
+                params = dict(self.params, sample_freq=sample_freq)
+                features, _ = get_speech_features(
+                    np.asarray(signal), sample_freq, params, rng=self._rng)
+            T = self.pad_to_multiple(features.shape[0], pad_to)
+            x = np.zeros((1, T, features.shape[1]), dtype=np.float32)
+            x[0, :features.shape[0]] = features
+            length = features.shape[0]
+        return {
+            "source_tensors": [x, np.asarray([length], np.int32)],
+            "source_ids": np.zeros((1,), np.int32),
+            "batch_valid": np.int32(1),
+        }
 
     def decode_ids(self, ids) -> str:
         """Map decoded id sequence (possibly -1-padded) back to text."""

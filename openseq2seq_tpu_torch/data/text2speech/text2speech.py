@@ -15,8 +15,8 @@ Batch contract:
   "spec_mag" (B, T, F_mag) as well when ``output_type`` is "both".
 
 Outside training the rows are split among ``num_workers`` in contiguous
-shards. ``create_interactive_batch`` (interactive infer) is not ported
-yet and raises.
+shards. In interactive inference ``create_interactive_batch`` makes the
+infer batch of one line of text.
 """
 from __future__ import annotations
 
@@ -245,5 +245,11 @@ class Text2SpeechDataLayer(DataLayer):
                        if 0 <= int(i) < len(self.idx2char))
 
     def create_interactive_batch(self, model_in):
-        raise NotImplementedError("interactive infer is not ported yet "
-                                  "(the TTS data layer's one-line batch)")
+        """One line of text -> a single-example infer batch (the
+        reference's interactive text-to-speech flow; ``run.py
+        --mode=interactive_infer``)."""
+        text = str(model_in).strip().lower()
+        if not text:
+            raise ValueError("empty text")
+        return self._collate([{"idx": 0, "text": self.encode_text(text)}],
+                             valid=1)

@@ -16,3 +16,4 @@ from .centaur_encoder import CentaurEncoder
 from .convs2s_encoder import ConvS2SEncoder
 from .wavenet_encoder import WavenetEncoder
 from .las_encoder import ListenAttendSpellEncoder
+from .gatedconv_encoder import GatedConvEncoder

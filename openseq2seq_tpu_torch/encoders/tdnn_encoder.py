@@ -1,13 +1,15 @@
-"""TDNN encoder — Wave2Letter+ / Jasper family (port of
+"""TDNN encoder — Wave2Letter+ / Jasper / QuartzNet family (port of
 ``openseq2seq_tpu/encoders/tdnn_encoder.py``).
 
 Same config contract: a ``convnet_layers`` list of block specs ``{type,
 repeat, kernel_size, stride, num_channels, padding, dilation,
-dropout_keep_prob, residual, residual_dense}``, batch norm, sequence
+dropout_keep_prob, residual, residual_dense}``, the normalization switch
+(``batch_norm``, ``layer_norm``, ``instance_norm`` or None), sequence
 masking (``use_conv_mask``) and Jasper's dense residuals. Module and
-parameter names follow the flax module's (``conv{l}_{r}``,
-``norm{l}_{r}``, ``res{l}_{s}``, ``resnorm{l}_{s}``) so that
-``convert.py`` maps one onto the other by name.
+parameter names follow the flax module's (``conv{l}_{r}``, a separable
+block's ``conv{l}_{r}_dw`` and ``conv{l}_{r}_pw``, ``norm{l}_{r}``,
+``res{l}_{s}``, ``resnorm{l}_{s}``) so that ``convert.py`` maps one onto
+the other by name.
 
 Kept from the JAX package, each a trap when porting:
   * SAME padding is XLA's: out = ceil(T / stride) and the odd pad goes on
@@ -25,10 +27,20 @@ In training, dropout (``parts/dropout.py``, honouring the model's
 Bernoulli per block per step, the block's output is then its residual
 sum alone) draw from the ``torch.Generator`` passed to ``forward``.
 
-Only ``type: conv1d`` with ``padding: SAME``, ``type: tcn`` (the causal
-conv, :class:`CausalConv1d`, whatever its ``padding``, as in the JAX
-package) and ``normalization: batch_norm`` are ported; the other options
-raise. The module takes and
+Block types: ``conv1d`` and ``sep_conv1d`` (QuartzNet's: a depthwise
+conv, one group a channel, with the block's stride and dilation, then a
+1x1 pointwise conv to ``num_channels``, each with its bias), both with
+``padding: SAME``, and ``tcn`` (the causal conv, :class:`CausalConv1d`,
+whatever its ``padding``, as in the JAX package). Another type, or
+``padding: VALID`` (the JAX module maps lengths as SAME does whatever
+the padding, so its lengths would be wrong), raises. Normalizations: the
+batch norm below; ``layer_norm``, flax's ``LayerNorm`` with epsilon
+``bn_epsilon`` (fp32 statistics and parameters, output in the compute
+dtype); ``instance_norm``, no parameters, the biased mean and variance
+over time of the whole padded tensor (unmasked, as in the JAX module),
+rounded to the activations' dtype as jnp.mean and jnp.var round them,
+then normalized in that dtype; None, no norm. The residual projections'
+norms follow the same switch. The module takes and
 returns (B, T, C), as the JAX package does, and keeps that layout
 inside: each conv runs as a 2-D conv over a (B, C, 1, T) channels-last
 view of it, so cuDNN takes its NHWC implicit-GEMM kernels. In NCW
@@ -94,16 +106,21 @@ class SameConv1d(nn.Module):
     the stored params; (B, T, C) in and out. The weight is stored (out,
     in, k), as torch's conv1d keeps it. The bias is added after the conv
     as flax rounds it (C26: under bf16 the conv's output rounded, then the
-    sum; fp32 keeps the fused form)."""
+    sum; fp32 keeps the fused form). ``groups`` is flax's
+    ``feature_group_count``: ``in_ch`` groups make the depthwise conv of a
+    separable block, its weight (in_ch, 1, k)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int,
                  dilation: int, dtype: torch.dtype, kernel_init,
-                 generator: torch.Generator, use_bias: bool = True):
+                 generator: torch.Generator, use_bias: bool = True,
+                 groups: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel))
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups,
+                                               kernel))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
         kernel_init(self.weight, generator)
         self.kernel, self.stride, self.dilation = kernel, stride, dilation
+        self.groups = groups
         self.dtype = dtype
 
     def padding(self, length: int) -> Tuple[int, int]:
@@ -121,7 +138,8 @@ class SameConv1d(nn.Module):
                      self.weight.unsqueeze(2).to(
                          dtype=self.dtype, memory_format=torch.channels_last),
                      b if fused else None, (1, self.stride), (0, lo),
-                     (1, self.dilation)).squeeze(2).permute(0, 2, 1)
+                     (1, self.dilation), self.groups
+                     ).squeeze(2).permute(0, 2, 1)
         return y if fused else y + b
 
 
@@ -169,6 +187,66 @@ class BatchNorm(nn.BatchNorm1d):
         return y.to(self.dtype).reshape(shape)
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(epsilon=eps)`` over the channels inside the
+    ``_Norm`` switch: fp32 statistics and parameters, output in ``dtype``.
+    The flax twin's inner ``LayerNorm_0`` folds into this module
+    (``flax_inner``)."""
+    flax_inner = "LayerNorm_0"
+
+    def __init__(self, channels: int, eps: float, dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.eps = eps
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(self.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """The ``instance_norm`` branch of the JAX ``_Norm``: (x - mean) *
+    rsqrt(var + eps) over time, per row and channel, of the whole padded
+    tensor. jnp.mean and jnp.var of bf16 sum in fp32 (the variance about
+    the fp32 mean) and round their results to bf16; the rest runs in the
+    activations' dtype, one rounding an operation."""
+
+    def __init__(self, eps: float):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        var, mean = torch.var_mean(x.float(), dim=1, keepdim=True,
+                                   correction=0)
+        return (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) +
+                                                    self.eps)
+
+
+class NoNorm(nn.Module):
+    """``normalization: None``: the input as it is."""
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        return x
+
+
+def make_norm(kind, channels: int, momentum: float, eps: float,
+              dtype: torch.dtype) -> nn.Module:
+    """The JAX ``_Norm`` switch; ``momentum`` is flax's (the running
+    average's decay)."""
+    if kind == "batch_norm":
+        # torch's momentum is the weight of the new batch
+        return BatchNorm(channels, 1.0 - momentum, eps, dtype)
+    if kind == "layer_norm":
+        return LayerNorm(channels, eps, dtype)
+    if kind == "instance_norm":
+        return InstanceNorm(eps)
+    if kind is None:
+        return NoNorm()
+    raise ValueError("Unknown normalization '{}'".format(kind))
+
+
 class TDNNNet(nn.Module):
     """The module behind :class:`TDNNEncoder`: (B, T, F) features and
     (B,) lengths in, (B, T', C) outputs and (B,) lengths out."""
@@ -178,7 +256,7 @@ class TDNNNet(nn.Module):
                  bn_epsilon: float, use_conv_mask: bool,
                  drop_block_prob: float, drop_block_index: int,
                  dropout_bits: int, dtype: torch.dtype, kernel_init,
-                 generator: torch.Generator):
+                 generator: torch.Generator, normalization="batch_norm"):
         super().__init__()
         self.activation_fn = activation_fn
         self.use_conv_mask = use_conv_mask
@@ -187,22 +265,20 @@ class TDNNNet(nn.Module):
         self.dropout_bits = dropout_bits
         self.dtype = dtype
         self.plan = []        # per block: what forward() walks
-        # flax momentum is the decay of the running average; torch's is
-        # the weight of the new batch
-        bn = lambda c: BatchNorm(  # noqa: E731
-            c, 1.0 - bn_momentum, bn_epsilon, dtype)
-        conv = lambda i, o, k, s, d, cls=SameConv1d: cls(  # noqa: E731
-            i, o, k, s, d, dtype, kernel_init, generator)
+        norm = lambda c: make_norm(  # noqa: E731
+            normalization, c, bn_momentum, bn_epsilon, dtype)
+        conv = lambda i, o, k, s, d, cls=SameConv1d, g=1: cls(  # noqa: E731
+            i, o, k, s, d, dtype, kernel_init, generator, groups=g)
         ch_in = in_features
         residual_channels = []    # widths of saved block inputs (dense)
         for li, spec in enumerate(convnet_layers, start=1):
-            causal = spec["type"] == "tcn"
-            if not causal and (spec["type"] != "conv1d" or
-                               spec.get("padding", "SAME") != "SAME"):
+            kind = spec["type"]
+            if kind != "tcn" and (kind not in ("conv1d", "sep_conv1d") or
+                                  spec.get("padding", "SAME") != "SAME"):
                 raise NotImplementedError(
-                    "only conv1d with SAME padding and tcn are ported; got "
-                    "type={} padding={}".format(spec["type"],
-                                                spec.get("padding")))
+                    "only conv1d and sep_conv1d with SAME padding and tcn "
+                    "are ported; got type={} padding={}".format(
+                        kind, spec.get("padding")))
             ch = spec["num_channels"]
             k, s = spec["kernel_size"][0], spec["stride"][0]
             d = spec.get("dilation", [1])[0]
@@ -216,17 +292,24 @@ class TDNNNet(nn.Module):
                 else:
                     sources = [ch_in]
             for r in range(1, spec.get("repeat", 1) + 1):
-                self.add_module("conv{}_{}".format(li, r), conv(
-                    ch_in, ch, k, s, d,
-                    CausalConv1d if causal else SameConv1d))
-                self.add_module("norm{}_{}".format(li, r), bn(ch))
+                name = "conv{}_{}".format(li, r)
+                if kind == "sep_conv1d":
+                    self.add_module(name + "_dw", conv(ch_in, ch_in, k, s, d,
+                                                       g=ch_in))
+                    self.add_module(name + "_pw", conv(ch_in, ch, 1, 1, 1))
+                else:
+                    self.add_module(name, conv(
+                        ch_in, ch, k, s, d,
+                        CausalConv1d if kind == "tcn" else SameConv1d))
+                self.add_module("norm{}_{}".format(li, r), norm(ch))
                 ch_in = ch
             for si, src_ch in enumerate(sources):
                 self.add_module("res{}_{}".format(li, si),
                                 conv(src_ch, ch, 1, 1, 1))
-                self.add_module("resnorm{}_{}".format(li, si), bn(ch))
+                self.add_module("resnorm{}_{}".format(li, si), norm(ch))
             self.plan.append({
                 "index": li, "repeat": spec.get("repeat", 1), "stride": s,
+                "separable": kind == "sep_conv1d",
                 "keep": spec.get("dropout_keep_prob", dropout_keep_prob),
                 "residual": residual, "dense": dense})
         self.out_features = ch_in
@@ -249,7 +332,11 @@ class TDNNNet(nn.Module):
             for r in range(1, p["repeat"] + 1):
                 if self.use_conv_mask:
                     x = _mask_time(x, lengths)
-                x = m["conv{}_{}".format(li, r)](x)
+                name = "conv{}_{}".format(li, r)
+                if p["separable"]:
+                    x = m[name + "_pw"](m[name + "_dw"](x))
+                else:
+                    x = m[name](x)
                 x = m["norm{}_{}".format(li, r)](x, train)
                 if p["stride"] > 1:
                     lengths = _out_length(lengths, p["stride"])
@@ -317,14 +404,12 @@ class TDNNEncoder(Encoder):
                     generator: torch.Generator) -> TDNNEncoderModule:
         from ..parts.initializers import resolve_initializer
         p = self._params
-        if p.get("normalization", "batch_norm") != "batch_norm":
-            raise NotImplementedError(
-                "only normalization='batch_norm' is ported")
         net = TDNNNet(
             in_features=in_features,
             convnet_layers=p["convnet_layers"],
             activation_fn=resolve_activation(p["activation_fn"]),
             dropout_keep_prob=p["dropout_keep_prob"],
+            normalization=p.get("normalization", "batch_norm"),
             bn_momentum=p.get("bn_momentum", 0.90),
             bn_epsilon=p.get("bn_epsilon", 1e-3),
             use_conv_mask=p.get("use_conv_mask", False),

@@ -487,8 +487,10 @@ def _named_params(module: torch.nn.Module
 def to_device_batch(batch: Any, device: torch.device) -> Any:
     """numpy batch -> tensors on ``device`` (lists and dicts recursed;
     scalars kept; a host tensor, such as the bf16 features of the speech
-    data layer, moved as it is). To a CUDA device the copy goes through
-    pinned memory and does not wait for the device."""
+    data layer, moved as it is; a tensor already on a device, such as a
+    streaming decoder's carry, moved there if it is elsewhere). To a CUDA
+    device the copy from the host goes through pinned memory and does not
+    wait for the device."""
     if isinstance(batch, dict):
         return {k: to_device_batch(v, device) for k, v in batch.items()}
     if isinstance(batch, (list, tuple)):
@@ -496,7 +498,7 @@ def to_device_batch(batch: Any, device: torch.device) -> Any:
     if isinstance(batch, np.ndarray) and batch.ndim > 0:
         batch = torch.from_numpy(batch)
     if isinstance(batch, torch.Tensor) and batch.ndim > 0:
-        if torch.device(device).type == "cuda":
+        if torch.device(device).type == "cuda" and batch.device.type == "cpu":
             return batch.pin_memory().to(device, non_blocking=True)
         return batch.to(device)
     return batch

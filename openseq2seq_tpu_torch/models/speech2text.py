@@ -11,19 +11,62 @@ beam search with a language model reads (``scripts_torch/decode.py``).
 The loss's ``tgt_vocab_size`` and ``batch_size`` are filled in from the
 data layer where the loss class accepts them and the config leaves them
 out (the joint CTC-attention loss requires both).
+
+With the data layer's ``featurize_on_device`` the batches hold padded raw
+audio and the forward pass begins with the log-mel features of
+``ops/features_device.py``, on the model's device, with the data layer's
+featurization parameters; the encoder and decoder then sit under
+``inner``, the name the JAX package's wrapping flax module gives them.
 """
 from __future__ import annotations
 
 import csv
+import math
 import pickle
 from typing import Any, Dict, List
 
 import numpy as np
+import torch
 
 from ..utils.logging import deco_print
 from ..utils.metrics import levenshtein
 
+from ..ops.features_device import logmel_features
 from .encoder_decoder import EncoderDecoderModel
+
+
+def featurize_params(dl_params: Dict[str, Any]) -> Dict[str, Any]:
+    """``logmel_features``' keywords from a speech data layer's params,
+    as the JAX package's model derives them (the host featurizer's
+    defaults: 20 ms windows every 10 ms, the next power of two for the
+    FFT, ``norm_per_feature`` False)."""
+    sr = int(dl_params.get("sample_freq", 16000))
+    window = dl_params.get("window_size", 20e-3)
+    return {"sample_freq": sr, "win_length": int(window * sr),
+            "hop_length": int(dl_params.get("window_stride", 10e-3) * sr),
+            "n_fft": int(dl_params.get("num_fft", 0) or
+                         2 ** math.ceil(math.log2(window * sr))),
+            "num_features": int(dl_params["num_audio_features"]),
+            "norm_per_feature": bool(dl_params.get("norm_per_feature",
+                                                   False))}
+
+
+class DeviceFeaturizedForward(torch.nn.Module):
+    """The forward pass ``inner`` on log-mel features computed from the
+    batch's raw audio (B, N) and its lengths."""
+
+    def __init__(self, inner: torch.nn.Module, featurize: Dict[str, Any]):
+        super().__init__()
+        self.inner = inner
+        self.featurize = featurize
+
+    def forward(self, batch: Dict[str, Any], train: bool,
+                generator: torch.Generator = None):
+        audio, audio_len = batch["source_tensors"]
+        feats, feat_len = logmel_features(audio, audio_len,
+                                          **self.featurize)
+        return self.inner(dict(batch, source_tensors=[feats, feat_len]),
+                          train, generator)
 
 
 class Speech2Text(EncoderDecoderModel):
@@ -34,6 +77,18 @@ class Speech2Text(EncoderDecoderModel):
         self._params["decoder_params"]["tgt_vocab_size"] = \
             self.get_data_layer().params["tgt_vocab_size"]
         return super()._create_decoder()
+
+    def build_module(self, example_batch: Dict[str, Any],
+                     generator: torch.Generator) -> torch.nn.Module:
+        dlp = self.get_data_layer().params
+        if not dlp.get("featurize_on_device", False):
+            return super().build_module(example_batch, generator)
+        featurize = featurize_params(dlp)
+        # the encoder's input width is the features', not the samples'
+        widths = {"source_tensors": [
+            np.zeros((1, 1, featurize["num_features"]), np.float32)]}
+        return DeviceFeaturizedForward(
+            super().build_module(widths, generator), featurize)
 
     def _create_loss(self):
         loss_cls = self._params.get("loss")
@@ -137,5 +192,11 @@ class Speech2Text(EncoderDecoderModel):
         deco_print("Sample prediction: {}".format(hyp), offset=4)
 
     def get_num_objects_per_step(self, batch):
-        """Audio frames in the batch."""
-        return int(np.sum(np.asarray(batch["source_tensors"][1])))
+        """Audio frames in the batch (of a raw-audio batch, the frames
+        its samples make)."""
+        lengths = np.asarray(batch["source_tensors"][1])
+        if batch["source_tensors"][0].ndim == 2:
+            hop = featurize_params(
+                self.get_data_layer().params)["hop_length"]
+            return int(np.sum(1 + lengths // hop))
+        return int(np.sum(lengths))

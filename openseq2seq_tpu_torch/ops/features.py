@@ -17,7 +17,8 @@ padding, symmetric hann/hamming windows — the reference passes
 
 Followed by mean/std normalization (optionally per-feature, optionally
 with precomputed stats) and SpecAugment-style frequency/time masking.
-Featurizing on the device (``featurize_on_device``) is not ported yet.
+Featurizing on the device (``featurize_on_device``) is
+``ops/features_device.py``.
 """
 from __future__ import annotations
 

@@ -3,8 +3,11 @@
 
     python -m openseq2seq_tpu_torch.run --config_file=<config> --mode=train
 
-Modes ``train``, ``train_eval``, ``eval`` and ``infer`` run;
-``interactive_infer`` is not ported yet. ``--continue_learning`` resumes
+Modes ``train``, ``train_eval``, ``eval``, ``infer`` and
+``interactive_infer`` run: the last reads standard input, a line at a
+time, a wav path (speech recognition: its transcript is printed) or a
+sentence (speech synthesis: the path of its Griffin-Lim wav is printed),
+until end of input. ``--continue_learning`` resumes
 training from the latest checkpoint of ``logdir``; without it, training
 refuses a logdir that holds one. ``--benchmark`` rewrites the config for
 a throughput run (``--bench_steps``, ``--bench_start``). Config files and
@@ -35,9 +38,6 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the card; pass "
                            "--device=cpu to run on the CPU")
-    if args.mode == "interactive_infer":
-        raise NotImplementedError("--mode=interactive_infer is not ported "
-                                  "yet")
     if args.enable_logs and base_config.get("logdir"):
         enable_logs(base_config["logdir"])
     if args.benchmark:
@@ -56,8 +56,57 @@ def main(argv=None):
                              checkpoint=restore_checkpoint)
     if args.mode == "eval":
         return trainer.evaluate(models["eval"], restore_checkpoint)
-    return trainer.infer(models["infer"], restore_checkpoint,
-                         args.infer_output_file)
+    if args.mode == "infer":
+        return trainer.infer(models["infer"], restore_checkpoint,
+                             args.infer_output_file)
+    return interactive_repl(models["interactive_infer"], restore_checkpoint)
+
+
+def interactive_repl(model, checkpoint, lines=None):
+    """The stdin REPL of ``--mode=interactive_infer`` (the repository's
+    ``run.py:73-120``): each line a wav path (its transcript printed) or,
+    for a text-to-speech model, a sentence (synthesized by Griffin-Lim to
+    ``interactive_synth_<n>.wav``, whose path is printed). A line that
+    fails prints its error and the loop goes on. ``lines`` replaces
+    standard input. Returns what it printed, a line an input."""
+    import numpy as np
+    from scipy.io import wavfile
+    state = trainer.restore_state(model, checkpoint)
+    dl = model.get_data_layer()
+    is_tts = hasattr(model, "synthesize_wav")
+    prompt = "text> " if is_tts else "wav> "
+    deco_print("Interactive inference. Enter a {} per line (Ctrl-D to "
+               "quit).".format("sentence" if is_tts else "wav path"))
+    source = iter(lines) if lines is not None else None
+    printed, n_synth = [], 0
+    while True:
+        try:
+            line = (next(source) if source is not None
+                    else input(prompt)).strip()
+        except (EOFError, StopIteration):
+            break
+        if not line:
+            continue
+        try:
+            batch = dl.create_interactive_batch(line)
+            out = trainer.to_host(model.eval_step(state, batch))
+            if is_tts:
+                spec, lengths = out["outputs"]["decoder_output"]["outputs"]
+                n = int(lengths[0])
+                wav = model.synthesize_wav(np.asarray(spec)[0, :n])
+                path = "interactive_synth_{}.wav".format(n_synth)
+                n_synth += 1
+                peak = float(np.max(np.abs(wav))) or 1.0
+                wavfile.write(path, dl.params.get("sample_freq", 22050),
+                              (wav / peak * 0.9 * 32767).astype(np.int16))
+                text = path
+            else:
+                text = "\n".join(t for _, t in model.infer(batch, out))
+        except Exception as e:  # the REPL goes on after a bad input
+            text = "error: {}".format(e)
+        print(text, flush=True)
+        printed.append(text)
+    return printed
 
 
 if __name__ == "__main__":

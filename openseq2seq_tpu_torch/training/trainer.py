@@ -17,6 +17,7 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..utils.config import _latest_checkpoint
@@ -30,7 +31,14 @@ def restore_state(model, checkpoint: Optional[str] = None):
     """Seeded initial state, restored from ``checkpoint`` if given, else
     partially from the config's ``load_model`` if set."""
     dl = model.get_data_layer()
-    example_batch = next(iter(dl.iterate_one_epoch()))
+    try:
+        example_batch = next(iter(dl.iterate_one_epoch()))
+    except StopIteration:
+        # an interactive data layer reads no dataset: the widths come
+        # from a batch of one second of silence
+        sr = dl.params.get("sample_freq", 16000)
+        example_batch = dl.create_interactive_batch(
+            (np.zeros(sr, np.float32), sr))
     state = model.init_state(example_batch)
     if checkpoint:
         state = CheckpointManager.restore(checkpoint, state)

@@ -7,7 +7,8 @@ step, on one NVIDIA GPU.
         --train-tacotron | --infer-tacotron | --train-transducer |
         --infer-transducer | --train-lm-wkt | --train-txl | --eval-txl |
         --train-resnet | --eval-resnet | --train-las | --infer-las |
-        --train-jca]
+        --train-jca | --train-quartznet | --train-ondevice |
+        --stream={jasper,transducer}]
         [--beam-width=K] [--config_file=PATH] [--steps=4] [--repeats=3]
         [--batches=N] [--trace=PATH]
 
@@ -64,8 +65,22 @@ on B1a and B1b), each over 2 batches of 64 utterances of 16.0 s with
 240-character transcripts written first into a temporary directory
 (``test_utils/fake_librispeech.py``, one unused symbol added to its
 vocabulary so that <S> and </S> take the recipes' ids 29 and 30; audio
-frames are the objects); ``--batches`` keeps the first N batches of the
-epoch.
+frames are the objects). ``--train-quartznet`` is ``--train`` on
+QuartzNet-15x5 at full width on synthetic batches at its recipe's
+longest utterance (``example_configs_torch/speech2text/
+quartznet15x5_synthetic.py``: B 32 x 1,670 frames, L 240, its CTC loss on
+B1a and B1b); ``--train-ondevice`` the train step of Jasper-10x5's
+LibriSpeech recipe with ``featurize_on_device`` (SpecAugment off, which
+the device path refuses): raw audio in, the log-mel features computed on
+the card inside the step, over 2 batches of 32 utterances of 16.0 s
+written first (``fake_librispeech``); ``--stream=jasper`` and
+``--stream=transducer`` a step of streaming recognition at full width on
+seeded weights: one 0.2 s frame through ``apps/frame_asr.FrameASR`` over
+Jasper-10x5 (greedy; a 5.0 s buffer) or ``TransducerFrameASR`` over the
+Conformer-Transducer LibriSpeech recipe (flash and fused: B5 and B6
+forward at B 1, T' 128), the energy gate off, over the frames of one
+16 s wav (a step and an object are a frame). ``--batches`` keeps the
+first N batches of the epoch.
 It prints:
 
 1. wall milliseconds per step without the profiler, for each of
@@ -142,6 +157,16 @@ JCA_CONFIG = os.path.join(REPO, "example_configs_torch", "speech2text",
                           "jca_large_8gpus.py")
 # the LAS and JCA profiles' corpus: 2 batches of 64 utterances of 16.0 s
 LAS_CORPUS = dict(n_utts=128, duration=16.0, transcript_chars=240)
+QUARTZNET_CONFIG = os.path.join(REPO, "example_configs_torch", "speech2text",
+                                "quartznet15x5_synthetic.py")
+JASPER_LIBRI_CONFIG = os.path.join(REPO, "example_configs_torch",
+                                   "speech2text", "jasper10x5_librispeech.py")
+TRANSDUCER_LIBRI_CONFIG = os.path.join(
+    REPO, "example_configs_torch", "speech2text",
+    "conformer_transducer_librispeech.py")
+# the on-device and streaming profiles' corpus: 2 batches of 32
+# utterances of 16.0 s
+ASR_CORPUS = dict(n_utts=64, duration=16.0, transcript_chars=240)
 # the WikiText profiles' corpus: every word of the vocabulary once, and
 # enough Zipf tokens beside them for a few batches
 WKT_CORPUS = dict(n_train_tokens=200_000, n_eval_tokens=60_000,
@@ -150,6 +175,9 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 # (group, substrings of the kernel name), first match wins
 GROUPS = (
+    # cuFFT's kernels (regular_fft, vector_fft, ...): the on-device log-mel
+    # features' rfft
+    ("log-mel features' FFT", ("fft",)),
     # ctc_alpha_fwd_kernel<K, floor>; the backward's ctc_beta_bwd_kernel<K>
     # (the recursion) and ctc_beta_bwd_scatter_kernel
     ("ctc kernel", ("ctc_alpha_fwd", "ctc_beta_bwd")),
@@ -322,6 +350,31 @@ def make_step(model, train: bool):
     return holder[0].module, step
 
 
+def stream_step(model, which: str, train_csv: str):
+    """``(module, step, frames)``: a streaming recognizer over ``model``
+    (``FrameASR`` greedy for "jasper", ``TransducerFrameASR`` for
+    "transducer"; seeded weights, the energy gate off), ``step(frame)``
+    feeding it one frame, and the 0.2 s frames of the first wav of
+    ``train_csv``."""
+    import csv as csvmod
+    import numpy as np
+    from scipy.io import wavfile
+    from openseq2seq_tpu_torch.apps.frame_asr import (FrameASR,
+                                                      TransducerFrameASR)
+    if which == "jasper":
+        asr = FrameASR(model, timestep_duration=0.02, silence_threshold=0.0)
+    else:
+        asr = TransducerFrameASR(model, timestep_duration=0.04,
+                                 silence_threshold=0.0)
+    with open(train_csv) as f:
+        wav = next(csvmod.DictReader(f))["wav_filename"]
+    _, signal = wavfile.read(wav)
+    signal = signal.astype(np.float32) / 32767.0
+    n = asr.n_frame_len
+    frames = [signal[i:i + n] for i in range(0, len(signal) - n + 1, n)]
+    return asr.state.module, asr.transcribe, frames
+
+
 def device_intervals(trace_path: str):
     with open(trace_path) as f:
         trace = json.load(f)
@@ -393,6 +446,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     which.add_argument("--train-jca", action="store_true",
                        help="joint CTC-attention's train step at full "
                             "width")
+    which.add_argument("--train-quartznet", action="store_true",
+                       help="QuartzNet-15x5's train step at full width")
+    which.add_argument("--train-ondevice", action="store_true",
+                       help="Jasper-10x5's train step from raw audio, "
+                            "featurized on the card")
+    which.add_argument("--stream", choices=["jasper", "transducer"],
+                       default=None,
+                       help="a 0.2 s frame of streaming recognition at "
+                            "full width")
     which.add_argument("--infer-transducer", action="store_true",
                        help="profile the Conformer-Transducer's decode of "
                             "a batch (the infer step on {})".format(
@@ -421,6 +483,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     tacotron = args.train_tacotron or args.infer_tacotron
     args.wikitext = args.train_lm_wkt or args.train_txl or args.eval_txl
     args.librispeech = args.train_las or args.infer_las or args.train_jca
+    args.asr_corpus = args.train_ondevice or args.stream is not None
     if args.config_file is None:
         args.config_file = NMT_TRAIN_CONFIG if args.train_nmt else \
             LM_CONFIG if args.train_lm or args.eval_lm else \
@@ -433,11 +496,16 @@ def parse_args(argv=None) -> argparse.Namespace:
             RESNET_CONFIG if args.train_resnet or args.eval_resnet else \
             LAS_CONFIG if args.train_las or args.infer_las else \
             JCA_CONFIG if args.train_jca else \
+            QUARTZNET_CONFIG if args.train_quartznet else \
+            JASPER_LIBRI_CONFIG if args.train_ondevice or \
+            args.stream == "jasper" else \
+            TRANSDUCER_LIBRI_CONFIG if args.stream == "transducer" else \
             CONFIG
     args.train = args.train or args.train_nmt or args.train_lm or \
         args.train_gnmt or args.train_tacotron or args.train_transducer or \
         args.train_lm_wkt or args.train_txl or args.train_resnet or \
-        args.train_las or args.train_jca
+        args.train_las or args.train_jca or args.train_quartznet or \
+        args.train_ondevice
     args.infer = args.infer or args.infer_gnmt or args.infer_tacotron or \
         args.infer_transducer or args.infer_las
     return args
@@ -474,34 +542,55 @@ def main(argv=None):
         with open(os.path.join(data, "vocab.txt"), "a") as f:
             f.write("_\n")
         os.environ["LIBRISPEECH_DIR"] = data
+    if args.asr_corpus:
+        from openseq2seq_tpu_torch.test_utils import fake_librispeech
+        corpus = tempfile.TemporaryDirectory()
+        data, train_csv = fake_librispeech.generate(corpus.name,
+                                                    **ASR_CORPUS)
+        os.environ["LIBRISPEECH_DIR"] = data
     config = runpy.run_path(args.config_file)
     mode = "train" if args.train else "infer" if args.infer else "eval"
     params = dict(config["base_params"])
     if args.train:
-        params.update(config.get("train_params", {}))
+        params.update({k: v for k, v in config.get("train_params",
+                                                   {}).items()
+                       if k != "data_layer_params"})
+        params["data_layer_params"] = dict(
+            params["data_layer_params"],
+            **config.get("train_params", {}).get("data_layer_params", {}))
     if args.beam_width is not None:
         params["decoder_params"] = dict(params["decoder_params"],
                                         beam_width=args.beam_width)
+    if args.asr_corpus:
+        params["data_layer_params"] = dict(
+            params["data_layer_params"], augmentation={},
+            featurize_on_device=args.train_ondevice)
+    if args.stream:
+        mode = "interactive_infer"
     model = config["base_model"](params=params, mode=mode, device="cuda")
-    module, step = make_step(model, args.train)
-
-    batches = list(model.get_data_layer().iterate_one_epoch())
-    if args.batches:
-        batches = batches[:args.batches]
-    utts = sum(len(b["source_ids"]) for b in batches)
-    objects = sum(model.get_num_objects_per_step(b) for b in batches)
+    if args.stream:
+        module, step, batches = stream_step(model, args.stream, train_csv)
+        utts = objects = len(batches)
+    else:
+        module, step = make_step(model, args.train)
+        batches = list(model.get_data_layer().iterate_one_epoch())
+        if args.batches:
+            batches = batches[:args.batches]
+        utts = sum(len(b["source_ids"]) for b in batches)
+        objects = sum(model.get_num_objects_per_step(b) for b in batches)
     # the warm-up steps count the FLOP
     flop_per_batch = count_flops(module, lambda: step(batches[0]),
                                  args.train)
     rnn_flop_per_batch = count_recurrent_flops(
         module, lambda: step(batches[0]), args.train)
     torch.cuda.synchronize()
-    print("[model] {}: {} step, {} batches of {} x {} steps, dtype {}; "
-          "{:.4e} FLOP per step in convs and dense layers, {:.4e} in "
-          "recurrent products".format(
+    print("[model] {}: {} step, {} batches of {}, dtype {}; {:.4e} FLOP "
+          "per step in convs and dense layers, {:.4e} in recurrent "
+          "products".format(
               os.path.relpath(args.config_file, REPO), mode, len(batches),
-              len(batches[0]["source_ids"]),
-              batches[0]["source_tensors"][0].shape[1],
+              "one 0.2 s frame" if args.stream else "{} x {} steps".format(
+                  len(batches[0]["source_ids"]),
+                  batches[0]["source_tensors"][0].shape[1]),
               model.params["dtype"], flop_per_batch, rnn_flop_per_batch),
           flush=True)
 

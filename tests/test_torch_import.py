@@ -92,7 +92,10 @@ def _import_all(report: str) -> str:
             "openseq2seq_tpu_torch.losses.jca_loss",
             "openseq2seq_tpu_torch.ops.ctc_beam",
             "openseq2seq_tpu_torch.ops.ctc_beam_native",
-            "openseq2seq_tpu_torch.ops.ctc_beam_device"} <= set(modules)
+            "openseq2seq_tpu_torch.ops.ctc_beam_device",
+            "openseq2seq_tpu_torch.ops.features_device",
+            "openseq2seq_tpu_torch.apps.frame_asr",
+            "openseq2seq_tpu_torch.encoders.gatedconv_encoder"} <= set(modules)
     names = {os.path.basename(c) for c in CONFIGS}
     assert len(CONFIGS) >= 13 and {
         "transformer_big_train_synthetic.py", "ds2_medium_synthetic.py",
@@ -120,7 +123,10 @@ def _import_all(report: str) -> str:
         "nmt_reversal_toy_rc.py", "convs2s_tiny_wmt.py",
         "las_large_8gpus.py", "las_large_librispeech.py",
         "jca_large_8gpus.py", "las_toy.py", "las_tiny.py", "jca_tiny.py",
-        "jasper10x5_beam_librispeech.py"} <= names
+        "jasper10x5_beam_librispeech.py", "quartznet15x5_librispeech.py",
+        "quartznet15x5_synthetic.py", "quartznet_tiny_synthetic.py",
+        "jasper_mini.py", "w2lplus_toy_ondevice.py",
+        "gatedconv_toy.py"} <= names
     code = ("import importlib, runpy, sys\n"
             "for m in {!r}: importlib.import_module(m)\n"
             "for c in {!r}: runpy.run_path(c)\n"
@@ -227,3 +233,29 @@ def test_summary_writer_is_read_back_by_the_jax_package(tmp_path):
     writer.close()
     assert read_events(writer.path)[-2:] == [
         (3, {"loss": 1.5, "learning_rate": 0.25}), (4, {"loss": 0.75})]
+
+
+@pytest.mark.parametrize("name,n_params", [
+    ("quartznet15x5_librispeech.py", 19257757),
+    ("quartznet15x5_synthetic.py", 19257757),
+    ("jasper_mini.py", None), ("w2lplus_toy_ondevice.py", None),
+    ("gatedconv_toy.py", None)])
+def test_asr_stack_recipes_build(name, n_params, tmp_path, monkeypatch):
+    """The recipes of the ASR stack build their model on the CPU (the
+    LibriSpeech ones over a two-utterance fake corpus, the toys over the
+    toy wavs); QuartzNet-15x5 at its full width."""
+    import runpy
+
+    from openseq2seq_tpu_torch.test_utils import fake_librispeech
+    monkeypatch.setenv("LIBRISPEECH_DIR", fake_librispeech.generate(
+        str(tmp_path / "libri"), n_utts=2, duration=1.0,
+        transcript_chars=10)[0])
+    monkeypatch.setenv("OS2S_TOY_DATA_DIR", str(tmp_path / "toy"))
+    config = runpy.run_path(os.path.join(REPO, "example_configs_torch",
+                                         "speech2text", name))
+    model = config["base_model"](dict(config["base_params"]), mode="eval",
+                                 device="cpu")
+    batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+    module = model.build_module(batch, torch.Generator().manual_seed(0))
+    if n_params is not None:
+        assert sum(p.numel() for p in module.parameters()) == n_params

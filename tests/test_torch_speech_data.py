@@ -163,9 +163,12 @@ def test_unreadable_wav_skipped_in_train_raised_in_eval(toy, tmp_path):
 
 
 def test_unported_options_raise(toy):
-    for key in ("interactive", "featurize_on_device"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Speech2TextDataLayer(dict(toy, mode="infer", **{key: True}),
+    # featurize_on_device takes what the JAX layer takes
+    for extra, match in (({"input_type": "mfcc"}, "logfbank"),
+                         ({"augmentation": MASKS}, "augmentation")):
+        with pytest.raises(ValueError, match=match):
+            Speech2TextDataLayer(dict(toy, mode="train",
+                                      featurize_on_device=True, **extra),
                                  None)
     # declared by the JAX layer and read nowhere: refused, not ignored
     for key, value in (("max_batch_pad_time", 100),
@@ -174,7 +177,7 @@ def test_unported_options_raise(toy):
             Speech2TextDataLayer(dict(toy, mode="train", **{key: value}),
                                  None)
     dl = Speech2TextDataLayer(dict(toy, mode="infer"), None)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         dl.create_interactive_batch("x.wav")
     with pytest.raises(ImportError, match="sentencepiece"):
         Speech2TextDataLayer(dict(toy, mode="train", bpe=True), None)

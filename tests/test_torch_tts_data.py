@@ -10,7 +10,8 @@ corpus of ``test_utils/toy_tts.py``:
     frame, with ``duration_min``/``duration_max``, ``n_samples_eval`` and
     the eval split among workers: equal arrays, exactly;
   * ``SyntheticTTSDataLayer`` batches in each mode, exactly;
-  * interactive infer refused (not ported yet).
+  * the interactive infer batch of one sentence, equal to the JAX
+    layer's.
 """
 import filecmp
 import os
@@ -179,8 +180,11 @@ def test_text_encoding_and_interactive_infer(corpora):
                                   theirs.encode_text("ab ba?"))
     assert mine.encode_text("ab")[-1] == mine.eos_char_id == 3
     assert mine.decode_ids([0, 1, 2, 3]) == "ab "
-    with pytest.raises(NotImplementedError):
-        mine.create_interactive_batch("ab ba")
+    mine, theirs = _layers(corpora[0], "infer", interactive=True)
+    _assert_batches_equal([mine.create_interactive_batch(" Ab ba ")],
+                          [theirs.create_interactive_batch(" Ab ba ")])
+    with pytest.raises(ValueError, match="empty"):
+        mine.create_interactive_batch("  ")
 
 
 @pytest.mark.parametrize("mode", ["train", "eval", "infer"])
