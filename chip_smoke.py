@@ -17,8 +17,9 @@ seconds, and the contract line: ``kernels`` (3 to 4j), ``speech`` (5 to
 7, 7r, 7s), ``nmt`` (7a to 7e, 7u to 7x, 7zu to 7zx), ``rnn`` (7f to 7k,
 the DS2 toy), ``conformer`` (7l to 7n, the Conformer toy), ``lm`` (7o to
 7q, 7zf to 7zi), ``tts`` (7y to 7za, 7zp to 7zt), ``transducer`` (7zb to
-7ze), ``image`` (7zj to 7zo), ``las`` (7zy to 7zzc) and ``asr_stack``
-(7zzd to 7zzk). Each phase's
+7ze), ``image`` (7zj to 7zo), ``las`` (7zy to 7zzc), ``asr_stack``
+(7zzd to 7zzk) and ``serving`` (the int8 products, 7zzl, 7zzm). Each
+phase's
 seconds are printed on a line of their own (``[time] phase ...``), then
 each group's and the total.
 
@@ -67,7 +68,8 @@ Phases, one informative line or a few each:
 4b. the flash kernel against ``flash_attention_plain`` at the
    transformer-big eval shapes (encoder B=64, H=16, T=64, D=64 with key
    padding; decoder causal T=63; cross Tq=63, Tk=64), causal at T=113,
-   D=128, D=256 and Tk=1000: fp32 (TF32 off; the CUDA-core kernel) max
+   D=128, D=256, Tk=1000 and transformer-base scoring's encoder shape
+   (B=64, H=8, T=64, D=64, timed too): fp32 (TF32 off; the CUDA-core kernel) max
    abs err 2e-5; bf16 (the tensor-core kernel) against the rounding plain
    version (weights rounded to bf16 where JAX's stock kernel rounds them)
    max abs err 2^-7, two calls bit-identical, and against the plain
@@ -579,6 +581,28 @@ Phases, one informative line or a few each:
    window at B 1, T' 128 with 126 valid), ms a 0.2 s frame;
 7zzk. the GatedConv toy (``gatedconv_toy.py``) to an eval loss below 1.0
    (``tests/test_extending_tutorial.py``'s bar);
+7zzl. serving (``openseq2seq_tpu_torch/serving``): the int8 products
+   (``torch._int_mm``) against bf16 ``torch.mm`` at the scoring step's
+   shapes (M 4096; K, N of 512, 1536, 2048), then transformer-base
+   teacher-forced scoring at ``scripts/bench_serving.py``'s width
+   (``transformer_base_serving_synthetic.py``: B 64, T 64, V 32768,
+   "mixed", ``train=True`` with every dropout rate 0): eagerly (exactly 18
+   B7 forward launches a batch, tokens/s, the step's idle share), from
+   the fp artifact reloaded in a fresh interpreter that imports only
+   ``openseq2seq_tpu_torch.serving`` (18 launches a batch, logits within
+   1e-5 of eager), from the int8 weight-only artifact (its size against
+   the fp one's, the JAX test's bars) and with int8 activations live and
+   from an artifact (72 calibrated layers, 72 int8 products a live batch
+   and 72 ``_int_mm`` nodes in the artifact, the artifact within 1e-5 of
+   the live int8 path on the dequantized weights, argmax agreement >=
+   0.97, max |d| < 0.35 std, each layer bit for bit its float64 plain
+   version, one layer's x_scale doubled refused), tokens/s and the
+   speedup over bf16, measured with ``scripts_torch/bench_serving.py``'s
+   helpers;
+7zzm. Jasper-10x5's eval forward (``jasper10x5_synthetic.py``) exported
+   at full width and reloaded: logits and greedy ids equal to eager; with
+   the on-device beam of width 4 at T' 32 (B 32): ids and lengths equal,
+   scores within 1e-5, the export's seconds;
 8. one JSON line for the kernels (the LSTM scans' entries with their
    times at the LM's shape under ``at_lm_shape``, at GNMT's under
    ``at_gnmt_shape``, at Tacotron-2's under ``at_tacotron_shape`` and at
@@ -589,7 +613,9 @@ Phases, one informative line or a few each:
    240 under ``at_quartznet_shape``; the rel-pos flash and conv module
    kernels' at the transducer's B 128, T' 250 and 418 under
    ``at_transducer_shape`` and the forward kernels' at the streaming
-   window's B 1, T' 128 under ``at_streaming_shape``), then ``{"ok": true, "device": ...}`` last.
+   window's B 1, T' 128 under ``at_streaming_shape``; the flash forward's
+   at the serving shape, B 64, H 8, T 64, D 64, under
+   ``at_serving_shape``), then ``{"ok": true, "device": ...}`` last.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after. Any failed check raises, and the script exits non-zero
@@ -985,6 +1011,8 @@ FLASH_CASES = (
     ("D=128", 8, 100, 130, 8, 128, False, True),
     ("D=256", 4, 70, 200, 4, 256, False, True),
     ("Tk=1000", 4, 64, 1000, 8, 64, False, True),
+    # transformer-base scoring's encoder self-attention (serving, 7zzl)
+    ("serving", 64, 64, 64, 8, 64, False, True),
 )
 FLASH_FP32_ATOL = 2e-5
 FLASH_BF16_ATOL = 1e-2
@@ -1146,7 +1174,7 @@ def phase_flash(card):
         check(err_b <= FLASH_BF16_ATOL, "{}: bf16 err {} against fp32 "
               "math".format(name, err_b))
         check(same, "{}: two bf16 forward calls differ".format(name))
-        if i >= 3:
+        if i >= 3 and name != "serving":
             continue
         mask = None if valid is None else valid[:, None, None, :]
         qt, kt, vt = (x.transpose(1, 2) for x in (qb, kb, vb))
@@ -6061,7 +6089,8 @@ def print_kernels_line(k, launches):
         "max_abs_err": k["flash_err"],
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
-        "library_ms": flash["library_ms"]}] + [{
+        "library_ms": flash["library_ms"],
+        "at_serving_shape": k["flash_times"]["serving"]}] + [{
         "name": "flash_attn_bwd_" + part, "route": "cuda",
         "source": "openseq2seq_tpu_torch/csrc/flash_attn_bwd.cu",
         "symbol": "flash_attn_bwd_{0}_mma_kernel (bf16, timed here; fp32: "
@@ -8000,6 +8029,353 @@ def group_asr_stack(card, launches):
     launches["conformer_conv_fwd"] += conv
 
 
+SERVING = os.path.join(REPO, "example_configs_torch", "text2text",
+                       "transformer_base_serving_synthetic.py")
+# the JAX model's count by jax.eval_shape of its init
+# (tests/test_torch_serving.py::test_serving_config_parameter_count)
+SERVING_PARAMS = 60917760
+SERVING_LAYERS = 72
+SERVING_STEPS = 20
+# the JAX tests' bars (tests/test_serving_export.py:63-69, :125-127): an
+# int8 weight-only forward within 0.15 of fp and agreeing on over 98% of
+# the argmaxes; int8 activations within 0.35 std and over 97%
+INT8_W_MAX, INT8_W_AGREE = 0.15, 0.98
+INT8_ACT_STD, INT8_ACT_AGREE = 0.35, 0.97
+# the beam artifact's frames after the encoder's stride 2: its export
+# unrolls the beam over them, about 200 nodes a frame (on the host of an
+# H100 80GB HBM3: 52.1 s to export and 31.3 s to load at 64 frames, 330.8
+# s and 199.3 s at the full 500)
+SERVING_BEAM_FRAMES = 32
+# int8 products against bf16 torch.mm at the scoring step's shapes:
+# (M, K, N) of qkv, out/q/k/v, the FFN's filter and output layers
+INT8_MM_SHAPES = ((4096, 512, 1536), (4096, 512, 512), (4096, 512, 2048),
+                  (4096, 2048, 512))
+INT8_TOP_PER_S = 1979e12
+
+def _bench_serving():
+    """``scripts_torch/bench_serving.py``, whose helpers phase 7zzl
+    measures with (the calibration slice, the rate, the artifacts' export
+    and their fresh interpreter)."""
+    scripts = os.path.join(REPO, "scripts_torch")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import bench_serving
+    return bench_serving
+
+
+def _agreement(got, want):
+    """(argmax agreement, max |got - want|) of two logits arrays."""
+    import numpy as np
+    return (float(np.mean(got.argmax(-1) == want.argmax(-1))),
+            float(np.max(np.abs(got - want))))
+
+
+def phase_int8_products(card):
+    """The int8 products (``serving/int8_exec.int_mm``: ``torch._int_mm``)
+    against bf16 ``torch.mm`` at the scoring step's shapes, CUDA events
+    back to back, each against its bound (operands read once, the product
+    written once; 2 M K N operations at the int8 or bf16 peak); the int8
+    sums bit for bit the float64 ones. Returns the times by shape."""
+    import torch
+    from openseq2seq_tpu_torch.serving import int8_exec
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    times = {}
+    for M, K, N in INT8_MM_SHAPES:
+        a = torch.randint(-127, 128, (M, K), generator=g, device=dev,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (N, K), generator=g, device=dev,
+                          dtype=torch.int8)
+        exact = torch.equal(int8_exec.int_mm(a, b).double(),
+                            a.double() @ b.double().t())
+        check(exact, "int8 product at {} differs from its exact sums".format(
+            (M, K, N)))
+        ab, bb = a.bfloat16(), b.bfloat16().t()
+        t = {"int8_ms": cuda_ms(lambda: int8_exec.int_mm(a, b), 50),
+             "bf16_ms": cuda_ms(lambda: torch.mm(ab, bb), 50)}
+        t["int8_bound_ms"] = 1e3 * max((M * K + K * N + 4 * M * N) /
+                                       HBM_BYTES_PER_S,
+                                       2.0 * M * K * N / INT8_TOP_PER_S)
+        t["bf16_bound_ms"] = bound_ms(2 * (M * K + K * N + M * N),
+                                      2.0 * M * K * N, torch.bfloat16)[0]
+        times["{}x{}x{}".format(M, K, N)] = t
+        print("[serving] int8 product M={} K={} N={}: {:.4f} ms (bound "
+              "{:.4f}), bf16 torch.mm {:.4f} ms (bound {:.4f}); the int8 "
+              "sums exact (CUDA events, back to back; {})".format(
+                  M, K, N, t["int8_ms"], t["int8_bound_ms"], t["bf16_ms"],
+                  t["bf16_bound_ms"], card), flush=True)
+    return times
+
+
+def phase_serving_transformer(card):
+    """7zzl: transformer-base scoring at bench_serving.py's width
+    (``transformer_base_serving_synthetic.py``, B 64, T 64, V 32768,
+    "mixed", teacher-forced with ``train=True`` and every dropout rate 0),
+    served four ways, measured with ``scripts_torch/bench_serving.py``'s
+    helpers: eagerly (exactly 18 B7 forward launches a batch, tokens/s as
+    the JAX bench counts them, B x 2 x T), from the fp artifact reloaded
+    in a fresh interpreter that imports only ``openseq2seq_tpu_torch.
+    serving`` (18 launches a batch and no ``_int_mm`` node; logits within
+    1e-5 of eager, relative to their largest), from the int8 weight-only
+    artifact (its size against the fp one's; the JAX test's bars against
+    fp, within 1e-4 of the dequantized weights' eager forward; no
+    ``_int_mm`` node) and with int8 activations, live and from an artifact
+    (72 calibrated layers on 2 sentences, as the JAX bench calibrates; 72
+    int8 products a live batch and 72 ``_int_mm`` nodes in the artifact;
+    the artifact within 1e-5 of the live int8 path on the dequantized
+    weights; argmax agreement >= 0.97 and max |d| < 0.35 std of the fp
+    logits, which they must not equal; every layer's int8 output bit for
+    bit its float64 plain version on its own input, and a planted fault,
+    one layer's x_scale doubled, refused). Also the scoring step's idle
+    share. Returns the B7 launches."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    from openseq2seq_tpu_torch import serving
+    from openseq2seq_tpu_torch.convert import state_dict_from_flax
+    from openseq2seq_tpu_torch.ops import flash_attention as fa
+    from openseq2seq_tpu_torch.serving import int8_exec
+    from openseq2seq_tpu_torch.serving.export import serving_batch
+    bench = _bench_serving()
+    config = runpy.run_path(SERVING)
+    model = config["base_model"](copy.deepcopy(config["base_params"]),
+                                 mode="eval", device="cuda")
+    batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+    state = model.init_state(batch)
+    n_params = sum(p.numel() for p in state.module.parameters())
+    check(n_params == SERVING_PARAMS, "{} parameters".format(n_params))
+    x = batch["source_tensors"][0]
+    tokens = 2 * x.size
+    device_batch = serving_batch(batch, "cuda")
+
+    def score(b):
+        with torch.no_grad():
+            return state.module(b, train=True)["decoder_output"]["logits"]
+
+    fa.LAUNCHES = 0
+    fp = score(device_batch)
+    torch.cuda.synchronize()
+    check(fa.LAUNCHES == 18, "eager scoring launched B7 {} times".format(
+        fa.LAUNCHES))
+    fp_np = fp.float().cpu().numpy()
+    check(np.isfinite(fp_np).all() and fp_np.shape == (
+        x.shape[0], x.shape[1] - 1, 32768), "fp logits {}".format(
+            fp_np.shape))
+    fp_rate = bench.rate(score, device_batch, tokens, SERVING_STEPS)
+    kernels, busy, span = _device_profile(lambda: [
+        score(device_batch) for _ in range(3)])
+    print("[serving] transformer-base scoring, {} parameters, B {} x T {}, "
+          "bf16: eager {:.0f} tokens/s; B7 {} launches a batch; 3 batches "
+          "traced: {} kernels, busy {:.2f} of {:.2f} ms ({:.2f}% idle) ({})"
+          .format(n_params, x.shape[0], x.shape[1], fp_rate, 18, kernels,
+                  busy, span, 100 * (1 - busy / span), card), flush=True)
+
+    # int8 activations, live: calibrated on 2 sentences, as the JAX bench
+    ranges = serving.calibrate_dense_inputs(
+        model, state, [bench.calibration_batch(batch)], train=True)
+    check(len(ranges) == SERVING_LAYERS, "{} calibrated layers".format(
+        len(ranges)))
+    live = serving.int8_apply_fn(model, state, ranges, train=True)
+    before, calls = fa.LAUNCHES, int8_exec.CALLS
+    i8 = live(device_batch)["decoder_output"]["logits"].float().cpu(
+        ).numpy()
+    calls = int8_exec.CALLS - calls
+    check(fa.LAUNCHES - before == 18, "int8 scoring launched B7 {} "
+          "times".format(fa.LAUNCHES - before))
+    check(calls == SERVING_LAYERS, "int8 scoring ran {} int8 products"
+          .format(calls))
+    check(not np.allclose(i8, fp_np, atol=1e-6), "the int8 logits are the "
+          "fp ones")
+    i8_rate = bench.rate(live, device_batch, tokens, SERVING_STEPS)
+    agree, diff = _agreement(i8, fp_np)
+    std = float(np.std(fp_np))
+    print("[serving] int8 activations live: {} calibrated layers, {} int8 "
+          "products a batch, {:.0f} tokens/s ({:.3f}x bf16); argmax "
+          "agreement {:.4f}, max |d| {:.4f} = {:.3f} std ({})".format(
+              len(ranges), calls, i8_rate, i8_rate / fp_rate, agree, diff,
+              diff / std, card), flush=True)
+    check(agree >= INT8_ACT_AGREE and diff < INT8_ACT_STD * std,
+          "int8 activations: agreement {}, max |d| {} of std {}".format(
+              agree, diff, std))
+
+    # each layer's int8 output against its plain version on its own input
+    layers = int8_exec.int8_layers(state.module)
+    inputs = {}
+
+    def keep(name):
+        def hook(_, args):
+            inputs.setdefault(name, args[0])
+        return hook
+    hooks = [m.register_forward_pre_hook(keep(n)) for n, m in layers.items()]
+    live(device_batch)
+    for h in hooks:
+        h.remove()
+    differ = 0
+    with torch.no_grad():
+        for name, layer in layers.items():
+            got = int8_exec.int8_dense(layer, inputs[name], ranges[name])
+            want = int8_exec.int8_dense_plain(layer, inputs[name],
+                                              ranges[name])
+            differ += int(not torch.equal(got, want))
+        name = sorted(layers)[0]
+        fault = int8_exec.int8_dense(layers[name], inputs[name],
+                                     2 * ranges[name])
+        want = int8_exec.int8_dense_plain(layers[name], inputs[name],
+                                          ranges[name])
+        planted = float((fault.float() - want.float()).abs().max())
+    del inputs
+    print("[serving] int8 layers against their float64 plain versions on "
+          "their own inputs: {} of {} differ; a planted fault ({}'s x_scale "
+          "doubled) moves its output by {:.4f}".format(
+              differ, len(layers), name, planted), flush=True)
+    check(differ == 0, "{} int8 layers differ from their plain "
+          "versions".format(differ))
+    check(planted > 0, "the planted int8 fault went unseen")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        seconds, sizes, report = bench.export_artifacts(model, state, batch,
+                                                        ranges, tmp)
+        print("[serving] exported in {:.1f}, {:.1f} and {:.1f} s: fp {} "
+              "bytes, int8 weights {} bytes ({:.3f} of fp; {} tensors "
+              "quantized), int8 activations {} bytes".format(
+                  seconds["fp"], seconds["int8w"], seconds["int8act"],
+                  sizes["fp"], sizes["int8w"], sizes["int8w"] / sizes["fp"],
+                  len(report), sizes["int8act"]), flush=True)
+        check(sizes["int8w"] < 0.5 * sizes["fp"], "the int8 artifact is "
+              "not smaller")
+        fresh = bench.serve_fresh(tmp, SERVING_STEPS)
+        logits = {n: np.load(os.path.join(tmp, n + ".npy"))
+                  for n in bench.ARTIFACTS}
+    reading = float(np.max(np.abs(logits["fp"] - fp_np)) /
+                    np.max(np.abs(fp_np)))
+    nodes = {n: fresh[n]["int_mm_nodes"] for n in bench.ARTIFACTS}
+    print("[serving] reloaded in a fresh interpreter (model modules "
+          "imported: {}): fp artifact {:.0f} tokens/s, its logits within "
+          "{:.3e} of eager (relative to the largest), bit-identical: {}; "
+          "B7 launches a batch: fp {}, int8 weights {}, int8 activations "
+          "{}; _int_mm nodes {} ({})".format(
+              fresh["model_modules"], fresh["fp"]["tokens_per_s"], reading,
+              bool(np.array_equal(logits["fp"], fp_np)),
+              fresh["fp"]["launches"], fresh["int8w"]["launches"],
+              fresh["int8act"]["launches"], nodes, card), flush=True)
+    check(fresh["model_modules"] == [], "loading imported model code")
+    check(reading <= 1e-5, "fp artifact logits {} from eager".format(
+        reading))
+    check(all(fresh[n]["launches"] == 18 for n in bench.ARTIFACTS),
+          "artifact B7 launches {}".format(fresh))
+    check(nodes == {"fp": 0, "int8w": 0, "int8act": SERVING_LAYERS},
+          "artifact _int_mm nodes {}".format(nodes))
+
+    # the artifacts against the eager forward of the dequantized weights:
+    # fp layers for int8 weights, the live int8 path for int8 activations
+    qparams, _ = serving.quantize_params_int8(state.module)
+    deq = copy.deepcopy(state.module)
+    deq.load_state_dict(state_dict_from_flax(
+        {"params": serving.dequantize_params(qparams)}), strict=False)
+    with torch.no_grad():
+        l_deq = deq(device_batch, train=True)["decoder_output"][
+            "logits"].float().cpu().numpy()
+    l_deq_i8 = serving.int8_apply_fn(
+        model, SimpleNamespace(module=deq), ranges, train=True)(
+            device_batch)["decoder_output"]["logits"].float().cpu().numpy()
+    del deq
+    w_agree, w_diff = _agreement(logits["int8w"], fp_np)
+    w_self = float(np.max(np.abs(logits["int8w"] - l_deq)))
+    a_agree, a_diff = _agreement(logits["int8act"], fp_np)
+    a_self = float(np.max(np.abs(logits["int8act"] - l_deq_i8)) /
+                   np.max(np.abs(l_deq_i8)))
+    print("[serving] int8 weights artifact: {:.0f} tokens/s, argmax "
+          "agreement {:.4f}, max |d| {:.4f} against fp, {:.3e} against the "
+          "dequantized weights' eager forward; int8 activations artifact: "
+          "{:.0f} tokens/s ({:.3f}x the fp artifact), within {:.3e} of the "
+          "live int8 path on the dequantized weights (relative to the "
+          "largest), agreement {:.4f}, max |d| {:.4f} = {:.3f} std against "
+          "fp ({})".format(
+              fresh["int8w"]["tokens_per_s"], w_agree, w_diff, w_self,
+              fresh["int8act"]["tokens_per_s"],
+              fresh["int8act"]["tokens_per_s"] / fresh["fp"]["tokens_per_s"],
+              a_self, a_agree, a_diff, a_diff / std, card), flush=True)
+    check(w_agree > INT8_W_AGREE and w_diff < INT8_W_MAX and w_self <= 1e-4,
+          "int8 weights: agreement {}, max |d| {}, {} from the dequantized "
+          "forward".format(w_agree, w_diff, w_self))
+    check(a_self <= 1e-5, "int8 activations artifact {} from the live "
+          "int8 path".format(a_self))
+    check(a_agree >= INT8_ACT_AGREE and a_diff < INT8_ACT_STD * std,
+          "int8 activations artifact: agreement {}, max |d| {}".format(
+              a_agree, a_diff))
+    # every launch of this phase, the fresh interpreter's among them
+    return fa.LAUNCHES + fresh["launches"]
+
+
+def phase_serving_jasper(card):
+    """7zzm: Jasper-10x5's eval forward (``jasper10x5_synthetic.py``, B 32
+    x 1,000 frames, "mixed") exported at full width and reloaded: logits
+    equal to eager, greedy ids equal; then with the on-device prefix beam
+    of width 4 (``on_device_beam_width``), which the export unrolls over
+    the frames: at SERVING_BEAM_FRAMES frames after the stride (B 32), its
+    ids and lengths equal to eager and its scores within 1e-5, with the
+    export's seconds. No kernel: the forward has no loss."""
+    import torch
+    from openseq2seq_tpu_torch import serving
+    from openseq2seq_tpu_torch.serving.export import serving_batch
+    config = runpy.run_path(CONFIG)
+    for beam in (0, 4):
+        params = copy.deepcopy(config["base_params"])
+        if beam:
+            params["decoder_params"]["on_device_beam_width"] = beam
+            params["data_layer_params"]["time_steps"] = \
+                2 * SERVING_BEAM_FRAMES
+        model = config["base_model"](params, mode="eval", device="cuda")
+        batch = next(iter(model.get_data_layer().iterate_one_epoch()))
+        state = model.init_state(batch)
+        with torch.no_grad():
+            eager = state.module(serving_batch(batch, "cuda"),
+                                 train=False)["decoder_output"]
+        t0 = time.time()
+        blob = serving.export_inference_fn(model, state, batch)
+        t_export = time.time() - t0
+        t0 = time.time()
+        serve = serving.load_exported(blob)
+        t_load = time.time() - t0
+        out = serve(batch)["decoder_output"]
+        torch.cuda.synchronize()
+        diff = float((out["logits"] - eager["logits"]).abs().max())
+        same = [torch.equal(a, b) for a, b in zip(out["outputs"][:2],
+                                                  eager["outputs"][:2])]
+        what = "beam {}".format(beam) if beam else "greedy"
+        extra = ""
+        if beam:
+            score_diff = float((out["beam_scores"] -
+                                eager["beam_scores"]).abs().max())
+            extra = ", beam scores within {:.3e}".format(score_diff)
+            check(score_diff <= 1e-5, "beam scores {}".format(score_diff))
+        print("[serving] Jasper-10x5 {} at B {} x T' {}: exported in {:.1f} s "
+              "({} bytes), reloaded in {:.1f} s: logits max |d| {:.3e} "
+              "against eager, ids and lengths equal: {}{} ({})".format(
+                  what, batch["source_tensors"][0].shape[0],
+                  eager["logits"].shape[1], t_export, len(blob), t_load,
+                  diff, same, extra, card), flush=True)
+        check(diff <= 1e-5 * float(eager["logits"].abs().max()) and
+              all(same), "Jasper {} artifact: logits {}, ids {}".format(
+                  what, diff, same))
+        del model, state, eager, out, serve
+
+
+def group_serving(card, launches):
+    """Phases 7zzl and 7zzm: serving from torch.export artifacts, fp, int8
+    weights and int8 activations, at the transformer-base scoring bench's
+    width, and Jasper-10x5's eval forward greedy and with the on-device
+    beam; the int8 products against bf16."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    timed(phase_int8_products, card)
+    launches["flash_attn_fwd"] += timed(phase_serving_transformer, card)
+    timed(phase_serving_jasper, card)
+    print("[serving] group peak {:.2f} GiB allocated".format(_peak_gib()),
+          flush=True)
+
+
 def timed(phase, *args, **kwargs):
     """``phase(*args, **kwargs)``, its seconds printed on a line of their
     own."""
@@ -8017,7 +8393,7 @@ def timed(phase, *args, **kwargs):
 
 
 GROUPS = ("kernels", "speech", "nmt", "rnn", "conformer", "lm", "tts",
-          "transducer", "image", "las", "asr_stack")
+          "transducer", "image", "las", "asr_stack", "serving")
 
 
 def group_kernels(card):
@@ -8155,16 +8531,16 @@ def group_image(card, launches):
 # budget fits beside the running groups' within MEMORY_GIB of the card's
 # 79 GiB. A budget is the group's largest peak of allocated device memory
 # on an H100 (its phases' own "peak" lines: lm 33.8 GiB, nmt 15.1,
-# asr_stack 14.6, transducer 12.5, las 11.4, image 10.4, tts 9.4) and
-# about a third more
+# asr_stack 14.6, transducer 12.5, las 11.4, image 10.4, tts 9.4,
+# serving 2.8) and about a third more
 # for the caching allocator's free blocks; the groups that print no peak
 # (speech, rnn, conformer) get 18 to 20. Three groups at once ran lm,
 # nmt and the transducer out of memory (79.15 GiB in use).
-LANE_ORDER = ("lm", "las", "asr_stack", "speech", "tts", "nmt",
+LANE_ORDER = ("lm", "las", "serving", "asr_stack", "speech", "tts", "nmt",
               "transducer", "image", "rnn", "conformer")
 GROUP_GIB = {"lm": 44, "nmt": 24, "speech": 20, "transducer": 18,
              "las": 18, "rnn": 18, "conformer": 18, "tts": 14, "image": 14,
-             "asr_stack": 20}
+             "asr_stack": 20, "serving": 4}
 MEMORY_GIB = 76
 LANES = 3
 

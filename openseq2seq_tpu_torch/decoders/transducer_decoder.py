@@ -49,6 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .decoder import Decoder
+from ..ops.beam_search import refuse_trace
 from ..parts.dropout import dropout
 
 State = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -222,6 +223,7 @@ class TransducerDecoderModule(nn.Module):
         out_len = torch.zeros((B,), dtype=torch.long, device=dev)
         slot = torch.arange(Lmax, device=dev)[None, :]
         # frames past every row's window change nothing
+        refuse_trace("the transducer's greedy decode")
         for t in range(min(T, int(t_hi.max()))):
             active = (t >= t_lo) & (t < t_hi)
             enc_jt = enc_j[:, t]

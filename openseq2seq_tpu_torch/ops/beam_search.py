@@ -26,7 +26,8 @@ The JAX package runs the loop condition on the device inside a
 JAX's stops, so the results are the same. ``segment_bounds`` and the
 lazy cache of the JAX package only shape the TPU's cache traffic and
 give identical beams; the port has no such argument (the decoder bounds
-its cache reads by position instead).
+its cache reads by position instead). A tracer cannot hold the host read:
+under ``torch.export`` the search raises ValueError (:func:`refuse_trace`).
 """
 from __future__ import annotations
 
@@ -35,6 +36,17 @@ from typing import Callable, Tuple
 import torch
 
 NEG_INF = -1.0e7
+
+
+def refuse_trace(what: str) -> None:
+    """Raise ValueError under a tracer (``torch.export``): ``what`` reads
+    the host, which a traced program cannot hold."""
+    if torch.compiler.is_compiling():
+        raise ValueError(
+            "{} reads the host once a step: torch.export cannot trace it. "
+            "Export a forward without it (for Text2Text the teacher-forced "
+            "scoring forward, train=True with every dropout rate 0) and "
+            "decode outside the artifact".format(what))
 
 
 def _length_penalty(alpha: float, length: int) -> float:
@@ -66,6 +78,7 @@ def beam_search(symbols_to_logits_fn: Callable[[torch.Tensor, int],
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (decoded ids (B, K, T_max+1) int32, scores (B, K) fp32),
     best first; position 0 holds ``bos_id``."""
+    refuse_trace("the beam decode (ops/beam_search.py)")
     B, K, V, T = batch_size, beam_size, vocab_size, max_decode_length
     f32 = dict(dtype=torch.float32, device=device)
     seq = torch.full((B, K, T + 1), bos_id, dtype=torch.int32,

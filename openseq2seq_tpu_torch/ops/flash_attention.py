@@ -36,6 +36,12 @@ CPU path) they keep fp32 math throughout, as ``_attend`` does, the JAX
 package's path off the TPU. fp32 runs on the CUDA cores. ``LAUNCHES``
 counts launches of the forward kernel, ``BWD_DQ_LAUNCHES`` and
 ``BWD_DKV_LAUNCHES`` those of the two backward kernels.
+
+Without a gradient the forward is the ``torch.library`` custom op
+``openseq2seq_tpu_torch::flash_attn_fwd`` (:func:`flash_attn_fwd`), so
+that ``torch.export`` traces it as one node with a fake implementation
+instead of reaching the ``ctypes`` launch, and a reloaded program
+launches the kernel through it (``serving/``).
 """
 from __future__ import annotations
 
@@ -434,18 +440,44 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+@torch.library.custom_op("openseq2seq_tpu_torch::flash_attn_fwd",
+                         mutates_args=(), device_types="cuda")
+def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   kv_valid: Optional[torch.Tensor], causal: bool,
+                   sm_scale: float) -> torch.Tensor:
+    """The forward as a ``torch.library`` custom op, so that a tracer
+    (``torch.export``) records one node where the eager path launches the
+    kernel: on CUDA :func:`flash_attention_cuda` (which counts
+    ``LAUNCHES`` and raises on what it does not take), on the CPU
+    :func:`flash_attention_plain`; its fake gives the output's shape and
+    dtype. An exported program that holds the node launches the kernel
+    wherever this module has been imported."""
+    return flash_attention_cuda(q, k, v, kv_valid, causal, sm_scale)
+
+
+@flash_attn_fwd.register_kernel("cpu")
+def _flash_attn_fwd_cpu(q, k, v, kv_valid, causal, sm_scale):
+    # contiguous, as the kernel writes it and the fake describes it
+    return flash_attention_plain(q, k, v, kv_valid, causal,
+                                 sm_scale).contiguous()
+
+
+@flash_attn_fwd.register_fake
+def _flash_attn_fwd_fake(q, k, v, kv_valid, causal, sm_scale):
+    return q.new_empty(q.shape)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_valid: Optional[torch.Tensor] = None,
                     causal: bool = False,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q k^T * sm_scale + mask) v, (B, T, H, D) in and out: the
     plain version for a CPU tensor, the kernels for a CUDA one;
-    differentiable in q, k and v."""
+    differentiable in q, k and v. Without a gradient it is the custom op
+    :func:`flash_attn_fwd`."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _FlashAttention.apply(q, k, v, kv_valid, bool(causal),
                                      float(sm_scale))
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kv_valid, causal, sm_scale)
-    return flash_attention_cuda(q, k, v, kv_valid, causal, sm_scale)
+    return flash_attn_fwd(q, k, v, kv_valid, bool(causal), float(sm_scale))

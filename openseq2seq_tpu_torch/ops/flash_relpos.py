@@ -122,13 +122,24 @@ def _angles_np(T: int, dim: int):
                            axis=1).astype(np.float32))
 
 
-@functools.lru_cache(maxsize=64)
+def _angle_tensors(T: int, dim: int, device
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return tuple(torch.from_numpy(a).to(device) for a in _angles_np(T, dim))
+
+
+_cached_angles = functools.lru_cache(maxsize=64)(_angle_tensors)
+
+
 def angles(T: int, dim: int, device="cpu"
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(si, ci, k_pos) on ``device``, fp32: the query angles' sines and
     cosines (T, dim / 2) and the key table [cos | sin] (T, dim), computed
-    in float64 with numpy and rounded at the end, as ``_angles`` does."""
-    return tuple(torch.from_numpy(a).to(device) for a in _angles_np(T, dim))
+    in float64 with numpy and rounded at the end, as ``_angles`` does.
+    Cached, but not under a tracer (``torch.export``): its tensors are
+    fake and would outlive the trace in the cache."""
+    if torch.compiler.is_compiling():
+        return _angle_tensors(T, dim, device)
+    return _cached_angles(T, dim, device)
 
 
 def position_queries(q_w: torch.Tensor, r_kernel: torch.Tensor,

@@ -114,7 +114,8 @@ class Dense(nn.Module):
 
     Without autograd the parameters' cast to ``dtype`` is kept until they
     change, so that a decode loop casts them once, not once per step (XLA
-    hoists the same cast out of the JAX package's decode loop)."""
+    hoists the same cast out of the JAX package's decode loop); under a
+    tracer the cast is part of the traced program."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype, generator: torch.Generator):
@@ -129,7 +130,9 @@ class Dense(nn.Module):
         w, b = self.weight, self.bias
         if w.dtype == self.dtype:
             return w, b
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() or torch.compiler.is_compiling():
+            # a tracer (``torch.export``) records the cast in its program:
+            # its fake tensors have no storage to key the cache on
             return w.to(self.dtype), b.to(self.dtype)
         key = (w.data_ptr(), w._version, b.data_ptr(), b._version)
         if self._cast[0] != key:

@@ -37,7 +37,10 @@ autograd through both modules' kernels against the CPU's plain
 versions. The bf16 scan kernels and conv module kernels are also held
 element by element within the bounds of ``ops/scan_bounds.py`` and
 ``ops/conformer_conv.py``, each step or stage from the kernel's own
-state, and must refuse planted faults."""
+state, and must refuse planted faults. The flash forward's custom op
+(``torch.library.opcheck``, one launch a call) and serving's int8
+products (the exact integer sums; an int8 layer bit for bit its float64
+plain version)."""
 import numpy as np
 import pytest
 import torch
@@ -965,3 +968,46 @@ def test_conformer_conv_autograd_through_the_kernels(device):
         grads[dev.type] = [t.grad for t in leaves]
     for a, b in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+def test_flash_custom_op_launches_the_kernel(device):
+    """The flash forward's custom op on the card: ``torch.library.opcheck``,
+    one launch a call, the kernel's bits (bf16, padded keys)."""
+    from openseq2seq_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device=device).manual_seed(0)
+    q, k, v = (torch.randn((4, 33, 2, 64), generator=g, device=device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    valid = torch.arange(33, device=device)[None] < torch.tensor(
+        [[33], [20], [1], [7]], device=device)
+    result = torch.library.opcheck(fa.flash_attn_fwd,
+                                   (q, k, v, valid, False, 0.125))
+    assert set(result.values()) == {"SUCCESS"}, result
+    before = fa.LAUNCHES
+    with torch.no_grad():
+        got = fa.flash_attention(q, k, v, valid, False, 0.125)
+    assert fa.LAUNCHES == before + 1
+    assert torch.equal(got, fa.flash_attention_cuda(q, k, v, valid, False,
+                                                    0.125))
+
+
+@pytest.mark.parametrize("M,K,N", [(3, 40, 29), (4096, 512, 1536)])
+def test_int8_product_exact(device, M, K, N):
+    """``int8_exec.int_mm`` (``torch._int_mm``, the operands padded to its
+    shapes) gives the exact integer sums, and an int8 layer equals its
+    float64 plain version bit for bit."""
+    from types import SimpleNamespace
+
+    from openseq2seq_tpu_torch.serving import int8_exec
+    g = torch.Generator(device=device).manual_seed(M)
+    a, b = (torch.randint(-127, 128, shape, generator=g, device=device,
+                          dtype=torch.int8) for shape in ((M, K), (N, K)))
+    assert torch.equal(int8_exec.int_mm(a, b).double(),
+                       a.double() @ b.double().t())
+    layer = SimpleNamespace(
+        weight=torch.randn((N, K), generator=g, device=device),
+        bias=torch.randn((N,), generator=g, device=device))
+    x = torch.randn((M, K), generator=g, device=device).bfloat16()
+    absmax = 0.8 * float(x.float().abs().max())
+    got = int8_exec.int8_dense(layer, x, absmax)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, int8_exec.int8_dense_plain(layer, x, absmax))

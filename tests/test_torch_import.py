@@ -95,7 +95,11 @@ def _import_all(report: str) -> str:
             "openseq2seq_tpu_torch.ops.ctc_beam_device",
             "openseq2seq_tpu_torch.ops.features_device",
             "openseq2seq_tpu_torch.apps.frame_asr",
-            "openseq2seq_tpu_torch.encoders.gatedconv_encoder"} <= set(modules)
+            "openseq2seq_tpu_torch.encoders.gatedconv_encoder",
+            "openseq2seq_tpu_torch.serving",
+            "openseq2seq_tpu_torch.serving.export",
+            "openseq2seq_tpu_torch.serving.quantize",
+            "openseq2seq_tpu_torch.serving.int8_exec"} <= set(modules)
     names = {os.path.basename(c) for c in CONFIGS}
     assert len(CONFIGS) >= 13 and {
         "transformer_big_train_synthetic.py", "ds2_medium_synthetic.py",
@@ -126,7 +130,8 @@ def _import_all(report: str) -> str:
         "jasper10x5_beam_librispeech.py", "quartznet15x5_librispeech.py",
         "quartznet15x5_synthetic.py", "quartznet_tiny_synthetic.py",
         "jasper_mini.py", "w2lplus_toy_ondevice.py",
-        "gatedconv_toy.py"} <= names
+        "gatedconv_toy.py", "transformer_base_serving_synthetic.py",
+        "transformer_base_serving_tiny_synthetic.py"} <= names
     code = ("import importlib, runpy, sys\n"
             "for m in {!r}: importlib.import_module(m)\n"
             "for c in {!r}: runpy.run_path(c)\n"
